@@ -1,0 +1,57 @@
+"""parRSB core in PyTorch: the main path of `repro.core`, slice A."""
+
+from repro_torch.core.amg import coarsen_graph
+from repro_torch.core.fiedler import (
+    FiedlerResult,
+    fiedler_from_graph,
+    fiedler_from_graph_batched,
+    multilevel_warm_start,
+)
+from repro_torch.core.lanczos import (
+    BatchedLanczosInfo,
+    LanczosInfo,
+    lanczos_fiedler,
+    lanczos_fiedler_batched,
+)
+from repro_torch.core.laplacian import (
+    EllLaplacian,
+    dense_laplacian_np,
+    ell_laplacian,
+    fiedler_oracle_np,
+)
+from repro_torch.core.metrics import (
+    PartitionMetrics,
+    comm_time_model,
+    m2_words,
+    partition_metrics,
+)
+from repro_torch.core.pipeline import (
+    PartitionContext,
+    PartitionPipeline,
+    StageRecord,
+    parse_refine,
+    partition,
+    register_bisect_stage,
+    register_post_stage,
+    run_post_stages,
+)
+from repro_torch.core.rcb import rcb_order, rcb_parts, rib_order, rib_parts
+from repro_torch.core.refine import (
+    PostStats,
+    SweepRecord,
+    balance_corridor,
+    close_with_repair,
+    edge_cut,
+    refine_boundary,
+    refine_stage,
+    repair_components,
+    repair_refine,
+)
+from repro_torch.core.rsb import (
+    BisectionRecord,
+    LevelRecord,
+    RSBReport,
+    rsb_partition_graph,
+    rsb_partition_mesh,
+)
+from repro_torch.core.sfc import hilbert_index, morton_index, sfc_order, sfc_parts

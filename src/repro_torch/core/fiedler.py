@@ -1,0 +1,408 @@
+"""Fiedler-vector solver facade — the Lanczos branch of `repro.core.fiedler`.
+
+* a dense NumPy path for subproblems at or below ``_DENSE_CUTOFF`` (the
+  recursion tail), identical to `repro`'s;
+* **multilevel (coarse-to-fine) warm starts** (`multilevel_warm_start`,
+  on by default): host NumPy, line for line `repro`'s, so the warm start
+  of a given graph is the same vector in both packages;
+* the **packed** level solve (`fiedler_from_graph_batched`): every
+  subproblem of an RSB tree level is packed into one flat block-diagonal
+  ELL Laplacian (`_pack_layout`, `_packed_ell_laplacian`, `_packed_b0`),
+  copied to the device once, and solved by
+  :func:`repro_torch.core.lanczos.lanczos_fiedler_batched`, whose matvec is
+  the CUDA ELL SpMV (K1) on the card;
+* the unbatched `fiedler_from_graph` (Lanczos).
+
+Start vectors come from NumPy ``default_rng`` (`_noise_b0`), exactly as in
+`repro`, so both packages start from the same bits.  ``use_kernel`` is kept
+where `repro` has it but defaults to **True**: on a CUDA device the packed
+matvec goes through K1.  ``method="inverse"`` (inverse iteration, AMG) is
+not yet ported and raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.core.amg import coarsen_graph
+from repro_torch.core.lanczos import lanczos_fiedler, lanczos_fiedler_batched
+from repro_torch.core.laplacian import (
+    EllLaplacian,
+    dense_laplacian_np,
+    ell_operator,
+    fill_ell_block,
+)
+from repro_torch.device import resolve_device
+from repro_torch.mesh.graphs import Graph
+
+_DENSE_CUTOFF = 192
+
+
+def next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1)).bit_length()
+
+
+@dataclasses.dataclass
+class FiedlerResult:
+    vector: np.ndarray     # (n,) float — Fiedler components (real entries only)
+    eigenvalue: float
+    residual: float
+    iterations: int        # Lanczos restarts
+    method: str
+    levels: int = 0        # multilevel warm-start hierarchy depth (0 = none)
+    breakdown: bool = False  # solver hit a non-finite iterate; stale (λ, res)
+    # Wall seconds of the device solve this result came from (shared by
+    # every problem of a packed solve; 0 for the dense host path).
+    device_seconds: float = 0.0
+
+
+def _not_ported(method: str) -> None:
+    if method == "inverse":
+        raise NotImplementedError(
+            "method='inverse' (inverse iteration, AMG) is not yet ported")
+    if method != "lanczos":
+        raise ValueError(f"unknown fiedler method: {method}")
+
+
+# ---------------------------------------------------------------------------
+# Multilevel (coarse-to-fine) warm starts — host NumPy
+# ---------------------------------------------------------------------------
+
+def _lap_matvec_np(graph: Graph, deg: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """Host Laplacian matvec L x = deg ⊙ x − A x over the COO view."""
+    ax = np.bincount(
+        graph.rows, weights=graph.weights * x[graph.indices], minlength=graph.n
+    )
+    return deg * x - ax
+
+
+def _cg_refine_np(graph: Graph, deg: np.ndarray, inv_d: np.ndarray,
+                  b: np.ndarray, iters: int) -> np.ndarray:
+    """One cascadic inverse-iteration step: ≈solve L x = b with `iters`
+    Jacobi-PCG steps, x₀ = b (host NumPy; every vector stays ⊥ 1)."""
+    x = b.copy()
+    r = b - _lap_matvec_np(graph, deg, x)
+    r -= r.mean()
+    z = inv_d * r
+    z -= z.mean()
+    p = z.copy()
+    rz = r @ z
+    for _ in range(iters):
+        w = _lap_matvec_np(graph, deg, p)
+        pw = p @ w
+        if abs(pw) < 1e-30:
+            break
+        a = rz / pw
+        x += a * p
+        r -= a * w
+        r -= r.mean()
+        z = inv_d * r
+        z -= z.mean()
+        rz_new = r @ z
+        if rz_new < 1e-30:
+            break
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+    x -= x.mean()
+    return x
+
+
+def _rayleigh_ritz_pair_np(graph: Graph, deg: np.ndarray,
+                           V: np.ndarray) -> np.ndarray | None:
+    """Rayleigh–Ritz over span(V) (V: (n, k) candidates, k small): project
+    out constants, orthonormalize, rotate to the L-eigenbasis of the
+    subspace, columns sorted by ascending Ritz value.  None on breakdown."""
+    V = V - V.mean(axis=0, keepdims=True)
+    Q, _ = np.linalg.qr(V)
+    W = np.stack([_lap_matvec_np(graph, deg, Q[:, j]) for j in range(Q.shape[1])], 1)
+    G = Q.T @ W
+    G = 0.5 * (G + G.T)
+    if not np.isfinite(G).all():
+        return None
+    w, S = np.linalg.eigh(G)
+    return Q @ S[:, np.argsort(w)]
+
+
+def multilevel_warm_start(
+    graph: Graph,
+    *,
+    coarse_cutoff: int = _DENSE_CUTOFF,
+    refine_iters: int = 6,
+) -> tuple[np.ndarray | None, int]:
+    """Cascadic coarse-to-fine Fiedler warm start (returns (warm, n_levels)).
+
+    Pairwise Galerkin hierarchy over the node order (callers feed
+    RCB-ordered graphs), a dense solve at the coarsest level, then per
+    level a piecewise-constant prolongation, one Jacobi-PCG
+    inverse-iteration step per candidate, and a 2×2 Rayleigh–Ritz rotation
+    over the candidate pair (y₂, y₃), which keeps the warm start on y₂ when
+    aggregation swaps the eigenvalue order between levels.  Returns
+    (None, 0) for graphs at or below ``coarse_cutoff`` and on numerical
+    breakdown (the caller falls back to noise).
+    """
+    if graph.n <= coarse_cutoff:
+        return None, 0
+    levels: list[Graph] = [graph]
+    aggs: list[np.ndarray] = []
+    while levels[-1].n > coarse_cutoff:
+        g = levels[-1]
+        agg = np.arange(g.n, dtype=np.int64) // 2
+        levels.append(coarsen_graph(g, agg, (g.n + 1) // 2))
+        aggs.append(agg)
+    w, v = np.linalg.eigh(dense_laplacian_np(levels[-1]))
+    V = v[:, 1:3] if v.shape[1] >= 3 else v[:, 1:2]   # (n_c, ≤2) candidates
+    for agg, g in zip(reversed(aggs), reversed(levels[:-1])):
+        V = V[agg]                           # piecewise-constant prolongation
+        deg = np.zeros(g.n)
+        np.add.at(deg, g.rows, g.weights)
+        inv_d = np.where(deg > 0, 1.0 / np.maximum(deg, 1e-30), 0.0)
+        cols = []
+        for j in range(V.shape[1]):
+            c = V[:, j] - V[:, j].mean()
+            nrm = np.linalg.norm(c)
+            if not np.isfinite(nrm) or nrm < 1e-30:
+                return None, 0               # degenerate level: fall back
+            cols.append(_cg_refine_np(g, deg, inv_d, c / nrm, refine_iters))
+        V = _rayleigh_ritz_pair_np(g, deg, np.stack(cols, 1))
+        if V is None:
+            return None, 0
+    vec = V[:, 0]
+    if not np.isfinite(vec).all():
+        return None, 0
+    return vec.astype(np.float32), len(aggs)
+
+
+def _noise_b0(seed: int, n: int) -> np.ndarray:
+    """Deterministic start-vector noise from NumPy — the same bits as
+    `repro.core.fiedler._noise_b0` for the same seed."""
+    return np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+
+
+def _dense_fiedler(L: np.ndarray) -> tuple[np.ndarray, float]:
+    w, v = np.linalg.eigh(L)
+    return v[:, 1], float(w[1])
+
+
+def fiedler_from_graph(
+    graph: Graph,
+    *,
+    method: str = "lanczos",
+    seed: int = 0,
+    warm: np.ndarray | None = None,
+    tol: float = 1e-3,
+    window: int = 30,
+    max_restarts: int = 50,
+    pad: bool = True,
+    use_kernel: bool = True,
+    multilevel: bool = True,
+    device=None,
+) -> FiedlerResult:
+    """Fiedler vector of an assembled graph Laplacian (Lanczos).
+
+    ``multilevel=True`` (default) seeds the solve with the cascadic
+    coarse-to-fine warm start when no explicit ``warm`` is given."""
+    _not_ported(method)
+    n = graph.n
+    if n <= _DENSE_CUTOFF:
+        vec, lam = _dense_fiedler(dense_laplacian_np(graph))
+        return FiedlerResult(vec, lam, 0.0, 0, "dense")
+    dev = resolve_device(device)
+
+    ml_levels = 0
+    if warm is None and multilevel:
+        warm, ml_levels = multilevel_warm_start(graph)
+
+    n_pad = next_pow2(n) if pad else n
+    width = int(graph.degrees.max()) if graph.nnz else 1
+    width_pad = next_pow2(max(width, 2)) if pad else width
+    C, V, D = _packed_ell_arrays([graph], np.array([0, n_pad]), n_pad,
+                                 width_pad)
+    if warm is not None:
+        b0 = np.pad(warm.astype(np.float32), (0, n_pad - n))
+    else:
+        b0 = _noise_b0(seed, n_pad)
+    with obs.timed("device") as t_dev:
+        op = ell_operator(C, V, D, n_pad, device=dev, use_kernel=use_kernel)
+        mask = torch.from_numpy((np.arange(n_pad) < n).astype(np.float32)).to(dev)
+        y, info = lanczos_fiedler(
+            op, n_pad, mask=mask, b0=torch.from_numpy(b0).to(dev),
+            window=window, max_restarts=max_restarts, tol=tol,
+        )
+        vec = y[:n].cpu().numpy()
+    return FiedlerResult(vec, info.eigenvalue, info.residual, info.restarts,
+                         method, levels=ml_levels, breakdown=info.breakdown,
+                         device_seconds=t_dev.seconds)
+
+
+# ---------------------------------------------------------------------------
+# Batched (level-synchronous) entry point — the packed layout
+# ---------------------------------------------------------------------------
+
+def _normalize_batch_args(B, seeds, warms):
+    seeds = list(range(B)) if seeds is None else list(seeds)
+    warms = [None] * B if warms is None else list(warms)
+    if len(seeds) != B or len(warms) != B:
+        raise ValueError("seeds/warms must match the batch length")
+    return seeds, warms
+
+
+def _pack_layout(sizes, pack_slots=None, pack_segs=None):
+    """Pack B subproblems into one flat vector of power-of-two blocks.
+
+    Returns (offs, N, n_seg, seg, mask): problem b owns slots
+    [offs[b], offs[b+1]) with its first sizes[b] slots real (mask 1).
+    `pack_slots`/`pack_segs` pin N / n_seg to run-wide values (a level's
+    subproblems partition the root set, so their padded blocks always fit
+    the root's padded size); they are only overridden upward if a layout
+    overflows.
+    """
+    pads = [next_pow2(max(s, 2)) for s in sizes]
+    offs = np.concatenate([[0], np.cumsum(pads)]).astype(np.int64)
+    total = int(offs[-1])
+    N = next_pow2(total)
+    if pack_slots is not None:
+        N = max(N, int(pack_slots))
+    n_seg = next_pow2(len(sizes))
+    if pack_segs is not None:
+        n_seg = max(n_seg, int(pack_segs))
+    seg = np.zeros(N, dtype=np.int32)
+    mask = np.zeros(N, dtype=np.float32)
+    for b, s in enumerate(sizes):
+        seg[offs[b]:offs[b + 1]] = b
+        mask[offs[b]:offs[b] + s] = 1.0
+    # trailing slots: seg 0, mask 0, zero operator rows — fully inert
+    return offs, N, n_seg, seg, mask
+
+
+def _packed_ell_arrays(graphs: list, offs, N: int, width_pad: int):
+    """Host arrays (C, V, D) of the block-diagonal ELL Laplacian over the
+    packed slots: each problem's cols are offset into its own block, so
+    there is no cross-problem coupling.
+
+    C and V are (N, width_pad) views of C-contiguous (width_pad, N) int32 /
+    float32 arrays — the transposed layout the device operator keeps — so
+    `ell_operator` copies them to the device without a host transpose.
+    The values equal `repro`'s (its float64 vals are cast to float32 on
+    assignment instead of afterwards; D accumulates in float64 as there).
+    """
+    Ct = np.empty((width_pad, N), dtype=np.int32)
+    Ct[:] = np.arange(N, dtype=np.int32)
+    Vt = np.zeros((width_pad, N), dtype=np.float32)
+    C, V = Ct.T, Vt.T
+    D = np.zeros(N, dtype=np.float64)
+    for b, g in enumerate(graphs):
+        o, o_next = int(offs[b]), int(offs[b + 1])
+        fill_ell_block(g, C[o:o_next], V[o:o_next], D[o:o_next], col_offset=o)
+    return C, V, D
+
+
+def _packed_ell_laplacian(graphs: list, offs, N: int, width_pad: int, *,
+                          device=None, use_kernel: bool = True) -> EllLaplacian:
+    """The packed block-diagonal operator on ``device`` — one host-to-device
+    copy of (N, width_pad) cols and vals per call (once per tree level)."""
+    C, V, D = _packed_ell_arrays(graphs, offs, N, width_pad)
+    return ell_operator(C, V, D, N, device=device, use_kernel=use_kernel)
+
+
+def _packed_b0(sizes, offs, N: int, seeds, warms) -> np.ndarray:
+    out = np.zeros(N, dtype=np.float32)
+    for b, s in enumerate(sizes):
+        o, o_next = int(offs[b]), int(offs[b + 1])
+        if warms[b] is not None:
+            out[o:o + s] = np.asarray(warms[b], dtype=np.float32)
+        else:
+            out[o:o_next] = _noise_b0(seeds[b], o_next - o)
+    return out
+
+
+def _solve_packed_lanczos(op, offs, N, n_seg, seg, mask, b0, sizes,
+                          tol, window, max_restarts):
+    Y, info = lanczos_fiedler_batched(
+        op, N, seg=seg, n_seg=n_seg, mask=mask, b0=b0,
+        window=window, max_restarts=max_restarts, tol=tol,
+    )
+    Yh = Y.cpu().numpy()
+    return [
+        FiedlerResult(
+            Yh[int(offs[b]):int(offs[b]) + s], float(info.eigenvalue[b]),
+            float(info.residual[b]), int(info.restarts[b]), "lanczos",
+            breakdown=bool(info.breakdown[b])
+            if info.breakdown is not None else False,
+        )
+        for b, s in enumerate(sizes)
+    ]
+
+
+def fiedler_from_graph_batched(
+    graphs: list,
+    *,
+    method: str = "lanczos",
+    seeds: list | None = None,
+    warms: list | None = None,
+    tol: float = 1e-3,
+    window: int = 30,
+    max_restarts: int = 50,
+    pack_slots: int | None = None,
+    pack_segs: int | None = None,
+    width_pad: int | None = None,
+    use_kernel: bool = True,
+    multilevel: bool = True,
+    precond: str = "jacobi",
+    device=None,
+) -> list:
+    """Fiedler vectors of B independent graphs in one packed solve.
+
+    Returns FiedlerResults aligned with the input order; problems at or
+    below the dense cutoff take the dense host path (exact parity with the
+    unbatched entry point).  Every other problem is packed into one flat
+    block-diagonal Lanczos solve on ``device`` (default: the card), whose
+    matvec is K1 there.  ``precond`` belongs to the inverse path, which is
+    not yet ported.
+    """
+    _not_ported(method)
+    B = len(graphs)
+    seeds, warms = _normalize_batch_args(B, seeds, warms)
+    results: list = [None] * B
+    solve_ix = []
+    for i, g in enumerate(graphs):
+        if g.n <= _DENSE_CUTOFF:
+            vec, lam = _dense_fiedler(dense_laplacian_np(g))
+            results[i] = FiedlerResult(vec, lam, 0.0, 0, "dense")
+        else:
+            solve_ix.append(i)
+    if not solve_ix:
+        return results
+    dev = resolve_device(device)
+
+    ml_levels = {i: 0 for i in solve_ix}
+    if multilevel:
+        for i in solve_ix:
+            if warms[i] is None:
+                warms[i], ml_levels[i] = multilevel_warm_start(graphs[i])
+
+    sizes = [graphs[i].n for i in solve_ix]
+    offs, N, n_seg, seg, mask = _pack_layout(sizes, pack_slots, pack_segs)
+    width = max(
+        int(graphs[i].degrees.max()) if graphs[i].nnz else 1
+        for i in solve_ix
+    )
+    width = next_pow2(max(width, 2))
+    if width_pad is not None:
+        width = max(width, int(width_pad))
+    C, V, D = _packed_ell_arrays([graphs[i] for i in solve_ix], offs, N, width)
+    b0 = _packed_b0(sizes, offs, N, [seeds[i] for i in solve_ix],
+                    [warms[i] for i in solve_ix])
+    with obs.timed("device") as t_dev:
+        op = ell_operator(C, V, D, N, device=dev, use_kernel=use_kernel)
+        packed = _solve_packed_lanczos(
+            op, offs, N, n_seg, seg, mask, b0, sizes, tol, window, max_restarts
+        )
+    for r, i in enumerate(solve_ix):
+        results[i] = packed[r]
+        results[i].levels = ml_levels[i]
+        results[i].device_seconds = t_dev.seconds
+    return results

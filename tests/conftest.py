@@ -13,6 +13,11 @@ import pytest
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card; the test skips without one")
+
+
 @pytest.fixture(scope="session")
 def multi_device_run():
     """Run a code snippet in a subprocess with N forced host devices

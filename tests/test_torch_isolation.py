@@ -1,0 +1,47 @@
+"""repro_torch stands alone: it imports neither JAX nor the JAX package.
+
+A subprocess imports the port and every one of its modules and then
+checks ``sys.modules``; a source scan catches imports on code paths the
+import does not execute (function-local imports).
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+_REPO = Path(__file__).resolve().parents[1]
+_PORT = _REPO / "src" / "repro_torch"
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
+    r"|from\s+repro\b(?!_torch))", re.M)
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
+print(len(names), bad)
+"""
+
+
+def test_import_pulls_in_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(_REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                         text=True, env=env, cwd=_REPO, timeout=300)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 15
+    assert bad == "[]", bad
+
+
+def test_sources_name_no_jax_and_no_repro():
+    files = sorted(_PORT.rglob("*.py")) + [_REPO / "chip_smoke.py"]
+    assert len(files) >= 15
+    hits = [f"{f.relative_to(_REPO)}: {m.group(0).strip()}"
+            for f in files for m in _FORBIDDEN.finditer(f.read_text())]
+    assert hits == []
