@@ -4,36 +4,53 @@
     python3 chip_smoke.py            # every phase; needs one CUDA card
     python3 chip_smoke.py --quick    # device, build, kernels, quality only
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. ``device``  — the card's name, and ``nvidia-smi``'s name and power limit
    (also printed raw on a line of its own).
-2. ``build``   — compile K1 (csrc/ell_spmv.cu, nvcc, sm_90a) from the
-   checkout's sources; seconds and the compiler's register report.
-3. ``kernels`` — K1 against its plain PyTorch version on the card, in fp32
-   (tolerance 1e-5) and bf16 (2e-2), at the main path's shape (the root
-   level's packed operator of ``box_mesh(80, 64, 48)``: N = 262144, w = 32)
-   and at a ragged N = 1000, w = 27; times by CUDA events (50 calls queued
-   back to back, median of 20 such rounds, after 10 warm-up calls) beside
-   the bound and cuSPARSE's CSR product.
-   Then one packed Lanczos restart at the main shape: its time and, from
-   `torch.profiler`, the CUDA kernels it issues.
+2. ``build``   — compile K1 and K2 (both in csrc/ell_spmv.cu: one nvcc,
+   sm_90a) from the checkout's sources; seconds and the compiler's
+   register report for every kernel.
+3. ``kernels`` — each kernel against its plain PyTorch version on the card,
+   in fp32 (tolerance 1e-5) and bf16 (2e-2) of each row's Σ|vals·x| (the
+   size of the terms the two fp32 sums add in another order), timed by
+   CUDA events (50 calls
+   queued back to back, median of 20 such rounds, after 10 warm-up calls)
+   beside its bound and cuSPARSE's CSR product (block-diagonal for K2).
+   K1 at the main path's shape (the root level's packed operator of
+   ``box_mesh(80, 64, 48)``: N = 262144, w = 32) and at a ragged N = 1000,
+   w = 27; then one packed Lanczos restart at the main shape: its time and,
+   from `torch.profiler`, the CUDA kernels it issues.  K2 at the inverse
+   path's shapes: ``main`` (the level-5 operator of the full box: 32 blocks
+   of 7,680 elements, (32, 32, 8192)), ``level0`` ((1, 32, 262144)), two
+   ragged shapes and ``amg_coarsest`` (the last `BatchedAMG` level of the
+   main shape, launch-bound), with K2's device time per launch at ``main``
+   and ``level0`` from `torch.profiler`; then one AMG-preconditioned flexcg
+   iteration at the main shape: its time, CUDA kernels and K2 launches.
+   Every timing is taken before the first profiler session.
 4. ``quality`` — the quality mesh (``pebble_mesh(12, 12, 12, n_pebbles=5,
    warp=0.15, seed=1)``, 1,669 elements) into 16 parts with the
-   ``default``, ``raw`` and ``geometric`` presets on the card, checked
-   against the port on the CPU (the plain matvec), the JAX cut recorded in
-   BENCH_partition.json (8918), and the invariants.
+   ``default``, ``raw`` and ``geometric`` presets and with inverse iteration
+   (``partitioner="rsb_inverse"``, Jacobi and AMG) on the card, checked
+   against the port on the CPU (the plain matvecs), the JAX cut recorded in
+   BENCH_partition.json (8918), and the invariants; then
+   ``pebble_mesh(10, 10, 10, n_pebbles=6, seed=0)`` into 8 parts by inverse
+   iteration, against BENCH_partition.json's ``partition_time_smoke`` cuts.
 5. ``full``    — ``box_mesh(80, 64, 48)`` (245,760 elements) into 64 parts,
-   ``default`` preset, on the card: seconds per stage (host and device),
-   per level, K1 launches, peak device memory, the cut against the
-   ``geometric`` preset's.
+   ``default`` preset (Lanczos, K1), on the card: seconds per stage (host
+   and device), per level, K1 launches, peak device memory, the cut against
+   the ``geometric`` preset's.
+6. ``full_inverse`` — the same box and parts by AMG-preconditioned inverse
+   iteration (the paper's solver, K2): the same records plus inner flexcg
+   iterations per level; the cut against the ``geometric`` cut of ``full``.
 
-Then the line ``{"kernels": [...]}`` (every ported kernel: launches on the
-main path — the ``full`` run, with the counters set to 0 just before it —
-error against the plain version, times and bound), the ``nvidia-smi``
-line, and last ``{"ok": true, "device": {...}}``.  Any failed check raises
-and the script exits nonzero without the last line; so does a machine
-without a CUDA card, or a directory that lacks the repository's src/.
+Then the line ``{"kernels": [...]}`` (every ported kernel: launches on its
+main path — K1 in ``full``, K2 in ``full_inverse``, with the counters set to
+0 just before each — error against the plain version, times and bound), the
+``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
+failed check raises and the script exits nonzero without the last line; so
+does a machine without a CUDA card, or a directory that lacks the
+repository's src/.
 """
 
 from __future__ import annotations
@@ -55,7 +72,11 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 QUALITY_JAX_CUT = 8918.0      # BENCH_partition.json, quality, rsb_weighted
+SMOKE_INV_RAW, SMOKE_INV_CUT = 4891.0, 4626.0   # partition_time_smoke, inverse
 N_SLOTS = 262144              # next_pow2(245,760): the full run's packed size
+K2_BLOCKS, K2_BLOCK = 32, 7680    # tree level 5 of the 64-part run
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+INVERSE_AMG = dict(method="inverse", precond="amg")
 
 
 def emit(phase: str, **fields) -> None:
@@ -87,6 +108,18 @@ def time_ms(fn, reps: int = 50, rounds: int = 20, warmup: int = 10) -> float:
     return statistics.median(per_call)
 
 
+def wall_s(fn, reps: int = 3) -> float:
+    """Host seconds of one call that ends in a device sync (median)."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out)
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -95,7 +128,13 @@ def nvidia_smi() -> str:
 
 
 def csr_of(cols_t, vals_t):
-    """The same matrix as a CSR tensor (nonzeros only) for cuSPARSE."""
+    """The same matrix as a CSR tensor (nonzeros only) for cuSPARSE; a
+    batched (B, w, n) operator becomes its block-diagonal (B·n, B·n) CSR."""
+    if cols_t.ndim == 3:
+        B, w, n = cols_t.shape
+        offs = (torch.arange(B, device=cols_t.device) * n).view(B, 1, 1)
+        cols_t = (cols_t.long() + offs).permute(1, 0, 2).reshape(w, B * n)
+        vals_t = vals_t.permute(1, 0, 2).reshape(w, B * n)
     w, n = cols_t.shape
     nz = vals_t != 0
     rows = torch.arange(n, device=cols_t.device).expand(w, n)[nz]
@@ -108,64 +147,103 @@ def csr_of(cols_t, vals_t):
     return torch.sparse_csr_tensor(crow, cols, vals, size=(n, n))
 
 
-def phase_kernels(box):
-    from repro_torch.core.fiedler import _pack_layout, _packed_ell_laplacian
-    from repro_torch.core.lanczos import _packed_restart, _seg_onehot
-    from repro_torch.core.rcb import rcb_order
-    from repro_torch.kernels.ell_spmv import cuda, ref
-    from repro_torch.mesh import dual_graph
+def kernel_cases(tag, cases, kernel, plain):
+    """Each case (c, v32, x32) against the plain version in fp32 and bf16,
+    with its times, bound and (fp32) cuSPARSE time.  Works for K1 (2-D
+    slabs) and K2 (3-D slabs: B problems).
 
-    t0 = time.perf_counter()
-    graph = dual_graph(box)
-    root = graph.sub(rcb_order(box.coords, box.weights))  # level 0 order
-    offs, N, n_seg, seg, mask = _pack_layout([root.n], N_SLOTS, 64)
-    op = _packed_ell_laplacian([root], offs, N, 32, device="cuda")
-    setup_s = time.perf_counter() - t0
-    rng = np.random.default_rng(0)
-    cases = {"main": (op.cols_t, op.vals_t)}
-    cols = torch.from_numpy(rng.integers(0, 1000, (27, 1000)).astype(np.int32))
-    vals = torch.from_numpy(rng.normal(size=(27, 1000)).astype(np.float32))
-    cases["ragged"] = (cols.cuda(), vals.cuda())
-    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    Both versions accumulate in fp32 in another order, so a row's
+    difference is bounded by the size of its terms, not of its sum: the
+    check is |kernel − plain| ≤ tol · Σ_k |vals·x| per row.  (On the coarse
+    AMG levels the terms are sums of many fine edge weights and cancel;
+    there |y| says nothing about the rounding.)"""
     rows = []
-    for case, (c, v32) in cases.items():
-        w, n = c.shape
-        x32 = torch.from_numpy(rng.normal(size=n).astype(np.float32)).cuda()
-        if case == "main":     # the Lanczos vectors the main path multiplies
-            x32 = x32 / torch.linalg.vector_norm(x32)
+    for case, (c, v32, x32) in cases.items():
+        B = c.shape[0] if c.ndim == 3 else 1
+        w, n = c.shape[-2:]
         for dtype in (torch.float32, torch.bfloat16):
             v, x = v32.to(dtype), x32.to(dtype)
-            got = cuda.ell_spmv_cuda(c, v, x)
-            want = ref.ell_spmv_ref(c, v, x)
+            got = kernel(c, v, x)
+            want = plain(c, v, x)
+            size = plain(c, v.float().abs(), x.float().abs())
             torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            ok = torch.allclose(got.float(), want.float(), atol=tol[dtype],
-                                rtol=tol[dtype])
-            check(bool(ok), f"K1 {case} {dtype}: max err {err}")
-            vbytes = v.element_size()
-            nbytes = 4 * n * w + vbytes * n * w + 2 * x.element_size() * n
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            rel = float((diff / size.clamp(min=1e-30)).max())
+            check(rel <= TOL[dtype],
+                  f"{tag} {case} {dtype}: max err {err}, {rel} of Σ|vals·x|")
+            nbytes = (4 + v.element_size()) * B * n * w \
+                + 2 * x.element_size() * B * n
             bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ops_ms = 2 * n * w / FP32_FLOPS_PER_S * 1e3
-            row = dict(case=case, dtype=str(dtype).split(".")[-1], n=n, w=w,
-                       nnz=int((v32 != 0).sum()), max_abs_err=err,
-                       kernel_ms=time_ms(lambda: cuda.ell_spmv_cuda(c, v, x)),
-                       ref_ms=time_ms(lambda: ref.ell_spmv_ref(c, v, x)),
+            bound_ops_ms = 2 * B * n * w / FP32_FLOPS_PER_S * 1e3
+            row = dict(case=case, dtype=str(dtype).split(".")[-1], B=B, n=n,
+                       w=w, nnz=int((v32 != 0).sum()), max_abs_err=err,
+                       max_err_of_terms=rel,
+                       kernel_ms=time_ms(lambda: kernel(c, v, x)),
+                       ref_ms=time_ms(lambda: plain(c, v, x)),
                        bound_ms=max(bound_bytes_ms, bound_ops_ms),
                        bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
                        else "operations",
                        bytes=nbytes, library_ms=None)
             if dtype == torch.float32:
                 A = csr_of(c, v)
-                lib = A @ x
+                xf = x.reshape(-1)
+                lib = A @ xf
                 torch.cuda.synchronize()
-                check(bool(torch.allclose(lib, want, atol=1e-4, rtol=1e-4)),
-                      f"cuSPARSE {case} disagrees with the plain version")
-                row["library_ms"] = time_ms(lambda: A @ x)
+                lib_diff = (lib - want.reshape(-1)).abs()
+                check(bool((lib_diff <= 1e-4 * size.reshape(-1)).all()),
+                      f"cuSPARSE {tag} {case} disagrees with the plain version")
+                row["library_ms"] = time_ms(lambda: A @ xf)
             row["kernel_GBps"] = nbytes / (row["kernel_ms"] * 1e-3) / 1e9
             rows.append(row)
+    return rows
 
-    # One packed Lanczos restart at the main shape (level 0: one problem,
-    # the segment count pinned to 64 as in the 64-part run).
+
+def device_profile(fn) -> dict:
+    """CUDA kernels one call of ``fn`` issues, by name, from torch.profiler:
+    {name: [count, device ms]}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            d = by_name.setdefault(e.name, [0, 0.0])
+            d[0] += 1
+            d[1] += e.time_range.elapsed_us() / 1e3
+    return by_name
+
+
+def top_kernels(by_name, k=8):
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:k]
+    return [dict(name=n[:80], count=v[0], ms=v[1]) for n, v in top]
+
+
+def phase_kernels(root):
+    """K1 at the main path's shapes and one packed Lanczos restart at the
+    main shape (level 0: one problem, the segment count pinned to 64 as in
+    the 64-part run), timed.  Returns the rows and a function that profiles
+    the restart and emits the phase line (profiles come after every timing:
+    a torch.profiler session can leave launch overhead behind)."""
+    from repro_torch.core.fiedler import _pack_layout, _packed_ell_laplacian
+    from repro_torch.core.lanczos import _packed_restart, _seg_onehot
+    from repro_torch.kernels.ell_spmv import cuda, ref
+
+    t0 = time.perf_counter()
+    offs, N, n_seg, seg, mask = _pack_layout([root.n], N_SLOTS, 64)
+    op = _packed_ell_laplacian([root], offs, N, 32, device="cuda")
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=N).astype(np.float32)).cuda()
+    cases = {"main": (op.cols_t, op.vals_t, x / torch.linalg.vector_norm(x))}
+    cols = torch.from_numpy(rng.integers(0, 1000, (27, 1000)).astype(np.int32))
+    vals = torch.from_numpy(rng.normal(size=(27, 1000)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=1000).astype(np.float32))
+    cases["ragged"] = (cols.cuda(), vals.cuda(), x.cuda())
+    rows = kernel_cases("K1", cases, cuda.ell_spmv_cuda, ref.ell_spmv_ref)
+
     seg_d = torch.from_numpy(seg.astype(np.int64)).cuda()
     mask_d = torch.from_numpy(mask).cuda()
     S = _seg_onehot(seg_d, n_seg, torch.float32)
@@ -181,38 +259,120 @@ def phase_kernels(box):
     torch.cuda.synchronize()
     k1_per_restart = cuda.LAUNCHES - before
     restart_ms = time_ms(restart, reps=2, rounds=5, warmup=2)
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        restart()
-        torch.cuda.synchronize()
-    dev_events = [e for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    by_name: dict = {}
-    for e in dev_events:
-        d = by_name.setdefault(e.name, [0, 0.0])
-        d[0] += 1
-        d[1] += e.time_range.elapsed_us() / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    k1 = [v for k, v in by_name.items() if "ell_spmv_kernel" in k]
-    emit("kernels", setup_seconds=setup_s, cases=rows,
-         restart=dict(window=20, N=N, n_seg=n_seg, ms=restart_ms,
-                      k1_launches=k1_per_restart,
-                      k1_profiled_ms_per_launch=k1[0][1] / k1[0][0] if k1 else None,
-                      cuda_kernels=len(dev_events) or None,
-                      device_ms=sum(v[1] for v in by_name.values()) or None,
-                      top=[dict(name=k[:80], count=v[0], ms=v[1])
-                           for k, v in top]))
-    return rows
+    def profile_and_emit():
+        by_name = device_profile(restart)
+        k1 = [v for k, v in by_name.items() if "ell_spmv_kernel" in k]
+        emit("kernels", kernel="ell_spmv", setup_seconds=setup_s, cases=rows,
+             restart=dict(
+                 window=20, N=N, n_seg=n_seg, ms=restart_ms,
+                 k1_launches=k1_per_restart,
+                 k1_profiled_ms_per_launch=k1[0][1] / k1[0][0] if k1 else None,
+                 cuda_kernels=sum(v[0] for v in by_name.values()) or None,
+                 device_ms=sum(v[1] for v in by_name.values()) or None,
+                 top=top_kernels(by_name)))
+
+    return rows, profile_and_emit
 
 
-def run_preset(preset, mesh, nparts, device):
+def phase_kernels_batched(root):
+    """K2 at the inverse path's shapes and one AMG-preconditioned flexcg
+    iteration at the main shape, timed.  Returns the rows and a function
+    that profiles them and emits the phase line."""
+    from repro_torch.core.amg import amg_setup_batched
+    from repro_torch.core.flexcg import flexcg
+    from repro_torch.core.laplacian import ell_laplacian_batched
+    from repro_torch.kernels.ell_spmv import cuda, ref
+    from repro_torch.mesh.graphs import extract_subgraphs
+
+    t0 = time.perf_counter()
+    subs = extract_subgraphs(root, [np.arange(b * K2_BLOCK, (b + 1) * K2_BLOCK)
+                                    for b in range(K2_BLOCKS)])
+    n_pad = 1 << (K2_BLOCK - 1).bit_length()
+    op = ell_laplacian_batched(subs, n_pad, 32, K2_BLOCKS, device="cuda")
+    op0 = ell_laplacian_batched([root], N_SLOTS, 32, 1, device="cuda")
+    pre = amg_setup_batched(subs, n_pad, K2_BLOCKS, device="cuda")
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+
+    def unit_x(B, n):
+        x = torch.from_numpy(rng.normal(size=(B, n)).astype(np.float32)).cuda()
+        return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+    coarse = pre.ops[-1]
+    cases = {"main": (op.cols_t, op.vals_t, unit_x(K2_BLOCKS, n_pad)),
+             "level0": (op0.cols_t, op0.vals_t, unit_x(1, N_SLOTS))}
+    for B, n, w in ((3, 1000, 5), (4, 128, 27)):
+        cols = rng.integers(0, n, (B, w, n)).astype(np.int32)
+        vals = rng.normal(size=(B, w, n)).astype(np.float32)
+        cases[f"ragged_{B}x{n}x{w}"] = (torch.from_numpy(cols).cuda(),
+                                         torch.from_numpy(vals).cuda(),
+                                         unit_x(B, n))
+    cases["amg_coarsest"] = (coarse.cols_t, coarse.vals_t,
+                             unit_x(K2_BLOCKS, coarse.n))
+    rows = kernel_cases("K2", cases, cuda.ell_spmv_batched_cuda,
+                        ref.ell_spmv_batched_ref)
+
+    # One AMG-preconditioned flexcg iteration at the main shape: tol 0 keeps
+    # every problem active, so maxiter iterations run (a multiple of the
+    # loop's flag-read cadence, 4, so no frozen pass follows).  Differences
+    # of maxiter = 8 and 4 (24 and 4 for the time) leave the loop body alone,
+    # with its share of the flag reads, as the main path runs it.
+    mask = torch.zeros(K2_BLOCKS, n_pad, device="cuda")
+    mask[:, :K2_BLOCK] = 1.0
+    b = unit_x(K2_BLOCKS, n_pad) * mask
+
+    def cg(m):
+        return flexcg(op, b, precond=pre, mask=mask, tol=0.0, maxiter=m)
+
+    counts = []
+    for m in (4, 8):
+        before = cuda.BATCHED_LAUNCHES
+        check(int(cg(m).iters.min()) == m, f"flexcg ran {m} iterations")
+        counts.append(cuda.BATCHED_LAUNCHES - before)
+    k2_per_iter = (counts[1] - counts[0]) / 4
+    check(k2_per_iter > 0, "flexcg iteration: K2 never launched")
+    iter_ms = (wall_s(lambda: cg(24)) - wall_s(lambda: cg(4))) / 20 * 1e3
+
+    def profile_and_emit():
+        # K2's device time per launch at the two 69 MB shapes: unlike the
+        # queued event timing, it does not depend on how fast the host can
+        # launch.  Then the `main` row's event timing again, after profiler
+        # sessions.
+        profiled = {}
+        for case in ("main", "level0"):
+            args = cases[case]
+            by_name = device_profile(
+                lambda: [cuda.ell_spmv_batched_cuda(*args) for _ in range(20)])
+            k2 = [cnt_ms for name, cnt_ms in by_name.items()
+                  if "ell_spmv_batched_kernel" in name]
+            profiled[case] = k2[0][1] / k2[0][0] if k2 else None
+        main_after = time_ms(lambda: cuda.ell_spmv_batched_cuda(*cases["main"]))
+        p4, p8 = device_profile(lambda: cg(4)), device_profile(lambda: cg(8))
+        per_iter = {k: [(v[0] - p4.get(k, [0, 0.0])[0]) / 4,
+                        (v[1] - p4.get(k, [0, 0.0])[1]) / 4]
+                    for k, v in p8.items()}
+        k2 = [v for k, v in p8.items() if "ell_spmv_batched_kernel" in k]
+        emit("kernels", kernel="ell_spmv_batched", setup_seconds=setup_s,
+             amg_levels=len(pre.ops), amg_sizes=list(pre.sizes), cases=rows,
+             profiled_ms_per_launch=profiled, main_ms_after_profiler=main_after,
+             flexcg_iteration=dict(
+                 B=K2_BLOCKS, n_pad=n_pad, ms=iter_ms, k2_launches=k2_per_iter,
+                 k2_profiled_ms_per_launch=k2[0][1] / k2[0][0] if k2 else None,
+                 cuda_kernels=sum(v[0] for v in per_iter.values()),
+                 device_ms=sum(v[1] for v in per_iter.values()),
+                 top=top_kernels(per_iter)))
+
+    return rows, profile_and_emit
+
+
+def run_preset(preset, mesh, nparts, device, **overrides):
     from repro_torch.configs.parrsb import make_pipeline
     from repro_torch.core.metrics import partition_metrics
     from repro_torch.core.refine import balance_corridor
 
     t0 = time.perf_counter()
-    ctx = make_pipeline(preset, device=device).run(mesh, nparts)
+    ctx = make_pipeline(preset, device=device, **overrides).run(mesh, nparts)
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -233,53 +393,82 @@ def stage_split(ctx) -> list:
     return out
 
 
+def level_rows(ctx) -> list:
+    return [dict(level=lv.level, nodes=lv.n_nodes, buckets=lv.buckets,
+                 iterations=lv.iterations, inner_iterations=lv.inner_iterations,
+                 order_s=lv.order_seconds, solve_s=lv.solve_seconds,
+                 device_s=lv.device_seconds, split_s=lv.split_seconds)
+            for lv in ctx.report.levels]
+
+
 def phase_quality():
+    from repro_torch.core.metrics import partition_metrics
     from repro_torch.kernels.ell_spmv import cuda
     from repro_torch.mesh import pebble_mesh
 
     mesh = pebble_mesh(12, 12, 12, n_pebbles=5, warp=0.15, seed=1)
+    runs = {p: ("K1", p, {}) for p in ("default", "raw", "geometric")}
+    for pc in ("jacobi", "amg"):
+        runs[f"rsb_inverse_{pc}"] = ("K2", "default",
+                                     dict(method="inverse", precond=pc))
     out = {}
-    for preset in ("default", "raw", "geometric"):
-        before = cuda.LAUNCHES
-        ctx, pm, wall, corridor, nonempty = run_preset(preset, mesh, 16,
-                                                       "cuda")
-        launches = cuda.LAUNCHES - before
-        _, pm_cpu, _, _, _ = run_preset(preset, mesh, 16, "cpu")
-        out[preset] = dict(cut=pm.edge_cut, cut_cpu=pm_cpu.edge_cut,
-                           disconnected=pm.disconnected_parts,
-                           w_imb=pm.weighted_imbalance, corridor=corridor,
-                           seconds=wall, k1_launches=launches,
-                           stages=stage_split(ctx))
-        check(pm.disconnected_parts == 0, f"quality {preset}: disconnected parts")
-        check(corridor and nonempty == 16, f"quality {preset}: corridor/empty part")
+    for name, (kernel, preset, bkw) in runs.items():
+        counter = "LAUNCHES" if kernel == "K1" else "BATCHED_LAUNCHES"
+        before = getattr(cuda, counter)
+        ctx, pm, wall, corridor, nonempty = run_preset(
+            preset, mesh, 16, "cuda", bisect_kw=bkw)
+        launches = getattr(cuda, counter) - before
+        _, pm_cpu, _, _, _ = run_preset(preset, mesh, 16, "cpu", bisect_kw=bkw)
+        out[name] = dict(cut=pm.edge_cut, cut_cpu=pm_cpu.edge_cut,
+                         disconnected=pm.disconnected_parts,
+                         w_imb=pm.weighted_imbalance, corridor=corridor,
+                         seconds=wall, launches={kernel: launches},
+                         precond=ctx.report.precond, stages=stage_split(ctx))
+        check(pm.disconnected_parts == 0, f"quality {name}: disconnected parts")
+        check(corridor and nonempty == 16, f"quality {name}: corridor/empty part")
         check(abs(pm.edge_cut - pm_cpu.edge_cut) <= 0.02 * pm_cpu.edge_cut,
-              f"quality {preset}: card cut {pm.edge_cut} vs CPU {pm_cpu.edge_cut}")
-        if preset != "geometric":
-            check(launches > 0, f"quality {preset}: K1 never launched")
+              f"quality {name}: card cut {pm.edge_cut} vs CPU {pm_cpu.edge_cut}")
+        if name != "geometric":
+            check(launches > 0, f"quality {name}: {kernel} never launched")
     check(out["default"]["cut"] <= 1.05 * QUALITY_JAX_CUT,
           f"quality default cut {out['default']['cut']} > 1.05 x {QUALITY_JAX_CUT}")
     check(out["default"]["cut"] < out["geometric"]["cut"],
           "quality default cut not below the geometric cut")
+
+    smoke = pebble_mesh(10, 10, 10, n_pebbles=6, seed=0)
+    inverse_smoke = {}
+    for pc in ("jacobi", "amg"):
+        ctx, pm, wall, corridor, nonempty = run_preset(
+            "default", smoke, 8, "cuda",
+            bisect_kw=dict(method="inverse", precond=pc))
+        raw = partition_metrics(ctx.require_graph(), ctx.parts_raw, 8).edge_cut
+        inverse_smoke[pc] = dict(cut=pm.edge_cut, raw_cut=raw, seconds=wall,
+                                 disconnected=pm.disconnected_parts,
+                                 corridor=corridor)
+        check(pm.edge_cut <= 1.05 * SMOKE_INV_CUT and raw <= 1.05 * SMOKE_INV_RAW,
+              f"smoke inverse {pc}: cut {pm.edge_cut} / raw {raw} above 1.05 x "
+              f"{SMOKE_INV_CUT} / {SMOKE_INV_RAW}")
+        check(pm.disconnected_parts == 0 and corridor and nonempty == 8,
+              f"smoke inverse {pc}: invariants")
     emit("quality", mesh="pebble_mesh(12,12,12,n_pebbles=5,warp=0.15,seed=1)",
-         nelems=mesh.nelems, nparts=16, jax_cut=QUALITY_JAX_CUT, presets=out)
+         nelems=mesh.nelems, nparts=16, jax_cut=QUALITY_JAX_CUT, presets=out,
+         inverse_smoke=dict(mesh="pebble_mesh(10,10,10,n_pebbles=6,seed=0)",
+                            nelems=smoke.nelems, nparts=8,
+                            jax_cut=SMOKE_INV_CUT, jax_raw_cut=SMOKE_INV_RAW,
+                            runs=inverse_smoke))
 
 
 def phase_full(box):
     from repro_torch.kernels.ell_spmv import cuda
 
     torch.cuda.reset_peak_memory_stats()
-    cuda.LAUNCHES = 0                     # the main path's count starts here
-    ctx, pm, wall, corridor, nonempty = run_preset("default", box, 64,
-                                                   "cuda")
+    cuda.LAUNCHES = cuda.BATCHED_LAUNCHES = 0   # this path's counts start here
+    ctx, pm, wall, corridor, nonempty = run_preset("default", box, 64, "cuda")
     launches = cuda.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     _, gpm, gwall, _, _ = run_preset("geometric", box, 64, "cuda")
-    levels = [dict(level=lv.level, nodes=lv.n_nodes, restarts=lv.iterations,
-                   order_s=lv.order_seconds, solve_s=lv.solve_seconds,
-                   device_s=lv.device_seconds, split_s=lv.split_seconds)
-              for lv in ctx.report.levels]
     emit("full", mesh="box_mesh(80,64,48)", nelems=box.nelems, nparts=64,
-         seconds=wall, stages=stage_split(ctx), levels=levels,
+         seconds=wall, stages=stage_split(ctx), levels=level_rows(ctx),
          k1_launches=launches, max_memory_allocated=peak, cut=pm.edge_cut,
          geometric_cut=gpm.edge_cut, geometric_seconds=gwall,
          disconnected=pm.disconnected_parts, w_imb=pm.weighted_imbalance,
@@ -295,20 +484,56 @@ def phase_full(box):
     # 313371 against RCB's 307836).  The check bounds the gap.
     check(pm.edge_cut <= 1.05 * gpm.edge_cut,
           f"full: cut {pm.edge_cut} above 1.05 x the geometric cut {gpm.edge_cut}")
+    return launches, gpm.edge_cut
+
+
+def phase_full_inverse(box, geometric_cut):
+    from repro_torch.kernels.ell_spmv import cuda
+
+    torch.cuda.reset_peak_memory_stats()
+    cuda.LAUNCHES = cuda.BATCHED_LAUNCHES = 0   # this path's counts start here
+    ctx, pm, wall, corridor, nonempty = run_preset("default", box, 64, "cuda",
+                                                   bisect_kw=INVERSE_AMG)
+    launches, k1 = cuda.BATCHED_LAUNCHES, cuda.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    emit("full_inverse", mesh="box_mesh(80,64,48)", nelems=box.nelems,
+         nparts=64, bisect_kw=INVERSE_AMG, seconds=wall,
+         stages=stage_split(ctx), levels=level_rows(ctx),
+         k2_launches=launches, k1_launches=k1, max_memory_allocated=peak,
+         cut=pm.edge_cut, geometric_cut=geometric_cut,
+         disconnected=pm.disconnected_parts, w_imb=pm.weighted_imbalance,
+         corridor=corridor, nonempty_parts=nonempty,
+         precond=ctx.report.precond)
+    check(nonempty == 64, "full_inverse: an empty part")
+    check(pm.disconnected_parts == 0, "full_inverse: disconnected parts")
+    check(corridor, "full_inverse: balance corridor broken")
+    check(launches > 0, "full_inverse: K2 never launched on the main path")
+    check(pm.edge_cut <= 1.05 * geometric_cut,
+          f"full_inverse: cut {pm.edge_cut} above 1.05 x the geometric cut "
+          f"{geometric_cut}")
     return launches
+
+
+def kernel_entry(name, source, replaces, launches, row) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+            "plain_ms": row["ref_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
-                    help="skip the full-size run")
+                    help="skip the full-size runs")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from repro_torch.core.rcb import rcb_order
     from repro_torch.kernels.ell_spmv import cuda
-    from repro_torch.mesh import box_mesh
+    from repro_torch.mesh import box_mesh, dual_graph
 
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -318,22 +543,37 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     path, report = cuda.build()
     emit("build", seconds=time.perf_counter() - t0, library=path.name,
-         ptxas=[ln for ln in report.splitlines() if "registers" in ln or "spill" in ln])
+         ptxas=[ln for ln in report.splitlines()
+                if "entry function" in ln or "registers" in ln or "spill" in ln])
 
     box = box_mesh(80, 64, 48)
-    rows = phase_kernels(box)
+    root = dual_graph(box).sub(rcb_order(box.coords, box.weights))  # level 0
+    # Everything is timed before the first torch.profiler session; the
+    # profile functions hold the kernel phase's tensors until they are
+    # dropped, before the full-size runs measure peak memory.
+    k1_rows, k1_profiles = phase_kernels(root)
+    k2_rows, k2_profiles = phase_kernels_batched(root)
+    k1_profiles()
+    k2_profiles()
+    del k1_profiles, k2_profiles
     phase_quality()
-    launches = None if args.quick else phase_full(box)
+    k1_launches = k2_launches = None
+    if not args.quick:
+        k1_launches, geometric_cut = phase_full(box)
+        k2_launches = phase_full_inverse(box, geometric_cut)
 
-    main_f32 = next(r for r in rows if r["case"] == "main" and r["dtype"] == "float32")
-    print(json.dumps({"kernels": [{
-        "name": "ell_spmv", "route": "cuda",
-        "source": "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu",
-        "replaces": "src/repro/kernels/ell_spmv/kernel.py:45",
-        "launches": launches, "max_abs_err": main_f32["max_abs_err"],
-        "ms": main_f32["kernel_ms"], "plain_ms": main_f32["ref_ms"],
-        "bound_ms": main_f32["bound_ms"], "bound_by": main_f32["bound_by"],
-        "library_ms": main_f32["library_ms"]}]}), flush=True)
+    def main_f32(rows):
+        return next(r for r in rows
+                    if r["case"] == "main" and r["dtype"] == "float32")
+
+    src = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
+    print(json.dumps({"kernels": [
+        kernel_entry("ell_spmv", src, "src/repro/kernels/ell_spmv/kernel.py:45",
+                     k1_launches, main_f32(k1_rows)),
+        kernel_entry("ell_spmv_batched", src,
+                     "src/repro/kernels/ell_spmv/kernel.py:81", k2_launches,
+                     main_f32(k2_rows)),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -1,11 +1,24 @@
-"""parRSB core in PyTorch: the main path of `repro.core`, slice A."""
+"""parRSB core in PyTorch: the ported part of `repro.core` (slices A and B1)."""
 
-from repro_torch.core.amg import coarsen_graph
+from repro_torch.core.amg import (
+    AMG,
+    BatchedAMG,
+    amg_setup,
+    amg_setup_batched,
+    coarsen_graph,
+)
 from repro_torch.core.fiedler import (
     FiedlerResult,
     fiedler_from_graph,
     fiedler_from_graph_batched,
     multilevel_warm_start,
+)
+from repro_torch.core.flexcg import CGResult, flexcg
+from repro_torch.core.inverse_iteration import (
+    BatchedInverseIterInfo,
+    InverseIterInfo,
+    inverse_iteration,
+    inverse_iteration_batched,
 )
 from repro_torch.core.lanczos import (
     BatchedLanczosInfo,
@@ -17,6 +30,7 @@ from repro_torch.core.laplacian import (
     EllLaplacian,
     dense_laplacian_np,
     ell_laplacian,
+    ell_laplacian_batched,
     fiedler_oracle_np,
 )
 from repro_torch.core.metrics import (

@@ -1,23 +1,30 @@
-"""Fiedler-vector solver facade — the Lanczos branch of `repro.core.fiedler`.
+"""Fiedler-vector solver facade — `repro.core.fiedler` on assembled graphs.
 
 * a dense NumPy path for subproblems at or below ``_DENSE_CUTOFF`` (the
   recursion tail), identical to `repro`'s;
 * **multilevel (coarse-to-fine) warm starts** (`multilevel_warm_start`,
   on by default): host NumPy, line for line `repro`'s, so the warm start
-  of a given graph is the same vector in both packages;
-* the **packed** level solve (`fiedler_from_graph_batched`): every
-  subproblem of an RSB tree level is packed into one flat block-diagonal
-  ELL Laplacian (`_pack_layout`, `_packed_ell_laplacian`, `_packed_b0`),
-  copied to the device once, and solved by
-  :func:`repro_torch.core.lanczos.lanczos_fiedler_batched`, whose matvec is
-  the CUDA ELL SpMV (K1) on the card;
-* the unbatched `fiedler_from_graph` (Lanczos).
+  of a given graph is the same vector in both packages; the inverse paths
+  blend a noise floor into it (`_blend_noise`), as there;
+* ``method="lanczos"``: the **packed** level solve
+  (`fiedler_from_graph_batched`) packs every subproblem of an RSB tree
+  level into one flat block-diagonal ELL Laplacian (`_pack_layout`,
+  `_packed_ell_laplacian`, `_packed_b0`), copied to the device once, and
+  solves it with :func:`repro_torch.core.lanczos.lanczos_fiedler_batched`,
+  whose matvec is the CUDA ELL SpMV (K1) on the card;
+* ``method="inverse"``: inverse iteration with flexcg inner solves.  The
+  batched entry groups subproblems into (n_pad, width_pad) shape buckets,
+  each one batched operator (K2 on the card) solved by
+  `inverse_iteration_batched` with ``precond="jacobi"`` (the operator's
+  own diagonal) or ``"amg"`` (one packed `BatchedAMG` per bucket, K2 on
+  every level); the unbatched entry uses the graph's own `AMG` (K1);
+* the unbatched `fiedler_from_graph` (either method).
 
 Start vectors come from NumPy ``default_rng`` (`_noise_b0`), exactly as in
 `repro`, so both packages start from the same bits.  ``use_kernel`` is kept
-where `repro` has it but defaults to **True**: on a CUDA device the packed
-matvec goes through K1.  ``method="inverse"`` (inverse iteration, AMG) is
-not yet ported and raises.
+where `repro` has it but defaults to **True**: on a CUDA device every
+matvec goes through K1 or K2.  The gather-scatter mesh entry points
+(`fiedler_from_mesh*`) and the degenerate-pair tools are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,10 +35,16 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.amg import coarsen_graph
+from repro_torch.core.amg import amg_setup, amg_setup_batched, coarsen_graph
+from repro_torch.core.inverse_iteration import (
+    inverse_iteration,
+    inverse_iteration_batched,
+)
 from repro_torch.core.lanczos import lanczos_fiedler, lanczos_fiedler_batched
 from repro_torch.core.laplacian import (
     EllLaplacian,
+    batched_ell_arrays,
+    batched_ell_operator,
     dense_laplacian_np,
     ell_operator,
     fill_ell_block,
@@ -51,20 +64,21 @@ class FiedlerResult:
     vector: np.ndarray     # (n,) float — Fiedler components (real entries only)
     eigenvalue: float
     residual: float
-    iterations: int        # Lanczos restarts
+    iterations: int        # restarts (lanczos) or outer iters (inverse)
     method: str
     levels: int = 0        # multilevel warm-start hierarchy depth (0 = none)
     breakdown: bool = False  # solver hit a non-finite iterate; stale (λ, res)
-    # Wall seconds of the device solve this result came from (shared by
-    # every problem of a packed solve; 0 for the dense host path).
+    # Wall seconds of the call's device solves (shared by every problem of
+    # a batched call; 0 for the dense host path).
     device_seconds: float = 0.0
+    inner_iterations: int = 0  # flexcg iterations over all outer steps (inverse)
 
 
-def _not_ported(method: str) -> None:
-    if method == "inverse":
-        raise NotImplementedError(
-            "method='inverse' (inverse iteration, AMG) is not yet ported")
-    if method != "lanczos":
+_METHODS = ("lanczos", "inverse")
+
+
+def check_fiedler_method(method: str) -> None:
+    if method not in _METHODS:
         raise ValueError(f"unknown fiedler method: {method}")
 
 
@@ -176,6 +190,24 @@ def multilevel_warm_start(
     return vec.astype(np.float32), len(aggs)
 
 
+_INVERSE_NOISE_BLEND = 0.3
+
+
+def _blend_noise(warm: np.ndarray, seed: int) -> np.ndarray:
+    """Mix a deterministic noise floor into a multilevel warm start.
+
+    Single-vector inverse iteration amplifies only the eigencomponents its
+    start vector contains: a prolonged coarse Fiedler vector that lands
+    (near-)orthogonal to y₂ — near-degenerate pairs, paper §9 — would trap
+    the iteration on the wrong eigenvector.  Lanczos is immune (it builds a
+    Krylov *subspace*), so only the inverse paths blend."""
+    z = _noise_b0(seed, warm.shape[0])
+    nw, nz = np.linalg.norm(warm), np.linalg.norm(z)
+    if nw < 1e-30 or nz < 1e-30:
+        return warm
+    return (warm / nw + _INVERSE_NOISE_BLEND * z / nz).astype(np.float32)
+
+
 def _noise_b0(seed: int, n: int) -> np.ndarray:
     """Deterministic start-vector noise from NumPy — the same bits as
     `repro.core.fiedler._noise_b0` for the same seed."""
@@ -187,10 +219,19 @@ def _dense_fiedler(L: np.ndarray) -> tuple[np.ndarray, float]:
     return v[:, 1], float(w[1])
 
 
+def _padded_ell_laplacian(graph: Graph, n_pad: int, width_pad: int, *,
+                          device=None, use_kernel: bool = True) -> EllLaplacian:
+    """One graph's operator padded to n_pad rows (a pack of one)."""
+    return _packed_ell_laplacian([graph], np.array([0, n_pad]), n_pad,
+                                 width_pad, device=device,
+                                 use_kernel=use_kernel)
+
+
 def fiedler_from_graph(
     graph: Graph,
     *,
     method: str = "lanczos",
+    order: np.ndarray | None = None,
     seed: int = 0,
     warm: np.ndarray | None = None,
     tol: float = 1e-3,
@@ -201,11 +242,13 @@ def fiedler_from_graph(
     multilevel: bool = True,
     device=None,
 ) -> FiedlerResult:
-    """Fiedler vector of an assembled graph Laplacian (Lanczos).
+    """Fiedler vector of an assembled graph Laplacian (Lanczos, or inverse
+    iteration preconditioned by the graph's `AMG`, whose fine nodes
+    ``order`` permutes).
 
     ``multilevel=True`` (default) seeds the solve with the cascadic
     coarse-to-fine warm start when no explicit ``warm`` is given."""
-    _not_ported(method)
+    check_fiedler_method(method)
     n = graph.n
     if n <= _DENSE_CUTOFF:
         vec, lam = _dense_fiedler(dense_laplacian_np(graph))
@@ -215,27 +258,44 @@ def fiedler_from_graph(
     ml_levels = 0
     if warm is None and multilevel:
         warm, ml_levels = multilevel_warm_start(graph)
+        if warm is not None and method == "inverse":
+            warm = _blend_noise(warm, seed)
 
     n_pad = next_pow2(n) if pad else n
     width = int(graph.degrees.max()) if graph.nnz else 1
     width_pad = next_pow2(max(width, 2)) if pad else width
-    C, V, D = _packed_ell_arrays([graph], np.array([0, n_pad]), n_pad,
-                                 width_pad)
     if warm is not None:
         b0 = np.pad(warm.astype(np.float32), (0, n_pad - n))
     else:
         b0 = _noise_b0(seed, n_pad)
+    pre = None
+    if method == "inverse":
+        pre = amg_setup(graph, order=order, device=dev, use_kernel=use_kernel)
+        ml_levels = max(ml_levels, len(pre.ops))
     with obs.timed("device") as t_dev:
-        op = ell_operator(C, V, D, n_pad, device=dev, use_kernel=use_kernel)
+        op = _padded_ell_laplacian(graph, n_pad, width_pad, device=dev,
+                                   use_kernel=use_kernel)
         mask = torch.from_numpy((np.arange(n_pad) < n).astype(np.float32)).to(dev)
-        y, info = lanczos_fiedler(
-            op, n_pad, mask=mask, b0=torch.from_numpy(b0).to(dev),
-            window=window, max_restarts=max_restarts, tol=tol,
-        )
+        b0 = torch.from_numpy(b0).to(dev)
+        if method == "lanczos":
+            y, info = lanczos_fiedler(
+                op, n_pad, mask=mask, b0=b0,
+                window=window, max_restarts=max_restarts, tol=tol,
+            )
+            iters, inner = info.restarts, 0
+        else:
+            # The AMG hierarchy is sized to the real graph; wrap it to
+            # ignore the padding.
+            def precond(r):
+                return torch.nn.functional.pad(pre(r[:n]), (0, n_pad - n))
+
+            y, info = inverse_iteration(op.apply, n_pad, precond=precond,
+                                        mask=mask, b0=b0, tol=tol)
+            iters, inner = info.outer_iters, sum(info.inner_iters)
         vec = y[:n].cpu().numpy()
-    return FiedlerResult(vec, info.eigenvalue, info.residual, info.restarts,
+    return FiedlerResult(vec, info.eigenvalue, info.residual, iters,
                          method, levels=ml_levels, breakdown=info.breakdown,
-                         device_seconds=t_dev.seconds)
+                         device_seconds=t_dev.seconds, inner_iterations=inner)
 
 
 # ---------------------------------------------------------------------------
@@ -337,6 +397,72 @@ def _solve_packed_lanczos(op, offs, N, n_seg, seg, mask, b0, sizes,
     ]
 
 
+# -- shape buckets (the inverse path's leading-batch-dim layout) ------------
+
+def _batched_b0(sizes, seeds, warms, n_pad: int, b_pad: int) -> np.ndarray:
+    """Per-problem start vectors (b_pad, n_pad): padded warm starts where
+    given, otherwise seeded noise; zero rows for batch-padding dummies."""
+    out = np.zeros((b_pad, n_pad), dtype=np.float32)
+    for r, (sz, sd, warm) in enumerate(zip(sizes, seeds, warms)):
+        if warm is not None:
+            out[r, :sz] = np.asarray(warm, dtype=np.float32)
+        else:
+            out[r] = _noise_b0(sd, n_pad)
+    return out
+
+
+def _solve_inverse_buckets(results, solve_ix, graphs, seeds, warms, tol, *,
+                           precond: str, use_kernel: bool, device) -> float:
+    """The ``method="inverse"`` tail: group problems into (n_pad,
+    width_pad) shape buckets, run one batched preconditioned solve per
+    bucket, unpack FiedlerResults into ``results`` in place.  Returns the
+    wall seconds of the device solves (operator copies included).
+
+    ``precond="jacobi"`` preconditions with each operator's own diagonal;
+    ``"amg"`` builds one packed `BatchedAMG` V-cycle per bucket from the
+    (RCB-ordered) graphs."""
+    if precond not in ("jacobi", "amg"):
+        raise ValueError(f"unknown preconditioner: {precond}")
+    buckets: dict = {}
+    for i in solve_ix:
+        g = graphs[i]
+        width = int(g.degrees.max()) if g.nnz else 1
+        buckets.setdefault((next_pow2(g.n), next_pow2(max(width, 2))),
+                           []).append(i)
+    device_seconds = 0.0
+    for (n_pad, width_pad), ix in sorted(buckets.items()):
+        b_pad = next_pow2(len(ix))
+        gs = [graphs[i] for i in ix]
+        pre = None
+        if precond == "amg":
+            pre = amg_setup_batched(gs, n_pad, b_pad, device=device,
+                                    use_kernel=use_kernel)
+        arrays = batched_ell_arrays(gs, n_pad, width_pad, b_pad)
+        mask = np.zeros((b_pad, n_pad), dtype=np.float32)
+        for r, g in enumerate(gs):
+            mask[r, :g.n] = 1.0
+        b0 = _batched_b0([g.n for g in gs], [seeds[i] for i in ix],
+                         [warms[i] for i in ix], n_pad, b_pad)
+        with obs.timed("device") as t_dev:
+            op = batched_ell_operator(*arrays, device=device,
+                                      use_kernel=use_kernel)
+            Y, info = inverse_iteration_batched(
+                op, n_pad, mask=torch.from_numpy(mask).to(device),
+                b0=torch.from_numpy(b0).to(device), tol=tol, precond=pre)
+            Yh = Y.cpu().numpy()
+        device_seconds += t_dev.seconds
+        inner = np.sum(info.inner_iters, axis=0)
+        for r, i in enumerate(ix):
+            results[i] = FiedlerResult(
+                Yh[r, :graphs[i].n], float(info.eigenvalue[r]),
+                float(info.residual[r]), int(info.outer_iters[r]), "inverse",
+                levels=0 if pre is None else len(pre.ops),
+                breakdown=bool(info.breakdown[r]),
+                inner_iterations=int(inner[r]),
+            )
+    return device_seconds
+
+
 def fiedler_from_graph_batched(
     graphs: list,
     *,
@@ -354,16 +480,19 @@ def fiedler_from_graph_batched(
     precond: str = "jacobi",
     device=None,
 ) -> list:
-    """Fiedler vectors of B independent graphs in one packed solve.
+    """Fiedler vectors of B independent graphs in one batched solve on
+    ``device`` (default: the card).
 
     Returns FiedlerResults aligned with the input order; problems at or
     below the dense cutoff take the dense host path (exact parity with the
-    unbatched entry point).  Every other problem is packed into one flat
-    block-diagonal Lanczos solve on ``device`` (default: the card), whose
-    matvec is K1 there.  ``precond`` belongs to the inverse path, which is
-    not yet ported.
+    unbatched entry point).  ``method="lanczos"`` packs every other problem
+    into one flat block-diagonal Lanczos solve whose matvec is K1 on the
+    card; ``method="inverse"`` solves (n_pad, width_pad) shape buckets of
+    batched operators (K2 on the card) by inverse iteration, with
+    ``precond="jacobi"`` (the operator's own diagonal) or ``"amg"`` (one
+    packed `BatchedAMG` V-cycle per bucket).
     """
-    _not_ported(method)
+    check_fiedler_method(method)
     B = len(graphs)
     seeds, warms = _normalize_batch_args(B, seeds, warms)
     results: list = [None] * B
@@ -383,6 +512,17 @@ def fiedler_from_graph_batched(
         for i in solve_ix:
             if warms[i] is None:
                 warms[i], ml_levels[i] = multilevel_warm_start(graphs[i])
+                if warms[i] is not None and method == "inverse":
+                    warms[i] = _blend_noise(warms[i], seeds[i])
+
+    if method == "inverse":
+        dev_s = _solve_inverse_buckets(
+            results, solve_ix, graphs, seeds, warms, tol, precond=precond,
+            use_kernel=use_kernel, device=dev)
+        for i in solve_ix:  # deepest hierarchy used: warm start or AMG ladder
+            results[i].levels = max(results[i].levels, ml_levels[i])
+            results[i].device_seconds = dev_s
+        return results
 
     sizes = [graphs[i].n for i in solve_ix]
     offs, N, n_seg, seg, mask = _pack_layout(sizes, pack_slots, pack_segs)

@@ -39,6 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core.flexcg import _project_out_ones
 from repro_torch.device import resolve_device
 
 
@@ -70,14 +71,6 @@ def _full_fp32_matmul():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-
-
-def _project_out_ones(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Remove the (masked) constant component: x ← (x − mean_mask(x))·mask
-    (`repro.core.flexcg._project_out_ones`)."""
-    m = (x * mask).sum(-1, keepdim=True) / torch.clamp(
-        mask.sum(-1, keepdim=True), min=1.0)
-    return (x - m) * mask
 
 
 def _safe_eigh(T: torch.Tensor):

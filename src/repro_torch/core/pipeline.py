@@ -439,26 +439,29 @@ def partition(
     device=None,
     **kw,
 ) -> np.ndarray:
-    """Uniform front door: partitioner ∈ {rsb, rcb, rib, sfc, random},
-    built as a :class:`PartitionPipeline` run; returns the labels.
+    """Uniform front door: partitioner ∈ {rsb, rsb_inverse, rcb, rib, sfc,
+    random}, built as a :class:`PartitionPipeline` run; returns the labels.
 
     ``refine`` selects the post stages ("repair+refine" by default for RSB,
     "none" for the geometric/random baselines).  ``device`` (default: the
     card) is where the spectral solves run.  Remaining keywords are routed
     to the selected stage and unknown keys raise.  ``partitioner=
-    "rsb_inverse"``/``"multilevel"``, ``engine="recursive"`` and
-    ``guard=True`` are not yet ported and raise.
+    "rsb_inverse"`` is RSB with ``method="inverse"`` (``precond=`` "jacobi",
+    the default, or "amg").  ``partitioner="multilevel"``,
+    ``engine="recursive"`` and ``guard=True`` are not yet ported and raise.
     """
     _check_guard(guard)
     is_mesh = hasattr(obj, "vert_gid")
     post_kw = dict(sweeps=refine_sweeps, balance_tol=balance_tol)
 
-    if partitioner in ("rsb_inverse", "multilevel"):
+    if partitioner == "multilevel":
         raise NotImplementedError(
             f"partitioner {partitioner!r} is not yet ported")
-    if partitioner in ("rsb", "rsb_lanczos"):
+    if partitioner in ("rsb", "rsb_lanczos", "rsb_inverse"):
         if engine not in _ENGINE_TO_BISECT:
             raise ValueError(f"unknown engine: {engine}")
+        if partitioner == "rsb_inverse":
+            kw["method"] = "inverse"
         _check_kw(kw, _RSB_MESH_KW if is_mesh else _RSB_GRAPH_KW, partitioner)
         pre = kw.pop("pre", "rcb")
         pipe = PartitionPipeline(

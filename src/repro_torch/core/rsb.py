@@ -5,19 +5,21 @@ level L of the bisection tree are independent, so each level
 
   1. reorders every active node's elements by RCB/RIB (paper §8, host
      NumPy),
-  2. solves every active subproblem's Fiedler vector in ONE packed
-     Lanczos solve on the device (`fiedler_from_graph_batched`), seeded by
-     the cascadic coarse-to-fine warm start (host NumPy), with the solve
-     capped at ``fine_restarts`` refinement restarts over a 20-step window
-     (`_resolve_solver_opts`),
+  2. solves every active subproblem's Fiedler vector on the device
+     (`fiedler_from_graph_batched`), seeded by the cascadic coarse-to-fine
+     warm start (host NumPy): ``method="lanczos"`` in ONE packed Lanczos
+     solve capped at ``fine_restarts`` refinement restarts over a 20-step
+     window (`_resolve_solver_opts`), ``method="inverse"`` by inverse
+     iteration over shape buckets with the ``precond`` ("jacobi" or
+     "amg") inner preconditioner,
   3. splits each node by weight (`_proportional_split`: sort by Fiedler
      component, cut at ⌊P/2⌋ / ⌈P/2⌉ of the weight) and extracts the
      children's subgraphs in one vectorized pass.
 
 Per-node start vectors are seeded from (seed, level, p_lo) as in `repro`.
 ``use_kernel`` defaults to **True** (the JAX engine leaves its Pallas
-kernel off): on the card every packed matvec runs the CUDA ELL SpMV.
-The recursive engine, inverse iteration and the guard hooks are not yet
+kernels off): on the card every matvec runs a CUDA ELL SpMV (K1 packed,
+K2 batched).  The recursive engine and the guard hooks are not yet
 ported.
 """
 
@@ -30,7 +32,7 @@ import numpy as np
 from repro_torch import obs
 from repro_torch.core.fiedler import (
     _DENSE_CUTOFF,
-    _not_ported,
+    check_fiedler_method,
     fiedler_from_graph_batched,
     next_pow2,
 )
@@ -65,11 +67,12 @@ class LevelRecord:
     n_nodes: int             # nodes solved at this level
     total_size: int          # Σ elements over those nodes
     buckets: list            # [(count, n_pad)] — n_pad 0 = dense tail
-    iterations: int          # Σ per-node restarts
+    iterations: int          # Σ per-node restarts / outer iterations
     solve_seconds: float     # warm starts + packing + the device solve
     split_seconds: float     # sort/split + child extraction
     device_seconds: float = 0.0  # the device solve alone (incl. its copies)
     order_seconds: float = 0.0   # RCB/RIB reorder of the level's nodes
+    inner_iterations: int = 0    # Σ per-node flexcg iterations (inverse)
 
 
 @dataclasses.dataclass
@@ -79,7 +82,7 @@ class RSBReport:
     levels: list = dataclasses.field(default_factory=list)
     engine: str = "batched"
     pre: str = "none"          # geometric pre-partitioning used ("rcb"/"rib")
-    precond: str = "none"      # inverse-iteration preconditioner (not ported)
+    precond: str = "none"      # inverse-iteration preconditioner ("jacobi"/"amg")
     multilevel: bool = False   # coarse-to-fine warm starts active
     post: object = None        # refine.PostStats once pipeline post stages ran
 
@@ -93,7 +96,7 @@ class RSBReport:
 
     @property
     def precond_levels(self) -> int:
-        """Deepest warm-start Galerkin ladder used by any solve."""
+        """Deepest Galerkin ladder (warm start or AMG) used by any solve."""
         return max((r.levels for r in self.records), default=0)
 
 
@@ -150,7 +153,7 @@ def _check_method(method: str, engine: str) -> None:
         raise ValueError(f"unknown engine: {engine}")
     if engine == "recursive":
         raise NotImplementedError("engine='recursive' is not yet ported")
-    _not_ported(method)
+    check_fiedler_method(method)
 
 
 def rsb_partition_mesh(
@@ -312,6 +315,7 @@ def _rsb_graph_batched(
                 split_seconds=t_split.seconds,
                 device_seconds=max(r.device_seconds for r in results),
                 order_seconds=t_order.seconds,
+                inner_iterations=sum(r.inner_iterations for r in results),
             ))
             # Per-node split cost isn't separable in the level-synchronous
             # engine; attribute the level's split evenly.
@@ -323,5 +327,6 @@ def _rsb_graph_batched(
     return parts, RSBReport(
         records=records, seconds=t_total.seconds,
         levels=levels, engine="batched", pre=pre or "none",
-        precond="none", multilevel=multilevel,
+        precond=precond if method == "inverse" else "none",
+        multilevel=multilevel,
     )

@@ -1,1 +1,2 @@
-"""K1: the transposed-ELL sparse matvec (CUDA C++ for sm_90a)."""
+"""K1 and K2: the transposed-ELL sparse matvecs, flat and batched (CUDA C++
+for sm_90a)."""

@@ -1,8 +1,8 @@
-"""Plain PyTorch versions of the transposed-ELL matvec (K1, and K2 later).
+"""Plain PyTorch versions of the transposed-ELL matvecs (K1 and K2).
 
 They compute what the kernels compute — fp32 accumulation, output in
 ``x``'s type — on any device.  The CPU path and the tests run them; on the
-card they are the yardstick the CUDA kernel is held against.
+card they are the yardstick the CUDA kernels are held against.
 """
 
 from __future__ import annotations

@@ -6,8 +6,8 @@ JAX side runs the Pallas kernel itself in interpret mode
 accumulate in fp32 in a different order: fp32 agrees to 2e-5 (a few ulps
 of sums of up to 27 unit-variance products), bf16 to 2e-2 (one bf16 ulp
 of the rounded output is ~4e-3 relative).  The CUDA kernel itself is
-held against the plain version on the card (`test_kernel_matches_ref_on_card`
-here, and chip_smoke.py at the main path's shape).
+held against the plain version on the card (tests/test_torch_cuda.py, and
+chip_smoke.py at the main path's shape).
 """
 
 import jax.numpy as jnp
@@ -69,7 +69,7 @@ def test_lap_apply_matches_pallas():
 
 @pytest.mark.parametrize("B,n,w", [(2, 256, 8), (3, 1000, 5)])
 def test_batched_ref_matches_repro_ref(B, n, w):
-    """The batched plain version (for K2, later) against repro's oracle."""
+    """The batched plain version (K2's) against repro's oracle."""
     rng = np.random.default_rng(B * n + w)
     cols = rng.integers(0, n, (B, w, n)).astype(np.int32)
     vals = rng.normal(size=(B, w, n)).astype(np.float32)
@@ -100,31 +100,16 @@ def test_dispatch_contract_on_cpu():
 
 def test_operator_dispatch_and_2d_only():
     """`EllLaplacian` routes through ops (use_kernel=True) or the plain
-    version directly; both agree, and a 3-D (K2) operator is refused."""
+    version directly; both agree.  A 2-D operator takes K1's route only;
+    the same slabs with a leading batch dim take K2's, with the same sums."""
     cols, vals, x = _inputs(300, 5, seed=2)
     ct, vt, xt = _port_args(cols, vals, x, torch.float32)
     diag = torch.from_numpy(np.abs(vals).sum(1))
     a = EllLaplacian(ct, vt, diag, 300, use_kernel=True).apply(xt)
     b = EllLaplacian(ct, vt, diag, 300, use_kernel=False).apply(xt)
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        EllLaplacian(ct[None], vt[None], diag[None], 300)
+    for use_kernel in (True, False):
+        c = EllLaplacian(ct[None], vt[None], diag[None], 300,
+                         use_kernel=use_kernel).apply(xt[None])
+        assert c.shape == (1, 300) and torch.equal(c[0], a)
 
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,w", [(1000, 27), (4096, 32)])
-@pytest.mark.parametrize("dtype", sorted(DTYPES))
-def test_kernel_matches_ref_on_card(n, w, dtype):
-    """The CUDA kernel against its plain version on the card (fp32
-    accumulation in both; only the summation order differs)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the CUDA kernel has no CPU mode")
-    _, tdtype, tol = DTYPES[dtype]
-    args = _port_args(*_inputs(n, w, seed=7), tdtype, device="cuda")
-    before = cuda.LAUNCHES
-    got = ops.ell_spmv(*args, prefer="kernel")
-    torch.cuda.synchronize()
-    assert cuda.LAUNCHES == before + 1
-    want = ref.ell_spmv_ref(*args)
-    np.testing.assert_allclose(got.float().cpu().numpy(),
-                               want.float().cpu().numpy(), **tol)

@@ -25,8 +25,13 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
-print(len(names), bad)
+print(len(names), ",".join(names), bad)
 """
+
+# Modules each slice added; the walk above must reach them.
+_SLICE_MODULES = {"repro_torch.core.lanczos", "repro_torch.core.flexcg",
+                  "repro_torch.core.inverse_iteration", "repro_torch.core.amg",
+                  "repro_torch.kernels.ell_spmv.cuda"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
@@ -34,8 +39,9 @@ def test_import_pulls_in_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                          text=True, env=env, cwd=_REPO, timeout=300)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15
+    count, names, bad = out.stdout.strip().split(" ", 2)
+    assert int(count) >= 17
+    assert _SLICE_MODULES <= set(names.split(","))
     assert bad == "[]", bad
 
 

@@ -171,8 +171,10 @@ def test_breakdown_is_flagged_not_raised():
 
 def test_unported_and_device_contract(monkeypatch):
     g = mesh_t.grid_graph_2d(16, 20)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ft.fiedler_from_graph_batched([g], method="inverse", device="cpu")
+    with pytest.raises(ValueError, match="unknown fiedler method"):
+        ft.fiedler_from_graph_batched([g], method="nope", device="cpu")
+    with pytest.raises(ValueError, match="unknown fiedler method"):
+        ft.fiedler_from_graph(g, method="nope", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ft.fiedler_from_graph_batched([g])

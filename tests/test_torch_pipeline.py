@@ -165,7 +165,7 @@ def test_unported_and_device_contract(quality, monkeypatch):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         cfg_t.make_pipeline("quality", device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        partition(mt, NPARTS, partitioner="rsb_inverse", device="cpu")
+        partition(mt, NPARTS, partitioner="multilevel", device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         partition(mt, NPARTS, refine="repair+kway", device="cpu")
     with pytest.raises(ValueError, match="unknown pipeline preset"):
