@@ -2,15 +2,17 @@
 """Drive the PyTorch port (`repro_torch`, under src/) on one CUDA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --quick    # device, build, kernels, quality only
+    python3 chip_smoke.py --quick    # no full-size runs (phases 5-7)
 
 Phases, each printing JSON lines:
 
 1. ``device``  — the card's name, and ``nvidia-smi``'s name and power limit
    (also printed raw on a line of its own).
-2. ``build``   — compile K1 and K2 (both in csrc/ell_spmv.cu: one nvcc,
-   sm_90a) from the checkout's sources; seconds and the compiler's
-   register report for every kernel.
+2. ``build``   — compile K1 and K2 (both in kernels/ell_spmv/csrc/
+   ell_spmv.cu) and K3 and K4 (both in kernels/segment_sum/csrc/
+   segment_sum.cu) from the checkout's sources, one nvcc per source
+   (sm_90a), both started together; seconds and the compiler's register
+   report for every kernel.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card,
    in fp32 (tolerance 1e-5) and bf16 (2e-2) of each row's Σ|vals·x| (the
    size of the terms the two fp32 sums add in another order), timed by
@@ -36,6 +38,14 @@ Phases, each printing JSON lines:
    BENCH_partition.json (8918), and the invariants; then
    ``pebble_mesh(10, 10, 10, n_pebbles=6, seed=0)`` into 8 parts by inverse
    iteration, against BENCH_partition.json's ``partition_time_smoke`` cuts.
+   Then the k-way presets (``kway``, ``quality``, ``quality-kway``) on the
+   quality mesh, card against CPU and ``kway`` against the recorded JAX cut
+   (8764); and the sharded refinement protocol of
+   ``benchmarks/partition_time.py::run_sharded`` on the 959-element mesh
+   (Lanczos raw labels, then ``repair+refine``, ``repair+refine-sharded``
+   and ``kway-sharded``, 8 sweeps): card labels against the CPU's from the
+   same raw labels, cuts against the recorded JAX cuts (4690 / 4679 /
+   4319), K4 launches against the sweeps run.
 5. ``full``    — ``box_mesh(80, 64, 48)`` (245,760 elements) into 64 parts,
    ``default`` preset (Lanczos, K1), on the card: seconds per stage (host
    and device), per level, K1 launches, peak device memory, the cut against
@@ -43,10 +53,28 @@ Phases, each printing JSON lines:
 6. ``full_inverse`` — the same box and parts by AMG-preconditioned inverse
    iteration (the paper's solver, K2): the same records plus inner flexcg
    iterations per level; the cut against the ``geometric`` cut of ``full``.
+7. ``full_sharded`` — the post chains of ``run_sharded`` on ``full``'s raw
+   labels (no second eigensolve): ``repair+refine`` on the host, then
+   ``repair+refine-sharded`` and ``kway-sharded`` (8 sweeps, K4 every
+   sweep) on the card: seconds split into plan build, sweeps and host
+   admission, halo, w, m, moves and K4 launches per sweep, peak memory,
+   cuts; the sharded cut within 1% of the host refined cut; the card's
+   sweep labels against the NumPy mirror's on the same plan, from the raw
+   labels and from a seeded perturbation of them (2% of the elements).
+8. ``kernels`` (segment_sum) — K4 at the sweep's shape (``main``: the
+   frontier plan of ``full``'s raw labels, 64 shards; with ``--quick``,
+   of RCB labels of the same box) and a tiny one, K3 at
+   ``benchmarks/kernels.py``'s shape and at ``main``'s first shard, each
+   against the plain version (equal on integer weights; on random fp32
+   weights within 1e-6 of each row's Σ|w|), timed by the profiler's device
+   time (by CUDA events where the profiler traces no kernel, as
+   ``dev_ms_by`` says) and by CUDA events, beside the bound, the plain
+   version and one ``index_add_`` of the same weights.
 
 Then the line ``{"kernels": [...]}`` (every ported kernel: launches on its
-main path — K1 in ``full``, K2 in ``full_inverse``, with the counters set to
-0 just before each — error against the plain version, times and bound), the
+main path — K1 in ``full``, K2 in ``full_inverse``, K4 in the two sharded
+chains of ``full_sharded``, K3 on none, with the counters set to 0 just
+before each — error against the plain version, times and bound), the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
 failed check raises and the script exits nonzero without the last line; so
 does a machine without a CUDA card, or a directory that lacks the
@@ -56,6 +84,7 @@ repository's src/.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import statistics
 import subprocess
@@ -72,7 +101,15 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 QUALITY_JAX_CUT = 8918.0      # BENCH_partition.json, quality, rsb_weighted
+QUALITY_KWAY_JAX_CUT = 8764.0  # BENCH_partition.json, quality, rsb_weighted_kway
 SMOKE_INV_RAW, SMOKE_INV_CUT = 4891.0, 4626.0   # partition_time_smoke, inverse
+# BENCH_partition.json, partition_sharded: the three chains' JAX cuts
+SHARDED_JAX_CUTS = {"repair+refine": 4690.0, "repair+refine-sharded": 4679.0,
+                    "kway-sharded": 4319.0}
+SHARDED_CHAINS = {"repair+refine": (("repair", "refine"), {}),
+                  "repair+refine-sharded": (("repair", "refine-sharded"),
+                                            {"sweeps": 8}),
+                  "kway-sharded": (("kway-sharded",), {"sweeps": 8})}
 N_SLOTS = 262144              # next_pow2(245,760): the full run's packed size
 K2_BLOCKS, K2_BLOCK = 32, 7680    # tree level 5 of the 64-part run
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -214,6 +251,24 @@ def device_profile(fn) -> dict:
             d[0] += 1
             d[1] += e.time_range.elapsed_us() / 1e3
     return by_name
+
+
+def profiled_ms(fn, kernel_name, calls=20, sessions=2):
+    """Device ms per launch of the CUDA kernel whose name holds
+    ``kernel_name``, over ``calls`` calls of ``fn`` in one torch.profiler
+    session, and the number of CUDA events that session traced.  The
+    profiler does not trace the card on every machine (it has traced
+    nothing there while the kernel ran and matched its plain version), so a
+    session that misses the kernel is tried again, and after ``sessions``
+    misses the time is None: the caller then reports the CUDA-event
+    time."""
+    for _ in range(sessions):
+        by_name = device_profile(lambda: [fn() for _ in range(calls)])
+        k = [v for n, v in by_name.items() if kernel_name in n]
+        traced = sum(v[0] for v in by_name.values())
+        if k:
+            return k[0][1] / k[0][0], traced
+    return None, traced
 
 
 def top_kernels(by_name, k=8):
@@ -401,6 +456,76 @@ def level_rows(ctx) -> list:
             for lv in ctx.report.levels]
 
 
+def run_chains(graph, raw, nparts, weights, device) -> dict:
+    """`run_sharded`'s post chains from one set of raw labels on ``device``:
+    per chain the labels, cut, invariants, seconds (split for the sharded
+    stage into plan build, sweeps and host admission), moves per sweep,
+    K4 launches and peak device memory."""
+    from repro_torch.core.metrics import partition_metrics
+    from repro_torch.core.pipeline import run_post_stages
+    from repro_torch.core.refine import balance_corridor
+    from repro_torch.kernels.segment_sum import cuda as ss_cuda
+
+    floor, cap = balance_corridor(raw, nparts, weights, 0.05)
+    out = {}
+    for name, (post, kw) in SHARDED_CHAINS.items():
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before = ss_cuda.BATCHED_LAUNCHES
+        t0 = time.perf_counter()
+        parts, agg, records = run_post_stages(graph, raw, nparts, post,
+                                              weights=weights,
+                                              post_kw=dict(kw), device=device)
+        wall = time.perf_counter() - t0
+        pm = partition_metrics(graph, parts, nparts, weights=weights)
+        pw = np.bincount(parts, weights=weights, minlength=nparts)
+        row = dict(parts=parts, cut=pm.edge_cut,
+                   disconnected=pm.disconnected_parts,
+                   corridor=bool(pw.min() >= floor and pw.max() <= cap),
+                   nonempty=int((np.bincount(parts, minlength=nparts) > 0).sum()),
+                   seconds=wall, k4_launches=ss_cuda.BATCHED_LAUNCHES - before,
+                   stages=[dict(name=r.name, seconds=r.seconds) for r in records],
+                   moves_per_sweep=[r.moves for r in agg.sweeps])
+        sharded = [r.info["sharded"] for r in records if "sharded" in r.info]
+        if sharded:
+            info = sharded[0]
+            stage_s = next(r.seconds for r in records if "sharded" in r.info)
+            row.update(gathers=info["gathers"], sweeps_run=len(agg.sweeps),
+                       k4_per_sweep=row["k4_launches"] / max(info["gathers"], 1),
+                       halo=info["halo"], w=info["w"], m=info["m"],
+                       plan_s=info["plan_seconds"],
+                       sweeps_s=info.get("sweep_seconds"),
+                       admit_s=info.get("admit_seconds"),
+                       rest_s=stage_s - info["plan_seconds"]
+                       - info.get("sweep_seconds", 0.0))
+        if device == "cuda":
+            row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out[name] = row
+    return out
+
+
+def check_chains(tag, runs, nparts) -> None:
+    host = runs["repair+refine"]["cut"]
+    for name, r in runs.items():
+        check(r["disconnected"] == 0 and r["corridor"] and r["nonempty"] == nparts,
+              f"{tag} {name}: disconnected parts, corridor or an empty part")
+        if name == "repair+refine":
+            continue
+        check(r["k4_launches"] == r["gathers"] == r["sweeps_run"] > 0,
+              f"{tag} {name}: K4 launches {r['k4_launches']}, gathers "
+              f"{r['gathers']}, sweeps {r['sweeps_run']}")
+        if name == "repair+refine-sharded":
+            check(r["cut"] <= 1.01 * host,
+                  f"{tag}: sharded cut {r['cut']} above 1.01 x the host "
+                  f"refined cut {host}")
+
+
+def chain_rows(runs) -> dict:
+    return {k: {kk: vv for kk, vv in v.items() if kk != "parts"}
+            for k, v in runs.items()}
+
+
 def phase_quality():
     from repro_torch.core.metrics import partition_metrics
     from repro_torch.kernels.ell_spmv import cuda
@@ -450,12 +575,58 @@ def phase_quality():
               f"{SMOKE_INV_CUT} / {SMOKE_INV_RAW}")
         check(pm.disconnected_parts == 0 and corridor and nonempty == 8,
               f"smoke inverse {pc}: invariants")
+
+    # The k-way presets (repair + hill-climbing k-way FM, host) on the card.
+    kway = {}
+    for preset in ("kway", "quality", "quality-kway"):
+        ctx, pm, wall, corridor, nonempty = run_preset(preset, mesh, 16, "cuda")
+        _, pm_cpu, _, _, _ = run_preset(preset, mesh, 16, "cpu")
+        kway[preset] = dict(cut=pm.edge_cut, cut_cpu=pm_cpu.edge_cut,
+                            disconnected=pm.disconnected_parts,
+                            corridor=corridor, seconds=wall,
+                            kway=ctx.report.post.kway.row(),
+                            stages=stage_split(ctx))
+        check(pm.disconnected_parts == 0 and corridor and nonempty == 16,
+              f"quality {preset}: invariants")
+        check(abs(pm.edge_cut - pm_cpu.edge_cut) <= 0.02 * pm_cpu.edge_cut,
+              f"quality {preset}: card cut {pm.edge_cut} vs CPU {pm_cpu.edge_cut}")
+    check(kway["kway"]["cut"] <= 1.05 * QUALITY_KWAY_JAX_CUT,
+          f"quality kway cut {kway['kway']['cut']} > 1.05 x {QUALITY_KWAY_JAX_CUT}")
+
+    # The sharded protocol of benchmarks/partition_time.py::run_sharded.
+    from repro_torch.core.pipeline import PartitionPipeline
+
+    # The chains run on the card and on the CPU from the card's raw labels
+    # (the two fp32 Lanczos solves may split a few elements differently).
+    ctx = PartitionPipeline(pre="rcb", bisect="rsb-batched",
+                            bisect_kw=dict(tol=1e-3), post=(),
+                            device="cuda").run(smoke, 8)
+    sharded = run_chains(ctx.require_graph(), ctx.parts_raw, 8, ctx.weights,
+                         "cuda")
+    sharded_cpu = run_chains(ctx.require_graph(), ctx.parts_raw, 8,
+                             ctx.weights, "cpu")
+    check_chains("smoke sharded", sharded, 8)
+    for name, r in sharded.items():
+        check(np.array_equal(r["parts"], sharded_cpu[name]["parts"]),
+              f"smoke sharded {name}: card labels differ from the CPU's "
+              f"(cuts {r['cut']}, {sharded_cpu[name]['cut']})")
+        check(r["cut"] <= 1.05 * SHARDED_JAX_CUTS[name],
+              f"smoke sharded {name}: cut {r['cut']} > 1.05 x the recorded "
+              f"{SHARDED_JAX_CUTS[name]}")
     emit("quality", mesh="pebble_mesh(12,12,12,n_pebbles=5,warp=0.15,seed=1)",
          nelems=mesh.nelems, nparts=16, jax_cut=QUALITY_JAX_CUT, presets=out,
+         kway_presets=kway, kway_jax_cut=QUALITY_KWAY_JAX_CUT,
          inverse_smoke=dict(mesh="pebble_mesh(10,10,10,n_pebbles=6,seed=0)",
                             nelems=smoke.nelems, nparts=8,
                             jax_cut=SMOKE_INV_CUT, jax_raw_cut=SMOKE_INV_RAW,
-                            runs=inverse_smoke))
+                            runs=inverse_smoke),
+         sharded_smoke=dict(mesh="pebble_mesh(10,10,10,n_pebbles=6,seed=0)",
+                            nparts=8, recorded_jax_cuts=SHARDED_JAX_CUTS,
+                            raw_cut=partition_metrics(
+                                ctx.require_graph(), ctx.parts_raw, 8).edge_cut,
+                            chains=chain_rows(sharded),
+                            cpu_cuts={k: v["cut"]
+                                      for k, v in sharded_cpu.items()}))
 
 
 def phase_full(box):
@@ -484,7 +655,7 @@ def phase_full(box):
     # 313371 against RCB's 307836).  The check bounds the gap.
     check(pm.edge_cut <= 1.05 * gpm.edge_cut,
           f"full: cut {pm.edge_cut} above 1.05 x the geometric cut {gpm.edge_cut}")
-    return launches, gpm.edge_cut
+    return launches, gpm.edge_cut, ctx
 
 
 def phase_full_inverse(box, geometric_cut):
@@ -514,6 +685,149 @@ def phase_full_inverse(box, geometric_cut):
     return launches
 
 
+def mirror_check(tag, graph, parts, weights, nparts, sweeps=8):
+    """The card's sweeps against the NumPy mirror on the same plan: labels,
+    moves per sweep and the tracked cut must be identical (integer
+    weights: every fp32 sum is exact).  Returns the record and the plan."""
+    from repro_torch.core.refine import balance_corridor
+    from repro_torch.dist.refine_sharded import (build_frontier_plan,
+                                                 refine_sharded_host,
+                                                 run_sharded_sweeps)
+
+    corr = balance_corridor(parts, nparts, weights, 0.05)
+    fp = build_frontier_plan(graph, parts, nparts, weights=weights)
+    out, rec, info = run_sharded_sweeps(fp, parts, nparts, sweeps=sweeps,
+                                        corridor=corr, device="cuda")
+    t0 = time.perf_counter()
+    out_h, rec_h, info_h = refine_sharded_host(fp, parts, nparts,
+                                               sweeps=sweeps, corridor=corr)
+    host_s = time.perf_counter() - t0
+    check(np.array_equal(out, out_h), f"{tag}: card labels differ from the "
+          f"NumPy mirror's ({int((out != out_h).sum())} elements)")
+    check([r.moves for r in rec] == [r.moves for r in rec_h]
+          and info["cut"] == info_h["cut"], f"{tag}: moves or cut differ")
+    return dict(moves_per_sweep=[r.moves for r in rec], cut=info["cut"],
+                gathers=info["gathers"], sweeps_s=info["sweep_seconds"],
+                admit_s=info["admit_seconds"], mirror_s=host_s,
+                halo=fp.plan.halo, w=fp.w), fp
+
+
+def phase_full_sharded(ctx):
+    """`run_sharded`'s chains on the full box's raw labels (``full``'s
+    context: no second eigensolve), then the card's sweeps against the
+    NumPy mirror.  Returns the K3 and K4 launches of the chains, the
+    frontier plan of the raw labels (K4's ``main`` shape) and the labels."""
+    from repro_torch.kernels.segment_sum import cuda as ss_cuda
+
+    g, raw, w = ctx.require_graph(), ctx.parts_raw, ctx.weights
+    ss_cuda.LAUNCHES = ss_cuda.BATCHED_LAUNCHES = 0  # this path's counts
+    runs = run_chains(g, raw, 64, w, "cuda")
+    launches = {"K3": ss_cuda.LAUNCHES, "K4": ss_cuda.BATCHED_LAUNCHES}
+    check_chains("full_sharded", runs, 64)
+    check(launches["K4"] > 0, "full_sharded: K4 never launched")
+    mirror_raw, fp = mirror_check("full_sharded raw", g, raw, w, 64)
+    rng = np.random.default_rng(0)
+    perturbed = raw.copy()
+    pick = rng.random(raw.size) < 0.02
+    perturbed[pick] = rng.integers(0, 64, int(pick.sum()))
+    mirror_pert, _ = mirror_check("full_sharded perturbed", g, perturbed, w, 64)
+    check(sum(mirror_pert["moves_per_sweep"]) > 0,
+          "full_sharded perturbed: the sweeps moved nothing")
+    emit("full_sharded", mesh="box_mesh(80,64,48)", nelems=g.n, nparts=64,
+         chains=chain_rows(runs), launches=launches,
+         mirror=dict(raw=mirror_raw, perturbed_2pct=mirror_pert))
+    return launches, fp, raw
+
+
+def segsum_cases(fp, parts):
+    """K4 ``main`` (the sweep's table from ``fp`` and the labels ``parts``),
+    K4 ``tiny``, K3 ``bench`` and K3 ``root`` (``main``'s first shard), each
+    as (kernel, plain, labels, cols, wts, nparts)."""
+    from repro_torch.dist.refine_sharded import _combined_labels_host
+    from repro_torch.kernels.segment_sum import cuda as ss_cuda
+    from repro_torch.kernels.segment_sum import ref as ss_ref
+
+    def dev(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dtype)
+
+    k3 = (ss_cuda.connection_table_cuda, ss_ref.connection_table_ref)
+    k4 = (ss_cuda.connection_table_batched_cuda,
+          ss_ref.connection_table_batched_ref)
+    main = (dev(_combined_labels_host(fp, parts), torch.int32),
+            dev(fp.ell_cols, torch.int32), dev(fp.ell_wts, torch.float32))
+    rng = np.random.default_rng(2)
+
+    def rand(lead, B, w, m, nparts):
+        return (dev(rng.integers(0, nparts, lead + (m,)), torch.int32),
+                dev(rng.integers(0, m, lead + (B, w)), torch.int32),
+                dev(rng.integers(1, 5, lead + (B, w)), torch.float32))
+
+    return {"K4 main": (*k4, *main, 64),
+            "K4 tiny": (*k4, *rand((3,), 40, 6, 90, 9), 9),
+            "K3 bench": (*k3, *rand((), 16384, 27, 32768, 128), 128),
+            "K3 root": (*k3, main[0][0], main[1][0], main[2][0], 64)}
+
+
+def phase_kernels_segsum(fp, parts):
+    """K3 and K4 against the plain version and timed (see the module
+    docstring).  The library yardstick is one ``index_add_`` of the weights
+    into the flattened table at a precomputed index (atomics; timing
+    only)."""
+    rows = {}
+    for case, (kernel, plain, labels, cols, wts, nparts) in \
+            segsum_cases(fp, parts).items():
+        G = cols.shape[0] if cols.ndim == 3 else 1
+        B, w = cols.shape[-2:]
+        got, want = kernel(labels, cols, wts, nparts), plain(labels, cols,
+                                                             wts, nparts)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"{case}: integer weights, kernel "
+              f"differs from the plain version by {float((got - want).abs().max())}")
+        rng = np.random.default_rng(3)
+        fw = torch.from_numpy(rng.normal(size=tuple(wts.shape))
+                              .astype(np.float32)).cuda()
+        gotf, wantf = kernel(labels, cols, fw, nparts), plain(labels, cols,
+                                                              fw, nparts)
+        torch.cuda.synchronize()
+        err = float((gotf - wantf).abs().max())
+        rel = float(((gotf - wantf).abs().amax(-1)
+                     / fw.abs().sum(-1).clamp(min=1e-30)).max())
+        check(rel <= 1e-6, f"{case}: fp32 weights, max err {err}, {rel} of Σ|w|")
+
+        lab = torch.gather(labels.reshape(G, -1).long(), 1,
+                           cols.reshape(G, -1).long())
+        rowid = torch.arange(G * B, device="cuda").repeat_interleave(w)
+        index = rowid * nparts + lab.reshape(-1)
+        flat = torch.zeros(G * B * nparts, device="cuda")
+        lib = torch.zeros_like(flat).index_add_(0, index, wts.reshape(-1))
+        check(torch.allclose(lib.reshape(want.shape), want),
+              f"{case}: index_add_ disagrees with the plain version")
+        uniq = torch.unique(cols.reshape(G, -1).long()
+                            + torch.arange(G, device="cuda")[:, None]
+                            * labels.shape[-1]).numel()
+        nbytes = 4 * (2 * G * B * w + G * B * nparts + uniq)
+        bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops_ms = G * B * w / FP32_FLOPS_PER_S * 1e3
+        kernel_ms = time_ms(lambda: kernel(labels, cols, wts, nparts))
+        dev_ms, profiler_events = profiled_ms(
+            lambda: kernel(labels, cols, wts, nparts), "segment_sum_kernel")
+        rows[case] = dict(
+            G=G, B=B, w=w, m=labels.shape[-1], nparts=nparts, max_abs_err=err,
+            max_err_of_weights=rel,
+            dev_ms=dev_ms if dev_ms is not None else kernel_ms,
+            dev_ms_by="profiler" if dev_ms is not None else "cuda_events",
+            profiler_cuda_events=profiler_events, kernel_ms=kernel_ms,
+            ref_ms=time_ms(lambda: plain(labels, cols, wts, nparts),
+                           reps=5, rounds=5, warmup=2),
+            library_ms=time_ms(lambda: flat.index_add_(0, index,
+                                                       wts.reshape(-1))),
+            bytes=nbytes, bound_ms=max(bound_bytes_ms, bound_ops_ms),
+            bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+            else "operations")
+    emit("kernels", kernel="segment_sum", cases=rows)
+    return rows
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -531,8 +845,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from repro_torch.core.rcb import rcb_order
+    from repro_torch.core.rcb import rcb_order, rcb_parts
+    from repro_torch.dist.refine_sharded import build_frontier_plan
     from repro_torch.kernels.ell_spmv import cuda
+    from repro_torch.kernels.segment_sum import cuda as ss_cuda
     from repro_torch.mesh import box_mesh, dual_graph
 
     name = torch.cuda.get_device_name(0)
@@ -540,10 +856,13 @@ def main(argv=None) -> int:
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
+    # One nvcc per source, started together.
     t0 = time.perf_counter()
-    path, report = cuda.build()
-    emit("build", seconds=time.perf_counter() - t0, library=path.name,
-         ptxas=[ln for ln in report.splitlines()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(lambda mod: mod.build(), (cuda, ss_cuda)))
+    emit("build", seconds=time.perf_counter() - t0,
+         libraries=[path.name for path, _ in built],
+         ptxas=[ln for _, report in built for ln in report.splitlines()
                 if "entry function" in ln or "registers" in ln or "spill" in ln])
 
     box = box_mesh(80, 64, 48)
@@ -558,21 +877,40 @@ def main(argv=None) -> int:
     del k1_profiles, k2_profiles
     phase_quality()
     k1_launches = k2_launches = None
+    ss_launches = {"K3": None, "K4": None}
     if not args.quick:
-        k1_launches, geometric_cut = phase_full(box)
+        k1_launches, geometric_cut, full_ctx = phase_full(box)
         k2_launches = phase_full_inverse(box, geometric_cut)
+        ss_launches, fp, sweep_parts = phase_full_sharded(full_ctx)
+        del full_ctx
+    else:
+        sweep_parts = rcb_parts(box.coords, 64, box.weights)
+        fp = build_frontier_plan(dual_graph(box), sweep_parts, 64,
+                                 weights=box.weights)
+    ss_rows = phase_kernels_segsum(fp, sweep_parts)
 
     def main_f32(rows):
         return next(r for r in rows
                     if r["case"] == "main" and r["dtype"] == "float32")
 
+    def segsum_row(case):
+        r = ss_rows[case]
+        return dict(r, kernel_ms=r["dev_ms"])   # see ``dev_ms_by``
+
     src = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
+    ss_src = "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu"
     print(json.dumps({"kernels": [
         kernel_entry("ell_spmv", src, "src/repro/kernels/ell_spmv/kernel.py:45",
                      k1_launches, main_f32(k1_rows)),
         kernel_entry("ell_spmv_batched", src,
                      "src/repro/kernels/ell_spmv/kernel.py:81", k2_launches,
                      main_f32(k2_rows)),
+        kernel_entry("segment_sum", ss_src,
+                     "src/repro/kernels/segment_sum/kernel.py:49",
+                     ss_launches["K3"], segsum_row("K3 root")),
+        kernel_entry("segment_sum_batched", ss_src,
+                     "src/repro/kernels/segment_sum/kernel.py:92",
+                     ss_launches["K4"], segsum_row("K4 main")),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

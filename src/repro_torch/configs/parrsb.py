@@ -3,8 +3,8 @@
 `ParRSBConfig` is `repro.configs.parrsb`'s, field for field, plus the
 named partition-pipeline presets (pre → bisect → post; see
 ``repro_torch.core.pipeline``).  Only the presets whose stages the port
-has are here — ``default``, ``raw`` and ``geometric``; the others raise
-"not yet ported".
+has are here — ``default``, ``raw``, ``quality``, ``geometric``, ``kway``
+and ``quality-kway``; the others raise "not yet ported".
 """
 
 from __future__ import annotations
@@ -63,15 +63,26 @@ PIPELINE_PRESETS: dict = {
                     post=("repair", "refine")),
     # Raw bisection labels — parity baselines, debugging.
     "raw": dict(pre="rcb", bisect="rsb-batched", post=()),
+    # Quality-first: inertial per-level reorder, hill-climbing k-way FM
+    # post chain with a deeper climb and tighter corridor.
+    "quality": dict(pre="rib", bisect="rsb-batched",
+                    post=("repair", "kway"),
+                    post_kw=dict(passes=12, balance_tol=0.03)),
     # Geometry-only fast path: RCB labels healed by the post stage — no
     # eigensolves at all.
     "geometric": dict(pre="none", bisect="rcb", post=("repair", "refine")),
+    # Hill-climbing k-way FM post stage (core/kway.py): negative-gain
+    # prefixes + rollback recover cut the greedy sweeps cannot.
+    "kway": dict(pre="rcb", bisect="rsb-batched", post=("repair", "kway")),
+    # Quality-first k-way: inertial reorder, deeper climb, tighter corridor.
+    "quality-kway": dict(pre="rib", bisect="rsb-batched",
+                         post=("repair", "kway"),
+                         post_kw=dict(passes=12, balance_tol=0.03)),
 }
 
-# `repro`'s other presets, whose stages (recursive engine, k-way FM,
-# multilevel V-cycle) wait for later slices.
-UNPORTED_PRESETS = ("quality", "reference", "kway", "quality-kway",
-                    "multilevel", "multilevel-quality")
+# `repro`'s other presets, whose stages (recursive engine, multilevel
+# V-cycle) wait for later slices.
+UNPORTED_PRESETS = ("reference", "multilevel", "multilevel-quality")
 
 
 def make_pipeline(preset: str | None = None, *,
@@ -79,8 +90,9 @@ def make_pipeline(preset: str | None = None, *,
     """Build a :class:`~repro_torch.core.pipeline.PartitionPipeline` from a
     named preset.  The config supplies the base post-stage knobs
     (``refine_sweeps``/``balance_tol``) and the default preset name
-    (``pipeline``); keyword overrides win (`post_kw`/`bisect_kw` merge,
-    other fields — e.g. ``device`` — replace)."""
+    (``pipeline``); preset-specific ``post_kw`` overrides them and keyword
+    overrides win over both (`post_kw`/`bisect_kw` merge, other fields —
+    e.g. ``device`` — replace)."""
     from repro_torch.core.pipeline import PartitionPipeline
 
     cfg = make_config() if config is None else config
@@ -94,6 +106,7 @@ def make_pipeline(preset: str | None = None, *,
     spec = dict(PIPELINE_PRESETS[preset])
     post_kw = dict(sweeps=cfg.refine_sweeps, passes=cfg.kway_passes,
                    balance_tol=cfg.balance_tol)
+    post_kw.update(spec.pop("post_kw", {}))
     post_kw.update(overrides.pop("post_kw", {}))
     bisect_kw = dict(overrides.pop("bisect_kw", {}))
     spec.setdefault("guard", cfg.guard)

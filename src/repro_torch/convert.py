@@ -2,10 +2,10 @@
 
 The partitioner has no weights; what carries across between the two
 packages is the input and its assembled operators — the mesh, its dual
-graph and the ELL Laplacian.  These builders take exactly the arrays a
-`repro` object holds (``graph.indptr``, ``op.cols`` …, as NumPy), so a
-test can hand both packages the identical input.  Nothing here imports
-`repro`.
+graph, the ELL Laplacian and the halo sharding plan.  These builders take
+exactly the arrays a `repro` object holds (``graph.indptr``, ``op.cols``,
+``plan.export_idx`` …, as NumPy), so a test can hand both packages the
+identical input.  Nothing here imports `repro`.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.laplacian import EllLaplacian, ell_operator
+from repro_torch.dist.partition_aware import HaloPlan
 from repro_torch.mesh.box import HexMesh, derive_edge_face_gids
 from repro_torch.mesh.graphs import Graph
 
@@ -44,3 +45,24 @@ def mesh_from_arrays(vert_gid, coords, weights, n_vert) -> HexMesh:
                    coords=np.array(coords, dtype=np.float64),
                    weights=np.array(weights, dtype=np.float64),
                    n_vert=int(n_vert), n_edge=n_edge, n_face=n_face)
+
+
+def halo_plan_from_arrays(n, n_shards, n_local, halo, max_edges, block_sizes,
+                          shard_of, slot_of, export_idx, export_mask,
+                          edge_src, edge_dst, edge_weight,
+                          edge_mask) -> HaloPlan:
+    """A `HaloPlan` from the fields of `repro.dist.partition_aware.HaloPlan`
+    (the same names, in its field order), in the dtypes `_assemble_plan`
+    gives them."""
+    return HaloPlan(
+        n=int(n), n_shards=int(n_shards), n_local=int(n_local),
+        halo=int(halo), max_edges=int(max_edges),
+        block_sizes=np.array(block_sizes, dtype=np.int64),
+        shard_of=np.array(shard_of, dtype=np.int64),
+        slot_of=np.array(slot_of, dtype=np.int64),
+        export_idx=np.array(export_idx, dtype=np.int64),
+        export_mask=np.array(export_mask, dtype=np.float32),
+        edge_src=np.array(edge_src, dtype=np.int64),
+        edge_dst=np.array(edge_dst, dtype=np.int64),
+        edge_weight=np.array(edge_weight, dtype=np.float32),
+        edge_mask=np.array(edge_mask, dtype=np.float32))

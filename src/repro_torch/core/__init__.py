@@ -1,4 +1,5 @@
-"""parRSB core in PyTorch: the ported part of `repro.core` (slices A and B1)."""
+"""parRSB core in PyTorch: the ported part of `repro.core` (slices A, B1
+and B2, k-way FM)."""
 
 from repro_torch.core.amg import (
     AMG,
@@ -19,6 +20,13 @@ from repro_torch.core.inverse_iteration import (
     InverseIterInfo,
     inverse_iteration,
     inverse_iteration_batched,
+)
+from repro_torch.core.kway import (
+    KwayPassRecord,
+    KwayStats,
+    kway_fm,
+    kway_fm_boundary,
+    kway_stage,
 )
 from repro_torch.core.lanczos import (
     BatchedLanczosInfo,

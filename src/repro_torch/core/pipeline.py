@@ -6,8 +6,9 @@ The port of `repro.core.pipeline` without the guard envelope:
   "rib", "sfc", "none"}: "rcb"/"rib" select the per-level reorder the RSB
   engine applies at every tree node, "sfc" one global space-filling-curve
   permutation up front.  ``bisect`` ∈ {"rsb-batched", "rcb", "rib", "sfc",
-  "random"}.  ``post`` — an ordered tuple of {"repair", "refine"}, by
-  default both, run under ONE balance corridor (:func:`run_post_stages`).
+  "random"}.  ``post`` — an ordered tuple of {"repair", "refine", "kway",
+  "refine-sharded", "kway-sharded"}, by default ("repair", "refine"), run
+  under ONE balance corridor (:func:`run_post_stages`).
 * :class:`PartitionContext` — what flows through the stages, with one
   :class:`StageRecord` per stage (wall seconds, and for the spectral
   bisect stage the part of them spent in device solves).
@@ -15,11 +16,12 @@ The port of `repro.core.pipeline` without the guard envelope:
 
 ``device`` (default ``None``, meaning the card) is resolved when a run
 starts: without a card a run raises unless the caller asked for the CPU.
-Only the spectral bisect stage uses it; the other stages are host NumPy,
-bit-identical to `repro` on the same inputs.
+The spectral bisect stage and the sharded post stages ("refine-sharded",
+"kway-sharded", whose sweeps run there) use it; the other stages are host
+NumPy, bit-identical to `repro` on the same inputs.
 
 Stage names `repro` knows but the port does not have yet (the recursive
-engine, multilevel, k-way, sharded refinement) raise NotImplementedError;
+engine, multilevel) raise NotImplementedError;
 unknown names raise ValueError, as in `repro`.  ``guard=True`` raises: the
 guard stages are not ported, and an unguarded run is what a healthy
 guarded `repro` run returns bit for bit.
@@ -33,6 +35,7 @@ import inspect
 import numpy as np
 
 from repro_torch import obs
+from repro_torch.core.kway import kway_stage
 from repro_torch.core.refine import (
     PostStats,
     balance_corridor,
@@ -93,7 +96,6 @@ PRE_STAGES = ("rcb", "rib", "sfc", "none")
 
 # Stages `repro` registers that the port does not have yet.
 _UNPORTED_BISECT = ("rsb-recursive", "multilevel")
-_UNPORTED_POST = ("kway", "refine-sharded", "kway-sharded")
 
 _BISECT_STAGES: dict = {}
 _POST_STAGES: dict = {}
@@ -151,6 +153,31 @@ def _stage_kw(fn, post_kw: dict) -> dict:
     return {k: v for k, v in post_kw.items() if k in params}
 
 
+def _refine_sharded_stage(graph, parts, nparts, *, weights=None, sweeps=4,
+                          balance_tol=0.05, corridor=None, backend="auto",
+                          guard=None, device=None):
+    """Device-resident sharded boundary refinement (repro_torch.dist).  The
+    signature mirrors dist.refine_sharded.refine_sharded_stage so
+    ``_stage_kw`` filters correctly; the import is lazy because the dist
+    layer imports the core package."""
+    from repro_torch.dist.refine_sharded import refine_sharded_stage
+    return refine_sharded_stage(graph, parts, nparts, weights=weights,
+                                sweeps=sweeps, balance_tol=balance_tol,
+                                corridor=corridor, backend=backend,
+                                guard=guard, device=device)
+
+
+def _kway_sharded_stage(graph, parts, nparts, *, weights=None, sweeps=4,
+                        passes=2, balance_tol=0.05, corridor=None,
+                        backend="auto", guard=None, device=None):
+    """Sharded sweeps + host boundary k-way polish (repro_torch.dist)."""
+    from repro_torch.dist.refine_sharded import kway_sharded_stage
+    return kway_sharded_stage(graph, parts, nparts, weights=weights,
+                              sweeps=sweeps, passes=passes,
+                              balance_tol=balance_tol, corridor=corridor,
+                              backend=backend, guard=guard, device=device)
+
+
 def _register_builtin_stages() -> None:
     from repro_torch.core.rcb import rcb_parts, rib_parts
     from repro_torch.core.sfc import sfc_parts
@@ -165,6 +192,9 @@ def _register_builtin_stages() -> None:
     register_bisect_stage("random", _random_stage)
     register_post_stage("repair", repair_components)
     register_post_stage("refine", refine_stage)
+    register_post_stage("kway", kway_stage)
+    register_post_stage("refine-sharded", _refine_sharded_stage)
+    register_post_stage("kway-sharded", _kway_sharded_stage)
 
 
 _register_builtin_stages()
@@ -216,16 +246,22 @@ def run_post_stages(
     *,
     weights: np.ndarray | None = None,
     post_kw: dict | None = None,
+    device=None,
 ) -> tuple[np.ndarray, PostStats, list]:
     """Run an ordered chain of registered post stages over ``parts``.
 
     The balance corridor is computed ONCE here — from the part weights the
     chain starts with — and threaded through every stage, so a
     cap-exceeding forced move in one stage cannot widen the corridor for
-    the stages after it.  Returns the refined labels, the aggregated
-    :class:`PostStats`, and one :class:`StageRecord` per stage.
+    the stages after it.  ``device`` (None: the card) goes to the stages
+    that declare a ``device`` keyword (the sharded ones) and is resolved
+    only when the chain has one.  Returns the refined labels, the
+    aggregated :class:`PostStats`, and one :class:`StageRecord` per stage.
     """
     post_kw = dict(post_kw or {})
+    if any("device" in inspect.signature(_POST_STAGES[name]).parameters
+           for name in post):
+        post_kw["device"] = resolve_device(device)
     parts = np.asarray(parts, dtype=np.int64)
     if post_kw.get("corridor") is None:
         post_kw["corridor"] = balance_corridor(
@@ -248,16 +284,19 @@ def run_post_stages(
         agg.unrepaired_fragments = stats.unrepaired_fragments
         agg.moves_applied += stats.moves_applied
         agg.sweeps.extend(stats.sweeps)
+        if stats.kway is not None:
+            agg.kway = stats.kway
         agg.seconds += dt
-        records.append(StageRecord(
-            kind="post", name=name, seconds=dt,
-            info={"cut_before": stats.cut_before,
-                  "cut_after": stats.cut_after,
-                  "fragments": stats.fragments_repaired,
-                  "moves": stats.moves_applied,
-                  "corridor": tuple(stats.corridor)
-                  if stats.corridor else None},
-        ))
+        info = {"cut_before": stats.cut_before,
+                "cut_after": stats.cut_after,
+                "fragments": stats.fragments_repaired,
+                "moves": stats.moves_applied,
+                "corridor": tuple(stats.corridor)
+                if stats.corridor else None}
+        if stats.sharded is not None:
+            info["sharded"] = stats.sharded
+        records.append(StageRecord(kind="post", name=name, seconds=dt,
+                                   info=info))
         if i == 0:
             agg.cut_before = stats.cut_before
         agg.cut_after = stats.cut_after
@@ -270,7 +309,8 @@ class PartitionPipeline:
 
     ``bisect_kw`` goes to the bisect stage verbatim; ``post_kw`` to every
     post stage, filtered against each stage's signature.  ``device`` is
-    where the spectral bisect stage solves (``None``: the card).
+    where the spectral bisect stage solves and the sharded post stages
+    sweep (``None``: the card).
     """
 
     pre: str = "rcb"
@@ -295,9 +335,6 @@ class PartitionPipeline:
                 f"(have {bisect_stage_names()})")
         self.post = tuple(self.post)
         for name in self.post:
-            if name in _UNPORTED_POST:
-                raise NotImplementedError(
-                    f"post stage {name!r} is not yet ported")
             if name not in _POST_STAGES:
                 raise ValueError(
                     f"unknown post stage: {name!r} "
@@ -370,7 +407,7 @@ class PartitionPipeline:
         if self.post:
             parts, agg, records = run_post_stages(
                 ctx.require_graph(), ctx.parts, nparts, self.post,
-                weights=ctx.weights, post_kw=self.post_kw)
+                weights=ctx.weights, post_kw=self.post_kw, device=device)
             ctx.parts = parts
             ctx.stages.extend(records)
             report.post = agg
@@ -393,10 +430,16 @@ _GEOM_KW = {"rcb": set(), "rib": set(), "sfc": {"curve", "bits"},
 _REFINE_SPECS = {
     "none": (), "repair": ("repair",), "refine": ("refine",),
     "repair+refine": ("repair", "refine"),
+    # Hill-climbing k-way FM (core/kway.py): negative-gain prefixes with
+    # rollback to the best prefix.
+    "kway": ("kway",), "repair+kway": ("repair", "kway"),
+    # Device-resident sharded refinement (dist/refine_sharded.py): one
+    # boundary-label gather and one K4 connection table per sweep.
+    "refine-sharded": ("refine-sharded",),
+    "repair+refine-sharded": ("repair", "refine-sharded"),
+    "kway-sharded": ("kway-sharded",),
+    "repair+kway-sharded": ("repair", "kway-sharded"),
 }
-_UNPORTED_REFINE = ("kway", "repair+kway", "refine-sharded",
-                    "repair+refine-sharded", "kway-sharded",
-                    "repair+kway-sharded")
 
 
 def parse_refine(refine) -> tuple:
@@ -404,9 +447,6 @@ def parse_refine(refine) -> tuple:
     if refine is None:
         return _REFINE_SPECS["repair+refine"]
     if isinstance(refine, str):
-        if refine in _UNPORTED_REFINE:
-            raise NotImplementedError(
-                f"refine spec {refine!r} is not yet ported")
         try:
             return _REFINE_SPECS[refine]
         except KeyError:
@@ -443,8 +483,10 @@ def partition(
     random}, built as a :class:`PartitionPipeline` run; returns the labels.
 
     ``refine`` selects the post stages ("repair+refine" by default for RSB,
-    "none" for the geometric/random baselines).  ``device`` (default: the
-    card) is where the spectral solves run.  Remaining keywords are routed
+    "none" for the geometric/random baselines; "repair+kway" the k-way FM,
+    "repair+refine-sharded" / "kway-sharded" the sharded sweeps).
+    ``device`` (default: the card) is where the spectral solves and the
+    sharded sweeps run.  Remaining keywords are routed
     to the selected stage and unknown keys raise.  ``partitioner=
     "rsb_inverse"`` is RSB with ``method="inverse"`` (``precond=`` "jacobi",
     the default, or "amg").  ``partitioner="multilevel"``,

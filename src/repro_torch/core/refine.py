@@ -46,8 +46,9 @@ its FM sweeps with a repair pass: the invariant handed downstream is
 worse than the bisection's.  :func:`repair_refine` composes the default
 post pair (repair, then refine_stage) as one call for direct library use.
 
-Host NumPy, bit-identical to `repro.core.refine` on the same labels; the
-k-way and sharded refiners are not ported yet.
+Host NumPy, bit-identical to `repro.core.refine` on the same labels.  The
+k-way refiner is `repro_torch.core.kway`, the sharded one
+`repro_torch.dist.refine_sharded`.
 """
 
 from __future__ import annotations
@@ -85,6 +86,10 @@ class PostStats:
     cut_before: float = 0.0
     cut_after: float = 0.0
     seconds: float = 0.0
+    # The port's own record of a sharded stage (not in ``row()``, which
+    # stays `repro`'s): the sweep loop's ``info`` — moves, gathers, cut,
+    # sweep and admission seconds — plus plan seconds, halo, w and m.
+    sharded: dict | None = None
 
     def row(self) -> dict:
         """JSON-able summary (benchmark rows, smoke gate)."""

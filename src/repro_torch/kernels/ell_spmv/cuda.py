@@ -1,12 +1,10 @@
 """Loader and launch wrappers for K1 and K2, the hand-written CUDA ELL SpMVs.
 
-`csrc/ell_spmv.cu` is compiled at first use with ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` into a shared library with a plain C
-interface under ``build/repro_torch_kernels/`` at the repository root, and
-loaded with `ctypes` (pointers and the stream go in as ``c_void_p``).  The
-library's file name carries a hash of the source, so an edited kernel is
-rebuilt and a stale build is never loaded.  Nothing here runs at import:
-the module imports on a machine with no `nvcc` and no card.
+`csrc/ell_spmv.cu` is built at first use and loaded with `ctypes` by
+`repro_torch.kernels._build` (``nvcc``, ``sm_90a``, a plain C interface,
+the library under ``build/repro_torch_kernels/`` named by a hash of the
+source).  Nothing here runs at import: the module imports on a machine
+with no `nvcc` and no card.
 
 :func:`ell_spmv_cuda` (K1) and :func:`ell_spmv_batched_cuda` (K2) check
 devices, types, shapes and contiguity, raise on anything the kernel does
@@ -18,18 +16,13 @@ K2's (and nothing else), so a run can show that it went through them.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ell_spmv.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = 0          # K1 launches since the last reset (callers reset)
 BATCHED_LAUNCHES = 0  # K2 launches since the last reset
@@ -40,55 +33,22 @@ _MAX_GRID_Y = 65535   # CUDA's limit on gridDim.y, K2's problem axis
 _lib = None
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA ELL "
-                           "SpMV kernel cannot be built")
-    return found
-
-
-def build() -> tuple[Path, str]:
-    """Compile the kernel if its library is not built yet.
-
-    Returns the library path and the compiler's report (``-Xptxas -v``:
-    registers, shared memory and spills per kernel; empty when the library
-    was already built)."""
-    tag = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    out = BUILD_DIR / f"libell_spmv_{tag}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stderr
+def build():
+    """Compile the kernels' library if needed: its path and the compiler's
+    register report (see `_build.build`)."""
+    return _build.build(SOURCE)
 
 
 def _load():
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        for name in _FUNCS.values():
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 4 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        for name in _BATCHED_FUNCS.values():
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 4 + [
-                ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        _lib = lib
+        ptr = ctypes.c_void_p
+        sigs = {name: [ptr] * 4 + [ctypes.c_longlong, ctypes.c_int, ptr]
+                for name in _FUNCS.values()}
+        sigs.update({name: [ptr] * 4 + [ctypes.c_int, ctypes.c_longlong,
+                                        ctypes.c_int, ptr]
+                     for name in _BATCHED_FUNCS.values()})
+        _lib = _build.load(SOURCE, sigs)
     return _lib
 
 

@@ -163,11 +163,11 @@ def test_unported_and_device_contract(quality, monkeypatch):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         partition(mt, NPARTS, guard=True, device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        cfg_t.make_pipeline("quality", device="cpu")
+        cfg_t.make_pipeline("reference", device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         partition(mt, NPARTS, partitioner="multilevel", device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        partition(mt, NPARTS, refine="repair+kway", device="cpu")
+        cfg_t.make_pipeline("multilevel", device="cpu")
     with pytest.raises(ValueError, match="unknown pipeline preset"):
         cfg_t.make_pipeline("nope")
     with pytest.raises(ValueError, match="unknown bisect stage"):
