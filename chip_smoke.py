@@ -9,9 +9,10 @@ Phases, each printing JSON lines:
 1. ``device``  — the card's name, and ``nvidia-smi``'s name and power limit
    (also printed raw on a line of its own).
 2. ``build``   — compile K1 and K2 (both in kernels/ell_spmv/csrc/
-   ell_spmv.cu) and K3 and K4 (both in kernels/segment_sum/csrc/
-   segment_sum.cu) from the checkout's sources, one nvcc per source
-   (sm_90a), both started together; seconds and the compiler's register
+   ell_spmv.cu), K3 and K4 (both in kernels/segment_sum/csrc/
+   segment_sum.cu) and K6 (kernels/flash_attention/csrc/
+   flash_attention.cu) from the checkout's sources, one nvcc per source
+   (sm_90a), all started together; seconds and the compiler's register
    report for every kernel.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card,
    in fp32 (tolerance 1e-5) and bf16 (2e-2) of each row's Σ|vals·x| (the
@@ -71,14 +72,39 @@ Phases, each printing JSON lines:
    ``dev_ms_by`` says) and by CUDA events, beside the bound, the plain
    version and one ``index_add_`` of the same weights.
 
+9. ``kernels`` (flash_attention) — K6 against its plain version
+   (`ref.flash_attention_plain`) in fp32 (2e-5) and bf16 (2e-2, atol and
+   rtol as tests/test_kernels.py's ``_tol``) at the serve path's shapes
+   (tinyllama: H = 32, Hkv = 4, D = 64; ``prefill`` B=4, S=512,
+   ``long_prefill`` B=1, S=4096, ``decode`` B=4 over a 576-row cache with
+   kv_len 575), at tests/test_kernels.py's five shapes and one non-causal
+   call: error, CUDA-event ms, profiler device ms, the bound, the plain
+   version's ms and one ``scaled_dot_product_attention`` call's ms
+   (``library_ms``; keys sliced to kv_len, an explicit mask where the
+   queries are not top-left aligned).
+10. ``serve`` — `tinyllama-1.1b` at full width (``make_config()``, bf16,
+    parameters from a seeded generator) through `launch.serve.generate`:
+    ``requests`` (batch 4, prompt 512, 64 greedy steps) and ``long``
+    (batch 1, prompt 4096, 16 steps), each with prefill ms, decode ms,
+    tok/s, p50/p99 step ms, peak memory and K6 launches (= 22 x steps);
+    a profile of one prefill and one decode step (CUDA kernels, device
+    ms, K6's share); and three checks: (a) the K6 model's prefill and
+    decode logits against the same model with the plain attention
+    (``attn_prefer="ref"``) on the card, max |Δ| ≤ 3e-2 of max |logit|;
+    (b) the last of 7 decode steps (and the prefill before them) against
+    a full `forward` over the same tokens, ≤ 5e-2 of max |logit| (bf16
+    through 22 layers: two GEMM shapes round differently); (c) the smoke
+    config in fp32: greedy tokens on the card identical to the CPU's,
+    logits within 1e-3.
+
 Then the line ``{"kernels": [...]}`` (every ported kernel: launches on its
 main path — K1 in ``full``, K2 in ``full_inverse``, K4 in the two sharded
-chains of ``full_sharded``, K3 on none, with the counters set to 0 just
-before each — error against the plain version, times and bound), the
-``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  Any
-failed check raises and the script exits nonzero without the last line; so
-does a machine without a CUDA card, or a directory that lacks the
-repository's src/.
+chains of ``full_sharded``, K3 on none, K6 in the two ``serve`` runs, with
+the counters set to 0 just before each — error against the plain version,
+times and bound), the ``nvidia-smi`` line, and last ``{"ok": true,
+"device": {...}}``.  Any failed check raises and the script exits nonzero
+without the last line; so does a machine without a CUDA card, or a
+directory that lacks the repository's src/.
 """
 
 from __future__ import annotations
@@ -100,6 +126,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 QUALITY_JAX_CUT = 8918.0      # BENCH_partition.json, quality, rsb_weighted
 QUALITY_KWAY_JAX_CUT = 8764.0  # BENCH_partition.json, quality, rsb_weighted_kway
 SMOKE_INV_RAW, SMOKE_INV_CUT = 4891.0, 4626.0   # partition_time_smoke, inverse
@@ -114,6 +141,24 @@ N_SLOTS = 262144              # next_pow2(245,760): the full run's packed size
 K2_BLOCKS, K2_BLOCK = 32, 7680    # tree level 5 of the 64-part run
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 INVERSE_AMG = dict(method="inverse", precond="amg")
+# K6 cases: (B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal); None = the
+# end-aligned default of `ops.flash_attention`.
+FLASH_CASES = {
+    "prefill": (4, 512, 512, 32, 4, 64, None, None, True),
+    "long_prefill": (1, 4096, 4096, 32, 4, 64, None, None, True),
+    "decode": (4, 1, 576, 32, 4, 64, 574, 575, True),
+    "k1": (2, 64, 64, 4, 2, 32, None, None, True),
+    "k2": (1, 100, 100, 4, 4, 64, None, None, True),
+    "k3": (2, 1, 200, 8, 2, 64, None, None, True),
+    "k4": (1, 128, 256, 4, 1, 32, None, None, True),
+    "k5": (1, 48, 48, 2, 2, 128, None, None, True),
+    "noncausal": (2, 64, 96, 4, 2, 32, None, None, False),
+}
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# serve runs: (batch, prompt_len, steps)
+SERVE_RUNS = {"requests": (4, 512, 64), "long": (1, 4096, 16)}
+SERVE_TOL_REF = 3e-2       # (a) K6 model vs plain-attention model, bf16
+SERVE_TOL_FORWARD = 5e-2   # (b) decode vs full forward, bf16
 
 
 def emit(phase: str, **fields) -> None:
@@ -828,6 +873,257 @@ def phase_kernels_segsum(fp, parts):
     return rows
 
 
+def time_auto(fn) -> float:
+    """`time_ms` with the repetitions scaled to the call: calls above 1 ms
+    run 5 rounds of ~20 ms each, so a slow plain version does not run for
+    minutes."""
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    one = a.elapsed_time(b)
+    if one < 1.0:
+        return time_ms(fn)
+    return time_ms(fn, reps=max(1, int(20 / one)), rounds=5, warmup=1)
+
+
+def flash_work(B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal, elsize):
+    """Bytes (q, the keys and values the queries need, o; each once) and
+    flops (4·D per unmasked (query, key) pair and head) of one call."""
+    qpos = q_offset + np.arange(Sq)
+    if causal:
+        keys = np.clip(np.minimum(kv_len, qpos + 1), 0, None)
+        kv_used = int(keys.max()) if Sq else 0
+    else:
+        keys = np.full(Sq, kv_len)
+        kv_used = kv_len
+    nbytes = elsize * (2 * B * Sq * H * D + 2 * B * kv_used * Hkv * D)
+    flops = 4 * D * H * B * int(keys.sum())
+    return nbytes, flops
+
+
+def sdpa_call(q, k, v, causal, q_offset, kv_len):
+    """One `scaled_dot_product_attention` call computing the same function
+    (the yardstick; the port never calls it).  Its causal mask is aligned
+    top-left, right only where the queries start at key 0, so the keys are
+    sliced to kv_len and any other alignment gets an explicit mask."""
+    import torch.nn.functional as F
+
+    Sq = q.shape[1]
+    qt = q.transpose(1, 2)
+    kt, vt = k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
+    kw = dict(enable_gqa=True)
+    if causal and q_offset == 0 and Sq == kv_len:
+        kw["is_causal"] = True
+    elif causal and q_offset < kv_len - 1:   # else every query sees every key
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        kw["attn_mask"] = qpos[:, None] >= torch.arange(kv_len,
+                                                        device=q.device)[None]
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw).transpose(1, 2)
+
+
+def phase_kernels_flash():
+    """K6 against its plain version at every case of FLASH_CASES, fp32 and
+    bf16, timed beside its bound, the plain version and SDPA."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    rows = {}
+    for seed, (case, (B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal)) in \
+            enumerate(FLASH_CASES.items()):
+        kv_len = Skv if kv_len is None else kv_len
+        q_offset = kv_len - Sq if q_offset is None else q_offset
+        rng = np.random.default_rng(seed)
+        q32 = torch.from_numpy(rng.normal(size=(B, Sq, H, D)).astype(np.float32)).cuda()
+        k32 = torch.from_numpy(rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32)).cuda()
+        v32 = torch.from_numpy(rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
+            kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+            def kernel():
+                return fa_cuda.flash_attention_cuda(q, k, v, **kw)
+
+            def plain():
+                return flash_attention_plain(q, k, v, **kw)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            tol = FLASH_TOL[dtype]
+            excess = float((diff - tol * want.float().abs()).max())
+            check(excess <= tol, f"K6 {case} {dtype}: max err {err} "
+                  f"(atol = rtol = {tol})")
+            lib = sdpa_call(q, k, v, causal, q_offset, kv_len)
+            lib_err = float((lib().float() - want.float()).abs().max())
+            check(lib_err <= (1e-3 if dtype == torch.float32 else 5e-2),
+                  f"SDPA {case} {dtype} disagrees with the plain version "
+                  f"by {lib_err}")
+            nbytes, flops = flash_work(B, Sq, Skv, H, Hkv, D, q_offset,
+                                       kv_len, causal, q.element_size())
+            bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+                else FP32_FLOPS_PER_S
+            bound_ops_ms = flops / peak * 1e3
+            kernel_ms = time_auto(kernel)
+            dev_ms, traced = profiled_ms(kernel, "flash_attention_kernel")
+            rows[(case, str(dtype).split(".")[-1])] = dict(
+                case=case, dtype=str(dtype).split(".")[-1], B=B, Sq=Sq,
+                Skv=Skv, H=H, Hkv=Hkv, D=D, q_offset=q_offset, kv_len=kv_len,
+                causal=causal, max_abs_err=err, library_max_abs_err=lib_err,
+                kernel_ms=kernel_ms,
+                dev_ms=dev_ms if dev_ms is not None else kernel_ms,
+                dev_ms_by="profiler" if dev_ms is not None else "cuda_events",
+                profiler_cuda_events=traced, ref_ms=time_auto(plain),
+                library_ms=time_auto(lib), bytes=nbytes, flops=flops,
+                bound_ms=max(bound_bytes_ms, bound_ops_ms),
+                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+                else "operations")
+            del got, want
+    emit("kernels", kernel="flash_attention", cases=list(rows.values()))
+    return rows
+
+
+def logit_gap(got, want) -> float:
+    """max |got − want| / max |want|, in fp32."""
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def phase_serve():
+    """`tinyllama-1.1b` at full width served through `generate` (see the
+    module docstring); returns K6's launches over the two runs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as tt
+    from repro_torch.obs import percentiles
+
+    arch = get_arch("tinyllama-1.1b")
+    cfg = arch.make_config()
+    t0 = time.perf_counter()
+    model = tt.Transformer(cfg, tt.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0)))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+
+    def prompts_of(B, P):
+        return torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (B, P))).cuda()
+
+    # Warm-up (cuBLAS handles and workspaces, K6's library load) outside
+    # the counted runs.
+    generate(cfg, model, prompts_of(4, 512), 2)
+    generate(cfg, model, prompts_of(1, 4096), 2)
+
+    runs, kept = {}, {}
+    fa_cuda.LAUNCHES = 0                 # the serve path's count starts here
+    for name, (B, P, steps) in SERVE_RUNS.items():
+        prompts = prompts_of(B, P)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = fa_cuda.LAUNCHES
+        toks, t_pre, step_s = generate(cfg, model, prompts, steps)
+        launches = fa_cuda.LAUNCHES - before
+        check(launches == cfg.n_layers * steps,
+              f"serve {name}: {launches} K6 launches, not "
+              f"{cfg.n_layers} x {steps}")
+        t_dec = sum(step_s)
+        pct = percentiles(step_s)
+        runs[name] = dict(
+            batch=B, prompt_len=P, steps=steps, prefill_ms=t_pre * 1e3,
+            prefill_tok_per_s=B * P / t_pre, decode_ms=t_dec * 1e3,
+            tok_per_s=B * (steps - 1) / t_dec, p50_step_ms=pct["p50"] * 1e3,
+            p99_step_ms=pct["p99"] * 1e3,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            k6_launches=launches, sample_tokens=toks[0, :12].tolist())
+        kept[name] = (prompts, toks)
+    k6_launches = fa_cuda.LAUNCHES
+
+    prompts, toks = kept["requests"]
+    B, P, steps = SERVE_RUNS["requests"]
+    with torch.inference_mode():
+        # Where the time goes: one prefill and one decode step, timed on
+        # the host clock, then profiled (a profiler session can leave
+        # launch overhead behind, so the wall times come first).
+        cache = tt.init_cache(cfg, B, P + 1, "cuda")
+        parts = {"prefill": lambda: tt.prefill(model, prompts, cache),
+                 "decode_step": lambda: tt.decode_step(model, cache,
+                                                       toks[:, :1], P)}
+        wall = {part: wall_s(fn) * 1e3 for part, fn in parts.items()}
+        profile = {}
+        for part, fn in parts.items():
+            by_name = device_profile(fn)
+            k6 = [v for n, v in by_name.items() if "flash_attention_kernel" in n]
+            profile[part] = dict(
+                wall_ms=wall[part],
+                cuda_kernels=sum(v[0] for v in by_name.values()),
+                device_ms=sum(v[1] for v in by_name.values()),
+                k6_launches=sum(v[0] for v in k6),
+                k6_ms=sum(v[1] for v in k6) if k6 else None,
+                top=top_kernels(by_name))
+
+        # (a) K6 against the plain attention, same weights and inputs.
+        logits = {}
+        for prefer in ("auto", "ref"):
+            model.attn_prefer = prefer
+            cache = tt.init_cache(cfg, B, P + 1, "cuda")
+            lp, cache = tt.prefill(model, prompts, cache)
+            ld, _ = tt.decode_step(model, cache, toks[:, :1], P)
+            logits[prefer] = (lp, ld)
+        model.attn_prefer = "auto"
+        gap_ref = {"prefill": logit_gap(logits["auto"][0], logits["ref"][0]),
+                   "decode": logit_gap(logits["auto"][1], logits["ref"][1])}
+        check(max(gap_ref.values()) <= SERVE_TOL_REF,
+              f"serve (a): K6 vs plain attention logits {gap_ref}")
+        del logits
+
+        # (b) decode consistency: 7 decode steps after a prefill of the
+        # served tokens, against one forward over all of them.
+        seq = torch.cat([prompts, toks], dim=1)[:, :P + steps - 1]
+        S = seq.shape[1]
+        full = tt.forward(model, seq)
+        cache = tt.init_cache(cfg, B, S, "cuda")
+        lp, cache = tt.prefill(model, seq[:, :S - 7], cache)
+        gap_fwd = {"prefill": logit_gap(lp[:, 0], full[:, S - 8])}
+        for t in range(S - 7, S):
+            ld, cache = tt.decode_step(model, cache, seq[:, t:t + 1], t)
+        gap_fwd["last_decode"] = logit_gap(ld[:, 0], full[:, S - 1])
+        check(max(gap_fwd.values()) <= SERVE_TOL_FORWARD,
+              f"serve (b): decode vs forward logits {gap_fwd}")
+        del full, cache
+
+    # (c) the smoke config in fp32: card against CPU.
+    smoke = arch.make_smoke_config()
+    params = tt.init_params(smoke, torch.Generator().manual_seed(0))
+    cpu, gpu = tt.Transformer(smoke, params), tt.Transformer(smoke, params).cuda()
+    sp = torch.from_numpy(np.random.default_rng(0).integers(0, smoke.vocab, (4, 16)))
+    tg, _, _ = generate(smoke, gpu, sp.cuda(), 32)
+    tc, _, _ = generate(smoke, cpu, sp, 32)
+    with torch.inference_mode():
+        seq = torch.cat([sp, tc], dim=1)
+        smoke_gap = float((tt.forward(gpu, seq.cuda()).cpu()
+                           - tt.forward(cpu, seq)).abs().max())
+    check(torch.equal(tg.cpu(), tc), "serve (c): smoke tokens on the card "
+          "differ from the CPU's")
+    check(smoke_gap <= 1e-3, f"serve (c): smoke logits differ by {smoke_gap}")
+
+    emit("serve", arch=cfg.name, dtype=str(cfg.dtype).split(".")[-1],
+         n_params=cfg.n_params(), weight_bytes=weight_bytes, init_s=init_s,
+         runs=runs, k6_launches=k6_launches, profile=profile,
+         check_a_ref_gap=gap_ref, check_a_tol=SERVE_TOL_REF,
+         check_b_forward_gap=gap_fwd, check_b_tol=SERVE_TOL_FORWARD,
+         check_c=dict(config=smoke.name, steps=32, tokens_equal=True,
+                      max_abs_logit_gap=smoke_gap))
+    del model
+    torch.cuda.empty_cache()
+    return k6_launches
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -848,8 +1144,13 @@ def main(argv=None) -> int:
     from repro_torch.core.rcb import rcb_order, rcb_parts
     from repro_torch.dist.refine_sharded import build_frontier_plan
     from repro_torch.kernels.ell_spmv import cuda
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.kernels.segment_sum import cuda as ss_cuda
     from repro_torch.mesh import box_mesh, dual_graph
+
+    # fp32 products in full fp32 (the plain versions and the fp32 LM)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
@@ -858,8 +1159,9 @@ def main(argv=None) -> int:
 
     # One nvcc per source, started together.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        built = list(pool.map(lambda mod: mod.build(), (cuda, ss_cuda)))
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        built = list(pool.map(lambda mod: mod.build(),
+                              (cuda, ss_cuda, fa_cuda)))
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[path.name for path, _ in built],
          ptxas=[ln for _, report in built for ln in report.splitlines()
@@ -888,6 +1190,9 @@ def main(argv=None) -> int:
         fp = build_frontier_plan(dual_graph(box), sweep_parts, 64,
                                  weights=box.weights)
     ss_rows = phase_kernels_segsum(fp, sweep_parts)
+    del fp, sweep_parts
+    fa_rows = phase_kernels_flash()
+    k6_launches = phase_serve()
 
     def main_f32(rows):
         return next(r for r in rows
@@ -896,6 +1201,10 @@ def main(argv=None) -> int:
     def segsum_row(case):
         r = ss_rows[case]
         return dict(r, kernel_ms=r["dev_ms"])   # see ``dev_ms_by``
+
+    # K6 at the `requests` prefill's shape, bf16, by device time
+    flash_row = dict(fa_rows[("prefill", "bfloat16")],
+                     kernel_ms=fa_rows[("prefill", "bfloat16")]["dev_ms"])
 
     src = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
     ss_src = "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu"
@@ -911,6 +1220,11 @@ def main(argv=None) -> int:
         kernel_entry("segment_sum_batched", ss_src,
                      "src/repro/kernels/segment_sum/kernel.py:92",
                      ss_launches["K4"], segsum_row("K4 main")),
+        kernel_entry("flash_attention",
+                     "src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_attention.cu",
+                     "src/repro/kernels/flash_attention/kernel.py:86",
+                     k6_launches, flash_row),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

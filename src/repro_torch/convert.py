@@ -1,21 +1,25 @@
 """`repro` objects, handed over as NumPy arrays, rebuilt as the port's.
 
-The partitioner has no weights; what carries across between the two
-packages is the input and its assembled operators — the mesh, its dual
-graph, the ELL Laplacian and the halo sharding plan.  These builders take
-exactly the arrays a `repro` object holds (``graph.indptr``, ``op.cols``,
-``plan.export_idx`` …, as NumPy), so a test can hand both packages the
-identical input.  Nothing here imports `repro`.
+For the partitioner what carries across is the input and its assembled
+operators — the mesh, its dual graph, the ELL Laplacian and the halo
+sharding plan; for the LM it is the weights (`lm_params_from_numpy`).
+These builders take exactly the arrays a `repro` object holds
+(``graph.indptr``, ``op.cols``, ``plan.export_idx``, ``params["layers"]
+["wq"]`` …, as NumPy), so a test can hand both packages the identical
+input.  Nothing here imports `repro`.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.laplacian import EllLaplacian, ell_operator
+from repro_torch.device import resolve_device
 from repro_torch.dist.partition_aware import HaloPlan
 from repro_torch.mesh.box import HexMesh, derive_edge_face_gids
 from repro_torch.mesh.graphs import Graph
+from repro_torch.models.transformer import LMConfig, Transformer
 
 
 def graph_from_arrays(indptr, indices, weights, n) -> Graph:
@@ -66,3 +70,19 @@ def halo_plan_from_arrays(n, n_shards, n_local, halo, max_edges, block_sizes,
         edge_dst=np.array(edge_dst, dtype=np.int64),
         edge_weight=np.array(edge_weight, dtype=np.float32),
         edge_mask=np.array(edge_mask, dtype=np.float32))
+
+
+def lm_params_from_numpy(cfg: LMConfig, params: dict,
+                         device=None) -> Transformer:
+    """The port's LM (on ``device``, default the card) with the values of
+    `repro`'s parameter tree ``params`` — ``embed``, ``head``,
+    ``final_norm`` and the stacked ``layers`` — given with NumPy leaves
+    (e.g. ``jax.tree_util.tree_map(np.asarray, params)``)."""
+    dev = resolve_device(device)
+
+    def tensors(tree):
+        if isinstance(tree, dict):
+            return {k: tensors(v) for k, v in tree.items()}
+        return torch.from_numpy(np.array(tree)).to(dev)
+
+    return Transformer(cfg, tensors(params))

@@ -1,0 +1,52 @@
+"""Public dispatch for K6, causal GQA flash attention.
+
+``prefer``:
+
+* ``"auto"`` (default) — the CUDA kernel for CUDA tensors, the plain
+  PyTorch version (`ref.flash_attention_plain`) for CPU tensors;
+* ``"cuda"`` — the CUDA kernel; raises for a CPU tensor;
+* ``"ref"`` — the plain version on any device.
+
+There is no fallback: on a CUDA tensor a build or launch failure raises.
+K6 masks the ragged edge of its tiles itself, so nothing is padded here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import cuda
+from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+_PREFER = ("auto", "cuda", "ref")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int | None = None,
+                    kv_len: int | None = None, block_q: int = 128,
+                    block_k: int = 128, prefer: str = "auto") -> torch.Tensor:
+    """GQA attention: q (B, Sq, H, D), k and v (B, Skv, Hkv, D) → (B, Sq, H,
+    D).
+
+    With ``q_offset`` and ``kv_len`` left out, queries are end-aligned with
+    the keys, `repro`'s ``ops.flash_attention`` contract (``ref.py``
+    semantics).  Given, they are the Pallas kernel's explicit form: query
+    ``i`` sits at ``q_offset + i`` and only the first ``kv_len`` keys are
+    real — a decode step over a cache of ``max_seq`` rows passes
+    ``q_offset=pos, kv_len=pos + 1``.  ``block_q``/``block_k`` are the
+    Pallas tile sizes, accepted for `repro`'s signature; K6's tiles are
+    fixed when it is compiled (64 keys; 64 or 8 query rows)."""
+    if prefer not in _PREFER:
+        raise ValueError(f"unknown prefer: {prefer!r} (have {_PREFER})")
+    if block_q < 1 or block_k < 1:
+        raise ValueError(f"block sizes must be >= 1 (got {block_q}, {block_k})")
+    kv_len = k.shape[1] if kv_len is None else int(kv_len)
+    q_offset = kv_len - q.shape[1] if q_offset is None else int(q_offset)
+    if prefer == "ref" or (prefer == "auto" and not q.is_cuda):
+        return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset,
+                                     kv_len=kv_len)
+    if not q.is_cuda:
+        raise ValueError("prefer='cuda' needs CUDA tensors: the CUDA flash "
+                         "attention has no CPU mode")
+    return cuda.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset,
+                                     kv_len=kv_len)

@@ -1,0 +1,72 @@
+"""Shared model building blocks: init helpers, RMSNorm, parameter trees.
+
+Ports of `repro.models.common`.  The init functions take an explicit
+`torch.Generator` (their tensors are made on its device); `jax.random` and
+torch give different numbers from one seed, so parity goes through
+converted parameters (`repro_torch.convert.lm_params_from_numpy`), not
+through the seed.  `repro`'s `ShardRules` is an identity on one device and
+is not ported (sharding is slice C3).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
+               dtype=torch.float32, scale: float = 1.0) -> torch.Tensor:
+    """Truncated normal in ±2σ with σ = scale / √fan_in (fan_in =
+    ``shape[in_axis]``)."""
+    std = scale / math.sqrt(shape[in_axis])
+    t = torch.empty(shape, dtype=torch.float32, device=generator.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return (std * t).to(dtype)
+
+
+def embed_init(generator: torch.Generator, shape, dtype=torch.float32,
+               scale: float = 1.0) -> torch.Tensor:
+    """Normal / √d (d = ``shape[-1]``)."""
+    t = torch.randn(shape, dtype=torch.float32, generator=generator,
+                    device=generator.device)
+    return (scale * t / math.sqrt(shape[-1])).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with fp32 accumulation; the normalised x is cast back to
+    x's type before the scale, in `repro`'s order."""
+    xf = x.float()
+    scale = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    return (xf * scale).to(x.dtype) * gamma.to(x.dtype)
+
+
+def _leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+
+
+def tree_cast(tree, dtype):
+    """Every floating tensor of a nested dict/list cast to ``dtype``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dtype) if tree.is_floating_point() else tree
+    if isinstance(tree, dict):
+        return {k: tree_cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_cast(v, dtype) for v in tree)
+    return tree
+
+
+def count_params(tree) -> int:
+    return sum(t.numel() for t in _leaves(tree))
+
+
+def param_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))

@@ -1,0 +1,309 @@
+"""Decoder-only transformer LM (dense): GQA + RoPE + RMSNorm + SwiGLU.
+
+Port of `repro.models.transformer` for serving: `forward`, `prefill`,
+`decode_step` and `init_cache`, with `repro`'s layouts at the public
+functions — activations (B, S, H, D), the KV cache (L, B, max_seq, Hkv, D)
+and JAX's parameter shapes (stacked per layer) in `init_params`.
+
+Every attention call, prefill and decode, goes through K6
+(`kernels/flash_attention`): on a CUDA tensor the hand-written kernel, on
+a CPU tensor its plain version.  Query head ``h`` reads KV head ``h // G``,
+the mapping of `repro`'s ``jnp.repeat(k, G, axis=2)``; the kernel does it
+natively, with no repeated copy.  Projections, the FFN and the head are
+plain large products (`torch.matmul`), as `repro` leaves them to XLA.
+
+Differences from `repro` by design:
+
+* `Transformer` holds the layers unstacked (a ``ModuleList``), cast to
+  ``cfg.dtype`` once when it is built (`repro` casts the stack per call in
+  `_cast_layers`; the values are identical).
+* `prefill` writes K and V into the cache as the attention block computes
+  them (`repro` recomputes them outside its remat'd layer; the values are
+  the same), into a preallocated cache when one is passed.
+* `decode_step` writes the new K and V into the cache **in place** at
+  ``pos`` and returns the same cache; it takes one token per sequence.
+* Not ported: MoE layers (ROADMAP D1b), the sliding-window variant (K6
+  has no window, like the Pallas kernel), `loss_fn` and remat (the
+  training slice); ``remat`` and ``unroll`` stay as config fields.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.models.common import dense_init, embed_init, rms_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    moe: Any = None                    # `repro`'s MoEConfig; not ported
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-5
+    dtype: Any = torch.bfloat16        # compute dtype
+    param_dtype: Any = torch.float32   # master params
+    attn_block_kv: int = 1024
+    remat: bool = True
+    attn: str = "full"                 # "full" | "sliding_window"
+    window: int = 4096
+    attn_impl: str = "auto"
+    unroll: bool = False
+
+    @property
+    def q_per_kv(self) -> int:
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError(f"n_heads={self.n_heads} is not a multiple of "
+                             f"n_kv_heads={self.n_kv_heads}")
+        return self.n_heads // self.n_kv_heads
+
+    def n_params(self) -> int:
+        d, h = self.d_model, self.n_heads * self.d_head
+        kv = self.n_kv_heads * self.d_head
+        attn = d * h + 2 * d * kv + h * d
+        if self.moe is None:
+            ffn = 3 * d * self.d_ff
+        else:
+            ffn = 3 * d * self.moe.d_ff_expert * (self.moe.n_experts + self.moe.n_shared)
+            ffn += d * self.moe.n_experts  # router
+        return self.n_layers * (attn + ffn + 2 * d) + 2 * self.vocab * d + d
+
+
+def check_supported(cfg: LMConfig) -> None:
+    """Raise for what the port does not run yet."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP D1b)")
+    if cfg.attn != "full":
+        raise NotImplementedError(
+            f"{cfg.name}: attn={cfg.attn!r} is not ported; K6, like the "
+            "Pallas kernel, has no sliding window")
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: LMConfig, generator: torch.Generator) -> dict:
+    """`repro`'s parameter tree in ``cfg.param_dtype`` on the generator's
+    device: ``embed`` (V, d), ``head`` (d, V), ``final_norm`` (d,) and
+    ``layers``, each leaf stacked over a leading (n_layers,) dim."""
+    check_supported(cfg)
+    L, d, dh = cfg.n_layers, cfg.d_model, cfg.d_head
+    H, Hkv, pd = cfg.n_heads, cfg.n_kv_heads, cfg.param_dtype
+
+    def dense(shape, in_axis=0):
+        return dense_init(generator, (L, *shape), in_axis=1 + in_axis, dtype=pd)
+
+    def ones(n):
+        return torch.ones((n,), dtype=pd, device=generator.device)
+
+    layers = {
+        "attn_norm": ones(d).expand(L, d).clone(),
+        "wq": dense((d, H, dh)),
+        "wk": dense((d, Hkv, dh)),
+        "wv": dense((d, Hkv, dh)),
+        "wo": dense((H, dh, d)),
+        "ffn_norm": ones(d).expand(L, d).clone(),
+        "ffn": {"wi": dense((d, cfg.d_ff)), "wg": dense((d, cfg.d_ff)),
+                "wo": dense((cfg.d_ff, d))},
+    }
+    return {"embed": embed_init(generator, (cfg.vocab, d), pd),
+            "head": dense_init(generator, (d, cfg.vocab), dtype=pd),
+            "final_norm": ones(d), "layers": layers}
+
+
+class Layer(nn.Module):
+    """One decoder layer's weights, in JAX's shapes: wq (d, H, dh), wk/wv
+    (d, Hkv, dh), wo (H, dh, d), wi/wg (d, d_ff), w_down (d_ff, d)."""
+
+    def __init__(self, p: dict, dtype):
+        super().__init__()
+
+        def param(t):
+            return nn.Parameter(t.to(dtype), requires_grad=False)
+
+        for name in ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm"):
+            setattr(self, name, param(p[name]))
+        self.wi = param(p["ffn"]["wi"])
+        self.wg = param(p["ffn"]["wg"])
+        self.w_down = param(p["ffn"]["wo"])
+
+
+class Transformer(nn.Module):
+    """The LM's weights in ``cfg.dtype``, the stacked layers unstacked.
+
+    ``attn_prefer`` is K6's dispatch for every attention call (`ops`
+    ``prefer``): ``"auto"`` runs the kernel on the card and the plain
+    version on the CPU.  Set to ``"ref"``, it forces the plain version on
+    the card, to hold the kernel's model against the plain one."""
+
+    def __init__(self, cfg: LMConfig, params: dict):
+        check_supported(cfg)
+        super().__init__()
+        self.cfg = cfg
+        self.attn_prefer = "auto"
+
+        def param(t):
+            return nn.Parameter(t.to(cfg.dtype), requires_grad=False)
+
+        self.embed = param(params["embed"])
+        self.head = param(params["head"])
+        self.final_norm = param(params["final_norm"])
+        stacked = params["layers"]
+        self.layers = nn.ModuleList(
+            Layer(_layer_slice(stacked, i), cfg.dtype)
+            for i in range(cfg.n_layers))
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return forward(self, tokens)
+
+
+def _layer_slice(tree: dict, i: int) -> dict:
+    return {k: _layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# RoPE + attention
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) rotated by position pos (..., S); cos and sin are
+    fp32, cast to x's type before they meet x."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = pos[..., :, None, None].float() * freqs        # (..., S, 1, half)
+    cos, sin = torch.cos(ang).to(x.dtype), torch.sin(ang).to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def attention_block(model: Transformer, layer: Layer, x: torch.Tensor,
+                    pos: torch.Tensor, k_cache: torch.Tensor | None = None,
+                    v_cache: torch.Tensor | None = None, start: int = 0):
+    """Self-attention of x (B, S, d) at positions pos (B, S).
+
+    Without a cache, the S queries attend causally over their own keys
+    (K6 with ``q_offset=0, kv_len=S``).  With one layer's cache (B,
+    max_seq, Hkv, D), K and V are first written into it in place at
+    ``start``, and the queries attend over the cache's first ``start + S``
+    rows (``q_offset=start, kv_len=start + S``).  Returns the block's
+    output and this call's K (after rope) and V."""
+    cfg = model.cfg
+    B, S, d = x.shape
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
+    q = (h @ layer.wq.reshape(d, H * dh)).view(B, S, H, dh)
+    k = (h @ layer.wk.reshape(d, Hkv * dh)).view(B, S, Hkv, dh)
+    v = (h @ layer.wv.reshape(d, Hkv * dh)).view(B, S, Hkv, dh)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    if k_cache is None:
+        out = flash_attention(q, k, v, causal=True, q_offset=0, kv_len=S,
+                              prefer=model.attn_prefer)
+    else:
+        k_cache[:, start:start + S] = k
+        v_cache[:, start:start + S] = v
+        out = flash_attention(q, k_cache, v_cache, causal=True,
+                              q_offset=start, kv_len=start + S,
+                              prefer=model.attn_prefer)
+    y = out.reshape(B, S, H * dh) @ layer.wo.reshape(H * dh, d)
+    return y, (k, v)
+
+
+def ffn_block(model: Transformer, layer: Layer, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: ``silu(h @ wg) * (h @ wi) @ w_down``, silu as ``g *
+    sigmoid(g)`` (each op rounded to x's type, as `jax.nn.silu`)."""
+    h = rms_norm(x, layer.ffn_norm, model.cfg.norm_eps)
+    g = h @ layer.wg
+    return (g * torch.sigmoid(g) * (h @ layer.wi)) @ layer.w_down
+
+
+def _layer(model, layer, x, pos, k_cache=None, v_cache=None, start=0):
+    a, kv = attention_block(model, layer, x, pos, k_cache, v_cache, start)
+    x = x + a
+    return x + ffn_block(model, layer, x), kv
+
+
+def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, model.final_norm, model.cfg.norm_eps)
+    return x @ model.head
+
+
+# ---------------------------------------------------------------------------
+# Forward passes and serving (KV cache)
+# ---------------------------------------------------------------------------
+
+def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) → logits (B, S, V)."""
+    B, S = tokens.shape
+    x = model.embed[tokens]
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    for layer in model.layers:
+        x, _ = _layer(model, layer, x, pos)
+    return _logits(model, x)
+
+
+def init_cache(cfg: LMConfig, batch: int, max_seq: int,
+               device=None) -> dict:
+    """Zeroed K and V caches, each (n_layers, batch, max_seq, Hkv, D) in
+    ``cfg.dtype``."""
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+def prefill(model: Transformer, tokens: torch.Tensor,
+            cache: dict | None = None) -> tuple[torch.Tensor, dict]:
+    """Full forward over the prompt: the last position's logits (B, 1, V)
+    and the populated cache.
+
+    Without ``cache`` a new one of length S is returned, as `repro`'s
+    prefill returns it; with one (max_seq ≥ S rows, e.g. from
+    `init_cache`) its first S rows are written in place."""
+    B, S = tokens.shape
+    if cache is None:
+        cache = init_cache(model.cfg, B, S, device=tokens.device)
+    elif cache["k"].shape[2] < S:
+        raise ValueError(f"cache holds {cache['k'].shape[2]} positions, the "
+                         f"prompt {S}")
+    x = model.embed[tokens]
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    for i, layer in enumerate(model.layers):
+        x, (k, v) = _layer(model, layer, x, pos)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    return _logits(model, x[:, -1:]), cache
+
+
+def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
+                pos: int) -> tuple[torch.Tensor, dict]:
+    """One decode step: tokens (B, 1) at position ``pos`` → logits (B, 1, V).
+
+    Writes the step's K and V into ``cache`` in place at ``pos`` (every
+    sequence of the batch is at the same position) and attends over its
+    first ``pos + 1`` rows; returns the same cache."""
+    B, S = tokens.shape
+    max_seq = cache["k"].shape[2]
+    if S != 1:
+        raise ValueError(f"decode_step takes one token per sequence, got {S}")
+    if not 0 <= pos < max_seq:
+        raise ValueError(f"pos={pos} outside the cache's {max_seq} positions")
+    x = model.embed[tokens]
+    posb = torch.full((B, 1), pos, device=tokens.device)
+    for i, layer in enumerate(model.layers):
+        x, _ = _layer(model, layer, x, posb, cache["k"][i], cache["v"][i], pos)
+    return _logits(model, x), cache

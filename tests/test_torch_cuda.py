@@ -13,7 +13,11 @@ to the same solve on the CPU: eigenvalue within ``rel=1e-3`` and
 |cos| ≥ 0.999 (the solves stop at ``tol=1e-4``).  K3 and K4 add each
 part's weights in the plain version's slot order, so they are held to it
 bit for bit, and a sharded refinement on the card (K4 every sweep) to the
-same run on the CPU label for label (integer weights: exact sums).
+same run on the CPU label for label (integer weights: exact sums).  K6,
+the flash attention, is held to its plain version with
+tests/test_kernels.py's `_tol` (fp32 2e-5, bf16 2e-2), and the smoke LM's
+greedy tokens on the card to the CPU's exactly (fp32; logits within
+1e-3).
 """
 
 import numpy as np
@@ -173,3 +177,102 @@ def test_sharded_refinement_on_card_matches_cpu(card):
         assert [r.moves for r in rec] == [r.moves for r in other[1]]
         assert info["cut"] == other[2]["cut"]
     assert info["moves"] > 0
+
+
+# (B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal): the smoke LM's prefill
+# and decode, tinyllama's at full width (kv_len < Skv in decode), the
+# shapes of tests/test_kernels.py:139-145 and one non-causal call.
+FLASH_CASES = {
+    "smoke_prefill": (4, 16, 16, 4, 2, 16, None, None, True),
+    "smoke_decode": (4, 1, 48, 4, 2, 16, 20, 21, True),
+    "prefill": (4, 512, 512, 32, 4, 64, None, None, True),
+    "decode": (4, 1, 576, 32, 4, 64, 549, 550, True),
+    "k1": (2, 64, 64, 4, 2, 32, None, None, True),
+    "k2": (1, 100, 100, 4, 4, 64, None, None, True),
+    "k3": (2, 1, 200, 8, 2, 64, None, None, True),
+    "k4": (1, 128, 256, 4, 1, 32, None, None, True),
+    "k5": (1, 48, 48, 2, 2, 128, None, None, True),
+    "noncausal": (2, 64, 96, 4, 2, 32, None, None, False),
+}
+_FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+              torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_on_card(card, case, dtype):
+    """K6 against the plain version, on strided views (q, k and v
+    transposed from head-major buffers: only the head dim is contiguous)."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal = FLASH_CASES[case]
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(rng.normal(size=(B, H, Sq, D)).astype(np.float32))
+    kv = torch.from_numpy(rng.normal(size=(2, B, Hkv, Skv, D))
+                          .astype(np.float32))
+    q = q.to(card, dtype).transpose(1, 2)
+    kv = kv.to(card, dtype).transpose(2, 3)
+    k, v = kv[0], kv[1]
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    before = fa_cuda.LAUNCHES
+    got = fa_ops.flash_attention(q, k, v, prefer="cuda", **kw)
+    torch.cuda.synchronize()
+    assert fa_cuda.LAUNCHES == before + 1
+    want = fa_ref.flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["smoke_decode", "k4", "decode"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_unaligned_rows_on_card(card, case, dtype):
+    """Rows of D + 1 elements (strides not a multiple of 16 bytes): K6
+    stages its tiles element by element instead of 16 bytes at a time."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal = FLASH_CASES[case]
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(card, dtype)[..., :D]
+               for s in ((B, Sq, H, D + 1), (B, Skv, Hkv, D + 1),
+                         (B, Skv, Hkv, D + 1)))
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+    got = fa_ops.flash_attention(q, k, v, prefer="cuda", **kw)
+    want = fa_ref.flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_generate_on_card_matches_cpu(card):
+    """The smoke LM (fp32) through `generate` on the card, every attention
+    call on K6, against the CPU run: identical greedy tokens, and prefill
+    and full-forward logits within 1e-3."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as tt
+
+    cfg = get_arch("tinyllama-1.1b").make_smoke_config()
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0))
+    cpu = tt.Transformer(cfg, params)
+    gpu = tt.Transformer(cfg, params).to(card)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 16)))
+    fa_cuda.LAUNCHES = 0
+    toks_gpu, _, _ = generate(cfg, gpu, prompts.to(card), 12)
+    assert fa_cuda.LAUNCHES == cfg.n_layers * 12
+    toks_cpu, _, _ = generate(cfg, cpu, prompts, 12)
+    assert torch.equal(toks_gpu.cpu(), toks_cpu)
+    full = torch.cat([prompts, toks_cpu], 1)
+    with torch.inference_mode():
+        torch.testing.assert_close(tt.forward(gpu, full.to(card)).cpu(),
+                                   tt.forward(cpu, full), atol=1e-3, rtol=0)
+        torch.testing.assert_close(tt.prefill(gpu, prompts.to(card))[0].cpu(),
+                                   tt.prefill(cpu, prompts)[0], atol=1e-3,
+                                   rtol=0)

@@ -37,7 +37,15 @@ _SLICE_MODULES = {"repro_torch.core.lanczos", "repro_torch.core.flexcg",
                   "repro_torch.kernels.segment_sum.ops",
                   "repro_torch.kernels.segment_sum.ref",
                   "repro_torch.dist.partition_aware",
-                  "repro_torch.dist.refine_sharded"}
+                  "repro_torch.dist.refine_sharded",
+                  "repro_torch.kernels.flash_attention.cuda",
+                  "repro_torch.kernels.flash_attention.ops",
+                  "repro_torch.kernels.flash_attention.ref",
+                  "repro_torch.models.common", "repro_torch.models.transformer",
+                  "repro_torch.configs.tinyllama_1_1b",
+                  "repro_torch.configs.shapes", "repro_torch.configs.base",
+                  "repro_torch.guard.errors", "repro_torch.guard.validate",
+                  "repro_torch.launch.serve"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
