@@ -10,10 +10,10 @@ Phases, each printing JSON lines:
    (also printed raw on a line of its own).
 2. ``build``   — compile K1 and K2 (both in kernels/ell_spmv/csrc/
    ell_spmv.cu), K3 and K4 (both in kernels/segment_sum/csrc/
-   segment_sum.cu) and K6 (kernels/flash_attention/csrc/
-   flash_attention.cu) from the checkout's sources, one nvcc per source
-   (sm_90a), all started together; seconds and the compiler's register
-   report for every kernel.
+   segment_sum.cu), K6 (kernels/flash_attention/csrc/flash_attention.cu)
+   and K5 (kernels/embedding_bag/csrc/embedding_bag.cu) from the
+   checkout's sources, one nvcc per source (sm_90a), all started together;
+   seconds and the compiler's register report for every kernel.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card,
    in fp32 (tolerance 1e-5) and bf16 (2e-2) of each row's Σ|vals·x| (the
    size of the terms the two fp32 sums add in another order), timed by
@@ -96,15 +96,46 @@ Phases, each printing JSON lines:
     through 22 layers: two GEMM shapes round differently); (c) the smoke
     config in fp32: greedy tokens on the card identical to the CPU's,
     logits within 1e-3.
+11. ``kernels`` (embedding_bag) — K5 against its plain version
+    (`ref.embedding_bag_ref`) in fp32 and bf16: over SASRec's full table
+    (1,000,448 × 50) ``lookup`` (``serve_p99``'s 25,600 items, bags of
+    one, weight √50), ``retrieval`` (10^6 bags of one, a seeded
+    permutation of the items) and ``pooled`` (65,536 bags of 1-64 Zipf
+    items, weighted); then tests/test_kernels.py's three shapes, its
+    weighted unsorted case and a case with empty bags.  fp32 bags of one
+    bit-equal to ``table[idx]·w``, otherwise within 1e-5 (fp32) or 2e-2
+    (bf16) of each bag's Σ|w·row|, empty bags zero; error, CUDA-event ms,
+    profiler device ms, the bound (idx, seg and w once, each distinct row
+    once, the output once, over 3.35 TB/s; ``bound_ms_all_rows`` counts
+    every entry's row), the plain version's ms and one
+    ``F.embedding_bag(mode="sum", per_sample_weights=...)`` call's ms
+    (``library_ms``, offsets by ``searchsorted``).
+12. ``recsys`` — `sasrec` at its published widths (``make_config()``,
+    fp32, parameters from a seeded generator; the table is 200,089,600 B)
+    through `launch.cells`: ``serve_p99`` (512 users, top-100 over every
+    table row in 64 slices) and ``retrieval_cand`` (1 user, 10^6
+    candidates), 30 calls each: p50/p99 ms, users/s, peak memory, K5
+    launches (1 and 2 a call); ``serve_bulk`` (262,144 users in 32 chunks
+    of 8,192) once: wall s, users/s, peak memory, 32 K5 launches; a
+    profile of one ``serve_p99`` call, after one unrecorded call in the
+    same profiler session (CUDA kernels, device ms, K5's share, busy
+    share); and three checks: (a) user states with K5 equal
+    to the plain lookup's (``bag_prefer="ref"``) bit for bit; (b) the
+    streamed top-100 of ``serve_p99`` against ``torch.topk`` of the full
+    (512, 1,000,448) score matrix: values within 1e-5, ids equal where the
+    scores are more than 1e-5 apart; (c) the smoke config, left-padded
+    users, on the card against the CPU: states within 1e-5, top-100 ids
+    identical.
 
 Then the line ``{"kernels": [...]}`` (every ported kernel: launches on its
 main path — K1 in ``full``, K2 in ``full_inverse``, K4 in the two sharded
-chains of ``full_sharded``, K3 on none, K6 in the two ``serve`` runs, with
-the counters set to 0 just before each — error against the plain version,
-times and bound), the ``nvidia-smi`` line, and last ``{"ok": true,
-"device": {...}}``.  Any failed check raises and the script exits nonzero
-without the last line; so does a machine without a CUDA card, or a
-directory that lacks the repository's src/.
+chains of ``full_sharded``, K3 on none, K6 in the two ``serve`` runs, K5
+in the three ``recsys`` runs, with the counters set to 0 just before each
+— error against the plain version, times and bound), the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``.  Any failed check
+raises and the script exits nonzero without the last line; so does a
+machine without a CUDA card, or a directory that lacks the repository's
+src/.
 """
 
 from __future__ import annotations
@@ -159,6 +190,23 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SERVE_RUNS = {"requests": (4, 512, 64), "long": (1, 4096, 16)}
 SERVE_TOL_REF = 3e-2       # (a) K6 model vs plain-attention model, bf16
 SERVE_TOL_FORWARD = 5e-2   # (b) decode vs full forward, bf16
+# K5 cases: name → (n_bags, kind); "lookup", "retrieval" and "pooled" run
+# over SASRec's full table (make_config(): 1,000,448 × 50), the rest over
+# tables of their own (V, d).
+BAG_CASES = {
+    "lookup": dict(kind="sequence"),          # serve_p99's 512 × 50 items
+    "retrieval": dict(kind="candidates"),     # 10^6 candidates
+    "pooled": dict(kind="pooled"),            # 65,536 bags of 1-64 rows
+    "sweep_a": dict(kind="sorted", V=100, d=16, nnz=64, B=10),
+    "sweep_b": dict(kind="sorted", V=500, d=50, nnz=300, B=32),
+    "sweep_c": dict(kind="sorted", V=64, d=128, nnz=128, B=8),
+    "weighted_unsorted": dict(kind="unsorted", V=80, d=24, nnz=100, B=12),
+    "empty": dict(kind="empty", V=300, d=50, nnz=400, B=90),
+}
+RECSYS_REPS = 30           # serve_p99 and retrieval_cand calls each
+RECSYS_K = 100
+RECSYS_STATE_TOL = 1e-5    # (c) smoke states, card vs CPU
+RECSYS_TOPK_TOL = 1e-5     # (b) streamed vs full top-k values
 
 
 def emit(phase: str, **fields) -> None:
@@ -281,17 +329,26 @@ def kernel_cases(tag, cases, kernel, plain):
     return rows
 
 
-def device_profile(fn) -> dict:
+def device_profile(fn, warmup: int = 0) -> dict:
     """CUDA kernels one call of ``fn`` issues, by name, from torch.profiler:
-    {name: [count, device ms]}."""
-    from torch.profiler import ProfilerActivity, profile
+    {name: [count, device ms]}.  With ``warmup`` > 0 the session first
+    runs ``fn`` that many times unrecorded (a profiler schedule): a
+    session can lose the first kernels it sees."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    sched = schedule(wait=0, warmup=warmup, active=1) if warmup else None
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched) as prof:
+        for i in range(warmup + 1):
+            fn()
+            torch.cuda.synchronize()
+            if i < warmup:
+                prof.step()
     by_name: dict = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a schedule's step marker is a device-side range, not a kernel
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.name.startswith("ProfilerStep"):
             d = by_name.setdefault(e.name, [0, 0.0])
             d[0] += 1
             d[1] += e.time_range.elapsed_us() / 1e3
@@ -1124,6 +1181,320 @@ def phase_serve():
     return k6_launches
 
 
+def zipf_items(rng, shape, n_items):
+    """`recsys_batches`' item draw: Zipf(1.2) popularity in [1, n_items)."""
+    return (rng.zipf(1.2, size=shape) % (n_items - 1) + 1).astype(np.int32)
+
+
+def bag_inputs(case, spec, table_full, serve_seq, n_items):
+    """(table, indices, segments, weights, n_bags) on the card, fp32;
+    segments sorted except in the ``unsorted`` case."""
+    rng = np.random.default_rng(len(case))
+    kind = spec["kind"]
+    dev = table_full.device
+    if kind in ("sequence", "candidates"):            # bags of one row
+        if kind == "sequence":
+            idx = serve_seq.reshape(-1).to(torch.int32)
+            weight = float(np.sqrt(table_full.shape[1]))
+        else:
+            gen = torch.Generator(device=dev).manual_seed(1)
+            idx = (torch.randperm(n_items, generator=gen, device=dev)
+                   + 1).to(torch.int32)
+            weight = 1.0
+        n = idx.numel()
+        return (table_full, idx,
+                torch.arange(n, dtype=torch.int32, device=dev),
+                torch.full((n,), weight, device=dev), n)
+    if kind == "pooled":
+        n = 65536
+        seg = np.repeat(np.arange(n, dtype=np.int32),
+                        rng.integers(1, 65, n))
+        idx = zipf_items(rng, seg.size, n_items)
+        table = table_full
+    else:
+        n = spec["B"]
+        table = torch.from_numpy(rng.normal(
+            size=(spec["V"], spec["d"])).astype(np.float32)).to(dev)
+        idx = rng.integers(0, spec["V"], spec["nnz"]).astype(np.int32)
+        bags = np.arange(n)
+        if kind == "empty":
+            bags = bags[bags % 3 != 0]
+        seg = rng.choice(bags, spec["nnz"]).astype(np.int32)
+        if kind != "unsorted":
+            seg = np.sort(seg)
+    w = rng.normal(size=seg.size).astype(np.float32)
+    return (table, torch.from_numpy(idx).to(dev),
+            torch.from_numpy(seg).to(dev), torch.from_numpy(w).to(dev), n)
+
+
+def bag_library(table, idx, seg, w, n_bags):
+    """One `F.embedding_bag(mode="sum", per_sample_weights=...)` call of the
+    same function (the yardstick; the port never calls it), its offsets
+    from ``searchsorted`` over the sorted segments."""
+    import torch.nn.functional as F
+
+    idx64 = idx.long()
+    offsets = torch.searchsorted(seg, torch.arange(
+        n_bags, dtype=seg.dtype, device=seg.device))
+    return lambda: F.embedding_bag(idx64, table, offsets, mode="sum",
+                                   per_sample_weights=w)
+
+
+def phase_kernels_bag(table_full, serve_seq, n_items):
+    """K5 against its plain version at every case of BAG_CASES, fp32 and
+    bf16, timed beside its bound, the plain version and F.embedding_bag."""
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    rows = {}
+    for case, spec in BAG_CASES.items():
+        t32, idx, seg, w32, n = bag_inputs(case, spec, table_full, serve_seq,
+                                       n_items)
+        for dtype in (torch.float32, torch.bfloat16):
+            table, w = t32.to(dtype), w32.to(dtype)
+            if spec["kind"] == "unsorted":
+                got = eb_ops.embedding_bag(table, idx, seg, n, weights=w,
+                                           assume_sorted=False, prefer="cuda")
+                order = torch.argsort(seg, stable=True)
+                i_s, s_s, w_s = idx[order], seg[order], w[order]
+            else:
+                i_s, s_s, w_s = idx, seg, w
+
+            def kernel():
+                return eb_cuda.embedding_bag_cuda(table, i_s, s_s, w_s, n)
+
+            def plain():
+                return embedding_bag_ref(table, i_s, s_s, n, weights=w_s)
+
+            if spec["kind"] != "unsorted":
+                got = kernel()
+            want = plain()
+            size = embedding_bag_ref(table.float().abs(), i_s, s_s, n,
+                                     weights=w_s.float().abs())
+            lib = bag_library(table, i_s, s_s, w_s, n)
+            lib_out = lib()
+            torch.cuda.synchronize()
+            one = spec["kind"] in ("sequence", "candidates")
+            tol = TOL[dtype]
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            rel = float((diff / size.clamp(min=1e-30)).max())
+            if one and dtype == torch.float32:
+                check(torch.equal(got, want) and torch.equal(
+                    got, table[i_s.long()] * w_s[:, None]),
+                    f"K5 {case}: a bag of one is not bit-equal to take·w")
+            check(bool((diff <= tol * size).all()),
+                  f"K5 {case} {dtype}: {rel} of Σ|w·row| (tol {tol})")
+            empty = torch.bincount(s_s.long(), minlength=n) == 0
+            check(bool((got[empty] == 0).all()),
+                  f"K5 {case}: an empty bag's row is not zero")
+            lib_rel = float(((lib_out.float() - want.float()).abs()
+                             / size.clamp(min=1e-30)).max())
+            check(lib_rel <= tol, f"F.embedding_bag {case} {dtype} "
+                  f"disagrees with the plain version: {lib_rel}")
+            nnz, d, el = i_s.numel(), table.shape[1], table.element_size()
+            distinct = int(torch.unique(i_s).numel())
+            nbytes = nnz * (4 + 4 + el) + distinct * d * el + n * d * el
+            bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ops_ms = 2 * nnz * d / FP32_FLOPS_PER_S * 1e3
+            kernel_ms = time_auto(kernel)
+            dev_ms, traced = profiled_ms(kernel, "embedding_bag_kernel")
+            rows[(case, str(dtype).split(".")[-1])] = dict(
+                case=case, dtype=str(dtype).split(".")[-1], V=table.shape[0],
+                d=d, nnz=nnz, n_bags=n, rows_distinct=distinct,
+                empty_bags=int(empty.sum()), max_abs_err=err,
+                max_err_of_terms=rel, library_max_err_of_terms=lib_rel,
+                kernel_ms=kernel_ms,
+                dev_ms=dev_ms if dev_ms is not None else kernel_ms,
+                dev_ms_by="profiler" if dev_ms is not None else "cuda_events",
+                profiler_cuda_events=traced, ref_ms=time_auto(plain),
+                library_ms=time_auto(lib), bytes=nbytes,
+                bound_ms_all_rows=(nnz * (4 + 4 + el) + nnz * d * el
+                                   + n * d * el) / HBM_BYTES_PER_S * 1e3,
+                bound_ms=max(bound_bytes_ms, bound_ops_ms),
+                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+                else "operations")
+            del got, want, size, lib_out
+    emit("kernels", kernel="embedding_bag", cases=list(rows.values()))
+    return rows
+
+
+def topk_ids_agree(vals, ids, want_v, want_i, full, tol):
+    """Streamed top-k against the top-(k+1) of the full score matrix:
+    values within ``tol``, each id carrying its reported score, and ids
+    equal at every rank more than ``tol`` from its neighbours.  Returns
+    the share of ranks compared and the largest value gap."""
+    k = vals.shape[1]
+    gap_v = float((vals - want_v[:, :k]).abs().max())
+    carried = float((torch.gather(full, 1, ids) - vals).abs().max())
+    step = (want_v[:, :-1] - want_v[:, 1:]).abs()            # (B, k)
+    apart = step > tol
+    apart[:, 1:] &= step[:, :k - 1] > tol
+    same = bool((ids[apart] == want_i[:, :k][apart]).all())
+    check(gap_v <= tol and carried <= tol and same,
+          f"recsys (b): streamed top-{k} vs full: value gap {gap_v}, "
+          f"carried {carried}, ids equal where apart {same}")
+    return float(apart.float().mean()), gap_v
+
+
+def phase_recsys():
+    """SASRec at its published widths (fp32, parameters from a seeded
+    generator) through `launch.cells`: ``serve_p99``, ``retrieval_cand``
+    and ``serve_bulk``; a profile of one ``serve_p99`` call; checks a-c.
+    Returns the K5 phase's rows and K5's launches over the three runs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import recsys_batches
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.launch.cells import recsys_retrieval, recsys_serve_topk
+    from repro_torch.models.recsys import SASRec, init_sasrec
+    from repro_torch.obs import percentiles
+
+    arch = get_arch("sasrec")
+    cfg = arch.make_config()
+    shapes = arch.shapes
+    t0 = time.perf_counter()
+    model = SASRec(cfg, init_sasrec(
+        cfg, torch.Generator(device="cuda").manual_seed(0)))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    table_bytes = model.item_embed.numel() * model.item_embed.element_size()
+    check(table_bytes == 200_089_600, f"SASRec table is {table_bytes} B")
+
+    def users(B, seed):
+        return next(recsys_batches(B, cfg.seq_len, cfg.n_items,
+                                   seed=seed))["item_seq"].cuda()
+
+    B99 = shapes["serve_p99"]["batch"]
+    seq99 = users(B99, 0)
+    bag_rows = phase_kernels_bag(model.item_embed.detach(), seq99,
+                                 cfg.n_items)
+    n_cand = shapes["retrieval_cand"]["n_candidates"]
+    cand = (torch.randperm(n_cand, generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda") + 1).to(torch.int32)
+    seq1 = users(shapes["retrieval_cand"]["batch"], 2)
+    B_bulk = shapes["serve_bulk"]["batch"]
+    seq_bulk = users(B_bulk, 3)
+
+    runs = {}
+    with torch.inference_mode():
+        # Warm-up (cuBLAS handles, K5's library load) outside the counts.
+        recsys_serve_topk(cfg, model, seq99, k=RECSYS_K)
+        recsys_retrieval(cfg, model, seq1, cand)
+        torch.cuda.synchronize()
+
+        eb_cuda.LAUNCHES = 0             # the recsys path's count starts here
+        for name, fn, per_call, B in (
+                ("serve_p99", lambda: recsys_serve_topk(
+                    cfg, model, seq99, k=RECSYS_K), 1, B99),
+                ("retrieval_cand", lambda: recsys_retrieval(
+                    cfg, model, seq1, cand), 2, 1)):
+            torch.cuda.reset_peak_memory_stats()
+            secs = []
+            for _ in range(RECSYS_REPS):
+                before = eb_cuda.LAUNCHES
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                check(eb_cuda.LAUNCHES - before == per_call,
+                      f"recsys {name}: {eb_cuda.LAUNCHES - before} K5 "
+                      f"launches a call, not {per_call}")
+            vals = out[0] if isinstance(out, tuple) else out
+            check(bool(torch.isfinite(vals).all()),
+                  f"recsys {name}: non-finite scores")
+            pct = percentiles(secs)
+            runs[name] = dict(
+                batch=B, calls=RECSYS_REPS, p50_ms=pct["p50"] * 1e3,
+                p99_ms=pct["p99"] * 1e3, users_per_s=B / pct["p50"],
+                k5_launches_per_call=per_call,
+                max_memory_allocated=torch.cuda.max_memory_allocated(),
+                out_shape=list(vals.shape))
+        torch.cuda.reset_peak_memory_stats()
+        before = eb_cuda.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vb, ib = recsys_serve_topk(cfg, model, seq_bulk, k=RECSYS_K)
+        torch.cuda.synchronize()
+        bulk_s = time.perf_counter() - t0
+        bulk_launches = eb_cuda.LAUNCHES - before
+        n_chunks = -(-B_bulk // 8192)
+        check(bulk_launches == n_chunks,
+              f"recsys serve_bulk: {bulk_launches} K5 launches, not "
+              f"{n_chunks}")
+        check(tuple(vb.shape) == (B_bulk, RECSYS_K)
+              and bool(torch.isfinite(vb).all()),
+              "recsys serve_bulk: bad or non-finite top-k")
+        runs["serve_bulk"] = dict(
+            batch=B_bulk, wall_s=bulk_s, users_per_s=B_bulk / bulk_s,
+            k5_launches=bulk_launches,
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        del vb, ib, seq_bulk
+        k5_launches = eb_cuda.LAUNCHES
+
+        # Where the time goes: one serve_p99 call, timed, then profiled.
+        wall_ms = wall_s(lambda: recsys_serve_topk(cfg, model, seq99,
+                                                   k=RECSYS_K)) * 1e3
+        by_name = device_profile(lambda: recsys_serve_topk(cfg, model, seq99,
+                                                           k=RECSYS_K),
+                                 warmup=1)
+        k5 = [v for n, v in by_name.items() if "embedding_bag_kernel" in n]
+        dev_ms = sum(v[1] for v in by_name.values())
+        profile = dict(wall_ms=wall_ms,
+                       cuda_kernels=sum(v[0] for v in by_name.values()),
+                       device_ms=dev_ms, busy=dev_ms / wall_ms if by_name
+                       else None, k5_launches=sum(v[0] for v in k5),
+                       k5_ms=sum(v[1] for v in k5) if k5 else None,
+                       top=top_kernels(by_name))
+
+        # (a) K5 against the plain lookup, same weights and users.
+        h = model.user_state(seq99)
+        model.bag_prefer = "ref"
+        h_ref = model.user_state(seq99)
+        model.bag_prefer = "auto"
+        check(torch.equal(h, h_ref), "recsys (a): user states with K5 differ "
+              "from the plain lookup's")
+
+        # (b) streamed top-100 against topk of the full score matrix.
+        vals, ids = recsys_serve_topk(cfg, model, seq99, k=RECSYS_K)
+        full = h[:, -1] @ model.item_embed.T                 # (512, 1000448)
+        want_v, want_i = torch.topk(full, RECSYS_K + 1, dim=1)
+        share, gap_v = topk_ids_agree(vals, ids, want_v, want_i, full,
+                                      RECSYS_TOPK_TOL)
+        del full, h, h_ref
+
+    # (c) the smoke config on the card against the CPU.
+    smoke = arch.make_smoke_config()
+    params = init_sasrec(smoke, torch.Generator().manual_seed(0))
+    cpu, gpu = SASRec(smoke, params), SASRec(smoke, params).cuda()
+    sseq = next(recsys_batches(64, smoke.seq_len, smoke.n_items,
+                               seed=1))["item_seq"]
+    sseq[:8, :5] = 0                                        # left padding
+    with torch.inference_mode():
+        state_gap = float((gpu.user_state(sseq.cuda()).cpu()
+                           - cpu.user_state(sseq)).abs().max())
+        _, ig = recsys_serve_topk(smoke, gpu, sseq.cuda(), k=RECSYS_K)
+        _, ic = recsys_serve_topk(smoke, cpu, sseq, k=RECSYS_K)
+    check(state_gap <= RECSYS_STATE_TOL,
+          f"recsys (c): smoke states differ by {state_gap}")
+    check(torch.equal(ig.cpu(), ic), "recsys (c): smoke top-k ids on the "
+          "card differ from the CPU's")
+
+    emit("recsys", arch=cfg.name, dtype=str(cfg.dtype).split(".")[-1],
+         table_rows=cfg.table_rows, table_bytes=table_bytes,
+         n_params=cfg.n_params(), init_s=init_s, k=RECSYS_K, runs=runs,
+         k5_launches=k5_launches, profile=profile,
+         check_a_bit_equal=True,
+         check_b=dict(max_value_gap=gap_v, ranks_compared=share,
+                      tol=RECSYS_TOPK_TOL),
+         check_c=dict(config=smoke.name, max_state_gap=state_gap,
+                      topk_ids_equal=True))
+    del model
+    torch.cuda.empty_cache()
+    return bag_rows, k5_launches
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -1144,6 +1515,7 @@ def main(argv=None) -> int:
     from repro_torch.core.rcb import rcb_order, rcb_parts
     from repro_torch.dist.refine_sharded import build_frontier_plan
     from repro_torch.kernels.ell_spmv import cuda
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.kernels.segment_sum import cuda as ss_cuda
     from repro_torch.mesh import box_mesh, dual_graph
@@ -1159,9 +1531,9 @@ def main(argv=None) -> int:
 
     # One nvcc per source, started together.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         built = list(pool.map(lambda mod: mod.build(),
-                              (cuda, ss_cuda, fa_cuda)))
+                              (cuda, ss_cuda, fa_cuda, eb_cuda)))
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[path.name for path, _ in built],
          ptxas=[ln for _, report in built for ln in report.splitlines()
@@ -1193,6 +1565,7 @@ def main(argv=None) -> int:
     del fp, sweep_parts
     fa_rows = phase_kernels_flash()
     k6_launches = phase_serve()
+    bag_rows, k5_launches = phase_recsys()
 
     def main_f32(rows):
         return next(r for r in rows
@@ -1205,6 +1578,11 @@ def main(argv=None) -> int:
     # K6 at the `requests` prefill's shape, bf16, by device time
     flash_row = dict(fa_rows[("prefill", "bfloat16")],
                      kernel_ms=fa_rows[("prefill", "bfloat16")]["dev_ms"])
+
+    # K5 at the retrieval lookup's shape (10^6 bags of one), fp32, by
+    # device time
+    bag_row = dict(bag_rows[("retrieval", "float32")],
+                   kernel_ms=bag_rows[("retrieval", "float32")]["dev_ms"])
 
     src = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
     ss_src = "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu"
@@ -1225,6 +1603,11 @@ def main(argv=None) -> int:
                      "flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:86",
                      k6_launches, flash_row),
+        kernel_entry("embedding_bag",
+                     "src/repro_torch/kernels/embedding_bag/csrc/"
+                     "embedding_bag.cu",
+                     "src/repro/kernels/embedding_bag/kernel.py:42",
+                     k5_launches, bag_row),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""The LM input-shape suite (`repro.configs.shapes.LM_SHAPES`); the GNN and
-recsys suites come with their models (ROADMAP D2, D3)."""
+"""The LM and recsys input-shape suites (`repro.configs.shapes.LM_SHAPES`
+and ``RECSYS_SHAPES``); the GNN suite comes with its models (ROADMAP D3)."""
 
 from __future__ import annotations
 
@@ -21,4 +21,12 @@ LM_SHAPES = {
 LM_SKIPS = {
     "long_500k": "pure full-attention arch (assignment rule: skip; "
                  "see DESIGN.md §6)",
+}
+
+RECSYS_SHAPES = {
+    "train_batch": ShapeCell("train_batch", "train", {"batch": 65536}),
+    "serve_p99": ShapeCell("serve_p99", "serve", {"batch": 512}),
+    "serve_bulk": ShapeCell("serve_bulk", "serve", {"batch": 262144}),
+    "retrieval_cand": ShapeCell("retrieval_cand", "retrieval",
+                                {"batch": 1, "n_candidates": 1_000_000}),
 }

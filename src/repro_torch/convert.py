@@ -2,7 +2,8 @@
 
 For the partitioner what carries across is the input and its assembled
 operators — the mesh, its dual graph, the ELL Laplacian and the halo
-sharding plan; for the LM it is the weights (`lm_params_from_numpy`).
+sharding plan; for the LM and SASRec it is the weights
+(`lm_params_from_numpy`, `sasrec_params_from_numpy`).
 These builders take exactly the arrays a `repro` object holds
 (``graph.indptr``, ``op.cols``, ``plan.export_idx``, ``params["layers"]
 ["wq"]`` …, as NumPy), so a test can hand both packages the identical
@@ -19,6 +20,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.partition_aware import HaloPlan
 from repro_torch.mesh.box import HexMesh, derive_edge_face_gids
 from repro_torch.mesh.graphs import Graph
+from repro_torch.models.recsys.sasrec import SASRec, SASRecConfig
 from repro_torch.models.transformer import LMConfig, Transformer
 
 
@@ -72,17 +74,25 @@ def halo_plan_from_arrays(n, n_shards, n_local, halo, max_edges, block_sizes,
         edge_mask=np.array(edge_mask, dtype=np.float32))
 
 
+def _tensors(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tensors(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).to(dev)
+
+
 def lm_params_from_numpy(cfg: LMConfig, params: dict,
                          device=None) -> Transformer:
     """The port's LM (on ``device``, default the card) with the values of
     `repro`'s parameter tree ``params`` — ``embed``, ``head``,
     ``final_norm`` and the stacked ``layers`` — given with NumPy leaves
     (e.g. ``jax.tree_util.tree_map(np.asarray, params)``)."""
-    dev = resolve_device(device)
+    return Transformer(cfg, _tensors(params, resolve_device(device)))
 
-    def tensors(tree):
-        if isinstance(tree, dict):
-            return {k: tensors(v) for k, v in tree.items()}
-        return torch.from_numpy(np.array(tree)).to(dev)
 
-    return Transformer(cfg, tensors(params))
+def sasrec_params_from_numpy(cfg: SASRecConfig, params: dict,
+                             device=None) -> SASRec:
+    """The port's `SASRec` (on ``device``, default the card) with the values
+    of `repro`'s parameter tree ``params`` — ``item_embed``, ``pos_embed``,
+    ``blocks`` (stacked by ``vmap``: leading axis n_blocks), ``final_ln_g``
+    and ``final_ln_b`` — given with NumPy leaves."""
+    return SASRec(cfg, _tensors(params, resolve_device(device)))

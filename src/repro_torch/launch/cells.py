@@ -1,0 +1,68 @@
+"""The recsys serving steps of `repro.launch.cells._recsys_cell`, as plain
+functions on one device.
+
+* :func:`recsys_serve_topk` — the ``serve`` cells (``serve_p99``,
+  ``serve_bulk``): each user's top-k items over the whole catalog, the
+  users in chunks of at most ``user_chunk`` and the table streamed in
+  ``n_cat_chunks`` contiguous slices, so no (users × catalog) score matrix
+  is ever held;
+* :func:`recsys_retrieval` — the ``retrieval`` cell (``retrieval_cand``):
+  one batched score of every candidate, `sasrec_score_candidates`.
+
+`repro`'s semantics are kept, oddities included: every row of each slice
+is scored, the padding row 0 and the rows past ``n_items`` among them, and
+the rows past ``n_cat_chunks · (table_rows // n_cat_chunks)`` are not;
+the running best comes first in each concatenation, and values come out
+sorted in descending order.  `repro` reshapes the users into equal chunks
+(its batch must be a multiple of ``user_chunk``); here the last chunk may
+be shorter.  Ties: ``jax.lax.top_k`` keeps the lower position of equal
+scores, ``torch.topk`` promises no order among them, so ids may differ
+where two scores are equal.  The rest of `repro`'s cells (`Cell` records,
+abstract arguments, PartitionSpecs, the pod topology) waits for the
+launch slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.recsys.sasrec import SASRec, SASRecConfig
+
+
+def recsys_serve_topk(cfg: SASRecConfig, model: SASRec,
+                      item_seq: torch.Tensor, k: int = 100,
+                      n_cat_chunks: int = 64,
+                      user_chunk: int = 8192) -> tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """item_seq (B, S) → (values, ids), each (B, k): the k best items per
+    user by ``h @ item_embed.T``, h the last position's user state.  One
+    K5 launch (the sequence lookup) per user chunk."""
+    table = model.item_embed
+    chunk = table.shape[0] // n_cat_chunks
+    offsets = torch.arange(chunk, device=table.device)
+    vals, ids = [], []
+    for seqs in torch.split(item_seq, user_chunk):
+        h = model.user_state(seqs)[:, -1]                 # (uc, d)
+        n = h.shape[0]
+        best_v = torch.full((n, k), float("-inf"), dtype=h.dtype,
+                            device=h.device)
+        best_i = torch.zeros((n, k), dtype=torch.int64, device=h.device)
+        for i in range(n_cat_chunks):
+            rows = table[i * chunk:(i + 1) * chunk]
+            scores = h @ rows.T                           # (uc, chunk)
+            allv = torch.cat([best_v, scores], dim=1)
+            alli = torch.cat([best_i, (i * chunk + offsets).expand(n, chunk)],
+                             dim=1)
+            best_v, pos = torch.topk(allv, k, dim=1)
+            best_i = torch.gather(alli, 1, pos)
+        vals.append(best_v)
+        ids.append(best_i)
+    return torch.cat(vals), torch.cat(ids)
+
+
+def recsys_retrieval(cfg: SASRecConfig, model: SASRec,
+                     item_seq: torch.Tensor,
+                     candidates: torch.Tensor) -> torch.Tensor:
+    """item_seq (B, S), candidates (N_c,) → (B, N_c) scores: two K5
+    launches (the sequence and the candidates)."""
+    return model.score_candidates(item_seq, candidates)

@@ -1,2 +1,3 @@
-"""Models: the dense decoder-only LM (`transformer`) and its building blocks
+"""Models: the dense decoder-only LM (`transformer`), the SASRec
+recommender and its embedding bag (`recsys`), and their building blocks
 (`common`)."""

@@ -1,4 +1,5 @@
-"""Shared model building blocks: init helpers, RMSNorm, parameter trees.
+"""Shared model building blocks: init helpers, RMSNorm, LayerNorm, parameter
+trees.
 
 Ports of `repro.models.common`.  The init functions take an explicit
 `torch.Generator` (their tensors are made on its device); `jax.random` and
@@ -40,6 +41,17 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     xf = x.float()
     scale = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
     return (xf * scale).to(x.dtype) * gamma.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with fp32 mean and variance; the normalised x is cast back
+    to x's type before γ and β, in `repro`'s order."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return y.to(x.dtype) * gamma.to(x.dtype) + beta.to(x.dtype)
 
 
 def _leaves(tree):

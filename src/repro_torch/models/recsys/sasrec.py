@@ -1,0 +1,181 @@
+"""SASRec (Kang & McAuley, arXiv:1808.09781): self-attentive sequential
+recommendation, for serving.  Port of `repro.models.recsys.sasrec`.
+
+The final hidden state is the user representation; candidates are scored
+by dot product against the item embeddings.  Both table lookups go through
+K5 (`kernels/embedding_bag`) as bags of one row each — the item sequence
+with ``segments = arange(B·S)`` and weight √d, the candidates with weight
+1 — the same products `repro`'s ``jnp.take(...) * √d`` and ``jnp.take``
+give, bit for bit in fp32.  The attention stays plain PyTorch, as
+`repro`'s is plain einsum: its key-padding mask is SASRec's own, and masked
+scores are -1e30 (not -inf), so a left-padded query whose keys are all
+masked gets a uniform softmax and is then zeroed by the mask, as in
+`repro`.
+
+Differences from `repro` by design: the parameters live in a `SASRec`
+module (the stacked block tensors as `repro` stacks them), and
+`sasrec_user_state` / `sasrec_score_candidates` take it in place of the
+parameter tree.  `repro`'s `ShardRules` is an identity on one device and is
+not ported; `sasrec_train_loss` waits for the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.models.common import dense_init, embed_init, layer_norm
+
+_BLOCK_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "ln1_g", "ln1_b", "ln2_g",
+               "ln2_b")
+
+
+@dataclasses.dataclass(frozen=True)
+class SASRecConfig:
+    name: str = "sasrec"
+    n_items: int = 1_000_000
+    embed_dim: int = 50
+    n_blocks: int = 2
+    n_heads: int = 1
+    seq_len: int = 50
+    d_ff: int = 50
+    pad_rows: int = 512     # table rows padded for clean row-sharding
+    dtype: Any = torch.float32
+
+    @property
+    def table_rows(self) -> int:
+        """Row 0 is the padding item; rows padded to a `pad_rows` multiple
+        (`repro` shards the table evenly over any mesh axis ≤ pad_rows)."""
+        return -(-(self.n_items + 1) // self.pad_rows) * self.pad_rows
+
+    def n_params(self) -> int:
+        d = self.embed_dim
+        blk = 4 * d * d + 2 * d * self.d_ff + 4 * d
+        return (self.table_rows + self.seq_len) * d + self.n_blocks * blk
+
+
+def init_sasrec(cfg: SASRecConfig, generator: torch.Generator) -> dict:
+    """`repro`'s parameter tree — ``item_embed`` (row 0 the padding item),
+    ``pos_embed``, ``blocks`` (each leaf stacked over a leading
+    (n_blocks,) dim), ``final_ln_g``, ``final_ln_b`` — in ``cfg.dtype``,
+    on the generator's device."""
+    d, L = cfg.embed_dim, cfg.n_blocks
+
+    def dense(shape):
+        return dense_init(generator, (L, *shape), in_axis=1, dtype=cfg.dtype)
+
+    def const(value, shape):
+        return torch.full(shape, value, dtype=cfg.dtype,
+                          device=generator.device)
+
+    return {
+        "item_embed": embed_init(generator, (cfg.table_rows, d), cfg.dtype),
+        "pos_embed": embed_init(generator, (cfg.seq_len, d), cfg.dtype),
+        "blocks": {"wq": dense((d, d)), "wk": dense((d, d)),
+                   "wv": dense((d, d)), "wo": dense((d, d)),
+                   "w1": dense((d, cfg.d_ff)), "w2": dense((cfg.d_ff, d)),
+                   "ln1_g": const(1.0, (L, d)), "ln1_b": const(0.0, (L, d)),
+                   "ln2_g": const(1.0, (L, d)), "ln2_b": const(0.0, (L, d))},
+        "final_ln_g": const(1.0, (d,)),
+        "final_ln_b": const(0.0, (d,)),
+    }
+
+
+class SASRec(nn.Module):
+    """SASRec's weights in ``cfg.dtype``: ``item_embed``, ``pos_embed``, the
+    block tensors stacked over (n_blocks,) as `repro` stacks them, and the
+    final LayerNorm.
+
+    ``bag_prefer`` is K5's dispatch for both table lookups (`ops`
+    ``prefer``): ``"auto"`` runs the kernel on the card and the plain
+    version on the CPU.  Set to ``"ref"``, it forces the plain version on
+    the card, to hold the kernel's model against the plain one."""
+
+    def __init__(self, cfg: SASRecConfig, params: dict):
+        super().__init__()
+        if cfg.embed_dim % cfg.n_heads:
+            raise ValueError(f"{cfg.name}: embed_dim={cfg.embed_dim} is not a "
+                             f"multiple of n_heads={cfg.n_heads}")
+        self.cfg = cfg
+        self.bag_prefer = "auto"
+
+        def param(t):
+            return nn.Parameter(t.to(cfg.dtype), requires_grad=False)
+
+        self.item_embed = param(params["item_embed"])
+        self.pos_embed = param(params["pos_embed"])
+        self.blocks = nn.ParameterDict({k: param(params["blocks"][k])
+                                        for k in _BLOCK_KEYS})
+        self.final_ln_g = param(params["final_ln_g"])
+        self.final_ln_b = param(params["final_ln_b"])
+
+    def lookup(self, ids: torch.Tensor, weight: float) -> torch.Tensor:
+        """``weight · item_embed[ids]`` for ids (N,) → (N, d): N bags of one
+        row each on K5."""
+        n = ids.shape[0]
+        dev = self.item_embed.device
+        segments = torch.arange(n, dtype=torch.int32, device=dev)
+        weights = torch.full((n,), weight, dtype=torch.float32, device=dev)
+        return embedding_bag(self.item_embed, ids.to(torch.int32), segments,
+                             n, weights=weights, prefer=self.bag_prefer)
+
+    def user_state(self, item_seq: torch.Tensor) -> torch.Tensor:
+        """item_seq (B, S) int (0 = pad) → per-position user states (B, S,
+        d)."""
+        cfg = self.cfg
+        B, S = item_seq.shape
+        d = cfg.embed_dim
+        mask = (item_seq > 0).to(cfg.dtype)
+        x = self.lookup(item_seq.reshape(-1), math.sqrt(d)).reshape(B, S, d)
+        x = x + self.pos_embed[None, :S]
+        x = x * mask[:, :, None]
+        for i in range(cfg.n_blocks):
+            x = _block(cfg, {k: v[i] for k, v in self.blocks.items()}, x, mask)
+        return layer_norm(x, self.final_ln_g, self.final_ln_b)
+
+    def score_candidates(self, item_seq: torch.Tensor,
+                         candidates: torch.Tensor) -> torch.Tensor:
+        """Score candidates (N_c,) for each user → (B, N_c) logits."""
+        h = self.user_state(item_seq)[:, -1]               # (B, d)
+        ce = self.lookup(candidates, 1.0)                  # (N_c, d)
+        return h @ ce.T
+
+
+def _block(cfg: SASRecConfig, p: dict, x: torch.Tensor,
+           mask: torch.Tensor) -> torch.Tensor:
+    B, S, d = x.shape
+    h = layer_norm(x, p["ln1_g"], p["ln1_b"])
+    H = cfg.n_heads
+    dh = d // H
+    q = (h @ p["wq"]).reshape(B, S, H, dh)
+    k = (h @ p["wk"]).reshape(B, S, H, dh)
+    v = (h @ p["wv"]).reshape(B, S, H, dh)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
+    causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=x.device))
+    valid = causal[None, None] & (mask[:, None, None, :] > 0)
+    s = torch.where(valid, s, torch.full((), -1e30, dtype=s.dtype,
+                                         device=s.device))
+    a = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, S, d)
+    x = x + o @ p["wo"]
+    h = layer_norm(x, p["ln2_g"], p["ln2_b"])
+    x = x + torch.relu(h @ p["w1"]) @ p["w2"]
+    return x * mask[:, :, None]
+
+
+def sasrec_user_state(cfg: SASRecConfig, model: SASRec,
+                      item_seq: torch.Tensor) -> torch.Tensor:
+    """`repro`'s ``sasrec_user_state``: item_seq (B, S) → (B, S, d)."""
+    return model.user_state(item_seq)
+
+
+def sasrec_score_candidates(cfg: SASRecConfig, model: SASRec,
+                            item_seq: torch.Tensor,
+                            candidates: torch.Tensor) -> torch.Tensor:
+    """`repro`'s ``sasrec_score_candidates``: (B, N_c) logits."""
+    return model.score_candidates(item_seq, candidates)

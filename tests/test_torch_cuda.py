@@ -17,7 +17,11 @@ same run on the CPU label for label (integer weights: exact sums).  K6,
 the flash attention, is held to its plain version with
 tests/test_kernels.py's `_tol` (fp32 2e-5, bf16 2e-2), and the smoke LM's
 greedy tokens on the card to the CPU's exactly (fp32; logits within
-1e-3).
+1e-3).  K5, the embedding bag, is held to its plain version per element
+relative to the bag's Σ|w·row| (fp32 1e-5: the plain version adds with
+atomics in another order; bf16 2e-2), and bit for bit on bags of one in
+fp32; the smoke SASRec on the card to the CPU run: user states within
+1e-5, streamed top-100 ids identical.
 """
 
 import numpy as np
@@ -276,3 +280,123 @@ def test_generate_on_card_matches_cpu(card):
         torch.testing.assert_close(tt.prefill(gpu, prompts.to(card))[0].cpu(),
                                    tt.prefill(cpu, prompts)[0], atol=1e-3,
                                    rtol=0)
+
+
+# K5 cases: (V, d, nnz, n_bags, kind); kind "sorted" (tests/test_kernels.py's
+# sweep), "unsorted" (weighted; ops sorts), "empty" (bags 0 and every
+# third bag empty), "one" (bags of one, weight √d: SASRec's lookups).
+BAG_CASES = {
+    "sweep_a": (100, 16, 64, 10, "sorted"),
+    "sweep_b": (500, 50, 300, 32, "sorted"),
+    "sweep_c": (64, 128, 128, 8, "sorted"),
+    "weighted_unsorted": (80, 24, 100, 12, "unsorted"),
+    "empty": (300, 50, 400, 90, "empty"),
+    "one": (1000, 50, 4096, 4096, "one"),
+    "wide_odd": (200, 301, 500, 40, "sorted"),
+}
+
+
+def _bag_case(case, device, dtype):
+    V, d, nnz, B, kind = BAG_CASES[case]
+    rng = np.random.default_rng(len(case))
+    table = torch.from_numpy(rng.normal(size=(V, d)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, V, nnz).astype(np.int32))
+    if kind == "one":
+        seg = torch.arange(nnz, dtype=torch.int32)
+        w = torch.full((nnz,), float(np.sqrt(d)))
+    else:
+        ids = np.arange(B)
+        if kind == "empty":
+            ids = ids[(ids % 3 != 0)]
+        seg = rng.choice(ids, nnz).astype(np.int32)
+        if kind != "unsorted":
+            seg = np.sort(seg)
+        seg = torch.from_numpy(seg)
+        w = torch.from_numpy(rng.normal(size=nnz).astype(np.float32))
+    return (table.to(device, dtype), idx.to(device), seg.to(device),
+            w.to(device, dtype), B, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BAG_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_kernel_on_card(card, case, dtype):
+    """K5 against its plain version on the card (empty bags: zero rows)."""
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag import ref as eb_ref
+
+    table, idx, seg, w, B, kind = _bag_case(case, card, dtype)
+    sort = kind == "unsorted"
+    before = eb_cuda.LAUNCHES
+    got = eb_ops.embedding_bag(table, idx, seg, B, weights=w,
+                               assume_sorted=not sort, prefer="cuda")
+    torch.cuda.synchronize()
+    assert eb_cuda.LAUNCHES == before + 1
+    want = eb_ref.embedding_bag_ref(table, idx, seg, B, weights=w)
+    size = eb_ref.embedding_bag_ref(table.float().abs(), idx, seg, B,
+                                    weights=w.float().abs())
+    if kind == "one" and dtype == torch.float32:
+        assert torch.equal(got, want)
+        assert torch.equal(got, table[idx.long()] * w[:, None])
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol * size).all()), float((diff / size.clamp(
+        min=1e-30)).max())
+    empty = torch.bincount(seg.long(), minlength=B) == 0
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_embedding_bag_kernel_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+
+    table = torch.zeros((10, 4), device=card)
+    idx = torch.zeros(3, dtype=torch.int32, device=card)
+    w = torch.ones(3, device=card)
+    with pytest.raises(TypeError, match="int32"):
+        eb_cuda.embedding_bag_cuda(table, idx.long(), idx, w, 2)
+    with pytest.raises(TypeError, match="share"):
+        eb_cuda.embedding_bag_cuda(table, idx, idx, w.double(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        eb_cuda.embedding_bag_cuda(table.t(), idx, idx, w, 2)
+
+
+@pytest.mark.cuda
+def test_sasrec_smoke_on_card_matches_cpu(card):
+    """The smoke SASRec (fp32) on the card, both lookups on K5, against the
+    CPU run: user states within 1e-5, streamed top-100 ids identical,
+    candidate scores within 1e-4; one K5 launch per user chunk of the
+    top-k and two per retrieval."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import recsys_batches
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.launch.cells import recsys_retrieval, recsys_serve_topk
+    from repro_torch.models.recsys import SASRec, init_sasrec
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_arch("sasrec").make_smoke_config()
+        params = init_sasrec(cfg, torch.Generator().manual_seed(0))
+        cpu, gpu = SASRec(cfg, params), SASRec(cfg, params).to(card)
+        seq = next(recsys_batches(64, cfg.seq_len, cfg.n_items, seed=1))[
+            "item_seq"]
+        seq[:8, :5] = 0                                  # left padding
+        eb_cuda.LAUNCHES = 0
+        vg, ig = recsys_serve_topk(cfg, gpu, seq.to(card), user_chunk=32)
+        assert eb_cuda.LAUNCHES == 2
+        vc, ic = recsys_serve_topk(cfg, cpu, seq, user_chunk=32)
+        assert torch.equal(ig.cpu(), ic)
+        torch.testing.assert_close(vg.cpu(), vc, atol=1e-5, rtol=0)
+        torch.testing.assert_close(gpu.user_state(seq.to(card)).cpu(),
+                                   cpu.user_state(seq), atol=1e-5, rtol=0)
+        cand = torch.randperm(cfg.n_items, generator=torch.Generator()
+                              .manual_seed(0)) + 1
+        eb_cuda.LAUNCHES = 0
+        sg = recsys_retrieval(cfg, gpu, seq[:1].to(card), cand.to(card))
+        assert eb_cuda.LAUNCHES == 2
+        torch.testing.assert_close(sg.cpu(), recsys_retrieval(
+            cfg, cpu, seq[:1], cand), atol=1e-4, rtol=0)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
