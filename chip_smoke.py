@@ -184,7 +184,15 @@ FLASH_CASES = {
     "k4": (1, 128, 256, 4, 1, 32, None, None, True),
     "k5": (1, 48, 48, 2, 2, 128, None, None, True),
     "noncausal": (2, 64, 96, 4, 2, 32, None, None, False),
+    # a prefill chunk after a cached prefix of 512 rows
+    "continuation": (1, 128, 700, 32, 4, 64, 512, 640, True),
+    # measured only: the `long` serve run's decode step over its 4096 rows
+    "long_decode": (1, 1, 4096, 32, 4, 64, 4095, 4096, True),
 }
+# bf16 calls with more than this many flattened (position, head) rows take
+# K6's bf16 prefill kernel; the rest its decode route
+FLASH_DECODE_ROWS = 16
+FLASH_PREFILL_KERNEL = "flash_attention_kernel_bf16"
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # serve runs: (batch, prompt_len, steps)
 SERVE_RUNS = {"requests": (4, 512, 64), "long": (1, 4096, 16)}
@@ -364,13 +372,31 @@ def profiled_ms(fn, kernel_name, calls=20, sessions=2):
     session that misses the kernel is tried again, and after ``sessions``
     misses the time is None: the caller then reports the CUDA-event
     time."""
+    ms, traced, _ = profiled_kernel(fn, kernel_name, calls, sessions)
+    return ms, traced
+
+
+def profiled_kernel(fn, kernel_name, calls=20, sessions=2):
+    """`profiled_ms`, and the full name of the kernel that was traced (None
+    where none was)."""
     for _ in range(sessions):
         by_name = device_profile(lambda: [fn() for _ in range(calls)])
-        k = [v for n, v in by_name.items() if kernel_name in n]
+        k = [(n, v) for n, v in by_name.items() if kernel_name in n]
         traced = sum(v[0] for v in by_name.values())
         if k:
-            return k[0][1] / k[0][0], traced
-    return None, traced
+            name, (count, ms) = k[0]
+            return ms / count, traced, name
+    return None, traced, None
+
+
+def profiled_call_ms(fn, calls=20):
+    """Device ms of one call of ``fn`` summed over every CUDA kernel it
+    issues (torch.profiler over ``calls`` calls); None where the profiler
+    traced nothing."""
+    by_name = device_profile(lambda: [fn() for _ in range(calls)])
+    if not by_name:
+        return None
+    return sum(v[1] for v in by_name.values()) / calls
 
 
 def top_kernels(by_name, k=8):
@@ -1026,16 +1052,27 @@ def phase_kernels_flash():
                 else FP32_FLOPS_PER_S
             bound_ops_ms = flops / peak * 1e3
             kernel_ms = time_auto(kernel)
-            dev_ms, traced = profiled_ms(kernel, "flash_attention_kernel")
+            dev_ms, traced, kname = profiled_kernel(kernel,
+                                                    "flash_attention_kernel")
+            # the route: a bf16 prefill runs the bf16 prefill kernel
+            if dtype == torch.bfloat16 and Sq * (H // Hkv) > FLASH_DECODE_ROWS \
+                    and kname is not None:
+                check(FLASH_PREFILL_KERNEL in kname,
+                      f"K6 {case} bf16 ran {kname}, not the prefill kernel")
+            lib_dev_ms = profiled_call_ms(lib)
+            k_ms = dev_ms if dev_ms is not None else kernel_ms
             rows[(case, str(dtype).split(".")[-1])] = dict(
                 case=case, dtype=str(dtype).split(".")[-1], B=B, Sq=Sq,
                 Skv=Skv, H=H, Hkv=Hkv, D=D, q_offset=q_offset, kv_len=kv_len,
                 causal=causal, max_abs_err=err, library_max_abs_err=lib_err,
                 kernel_ms=kernel_ms,
-                dev_ms=dev_ms if dev_ms is not None else kernel_ms,
+                dev_ms=k_ms,
                 dev_ms_by="profiler" if dev_ms is not None else "cuda_events",
-                profiler_cuda_events=traced, ref_ms=time_auto(plain),
-                library_ms=time_auto(lib), bytes=nbytes, flops=flops,
+                profiler_cuda_events=traced, kernel_name=kname,
+                tflops=flops / (k_ms * 1e-3) / 1e12, ref_ms=time_auto(plain),
+                library_ms=time_auto(lib), library_dev_ms=lib_dev_ms,
+                library_tflops=flops / (lib_dev_ms * 1e-3) / 1e12
+                if lib_dev_ms else None, bytes=nbytes, flops=flops,
                 bound_ms=max(bound_bytes_ms, bound_ops_ms),
                 bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
                 else "operations")
@@ -1306,7 +1343,7 @@ def phase_kernels_bag(table_full, serve_seq, n_items):
                 empty_bags=int(empty.sum()), max_abs_err=err,
                 max_err_of_terms=rel, library_max_err_of_terms=lib_rel,
                 kernel_ms=kernel_ms,
-                dev_ms=dev_ms if dev_ms is not None else kernel_ms,
+                dev_ms=k_ms,
                 dev_ms_by="profiler" if dev_ms is not None else "cuda_events",
                 profiler_cuda_events=traced, ref_ms=time_auto(plain),
                 library_ms=time_auto(lib), bytes=nbytes,

@@ -61,6 +61,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -339,135 +340,229 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Shared memory of the tensor-core kernel, in bf16 elements: Qs [64][D+8],
-// Ks [kBK][D+8] (row-major, as the QK^T B operand reads them) and Vt
-// [D][kBK+8] (V transposed, as the PV B operand reads it); the pads of 16
-// bytes put the 8 rows of a fragment load on distinct banks.
-template <int D>
-constexpr int mma_smem_elems() {
-  return 64 * (D + 8) + kBK * (D + 8) + D * (kBK + 8);
+// 16 bytes global -> shared without a register round trip; with !valid the
+// 16 bytes are zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// The bf16 prefill on the tensor cores (mma.sync m16n8k16), the same
-// contraction as flash_attention_kernel: each of the 4 warps owns 16 of the
-// block's 64 rows, holds its Q rows as A fragments for the whole sweep, and
-// per KV tile forms S (16 x 64) with 32 mma, the online softmax on the
-// fragments (a row's 4 lanes reduce by shuffles), and P, rounded to bf16,
-// is re-packed in registers as the A operand of PV (the S fragment of keys
-// 16j..16j+15 is the A fragment of k-step j).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel_mma(const Args a) {
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8 and receives in r[i] row l / 4, columns 2 (l % 4), +1 of matrix i
+// (.trans: rows 2 (l % 4), +1 at column l / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr int kPThreads = 256;          // bf16 prefill: 8 warps of 16 rows
+constexpr int kPRows = 128;             // query rows per bf16 prefill block
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Copy ROWS rows of D bf16 into shared memory: row r reads src + off(r)
+// (zeros where off(r) < 0) and lands at dst + at(r, c) for its 16-byte
+// chunk c.  With `vec` one cp.async per chunk (the caller commits and
+// waits); otherwise element by element, synchronously.
+template <int D, int ROWS, typename Off, typename At>
+__device__ __forceinline__ void load_rows(bool vec, __nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, Off off, At at) {
+  constexpr int CH = D / 8;
+  if (vec) {
+#pragma unroll
+    for (int e0 = 0; e0 < ROWS * CH; e0 += kPThreads) {
+      const int e = e0 + threadIdx.x;
+      if (ROWS * CH % kPThreads != 0 && e >= ROWS * CH) break;
+      const int r = e / CH, c = e % CH;
+      const int64_t o = off(r);
+      cp_async16(smem_addr(dst + at(r, c)), o >= 0 ? src + o + c * 8 : src, o >= 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * D; e += kPThreads) {
+      const int r = e / D, d = e % D;
+      const int64_t o = off(r);
+      dst[at(r, d / 8) + d % 8] = o >= 0 ? src[o + d] : __float2bfloat16(0.0f);
+    }
+  }
+}
+
+// Shared memory of the bf16 prefill, in elements: Qs [kPRows][D+8], then NS
+// stages of Ks [kBK][D+8] and Vs [kBK][D+8], all row-major as they sit in
+// device memory; the 16-byte pad puts the 8 rows of an ldmatrix phase on
+// distinct banks.
+template <int D, int NS>
+constexpr int bf16_smem_elems() {
+  return (kPRows + NS * 2 * kBK) * (D + 8);
+}
+
+// The bf16 prefill on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+// accumulate).  A block of 8 warps owns 128 flattened rows; each warp owns
+// 16, holds its Q rows as A fragments (ldmatrix) for the whole sweep, and
+// per KV tile of 64 keys forms S (16 x 64) with K's B fragments from
+// ldmatrix, the online softmax on the fragments in the log2 domain, and
+// PV with P re-packed in registers as the A operand and V's B fragments
+// from ldmatrix.trans.  K/V tiles come through a ring of NS stages filled
+// by cp.async, tile j + NS - 1 in flight while tile j is used.
+template <int D, int NS, int MINB>
+__global__ void __launch_bounds__(kPThreads, MINB)
+flash_attention_kernel_bf16(const Args a) {
   using T = __nv_bfloat16;
-  constexpr int R = 64;
+  constexpr int R = kPRows;
   constexpr int ST = D + 8;
-  constexpr int VST = kBK + 8;
+  constexpr int TILE = kBK * ST;        // elements of one K or V tile
   constexpr int KSTEPS = D / 16;        // k-steps of QK^T over the head dim
   constexpr int NT = kBK / 8;           // key n-tiles of S
   constexpr int DT = D / 8;             // head-dim n-tiles of the output
+  static_assert(NS >= 2 && DT % 2 == 0, "ring of 2+ stages; D/8 even");
 
-  extern __shared__ float smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + R * ST;
-  T* Vt = Ks + kBK * ST;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* KVs = Qs + R * ST;                 // stage s: K at 2 s TILE, V after it
 
-  const T* __restrict__ q = static_cast<const T*>(a.q);
-  T* __restrict__ o = static_cast<T*>(a.o);
-  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16 + g;   // this lane's rows: r0, r0 + 8
-  const int kvh = blockIdx.y;
-  const int64_t b = blockIdx.z;
+  const int Hkv = a.H / a.G;
+  const int kvh = blockIdx.x % Hkv;
+  // Row tiles with the most KV tiles first: the causal triangle's long
+  // rows do not form the tail of the grid.
+  const int64_t tile = gridDim.x / Hkv - 1 - blockIdx.x / Hkv;
+  const int64_t b = blockIdx.y;
   const int64_t rows = static_cast<int64_t>(a.Sq) * a.G;
-  const int64_t rho0 = static_cast<int64_t>(blockIdx.x) * R;
+  const int64_t rho0 = tile * R;
+  const auto at = [](int r, int c) { return r * ST + c * 8; };
 
-  {
-    const T* const src[1] = {q};
-    stage<T, D, R, 1>(
-        a.vec, src,
-        [&](int, int r) -> int64_t {
-          const int64_t rho = rho0 + r;
-          if (rho >= rows) return -1;
-          const int64_t h = static_cast<int64_t>(kvh) * a.G + rho % a.G;
-          return b * a.qsb + (rho / a.G) * a.qss + h * a.qsh;
-        },
-        [&](int, int r, int d, float x) { Qs[r * ST + d] = __float2bfloat16(x); });
-  }
-  __syncthreads();
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    qa[ks][0] = ld32(Qs + r0 * ST + ks * 16 + 2 * t);
-    qa[ks][1] = ld32(Qs + (r0 + 8) * ST + ks * 16 + 2 * t);
-    qa[ks][2] = ld32(Qs + r0 * ST + ks * 16 + 8 + 2 * t);
-    qa[ks][3] = ld32(Qs + (r0 + 8) * ST + ks * 16 + 8 + 2 * t);
-  }
+  load_rows<D, R>(
+      a.vec, Qs, static_cast<const T*>(a.q),
+      [&](int r) -> int64_t {
+        const int64_t rho = rho0 + r;
+        if (rho >= rows) return -1;
+        const int64_t h = static_cast<int64_t>(kvh) * a.G + rho % a.G;
+        return b * a.qsb + (rho / a.G) * a.qss + h * a.qsh;
+      },
+      at);
+  cp_async_commit();
 
-  const int64_t qpos[2] = {a.q_offset + (rho0 + r0) / a.G,
-                           a.q_offset + (rho0 + r0 + 8) / a.G};
-  int64_t kv_end = a.kv_len;
+  // Positions, keys and tile counts fit an int: the wrapper bounds Skv
+  // and q_offset + Sq by INT_MAX.
+  int kv_end = a.kv_len;
   if (a.causal) {
     const int64_t last_row = rows - 1 < rho0 + R - 1 ? rows - 1 : rho0 + R - 1;
-    const int64_t causal_end = a.q_offset + last_row / a.G + 1;
+    const int causal_end = a.q_offset + static_cast<int>(last_row / a.G) + 1;
     if (causal_end < kv_end) kv_end = causal_end;
   }
+  const int nkv = kv_end > 0 ? (kv_end - 1) / kBK + 1 : 0;
 
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  const T* kbase = static_cast<const T*>(a.k) + b * a.ksb + static_cast<int64_t>(kvh) * a.ksh;
+  const T* vbase = static_cast<const T*>(a.v) + b * a.vsb + static_cast<int64_t>(kvh) * a.vsh;
+  const auto load_kv = [&](int j) {
+    const int k0 = j * kBK;
+    T* Ks = KVs + (j % NS) * 2 * TILE;
+    load_rows<D, kBK>(a.vec, Ks, kbase,
+                      [&](int r) -> int64_t { return k0 + r < a.Skv ? (k0 + r) * a.kss : -1; }, at);
+    load_rows<D, kBK>(a.vec, Ks + TILE, vbase,
+                      [&](int r) -> int64_t { return k0 + r < a.Skv ? (k0 + r) * a.vss : -1; }, at);
+  };
+#pragma unroll
+  for (int j = 0; j < NS - 1; ++j) {
+    if (j < nkv) load_kv(j);
+    cp_async_commit();
+  }
+
+  cp_async_wait<NS - 1>();              // Q has landed (the KV groups may not)
+  __syncthreads();
+  const int wr0 = warp * 16;            // this warp's first row in the block
+  uint32_t qa[KSTEPS][4];
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks)
+    ldsm_x4(qa[ks], smem_addr(Qs + (wr0 + (lane & 15)) * ST + ks * 16 + (lane >> 4) * 8));
+
+  // Positions of this lane's rows and of the warp's first and last rows.
+  const int qpos[2] = {a.q_offset + static_cast<int>((rho0 + wr0 + g) / a.G),
+                       a.q_offset + static_cast<int>((rho0 + wr0 + g + 8) / a.G)};
+  const int wpos_lo = a.q_offset + static_cast<int>((rho0 + wr0) / a.G);
+  const int wpos_hi = a.q_offset + static_cast<int>((rho0 + wr0 + 15) / a.G);
+  const float c2 = a.scale * kLog2e;    // s * c2 is the score in log2 units
+
+  float m2[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
   float acc[DT][4];
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
 
-  const T* const kv[2] = {static_cast<const T*>(a.k) + b * a.ksb + static_cast<int64_t>(kvh) * a.ksh,
-                          static_cast<const T*>(a.v) + b * a.vsb + static_cast<int64_t>(kvh) * a.vsh};
-  for (int64_t k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();                    // the last tile's Ks/Vt are read
-    stage<T, D, kBK, 2>(
-        a.vec, kv,
-        [&](int u, int j) -> int64_t {
-          return k0 + j < a.Skv ? (k0 + j) * (u == 0 ? a.kss : a.vss) : -1;
-        },
-        [&](int u, int j, int d, float x) {
-          if (u == 0) Ks[j * ST + d] = __float2bfloat16(x);
-          else Vt[d * VST + j] = __float2bfloat16(x);
-        });
-    __syncthreads();
+  for (int j = 0; j < nkv; ++j) {
+    cp_async_wait<NS - 2>();            // tile j has landed (this thread's part)
+    __syncthreads();                    // ... every thread's; tile j - 1 is used
+    if (j + NS - 1 < nkv) load_kv(j + NS - 1);
+    cp_async_commit();
+
+    const int k0 = j * kBK;
+    // A warp whose rows all sit above this tile has nothing to add.
+    if (a.causal && k0 > wpos_hi) continue;
+    const T* Ks = KVs + (j % NS) * 2 * TILE;
+    const uint32_t ks_addr = smem_addr(Ks), vs_addr = smem_addr(Ks + TILE);
 
     float s[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
 #pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks)
-        mma_bf16_16816(s[nt], qa[ks], ld32(Ks + (nt * 8 + g) * ST + ks * 16 + 2 * t),
-                       ld32(Ks + (nt * 8 + g) * ST + ks * 16 + 8 + 2 * t));
-    }
+    for (int ks = 0; ks < KSTEPS; ++ks)
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        // matrices: keys 16 np + 0..7 | + 8..15, head dims 16 ks + 0..7 | 8..15
+        uint32_t kb[4];
+        ldsm_x4(kb, ks_addr + 2 * ((np * 16 + (lane >> 4) * 8 + (lane & 7)) * ST +
+                                   ks * 16 + ((lane >> 3) & 1) * 8));
+        mma_bf16_16816(s[2 * np], qa[ks], kb[0], kb[1]);
+        mma_bf16_16816(s[2 * np + 1], qa[ks], kb[2], kb[3]);
+      }
 
-    // s[nt][e]: row r0 + 8 * (e / 2), key k0 + 8 * nt + 2t + e % 2.
-    float mt[2] = {kNegInf, kNegInf};
+    // s[nt][e]: row wr0 + g + 8 (e / 2), key k0 + 8 nt + 2 t + e % 2.  Only
+    // a tile that crosses kv_len or one of the warp's diagonals is masked.
+    if (k0 + kBK > a.kv_len || (a.causal && k0 + kBK - 1 > wpos_lo)) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + nt * 8 + 2 * t + (e & 1);
+          if (kp >= a.kv_len || (a.causal && kp > qpos[e >> 1])) s[nt][e] = -CUDART_INF_F;
+        }
+    }
+    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t kp = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool valid = kp < a.kv_len && (!a.causal || kp <= qpos[e >> 1]);
-        s[nt][e] = valid ? s[nt][e] * a.scale : kNegInf;
-        mt[e >> 1] = fmaxf(mt[e >> 1], s[nt][e]);
-      }
+      for (int e = 0; e < 4; ++e) mt[e >> 1] = fmaxf(mt[e >> 1], s[nt][e]);
     float corr[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       mt[hr] = fmaxf(mt[hr], __shfl_xor_sync(kFull, mt[hr], 1));
       mt[hr] = fmaxf(mt[hr], __shfl_xor_sync(kFull, mt[hr], 2));
-      const float m_new = fmaxf(m[hr], mt[hr]);
-      corr[hr] = expf(m[hr] - m_new);
-      m[hr] = m_new;
+      const float m_new = fmaxf(m2[hr], mt[hr] * c2);
+      corr[hr] = exp2_approx(m2[hr] - m_new);
+      m2[hr] = m_new;
     }
     float ls[2] = {0.0f, 0.0f};
     uint32_t pa[NT / 2][4];
@@ -476,7 +571,7 @@ flash_attention_kernel_mma(const Args a) {
       float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        p[e] = expf(s[nt][e] - m[e >> 1]);
+        p[e] = exp2_approx(fmaf(s[nt][e], c2, -m2[e >> 1]));
         ls[e >> 1] += p[e];
       }
       pa[nt / 2][(nt & 1) * 2] = pack_bf16(p[0], p[1]);
@@ -485,22 +580,29 @@ flash_attention_kernel_mma(const Args a) {
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) l[hr] = l[hr] * corr[hr] + ls[hr];
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
+    for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[dt][e] *= corr[e >> 1];
 #pragma unroll
-      for (int j = 0; j < kBK / 16; ++j)
-        mma_bf16_16816(acc[dt], pa[j], ld32(Vt + (dt * 8 + g) * VST + j * 16 + 2 * t),
-                       ld32(Vt + (dt * 8 + g) * VST + j * 16 + 8 + 2 * t));
-    }
+    for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        // matrices: keys 16 kk + 0..7 | 8..15, head dims 16 dp + 0..7 | 8..15
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, vs_addr + 2 * ((kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ST +
+                                         (2 * dp + (lane >> 4)) * 8));
+        mma_bf16_16816(acc[2 * dp], pa[kk], vb[0], vb[1]);
+        mma_bf16_16816(acc[2 * dp + 1], pa[kk], vb[2], vb[3]);
+      }
   }
 
+  T* __restrict__ o = static_cast<T*>(a.o);
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float lt = l[hr];
     lt += __shfl_xor_sync(kFull, lt, 1);
     lt += __shfl_xor_sync(kFull, lt, 2);
-    const int64_t rho = rho0 + r0 + 8 * hr;
+    const int64_t rho = rho0 + wr0 + g + 8 * hr;
     if (rho >= rows) continue;
     const int64_t h = static_cast<int64_t>(kvh) * a.G + rho % a.G;
     T* orow = o + ((b * a.Sq + rho / a.G) * a.H + h) * D;
@@ -535,6 +637,26 @@ int launch_shape(const Args& a, int B, int Hkv, cudaStream_t stream) {
                      Hkv, stream);
 }
 
+// The bf16 prefill's grid: x runs over (row tile, KV head), KV head
+// fastest, y over the batch.
+template <int D>
+int launch_bf16(const Args& a, int B, int Hkv, cudaStream_t stream) {
+  constexpr int NS = D <= 64 ? 3 : 2;   // ring stages
+  constexpr int MINB = D <= 64 ? 2 : 1; // blocks per SM the registers allow
+  const auto kernel = flash_attention_kernel_bf16<D, NS, MINB>;
+  constexpr size_t bytes = sizeof(__nv_bfloat16) * bf16_smem_elems<D, NS>();
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t tiles = (static_cast<int64_t>(a.Sq) * a.G + kPRows - 1) / kPRows;
+  if (tiles * Hkv > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(tiles * Hkv), B);
+  kernel<<<grid, kPThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Decode (at most 16 rows) on the 8-row scalar shape; a bf16 prefill on the
 // tensor cores; an fp32 prefill on the 64-row scalar shape (fp32 products
 // are exact only outside the tensor cores).
@@ -543,9 +665,7 @@ int launch_dim(const Args& a, int B, int Hkv, cudaStream_t stream) {
   if (static_cast<int64_t>(a.Sq) * a.G <= 16)
     return launch_shape<T, D, 1, 8, 16>(a, B, Hkv, stream);
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return launch_grid(flash_attention_kernel_mma<D>,
-                       sizeof(__nv_bfloat16) * mma_smem_elems<D>(), 64, a, B, Hkv,
-                       stream);
+    return launch_bf16<D>(a, B, Hkv, stream);
   else
     return launch_shape<T, D, 4, 16, 8>(a, B, Hkv, stream);
 }

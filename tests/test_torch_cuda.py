@@ -185,7 +185,8 @@ def test_sharded_refinement_on_card_matches_cpu(card):
 
 # (B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal): the smoke LM's prefill
 # and decode, tinyllama's at full width (kv_len < Skv in decode), the
-# shapes of tests/test_kernels.py:139-145 and one non-causal call.
+# shapes of tests/test_kernels.py:139-145, one non-causal call and the edges
+# of the bf16 prefill route.
 FLASH_CASES = {
     "smoke_prefill": (4, 16, 16, 4, 2, 16, None, None, True),
     "smoke_decode": (4, 1, 48, 4, 2, 16, 20, 21, True),
@@ -197,6 +198,18 @@ FLASH_CASES = {
     "k4": (1, 128, 256, 4, 1, 32, None, None, True),
     "k5": (1, 48, 48, 2, 2, 128, None, None, True),
     "noncausal": (2, 64, 96, 4, 2, 32, None, None, False),
+    # the bf16 prefill route's edges: Sq·G not a multiple of its 128-row
+    # tile, G ∈ {1, 2, 4, 8}, D ∈ {16, 128}, Skv not a multiple of its
+    # 64-key tile, a prefill continuing a cached prefix, the long prefill
+    "rows100_g8": (1, 100, 100, 32, 4, 64, None, None, True),
+    "rows33_g4": (2, 33, 33, 16, 4, 64, None, None, True),
+    "g1": (1, 200, 200, 4, 4, 64, None, None, True),
+    "g2": (2, 77, 77, 8, 4, 32, None, None, True),
+    "d128": (1, 300, 300, 16, 2, 128, None, None, True),
+    "d16": (2, 70, 70, 8, 1, 16, None, None, True),
+    "skv_ragged": (1, 90, 150, 32, 4, 64, None, None, True),
+    "continuation": (1, 128, 700, 32, 4, 64, 512, 640, True),
+    "long_prefill": (1, 4096, 4096, 32, 4, 64, None, None, True),
 }
 _FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
               torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -231,7 +244,7 @@ def test_flash_attention_kernel_on_card(card, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["smoke_decode", "k4", "decode"])
+@pytest.mark.parametrize("case", ["smoke_decode", "k4", "decode", "rows33_g4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_unaligned_rows_on_card(card, case, dtype):
     """Rows of D + 1 elements (strides not a multiple of 16 bytes): K6

@@ -5,7 +5,8 @@ On the CPU `ops.flash_attention` runs the plain PyTorch version
 the Pallas kernel itself in interpret mode (`flash_attention_pallas`,
 directly with explicit ``q_offset``/``kv_len``, or through `repro`'s
 padding `ops.flash_attention(prefer="pallas")`) and `repro`'s oracle
-`attention_ref`, on the shapes of tests/test_kernels.py with inputs from
+`attention_ref`, on the shapes of tests/test_kernels.py and the ragged and
+continuation shapes of the card's bf16 prefill route, with inputs from
 NumPy.  Tolerances are `_tol` of tests/test_kernels.py: fp32 2e-5, bf16
 2e-2.  The CUDA kernel is held against the plain version on the card
 (tests/test_torch_cuda.py, and chip_smoke.py at the serve path's shapes).
@@ -33,7 +34,17 @@ EXPLICIT = {
     "prefill_into_cache": (1, 32, 96, 4, 2, 32, 0, 32, True, 32),
     "continuation": (1, 32, 96, 4, 1, 32, 40, 72, True, 32),
     "noncausal_kv_len": (2, 16, 64, 4, 2, 32, 0, 50, False, 16),
+    # a prefill chunk continuing a cached prefix, 8 query heads per KV head
+    "continuation_g8": (1, 32, 128, 16, 2, 64, 64, 96, True, 32),
 }
+# Shapes of the card's bf16 prefill edges (tests/test_torch_cuda.py): Sq·G
+# not a multiple of 128, G ∈ {1, 2, 4, 8}, D ∈ {16, 128}, Skv not a
+# multiple of 64 (B, Sq, Skv, H, Hkv, D; queries end-aligned).
+RAGGED = [(1, 33, 45, 16, 4, 64), (1, 100, 100, 8, 1, 16),
+          (2, 37, 37, 4, 2, 32), (1, 20, 70, 2, 2, 128)]
+# The card's continuation case (tests/test_torch_cuda.py, chip_smoke.py):
+# 128 queries at positions 512..639 over a 700-row cache with kv_len 640.
+CONTINUATION = (1, 128, 700, 32, 4, 64, 512, 640)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -109,6 +120,35 @@ def test_plain_matches_pallas_explicit(case, name):
                                   block_q=8, block_k=32, interpret=True)
     np.testing.assert_allclose(_np(got)[:, :real], _np(want)[:, :real],
                                **_tol(name))
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+@pytest.mark.parametrize("shape", RAGGED, ids=str)
+def test_plain_matches_pallas_ragged(shape, name):
+    """The bf16 prefill route's ragged edges, plain version against the
+    Pallas kernel through `repro`'s padding ops and against the oracle."""
+    (q, k, v), (qj, kj, vj) = _both(_inputs(*shape, seed=sum(shape) + 2), name)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ops_j.flash_attention(qj, kj, vj, causal=True, block_q=32,
+                                 block_k=32, prefer="pallas")
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(name))
+    oracle = attention_ref_j(qj, kj, vj, causal=True)
+    np.testing.assert_allclose(_np(got), _np(oracle), **_tol(name))
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_plain_matches_oracle_continuation(name):
+    """The card's continuation case at its size: Skv = 700 is no multiple
+    of a Pallas block (kernel.py:101), so the plain version with explicit
+    q_offset and kv_len is held to `repro`'s oracle over the kv_len real
+    keys, where the queries are end-aligned."""
+    B, Sq, Skv, H, Hkv, D, q_offset, kv_len = CONTINUATION
+    (q, k, v), (qj, kj, vj) = _both(_inputs(B, Sq, Skv, H, Hkv, D, seed=7),
+                                    name)
+    got = ops.flash_attention(q, k, v, causal=True, q_offset=q_offset,
+                              kv_len=kv_len)
+    want = attention_ref_j(qj, kj[:, :kv_len], vj[:, :kv_len], causal=True)
+    np.testing.assert_allclose(_np(got), _np(want), **_tol(name))
 
 
 def test_noncausal_matches_repro():
