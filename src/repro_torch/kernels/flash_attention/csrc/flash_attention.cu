@@ -406,38 +406,135 @@ __device__ __forceinline__ void load_rows(bool vec, __nv_bfloat16* dst,
   }
 }
 
-// Shared memory of the bf16 prefill, in elements: Qs [kPRows][D+8], then NS
-// stages of Ks [kBK][D+8] and Vs [kBK][D+8], all row-major as they sit in
-// device memory; the 16-byte pad puts the 8 rows of an ldmatrix phase on
-// distinct banks.
-template <int D, int NS>
-constexpr int bf16_smem_elems() {
-  return (kPRows + NS * 2 * kBK) * (D + 8);
+// wgmma (sm_90a): a 64-row warpgroup product, operands in shared memory
+// named by 64-bit descriptors.  The descriptor of a 128-byte-swizzled tile
+// (CUTLASS cute/arch/mma_sm90_desc.hpp): start address >> 4 in bits 0-13,
+// the leading byte offset >> 4 in bits 16-29, the stride byte offset >> 4
+// in bits 32-45, layout type 1 (SWIZZLE_128B) in bits 62-63.  In the
+// canonical layouts (cute/atom/mma_traits_sm90_gmma.hpp), with rows of 64
+// bf16 (128 bytes) whose 16-byte chunk c of row r sits at chunk c ^ (r % 8)
+// inside a 1024-byte-aligned 8-row group:
+//   K-major (A = Q, B = K; rows m or n, the 16-deep k-step along a row):
+//     start at the k-step's first chunk (+32 bytes a step), SBO = 1024
+//     (the next 8 rows), LBO unused (1);
+//   MN-major (B = V; rows k, n along a row): start at the k-step's first
+//     row (+2048 bytes a step of 16 rows), SBO = 1024 (the next 8 rows of
+//     k), LBO = the next 64 columns of n (unused at n = 64).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3fff) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3fff) << 32 | 1ull << 62;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Generic-proxy writes to shared memory (cp.async, st.shared) made visible
+// to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// The bf16 prefill on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
-// accumulate).  A block of 8 warps owns 128 flattened rows; each warp owns
-// 16, holds its Q rows as A fragments (ldmatrix) for the whole sweep, and
-// per KV tile of 64 keys forms S (16 x 64) with K's B fragments from
-// ldmatrix, the online softmax on the fragments in the log2 domain, and
-// PV with P re-packed in registers as the A operand and V's B fragments
-// from ldmatrix.trans.  K/V tiles come through a ring of NS stages filled
-// by cp.async, tile j + NS - 1 in flight while tile j is used.
-template <int D, int NS, int MINB>
+#define WG_D32                                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define WG_OUT32(d)                                                             \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),       \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),     \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), \
+  "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+  "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64, fp32; d = a b, or d += a b with `accumulate`) for a and b
+// K-major in shared memory.  Thread t of the warpgroup holds rows
+// 16 (t / 32) + (t % 32) / 4 (+ 8) as mma.sync's m16n8 accumulator, once
+// per 8 columns: d[4 j + e] is row + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2.
+__device__ __forceinline__ void wgmma_ss_64x64(float (&d)[32], uint64_t da, uint64_t db,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+// d (64 x 64, fp32) += a b for a from registers (mma.sync's m16n8k16 A
+// fragment of the thread's 16 rows) and b MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_64x64_mn(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n}\n"
+      : WG_OUT32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+#undef WG_D32
+#undef WG_OUT32
+
+// Shared memory of the bf16 prefill: Qs (kPRows rows), then NS stages of
+// Ks and Vs (kBK rows each), all rows of D bf16 as they sit in device
+// memory (V too: row-major).  The mma.sync route pads each row by 16
+// bytes, which puts the 8 rows of an ldmatrix phase on distinct banks.
+// The wgmma route keeps each tile in wgmma's 128-byte-swizzled layout:
+// 64-column blocks of the tile one after another, rows of 128 bytes, chunk
+// c of row r at chunk c ^ (r % 8); the buffer starts 1024-byte aligned.
+template <int D, bool WG>
+struct Bf16Layout {
+  static constexpr int ROW = WG ? D : D + 8;       // elements per row
+  static constexpr int TILE = kBK * ROW;           // one K or V tile
+  static constexpr int Q = kPRows * ROW;
+  // element offset of 16-byte chunk c of row r in a tile of `rows` rows
+  __device__ static __forceinline__ int at(int rows, int r, int c) {
+    if constexpr (WG)
+      return (c >> 3) * rows * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
+    else
+      return r * ROW + c * 8;
+  }
+};
+
+template <int D, int NS, bool WG>
+constexpr size_t bf16_smem_bytes() {
+  using L = Bf16Layout<D, WG>;
+  return sizeof(__nv_bfloat16) * (L::Q + NS * 2 * L::TILE) + (WG ? 1024 : 0);
+}
+
+// The bf16 prefill on the tensor cores, bf16 in, fp32 accumulate.  A block
+// of 8 warps owns 128 flattened rows; warp w owns rows 16 w..16 w + 15.
+// K/V tiles of 64 keys come through a ring of NS stages filled by cp.async
+// straight from the strided views, tile j + NS - 1 in flight while tile j is
+// used.  Per tile each warp forms its 16 x 64 block of S, runs the online
+// softmax on the accumulator fragments in the log2 domain (masking only a
+// tile that crosses kv_len or a diagonal), re-packs P, rounded to bf16, in
+// registers as the A operand of PV, and adds P V.  The products:
+//   WG = false: mma.sync m16n8k16, Q's A fragments loaded once by
+//     ldmatrix.x4, K's B fragments by ldmatrix.x4, V's by ldmatrix.x4.trans;
+//   WG = true (D = 64, 128): wgmma m64n64k16, each of the two warpgroups
+//     owning 64 rows: S from Q and K in shared memory (K-major), P V with P
+//     from registers and V in shared memory (MN-major).
+template <int D, int NS, int MINB, bool WG>
 __global__ void __launch_bounds__(kPThreads, MINB)
 flash_attention_kernel_bf16(const Args a) {
   using T = __nv_bfloat16;
+  using L = Bf16Layout<D, WG>;
   constexpr int R = kPRows;
-  constexpr int ST = D + 8;
-  constexpr int TILE = kBK * ST;        // elements of one K or V tile
   constexpr int KSTEPS = D / 16;        // k-steps of QK^T over the head dim
   constexpr int NT = kBK / 8;           // key n-tiles of S
   constexpr int DT = D / 8;             // head-dim n-tiles of the output
   static_assert(NS >= 2 && DT % 2 == 0, "ring of 2+ stages; D/8 even");
+  static_assert(!WG || D % 64 == 0, "wgmma tiles are 64-column blocks");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);
-  T* KVs = Qs + R * ST;                 // stage s: K at 2 s TILE, V after it
+  unsigned char* base = smem_raw;
+  if constexpr (WG) base += (1024 - (smem_addr(smem_raw) & 1023)) & 1023;
+  T* Qs = reinterpret_cast<T*>(base);
+  T* KVs = Qs + L::Q;                   // stage s: K at 2 s TILE, V after it
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -449,7 +546,6 @@ flash_attention_kernel_bf16(const Args a) {
   const int64_t b = blockIdx.y;
   const int64_t rows = static_cast<int64_t>(a.Sq) * a.G;
   const int64_t rho0 = tile * R;
-  const auto at = [](int r, int c) { return r * ST + c * 8; };
 
   load_rows<D, R>(
       a.vec, Qs, static_cast<const T*>(a.q),
@@ -459,7 +555,7 @@ flash_attention_kernel_bf16(const Args a) {
         const int64_t h = static_cast<int64_t>(kvh) * a.G + rho % a.G;
         return b * a.qsb + (rho / a.G) * a.qss + h * a.qsh;
       },
-      at);
+      [](int r, int c) { return L::at(R, r, c); });
   cp_async_commit();
 
   // Positions, keys and tile counts fit an int: the wrapper bounds Skv
@@ -476,10 +572,11 @@ flash_attention_kernel_bf16(const Args a) {
   const T* vbase = static_cast<const T*>(a.v) + b * a.vsb + static_cast<int64_t>(kvh) * a.vsh;
   const auto load_kv = [&](int j) {
     const int k0 = j * kBK;
-    T* Ks = KVs + (j % NS) * 2 * TILE;
+    T* Ks = KVs + (j % NS) * 2 * L::TILE;
+    const auto at = [](int r, int c) { return L::at(kBK, r, c); };
     load_rows<D, kBK>(a.vec, Ks, kbase,
                       [&](int r) -> int64_t { return k0 + r < a.Skv ? (k0 + r) * a.kss : -1; }, at);
-    load_rows<D, kBK>(a.vec, Ks + TILE, vbase,
+    load_rows<D, kBK>(a.vec, Ks + L::TILE, vbase,
                       [&](int r) -> int64_t { return k0 + r < a.Skv ? (k0 + r) * a.vss : -1; }, at);
   };
 #pragma unroll
@@ -489,18 +586,24 @@ flash_attention_kernel_bf16(const Args a) {
   }
 
   cp_async_wait<NS - 1>();              // Q has landed (the KV groups may not)
+  if constexpr (WG) fence_proxy_async();
   __syncthreads();
   const int wr0 = warp * 16;            // this warp's first row in the block
-  uint32_t qa[KSTEPS][4];
+  uint32_t qa[WG ? 1 : KSTEPS][4];
+  if constexpr (!WG) {
 #pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks)
-    ldsm_x4(qa[ks], smem_addr(Qs + (wr0 + (lane & 15)) * ST + ks * 16 + (lane >> 4) * 8));
+    for (int ks = 0; ks < KSTEPS; ++ks)
+      ldsm_x4(qa[ks], smem_addr(Qs + (wr0 + (lane & 15)) * L::ROW + ks * 16 + (lane >> 4) * 8));
+  }
 
-  // Positions of this lane's rows and of the warp's first and last rows.
+  // Positions of this lane's rows, of the warp's first row and of the last
+  // row of the warp (mma.sync) or warpgroup (wgmma), which skips a tile
+  // wholly above its rows.
   const int qpos[2] = {a.q_offset + static_cast<int>((rho0 + wr0 + g) / a.G),
                        a.q_offset + static_cast<int>((rho0 + wr0 + g + 8) / a.G)};
   const int wpos_lo = a.q_offset + static_cast<int>((rho0 + wr0) / a.G);
-  const int wpos_hi = a.q_offset + static_cast<int>((rho0 + wr0 + 15) / a.G);
+  const int wpos_hi = a.q_offset + static_cast<int>(
+      (rho0 + (WG ? (warp >> 2) * 64 + 63 : wr0 + 15)) / a.G);
   const float c2 = a.scale * kLog2e;    // s * c2 is the score in log2 units
 
   float m2[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
@@ -512,32 +615,47 @@ flash_attention_kernel_bf16(const Args a) {
 
   for (int j = 0; j < nkv; ++j) {
     cp_async_wait<NS - 2>();            // tile j has landed (this thread's part)
+    if constexpr (WG) fence_proxy_async();
     __syncthreads();                    // ... every thread's; tile j - 1 is used
     if (j + NS - 1 < nkv) load_kv(j + NS - 1);
     cp_async_commit();
 
     const int k0 = j * kBK;
-    // A warp whose rows all sit above this tile has nothing to add.
     if (a.causal && k0 > wpos_hi) continue;
-    const T* Ks = KVs + (j % NS) * 2 * TILE;
-    const uint32_t ks_addr = smem_addr(Ks), vs_addr = smem_addr(Ks + TILE);
+    const T* Ks = KVs + (j % NS) * 2 * L::TILE;
+    const uint32_t ks_addr = smem_addr(Ks), vs_addr = smem_addr(Ks + L::TILE);
 
     float s[NT][4];
+    if constexpr (WG) {
+      // S = Q K^T: k-step ks reads chunks 2 ks, 2 ks + 1 of every row, in
+      // 64-column block ks / 4.
+      const uint32_t q_addr = smem_addr(Qs) + (warp >> 2) * 64 * 128;
+      wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
+      for (int ks = 0; ks < KSTEPS; ++ks)
+        wgmma_ss_64x64(reinterpret_cast<float(&)[32]>(s),
+                       sw128_desc(q_addr + (ks >> 2) * R * 128 + (ks & 3) * 32, 16, 1024),
+                       sw128_desc(ks_addr + (ks >> 2) * kBK * 128 + (ks & 3) * 32, 16, 1024),
+                       ks > 0);
+      wgmma_commit();
+      wgmma_wait0();
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+      for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks)
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
 #pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        // matrices: keys 16 np + 0..7 | + 8..15, head dims 16 ks + 0..7 | 8..15
-        uint32_t kb[4];
-        ldsm_x4(kb, ks_addr + 2 * ((np * 16 + (lane >> 4) * 8 + (lane & 7)) * ST +
-                                   ks * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16_16816(s[2 * np], qa[ks], kb[0], kb[1]);
-        mma_bf16_16816(s[2 * np + 1], qa[ks], kb[2], kb[3]);
-      }
+      for (int ks = 0; ks < KSTEPS; ++ks)
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          // matrices: keys 16 np + 0..7 | + 8..15, head dims 16 ks + 0..7 | 8..15
+          uint32_t kb[4];
+          ldsm_x4(kb, ks_addr + 2 * ((np * 16 + (lane >> 4) * 8 + (lane & 7)) * L::ROW +
+                                     ks * 16 + ((lane >> 3) & 1) * 8));
+          mma_bf16_16816(s[2 * np], qa[ks], kb[0], kb[1]);
+          mma_bf16_16816(s[2 * np + 1], qa[ks], kb[2], kb[3]);
+        }
+    }
 
     // s[nt][e]: row wr0 + g + 8 (e / 2), key k0 + 8 nt + 2 t + e % 2.  Only
     // a tile that crosses kv_len or one of the warp's diagonals is masked.
@@ -583,17 +701,32 @@ flash_attention_kernel_bf16(const Args a) {
     for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[dt][e] *= corr[e >> 1];
+    if constexpr (WG) {
+      // O += P V: k-step kk is keys 16 kk..16 kk + 15 (rows of V), and
+      // 64-column block n of the output reads V's block n.
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
+      for (int kk = 0; kk < kBK / 16; ++kk)
 #pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {
-        // matrices: keys 16 kk + 0..7 | 8..15, head dims 16 dp + 0..7 | 8..15
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, vs_addr + 2 * ((kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * ST +
-                                         (2 * dp + (lane >> 4)) * 8));
-        mma_bf16_16816(acc[2 * dp], pa[kk], vb[0], vb[1]);
-        mma_bf16_16816(acc[2 * dp + 1], pa[kk], vb[2], vb[3]);
-      }
+        for (int n = 0; n < D / 64; ++n)
+          wgmma_rs_64x64_mn(reinterpret_cast<float(&)[32]>(acc[8 * n]), pa[kk],
+                            sw128_desc(vs_addr + n * kBK * 128 + kk * 16 * 128,
+                                       kBK * 128, 1024));
+      wgmma_commit();
+      wgmma_wait0();
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+        for (int dp = 0; dp < DT / 2; ++dp) {
+          // matrices: keys 16 kk + 0..7 | 8..15, head dims 16 dp + 0..7 | 8..15
+          uint32_t vb[4];
+          ldsm_x4_trans(vb, vs_addr + 2 * ((kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * L::ROW +
+                                           (2 * dp + (lane >> 4)) * 8));
+          mma_bf16_16816(acc[2 * dp], pa[kk], vb[0], vb[1]);
+          mma_bf16_16816(acc[2 * dp + 1], pa[kk], vb[2], vb[3]);
+        }
+    }
   }
 
   T* __restrict__ o = static_cast<T*>(a.o);
@@ -638,13 +771,15 @@ int launch_shape(const Args& a, int B, int Hkv, cudaStream_t stream) {
 }
 
 // The bf16 prefill's grid: x runs over (row tile, KV head), KV head
-// fastest, y over the batch.
+// fastest, y over the batch.  D = 64 and 128 take wgmma, D = 16 and 32
+// mma.sync.
 template <int D>
 int launch_bf16(const Args& a, int B, int Hkv, cudaStream_t stream) {
+  constexpr bool WG = D >= 64;
   constexpr int NS = D <= 64 ? 3 : 2;   // ring stages
   constexpr int MINB = D <= 64 ? 2 : 1; // blocks per SM the registers allow
-  const auto kernel = flash_attention_kernel_bf16<D, NS, MINB>;
-  constexpr size_t bytes = sizeof(__nv_bfloat16) * bf16_smem_elems<D, NS>();
+  const auto kernel = flash_attention_kernel_bf16<D, NS, MINB, WG>;
+  constexpr size_t bytes = bf16_smem_bytes<D, NS, WG>();
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
