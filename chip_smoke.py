@@ -77,11 +77,16 @@ Phases, each printing JSON lines:
    rtol as tests/test_kernels.py's ``_tol``) at the serve path's shapes
    (tinyllama: H = 32, Hkv = 4, D = 64; ``prefill`` B=4, S=512,
    ``long_prefill`` B=1, S=4096, ``decode`` B=4 over a 576-row cache with
-   kv_len 575), at tests/test_kernels.py's five shapes and one non-causal
-   call: error, CUDA-event ms, profiler device ms, the bound, the plain
-   version's ms and one ``scaled_dot_product_attention`` call's ms
-   (``library_ms``; keys sliced to kv_len, an explicit mask where the
-   queries are not top-left aligned).
+   kv_len 575, ``continuation`` 128 queries after a 512-row cached prefix,
+   ``long_decode`` one query over 4096 rows, measured only), at
+   tests/test_kernels.py's five shapes and one non-causal call: error,
+   CUDA-event ms, profiler device ms, TFLOP/s, the kernel that ran (every
+   bf16 call with Sq·G > 16 must run ``flash_attention_kernel_bf16``),
+   the bound, the plain version's ms and one
+   ``scaled_dot_product_attention`` call's ms by events (``library_ms``)
+   and by the profiler over all its kernels (``library_dev_ms``; keys
+   sliced to kv_len, an explicit mask where the queries are not top-left
+   aligned).
 10. ``serve`` — `tinyllama-1.1b` at full width (``make_config()``, bf16,
     parameters from a seeded generator) through `launch.serve.generate`:
     ``requests`` (batch 4, prompt 512, 64 greedy steps) and ``long``
@@ -366,19 +371,12 @@ def device_profile(fn, warmup: int = 0) -> dict:
 def profiled_ms(fn, kernel_name, calls=20, sessions=2):
     """Device ms per launch of the CUDA kernel whose name holds
     ``kernel_name``, over ``calls`` calls of ``fn`` in one torch.profiler
-    session, and the number of CUDA events that session traced.  The
-    profiler does not trace the card on every machine (it has traced
-    nothing there while the kernel ran and matched its plain version), so a
-    session that misses the kernel is tried again, and after ``sessions``
-    misses the time is None: the caller then reports the CUDA-event
-    time."""
-    ms, traced, _ = profiled_kernel(fn, kernel_name, calls, sessions)
-    return ms, traced
-
-
-def profiled_kernel(fn, kernel_name, calls=20, sessions=2):
-    """`profiled_ms`, and the full name of the kernel that was traced (None
-    where none was)."""
+    session, the number of CUDA events that session traced, and the
+    kernel's full name.  The profiler does not trace the card on every
+    machine (it has traced nothing there while the kernel ran and matched
+    its plain version), so a session that misses the kernel is tried
+    again, and after ``sessions`` misses the time and name are None: the
+    caller then reports the CUDA-event time."""
     for _ in range(sessions):
         by_name = device_profile(lambda: [fn() for _ in range(calls)])
         k = [(n, v) for n, v in by_name.items() if kernel_name in n]
@@ -937,7 +935,7 @@ def phase_kernels_segsum(fp, parts):
         bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ops_ms = G * B * w / FP32_FLOPS_PER_S * 1e3
         kernel_ms = time_ms(lambda: kernel(labels, cols, wts, nparts))
-        dev_ms, profiler_events = profiled_ms(
+        dev_ms, profiler_events, _ = profiled_ms(
             lambda: kernel(labels, cols, wts, nparts), "segment_sum_kernel")
         rows[case] = dict(
             G=G, B=B, w=w, m=labels.shape[-1], nparts=nparts, max_abs_err=err,
@@ -1052,8 +1050,8 @@ def phase_kernels_flash():
                 else FP32_FLOPS_PER_S
             bound_ops_ms = flops / peak * 1e3
             kernel_ms = time_auto(kernel)
-            dev_ms, traced, kname = profiled_kernel(kernel,
-                                                    "flash_attention_kernel")
+            dev_ms, traced, kname = profiled_ms(kernel,
+                                                "flash_attention_kernel")
             # the route: a bf16 prefill runs the bf16 prefill kernel
             if dtype == torch.bfloat16 and Sq * (H // Hkv) > FLASH_DECODE_ROWS \
                     and kname is not None:
@@ -1336,7 +1334,7 @@ def phase_kernels_bag(table_full, serve_seq, n_items):
             bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             bound_ops_ms = 2 * nnz * d / FP32_FLOPS_PER_S * 1e3
             kernel_ms = time_auto(kernel)
-            dev_ms, traced = profiled_ms(kernel, "embedding_bag_kernel")
+            dev_ms, traced, _ = profiled_ms(kernel, "embedding_bag_kernel")
             rows[(case, str(dtype).split(".")[-1])] = dict(
                 case=case, dtype=str(dtype).split(".")[-1], V=table.shape[0],
                 d=d, nnz=nnz, n_bags=n, rows_distinct=distinct,

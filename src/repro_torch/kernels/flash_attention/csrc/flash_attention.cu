@@ -16,29 +16,41 @@
 // sums the unrounded p.  The output is acc / max(l, 1e-30) in the input type.
 //
 // Design.  The Pallas grid (B*Hkv*G, nQ, nK) carries m, l and acc across its
-// sequential KV axis.  Here one block of 128 threads owns one (batch, KV
-// head, tile of R query rows) and walks the KV tiles itself.  The rows of a
-// tile are the flattened (position, head-in-group) pairs rho = i * G + g,
-// so all G query heads of a KV head share every K and V tile that is staged
-// in shared memory: for tinyllama (G = 8) K and V are read once per group,
-// not once per head.  Tiles are staged with 16-byte loads, all of a
-// thread's issued before any is stored, where every row start is 16-byte
-// aligned (element by element otherwise).  KV tiles of 64 keys wholly past
-// kv_len or above the causal diagonal of the block's last row are not
-// visited (kernel.py:67-73); keys past Skv in the last tile are loaded as
-// zeros and masked.  Three paths, chosen at launch from the shape and type:
-//   * decode (Sq * G <= 16): R = 8 rows (the G heads of one position),
-//     scalar fp32 FMAs, each thread 1 row x 4 keys of S and 1 row x D/16
-//     columns of acc, so a one-row query does not fill a 64-row tile;
-//   * bf16 prefill: R = 64, on the tensor cores (mma.sync m16n8k16, bf16
-//     in, fp32 accumulate): each warp owns 16 rows, keeps its Q rows as A
-//     fragments, and re-packs P (rounded to bf16) in registers as the A
-//     operand of PV; the softmax runs on the fragments;
-//   * fp32 prefill: R = 64, scalar fp32 FMAs (the tensor cores would round
-//     fp32 inputs to TF32), each thread 4 rows x 8 keys and 4 rows x D/8
-//     columns, p passed through shared memory to the PV product.
-// In the scalar paths a group of NCG neighbouring lanes shares each row,
-// and the row's max and sum are warp shuffles.
+// sequential KV axis.  Here one block owns one (batch, KV head, tile of R
+// query rows) and walks the KV tiles of 64 keys itself, from key 0 upward.
+// The rows of a tile are the flattened (position, head-in-group) pairs
+// rho = i * G + g, so all G query heads of a KV head share every K and V
+// tile staged in shared memory: for tinyllama (G = 8) K and V are read once
+// per group, not once per head.  KV tiles wholly past kv_len or above the
+// causal diagonal of the block's last row are not visited
+// (kernel.py:67-73); keys past Skv in the last tile are zero-filled and
+// masked.  Three routes, chosen at launch from the shape and type:
+//   * decode (Sq * G <= 16): 128 threads, R = 8 rows (the G heads of one
+//     position), scalar fp32 FMAs, each thread 1 row x 4 keys of S and
+//     1 row x D/16 columns of acc; tiles staged through registers;
+//   * fp32 prefill: 128 threads, R = 64, scalar fp32 FMAs (the tensor cores
+//     would round fp32 inputs to TF32), each thread 4 rows x 8 keys and
+//     4 rows x D/8 columns, p passed through shared memory to PV;
+//   * bf16 prefill (flash_attention_kernel_bf16): 256 threads, R = 128 rows,
+//     warp w owning rows 16 w..16 w + 15, on the tensor cores (bf16 in, fp32
+//     accumulate).  K and V stay bf16 and row-major in a ring of 2-4 stages
+//     filled by cp.async 16-byte copies straight from the strided views, so
+//     the copies of the next tiles run while tile j's products do.  The
+//     online softmax runs on the accumulator fragments in the log2 domain
+//     (ex2 of s * scale * log2 e - m2 in one FMA), masking only a tile that
+//     crosses kv_len or a diagonal (to -inf: for a row with a valid key,
+//     which tile 0 holds, p and m are what -1e30 gives); P, rounded to
+//     bf16, is re-packed in
+//     registers as the A operand of PV.  Row tiles with the most KV tiles
+//     launch first.  D = 64 and 128 run the products on wgmma m64n64k16,
+//     each of the block's two warpgroups owning 64 rows: S from Q and K in
+//     shared memory (K-major, 128-byte swizzle), O += P V with P from
+//     registers and V from shared memory (MN-major).  D = 16 and 32 run
+//     mma.sync m16n8k16 with ldmatrix fragments (a 16-byte row pad keeps
+//     them off shared-memory bank conflicts).
+// In the scalar routes a group of NCG neighbouring lanes shares each row,
+// and the row's max and sum are warp shuffles.  Views whose strides are not
+// multiples of 16 bytes are staged element by element (`vec` = 0).
 //
 // Bound, one H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), D = 64, H = 32,
 // Hkv = 4, bf16, counting q, k, v read once and o written once, and the
@@ -47,12 +59,16 @@
 //   long prefill B=1, 4096: 68.7 GFLOP, 37.7 MB       -> 69 us, operations;
 //   decode B=4, kv_len 576:  K and V 1.18 MB           -> 0.35 us, far below
 //                                                          a launch (~2 us).
-// mma.sync reaches a fraction of the card's bf16 rate (wgmma alone reaches
-// all of it), and this kernel neither pipelines its tile loads nor skips
-// the masked half of a diagonal tile, so the long prefill sits well above
-// its bound; wgmma with TMA-staged tiles is the later step.  Decode runs
-// B*Hkv blocks (16 for the serve batch), each walking its KV tiles in turn:
-// latency-bound, and split-KV is later work.
+// What limits each route.  The bf16 prefill reaches about 270 TFLOP/s at the
+// long prefill, a quarter of the bound: each warpgroup runs its products,
+// softmax and tile wait in turn (nothing overlaps within it), every tile
+// ends in a block barrier on the cp.async copies, and the ring moves
+// 0.55 GB from L2 into shared memory there (removing the copies saves a
+// quarter of the time, the softmax a fifth, the exponentials alone 2%).  A
+// TMA producer warp with mbarriers, and ping-pong between the warpgroups,
+// are the next steps.  Decode runs B*Hkv blocks (4 for one 4096-row
+// sequence), each walking its KV tiles in turn: latency-bound, and split-KV
+// is later work.  fp32 is bound by the scalar FMA rate.
 //
 // The kernel allocates nothing and does not synchronise: it launches on the
 // caller's stream and returns cudaGetLastError().  The Python wrapper
@@ -434,6 +450,14 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// Registers that an asynchronous wgmma writes: the compiler must neither
+// read them before the wgmma_wait that completes the write nor keep a copy
+// from before it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
 // Generic-proxy writes to shared memory (cp.async, st.shared) made visible
 // to the async proxy that wgmma reads through.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -639,6 +663,7 @@ flash_attention_kernel_bf16(const Args a) {
                        ks > 0);
       wgmma_commit();
       wgmma_wait0();
+      reg_fence(reinterpret_cast<float(&)[NT * 4]>(s));
     } else {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
@@ -714,6 +739,7 @@ flash_attention_kernel_bf16(const Args a) {
                                        kBK * 128, 1024));
       wgmma_commit();
       wgmma_wait0();
+      reg_fence(reinterpret_cast<float(&)[DT * 4]>(acc));
     } else {
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
@@ -776,7 +802,7 @@ int launch_shape(const Args& a, int B, int Hkv, cudaStream_t stream) {
 template <int D>
 int launch_bf16(const Args& a, int B, int Hkv, cudaStream_t stream) {
   constexpr bool WG = D >= 64;
-  constexpr int NS = D <= 64 ? 3 : 2;   // ring stages
+  constexpr int NS = D == 64 ? 4 : D < 64 ? 3 : 2;   // ring stages
   constexpr int MINB = D <= 64 ? 2 : 1; // blocks per SM the registers allow
   const auto kernel = flash_attention_kernel_bf16<D, NS, MINB, WG>;
   constexpr size_t bytes = bf16_smem_bytes<D, NS, WG>();

@@ -35,7 +35,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     real — a decode step over a cache of ``max_seq`` rows passes
     ``q_offset=pos, kv_len=pos + 1``.  ``block_q``/``block_k`` are the
     Pallas tile sizes, accepted for `repro`'s signature; K6's tiles are
-    fixed when it is compiled (64 keys; 64 or 8 query rows)."""
+    fixed when it is compiled (64 keys; 128 query rows for a bf16 prefill,
+    64 for an fp32 prefill, 8 for decode)."""
     if prefer not in _PREFER:
         raise ValueError(f"unknown prefer: {prefer!r} (have {_PREFER})")
     if block_q < 1 or block_k < 1:
