@@ -1341,7 +1341,7 @@ def phase_kernels_bag(table_full, serve_seq, n_items):
                 empty_bags=int(empty.sum()), max_abs_err=err,
                 max_err_of_terms=rel, library_max_err_of_terms=lib_rel,
                 kernel_ms=kernel_ms,
-                dev_ms=k_ms,
+                dev_ms=dev_ms if dev_ms is not None else kernel_ms,
                 dev_ms_by="profiler" if dev_ms is not None else "cuda_events",
                 profiler_cuda_events=traced, ref_ms=time_auto(plain),
                 library_ms=time_auto(lib), bytes=nbytes,
