@@ -59,12 +59,13 @@
 //   long prefill B=1, 4096: 68.7 GFLOP, 37.7 MB       -> 69 us, operations;
 //   decode B=4, kv_len 576:  K and V 1.18 MB           -> 0.35 us, far below
 //                                                          a launch (~2 us).
-// What limits each route.  The bf16 prefill reaches about 270 TFLOP/s at the
-// long prefill, a quarter of the bound: each warpgroup runs its products,
+// What limits each route.  The bf16 prefill reaches about 280 TFLOP/s at the
+// long prefill, 28% of the bound: each warpgroup runs its products,
 // softmax and tile wait in turn (nothing overlaps within it), every tile
 // ends in a block barrier on the cp.async copies, and the ring moves
-// 0.55 GB from L2 into shared memory there (removing the copies saves a
-// quarter of the time, the softmax a fifth, the exponentials alone 2%).  A
+// 0.55 GB from L2 into shared memory there (tools/k6_variants.py: removing
+// the copies or the softmax each saves about a fifth of the time, the
+// exponentials alone 4%).  A
 // TMA producer warp with mbarriers, and ping-pong between the warpgroups,
 // are the next steps.  Decode runs B*Hkv blocks (4 for one 4096-row
 // sequence), each walking its KV tiles in turn: latency-bound, and split-KV
