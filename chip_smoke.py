@@ -78,10 +78,11 @@ Phases, each printing JSON lines:
    (tinyllama: H = 32, Hkv = 4, D = 64; ``prefill`` B=4, S=512,
    ``long_prefill`` B=1, S=4096, ``decode`` B=4 over a 576-row cache with
    kv_len 575, ``continuation`` 128 queries after a 512-row cached prefix,
-   ``long_decode`` one query over 4096 rows, measured only), at
-   tests/test_kernels.py's five shapes and one non-causal call: error,
-   CUDA-event ms, profiler device ms, TFLOP/s, the kernel that ran (every
-   bf16 call with Sq·G > 16 must run ``flash_attention_kernel_bf16``),
+   ``long_decode`` one query over 4096 rows), at tests/test_kernels.py's
+   five shapes and one non-causal call: error, CUDA-event ms, profiler
+   device ms, TFLOP/s, the kernel that ran (every bf16 call with Sq·G > 16
+   must run ``flash_attention_kernel_bf16``, every call with Sq·G <= 16,
+   fp32 and bf16, the split-KV ``flash_attention_kernel_decode``),
    the bound, the plain version's ms and one
    ``scaled_dot_product_attention`` call's ms by events (``library_ms``)
    and by the profiler over all its kernels (``library_dev_ms``; keys
@@ -92,7 +93,8 @@ Phases, each printing JSON lines:
     ``requests`` (batch 4, prompt 512, 64 greedy steps) and ``long``
     (batch 1, prompt 4096, 16 steps), each with prefill ms, decode ms,
     tok/s, p50/p99 step ms, peak memory and K6 launches (= 22 x steps);
-    a profile of one prefill and one decode step (CUDA kernels, device
+    a profile of one ``requests`` prefill and decode step and of one
+    ``long`` decode step over its 4096 cached rows (CUDA kernels, device
     ms, K6's share); and three checks: (a) the K6 model's prefill and
     decode logits against the same model with the plain attention
     (``attn_prefer="ref"``) on the card, max |Δ| ≤ 3e-2 of max |logit|;
@@ -191,13 +193,15 @@ FLASH_CASES = {
     "noncausal": (2, 64, 96, 4, 2, 32, None, None, False),
     # a prefill chunk after a cached prefix of 512 rows
     "continuation": (1, 128, 700, 32, 4, 64, 512, 640, True),
-    # measured only: the `long` serve run's decode step over its 4096 rows
+    # the `long` serve run's decode step over its 4096 rows
     "long_decode": (1, 1, 4096, 32, 4, 64, 4095, 4096, True),
 }
 # bf16 calls with more than this many flattened (position, head) rows take
-# K6's bf16 prefill kernel; the rest its decode route
+# K6's bf16 prefill kernel; calls with at most this many, fp32 and bf16,
+# its split-KV decode kernel
 FLASH_DECODE_ROWS = 16
 FLASH_PREFILL_KERNEL = "flash_attention_kernel_bf16"
+FLASH_DECODE_KERNEL = "flash_attention_kernel_decode"
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # serve runs: (batch, prompt_len, steps)
 SERVE_RUNS = {"requests": (4, 512, 64), "long": (1, 4096, 16)}
@@ -1052,9 +1056,12 @@ def phase_kernels_flash():
             kernel_ms = time_auto(kernel)
             dev_ms, traced, kname = profiled_ms(kernel,
                                                 "flash_attention_kernel")
-            # the route: a bf16 prefill runs the bf16 prefill kernel
-            if dtype == torch.bfloat16 and Sq * (H // Hkv) > FLASH_DECODE_ROWS \
-                    and kname is not None:
+            # the route: a bf16 prefill runs the bf16 prefill kernel, a
+            # decode call (either type) the split-KV decode kernel
+            if Sq * (H // Hkv) <= FLASH_DECODE_ROWS and kname is not None:
+                check(FLASH_DECODE_KERNEL in kname,
+                      f"K6 {case} {dtype} ran {kname}, not the decode kernel")
+            elif dtype == torch.bfloat16 and kname is not None:
                 check(FLASH_PREFILL_KERNEL in kname,
                       f"K6 {case} bf16 ran {kname}, not the prefill kernel")
             lib_dev_ms = profiled_call_ms(lib)
@@ -1139,13 +1146,21 @@ def phase_serve():
     prompts, toks = kept["requests"]
     B, P, steps = SERVE_RUNS["requests"]
     with torch.inference_mode():
-        # Where the time goes: one prefill and one decode step, timed on
-        # the host clock, then profiled (a profiler session can leave
-        # launch overhead behind, so the wall times come first).
+        # Where the time goes: one `requests` prefill and decode step and
+        # one `long` decode step, timed on the host clock, then profiled (a
+        # profiler session can leave launch overhead behind, so the wall
+        # times come first).
         cache = tt.init_cache(cfg, B, P + 1, "cuda")
+        # the `long` run's decode step: one row after its 4096 cached rows
+        long_p, long_t = kept["long"]
+        long_P = SERVE_RUNS["long"][1]
+        long_cache = tt.init_cache(cfg, 1, long_P + 1, "cuda")
+        _, long_cache = tt.prefill(model, long_p, long_cache)
         parts = {"prefill": lambda: tt.prefill(model, prompts, cache),
                  "decode_step": lambda: tt.decode_step(model, cache,
-                                                       toks[:, :1], P)}
+                                                       toks[:, :1], P),
+                 "long_decode_step": lambda: tt.decode_step(
+                     model, long_cache, long_t[:, :1], long_P)}
         wall = {part: wall_s(fn) * 1e3 for part, fn in parts.items()}
         profile = {}
         for part, fn in parts.items():

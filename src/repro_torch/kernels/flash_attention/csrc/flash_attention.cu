@@ -16,18 +16,35 @@
 // sums the unrounded p.  The output is acc / max(l, 1e-30) in the input type.
 //
 // Design.  The Pallas grid (B*Hkv*G, nQ, nK) carries m, l and acc across its
-// sequential KV axis.  Here one block owns one (batch, KV head, tile of R
-// query rows) and walks the KV tiles of 64 keys itself, from key 0 upward.
-// The rows of a tile are the flattened (position, head-in-group) pairs
-// rho = i * G + g, so all G query heads of a KV head share every K and V
-// tile staged in shared memory: for tinyllama (G = 8) K and V are read once
-// per group, not once per head.  KV tiles wholly past kv_len or above the
-// causal diagonal of the block's last row are not visited
+// sequential KV axis.  Here the rows of a block are the flattened
+// (position, head-in-group) pairs rho = i * G + g of one (batch, KV head),
+// so all G query heads of a KV head share every K and V tile staged in
+// shared memory: for tinyllama (G = 8) K and V are read once per group, not
+// once per head.  KV tiles hold 64 keys; tiles wholly past kv_len or above
+// the causal diagonal of a block's last row are not visited
 // (kernel.py:67-73); keys past Skv in the last tile are zero-filled and
 // masked.  Three routes, chosen at launch from the shape and type:
-//   * decode (Sq * G <= 16): 128 threads, R = 8 rows (the G heads of one
-//     position), scalar fp32 FMAs, each thread 1 row x 4 keys of S and
-//     1 row x D/16 columns of acc; tiles staged through registers;
+//   * decode (Sq * G <= 16; flash_attention_kernel_decode): split-KV in one
+//     launch.  The grid is (n_split, Hkv, B): the wrapper cuts the key tiles
+//     below kv_end into n_split contiguous runs (about one block per SM,
+//     at least one tile a run), and each block owns all Sq * G rows of its
+//     (batch, KV head), padded to R = 8 or 16, over its run.  K and V tiles
+//     stay in the input type in a ring of 2-3 stages filled by 16-byte
+//     cp.async copies, so the run's next tiles are in flight while tile j's
+//     products run.  bf16 runs the products on the tensor cores (mma.sync
+//     m16n8k16, 16 rows): warp w owns keys 16 w..16 w + 15 of every tile
+//     with its own online softmax, and the four warps' states merge in
+//     warp order at the end of the run.  fp32 runs scalar FMAs (S: thread
+//     = 1 key x R/2 rows; softmax and P V: 128 / R lanes a row).  Masked
+//     scores are -inf here, and a row with no valid key in a run leaves it
+//     as an empty partial (m = -inf, l = 0, acc = 0).  Each block writes
+//     its partial (m, l, acc) per row to an fp32 workspace; after a barrier
+//     one thread fences and takes a ticket on the (batch, KV head)'s
+//     counter; the last block merges the n_split partials in split order,
+//     16 a round (loaded together, folded into a running max with weight
+//     exp(m_s - M), 0 for an empty one), so the output does not depend on
+//     which block finished last, writes o and resets the counter.
+//     n_split = 1 writes o directly;
 //   * fp32 prefill: 128 threads, R = 64, scalar fp32 FMAs (the tensor cores
 //     would round fp32 inputs to TF32), each thread 4 rows x 8 keys and
 //     4 rows x D/8 columns, p passed through shared memory to PV;
@@ -48,8 +65,8 @@
 //     registers and V from shared memory (MN-major).  D = 16 and 32 run
 //     mma.sync m16n8k16 with ldmatrix fragments (a 16-byte row pad keeps
 //     them off shared-memory bank conflicts).
-// In the scalar routes a group of NCG neighbouring lanes shares each row,
-// and the row's max and sum are warp shuffles.  Views whose strides are not
+// In the scalar routes a group of neighbouring lanes shares each row, and
+// the row's max and sum are warp shuffles.  Views whose strides are not
 // multiples of 16 bytes are staged element by element (`vec` = 0).
 //
 // Bound, one H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s), D = 64, H = 32,
@@ -57,8 +74,8 @@
 // 4*D flops of each unmasked (query, key) pair:
 //   prefill B=4, S=512:      4.30 GFLOP, 18,874,368 B -> 5.6 us, bytes;
 //   long prefill B=1, 4096: 68.7 GFLOP, 37.7 MB       -> 69 us, operations;
-//   decode B=4, kv_len 576:  K and V 1.18 MB           -> 0.35 us, far below
-//                                                          a launch (~2 us).
+//   decode B=4, kv_len 575:  K and V 2.36 MB            -> 0.70 us, bytes;
+//   long decode B=1, 4096:   K and V 4.19 MB            -> 1.25 us, bytes.
 // What limits each route.  The bf16 prefill reaches about 280 TFLOP/s at the
 // long prefill, 28% of the bound: each warpgroup runs its products,
 // softmax and tile wait in turn (nothing overlaps within it), every tile
@@ -67,14 +84,19 @@
 // the copies or the softmax each saves about a fifth of the time, the
 // exponentials alone 4%).  A
 // TMA producer warp with mbarriers, and ping-pong between the warpgroups,
-// are the next steps.  Decode runs B*Hkv blocks (4 for one 4096-row
-// sequence), each walking its KV tiles in turn: latency-bound, and split-KV
-// is later work.  fp32 is bound by the scalar FMA rate.
+// are the next steps.  Decode is a few microseconds of latency at these
+// sizes: a launch, one or two tiles' copies at about the card's rate,
+// then the ticket and the last block's merge (tools/k6_variants.py: at
+// the long decode the merge is about a third of the time, the products
+// nothing measurable); its times are in PERF.md.  The fp32 prefill is
+// bound by the scalar FMA rate.
 //
 // The kernel allocates nothing and does not synchronise: it launches on the
 // caller's stream and returns cudaGetLastError().  The Python wrapper
 // (repro_torch/kernels/flash_attention/cuda.py) checks devices, types,
-// shapes and strides before the launch and raises on a nonzero return.
+// shapes and strides before the launch, picks n_split, passes the decode
+// route's workspace and its stream's zeroed counters, and raises on a
+// nonzero return.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,6 +138,11 @@ struct Args {
   int q_offset, kv_len, causal;
   int vec;                    // every row start 16-byte aligned: 16-byte loads
   float scale;
+  // decode route: key tiles per split, the partials' workspace and one
+  // ticket counter per (batch, KV head), zero between calls
+  int tiles_per_split;
+  float* ws;
+  int* counters;
 };
 
 // Stage ROWS rows of D elements into shared memory as floats: row r of
@@ -391,6 +418,511 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---- decode route: split-KV flash decoding in one launch ----
+
+constexpr int kDecodeRows = 16;         // Sq * G at most, the decode route
+constexpr int kMaxSplits = 256;         // n_split at most
+constexpr int kSST = kBK + 4;           // row stride of the score tile (floats)
+constexpr int kMergeBatch = 16;         // partials a merging thread loads at once
+
+// Shared memory of a decode block: the K/V ring first (NS stages, K tile
+// then V tile, rows of D elements in the input type padded by 16 bytes,
+// which puts the 16-byte row reads of 8 neighbouring keys, and ldmatrix's
+// 8 rows, on distinct banks), then for fp32 Qs [D][R] (transposed) and Ss
+// [R][kSST] (scores, then p), for bf16 Qh [16][ROW] (the A operand).
+template <typename T, int D>
+struct DecodeLayout {
+  static constexpr int VEC = 16 / sizeof(T);        // elements per 16 bytes
+  static constexpr int ROW = D + VEC;               // K/V row, elements
+  static constexpr int TILE = kBK * ROW;            // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * TILE * static_cast<int>(sizeof(T));
+  static constexpr int NS = STAGE_BYTES <= 20 * 1024 ? 3 : 2;   // ring stages
+};
+
+template <typename T, int D, int R>
+constexpr size_t decode_smem_bytes() {
+  using L = DecodeLayout<T, D>;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)   // Qh [16][ROW], bf16
+    return static_cast<size_t>(L::NS) * L::STAGE_BYTES + sizeof(T) * 16 * L::ROW;
+  else
+    return static_cast<size_t>(L::NS) * L::STAGE_BYTES + sizeof(float) * (D * R + R * kSST);
+}
+
+// N elements of T from shared memory aligned to min(16, N * sizeof(T))
+// bytes into registers.
+template <typename T, int N>
+__device__ __forceinline__ void lds_vec(T (&dst)[N], const T* src) {
+  constexpr int BYTES = N * static_cast<int>(sizeof(T));
+  if constexpr (BYTES % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < BYTES / 16; ++i)
+      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+  } else if constexpr (BYTES == 8) {
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+  } else if constexpr (BYTES == 4) {
+    *reinterpret_cast<uint32_t*>(dst) = *reinterpret_cast<const uint32_t*>(src);
+  } else {
+    dst[0] = src[0];
+  }
+}
+
+// One (split, KV head, batch) block of the decode route; see the header.
+// R = 8 or 16 padded rows; rows >= Sq * G are masked and never written.
+// fp32 runs its products as scalar FMAs (exact fp32); bf16 on the tensor
+// cores (mma.sync m16n8k16, bf16 in, fp32 accumulate; 16 rows), each warp
+// owning 16 of a tile's 64 keys with its own online softmax, the four
+// warps' states merged in warp order at the end of the run.
+template <typename T, int D, int R>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel_decode(const Args a) {
+  using L = DecodeLayout<T, D>;
+  constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int VEC = L::VEC, CH = D / VEC, ROW = L::ROW, NS = L::NS;
+  constexpr int RPT = R / 2;            // scalar S: rows per thread (one key each)
+  constexpr int LPR = kThreads / R;     // softmax, P V, epilogue: lanes per row
+  constexpr int KPL = kBK / LPR;        // scalar softmax: keys per lane
+  constexpr int DPT = D / LPR;          // P V, epilogue: output columns per lane
+  static_assert(R == 8 || R == 16, "8 or 16 padded rows");
+  static_assert(RPT % 4 == 0 && KPL % 4 == 0 && DPT >= 1, "float4 rows and keys");
+  static_assert(kBK * CH % kThreads == 0, "whole copy rounds");
+
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  __shared__ int last_block;
+  T* ring = reinterpret_cast<T*>(dsmem);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int split = blockIdx.x, kvh = blockIdx.y, Hkv = gridDim.y;
+  const int64_t b = blockIdx.z;
+  const int rows = a.Sq * a.G;
+
+  // This split's key tiles: tiles below kv_end (kv_len and, causally, the
+  // last row's position + 1), tiles_per_split of them from split * that.
+  int kv_end = a.kv_len;
+  if (a.causal && a.q_offset + a.Sq < kv_end) kv_end = a.q_offset + a.Sq;
+  const int ntiles = kv_end > 0 ? (kv_end - 1) / kBK + 1 : 0;
+  const int t0 = split * a.tiles_per_split;
+  const int t1 = t0 + a.tiles_per_split < ntiles ? t0 + a.tiles_per_split : ntiles;
+
+  const T* qbase = static_cast<const T*>(a.q);
+  const auto q_off = [&](int r) -> int64_t {   // row r's q, or -1 past rows
+    if (r >= rows) return -1;
+    const int64_t h = static_cast<int64_t>(kvh) * a.G + r % a.G;
+    return b * a.qsb + static_cast<int64_t>(r / a.G) * a.qss + h * a.qsh;
+  };
+  const T* kbase = static_cast<const T*>(a.k) + b * a.ksb + static_cast<int64_t>(kvh) * a.ksh;
+  const T* vbase = static_cast<const T*>(a.v) + b * a.vsb + static_cast<int64_t>(kvh) * a.vsh;
+  const auto load_tile = [&](int t) {
+    T* Ks = ring + (t % NS) * 2 * L::TILE;
+    T* Vs = Ks + L::TILE;
+    const int k0 = t * kBK;
+    if (a.vec) {
+#pragma unroll
+      for (int e0 = 0; e0 < kBK * CH; e0 += kThreads) {
+        const int r = (e0 + tid) / CH, c = (e0 + tid) % CH;
+        const bool ok = k0 + r < a.Skv;
+        const int64_t key = k0 + r;
+        cp_async16(smem_addr(Ks + r * ROW + c * VEC), ok ? kbase + key * a.kss + c * VEC : kbase, ok);
+        cp_async16(smem_addr(Vs + r * ROW + c * VEC), ok ? vbase + key * a.vss + c * VEC : vbase, ok);
+      }
+    } else {
+      for (int e = tid; e < kBK * D; e += kThreads) {
+        const int r = e / D, d = e % D;
+        const bool ok = k0 + r < a.Skv;
+        const int64_t key = k0 + r;
+        Ks[r * ROW + d] = ok ? kbase[key * a.kss + d] : from_f<T>(0.0f);
+        Vs[r * ROW + d] = ok ? vbase[key * a.vss + d] : from_f<T>(0.0f);
+      }
+    }
+  };
+
+  // bf16: Q as the mma A operand, Qh [16][ROW] (zeros past rows), copied
+  // with the first tile.
+  T* Qh = reinterpret_cast<T*>(dsmem + NS * L::STAGE_BYTES);
+  if constexpr (kMma) {
+    if (t0 >= t1) {
+    } else if (a.vec) {
+      for (int e = tid; e < 16 * CH; e += kThreads) {
+        const int r = e / CH, c = e % CH;
+        const int64_t off = q_off(r);
+        cp_async16(smem_addr(Qh + r * ROW + c * VEC), off >= 0 ? qbase + off + c * VEC : qbase,
+                   off >= 0);
+      }
+    } else {
+      for (int e = tid; e < 16 * D; e += kThreads) {
+        const int r = e / D, d = e % D;
+        const int64_t off = q_off(r);
+        Qh[r * ROW + d] = off >= 0 ? qbase[off + d] : from_f<T>(0.0f);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NS - 1; ++j) {
+    if (t0 + j < t1) load_tile(t0 + j);
+    cp_async_commit();
+  }
+
+  // The epilogue's thread (row, lane in row) holds m, l and DPT columns of
+  // acc of its row after the run.
+  const int row = tid / LPR, lane_r = tid % LPR;
+  const bool pv_rows = warp * (32 / LPR) < rows;       // warp-uniform
+  float m = -CUDART_INF_F, l = 0.0f, acc[DPT];
+#pragma unroll
+  for (int c = 0; c < DPT; ++c) acc[c] = 0.0f;
+
+  if constexpr (kMma) {
+    constexpr int KSTEPS = D / 16;      // k-steps of Q K^T over the head dim
+    constexpr int DT = D / 8;           // head-dim n-tiles of the output
+    constexpr int CA = D + 4;           // row stride of the warps' acc (floats)
+    static_assert(sizeof(float) * (2 * 64 + 64 * CA) <= NS * L::STAGE_BYTES,
+                  "the warps' states fit in the ring");
+    const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    // lane rows g and g + 8: their positions, and whether they are real
+    const bool real[2] = {g < rows, g + 8 < rows};
+    const int qpos[2] = {a.q_offset + g / a.G, a.q_offset + (g + 8) / a.G};
+    uint32_t qa[KSTEPS][4];
+    float mw[2] = {-CUDART_INF_F, -CUDART_INF_F}, lw[2] = {0.0f, 0.0f};
+    float accw[DT][4];
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accw[dt][e] = 0.0f;
+
+    for (int t = t0; t < t1; ++t) {
+      cp_async_wait<NS - 2>();          // tile t (and Q) landed, this thread's part
+      __syncthreads();                  // ... every thread's; tile t - 1 is used
+      if (t + NS - 1 < t1) load_tile(t + NS - 1);
+      cp_async_commit();
+      if (t == t0) {
+#pragma unroll
+        for (int ks = 0; ks < KSTEPS; ++ks)
+          ldsm_x4(qa[ks], smem_addr(Qh + (lane & 15) * ROW + ks * 16 + (lane >> 4) * 8));
+      }
+      const T* Ks = ring + (t % NS) * 2 * L::TILE;
+      const uint32_t ks_addr = smem_addr(Ks), vs_addr = smem_addr(Ks + L::TILE);
+      const int kw = warp * 16;         // this warp's keys in the tile
+
+      // s[nt][e]: row g + 8 (e / 2), key t * 64 + kw + 8 nt + 2 t4 + e % 2
+      float s[2][4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        // matrices: keys kw + 0..7 | 8..15, head dims 16 ks + 0..7 | 8..15
+        uint32_t kb[4];
+        ldsm_x4(kb, ks_addr + 2 * ((kw + (lane >> 4) * 8 + (lane & 7)) * ROW + ks * 16 +
+                                   ((lane >> 3) & 1) * 8));
+        mma_bf16_16816(s[0], qa[ks], kb[0], kb[1]);
+        mma_bf16_16816(s[1], qa[ks], kb[2], kb[3]);
+      }
+      float smax[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = t * kBK + kw + nt * 8 + 2 * t4 + (e & 1);
+          const int hr = e >> 1;
+          const bool valid = real[hr] && kp < a.kv_len && (!a.causal || kp <= qpos[hr]);
+          s[nt][e] = valid ? s[nt][e] * a.scale : -CUDART_INF_F;
+          smax[hr] = fmaxf(smax[hr], s[nt][e]);
+        }
+      float corr[2], ls[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        smax[hr] = fmaxf(smax[hr], __shfl_xor_sync(kFull, smax[hr], 1));
+        smax[hr] = fmaxf(smax[hr], __shfl_xor_sync(kFull, smax[hr], 2));
+        // a row with no valid key among the warp's 16 adds nothing
+        const float m_new = smax[hr] == -CUDART_INF_F ? mw[hr] : fmaxf(mw[hr], smax[hr]);
+        corr[hr] = smax[hr] == -CUDART_INF_F ? 1.0f : expf(mw[hr] - m_new);
+        mw[hr] = m_new;
+      }
+      uint32_t pa[4];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = s[nt][e] == -CUDART_INF_F ? 0.0f : expf(s[nt][e] - mw[e >> 1]);
+          ls[e >> 1] += p[e];
+        }
+        pa[nt * 2] = pack_bf16(p[0], p[1]);       // rounded to bf16 for P V
+        pa[nt * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) lw[hr] = lw[hr] * corr[hr] + ls[hr];
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) accw[dt][e] *= corr[e >> 1];
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        // matrices: keys kw + 0..7 | 8..15, head dims 16 dp + 0..7 | 8..15
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, vs_addr + 2 * ((kw + ((lane >> 3) & 1) * 8 + (lane & 7)) * ROW +
+                                         (2 * dp + (lane >> 4)) * 8));
+        mma_bf16_16816(accw[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16_16816(accw[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();                    // the ring is free: the warps' states
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      lw[hr] += __shfl_xor_sync(kFull, lw[hr], 1);
+      lw[hr] += __shfl_xor_sync(kFull, lw[hr], 2);
+    }
+    float* Cm = reinterpret_cast<float*>(dsmem);   // [warp][16] m
+    float* Cl = Cm + 64;                            // [warp][16] l
+    float* Ca = Cl + 64;                            // [warp][16][CA] acc
+    if (t4 == 0) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        Cm[warp * 16 + g + 8 * hr] = mw[hr];
+        Cl[warp * 16 + g + 8 * hr] = lw[hr];
+      }
+    }
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        Ca[(warp * 16 + g + 8 * (e >> 1)) * CA + dt * 8 + 2 * t4 + (e & 1)] = accw[dt][e];
+    __syncthreads();
+    // The run's state of row `row`: the warps' in warp order, weight
+    // exp(m_w - max m), 0 for a warp that saw no valid key of the row.
+#pragma unroll
+    for (int w = 0; w < 4; ++w) m = fmaxf(m, Cm[w * 16 + row]);
+    if (m != -CUDART_INF_F) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const float mw_ = Cm[w * 16 + row];
+        const float wt = mw_ == -CUDART_INF_F ? 0.0f : expf(mw_ - m);
+        l = fmaf(wt, Cl[w * 16 + row], l);
+#pragma unroll
+        for (int c = 0; c < DPT; ++c)
+          acc[c] = fmaf(wt, Ca[(w * 16 + row) * CA + lane_r * DPT + c], acc[c]);
+      }
+    }
+  } else {
+    // fp32: Q staged transposed, Qs [D][R]; S: thread (key, row half);
+    // softmax and P V: thread (row, lane in row).
+    float* Qs = reinterpret_cast<float*>(dsmem + NS * L::STAGE_BYTES);
+    float* Ss = Qs + D * R;
+    if (t0 < t1) {
+      const T* const src[1] = {qbase};
+      stage<T, D, R, 1>(
+          a.vec, src, [&](int, int r) { return q_off(r); },
+          [&](int, int r, int d, float x) { Qs[d * R + r] = x; });
+    }
+    const int key = tid % kBK, rh = tid / kBK;
+    const bool s_rows = rh * RPT < rows;               // warp-uniform
+
+    for (int t = t0; t < t1; ++t) {
+      cp_async_wait<NS - 2>();          // tile t has landed (this thread's part)
+      __syncthreads();                  // ... every thread's; tile t - 1 is used
+      if (t + NS - 1 < t1) load_tile(t + NS - 1);
+      cp_async_commit();
+      const T* Ks = ring + (t % NS) * 2 * L::TILE;
+      const T* Vs = Ks + L::TILE;
+      const int k0 = t * kBK;
+
+      if (s_rows) {
+        float s[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) s[i] = 0.0f;
+        const T* krow = Ks + key * ROW;
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          const uint4 raw = *reinterpret_cast<const uint4*>(krow + c * VEC);
+          const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+          for (int u = 0; u < VEC; ++u) {
+            const float kf = to_f(x[u]);
+            const float* qd = Qs + (c * VEC + u) * R + rh * RPT;
+#pragma unroll
+            for (int i = 0; i < RPT; i += 4) {
+              const float4 q4 = *reinterpret_cast<const float4*>(qd + i);
+              s[i] = fmaf(q4.x, kf, s[i]);
+              s[i + 1] = fmaf(q4.y, kf, s[i + 1]);
+              s[i + 2] = fmaf(q4.z, kf, s[i + 2]);
+              s[i + 3] = fmaf(q4.w, kf, s[i + 3]);
+            }
+          }
+        }
+        const int kp = k0 + key;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const int r = rh * RPT + i;
+          const bool valid = r < rows && kp < a.kv_len &&
+                             (!a.causal || kp <= a.q_offset + r / a.G);
+          Ss[r * kSST + key] = valid ? s[i] * a.scale : -CUDART_INF_F;
+        }
+      }
+      __syncthreads();                  // the tile's scores are in Ss
+
+      float corr = 1.0f;
+      if (pv_rows) {
+        float* srow = Ss + row * kSST + lane_r * KPL;
+        alignas(16) float sv[KPL];
+#pragma unroll
+        for (int i = 0; i < KPL; i += 4)
+          *reinterpret_cast<float4*>(sv + i) = *reinterpret_cast<const float4*>(srow + i);
+        float mt = -CUDART_INF_F;
+#pragma unroll
+        for (int i = 0; i < KPL; ++i) mt = fmaxf(mt, sv[i]);
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off >>= 1)
+          mt = fmaxf(mt, __shfl_xor_sync(kFull, mt, off));
+        if (mt == -CUDART_INF_F) {
+          // no valid key of this tile for the row: it adds nothing
+#pragma unroll
+          for (int i = 0; i < KPL; ++i) sv[i] = 0.0f;
+        } else {
+          const float m_new = fmaxf(m, mt);
+          corr = expf(m - m_new);       // 0 while m is -inf (acc and l are 0)
+          m = m_new;
+          float ls = 0.0f;
+#pragma unroll
+          for (int i = 0; i < KPL; ++i) {
+            const float p = expf(sv[i] - m_new);
+            ls += p;
+            sv[i] = to_f(from_f<T>(p)); // p rounded to the input type for P V
+          }
+          // l stays a per-lane partial sum (corr is the row's own), reduced
+          // over the row's LPR lanes after the run.
+          l = l * corr + ls;
+        }
+#pragma unroll
+        for (int i = 0; i < KPL; i += 4)
+          *reinterpret_cast<float4*>(srow + i) = *reinterpret_cast<const float4*>(sv + i);
+      }
+      __syncthreads();                  // every row's p is in Ss
+
+      if (pv_rows) {
+#pragma unroll
+        for (int c = 0; c < DPT; ++c) acc[c] *= corr;
+        const float* prow = Ss + row * kSST;
+        const T* vcol = Vs + lane_r * DPT;
+#pragma unroll 4
+        for (int j = 0; j < kBK; j += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(prow + j);
+          const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            alignas(16) T vv[DPT];
+            lds_vec(vv, vcol + (j + jj) * ROW);
+#pragma unroll
+            for (int c = 0; c < DPT; ++c) acc[c] = fmaf(pj[jj], to_f(vv[c]), acc[c]);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    if (pv_rows) {
+#pragma unroll
+      for (int off = LPR / 2; off > 0; off >>= 1) l += __shfl_xor_sync(kFull, l, off);
+    }
+  }
+
+  const bool own_row = pv_rows && row < rows;
+  T* __restrict__ o = static_cast<T*>(a.o);
+  const auto out_row = [&](int r) {
+    const int64_t h = static_cast<int64_t>(kvh) * a.G + r % a.G;
+    return o + ((b * a.Sq + r / a.G) * a.H + h) * D;
+  };
+  if (gridDim.x == 1) {                 // one split: no merge
+    if (own_row) {
+      T* orow = out_row(row) + lane_r * DPT;
+      const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) orow[c] = from_f<T>(acc[c] / den);
+    }
+    return;
+  }
+
+  // The partial of this split: acc rows in the first region of the
+  // workspace, (m, l) pairs after all of them.
+  const int n_split = gridDim.x;
+  const int64_t bh = b * Hkv + kvh;
+  const int64_t ml_off = static_cast<int64_t>(gridDim.z) * Hkv * n_split * rows * D;
+  float2* ws_ml = reinterpret_cast<float2*>(a.ws + ml_off);
+  if (own_row) {
+    const int64_t pr = (bh * n_split + split) * rows + row;
+    float* pa = a.ws + pr * D + lane_r * DPT;
+#pragma unroll
+    for (int c = 0; c < DPT; ++c) pa[c] = acc[c];
+    if (lane_r == 0) ws_ml[pr] = make_float2(m, l);
+  }
+  // The block's partial is visible device-wide before its ticket: the
+  // barrier orders the block's writes before thread 0's fence, which
+  // orders them before the atomic (CUTLASS's semaphore does the same).
+  // The last block's thread 0 fences again after its ticket, and the
+  // barrier orders the block's reads of the partials after that.
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    const int ticket = atomicAdd(a.counters + bh, 1);
+    last_block = ticket == n_split - 1;
+    if (last_block) {
+      a.counters[bh] = 0;               // every block has its ticket: reset
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (!last_block) return;
+
+  // The last block merges the n_split partials in split order, thread
+  // (row, 4 columns) by thread, kMergeBatch splits a round: the round's
+  // (m, l) pairs and acc columns are loaded together, then folded into the
+  // running (M, L, A) with weights exp(m_s - M): 0 for an empty split
+  // (m_s = -inf), which thus never enters the max either.  A row with no
+  // valid key anywhere keeps L = 0 and A = 0: o = 0.
+  constexpr int C4 = D / 4;
+  const float4* ws4 = reinterpret_cast<const float4*>(a.ws);
+  for (int e = tid; e < rows * C4; e += kThreads) {
+    const int r = e / C4, c4 = e % C4;
+    const float4* src = ws4 + (bh * n_split * rows + r) * C4 + c4;
+    const float2* msrc = ws_ml + bh * n_split * rows + r;
+    float M = -CUDART_INF_F, L = 0.0f;
+    float4 A = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int s0 = 0; s0 < n_split; s0 += kMergeBatch) {
+      float2 ml[kMergeBatch];
+      float4 x[kMergeBatch];
+#pragma unroll
+      for (int j = 0; j < kMergeBatch; ++j) {
+        const int s = s0 + j < n_split ? s0 + j : n_split - 1;
+        ml[j] = __ldcg(msrc + static_cast<int64_t>(s) * rows);
+        x[j] = __ldcg(src + static_cast<int64_t>(s) * rows * C4);
+        if (s0 + j >= n_split) ml[j].x = -CUDART_INF_F;
+      }
+      float Mb = M;
+#pragma unroll
+      for (int j = 0; j < kMergeBatch; ++j) Mb = fmaxf(Mb, ml[j].x);
+      if (Mb == -CUDART_INF_F) continue;  // no valid key so far
+      const float c = expf(M - Mb);       // 0 while M is -inf
+      A.x *= c; A.y *= c; A.z *= c; A.w *= c;
+      L *= c;
+#pragma unroll
+      for (int j = 0; j < kMergeBatch; ++j) {
+        const float w = ml[j].x == -CUDART_INF_F ? 0.0f : expf(ml[j].x - Mb);
+        A.x = fmaf(w, x[j].x, A.x);
+        A.y = fmaf(w, x[j].y, A.y);
+        A.z = fmaf(w, x[j].z, A.z);
+        A.w = fmaf(w, x[j].w, A.w);
+        L = fmaf(w, ml[j].y, L);
+      }
+      M = Mb;
+    }
+    const float den = fmaxf(L, 1e-30f);
+    T* orow = out_row(r) + c4 * 4;
+    orow[0] = from_f<T>(A.x / den);
+    orow[1] = from_f<T>(A.y / den);
+    orow[2] = from_f<T>(A.z / den);
+    orow[3] = from_f<T>(A.w / den);
+  }
 }
 
 constexpr int kPThreads = 256;          // bf16 prefill: 8 warps of 16 rows
@@ -819,26 +1351,47 @@ int launch_bf16(const Args& a, int B, int Hkv, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Decode (at most 16 rows) on the 8-row scalar shape; a bf16 prefill on the
+// The decode route's grid: (n_split, Hkv, B).  fp32 pads to R = 8 rows
+// where Sq * G <= 8 (its scalar products use every thread), else 16; bf16
+// always to 16 (the rows of an mma tile).
+template <typename T, int D, int R>
+int launch_decode(const Args& a, int B, int Hkv, int n_split, cudaStream_t stream) {
+  const auto kernel = flash_attention_kernel_decode<T, D, R>;
+  constexpr size_t bytes = decode_smem_bytes<T, D, R>();
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid(static_cast<unsigned>(n_split), Hkv, B);
+  kernel<<<grid, kThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Decode (at most 16 rows) on the split-KV route; a bf16 prefill on the
 // tensor cores; an fp32 prefill on the 64-row scalar shape (fp32 products
 // are exact only outside the tensor cores).
 template <typename T, int D>
-int launch_dim(const Args& a, int B, int Hkv, cudaStream_t stream) {
-  if (static_cast<int64_t>(a.Sq) * a.G <= 16)
-    return launch_shape<T, D, 1, 8, 16>(a, B, Hkv, stream);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+int launch_dim(const Args& a, int B, int Hkv, int n_split, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  const int64_t rows = static_cast<int64_t>(a.Sq) * a.G;
+  if constexpr (!kBf16) {
+    if (rows <= 8) return launch_decode<T, D, 8>(a, B, Hkv, n_split, stream);
+  }
+  if (rows <= kDecodeRows) return launch_decode<T, D, 16>(a, B, Hkv, n_split, stream);
+  if constexpr (kBf16)
     return launch_bf16<D>(a, B, Hkv, stream);
   else
     return launch_shape<T, D, 4, 16, 8>(a, B, Hkv, stream);
 }
 
 template <typename T>
-int launch_type(const Args& a, int B, int Hkv, int D, cudaStream_t stream) {
+int launch_type(const Args& a, int B, int Hkv, int D, int n_split, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_dim<T, 16>(a, B, Hkv, stream);
-    case 32: return launch_dim<T, 32>(a, B, Hkv, stream);
-    case 64: return launch_dim<T, 64>(a, B, Hkv, stream);
-    case 128: return launch_dim<T, 128>(a, B, Hkv, stream);
+    case 16: return launch_dim<T, 16>(a, B, Hkv, n_split, stream);
+    case 32: return launch_dim<T, 32>(a, B, Hkv, n_split, stream);
+    case 64: return launch_dim<T, 64>(a, B, Hkv, n_split, stream);
+    case 128: return launch_dim<T, 128>(a, B, Hkv, n_split, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -846,13 +1399,18 @@ int launch_type(const Args& a, int B, int Hkv, int D, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16.  Strides in elements; the head dim is
-// contiguous in q, k and v, and o is contiguous (B, Sq, H, D).
+// contiguous in q, k and v, and o is contiguous (B, Sq, H, D).  Calls with
+// Sq * (H / Hkv) <= 16 take the decode route in n_split blocks per (batch,
+// KV head); with n_split > 1 they need ws (B * Hkv * n_split * Sq * H / Hkv
+// * (D + 2) floats, 16-byte aligned) and counters (B * Hkv ints, zero; the
+// kernel leaves them zero), which no other call may use at the same time.
+// Other calls ignore n_split, ws and counters.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int H, int Hkv, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, int q_offset, int kv_len, int causal,
-    float scale, void* stream) {
+    float scale, void* ws, void* counters, int n_split, void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -869,6 +1427,20 @@ extern "C" int flash_attention_fwd(
   a.kv_len = kv_len;
   a.causal = causal;
   a.scale = scale;
+  a.ws = static_cast<float*>(ws);
+  a.counters = static_cast<int*>(counters);
+  a.tiles_per_split = 0;
+  if (static_cast<long long>(Sq) * a.G <= kDecodeRows) {
+    if (n_split < 1 || n_split > kMaxSplits ||
+        (n_split > 1 && (ws == nullptr || counters == nullptr ||
+                         reinterpret_cast<uintptr_t>(ws) % 16 != 0)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    // the kernel's kv_end and tile count, cut into n_split runs
+    long long kv_end = kv_len;
+    if (causal && static_cast<long long>(q_offset) + Sq < kv_end) kv_end = q_offset + Sq;
+    const long long ntiles = kv_end > 0 ? (kv_end - 1) / kBK + 1 : 0;
+    a.tiles_per_split = ntiles > 0 ? static_cast<int>((ntiles + n_split - 1) / n_split) : 1;
+  }
   // 16-byte loads need every row start 16-byte aligned: the base pointers
   // and every stride a multiple of 16 bytes (D always is).
   const long long vec = dtype == 0 ? 4 : 8;
@@ -877,7 +1449,7 @@ extern "C" int flash_attention_fwd(
            reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   for (long long st : strides) a.vec = a.vec && st % vec == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_type<float>(a, B, Hkv, D, s);
-  if (dtype == 1) return launch_type<__nv_bfloat16>(a, B, Hkv, D, s);
+  if (dtype == 0) return launch_type<float>(a, B, Hkv, D, n_split, s);
+  if (dtype == 1) return launch_type<__nv_bfloat16>(a, B, Hkv, D, n_split, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,6 +11,15 @@ raises on anything the kernel does not take, launches on the current
 stream and raises if the launch returned a CUDA error.  ``LAUNCHES`` counts
 its launches (and nothing else), so a run can show that it went through
 K6.
+
+A decode call (``Sq * H / Hkv <= 16`` flattened rows) is one launch of
+the split-KV route: :func:`decode_splits` cuts its key tiles into
+``n_split`` runs, each split writes a partial into a workspace from the
+caching allocator (``torch.empty``: no launch), and the last block of each
+(batch, KV head) merges them, found by a ticket on a counter.  The
+counters are one zeroed int32 buffer per (device, stream), made once and
+kept; the kernel leaves them zero.  Keyed by stream, they are never shared
+by two calls in flight at once: calls on one stream run in order.
 """
 
 from __future__ import annotations
@@ -30,7 +39,13 @@ HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1  # sizes, q_offset and kv_len ride C ints
 _GRID_MAX = 65535     # Hkv and B are the grid's y and z
+DECODE_ROWS = 16      # Sq * G at most: the split-KV decode route
+KEY_TILE = 64         # keys per KV tile
+MAX_SPLITS = 256      # the kernel's bound on n_split
+BLOCKS_PER_SM = 1     # the decode grid's aim (fewer, longer runs merge faster)
 _lib = None
+_sm_count: dict[int, int] = {}
+_counters: dict[tuple[int, int], torch.Tensor] = {}
 
 
 def build():
@@ -45,7 +60,7 @@ def _load():
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         _lib = _build.load(SOURCE, {
             "flash_attention_fwd": [ptr] * 4 + [i32] * 7 + [i64] * 9
-            + [i32] * 3 + [ctypes.c_float, ptr],
+            + [i32] * 3 + [ctypes.c_float, ptr, ptr, i32, ptr],
         })
     return _lib
 
@@ -81,6 +96,41 @@ def _check(q, k, v, q_offset: int, kv_len: int) -> None:
         raise ValueError(f"{who}: sizes past the kernel's int or grid range")
 
 
+def decode_splits(B: int, Hkv: int, Sq: int, *, causal: bool, q_offset: int,
+                  kv_len: int, n_sm: int) -> int:
+    """How many runs the decode route cuts its key tiles into: about
+    ``BLOCKS_PER_SM`` blocks per SM over the ``B * Hkv`` (batch, KV head)
+    pairs, at least one tile a run, at most ``MAX_SPLITS``; then as few runs
+    as give the same tiles per run, so no run is empty.  The tiles are those
+    below kv_end: ``kv_len`` and, causally, the last query's position + 1."""
+    kv_end = min(kv_len, q_offset + Sq) if causal else kv_len
+    n_tiles = -(-max(kv_end, 0) // KEY_TILE)
+    want = -(-BLOCKS_PER_SM * n_sm // (B * Hkv))
+    n = max(1, min(n_tiles, want, MAX_SPLITS))
+    per = -(-n_tiles // n)
+    return -(-n_tiles // per) if n_tiles else 1
+
+
+def _sms(device: torch.device) -> int:
+    """The SM count of ``device`` (a tensor's: its index is set), cached."""
+    if device.index not in _sm_count:
+        _sm_count[device.index] = torch.cuda.get_device_properties(
+            device.index).multi_processor_count
+    return _sm_count[device.index]
+
+
+def _ticket_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The zeroed int32 ticket counters of ``stream`` on ``device``, at least
+    ``n`` of them (a larger buffer replaces a smaller one, zeroed on the
+    same stream, so it is ready before the next launch there)."""
+    key = (device.index, stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[key] = buf
+    return buf
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, q_offset: int,
                          kv_len: int) -> torch.Tensor:
@@ -100,11 +150,24 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        rows = Sq * (H // Hkv)
+        n_split, ws, counters = 1, None, None
+        if rows <= DECODE_ROWS:
+            n_split = decode_splits(B, Hkv, Sq, causal=causal,
+                                    q_offset=q_offset, kv_len=kv_len,
+                                    n_sm=_sms(q.device))
+            if n_split > 1:
+                ws = torch.empty(B * Hkv * n_split * rows * (D + 2),
+                                 dtype=torch.float32, device=q.device)
+                counters = _ticket_counters(q.device, stream, B * Hkv)
         rc = _load().flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], B, Sq, Skv, H, Hkv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            q_offset, kv_len, int(causal), 1.0 / math.sqrt(D), stream)
+            q_offset, kv_len, int(causal), 1.0 / math.sqrt(D),
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(), n_split,
+            stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_fwd: launch failed with CUDA "
                            f"error {rc}")

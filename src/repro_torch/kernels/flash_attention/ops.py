@@ -36,7 +36,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset=pos, kv_len=pos + 1``.  ``block_q``/``block_k`` are the
     Pallas tile sizes, accepted for `repro`'s signature; K6's tiles are
     fixed when it is compiled (64 keys; 128 query rows for a bf16 prefill,
-    64 for an fp32 prefill, 8 for decode)."""
+    64 for an fp32 prefill).  A decode call (``Sq * H / Hkv <= 16``) holds
+    all its rows of a (batch, KV head) in one block and splits the keys
+    across the card in runs of 64-key tiles, merged in the same launch."""
     if prefer not in _PREFER:
         raise ValueError(f"unknown prefer: {prefer!r} (have {_PREFER})")
     if block_q < 1 or block_k < 1:

@@ -15,7 +15,8 @@ part's weights in the plain version's slot order, so they are held to it
 bit for bit, and a sharded refinement on the card (K4 every sweep) to the
 same run on the CPU label for label (integer weights: exact sums).  K6,
 the flash attention, is held to its plain version with
-tests/test_kernels.py's `_tol` (fp32 2e-5, bf16 2e-2), and the smoke LM's
+tests/test_kernels.py's `_tol` (fp32 2e-5, bf16 2e-2), its split-KV decode
+route also to itself (repeated calls bit-identical), and the smoke LM's
 greedy tokens on the card to the CPU's exactly (fp32; logits within
 1e-3).  K5, the embedding bag, is held to its plain version per element
 relative to the bag's Σ|w·row| (fp32 1e-5: the plain version adds with
@@ -210,6 +211,22 @@ FLASH_CASES = {
     "skv_ragged": (1, 90, 150, 32, 4, 64, None, None, True),
     "continuation": (1, 128, 700, 32, 4, 64, 512, 640, True),
     "long_prefill": (1, 4096, 4096, 32, 4, 64, None, None, True),
+    # the split-KV decode route (Sq·G <= 16): the `long` serve run's step;
+    # kv_len 1, 63, 64, 65 and 577, so runs end on and off tile edges;
+    # G = 1 at 16 positions and G = 2 at 8 whose causal ends cross a tile
+    # edge (a run with valid keys for some rows and none for others); a
+    # continuation of 4 positions (G = 4) over a longer kv_len, D = 16; a
+    # non-causal call over kv_len < Skv
+    "long_decode": (1, 1, 4096, 32, 4, 64, 4095, 4096, True),
+    "decode_kv1": (2, 1, 64, 32, 4, 64, 0, 1, True),
+    "decode_kv63": (2, 1, 128, 32, 4, 64, 62, 63, True),
+    "decode_kv64": (2, 1, 128, 32, 4, 64, 63, 64, True),
+    "decode_kv65": (2, 1, 128, 32, 4, 64, 64, 65, True),
+    "decode_kv577": (4, 1, 640, 32, 4, 64, 576, 577, True),
+    "decode_g1_sq16": (2, 16, 300, 4, 4, 32, 184, 200, True),
+    "decode_g2_sq8": (1, 8, 200, 8, 4, 128, 60, 68, True),
+    "decode_continuation": (1, 4, 1000, 16, 4, 16, 126, 900, True),
+    "decode_noncausal": (2, 2, 300, 8, 4, 64, 0, 250, False),
 }
 _FLASH_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
               torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -244,7 +261,8 @@ def test_flash_attention_kernel_on_card(card, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["smoke_decode", "k4", "decode", "rows33_g4"])
+@pytest.mark.parametrize("case", ["smoke_decode", "k4", "decode", "rows33_g4",
+                                  "long_decode", "decode_g1_sq16"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_unaligned_rows_on_card(card, case, dtype):
     """Rows of D + 1 elements (strides not a multiple of 16 bytes): K6
@@ -263,6 +281,72 @@ def test_flash_attention_unaligned_rows_on_card(card, case, dtype):
     want = fa_ref.flash_attention_plain(q, k, v, **kw)
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **_FLASH_TOL[dtype])
+
+
+def _decode_inputs(case, card, dtype, seed):
+    B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal = FLASH_CASES[case]
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(card, dtype)
+               for s in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    return q, k, v, dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_decode_is_deterministic(card, dtype):
+    """The split-KV decode route at `long_decode` (32 splits on an H100):
+    20 calls, every other one while a matrix product on a second stream
+    holds SMs, so the splits finish in another order; the outputs are
+    bit-identical (the last block merges the partials in split order) and
+    each call is one launch."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    q, k, v, kw = _decode_inputs("long_decode", card, dtype, 13)
+    side = torch.cuda.Stream()
+    a = torch.randn(4096, 4096, device=card)
+    torch.cuda.synchronize()
+    outs = []
+    for i in range(20):
+        if i % 2:
+            with torch.cuda.stream(side):
+                for _ in range(4):
+                    torch.mm(a, a)
+        before = fa_cuda.LAUNCHES
+        outs.append(fa_cuda.flash_attention_cuda(q, k, v, **kw))
+        assert fa_cuda.LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    want = fa_ref.flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(outs[0].float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_attention_decode_on_two_streams(card):
+    """Decode calls in flight at once on two streams (each stream has its
+    own ticket counters), each against the plain version."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    inputs = [_decode_inputs(case, card, torch.bfloat16, 14 + i)
+              for i, case in enumerate(("long_decode", "decode_kv577"))]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(5):
+        for s, (q, k, v, kw), out in zip(streams, inputs, outs):
+            with torch.cuda.stream(s):
+                out.append(fa_cuda.flash_attention_cuda(q, k, v, **kw))
+    torch.cuda.synchronize()
+    for (q, k, v, kw), out in zip(inputs, outs):
+        want = fa_ref.flash_attention_plain(q, k, v, **kw).float().cpu()
+        for got in out:
+            np.testing.assert_allclose(got.float().cpu().numpy(),
+                                       want.numpy(),
+                                       **_FLASH_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda

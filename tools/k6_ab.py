@@ -7,10 +7,11 @@ Each ROOT is a checkout of this repository (a ``git archive`` of another
 commit unpacked into a git-ignored directory, say).  Every ROOT runs in a
 process of its own, in the order given, so a comparison of two commits on
 one card reads ``parent change change parent``.  Each prints one JSON line:
-the root, and for the bf16 cases ``prefill``, ``long_prefill`` and
-``continuation`` of chip_smoke.py's FLASH_CASES the profiler's device ms
-per launch of the K6 kernel and the kernel's name.  Each checkout builds
-its own K6 library under its own ``build/``.
+the root, and for the bf16 cases ``prefill``, ``long_prefill``,
+``continuation``, ``decode`` and ``long_decode`` of chip_smoke.py's
+FLASH_CASES the profiler's device ms per launch of the K6 kernel and the
+kernel's name.  Each checkout builds its own K6 library under its own
+``build/``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import sys
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]
-CASES = ("prefill", "long_prefill", "continuation")
+CASES = ("prefill", "long_prefill", "continuation", "decode", "long_decode")
 
 
 def one(root: str) -> dict:

@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
-"""Where K6's bf16 prefill spends its time: variants of its source, timed.
+"""Where K6 spends its time: variants of its source, timed.
 
-    python3 tools/k6_variants.py [OUT_DIR]     # needs nvcc and one CUDA card
+    python3 tools/k6_variants.py [OUT_DIR [VARIANT ...]]   # nvcc, one CUDA card
 
 Each variant is a copy of ``csrc/flash_attention.cu`` with one edit
 (VARIANTS below), built by nvcc like the kernel itself (all at once) into
-OUT_DIR (default ``build/k6_variants``) and called through its C entry
-point on chip_smoke.py's bf16 ``long_prefill`` and ``prefill`` inputs.  The
-ablations drop one part of a KV tile's work on the wgmma route (D = 64) and
-compute something else: their outputs are wrong by design, and only their
-times mean anything.  ``ns3`` and ``ns5`` change the ring's depth.  Times
-are CUDA events over calls queued back to back (chip_smoke.time_ms), each
-variant measured twice, in the order of VARIANTS and then reversed.  Prints
-one JSON line.
+OUT_DIR (default ``build/k6_variants``; where VARIANTs are named, only
+those and ``base``) and called through its C entry point on
+chip_smoke.py's bf16 inputs of the variant's route: the bf16 prefill's
+``long_prefill`` and ``prefill``, the split-KV decode route's
+``long_decode`` and ``decode``.  The ablations drop one part of the work
+and compute something else: their outputs are wrong by design, and only
+their times mean anything.  ``ns3`` and ``ns5`` change the prefill ring's
+depth.  Prefill times are CUDA events over calls queued back to back
+(chip_smoke.time_ms); decode times are the profiler's device time per
+launch (chip_smoke.profiled_ms: a decode call is shorter than its launch
+on the host).  Each variant is measured twice, in the order of VARIANTS
+and then reversed.  The base source also runs the decode cases at other
+split counts (``splits``).  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -57,8 +62,29 @@ VARIANTS = {
     # ring depth at D = 64: 3 or 5 stages instead of 4
     "ns3": [("constexpr int NS = D == 64 ? 4", "constexpr int NS = D == 64 ? 3")],
     "ns5": [("constexpr int NS = D == 64 ? 4", "constexpr int NS = D == 64 ? 5")],
+    # decode route: the last block's merge of the partials (it returns)
+    "dec_nomerge": [("  if (!last_block) return;\n", "  return;\n")],
+    # decode route: the fence, the ticket and the merge (every block
+    # returns once its partial is written)
+    "dec_noticket": [("  // The block's partial is visible device-wide before its ticket: the",
+                      "  return;\n  // The block's partial is visible device-wide before its ticket: the")],
+    # decode route: the merge folds 32 partials a round, not 16
+    "dec_batch32": [("constexpr int kMergeBatch = 16;", "constexpr int kMergeBatch = 32;")],
+    # decode route, bf16: the tensor-core products (S = Q K^T and P V)
+    "dec_nomma": [("      for (int ks = 0; ks < KSTEPS; ++ks) {\n        // matrices: keys kw",
+                   "      for (int ks = 0; ks < KSTEPS * (a.Sq < 0); ++ks) {\n        // matrices: keys kw"),
+                  ("      for (int dp = 0; dp < DT / 2; ++dp) {\n        // matrices: keys kw",
+                   "      for (int dp = 0; dp < DT / 2 * (a.Sq < 0); ++dp) {\n        // matrices: keys kw")],
+    # decode route: the K/V tile copies (tiles use whatever the ring holds)
+    "dec_noload": [("    if (t0 + j < t1) load_tile(t0 + j);",
+                    "    if (t0 + j < t1 && a.Sq < 0) load_tile(t0 + j);"),
+                   ("    if (t + NS - 1 < t1) load_tile(t + NS - 1);",
+                    "    if (t + NS - 1 < t1 && a.Sq < 0) load_tile(t + NS - 1);")],
 }
-CASES = ("long_prefill", "prefill")
+
+PREFILL_CASES = ("long_prefill", "prefill")
+DECODE_CASES = ("long_decode", "decode")
+SPLIT_FACTORS = (0.5, 1.0, 2.0)      # of decode_splits' count, base only
 
 
 def build(out: Path, name: str, edits) -> tuple[str, Path | None, str]:
@@ -88,8 +114,10 @@ def main(argv: list[str]) -> int:
 
     out = Path(argv[0]) if argv else ROOT / "build" / "k6_variants"
     out.mkdir(parents=True, exist_ok=True)
-    with concurrent.futures.ThreadPoolExecutor(len(VARIANTS)) as pool:
-        built = list(pool.map(lambda kv: build(out, *kv), VARIANTS.items()))
+    chosen = {n: e for n, e in VARIANTS.items()
+              if len(argv) < 2 or n == "base" or n in argv[1:]}
+    with concurrent.futures.ThreadPoolExecutor(len(chosen)) as pool:
+        built = list(pool.map(lambda kv: build(out, *kv), chosen.items()))
     libs, notes = {}, {}
     for name, lib, note in built:
         notes[name] = note
@@ -100,11 +128,16 @@ def main(argv: list[str]) -> int:
     for name, lib in libs.items():
         fn = ctypes.CDLL(str(lib)).flash_attention_fwd
         fn.argtypes = [ptr] * 4 + [i32] * 7 + [i64] * 9 + [i32] * 3 \
-            + [ctypes.c_float, ptr]
+            + [ctypes.c_float, ptr, ptr, i32, ptr]
         fn.restype = ctypes.c_int
         fns[name] = fn
+    from repro_torch.kernels.flash_attention import cuda as fa
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     times: dict = {}
-    for case in CASES:
+    splits: dict = {}
+    for case in PREFILL_CASES + DECODE_CASES:
+        decode = case in DECODE_CASES
         B, Sq, Skv, H, Hkv, D, qo, kl, causal = cs.FLASH_CASES[case]
         kl = Skv if kl is None else kl
         qo = kl - Sq if qo is None else qo
@@ -114,21 +147,45 @@ def main(argv: list[str]) -> int:
                    for s in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
         o = torch.empty_like(q)
         stream = torch.cuda.current_stream().cuda_stream
-        order = list(fns) + list(fns)[::-1]
-        for name in order:
-            def call(fn=fns[name]):
+        n_split = fa.decode_splits(B, Hkv, Sq, causal=causal, q_offset=qo,
+                                   kv_len=kl, n_sm=n_sm) if decode else 1
+        counters = torch.zeros(B * Hkv, dtype=torch.int32, device="cuda")
+
+        def caller(fn, n, name):
+            ws = torch.empty(B * Hkv * n * Sq * H // Hkv * (D + 2),
+                             dtype=torch.float32, device="cuda")
+
+            def call():
                 rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                         1, B, Sq, Skv, H, Hkv, D, *q.stride()[:3],
                         *k.stride()[:3], *v.stride()[:3], qo, kl, int(causal),
-                        1.0 / math.sqrt(D), stream)
+                        1.0 / math.sqrt(D), ws.data_ptr(), counters.data_ptr(),
+                        n, stream)
                 if rc != 0:
                     raise RuntimeError(f"variant {name}: CUDA error {rc}")
+            return call
 
+        def measure(call):
             call()
             torch.cuda.synchronize()
-            times.setdefault(case, {}).setdefault(name, []).append(cs.time_ms(call))
+            if not decode:
+                return cs.time_ms(call)
+            ms, _, _ = cs.profiled_ms(call, "flash_attention_kernel")
+            return ms
+
+        names = [n for n in fns
+                 if n == "base" or n.startswith("dec_") == decode]
+        for name in names + names[::-1]:
+            times.setdefault(case, {}).setdefault(name, []).append(
+                measure(caller(fns[name], n_split, name)))
+        if decode and "base" in fns:
+            for f in SPLIT_FACTORS + SPLIT_FACTORS[::-1]:
+                n = max(1, round(n_split * f))
+                splits.setdefault(case, {}).setdefault(n, []).append(
+                    measure(caller(fns["base"], n, "base")))
     print(json.dumps({"device": cs.nvidia_smi(), "ms": times,
-                      "not_built": sorted(set(VARIANTS) - set(libs)),
+                      "splits_ms": splits,
+                      "not_built": sorted(set(chosen) - set(libs)),
                       "ptxas_notes": {n: v for n, v in notes.items() if v}}),
           flush=True)
     return 0
