@@ -66,11 +66,12 @@ Phases, each printing JSON lines:
    frontier plan of ``full``'s raw labels, 64 shards; with ``--quick``,
    of RCB labels of the same box) and a tiny one, K3 at
    ``benchmarks/kernels.py``'s shape and at ``main``'s first shard, each
-   against the plain version (equal on integer weights; on random fp32
-   weights within 1e-6 of each row's Σ|w|), timed by the profiler's device
-   time (by CUDA events where the profiler traces no kernel, as
-   ``dev_ms_by`` says) and by CUDA events, beside the bound, the plain
-   version and one ``index_add_`` of the same weights.
+   against the plain version (equal bit for bit on integer and on random
+   fp32 weights), timed by the profiler's device time (by CUDA events
+   where the profiler traces no kernel, as ``dev_ms_by`` says) and by
+   CUDA events, beside the bound, the plain version and one
+   ``index_add_`` of the same weights by CUDA events (``library_ms``) and
+   by the profiler over all its kernels (``library_dev_ms``).
 
 9. ``kernels`` (flash_attention) — K6 against its plain version
    (`ref.flash_attention_plain`) in fp32 (2e-5) and bf16 (2e-2, atol and
@@ -391,14 +392,19 @@ def profiled_ms(fn, kernel_name, calls=20, sessions=2):
     return None, traced, None
 
 
-def profiled_call_ms(fn, calls=20):
-    """Device ms of one call of ``fn`` summed over every CUDA kernel it
-    issues (torch.profiler over ``calls`` calls); None where the profiler
-    traced nothing."""
-    by_name = device_profile(lambda: [fn() for _ in range(calls)])
-    if not by_name:
-        return None
-    return sum(v[1] for v in by_name.values()) / calls
+def profiled_call_ms(fn, calls=20, sessions=3):
+    """Device ms of one call of ``fn``: every CUDA kernel's device ms over
+    ``calls`` calls in one torch.profiler session (after ``calls`` calls
+    unrecorded), summed and divided by ``calls``.  A session is taken only
+    where each kernel's launch count is a whole multiple of ``calls`` (the
+    profiler can trace a session in part); one that is not is tried
+    again, and after ``sessions`` such the result is None."""
+    for _ in range(sessions):
+        by_name = device_profile(lambda: [fn() for _ in range(calls)],
+                                 warmup=1)
+        if by_name and all(n % calls == 0 for n, _ in by_name.values()):
+            return sum(ms for _, ms in by_name.values()) / calls
+    return None
 
 
 def top_kernels(by_name, k=8):
@@ -869,43 +875,77 @@ def phase_full_sharded(ctx):
     return launches, fp, raw
 
 
-def segsum_cases(fp, parts):
-    """K4 ``main`` (the sweep's table from ``fp`` and the labels ``parts``),
-    K4 ``tiny``, K3 ``bench`` and K3 ``root`` (``main``'s first shard), each
-    as (kernel, plain, labels, cols, wts, nparts)."""
+def quick_plan(box=None):
+    """The frontier plan of RCB labels of ``box`` (``box_mesh(80, 64,
+    48)`` by default) into 64 parts, and the labels: phase 8's sweep
+    under ``--quick``.  Phase 8 alone on the card:
+    ``python3 -c "import chip_smoke as cs;
+    cs.phase_kernels_segsum(*cs.quick_plan())"``."""
+    from repro_torch.core.rcb import rcb_parts
+    from repro_torch.dist.refine_sharded import build_frontier_plan
+    from repro_torch.mesh import box_mesh, dual_graph
+
+    box = box_mesh(80, 64, 48) if box is None else box
+    parts = rcb_parts(box.coords, 64, box.weights)
+    return build_frontier_plan(dual_graph(box), parts, 64,
+                               weights=box.weights), parts
+
+
+def segsum_arrays(fp, parts):
+    """Phase 8's inputs as NumPy arrays: K4 ``main`` (the sweep's table
+    from ``fp`` and the labels ``parts``), K4 ``tiny``, K3 ``bench`` and K3
+    ``root`` (``main``'s first shard), each as (labels, cols, wts,
+    nparts)."""
     from repro_torch.dist.refine_sharded import _combined_labels_host
+
+    main = (_combined_labels_host(fp, parts).astype(np.int32),
+            fp.ell_cols.astype(np.int32), fp.ell_wts.astype(np.float32))
+    rng = np.random.default_rng(2)
+
+    def rand(lead, B, w, m, nparts):
+        return (rng.integers(0, nparts, lead + (m,)).astype(np.int32),
+                rng.integers(0, m, lead + (B, w)).astype(np.int32),
+                rng.integers(1, 5, lead + (B, w)).astype(np.float32))
+
+    return {"K4 main": (*main, 64),
+            "K4 tiny": (*rand((3,), 40, 6, 90, 9), 9),
+            "K3 bench": (*rand((), 16384, 27, 32768, 128), 128),
+            "K3 root": (main[0][0], main[1][0], main[2][0], 64)}
+
+
+def segsum_cases(arrays):
+    """``segsum_arrays``' cases on the card, each as (kernel, plain,
+    labels, cols, wts, nparts); K3 ``root`` is a view into ``main``'s
+    tensors."""
     from repro_torch.kernels.segment_sum import cuda as ss_cuda
     from repro_torch.kernels.segment_sum import ref as ss_ref
-
-    def dev(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dtype)
 
     k3 = (ss_cuda.connection_table_cuda, ss_ref.connection_table_ref)
     k4 = (ss_cuda.connection_table_batched_cuda,
           ss_ref.connection_table_batched_ref)
-    main = (dev(_combined_labels_host(fp, parts), torch.int32),
-            dev(fp.ell_cols, torch.int32), dev(fp.ell_wts, torch.float32))
-    rng = np.random.default_rng(2)
-
-    def rand(lead, B, w, m, nparts):
-        return (dev(rng.integers(0, nparts, lead + (m,)), torch.int32),
-                dev(rng.integers(0, m, lead + (B, w)), torch.int32),
-                dev(rng.integers(1, 5, lead + (B, w)), torch.float32))
-
-    return {"K4 main": (*k4, *main, 64),
-            "K4 tiny": (*k4, *rand((3,), 40, 6, 90, 9), 9),
-            "K3 bench": (*k3, *rand((), 16384, 27, 32768, 128), 128),
-            "K3 root": (*k3, main[0][0], main[1][0], main[2][0], 64)}
+    cases = {}
+    for case, (*arrs, nparts) in arrays.items():
+        if case == "K3 root":
+            main = cases["K4 main"]
+            cases[case] = (*k3, main[2][0], main[3][0], main[4][0], nparts)
+            continue
+        dev = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                    for a in arrs)
+        cases[case] = (*(k3 if dev[1].ndim == 2 else k4), *dev, nparts)
+    return cases
 
 
 def phase_kernels_segsum(fp, parts):
     """K3 and K4 against the plain version and timed (see the module
     docstring).  The library yardstick is one ``index_add_`` of the weights
     into the flattened table at a precomputed index (atomics; timing
-    only)."""
+    only), by CUDA events (``library_ms``) and by the profiler's device
+    time over all its kernels (``library_dev_ms``).  It does less work
+    than the kernel: it does not zero the table, gathers no label, and its
+    index is computed before the timing."""
     rows = {}
     for case, (kernel, plain, labels, cols, wts, nparts) in \
-            segsum_cases(fp, parts).items():
+            segsum_cases(segsum_arrays(fp, parts)).items():
         G = cols.shape[0] if cols.ndim == 3 else 1
         B, w = cols.shape[-2:]
         got, want = kernel(labels, cols, wts, nparts), plain(labels, cols,
@@ -922,7 +962,8 @@ def phase_kernels_segsum(fp, parts):
         err = float((gotf - wantf).abs().max())
         rel = float(((gotf - wantf).abs().amax(-1)
                      / fw.abs().sum(-1).clamp(min=1e-30)).max())
-        check(rel <= 1e-6, f"{case}: fp32 weights, max err {err}, {rel} of Σ|w|")
+        check(torch.equal(gotf, wantf),
+              f"{case}: fp32 weights, max err {err}, {rel} of Σ|w|")
 
         lab = torch.gather(labels.reshape(G, -1).long(), 1,
                            cols.reshape(G, -1).long())
@@ -951,6 +992,8 @@ def phase_kernels_segsum(fp, parts):
                            reps=5, rounds=5, warmup=2),
             library_ms=time_ms(lambda: flat.index_add_(0, index,
                                                        wts.reshape(-1))),
+            library_dev_ms=profiled_call_ms(
+                lambda: flat.index_add_(0, index, wts.reshape(-1))),
             bytes=nbytes, bound_ms=max(bound_bytes_ms, bound_ops_ms),
             bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
             else "operations")
@@ -1562,8 +1605,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
-    from repro_torch.core.rcb import rcb_order, rcb_parts
-    from repro_torch.dist.refine_sharded import build_frontier_plan
+    from repro_torch.core.rcb import rcb_order
     from repro_torch.kernels.ell_spmv import cuda
     from repro_torch.kernels.embedding_bag import cuda as eb_cuda
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
@@ -1608,9 +1650,7 @@ def main(argv=None) -> int:
         ss_launches, fp, sweep_parts = phase_full_sharded(full_ctx)
         del full_ctx
     else:
-        sweep_parts = rcb_parts(box.coords, 64, box.weights)
-        fp = build_frontier_plan(dual_graph(box), sweep_parts, 64,
-                                 weights=box.weights)
+        fp, sweep_parts = quick_plan(box)
     ss_rows = phase_kernels_segsum(fp, sweep_parts)
     del fp, sweep_parts
     fa_rows = phase_kernels_flash()

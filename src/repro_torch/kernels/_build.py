@@ -8,16 +8,22 @@ with `ctypes` (pointers and the stream go in as ``c_void_p``).  The
 library's file name carries a hash of the source, so an edited kernel is
 rebuilt and a stale build is never loaded.  Nothing here runs at import:
 the module imports on a machine with no `nvcc` and no card.
+
+:func:`launch_context` is every wrapper's one way to pick the device and
+the stream a launch goes on.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -69,3 +75,15 @@ def load(source: Path, signatures: dict) -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch_context(t: torch.Tensor):
+    """The device context to launch in and the raw handle of the current
+    stream of ``t``'s device.  The context switches devices only where
+    ``t``'s device is not the current one, so the common call costs the
+    host no switch: ``ctx, stream = launch_context(t)``, then launch under
+    ``with ctx:``."""
+    index = t.get_device()
+    ctx = contextlib.nullcontext() if index == torch.cuda.current_device() \
+        else torch.cuda.device(index)
+    return ctx, torch._C._cuda_getCurrentRawStream(index)

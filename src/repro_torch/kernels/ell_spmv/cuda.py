@@ -90,8 +90,8 @@ def ell_spmv_cuda(cols_t: torch.Tensor, vals_t: torch.Tensor,
     if n == 0:
         return y
     fn = getattr(_load(), _FUNCS[x.dtype])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    ctx, stream = _build.launch_context(x)
+    with ctx:
         rc = fn(cols_t.data_ptr(), vals_t.data_ptr(), x.data_ptr(),
                 y.data_ptr(), n, w, stream)
     if rc != 0:
@@ -119,8 +119,8 @@ def ell_spmv_batched_cuda(cols_t: torch.Tensor, vals_t: torch.Tensor,
     if B == 0 or n == 0:
         return y
     fn = getattr(_load(), _BATCHED_FUNCS[x.dtype])
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    ctx, stream = _build.launch_context(x)
+    with ctx:
         rc = fn(cols_t.data_ptr(), vals_t.data_ptr(), x.data_ptr(),
                 y.data_ptr(), B, n, w, stream)
     if rc != 0:

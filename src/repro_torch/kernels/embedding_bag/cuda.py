@@ -91,8 +91,8 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
     out = torch.empty((n_bags, d), dtype=table.dtype, device=table.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
+    ctx, stream = _build.launch_context(table)
+    with ctx:
         rc = _load().embedding_bag_fwd(
             table.data_ptr(), indices.data_ptr(), segments.data_ptr(),
             weights.data_ptr(), out.data_ptr(), _DTYPES[table.dtype],

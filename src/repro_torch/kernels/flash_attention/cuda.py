@@ -148,8 +148,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    ctx, stream = _build.launch_context(q)
+    with ctx:
         rows = Sq * (H // Hkv)
         n_split, ws, counters = 1, None, None
         if rows <= DECODE_ROWS:

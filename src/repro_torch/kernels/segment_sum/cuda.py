@@ -80,11 +80,10 @@ def _check(who: str, labels, cols, wts, nparts: int, nd: int) -> None:
 
 def _launch(fn, labels, cols, wts, out, lead, nparts: int) -> None:
     B, w = cols.shape[-2:]
-    m = labels.shape[-1]
-    with torch.cuda.device(cols.device):
-        stream = torch.cuda.current_stream(cols.device).cuda_stream
+    ctx, stream = _build.launch_context(cols)
+    with ctx:
         rc = fn(labels.data_ptr(), cols.data_ptr(), wts.data_ptr(),
-                out.data_ptr(), *lead, B, w, m, nparts, stream)
+                out.data_ptr(), *lead, B, w, labels.shape[-1], nparts, stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__}: launch failed with CUDA error {rc}")
 
@@ -95,7 +94,9 @@ def connection_table_cuda(labels: torch.Tensor, cols: torch.Tensor,
     card.
 
     labels: (m,) int32; cols: (B, w) int32 in [0, m); wts: (B, w) float32;
-    all contiguous on one CUDA device.  Returns (B, nparts) float32."""
+    all contiguous on one CUDA device (views with a storage offset are
+    taken: the kernel handles any 4-byte alignment).  Returns (B, nparts)
+    float32."""
     global LAUNCHES
     _check("connection_table_cuda", labels, cols, wts, nparts, 2)
     B, w = cols.shape
@@ -114,8 +115,8 @@ def connection_table_batched_cuda(labels: torch.Tensor, cols: torch.Tensor,
     q]`` on the card, every problem g in one launch.
 
     labels: (G, m) int32; cols: (G, B, w) int32 in [0, m); wts: (G, B, w)
-    float32; all contiguous on one CUDA device.  Returns (G, B, nparts)
-    float32."""
+    float32; all contiguous on one CUDA device (views with a storage offset
+    are taken, as in K3).  Returns (G, B, nparts) float32."""
     global BATCHED_LAUNCHES
     _check("connection_table_batched_cuda", labels, cols, wts, nparts, 3)
     G, B, w = cols.shape

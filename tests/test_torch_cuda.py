@@ -25,6 +25,8 @@ fp32; the smoke SASRec on the card to the CPU run: user states within
 1e-5, streamed top-100 ids identical.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -116,11 +118,13 @@ def _tables(lead, B, w, m, nparts, seed, device, integer=True):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,w,m,nparts", [(37, 5, 120, 13), (8, 1, 9, 1),
                                           (130, 3, 200, 129), (16384, 27, 32768, 128),
-                                          (1320, 26, 88320, 64), (50, 40, 300, 300)])
+                                          (1320, 26, 88320, 64), (50, 40, 300, 300),
+                                          (3, 4100, 50, 6), (2, 4100, 50, 300)])
 @pytest.mark.parametrize("integer", [True, False])
 def test_connection_table_kernel_on_card(card, B, w, m, nparts, integer):
-    """K3, up to the benchmark's and the full sweep's root shapes; w > 32
-    and nparts > 256 walk their chunks."""
+    """K3, up to the benchmark's and the full sweep's root shapes; nparts
+    above kChunk (128) walks its chunks, and w above kSlab (4096) takes
+    one row a tile, staged a slab of slots at a time."""
     from repro_torch.kernels.segment_sum import cuda as ss_cuda
     from repro_torch.kernels.segment_sum import ops as ss_ops
     from repro_torch.kernels.segment_sum import ref as ss_ref
@@ -136,9 +140,13 @@ def test_connection_table_kernel_on_card(card, B, w, m, nparts, integer):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("G,B,w,m,nparts", [(3, 40, 6, 90, 9), (5, 17, 3, 50, 33),
-                                            (64, 1320, 26, 88320, 64)])
+                                            (64, 1320, 26, 88320, 64),
+                                            (64, 1463, 26, 97472, 64),
+                                            (2, 3, 8197, 70, 140)])
 def test_connection_table_batched_kernel_on_card(card, G, B, w, m, nparts):
-    """K4, up to the full box's sweep shape (64 shards)."""
+    """K4, up to the full box's sweep shapes (64 shards; the fourth is
+    chip_smoke.py's K4 ``main``), and rows of three slabs past kSlab slots
+    (the last ragged) with two chunks of parts."""
     from repro_torch.kernels.segment_sum import cuda as ss_cuda
     from repro_torch.kernels.segment_sum import ops as ss_ops
     from repro_torch.kernels.segment_sum import ref as ss_ref
@@ -151,6 +159,72 @@ def test_connection_table_batched_kernel_on_card(card, G, B, w, m, nparts):
         assert ss_cuda.BATCHED_LAUNCHES == before + 1
         assert torch.equal(got, ss_ref.connection_table_batched_ref(*args,
                                                                     nparts))
+
+
+def _segsum_tile_rows():
+    """K3/K4's widest tile (kRows) and the tiles per SM it aims at (kFill),
+    from the kernel's source."""
+    from repro_torch.kernels.segment_sum import cuda as ss_cuda
+
+    src = ss_cuda.SOURCE.read_text()
+    return tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                 for k in ("kRows", "kFill"))
+
+
+def _offset_view(a, offset):
+    """``a`` as a contiguous view ``offset`` elements into a larger
+    tensor."""
+    big = torch.empty(a.numel() + offset, dtype=a.dtype, device=a.device)
+    view = big[offset:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
+SEGSUM_EDGES = ["straddle", "labels_outside", "storage_offset", "nparts1000",
+                "repeated"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SEGSUM_EDGES)
+@pytest.mark.parametrize("integer", [True, False])
+def test_connection_table_edges_on_card(card, case, integer):
+    """K4's edges, bit for bit against the plain version: 64-row (kRows) tiles
+    that straddle shards (G = 5, B = 3 past a multiple of the tile);
+    labels -1 and nparts (they add nothing); contiguous views with a
+    storage offset (taken, at every place in a 16-byte line); nparts =
+    1000 (eight chunks of parts); 20 repeated calls bit-identical."""
+    from repro_torch.kernels.segment_sum import cuda as ss_cuda
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    from repro_torch.kernels.segment_sum import ref as ss_ref
+
+    G, B, w, m, nparts = 3, 200, 26, 500, 64
+    if case == "straddle":
+        rows, fill = _segsum_tile_rows()
+        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        G, B = 5, rows * -(-fill * sms // 5) + 3
+    elif case == "nparts1000":
+        nparts = 1000
+    args = _tables((G,), B, w, m, nparts, 11, card, integer)
+    if case == "labels_outside":
+        rng = np.random.default_rng(12)
+        args = (torch.from_numpy(rng.integers(-1, nparts + 1, (G, m))
+                                 .astype(np.int32)).to(card), *args[1:])
+        assert (args[0] == -1).any() and (args[0] == nparts).any()
+    if case == "storage_offset":
+        args = tuple(_offset_view(a, o) for a, o in zip(args, (1, 2, 3)))
+        assert all(a.is_contiguous() and a.storage_offset() for a in args)
+    want = ss_ref.connection_table_batched_ref(*args, nparts)
+    calls = 20 if case == "repeated" else 1
+    before = ss_cuda.BATCHED_LAUNCHES
+    got = [ss_ops.connection_table_batched(*args, nparts, prefer="kernel")
+           for _ in range(calls)]
+    torch.cuda.synchronize()
+    assert ss_cuda.BATCHED_LAUNCHES == before + calls
+    assert all(torch.equal(g, want) for g in got)
+    if case == "storage_offset":   # K3 on the same views, shard 0
+        flat = ss_ops.connection_table(args[0][0], args[1][0], args[2][0],
+                                       nparts, prefer="kernel")
+        assert torch.equal(flat, want[0])
 
 
 @pytest.mark.cuda
