@@ -108,9 +108,11 @@ Phases, each printing JSON lines:
     (`ref.embedding_bag_ref`) in fp32 and bf16: over SASRec's full table
     (1,000,448 × 50) ``lookup`` (``serve_p99``'s 25,600 items, bags of
     one, weight √50), ``retrieval`` (10^6 bags of one, a seeded
-    permutation of the items) and ``pooled`` (65,536 bags of 1-64 Zipf
-    items, weighted); then tests/test_kernels.py's three shapes, its
-    weighted unsorted case and a case with empty bags.  fp32 bags of one
+    permutation of the items), ``bulk`` (``serve_bulk``'s chunk: 8,192
+    users × 50 Zipf items, 409,600 bags of one, weight √50) and
+    ``pooled`` (65,536 bags of 1-64 Zipf items, weighted); then
+    tests/test_kernels.py's three shapes, its weighted unsorted case and a
+    case with empty bags.  fp32 bags of one
     bit-equal to ``table[idx]·w``, otherwise within 1e-5 (fp32) or 2e-2
     (bf16) of each bag's Σ|w·row|, empty bags zero; error, CUDA-event ms,
     profiler device ms, the bound (idx, seg and w once, each distinct row
@@ -214,6 +216,7 @@ SERVE_TOL_FORWARD = 5e-2   # (b) decode vs full forward, bf16
 BAG_CASES = {
     "lookup": dict(kind="sequence"),          # serve_p99's 512 × 50 items
     "retrieval": dict(kind="candidates"),     # 10^6 candidates
+    "bulk": dict(kind="bulk"),                # serve_bulk's 8,192 × 50 items
     "pooled": dict(kind="pooled"),            # 65,536 bags of 1-64 rows
     "sweep_a": dict(kind="sorted", V=100, d=16, nnz=64, B=10),
     "sweep_b": dict(kind="sorted", V=500, d=50, nnz=300, B=32),
@@ -222,6 +225,7 @@ BAG_CASES = {
     "empty": dict(kind="empty", V=300, d=50, nnz=400, B=90),
 }
 RECSYS_REPS = 30           # serve_p99 and retrieval_cand calls each
+BULK_CHUNK = 8192          # users a serve_bulk chunk (recsys_serve_topk)
 RECSYS_K = 100
 RECSYS_STATE_TOL = 1e-5    # (c) smoke states, card vs CPU
 RECSYS_TOPK_TOL = 1e-5     # (b) streamed vs full top-k values
@@ -1285,9 +1289,13 @@ def bag_inputs(case, spec, table_full, serve_seq, n_items):
     rng = np.random.default_rng(len(case))
     kind = spec["kind"]
     dev = table_full.device
-    if kind in ("sequence", "candidates"):            # bags of one row
+    if kind in ("sequence", "candidates", "bulk"):    # bags of one row
         if kind == "sequence":
             idx = serve_seq.reshape(-1).to(torch.int32)
+            weight = float(np.sqrt(table_full.shape[1]))
+        elif kind == "bulk":
+            idx = torch.from_numpy(zipf_items(
+                rng, BULK_CHUNK * serve_seq.shape[1], n_items)).to(dev)
             weight = float(np.sqrt(table_full.shape[1]))
         else:
             gen = torch.Generator(device=dev).manual_seed(1)
@@ -1368,7 +1376,7 @@ def phase_kernels_bag(table_full, serve_seq, n_items):
             lib = bag_library(table, i_s, s_s, w_s, n)
             lib_out = lib()
             torch.cuda.synchronize()
-            one = spec["kind"] in ("sequence", "candidates")
+            one = spec["kind"] in ("sequence", "candidates", "bulk")
             tol = TOL[dtype]
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
@@ -1508,11 +1516,12 @@ def phase_recsys():
         before = eb_cuda.LAUNCHES
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        vb, ib = recsys_serve_topk(cfg, model, seq_bulk, k=RECSYS_K)
+        vb, ib = recsys_serve_topk(cfg, model, seq_bulk, k=RECSYS_K,
+                                   user_chunk=BULK_CHUNK)
         torch.cuda.synchronize()
         bulk_s = time.perf_counter() - t0
         bulk_launches = eb_cuda.LAUNCHES - before
-        n_chunks = -(-B_bulk // 8192)
+        n_chunks = -(-B_bulk // BULK_CHUNK)
         check(bulk_launches == n_chunks,
               f"recsys serve_bulk: {bulk_launches} K5 launches, not "
               f"{n_chunks}")

@@ -19,49 +19,107 @@
 // is a row of zeros, as the plain version's segment sum gives it (the
 // Pallas kernel leaves such rows unwritten).
 //
-// Design: one warp per bag.  The Pallas kernel walks the nnz entries in
-// order on one core, with the indices prefetched ahead of the grid and the
-// output row kept resident while its segment lasts.  Here the bags run in
-// parallel, so each warp finds where its bag starts in the sorted segments:
-// a 32-way search (each lane probes one of 32 evenly spaced positions,
-// __ballot_sync counts those below the bag; four rounds for 10^6 entries)
-// instead of an offsets array, so the contract stays repro's.  The warp then
-// reads its bag's entries 32 at a time (idx, seg, w: coalesced), stops at
-// the first entry of another bag, and hands each entry in turn to all 32
-// lanes with __shfl_sync.  The lanes stride over the row's d columns, VEC
-// elements each (VEC = 4, 2 or 1, the widest that divides d and the
-// pointers' alignment: d = 50 gives VEC = 2, so a 200-byte row is one 8-byte
-// load on each of 25 lanes; 16-byte loads would misread odd rows), and
-// keep 4 such chunks each, 32 * 4 * VEC columns a pass; wider rows walk the
-// bag again for each further pass.
-//
 // Bound: device-memory bytes.  A launch must read idx, seg and w once
-// (nnz * (4 + 4 + elsize) bytes), nnz table rows (nnz * d * elsize) and
-// write the output (n_bags * d * elsize): for SASRec's retrieval lookup
-// (10^6 bags of one, d = 50, fp32) 412 MB, 0.123 ms at 3.35 TB/s.  The
+// (nnz * (4 + 4 + elsize) bytes), each distinct table row once and write
+// the output (n_bags * d * elsize): for SASRec's retrieval lookup (10^6
+// bags of one, d = 50, fp32) 412 MB, 0.123 ms at 3.35 TB/s.  The
 // arithmetic is one multiply and add per element, far below the card's
-// rate.  A bag of one costs its warp the search's dependent loads before
-// the row's, so bags of one are bound by each warp's memory latency rather
-// than by bandwidth; several bags per warp, a persistent grid and wider
-// loads are later work.
+// rate.  A random 200-byte row touches 7 or 8 sectors of 32 bytes (224-256
+// bytes), so even a kernel that moves nothing else sits ~1.1-1.2x above
+// that bound at retrieval.
+//
+// What held the first design back: one warp per bag, which found its
+// bag's start by a 32-way ballot search over seg (four dependent loads at
+// 10^6 entries), then loaded its entries (one more) and only then the row
+// (one more).  A bag of one cost its warp ~6 dependent round trips to
+// device memory to move 200 bytes, with 7 of 32 lanes idle at d = 50:
+// latency-bound at 3.2x the bound (0.39 ms at retrieval).
+//
+// Measured (tools/bag_ab.py, the first design and this one in turns on one
+// H100 80GB HBM3 at 700 W; profiler device ms, fp32 / bf16): retrieval
+// 0.392 -> 0.172 / 0.378 -> 0.111, serve_bulk's 409,600 bags of one
+// 0.157 -> 0.047 / 0.157 -> 0.035, serve_p99's 25,600 0.0101 -> 0.0047;
+// 65,536 bags of 1-64 rows 0.110 -> 0.152 / 0.131 -> 0.141, slower: a
+// tile's steps (index load, heads, each batch's copies, its sums) run one
+// after another, and four blocks an SM do not hide them (PERF.md, PR 20).
+// Rows carried in registers instead bound the loads in flight by the
+// register cap, which spilled; a second, double-buffered batch, 128-thread
+// blocks and a build for long bags with more blocks an SM measured slower.
+//
+// Design: tiles of entries, no search.  The Pallas kernel walks the nnz
+// entries in order on one core, the indices prefetched as scalars and the
+// output row kept resident while its segment lasts.  Here a block of
+// kThreads threads takes a tile of T consecutive entries [t0, t1):
+//  1. Load: the tile's seg, idx and w (coalesced, one round trip) into
+//     shared memory, with seg[t0 - 1] and seg[t1] beside them.
+//  2. Heads: entry p is the head of its bag when p = 0 or seg[p] !=
+//     seg[p - 1].  A bag belongs to the tile that holds its head, so a
+//     tile skips the entries of a bag that began in an earlier one.  The
+//     heads are compacted in entry order by warp ballots and one warp's
+//     scan of the counts; so are the heads that follow a run of empty bags
+//     (seg[p] > seg[p - 1] + 1, or seg[0] > 0).
+//  3. The last bag: where the tile's last owned bag runs on past t1
+//     (seg[t1] == seg[t1 - 1]), the next kTile entries are staged behind
+//     the tile's (one more round trip) and the bag's are counted there.
+//  4. Zeros: the owner of a head that follows empty bags writes their rows
+//     (seg[p - 1] + 1 .. seg[p] - 1, or 0 .. seg[0] - 1), and the tile
+//     that holds the last entry writes seg[nnz - 1] + 1 .. n_bags - 1;
+//     with nnz = 0 one block writes every row.  Each span is contiguous in
+//     out and spread over the block's threads.
+//  5. Sums, over work items (owned bag, chunk of VEC columns), chunks
+//     fastest, spread over the whole block; each item's adds in nnz order.
+//     Where every owned bag is one entry (bags of one: SASRec's lookups),
+//     a thread loads kOnes items' row chunks at once from device memory,
+//     weights and stores them.  Elsewhere the owned entries' rows go to
+//     shared memory by async copies (cp.async, 4-16 bytes each, so the
+//     loads in flight cost no registers), R rows a batch in kStage bytes
+//     (rows wider than kStage / kMinRows in column slabs); each item adds
+//     its bag's entries of the batch, four loaded ahead, starting from the
+//     sum its bag left in a carry buffer in the batch before.  A bag that
+//     runs past the staged entries too reads on from global memory (seg
+//     with idx and w, kDeep entries at a time) from its carry.
+// VEC is the widest of 4, 2, 1 that divides d and the table's and out's
+// alignment (d = 50 gives 2: a 200-byte row starts 16-byte aligned only
+// at even row ids).  T is the largest power of two <= kTile that leaves
+// kFill tiles an SM, and at least kMinTile: 256 at retrieval (3,907
+// blocks), 64 at the 25,600-bag lookup.  Every row of out is written by
+// exactly one thread chunk for chunk, so the result does not depend on
+// the order in which blocks run.
 //
 // Offsets are int64 (idx * d passes 2^31 for tables of 10^9 rows).  Indices
-// must lie in [0, V): the kernel does not check them.  The kernel allocates
-// nothing and does not synchronise: it launches on the caller's stream and
-// returns cudaGetLastError().  The Python wrapper
+// must lie in [0, V): the kernel does not check them; entries whose seg
+// lies outside [0, n_bags) write nothing.  The kernel allocates nothing and
+// does not synchronise: it launches on the caller's stream and returns
+// cudaGetLastError().  The Python wrapper
 // (repro_torch/kernels/embedding_bag/cuda.py) checks devices, types, shapes
 // and contiguity before the launch and raises on a nonzero return.
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;               // warps (bags) per block
-constexpr int kThreads = 32 * kWarps;
-constexpr int kChunks = 4;              // VEC-wide column chunks per lane
+constexpr int kThreads = 256;     // threads per block
+constexpr int kTile = 256;        // most entries a tile (a power of two)
+constexpr int kMinTile = 32;      // fewest entries a tile
+constexpr int kFill = 2;          // tiles per SM the grid aims at
+constexpr int kOnes = 4;          // bags of one: items a thread loads together
+constexpr int kStage = 32768;     // bytes of staged rows a batch
+constexpr int kMinRows = 32;      // fewest rows a batch (else column slabs)
+constexpr int kDeep = 4;          // entries a global walk loads ahead
+constexpr int kStreamStores = 0;  // 1: out stored with __stcs (evict first)
+constexpr int kMinBlocks = 4;     // __launch_bounds__'s blocks per SM
+constexpr int kPersist = 0;       // >0: kPersist blocks an SM stride over tiles
+constexpr int kDevices = 64;      // devices whose SM count is cached
+constexpr int kWarps = kThreads / 32;
+constexpr int kRounds = (kTile + kThreads - 1) / kThreads;
+constexpr int kCarry = kStage / kMinRows / 2;  // most columns a slab
 constexpr unsigned kFull = 0xffffffffu;
+static_assert(kThreads % 32 == 0 && kRounds * kWarps <= 32,
+              "one warp scans the ballot counts");
+static_assert(kTile < 65536, "head and gap counts share one int");
 
 // Elements: fp32 as float, bf16 as its raw 16 bits.
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -83,100 +141,454 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
-// The first position p in [0, nnz) with seg[p] >= b (nnz if none), in every
-// lane.  The answer stays in [lo, hi]; each round 32 probes cut the range
-// to one step.  Whatever seg holds, every probe stays inside [0, nnz).
-__device__ __forceinline__ int64_t lower_bound_warp(
-    const int32_t* __restrict__ seg, int64_t nnz, int32_t b, int lane) {
-  int64_t lo = 0, hi = nnz;
-  while (hi - lo > 32) {
-    const int64_t step = (hi - lo + 31) / 32;
-    const int64_t p = lo + (lane + 1) * step - 1;
-    const bool below = p < hi && __ldg(seg + p) < b;
-    const int c = __popc(__ballot_sync(kFull, below));
-    const int64_t last = lo + (c + 1) * step - 1;  // lane c's probe
-    lo += c * step;
-    hi = last < hi ? last : hi;
+template <typename T, int VEC>
+__device__ __forceinline__ void store(T* p, const Pack<T, VEC>& y) {
+  if constexpr (kStreamStores != 0) {
+    constexpr int kBytes = sizeof(Pack<T, VEC>);
+    if constexpr (kBytes == 16)
+      __stcs(reinterpret_cast<float4*>(p),
+             *reinterpret_cast<const float4*>(&y));
+    else if constexpr (kBytes == 8)
+      __stcs(reinterpret_cast<float2*>(p),
+             *reinterpret_cast<const float2*>(&y));
+    else if constexpr (kBytes == 4)
+      __stcs(reinterpret_cast<float*>(p), *reinterpret_cast<const float*>(&y));
+    else
+      __stcs(reinterpret_cast<unsigned short*>(p),
+             *reinterpret_cast<const unsigned short*>(&y));
+  } else {
+    *reinterpret_cast<Pack<T, VEC>*>(p) = y;
   }
-  const int64_t p = lo + lane;
-  const bool below = p < hi && __ldg(seg + p) < b;
-  return lo + __popc(__ballot_sync(kFull, below));
 }
 
+// VEC elements from global to shared memory without a register: an async
+// copy of 4, 8 or 16 bytes (a lone bf16 element goes through a register).
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-embedding_bag_kernel(const T* __restrict__ table,
-                     const int32_t* __restrict__ idx,
-                     const int32_t* __restrict__ seg,
-                     const T* __restrict__ wgt, T* __restrict__ out,
-                     int64_t nnz, int64_t n_bags, int d) {
-  const int lane = threadIdx.x & 31;
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (b >= n_bags) return;              // a whole warp leaves together
-  const int32_t bag = static_cast<int32_t>(b);
-  const int64_t lo = lower_bound_warp(seg, nnz, bag, lane);
-  T* orow = out + b * d;
-  constexpr int kCols = 32 * VEC * kChunks;   // columns a pass
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  constexpr int kBytes = sizeof(T) * VEC;
+  if constexpr (kBytes >= 4)
+    __pipeline_memcpy_async(dst, src, kBytes);
+  else
+    *dst = *src;
+}
 
-  for (int c0 = 0; c0 < d; c0 += kCols) {
-    float acc[kChunks][VEC];
-#pragma unroll
-    for (int j = 0; j < kChunks; ++j)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[j][e] = 0.0f;
+template <typename T>
+struct Args {
+  const T* table;
+  const int32_t* idx;
+  const int32_t* seg;
+  const T* wgt;
+  T* out;
+  int64_t nnz, n_bags, tiles;
+  int d, tile;
+};
 
-    for (int64_t k0 = lo;; k0 += 32) {
-      // The bag's entries are a prefix of these 32 (segments are sorted).
-      const int64_t k = k0 + lane;
-      const bool mine = k < nnz && __ldg(seg + k) == bag;
-      int32_t ik = 0;
-      float wk = 0.0f;
-      if (mine) {
-        ik = __ldg(idx + k);
-        wk = to_f(wgt[k]);
+// A block's shared memory.  Entries: the tile's at [0, n) and, when its
+// last bag runs on, the next ones at [n, n + E); seg is shifted by one
+// (seg[0] = seg[t0 - 1]).
+struct Smem {
+  alignas(16) unsigned char rows[kStage];  // a batch's staged rows
+  float carry[2][kCarry];  // a bag's sums across batches, by parity
+  int32_t seg[2 * kTile + 2];
+  int32_t idx[2 * kTile];
+  float w[2 * kTile];
+  int32_t bag[2 * kTile];   // each owned entry's bag, from the first head on
+  int32_t head[kTile + 1];  // heads' places, then the last bag's end
+  int32_t gap[kTile];       // heads that follow empty bags
+  int32_t cnt[kRounds * kWarps];
+  int32_t tot;
+};
+
+// out[bag, col .. col + VEC) = acc rounded to T, for a bag in [0, n_bags).
+template <typename T, int VEC>
+__device__ __forceinline__ void store_row(const Args<T>& a, int32_t bag,
+                                          int col, const float (&acc)[VEC]) {
+  if (bag < 0 || bag >= a.n_bags) return;
+  Pack<T, VEC> y;
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) y.v[v] = from_f<T>(acc[v]);
+  store<T, VEC>(a.out + static_cast<int64_t>(bag) * a.d + col, y);
+}
+
+// acc += the entries k, k + 1, ... of bag `bag` in global memory, in order,
+// columns [col, col + VEC); seg, idx and w of kDeep entries are loaded
+// together, then their rows.  The bag's entries are a run (seg is sorted).
+template <typename T, int VEC>
+__device__ __forceinline__ void walk_global(float (&acc)[VEC],
+                                            const Args<T>& a, int64_t k,
+                                            int32_t bag, int col) {
+#pragma unroll 1
+  for (;; k += kDeep) {
+    bool m[kDeep];
+    int32_t ik[kDeep];
+    float wk[kDeep];
+#pragma unroll
+    for (int u = 0; u < kDeep; ++u) {
+      const int64_t p = k + u;
+      m[u] = false;
+      ik[u] = 0;
+      wk[u] = 0.0f;
+      if (p < a.nnz) {
+        m[u] = __ldg(a.seg + p) == bag;
+        ik[u] = __ldg(a.idx + p);
+        wk[u] = to_f(a.wgt[p]);
       }
-      const int n = __popc(__ballot_sync(kFull, mine));
-      for (int t = 0; t < n; ++t) {
-        const int32_t it = __shfl_sync(kFull, ik, t);
-        const float wt = __shfl_sync(kFull, wk, t);
-        const T* row = table + static_cast<int64_t>(it) * d;
+    }
+    Pack<T, VEC> x[kDeep];
 #pragma unroll
-        for (int j = 0; j < kChunks; ++j) {
-          const int c = c0 + (j * 32 + lane) * VEC;
-          if (c < d) {
-            const Pack<T, VEC> x = *reinterpret_cast<const Pack<T, VEC>*>(row + c);
+    for (int u = 0; u < kDeep; ++u)
+      if (m[u])
+        x[u] = *reinterpret_cast<const Pack<T, VEC>*>(
+            a.table + static_cast<int64_t>(ik[u]) * a.d + col);
 #pragma unroll
-            for (int e = 0; e < VEC; ++e)
-              acc[j][e] = __fadd_rn(acc[j][e], __fmul_rn(wt, to_f(x.v[e])));
+    for (int u = 0; u < kDeep; ++u)
+      if (m[u])
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          acc[v] = __fadd_rn(acc[v], __fmul_rn(wk[u], to_f(x[u].v[v])));
+    if (!m[kDeep - 1]) return;
+  }
+}
+
+// out rows [lo, hi) set to zero by the block's threads, VEC at a time.
+template <typename T, int VEC>
+__device__ __forceinline__ void zero_rows(const Args<T>& a, int64_t lo,
+                                          int64_t hi) {
+  lo = lo > 0 ? lo : 0;
+  hi = hi < a.n_bags ? hi : a.n_bags;
+  const int64_t packs = (hi - lo) * (a.d / VEC);
+  T* base = a.out + lo * a.d;
+  Pack<T, VEC> z;
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) z.v[v] = from_f<T>(0.0f);
+#pragma unroll 1
+  for (int64_t q = threadIdx.x; q < packs; q += kThreads)
+    store<T, VEC>(base + q * VEC, z);
+}
+
+// Work items (owned bag j, chunk c), c fastest, where every owned bag is
+// one entry (bag j is entry j): item q is thread q % kThreads's, kOnes of
+// them loaded at once, then weighted and stored.
+template <typename T, int VEC>
+__device__ __forceinline__ void walk_ones(const Args<T>& a, const Smem& sm,
+                                          int nh) {
+  const int nch = a.d / VEC;
+  int j = threadIdx.x / nch, c = threadIdx.x % nch;
+  const int dj = kThreads / nch, dc = kThreads % nch;
+#pragma unroll 1
+  while (j < nh) {
+    int jg[kOnes], cg[kOnes];
+    Pack<T, VEC> x[kOnes];
+#pragma unroll
+    for (int g = 0; g < kOnes; ++g) {
+      jg[g] = j;
+      cg[g] = c * VEC;
+      if (j < nh)
+        x[g] = *reinterpret_cast<const Pack<T, VEC>*>(
+            a.table + static_cast<int64_t>(sm.idx[j]) * a.d + cg[g]);
+      c += dc;
+      j += dj;
+      if (c >= nch) {
+        c -= nch;
+        ++j;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kOnes; ++g) {
+      if (jg[g] < nh) {
+        float acc[VEC];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          acc[v] = __fadd_rn(0.0f, __fmul_rn(sm.w[jg[g]], to_f(x[g].v[v])));
+        store_row<T, VEC>(a, sm.seg[1 + jg[g]], cg[g], acc);
+      }
+    }
+  }
+}
+
+// Staged rows: R entries' rows a batch, ws columns a slab, so that R rows
+// of ws columns fill kStage bytes (at least kMinRows rows: wider rows go
+// in slabs).
+template <typename T, int VEC>
+__device__ __forceinline__ void stage_shape(int d, int& ws, int& R) {
+  ws = d;
+  R = kStage / (d * static_cast<int>(sizeof(T)));
+  if (R < kMinRows) {
+    ws = kStage / kMinRows / static_cast<int>(sizeof(T)) / VEC * VEC;
+    R = kMinRows;
+  }
+  if (R > 2 * kTile) R = 2 * kTile;
+}
+
+// The rows of entries [b0, b1), columns [c0, c0 + nc * VEC), into the
+// staging buffer by async copies spread over the block; then the block
+// waits for them.
+template <typename T, int VEC>
+__device__ __forceinline__ void copy_rows(const Args<T>& a, Smem& sm, int b0,
+                                          int b1, int c0, int ws, int nc) {
+  T* rows = reinterpret_cast<T*>(sm.rows);
+  int p = threadIdx.x / nc, c = threadIdx.x % nc;
+  const int dp = kThreads / nc, dc = kThreads % nc;
+#pragma unroll 1
+  for (; p < b1 - b0;) {
+    copy_async<T, VEC>(rows + p * ws + c * VEC,
+                       a.table + static_cast<int64_t>(sm.idx[b0 + p]) * a.d +
+                           c0 + c * VEC);
+    c += dc;
+    p += dp;
+    if (c >= nc) {
+      c -= nc;
+      ++p;
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+}
+
+// The owned bags' entries [head[0], end), batch by batch of R entries and
+// slab by slab of ws columns: each batch's rows copied to shared memory by
+// async copies, then work items (bag j of the batch, chunk c of the slab)
+// add their bag's entries in the batch in nnz order, from the sum a bag
+// that began in an earlier batch left in carry.  With beyond >= 0 the last
+// bag reads on in global memory from there.
+template <typename T, int VEC>
+__device__ __forceinline__ void walk_staged(const Args<T>& a, Smem& sm,
+                                            int nh, int end, int64_t beyond) {
+  int ws, R;
+  stage_shape<T, VEC>(a.d, ws, R);
+  const int tid = threadIdx.x, origin = sm.head[0];
+  const int batches = (end - origin + R - 1) / R;
+#pragma unroll 1
+  for (int c0 = 0; c0 < a.d; c0 += ws) {
+    const int nc = (a.d - c0 < ws ? a.d - c0 : ws) / VEC;  // chunks a slab
+    int par = 0;
+#pragma unroll 1
+    for (int i = 0; i < batches; ++i, par ^= 1) {
+      const int b0 = origin + i * R, b1 = b0 + R < end ? b0 + R : end;
+      copy_rows<T, VEC>(a, sm, b0, b1, c0, ws, nc);
+      const T* rows = reinterpret_cast<const T*>(sm.rows);
+      const int jhi = sm.bag[b1 - 1];
+      int j = sm.bag[b0] + tid / nc, c = tid % nc;
+      const int dj = kThreads / nc, dc = kThreads % nc;
+#pragma unroll 1
+      for (; j <= jhi;) {
+        const int s = sm.head[j], e = sm.head[j + 1];
+        float acc[VEC];
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          acc[v] = s < b0 ? sm.carry[par][c * VEC + v] : 0.0f;
+        const T* x0 = rows + c * VEC;
+        const int p1 = e < b1 ? e : b1;
+        int p = s > b0 ? s : b0;
+#pragma unroll 1
+        for (; p + 4 <= p1; p += 4) {   // four entries' loads, then adds
+          Pack<T, VEC> x[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            x[u] = *reinterpret_cast<const Pack<T, VEC>*>(
+                x0 + (p + u - b0) * ws);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float wp = sm.w[p + u];
+#pragma unroll
+            for (int v = 0; v < VEC; ++v)
+              acc[v] = __fadd_rn(acc[v], __fmul_rn(wp, to_f(x[u].v[v])));
           }
         }
+#pragma unroll 1
+        for (; p < p1; ++p) {
+          const Pack<T, VEC> x =
+              *reinterpret_cast<const Pack<T, VEC>*>(x0 + (p - b0) * ws);
+          const float wp = sm.w[p];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v)
+            acc[v] = __fadd_rn(acc[v], __fmul_rn(wp, to_f(x.v[v])));
+        }
+        if (e > b1 || (beyond >= 0 && j == nh - 1)) {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v)
+            sm.carry[par ^ 1][c * VEC + v] = acc[v];
+        } else {
+          store_row<T, VEC>(a, sm.seg[1 + s], c0 + c * VEC, acc);
+        }
+        c += dc;
+        j += dj;
+        if (c >= nc) {
+          c -= nc;
+          ++j;
+        }
       }
-      if (n < 32) break;
+      __syncthreads();  // the buffer and carry[par] free again
     }
-
+    if (beyond >= 0) {
+      const int32_t bag = sm.seg[1 + sm.head[nh - 1]];
+#pragma unroll 1
+      for (int c = tid; c < nc; c += kThreads) {
+        float acc[VEC];
 #pragma unroll
-    for (int j = 0; j < kChunks; ++j) {
-      const int c = c0 + (j * 32 + lane) * VEC;
-      if (c < d) {
-        Pack<T, VEC> y;
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) y.v[e] = from_f<T>(acc[j][e]);
-        *reinterpret_cast<Pack<T, VEC>*>(orow + c) = y;
+        for (int v = 0; v < VEC; ++v) acc[v] = sm.carry[par][c * VEC + v];
+        walk_global<T, VEC>(acc, a, beyond, bag, c0 + c * VEC);
+        store_row<T, VEC>(a, bag, c0 + c * VEC, acc);
       }
+      __syncthreads();  // carry free for the next slab
     }
   }
 }
 
 template <typename T, int VEC>
-int launch(const void* table, const void* idx, const void* seg,
-           const void* wgt, void* out, int64_t nnz, int64_t n_bags, int d,
-           cudaStream_t stream) {
-  const int64_t blocks = (n_bags + kWarps - 1) / kWarps;
-  embedding_bag_kernel<T, VEC><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 stream>>>(
-      static_cast<const T*>(table), static_cast<const int32_t*>(idx),
-      static_cast<const int32_t*>(seg), static_cast<const T*>(wgt),
-      static_cast<T*>(out), nnz, n_bags, d);
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+embedding_bag_kernel(const __grid_constant__ Args<T> a) {
+  __shared__ Smem sm;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+#pragma unroll 1
+  for (int64_t tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    if (tile != blockIdx.x) __syncthreads();   // the last tile's reads are done
+    const int64_t t0 = tile * a.tile;
+    const int64_t rest = a.nnz - t0;
+    const int n = static_cast<int>(rest < a.tile ? rest : a.tile);
+    const int64_t t1 = t0 + n;
+
+    // 1. The tile's entries.
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int i = r * kThreads + tid;
+      if (i < n) {
+        sm.seg[1 + i] = __ldg(a.seg + t0 + i);
+        sm.idx[i] = __ldg(a.idx + t0 + i);
+        sm.w[i] = to_f(a.wgt[t0 + i]);
+      }
+    }
+    if (tid == 0) sm.seg[0] = t0 > 0 ? __ldg(a.seg + t0 - 1) : 0;
+    if (tid == kThreads - 1) sm.seg[n + 1] = t1 < a.nnz ? __ldg(a.seg + t1) : 0;
+    __syncthreads();
+
+    // 2. Heads and the heads that follow empty bags, compacted in entry
+    // order (a ballot a round and warp, one warp's scan of the counts);
+    // each owned entry's bag.
+    unsigned hm[kRounds], gm[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int i = r * kThreads + tid;
+      bool head = false, gap = false;
+      if (i < n) {
+        const int64_t s = sm.seg[1 + i], prev = sm.seg[i];
+        const bool first = t0 + i == 0;
+        head = first || s != prev;
+        gap = head && (first ? s > 0 : s > prev + 1);
+      }
+      hm[r] = __ballot_sync(kFull, head);
+      gm[r] = __ballot_sync(kFull, gap);
+      if (lane == 0)
+        sm.cnt[r * kWarps + warp] = __popc(hm[r]) | __popc(gm[r]) << 16;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const int v = lane < kRounds * kWarps ? sm.cnt[lane] : 0;
+      int x = v;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, x, o);
+        if (lane >= o) x += y;
+      }
+      if (lane < kRounds * kWarps) sm.cnt[lane] = x - v;
+      if (lane == 31) sm.tot = x;
+    }
+    __syncthreads();
+    const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+      const int i = r * kThreads + tid;
+      const int base = sm.cnt[r * kWarps + warp];
+      if (i < n)
+        sm.bag[i] = (base & 0xffff) + __popc(hm[r] & (below << 1 | 1u)) - 1;
+      if (hm[r] >> lane & 1u)
+        sm.head[(base & 0xffff) + __popc(hm[r] & below)] = i;
+      if (gm[r] >> lane & 1u)
+        sm.gap[(base >> 16) + __popc(gm[r] & below)] = i;
+    }
+    const int nh = sm.tot & 0xffff, ng = sm.tot >> 16;
+
+    // 3. The last owned bag runs on past the tile: stage the next e
+    // entries behind the tile's and count its own.
+    const bool open = nh > 0 && t1 < a.nnz && sm.seg[n + 1] == sm.seg[n];
+    int end = n;
+    int64_t beyond = -1;   // where the last bag reads on in global memory
+    if (open) {
+      const int64_t left = a.nnz - t1;
+      const int e = static_cast<int>(left < kTile ? left : kTile);
+#pragma unroll 1
+      for (int i = tid; i < e; i += kThreads) {
+        if (i > 0) sm.seg[1 + n + i] = __ldg(a.seg + t1 + i);  // [n+1] is
+        sm.idx[n + i] = __ldg(a.idx + t1 + i);                 // seg[t1]
+        sm.w[n + i] = to_f(a.wgt[t1 + i]);
+      }
+      __syncthreads();
+      const int32_t bag = sm.seg[n];
+      int m = 0;
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r) {
+        const int i = r * kThreads + tid;
+        if (i < e) sm.bag[n + i] = nh - 1;
+        m += __syncthreads_count(i < e && sm.seg[1 + n + i] == bag);
+      }
+      end = n + m;
+      if (m == e && t1 + e < a.nnz) beyond = t1 + e;
+    }
+    if (tid == 0) sm.head[nh] = end;
+    __syncthreads();
+
+    // 4. Zero rows: the empty bags before each gap head, and after the last
+    // entry (every bag when nnz = 0).
+#pragma unroll 1
+    for (int q = 0; q < ng; ++q) {
+      const int p = sm.gap[q];
+      const int64_t lo = t0 + p == 0 ? 0 : static_cast<int64_t>(sm.seg[p]) + 1;
+      zero_rows<T, VEC>(a, lo, sm.seg[1 + p]);
+    }
+    if (t1 == a.nnz)
+      zero_rows<T, VEC>(a, a.nnz > 0 ? static_cast<int64_t>(sm.seg[n]) + 1 : 0,
+                        a.n_bags);
+
+    // 5. The owned bags: every one a single entry, or staged rows.
+    if (nh > 0) {
+      if (n == nh && !open)
+        walk_ones<T, VEC>(a, sm, nh);
+      else
+        walk_staged<T, VEC>(a, sm, nh, end, beyond);
+    }
+  }
+}
+
+// Entries a tile: the largest power of two <= kTile that leaves kFill tiles
+// an SM, at least kMinTile; the SM count (read once per device) in *sms.
+int tile_for(int64_t nnz, int* tile, int* sms_out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static int sms_of[kDevices];
+  int sms = dev < kDevices ? sms_of[dev] : 0;
+  if (sms == 0) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev < kDevices) sms_of[dev] = sms;
+  }
+  int t = kTile;
+  while (t > kMinTile && (nnz + t - 1) / t < static_cast<int64_t>(kFill) * sms)
+    t >>= 1;
+  *tile = t;
+  *sms_out = sms;
+  return 0;
+}
+
+template <typename T, int VEC>
+int launch(const Args<T>& a, int sms, cudaStream_t stream) {
+  int64_t grid = a.tiles;
+  if (kPersist > 0 && grid > static_cast<int64_t>(kPersist) * sms)
+    grid = static_cast<int64_t>(kPersist) * sms;
+  if (grid > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  embedding_bag_kernel<T, VEC>
+      <<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -186,13 +598,22 @@ template <typename T>
 int launch_type(const void* table, const void* idx, const void* seg,
                 const void* wgt, void* out, int64_t nnz, int64_t n_bags,
                 int d, cudaStream_t stream) {
+  if (nnz < 0 || n_bags <= 0 || d <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args<T> a{static_cast<const T*>(table), static_cast<const int32_t*>(idx),
+            static_cast<const int32_t*>(seg), static_cast<const T*>(wgt),
+            static_cast<T*>(out), nnz, n_bags, 0, d, 0};
+  int sms = 0;
+  const int rc = tile_for(nnz, &a.tile, &sms);
+  if (rc != 0) return rc;
+  a.tiles = nnz > 0 ? (nnz + a.tile - 1) / a.tile : 1;
   const uintptr_t base = reinterpret_cast<uintptr_t>(table) |
                          reinterpret_cast<uintptr_t>(out);
   if (d % 4 == 0 && base % (4 * sizeof(T)) == 0)
-    return launch<T, 4>(table, idx, seg, wgt, out, nnz, n_bags, d, stream);
+    return launch<T, 4>(a, sms, stream);
   if (d % 2 == 0 && base % (2 * sizeof(T)) == 0)
-    return launch<T, 2>(table, idx, seg, wgt, out, nnz, n_bags, d, stream);
-  return launch<T, 1>(table, idx, seg, wgt, out, nnz, n_bags, d, stream);
+    return launch<T, 2>(a, sms, stream);
+  return launch<T, 1>(a, sms, stream);
 }
 
 }  // namespace
