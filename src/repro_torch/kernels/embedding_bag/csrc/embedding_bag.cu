@@ -37,54 +37,45 @@
 //
 // Measured (tools/bag_ab.py, the first design and this one in turns on one
 // H100 80GB HBM3 at 700 W; profiler device ms, fp32 / bf16): retrieval
-// 0.392 -> 0.172 / 0.378 -> 0.111, serve_bulk's 409,600 bags of one
-// 0.157 -> 0.047 / 0.157 -> 0.035, serve_p99's 25,600 0.0101 -> 0.0047;
-// 65,536 bags of 1-64 rows 0.110 -> 0.152 / 0.131 -> 0.141, slower: a
-// tile's steps (index load, heads, each batch's copies, its sums) run one
-// after another, and four blocks an SM do not hide them (PERF.md, PR 20).
-// Rows carried in registers instead bound the loads in flight by the
-// register cap, which spilled; a second, double-buffered batch, 128-thread
-// blocks and a build for long bags with more blocks an SM measured slower.
+// 0.393 -> 0.171 / 0.379 -> 0.102, serve_bulk's 409,600 bags of one 0.158
+// -> 0.042 / 0.158 -> 0.030, serve_p99's 25,600 0.0101 -> 0.0055; 65,536
+// bags of 1-64 rows 0.110 -> 0.105-0.114 / 0.132 -> 0.112.  A block-wide
+// design (tiles of 256 entries in shared memory, their rows staged by
+// cp.async) was as fast on bags of one but 1.3x slower on bags of several
+// rows: its steps were separated by barriers and its 47 KB of shared
+// memory held an SM to four blocks (PERF.md, PR 20).
 //
 // Design: tiles of entries, no search.  The Pallas kernel walks the nnz
 // entries in order on one core, the indices prefetched as scalars and the
-// output row kept resident while its segment lasts.  Here a block of
-// kThreads threads takes a tile of T consecutive entries [t0, t1):
-//  1. Load: the tile's seg, idx and w (coalesced, one round trip) into
-//     shared memory, with seg[t0 - 1] and seg[t1] beside them.
+// output row kept resident while its segment lasts.  Here each warp takes
+// a tile of 32 consecutive entries [t0, t0 + 32), one a lane, and works
+// alone: no shared memory and no block barrier, so an SM keeps as many
+// tiles in flight as its registers allow.
+//  1. Load: the tile's seg, idx and w (coalesced), with seg[t0 - 1] and
+//     seg[t0 + 32] beside them: one round trip, held in registers.
 //  2. Heads: entry p is the head of its bag when p = 0 or seg[p] !=
-//     seg[p - 1].  A bag belongs to the tile that holds its head, so a
-//     tile skips the entries of a bag that began in an earlier one.  The
-//     heads are compacted in entry order by warp ballots and one warp's
-//     scan of the counts; so are the heads that follow a run of empty bags
-//     (seg[p] > seg[p - 1] + 1, or seg[0] > 0).
-//  3. The last bag: where the tile's last owned bag runs on past t1
-//     (seg[t1] == seg[t1 - 1]), the next kTile entries are staged behind
-//     the tile's (one more round trip) and the bag's are counted there.
-//  4. Zeros: the owner of a head that follows empty bags writes their rows
-//     (seg[p - 1] + 1 .. seg[p] - 1, or 0 .. seg[0] - 1), and the tile
-//     that holds the last entry writes seg[nnz - 1] + 1 .. n_bags - 1;
-//     with nnz = 0 one block writes every row.  Each span is contiguous in
-//     out and spread over the block's threads.
-//  5. Sums, over work items (owned bag, chunk of VEC columns), chunks
-//     fastest, spread over the whole block; each item's adds in nnz order.
-//     Where every owned bag is one entry (bags of one: SASRec's lookups),
-//     a thread loads kOnes items' row chunks at once from device memory,
-//     weights and stores them.  Elsewhere the owned entries' rows go to
-//     shared memory by async copies (cp.async, 4-16 bytes each, so the
-//     loads in flight cost no registers), R rows a batch in kStage bytes
-//     (rows wider than kStage / kMinRows in column slabs); each item adds
-//     its bag's entries of the batch, four loaded ahead, starting from the
-//     sum its bag left in a carry buffer in the batch before.  A bag that
-//     runs past the staged entries too reads on from global memory (seg
-//     with idx and w, kDeep entries at a time) from its carry.
+//     seg[p - 1]; one ballot finds them.  A bag belongs to the tile that
+//     holds its head, so a tile skips the entries of a bag that began in
+//     an earlier one.  A second ballot marks the heads that follow empty
+//     bags (seg[p] > seg[p - 1] + 1, or seg[0] > 0).
+//  3. Zeros: the owner of such a head writes the empty bags' rows
+//     (seg[p - 1] + 1 .. seg[p] - 1, or 0 .. seg[0] - 1), and the tile that
+//     holds the last entry writes seg[nnz - 1] + 1 .. n_bags - 1 (with
+//     nnz = 0 one warp writes every row), spread over the lanes.
+//  4. Sums.  Where every entry of the tile is a bag of one (SASRec's
+//     lookups), the work items (entry, chunk of VEC columns), chunks
+//     fastest, go round the lanes, each lane loading kOnes items' rows at
+//     once before it weights and stores them.  Elsewhere the warp walks
+//     its bags one after another, a lane a chunk: kAhead entries' rows
+//     loaded together, then added in nnz order, each entry's idx and w
+//     shuffled from the lane that holds it.  A bag that runs past the tile
+//     reads on in windows of 32 entries (one coalesced load each, issued
+//     before the rows of the window in hand) until its seg changes.
 // VEC is the widest of 4, 2, 1 that divides d and the table's and out's
 // alignment (d = 50 gives 2: a 200-byte row starts 16-byte aligned only
-// at even row ids).  T is the largest power of two <= kTile that leaves
-// kFill tiles an SM, and at least kMinTile: 256 at retrieval (3,907
-// blocks), 64 at the 25,600-bag lookup.  Every row of out is written by
-// exactly one thread chunk for chunk, so the result does not depend on
-// the order in which blocks run.
+// at even row ids).  Every row of out is written by exactly one warp,
+// chunk for chunk, so the result does not depend on the order in which
+// warps run.
 //
 // Offsets are int64 (idx * d passes 2^31 for tables of 10^9 rows).  Indices
 // must lie in [0, V): the kernel does not check them; entries whose seg
@@ -95,31 +86,19 @@
 // and contiguity before the launch and raises on a nonzero return.
 
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;     // threads per block
-constexpr int kTile = 256;        // most entries a tile (a power of two)
-constexpr int kMinTile = 32;      // fewest entries a tile
-constexpr int kFill = 2;          // tiles per SM the grid aims at
-constexpr int kOnes = 4;          // bags of one: items a thread loads together
-constexpr int kStage = 32768;     // bytes of staged rows a batch
-constexpr int kMinRows = 32;      // fewest rows a batch (else column slabs)
-constexpr int kDeep = 4;          // entries a global walk loads ahead
-constexpr int kStreamStores = 0;  // 1: out stored with __stcs (evict first)
-constexpr int kMinBlocks = 4;     // __launch_bounds__'s blocks per SM
-constexpr int kPersist = 0;       // >0: kPersist blocks an SM stride over tiles
-constexpr int kDevices = 64;      // devices whose SM count is cached
+constexpr int kThreads = 128;   // threads per block (a tile a warp)
+constexpr int kTile = 32;       // entries a tile: one a lane
+constexpr int kMinBlocks = 8;   // __launch_bounds__'s blocks per SM
+constexpr int kOnes = 4;        // bags of one: items a lane loads together
+constexpr int kAhead = 4;       // entries whose rows a walk loads together
 constexpr int kWarps = kThreads / 32;
-constexpr int kRounds = (kTile + kThreads - 1) / kThreads;
-constexpr int kCarry = kStage / kMinRows / 2;  // most columns a slab
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kThreads % 32 == 0 && kRounds * kWarps <= 32,
-              "one warp scans the ballot counts");
-static_assert(kTile < 65536, "head and gap counts share one int");
+static_assert(kThreads % 32 == 0 && kTile == 32, "a tile is a warp's lanes");
 
 // Elements: fp32 as float, bf16 as its raw 16 bits.
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -141,37 +120,6 @@ struct alignas(sizeof(T) * VEC) Pack {
   T v[VEC];
 };
 
-template <typename T, int VEC>
-__device__ __forceinline__ void store(T* p, const Pack<T, VEC>& y) {
-  if constexpr (kStreamStores != 0) {
-    constexpr int kBytes = sizeof(Pack<T, VEC>);
-    if constexpr (kBytes == 16)
-      __stcs(reinterpret_cast<float4*>(p),
-             *reinterpret_cast<const float4*>(&y));
-    else if constexpr (kBytes == 8)
-      __stcs(reinterpret_cast<float2*>(p),
-             *reinterpret_cast<const float2*>(&y));
-    else if constexpr (kBytes == 4)
-      __stcs(reinterpret_cast<float*>(p), *reinterpret_cast<const float*>(&y));
-    else
-      __stcs(reinterpret_cast<unsigned short*>(p),
-             *reinterpret_cast<const unsigned short*>(&y));
-  } else {
-    *reinterpret_cast<Pack<T, VEC>*>(p) = y;
-  }
-}
-
-// VEC elements from global to shared memory without a register: an async
-// copy of 4, 8 or 16 bytes (a lone bf16 element goes through a register).
-template <typename T, int VEC>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-  constexpr int kBytes = sizeof(T) * VEC;
-  if constexpr (kBytes >= 4)
-    __pipeline_memcpy_async(dst, src, kBytes);
-  else
-    *dst = *src;
-}
-
 template <typename T>
 struct Args {
   const T* table;
@@ -179,25 +127,25 @@ struct Args {
   const int32_t* seg;
   const T* wgt;
   T* out;
-  int64_t nnz, n_bags, tiles;
-  int d, tile;
+  int64_t nnz, n_bags;
+  int d;
 };
 
-// A block's shared memory.  Entries: the tile's at [0, n) and, when its
-// last bag runs on, the next ones at [n, n + E); seg is shifted by one
-// (seg[0] = seg[t0 - 1]).
-struct Smem {
-  alignas(16) unsigned char rows[kStage];  // a batch's staged rows
-  float carry[2][kCarry];  // a bag's sums across batches, by parity
-  int32_t seg[2 * kTile + 2];
-  int32_t idx[2 * kTile];
-  float w[2 * kTile];
-  int32_t bag[2 * kTile];   // each owned entry's bag, from the first head on
-  int32_t head[kTile + 1];  // heads' places, then the last bag's end
-  int32_t gap[kTile];       // heads that follow empty bags
-  int32_t cnt[kRounds * kWarps];
-  int32_t tot;
-};
+// Entry base + lane's seg, idx and w (zeros past nnz).
+template <typename T>
+__device__ __forceinline__ void load_entry(const Args<T>& a, int64_t base,
+                                           int lane, int32_t& s, int32_t& i,
+                                           float& w) {
+  const int64_t p = base + lane;
+  s = 0;
+  i = 0;
+  w = 0.0f;
+  if (p < a.nnz) {
+    s = __ldg(a.seg + p);
+    i = __ldg(a.idx + p);
+    w = to_f(a.wgt[p]);
+  }
+}
 
 // out[bag, col .. col + VEC) = acc rounded to T, for a bag in [0, n_bags).
 template <typename T, int VEC>
@@ -207,53 +155,14 @@ __device__ __forceinline__ void store_row(const Args<T>& a, int32_t bag,
   Pack<T, VEC> y;
 #pragma unroll
   for (int v = 0; v < VEC; ++v) y.v[v] = from_f<T>(acc[v]);
-  store<T, VEC>(a.out + static_cast<int64_t>(bag) * a.d + col, y);
+  *reinterpret_cast<Pack<T, VEC>*>(a.out + static_cast<int64_t>(bag) * a.d +
+                                   col) = y;
 }
 
-// acc += the entries k, k + 1, ... of bag `bag` in global memory, in order,
-// columns [col, col + VEC); seg, idx and w of kDeep entries are loaded
-// together, then their rows.  The bag's entries are a run (seg is sorted).
-template <typename T, int VEC>
-__device__ __forceinline__ void walk_global(float (&acc)[VEC],
-                                            const Args<T>& a, int64_t k,
-                                            int32_t bag, int col) {
-#pragma unroll 1
-  for (;; k += kDeep) {
-    bool m[kDeep];
-    int32_t ik[kDeep];
-    float wk[kDeep];
-#pragma unroll
-    for (int u = 0; u < kDeep; ++u) {
-      const int64_t p = k + u;
-      m[u] = false;
-      ik[u] = 0;
-      wk[u] = 0.0f;
-      if (p < a.nnz) {
-        m[u] = __ldg(a.seg + p) == bag;
-        ik[u] = __ldg(a.idx + p);
-        wk[u] = to_f(a.wgt[p]);
-      }
-    }
-    Pack<T, VEC> x[kDeep];
-#pragma unroll
-    for (int u = 0; u < kDeep; ++u)
-      if (m[u])
-        x[u] = *reinterpret_cast<const Pack<T, VEC>*>(
-            a.table + static_cast<int64_t>(ik[u]) * a.d + col);
-#pragma unroll
-    for (int u = 0; u < kDeep; ++u)
-      if (m[u])
-#pragma unroll
-        for (int v = 0; v < VEC; ++v)
-          acc[v] = __fadd_rn(acc[v], __fmul_rn(wk[u], to_f(x[u].v[v])));
-    if (!m[kDeep - 1]) return;
-  }
-}
-
-// out rows [lo, hi) set to zero by the block's threads, VEC at a time.
+// out rows [lo, hi) set to zero by the warp's lanes, VEC at a time.
 template <typename T, int VEC>
 __device__ __forceinline__ void zero_rows(const Args<T>& a, int64_t lo,
-                                          int64_t hi) {
+                                          int64_t hi, int lane) {
   lo = lo > 0 ? lo : 0;
   hi = hi < a.n_bags ? hi : a.n_bags;
   const int64_t packs = (hi - lo) * (a.d / VEC);
@@ -262,30 +171,32 @@ __device__ __forceinline__ void zero_rows(const Args<T>& a, int64_t lo,
 #pragma unroll
   for (int v = 0; v < VEC; ++v) z.v[v] = from_f<T>(0.0f);
 #pragma unroll 1
-  for (int64_t q = threadIdx.x; q < packs; q += kThreads)
-    store<T, VEC>(base + q * VEC, z);
+  for (int64_t q = lane; q < packs; q += 32)
+    *reinterpret_cast<Pack<T, VEC>*>(base + q * VEC) = z;
 }
 
-// Work items (owned bag j, chunk c), c fastest, where every owned bag is
-// one entry (bag j is entry j): item q is thread q % kThreads's, kOnes of
-// them loaded at once, then weighted and stored.
+// Every entry of the tile a bag of one: items (entry j, chunk c), c
+// fastest, item q on lane q % 32, kOnes of a lane's loaded at once, then
+// weighted and stored.  (s, i, w) is the lane's entry; n the tile's count.
 template <typename T, int VEC>
-__device__ __forceinline__ void walk_ones(const Args<T>& a, const Smem& sm,
-                                          int nh) {
+__device__ __forceinline__ void walk_ones(const Args<T>& a, int n, int32_t s,
+                                          int32_t i, float w, int lane) {
   const int nch = a.d / VEC;
-  int j = threadIdx.x / nch, c = threadIdx.x % nch;
-  const int dj = kThreads / nch, dc = kThreads % nch;
+  const int items = n * nch;
+  int j = lane / nch, c = lane % nch;
+  const int dj = 32 / nch, dc = 32 % nch;
 #pragma unroll 1
-  while (j < nh) {
+  for (int q0 = 0; q0 < items; q0 += 32 * kOnes) {
     int jg[kOnes], cg[kOnes];
     Pack<T, VEC> x[kOnes];
 #pragma unroll
     for (int g = 0; g < kOnes; ++g) {
       jg[g] = j;
-      cg[g] = c * VEC;
-      if (j < nh)
+      cg[g] = c;
+      const int32_t row = __shfl_sync(kFull, i, j < 32 ? j : 31);
+      if (j < n)
         x[g] = *reinterpret_cast<const Pack<T, VEC>*>(
-            a.table + static_cast<int64_t>(sm.idx[j]) * a.d + cg[g]);
+            a.table + static_cast<int64_t>(row) * a.d + c * VEC);
       c += dc;
       j += dj;
       if (c >= nch) {
@@ -295,297 +206,143 @@ __device__ __forceinline__ void walk_ones(const Args<T>& a, const Smem& sm,
     }
 #pragma unroll
     for (int g = 0; g < kOnes; ++g) {
-      if (jg[g] < nh) {
+      const int src = jg[g] < 32 ? jg[g] : 31;
+      const float wj = __shfl_sync(kFull, w, src);
+      const int32_t bag = __shfl_sync(kFull, s, src);
+      if (jg[g] < n) {
         float acc[VEC];
 #pragma unroll
         for (int v = 0; v < VEC; ++v)
-          acc[v] = __fadd_rn(0.0f, __fmul_rn(sm.w[jg[g]], to_f(x[g].v[v])));
-        store_row<T, VEC>(a, sm.seg[1 + jg[g]], cg[g], acc);
+          acc[v] = __fadd_rn(0.0f, __fmul_rn(wj, to_f(x[g].v[v])));
+        store_row<T, VEC>(a, bag, cg[g] * VEC, acc);
       }
     }
   }
 }
 
-// Staged rows: R entries' rows a batch, ws columns a slab, so that R rows
-// of ws columns fill kStage bytes (at least kMinRows rows: wider rows go
-// in slabs).
+// The bag `bag`, whose head is lane h's entry of the tile at t0 ((s, i, w)
+// the lane's entry): a lane a chunk (passes of 32 chunks), the bag's
+// entries added in nnz order, the rows of kAhead entries loaded together.
+// Past the tile the entries come in windows of 32, one load each, issued
+// before the rows of the window in hand, until the bag's seg ends.
 template <typename T, int VEC>
-__device__ __forceinline__ void stage_shape(int d, int& ws, int& R) {
-  ws = d;
-  R = kStage / (d * static_cast<int>(sizeof(T)));
-  if (R < kMinRows) {
-    ws = kStage / kMinRows / static_cast<int>(sizeof(T)) / VEC * VEC;
-    R = kMinRows;
-  }
-  if (R > 2 * kTile) R = 2 * kTile;
-}
-
-// The rows of entries [b0, b1), columns [c0, c0 + nc * VEC), into the
-// staging buffer by async copies spread over the block; then the block
-// waits for them.
-template <typename T, int VEC>
-__device__ __forceinline__ void copy_rows(const Args<T>& a, Smem& sm, int b0,
-                                          int b1, int c0, int ws, int nc) {
-  T* rows = reinterpret_cast<T*>(sm.rows);
-  int p = threadIdx.x / nc, c = threadIdx.x % nc;
-  const int dp = kThreads / nc, dc = kThreads % nc;
+__device__ __forceinline__ void walk_bag(const Args<T>& a, int64_t t0,
+                                         int32_t s, int32_t i, float w, int h,
+                                         int32_t bag, int lane) {
+  const int nch = a.d / VEC;
 #pragma unroll 1
-  for (; p < b1 - b0;) {
-    copy_async<T, VEC>(rows + p * ws + c * VEC,
-                       a.table + static_cast<int64_t>(sm.idx[b0 + p]) * a.d +
-                           c0 + c * VEC);
-    c += dc;
-    p += dp;
-    if (c >= nc) {
-      c -= nc;
-      ++p;
-    }
-  }
-  __pipeline_commit();
-  __pipeline_wait_prior(0);
-  __syncthreads();
-}
-
-// The owned bags' entries [head[0], end), batch by batch of R entries and
-// slab by slab of ws columns: each batch's rows copied to shared memory by
-// async copies, then work items (bag j of the batch, chunk c of the slab)
-// add their bag's entries in the batch in nnz order, from the sum a bag
-// that began in an earlier batch left in carry.  With beyond >= 0 the last
-// bag reads on in global memory from there.
-template <typename T, int VEC>
-__device__ __forceinline__ void walk_staged(const Args<T>& a, Smem& sm,
-                                            int nh, int end, int64_t beyond) {
-  int ws, R;
-  stage_shape<T, VEC>(a.d, ws, R);
-  const int tid = threadIdx.x, origin = sm.head[0];
-  const int batches = (end - origin + R - 1) / R;
-#pragma unroll 1
-  for (int c0 = 0; c0 < a.d; c0 += ws) {
-    const int nc = (a.d - c0 < ws ? a.d - c0 : ws) / VEC;  // chunks a slab
-    int par = 0;
-#pragma unroll 1
-    for (int i = 0; i < batches; ++i, par ^= 1) {
-      const int b0 = origin + i * R, b1 = b0 + R < end ? b0 + R : end;
-      copy_rows<T, VEC>(a, sm, b0, b1, c0, ws, nc);
-      const T* rows = reinterpret_cast<const T*>(sm.rows);
-      const int jhi = sm.bag[b1 - 1];
-      int j = sm.bag[b0] + tid / nc, c = tid % nc;
-      const int dj = kThreads / nc, dc = kThreads % nc;
-#pragma unroll 1
-      for (; j <= jhi;) {
-        const int s = sm.head[j], e = sm.head[j + 1];
-        float acc[VEC];
+  for (int c0 = 0; c0 < nch; c0 += 32) {
+    const int c = c0 + lane;
+    const bool on = c < nch;
+    const T* col = a.table + c * VEC;
+    float acc[VEC];
 #pragma unroll
-        for (int v = 0; v < VEC; ++v)
-          acc[v] = s < b0 ? sm.carry[par][c * VEC + v] : 0.0f;
-        const T* x0 = rows + c * VEC;
-        const int p1 = e < b1 ? e : b1;
-        int p = s > b0 ? s : b0;
+    for (int v = 0; v < VEC; ++v) acc[v] = 0.0f;
+    int64_t base = t0;
+    int32_t ws = s, wi = i;
+    float ww = w;
+    int p = h;
 #pragma unroll 1
-        for (; p + 4 <= p1; p += 4) {   // four entries' loads, then adds
-          Pack<T, VEC> x[4];
+    for (;;) {
+      // The bag's entries in this window: [p, q); past it, the next window.
+      const unsigned stop = __ballot_sync(
+          kFull, lane >= p && (base + lane >= a.nnz || ws != bag));
+      const int q = stop != 0 ? __ffs(stop) - 1 : 32;
+      const bool more = stop == 0 && base + 32 < a.nnz;
+      int32_t ns = 0, ni = 0;
+      float nw = 0.0f;
+      if (more) load_entry(a, base + 32, lane, ns, ni, nw);
+#pragma unroll 1
+      for (; p < q; p += kAhead) {
+        Pack<T, VEC> x[kAhead];
 #pragma unroll
-          for (int u = 0; u < 4; ++u)
+        for (int u = 0; u < kAhead; ++u) {
+          const int32_t row = __shfl_sync(kFull, wi, p + u < 32 ? p + u : 31);
+          if (on && p + u < q)
             x[u] = *reinterpret_cast<const Pack<T, VEC>*>(
-                x0 + (p + u - b0) * ws);
+                col + static_cast<int64_t>(row) * a.d);
+        }
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const float wp = sm.w[p + u];
+        for (int u = 0; u < kAhead; ++u) {
+          const float wu = __shfl_sync(kFull, ww, p + u < 32 ? p + u : 31);
+          if (on && p + u < q)
 #pragma unroll
             for (int v = 0; v < VEC; ++v)
-              acc[v] = __fadd_rn(acc[v], __fmul_rn(wp, to_f(x[u].v[v])));
-          }
-        }
-#pragma unroll 1
-        for (; p < p1; ++p) {
-          const Pack<T, VEC> x =
-              *reinterpret_cast<const Pack<T, VEC>*>(x0 + (p - b0) * ws);
-          const float wp = sm.w[p];
-#pragma unroll
-          for (int v = 0; v < VEC; ++v)
-            acc[v] = __fadd_rn(acc[v], __fmul_rn(wp, to_f(x.v[v])));
-        }
-        if (e > b1 || (beyond >= 0 && j == nh - 1)) {
-#pragma unroll
-          for (int v = 0; v < VEC; ++v)
-            sm.carry[par ^ 1][c * VEC + v] = acc[v];
-        } else {
-          store_row<T, VEC>(a, sm.seg[1 + s], c0 + c * VEC, acc);
-        }
-        c += dc;
-        j += dj;
-        if (c >= nc) {
-          c -= nc;
-          ++j;
+              acc[v] = __fadd_rn(acc[v], __fmul_rn(wu, to_f(x[u].v[v])));
         }
       }
-      __syncthreads();  // the buffer and carry[par] free again
+      if (!more) break;
+      base += 32;
+      ws = ns;
+      wi = ni;
+      ww = nw;
+      p = 0;
     }
-    if (beyond >= 0) {
-      const int32_t bag = sm.seg[1 + sm.head[nh - 1]];
-#pragma unroll 1
-      for (int c = tid; c < nc; c += kThreads) {
-        float acc[VEC];
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) acc[v] = sm.carry[par][c * VEC + v];
-        walk_global<T, VEC>(acc, a, beyond, bag, c0 + c * VEC);
-        store_row<T, VEC>(a, bag, c0 + c * VEC, acc);
-      }
-      __syncthreads();  // carry free for the next slab
-    }
+    if (on) store_row<T, VEC>(a, bag, c * VEC, acc);
   }
 }
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 embedding_bag_kernel(const __grid_constant__ Args<T> a) {
-  __shared__ Smem sm;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t t0 =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * kTile;
+  if (t0 > a.nnz || (t0 == a.nnz && t0 > 0)) return;   // the whole warp
+  const int64_t rest = a.nnz - t0;
+  const int n = static_cast<int>(rest < kTile ? rest : kTile);
+  const int64_t t1 = t0 + n;
+
+  // 1. The tile's entries, and the seg before and after it.
+  int32_t s, i;
+  float w;
+  load_entry(a, t0, lane, s, i, w);
+  int32_t prev = __shfl_up_sync(kFull, s, 1);
+  if (lane == 0) prev = t0 > 0 ? __ldg(a.seg + t0 - 1) : 0;
+  const int32_t after = t1 < a.nnz ? __ldg(a.seg + t1) : 0;
+
+  // 2. Heads, and the heads that follow empty bags.
+  const bool first = t0 + lane == 0;
+  const bool head = lane < n && (first || s != prev);
+  const bool gap = head && (first ? s > 0
+                                  : static_cast<int64_t>(s) >
+                                        static_cast<int64_t>(prev) + 1);
+  const unsigned heads = __ballot_sync(kFull, head);
+  const unsigned gaps = __ballot_sync(kFull, gap);
+
+  // 3. Zero rows: the empty bags before each gap head, and after the last
+  // entry (every bag when nnz = 0).
 #pragma unroll 1
-  for (int64_t tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
-    if (tile != blockIdx.x) __syncthreads();   // the last tile's reads are done
-    const int64_t t0 = tile * a.tile;
-    const int64_t rest = a.nnz - t0;
-    const int n = static_cast<int>(rest < a.tile ? rest : a.tile);
-    const int64_t t1 = t0 + n;
+  for (unsigned m = gaps; m != 0; m &= m - 1) {
+    const int p = __ffs(m) - 1;
+    const int32_t sp = __shfl_sync(kFull, s, p);
+    const int32_t pp = __shfl_sync(kFull, prev, p);
+    zero_rows<T, VEC>(a, t0 + p == 0 ? 0 : static_cast<int64_t>(pp) + 1, sp,
+                      lane);
+  }
+  const int32_t last = __shfl_sync(kFull, s, n > 0 ? n - 1 : 0);
+  if (t1 == a.nnz)
+    zero_rows<T, VEC>(a, n > 0 ? static_cast<int64_t>(last) + 1 : 0,
+                      a.n_bags, lane);
 
-    // 1. The tile's entries.
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      const int i = r * kThreads + tid;
-      if (i < n) {
-        sm.seg[1 + i] = __ldg(a.seg + t0 + i);
-        sm.idx[i] = __ldg(a.idx + t0 + i);
-        sm.w[i] = to_f(a.wgt[t0 + i]);
-      }
-    }
-    if (tid == 0) sm.seg[0] = t0 > 0 ? __ldg(a.seg + t0 - 1) : 0;
-    if (tid == kThreads - 1) sm.seg[n + 1] = t1 < a.nnz ? __ldg(a.seg + t1) : 0;
-    __syncthreads();
-
-    // 2. Heads and the heads that follow empty bags, compacted in entry
-    // order (a ballot a round and warp, one warp's scan of the counts);
-    // each owned entry's bag.
-    unsigned hm[kRounds], gm[kRounds];
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      const int i = r * kThreads + tid;
-      bool head = false, gap = false;
-      if (i < n) {
-        const int64_t s = sm.seg[1 + i], prev = sm.seg[i];
-        const bool first = t0 + i == 0;
-        head = first || s != prev;
-        gap = head && (first ? s > 0 : s > prev + 1);
-      }
-      hm[r] = __ballot_sync(kFull, head);
-      gm[r] = __ballot_sync(kFull, gap);
-      if (lane == 0)
-        sm.cnt[r * kWarps + warp] = __popc(hm[r]) | __popc(gm[r]) << 16;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const int v = lane < kRounds * kWarps ? sm.cnt[lane] : 0;
-      int x = v;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(kFull, x, o);
-        if (lane >= o) x += y;
-      }
-      if (lane < kRounds * kWarps) sm.cnt[lane] = x - v;
-      if (lane == 31) sm.tot = x;
-    }
-    __syncthreads();
-    const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-    for (int r = 0; r < kRounds; ++r) {
-      const int i = r * kThreads + tid;
-      const int base = sm.cnt[r * kWarps + warp];
-      if (i < n)
-        sm.bag[i] = (base & 0xffff) + __popc(hm[r] & (below << 1 | 1u)) - 1;
-      if (hm[r] >> lane & 1u)
-        sm.head[(base & 0xffff) + __popc(hm[r] & below)] = i;
-      if (gm[r] >> lane & 1u)
-        sm.gap[(base >> 16) + __popc(gm[r] & below)] = i;
-    }
-    const int nh = sm.tot & 0xffff, ng = sm.tot >> 16;
-
-    // 3. The last owned bag runs on past the tile: stage the next e
-    // entries behind the tile's and count its own.
-    const bool open = nh > 0 && t1 < a.nnz && sm.seg[n + 1] == sm.seg[n];
-    int end = n;
-    int64_t beyond = -1;   // where the last bag reads on in global memory
-    if (open) {
-      const int64_t left = a.nnz - t1;
-      const int e = static_cast<int>(left < kTile ? left : kTile);
+  // 4. The owned bags: every one a single entry, or walked one by one.
+  const bool open = n > 0 && t1 < a.nnz && after == last;
+  const unsigned all = n == 32 ? kFull : (1u << n) - 1u;
+  if (heads == all && !open) {
+    walk_ones<T, VEC>(a, n, s, i, w, lane);
+  } else {
 #pragma unroll 1
-      for (int i = tid; i < e; i += kThreads) {
-        if (i > 0) sm.seg[1 + n + i] = __ldg(a.seg + t1 + i);  // [n+1] is
-        sm.idx[n + i] = __ldg(a.idx + t1 + i);                 // seg[t1]
-        sm.w[n + i] = to_f(a.wgt[t1 + i]);
-      }
-      __syncthreads();
-      const int32_t bag = sm.seg[n];
-      int m = 0;
-#pragma unroll
-      for (int r = 0; r < kRounds; ++r) {
-        const int i = r * kThreads + tid;
-        if (i < e) sm.bag[n + i] = nh - 1;
-        m += __syncthreads_count(i < e && sm.seg[1 + n + i] == bag);
-      }
-      end = n + m;
-      if (m == e && t1 + e < a.nnz) beyond = t1 + e;
-    }
-    if (tid == 0) sm.head[nh] = end;
-    __syncthreads();
-
-    // 4. Zero rows: the empty bags before each gap head, and after the last
-    // entry (every bag when nnz = 0).
-#pragma unroll 1
-    for (int q = 0; q < ng; ++q) {
-      const int p = sm.gap[q];
-      const int64_t lo = t0 + p == 0 ? 0 : static_cast<int64_t>(sm.seg[p]) + 1;
-      zero_rows<T, VEC>(a, lo, sm.seg[1 + p]);
-    }
-    if (t1 == a.nnz)
-      zero_rows<T, VEC>(a, a.nnz > 0 ? static_cast<int64_t>(sm.seg[n]) + 1 : 0,
-                        a.n_bags);
-
-    // 5. The owned bags: every one a single entry, or staged rows.
-    if (nh > 0) {
-      if (n == nh && !open)
-        walk_ones<T, VEC>(a, sm, nh);
-      else
-        walk_staged<T, VEC>(a, sm, nh, end, beyond);
+    for (unsigned m = heads; m != 0; m &= m - 1) {
+      const int h = __ffs(m) - 1;
+      walk_bag<T, VEC>(a, t0, s, i, w, h, __shfl_sync(kFull, s, h), lane);
     }
   }
-}
-
-// Entries a tile: the largest power of two <= kTile that leaves kFill tiles
-// an SM, at least kMinTile; the SM count (read once per device) in *sms.
-int tile_for(int64_t nnz, int* tile, int* sms_out) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  static int sms_of[kDevices];
-  int sms = dev < kDevices ? sms_of[dev] : 0;
-  if (sms == 0) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < kDevices) sms_of[dev] = sms;
-  }
-  int t = kTile;
-  while (t > kMinTile && (nnz + t - 1) / t < static_cast<int64_t>(kFill) * sms)
-    t >>= 1;
-  *tile = t;
-  *sms_out = sms;
-  return 0;
 }
 
 template <typename T, int VEC>
-int launch(const Args<T>& a, int sms, cudaStream_t stream) {
-  int64_t grid = a.tiles;
-  if (kPersist > 0 && grid > static_cast<int64_t>(kPersist) * sms)
-    grid = static_cast<int64_t>(kPersist) * sms;
+int launch(const Args<T>& a, cudaStream_t stream) {
+  const int64_t tiles = a.nnz > 0 ? (a.nnz + kTile - 1) / kTile : 1;
+  const int64_t grid = (tiles + kWarps - 1) / kWarps;
   if (grid > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   embedding_bag_kernel<T, VEC>
       <<<static_cast<unsigned>(grid), kThreads, 0, stream>>>(a);
@@ -600,20 +357,21 @@ int launch_type(const void* table, const void* idx, const void* seg,
                 int d, cudaStream_t stream) {
   if (nnz < 0 || n_bags <= 0 || d <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args<T> a{static_cast<const T*>(table), static_cast<const int32_t*>(idx),
-            static_cast<const int32_t*>(seg), static_cast<const T*>(wgt),
-            static_cast<T*>(out), nnz, n_bags, 0, d, 0};
-  int sms = 0;
-  const int rc = tile_for(nnz, &a.tile, &sms);
-  if (rc != 0) return rc;
-  a.tiles = nnz > 0 ? (nnz + a.tile - 1) / a.tile : 1;
+  const Args<T> a{static_cast<const T*>(table),
+                  static_cast<const int32_t*>(idx),
+                  static_cast<const int32_t*>(seg),
+                  static_cast<const T*>(wgt),
+                  static_cast<T*>(out),
+                  nnz,
+                  n_bags,
+                  d};
   const uintptr_t base = reinterpret_cast<uintptr_t>(table) |
                          reinterpret_cast<uintptr_t>(out);
   if (d % 4 == 0 && base % (4 * sizeof(T)) == 0)
-    return launch<T, 4>(a, sms, stream);
+    return launch<T, 4>(a, stream);
   if (d % 2 == 0 && base % (2 * sizeof(T)) == 0)
-    return launch<T, 2>(a, sms, stream);
-  return launch<T, 1>(a, sms, stream);
+    return launch<T, 2>(a, stream);
+  return launch<T, 1>(a, stream);
 }
 
 }  // namespace

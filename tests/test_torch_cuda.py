@@ -518,17 +518,13 @@ def test_embedding_bag_kernel_on_card(card, case, dtype):
     assert bool((got[empty] == 0).all())
 
 
-def _bag_tile(nnz, sms):
-    """K5's entries a tile (``tile_for`` in embedding_bag.cu, its constants
-    read from the source)."""
+def _bag_tile():
+    """K5's entries a tile (``kTile`` in embedding_bag.cu: a warp's
+    lanes, read from the source)."""
     from repro_torch.kernels.embedding_bag import cuda as eb_cuda
 
-    k = {n: int(v) for n, v in re.findall(r"constexpr int (k\w+) = (\d+);",
-                                          eb_cuda.SOURCE.read_text())}
-    t = k["kTile"]
-    while t > k["kMinTile"] and -(-nnz // t) < k["kFill"] * sms:
-        t >>= 1
-    return t
+    return int(re.search(r"constexpr int kTile = (\d+);",
+                         eb_cuda.SOURCE.read_text()).group(1))
 
 
 # K5's tile edges: bag lengths (0 = an empty bag) for a tile of T entries.
@@ -539,9 +535,10 @@ BAG_EDGES = {
     "empty_lead_and_trail": lambda T: [0] * 5 + [2, 1, 0, T + 3] + [0] * 6,
     "gap_at_tile_start": lambda T: [T, 0, 0, 5, 1],
     "nnz0": lambda T: [0] * 9,
-    # enough entries for whole kTile tiles on 132 SMs: a bag over two tile
-    # ends, then one that ends at a tile's end, then empty bags
-    "full_tiles": lambda T: [1] * (256 * 274) + [2 * T + 50, T - 50, 0, 0, 5],
+    # many tiles of bags of one, then a bag over two tile ends, one that
+    # ends at a tile's end, and empty bags
+    "full_tiles": lambda T: [1] * (256 * 274) + [2 * T + 50, T - 50 % T, 0,
+                                                 0, 5],
 }
 
 
@@ -551,21 +548,13 @@ BAG_EDGES = {
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", list(BAG_EDGES))
 def test_embedding_bag_kernel_tile_edges(card, case, dtype, d, offset):
-    """K5 at its tiles' edges (the tile size the card picks for the case's
-    nnz), bit for bit against the plain version on the CPU, which adds in
-    nnz order and rounds once as the kernel does; ``offset`` = 1 puts the
-    table at an odd storage offset (VEC = 1)."""
+    """K5 at its tiles' edges, bit for bit against the plain version on
+    the CPU, which adds in nnz order and rounds once as the kernel does;
+    ``offset`` = 1 puts the table at an odd storage offset (VEC = 1)."""
     from repro_torch.kernels.embedding_bag import cuda as eb_cuda
     from repro_torch.kernels.embedding_bag import ref as eb_ref
 
-    sms = torch.cuda.get_device_properties(card).multi_processor_count
-    T = 1 << 20
-    while True:        # the tile shrinks with nnz; take its fixed point
-        lengths = BAG_EDGES[case](T)
-        t = _bag_tile(sum(lengths), sms)
-        if t == T:
-            break
-        T = t
+    lengths = BAG_EDGES[case](_bag_tile())
     rng = np.random.default_rng(len(case) + d)
     B, V = len(lengths), 300
     seg = torch.from_numpy(np.repeat(np.arange(B, dtype=np.int32), lengths))

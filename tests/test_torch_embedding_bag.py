@@ -236,28 +236,25 @@ def test_model_embedding_bag_rejects_unknown_mode():
 # --- csrc/embedding_bag.cu's tiles of entries, emulated in NumPy ---------
 #
 # The CPU test runs have no CUDA compiler, so every index map of the kernel
-# (the tile size, each tile's entries, its heads and the skip of a bag that
-# began in an earlier tile, the ballot compaction, the owned bag that runs
-# past its tile and the entries staged behind it, the work items (bag,
-# chunk) of bags of one, the staged rows' batches, slabs and carry, VEC
-# and alignment, the zero rows of empty bags) is run here thread by
-# thread, with the kernel's own constants read from its source.  Products
-# and sums are float32 NumPy scalars, each rounded once as __fmul_rn /
-# __fadd_rn round it.  Every VEC-wide load, copy and store asserts its
-# alignment, every read its bounds, and every element of out must be
-# written once.
+# (each warp's tile of entries, its heads and the skip of a bag that began
+# in an earlier tile, the walk of an owned bag past its tile in windows of
+# entries, the work items (entry, chunk) of a tile of bags of one, VEC and
+# alignment, the zero rows of empty bags) is run here lane by lane, with
+# the kernel's own constants read from its source.  Products and sums are
+# float32 NumPy scalars, each rounded once as __fmul_rn / __fadd_rn round
+# it.  Every VEC-wide load and store asserts its alignment, every read its
+# bounds, and every element of out must be written once.
 
 _CONSTS = {k: int(v) for k, v in re.findall(
     r"constexpr int (k\w+) = (\d+);", cuda.SOURCE.read_text())}
-_T = _CONSTS["kThreads"]
+_TILE = _CONSTS["kTile"]                # entries a tile: a warp's lanes
+_WARPS = _CONSTS["kThreads"] // 32      # tiles a block
 
 
-def _tile(nnz, sms):
-    """Entries a tile, as ``tile_for`` picks them."""
-    t = _CONSTS["kTile"]
-    while t > _CONSTS["kMinTile"] and -(-nnz // t) < _CONSTS["kFill"] * sms:
-        t >>= 1
-    return t
+def _grid(nnz):
+    """``launch``'s blocks for nnz entries (one tile when nnz = 0)."""
+    tiles = -(-nnz // _TILE) if nnz else 1
+    return -(-tiles // _WARPS)
 
 
 def _vec(d, base):
@@ -269,98 +266,26 @@ def _vec(d, base):
     return 1
 
 
-def _popc(m):
-    return bin(m).count("1")
+def _ffs(m):
+    """``__ffs(m) - 1``: the lowest set bit's place (m != 0)."""
+    return (m & -m).bit_length() - 1
 
 
-def _walk_staged(s_seg, s_idx, s_w, s_bag, s_head, nh, end, beyond, d, VEC,
-                 es, stage, load, store_row, g_seg, idx, w, nnz, mutate):
-    """``walk_staged``: the owned entries [head[0], end) in batches of R
-    rows and slabs of ws columns, copied to a shared buffer (each async
-    copy checked for alignment and room), then summed per (bag, chunk)
-    item from the carry of the bag's earlier batches; a bag past the
-    staged entries reads on in global memory.  ``stage`` is the bytes of
-    a batch."""
-    f32 = np.float32
-    min_rows, D = _CONSTS["kMinRows"], _CONSTS["kDeep"]
-    ws, R = d, stage // (d * es)
-    if R < min_rows:
-        ws, R = stage // min_rows // es // VEC * VEC, min_rows
-    R = min(R, 2 * _CONSTS["kTile"])
-    carry = np.full((2, stage // min_rows // 2), np.nan, f32)
-    for c0 in range(0, d, ws):
-        nc = min(ws, d - c0) // VEC
-        dj, dc = divmod(_T + (mutate == "step"), nc)
-        par = 0
-        for b0 in range(int(s_head[0]), end, R):
-            b1 = min(b0 + R, end)
-            rows = np.full(stage // es, np.nan, f32)
-            for tid in range(_T):                    # copies
-                p, c = divmod(tid, nc)
-                while p < b1 - b0:
-                    dst = p * ws + c * VEC
-                    assert dst % VEC == 0 and (dst + VEC) * es <= stage
-                    rows[dst:dst + VEC] = load(int(s_idx[b0 + p]) * d + c0
-                                               + c * VEC)
-                    c, p = c + dc, p + dj
-                    if c >= nc:
-                        c, p = c - nc, p + 1
-            jhi = int(s_bag[b1 - 1])
-            new = carry.copy()
-            for tid in range(_T):                    # sums
-                j, c = int(s_bag[b0]) + tid // nc, tid % nc
-                while j <= jhi:
-                    s, e = int(s_head[j]), int(s_head[j + 1])
-                    acc = carry[par ^ (mutate == "carry"),
-                                c * VEC:(c + 1) * VEC].copy() \
-                        if s < b0 else np.zeros(VEC, f32)
-                    assert not np.isnan(acc).any(), "carry read unwritten"
-                    for p in range(max(s, b0), min(e, b1)):
-                        x = rows[(p - b0) * ws + c * VEC:
-                                 (p - b0) * ws + (c + 1) * VEC]
-                        acc = (acc + f32(s_w[p]) * x).astype(f32)
-                    if e > b1 or (beyond >= 0 and j == nh - 1):
-                        new[par ^ 1, c * VEC:(c + 1) * VEC] = acc
-                    else:
-                        store_row(int(s_seg[1 + s]), c0 + c * VEC, acc)
-                    c, j = c + dc, j + dj
-                    if c >= nc:
-                        c, j = c - nc, j + 1
-            carry, par = new, par ^ 1
-        if beyond >= 0:                              # walk_global
-            bag = int(s_seg[1 + s_head[nh - 1]])
-            for c in range(nc):
-                acc = carry[par, c * VEC:(c + 1) * VEC].copy()
-                kk = beyond
-                while True:
-                    m = [kk + u < nnz and g_seg(kk + u) == bag
-                         for u in range(D)]
-                    for u in range(D):
-                        if m[u]:
-                            x = load(int(idx[kk + u]) * d + c0 + c * VEC)
-                            acc = (acc + f32(w[kk + u]) * x).astype(f32)
-                    if not m[D - 1]:
-                        break
-                    kk += D
-                store_row(bag, c0 + c * VEC, acc)
-
-
-def _emulate(table, idx, seg, w, n_bags, sms=132, base=(0, 0), mutate=None,
-             es=4):
+def _emulate(table, idx, seg, w, n_bags, base=(0, 0), mutate=None, es=4):
     """K5's out (n_bags, d) for float32 table (V, d), idx/seg int32, w
     float32, with table and out at element offsets ``base`` and elements
     of ``es`` bytes (4: fp32, 2: bf16, whose values the float32 arrays
-    hold).  ``mutate`` names one index map to break."""
+    hold; es only names the type here).  ``mutate`` names one index map
+    to break."""
+    del es
     V, d = table.shape
     nnz = idx.size
-    T, VEC = _tile(nnz, sms), _vec(d, base)
+    VEC = _vec(d, base)
     nch = d // VEC
-    W, R = _T // 32, -(-_CONSTS["kTile"] // _T)
-    assert T <= _CONSTS["kTile"] and R * W <= 32
-    tab = np.concatenate([np.zeros(base[0], np.float32), table.reshape(-1)])
-    out = np.zeros(base[1] + n_bags * d, np.float32)
+    L, f32 = _TILE, np.float32
+    tab = np.concatenate([np.zeros(base[0], f32), table.reshape(-1)])
+    out = np.zeros(base[1] + n_bags * d, f32)
     writes = np.zeros(n_bags * d, np.int64)
-    f32 = np.float32
 
     def load(p):                        # a Pack at table element p
         a = base[0] + p
@@ -381,112 +306,107 @@ def _emulate(table, idx, seg, w, n_bags, sms=132, base=(0, 0), mutate=None,
 
     def zero_rows(lo, hi):
         lo, hi = max(lo, 0), min(hi, n_bags)
-        for tid in range(_T):
-            for q in range(tid, (hi - lo) * nch, _T):
+        for lane in range(L):
+            for q in range(lane, (hi - lo) * nch, L):
                 store(lo * d + q * VEC, np.zeros(VEC, f32))
 
     def g_seg(p):
         assert 0 <= p < nnz, f"seg read at {p}"
         return int(seg[p])
 
-    tiles = -(-nnz // T) if nnz else 1
-    for blk in range(tiles):
-        t0 = blk * T
-        n = min(T + (mutate == "tile_end"), nnz - t0)
-        t1 = t0 + n
-        # 1. load
-        s_seg = np.zeros(2 * _CONSTS["kTile"] + 2, np.int64)
-        s_seg[1:1 + n] = seg[t0:t1]
-        s_idx, s_w = idx[t0:t1].astype(np.int64), w[t0:t1]
-        s_seg[0] = g_seg(t0 - 1) if t0 > 0 else 0
-        s_seg[n + 1] = g_seg(t1) if t1 < nnz else 0
-        # 2. heads and gap heads: ballots, the scan of the counts
-        hm = np.zeros((R, W), np.int64)
-        gm = np.zeros((R, W), np.int64)
-        for r in range(R):
-            for tid in range(_T):
-                i = r * _T + tid
-                if i >= n:
-                    continue
-                s, prev = s_seg[1 + i], s_seg[i]
-                first = t0 + i == 0 or (mutate == "no_skip" and i == 0)
-                head = first or s != prev
-                gap = head and (s > 0 if t0 + i == 0 else s > prev + 1)
-                hm[r, tid // 32] |= head << (tid % 32)
-                gm[r, tid // 32] |= gap << (tid % 32)
-        cnt = [_popc(int(hm[r, wp])) | _popc(int(gm[r, wp])) << 16
-               for r in range(R) for wp in range(W)]
-        excl = np.concatenate([[0], np.cumsum(cnt)[:-1]]).astype(np.int64)
-        tot = int(sum(cnt))
-        nh, ng = tot & 0xFFFF, tot >> 16
-        s_head = np.full(_CONSTS["kTile"] + 1, -1, np.int64)
-        s_gap = np.full(_CONSTS["kTile"], -1, np.int64)
-        s_bag = np.full(2 * _CONSTS["kTile"], -1, np.int64)
-        for r in range(R):
-            for tid in range(_T):
-                wp, lane = divmod(tid, 32)
-                b_ = int(excl[r * W + wp])
-                below = (1 << lane) - 1
-                if r * _T + tid < n:
-                    s_bag[r * _T + tid] = (b_ & 0xFFFF) + _popc(
-                        int(hm[r, wp]) & (below << 1 | 1)) - 1
-                if hm[r, wp] >> lane & 1:
-                    s_head[(b_ & 0xFFFF) + _popc(int(hm[r, wp]) & below)] = \
-                        r * _T + tid
-                if gm[r, wp] >> lane & 1:
-                    s_gap[(b_ >> 16) + _popc(int(gm[r, wp]) & below)] = \
-                        r * _T + tid
-        assert (s_head[:nh] >= 0).all() and (s_gap[:ng] >= 0).all()
-        # the last owned bag runs on: stage the next E entries, count its
-        is_open = nh > 0 and t1 < nnz and s_seg[n + 1] == s_seg[n]
-        end, beyond = n, -1
-        if is_open and mutate != "open":
-            E = min(nnz - t1, _CONSTS["kTile"])
-            s_seg[1 + n:1 + n + E] = seg[t1:t1 + E]
-            s_idx = np.concatenate([s_idx, idx[t1:t1 + E].astype(np.int64)])
-            s_w = np.concatenate([s_w, w[t1:t1 + E]])
-            s_bag[n:n + E] = nh - 1
-            m = int((s_seg[1 + n:1 + n + E] == s_seg[n]).sum()) \
-                + (mutate == "ext")
-            end = n + m
-            if m == E and t1 + E < nnz:
-                beyond = t1 + E
-        s_head[nh] = end
-        # 5. the owned bags, thread by thread: every one a single entry
-        # (kOnes items a thread at once), or rows staged batch by batch
-        dj, dc = divmod(_T + (mutate == "step"), nch)
-        if nh and n == nh and not is_open:
-            K = _CONSTS["kOnes"]
-            for tid in range(_T):
-                j, c = divmod(tid, nch)
-                while j < nh:
-                    xs = []
-                    for _ in range(K):
-                        if j < nh:
-                            xs.append((j, c * VEC,
-                                       load(int(s_idx[j]) * d + c * VEC)))
-                        c, j = c + dc, j + dj
-                        if c >= nch:
-                            c, j = c - nch, j + 1
-                    for jj, col, x in xs:
-                        store_row(int(s_seg[1 + jj]), col,
-                                  (f32(0) + f32(s_w[jj]) * x).astype(f32))
-        elif nh:
-            _walk_staged(s_seg, s_idx, s_w, s_bag, s_head, nh, end, beyond,
-                         d, VEC, es, _CONSTS["kStage"], load, store_row,
-                         g_seg, idx, w, nnz, mutate)
-        # 4. zero rows
-        for q in range(ng):
-            p = int(s_gap[q])
-            lo = 0 if t0 + p == 0 else int(s_seg[p]) + 1
-            zero_rows(lo, int(s_seg[1 + p]) + (mutate == "gap"))
-        if t1 == nnz:
-            zero_rows(int(s_seg[n]) + 1 if nnz else 0, n_bags)
+    def entries(b):                     # load_entry, lane by lane
+        s = np.zeros(L, np.int64)
+        i = np.zeros(L, np.int64)
+        wv = np.zeros(L, f32)
+        k = min(max(nnz - b, 0), L)
+        s[:k], i[:k], wv[:k] = seg[b:b + k], idx[b:b + k], w[b:b + k]
+        return s, i, wv
+
+    def walk_bag(t0, s, i, wv, h, bag):
+        A = _CONSTS["kAhead"]
+        for c0 in range(0, nch, L):
+            acc = {c: np.zeros(VEC, f32) for c in range(c0, min(c0 + L, nch))}
+            b, ws, wi, ww, p = t0, s, i, wv, h
+            while True:
+                stop = sum(1 << ln for ln in range(L) if ln >= p and (
+                    b + ln >= nnz or ws[ln] != bag))
+                q = _ffs(stop) + (mutate == "ext") if stop else L
+                for p in range(p, q, A):
+                    for u in range(A):
+                        if p + u < min(q, L):
+                            for c in acc:
+                                x = load(int(wi[p + u]) * d + c * VEC)
+                                acc[c] = (acc[c] + f32(ww[p + u]) * x
+                                          ).astype(f32)
+                if stop or b + L >= nnz:
+                    break
+                b += L
+                ws, wi, ww = entries(b)
+                p = 0
+                if mutate == "carry":
+                    acc = {c: np.zeros(VEC, f32) for c in acc}
+            for c in acc:
+                store_row(bag, c * VEC, acc[c])
+
+    def walk_ones(n, s, i, wv):
+        items, K = n * nch, _CONSTS["kOnes"]
+        dj, dc = divmod(L + (mutate == "step"), nch)
+        for lane in range(L):
+            j, c = divmod(lane, nch)
+            for _ in range(0, items, L * K):
+                xs = []
+                for _ in range(K):
+                    if j < n:
+                        xs.append((j, c, load(int(i[j]) * d + c * VEC)))
+                    c, j = c + dc, j + dj
+                    if c >= nch:
+                        c, j = c - nch, j + 1
+                for jj, cc, x in xs:
+                    store_row(int(s[jj]), cc * VEC,
+                              (f32(0) + f32(wv[jj]) * x).astype(f32))
+
+    for blk in range(_grid(nnz)):
+        for warp in range(_WARPS):
+            t0 = (blk * _WARPS + warp) * L
+            if t0 > nnz or (t0 == nnz and t0 > 0):
+                continue
+            n = min(L - (mutate == "tile_end"), nnz - t0)
+            t1 = t0 + n
+            # 1. the tile's entries, the seg before and after it
+            s, i, wv = entries(t0)
+            prev = np.concatenate([[g_seg(t0 - 1) if t0 > 0 else 0], s[:-1]])
+            after = g_seg(t1) if t1 < nnz else 0
+            # 2. heads (a ballot) and the heads that follow empty bags
+            heads = gaps = 0
+            for ln in range(n):
+                first = t0 + ln == 0 or (mutate == "no_skip" and ln == 0)
+                if first or s[ln] != prev[ln]:
+                    heads |= 1 << ln
+                    if (s[ln] > 0) if t0 + ln == 0 else \
+                            (s[ln] > prev[ln] + 1):
+                        gaps |= 1 << ln
+            # 3. zero rows
+            for p in range(L):
+                if gaps >> p & 1:
+                    lo = 0 if t0 + p == 0 else int(prev[p]) + 1
+                    zero_rows(lo, int(s[p]) + (mutate == "gap"))
+            last = int(s[n - 1]) if n > 0 else int(s[0])
+            if t1 == nnz:
+                zero_rows(last + 1 if n > 0 else 0, n_bags)
+            # 4. the owned bags
+            is_open = n > 0 and t1 < nnz and after == last \
+                and mutate != "open"
+            if heads == (1 << n) - 1 and not is_open:
+                walk_ones(n, s, i, wv)
+            else:
+                for h in range(L):
+                    if heads >> h & 1:
+                        walk_bag(t0, s, i, wv, h, int(s[h]))
     assert (writes == 1).all(), "an element of out written other than once"
     return out[base[1]:].reshape(n_bags, d)
 
 
-def _runs(lengths, seed, V, d, gaps=()):
+def _runs(lengths, seed, V, d):
     """Sorted bags of the given lengths (0 = empty bag): table, idx, seg,
     w (float32) and n_bags."""
     rng = np.random.default_rng(seed)
@@ -497,34 +417,34 @@ def _runs(lengths, seed, V, d, gaps=()):
     return table, idx, seg, w, len(lengths)
 
 
-_TILE = _CONSTS["kTile"]
-# name -> (bag lengths, V, d, sms, base); sms = 1 keeps whole kTile tiles at
-# these sizes, 132 shrinks them to kMinTile.
+# name -> (bag lengths, V, d, base)
 EMULATED = {
-    "bags_of_one": ([1] * (2 * _TILE + 37), 300, 50, 1, (0, 0)),
+    # tiles of bags of one, then one whose last bag runs on past the tile
+    "bags_of_one": ([1] * (2 * _TILE + 31) + [3], 300, 50, (0, 0)),
     "pooled_crossing": (list(np.random.default_rng(1).integers(1, 65, 40)),
-                        200, 12, 1, (0, 0)),
-    "longer_than_two_tiles": ([3, 2 * _TILE + 50, 1, 7], 100, 6, 1, (2, 2)),
-    "ends_at_tile_end": ([_TILE // 4] * 8 + [5], 90, 8, 1, (0, 4)),
-    "one_bag": ([3 * _TILE + 11], 50, 4, 1, (1, 3)),
+                        200, 12, (0, 0)),
+    "longer_than_two_tiles": ([3, 2 * _TILE + 50, 1, 7], 100, 6, (2, 2)),
+    "ends_at_tile_end": ([_TILE // 4] * 8 + [5], 90, 8, (0, 4)),
+    "one_bag": ([3 * _TILE + 11], 50, 4, (1, 3)),
     "empty_lead_mid_trail": ([0, 0, 3, 1, 0, 0, 0, 4, _TILE, 0, 2, 0, 0],
-                             70, 10, 1, (0, 0)),
-    "gap_at_tile_start": ([_TILE, 0, 0, 5, 1], 40, 2, 1, (0, 0)),
-    "nnz0": ([0] * 7, 20, 6, 1, (0, 0)),
+                             70, 10, (0, 0)),
+    "gap_at_tile_start": ([_TILE, 0, 0, 5, 1], 40, 2, (0, 0)),
+    "nnz0": ([0] * 7, 20, 6, (0, 0)),
     "small_tiles": (list(np.random.default_rng(2).integers(0, 90, 25)), 120,
-                    5, 132, (3, 1)),
-    "d1": ([1, 2, 0, 40, 1] * 30, 60, 1, 132, (0, 1)),
-    "wide_rows": ([2, 0, 300, 1], 30, 301, 1, (0, 0)),
-    "vec4": ([1] * 100 + [7, 0, 9], 64, 16, 1, (0, 0)),
-    # rows of 516 bytes: 47-row batches, bags carried from batch to batch
+                    5, (3, 1)),
+    "d1": ([1, 2, 0, 40, 1] * 30, 60, 1, (0, 1)),
+    # 301 chunks a row: the walk's passes of 32 chunks
+    "wide_rows": ([2, 0, 300, 1], 30, 301, (0, 0)),
+    "vec4": ([1] * 100 + [7, 0, 9], 64, 16, (0, 0)),
+    # rows of 129 chunks, bags of 1-64 entries over many windows
     "batches": (list(np.random.default_rng(3).integers(1, 65, 14)), 80, 129,
-                1, (0, 0)),
+                (0, 0)),
 }
 
 
 def _emulated_case(case):
-    lengths, V, d, sms, base = EMULATED[case]
-    return _runs(lengths, len(case), V, d), sms, base
+    lengths, V, d, base = EMULATED[case]
+    return _runs(lengths, len(case), V, d), base
 
 
 @pytest.mark.parametrize("case", list(EMULATED))
@@ -532,8 +452,8 @@ def test_tile_emulation_matches_plain_and_pallas(case):
     """The kernel's index maps give the plain version's rows bit for bit
     (fp32, nnz order), every row of out written once, and the Pallas
     kernel's rows (interpret mode) on the non-empty bags."""
-    (table, idx, seg, w, B), sms, base = _emulated_case(case)
-    got = _emulate(table, idx, seg, w, B, sms, base)
+    (table, idx, seg, w, B), base = _emulated_case(case)
+    got = _emulate(table, idx, seg, w, B, base)
     want = ref.embedding_bag_ref(_torch(table), _torch(idx), _torch(seg), B,
                                  weights=_torch(w)).numpy()
     np.testing.assert_array_equal(got, want)
@@ -545,14 +465,16 @@ def test_tile_emulation_matches_plain_and_pallas(case):
         visited[seg] = True
         _assert_close(got, pallas, _term_size(table, idx, seg, w, B),
                       "float32", rows=visited)
-    lengths, V, d, _, _ = EMULATED[case]
-    T = _tile(idx.size, sms)
+    lengths, V, d, _ = EMULATED[case]
+    ends = np.cumsum(lengths)
     if case == "longer_than_two_tiles":
-        assert lengths[1] > 2 * T
+        assert lengths[1] > 2 * _TILE
     if case == "ends_at_tile_end":
-        assert T == _TILE and np.cumsum(lengths)[3] == T
+        assert ends[3] == _TILE
+    if case == "bags_of_one":          # a tile of heads whose last runs on
+        assert ends[-2] % _TILE == _TILE - 1
     if case == "small_tiles":
-        assert T == _CONSTS["kMinTile"]
+        assert idx.size > 20 * _TILE
     if case in ("d1", "wide_rows", "vec4", "bags_of_one"):
         assert _vec(d, base) == {"d1": 1, "wide_rows": 1, "vec4": 4,
                                  "bags_of_one": 2}[case]
@@ -561,9 +483,9 @@ def test_tile_emulation_matches_plain_and_pallas(case):
 def test_tile_emulation_in_bf16():
     """bf16 tables and weights: the fp32 sum in nnz order, rounded to bf16
     once, is the plain version's bf16 row bit for bit."""
-    (table, idx, seg, w, B), sms, base = _emulated_case("pooled_crossing")
+    (table, idx, seg, w, B), base = _emulated_case("pooled_crossing")
     t16, w16 = _torch(table, torch.bfloat16), _torch(w, torch.bfloat16)
-    got = _emulate(t16.float().numpy(), idx, seg, w16.float().numpy(), B, sms,
+    got = _emulate(t16.float().numpy(), idx, seg, w16.float().numpy(), B,
                    base, es=2)
     want = ref.embedding_bag_ref(t16, _torch(idx), _torch(seg), B,
                                  weights=w16)
@@ -571,32 +493,36 @@ def test_tile_emulation_in_bf16():
 
 
 def test_tiles_at_the_cards_shapes():
-    """Entries a tile at chip_smoke.py's K5 cases on 132 SMs, as the
-    kernel's header states them."""
-    assert _tile(10**6, 132) == 256           # retrieval
-    assert _tile(409_600, 132) == 256         # bulk (serve_bulk's chunk)
-    assert _tile(2_127_448, 132) == 256       # pooled
-    assert _tile(25_600, 132) == 64           # lookup (serve_p99)
-    assert _tile(50, 132) == _CONSTS["kMinTile"]   # one user's sequence
+    """Blocks a launch at chip_smoke.py's K5 cases, a tile of 32 entries a
+    warp, as the kernel's header states them."""
+    assert _TILE == 32 and _WARPS == 4
+    assert _grid(10**6) == 7813               # retrieval
+    assert _grid(409_600) == 3200             # bulk (serve_bulk's chunk)
+    assert _grid(2_127_448) == 16621          # pooled
+    assert _grid(25_600) == 200               # lookup (serve_p99)
+    assert _grid(50) == 1 and _grid(0) == 1   # one user's sequence; nnz = 0
     assert _vec(50, (0, 0)) == 2 and _vec(50, (1, 0)) == 1
 
 
 @pytest.mark.parametrize("mutate", ["tile_end", "no_skip", "gap", "open",
                                     "ext", "step", "carry"])
 def test_tile_emulation_catches_a_wrong_map(mutate):
-    """One wrong index map breaks the rows (or trips an alignment, bounds,
-    write-once or unwritten-carry check) on one of five inputs: bags
-    crossing tile ends, with and without empty bags between them, one bag
-    over four tiles, bags of one in three tiles, and bags carried across
-    batches of staged rows.  The emulation tells a right map from a wrong
-    one."""
+    """One wrong index map breaks the rows (or trips an alignment, bounds
+    or write-once check) on one of five inputs: bags crossing tile ends,
+    with and without empty bags between them, one bag over four tiles,
+    tiles of bags of one and one whose last bag runs on, and bags over
+    many windows of wide rows.  The mutations: the tile's end one short, no
+    skip of a bag begun in an earlier tile, a gap range one long, the
+    running-on last bag ignored, a bag's end in a window one late, the
+    work items' step, the sum not carried from window to window.  The
+    emulation tells a right map from a wrong one."""
     broke = []
     for case in ("pooled_crossing", "empty_lead_mid_trail", "one_bag",
                  "bags_of_one", "batches"):
-        (table, idx, seg, w, B), sms, base = _emulated_case(case)
-        want = _emulate(table, idx, seg, w, B, sms, base)
+        (table, idx, seg, w, B), base = _emulated_case(case)
+        want = _emulate(table, idx, seg, w, B, base)
         try:
-            got = _emulate(table, idx, seg, w, B, sms, base, mutate=mutate)
+            got = _emulate(table, idx, seg, w, B, base, mutate=mutate)
         except (AssertionError, IndexError):
             broke.append(True)
             continue

@@ -46,29 +46,12 @@ CASES = ("lookup", "retrieval", "bulk", "pooled")
 CALLS, ROUNDS, RETRIEVALS = 1000, 5, 30
 # name -> [(text in the kernel's source, its replacement)]
 VARIANTS = {
-    "tile128": [("kTile = 256;", "kTile = 128;")],
-    "fill1": [("kFill = 2;", "kFill = 1;")],
-    "fill4": [("kFill = 2;", "kFill = 4;")],
-    "ones2": [("kOnes = 4;", "kOnes = 2;")],
+    "minblocks12": [("kMinBlocks = 8;", "kMinBlocks = 12;")],
+    "ahead8": [("kAhead = 4;", "kAhead = 8;")],
     "ones8": [("kOnes = 4;", "kOnes = 8;")],
-    "stage16k": [("kStage = 32768;", "kStage = 16384;")],
-    "deep8": [("kDeep = 4;", "kDeep = 8;")],
-    "stream": [("kStreamStores = 0;", "kStreamStores = 1;")],
-    "minblocks3": [("kMinBlocks = 4;", "kMinBlocks = 3;")],
-    "persist4": [("kPersist = 0;", "kPersist = 4;")],
-    "persist8": [("kPersist = 0;", "kPersist = 8;")],
-    # blocks of 128 threads, tiles of 256 entries: seven an SM
-    "threads128": [("kThreads = 256;", "kThreads = 128;"),
-                   ("kMinBlocks = 4;", "kMinBlocks = 7;"),
-                   ("kStage = 32768;", "kStage = 16384;")],
-    # tiles of bags of one on the staged rows too
-    "staged_only": [("if (n == nh && !open)", "if (n < 0)")],
-    # ablations: each drops one part of the work, so its result is wrong
-    # by design and only its time means anything
-    "no_copies": [("  for (; p < b1 - b0;) {", "  for (; p < 0;) {")],
-    "no_sums": [("      for (; j <= jhi;) {", "      for (; j < 0;) {")],
-    "no_walk": [("    if (nh > 0) {\n      if (n == nh && !open)",
-                 "    if (nh < 0) {\n      if (n == nh && !open)")],
+    # blocks of two warps, the same warps an SM
+    "threads64": [("kThreads = 128;", "kThreads = 64;"),
+                  ("kMinBlocks = 8;", "kMinBlocks = 16;")],
 }
 
 
