@@ -43,7 +43,7 @@
 // design (tiles of 256 entries in shared memory, their rows staged by
 // cp.async) was as fast on bags of one but 1.3x slower on bags of several
 // rows: its steps were separated by barriers and its 47 KB of shared
-// memory held an SM to four blocks (PERF.md, PR 20).
+// memory held an SM to four blocks (PERF.md, section 6).
 //
 // Design: tiles of entries, no search.  The Pallas kernel walks the nnz
 // entries in order on one core, the indices prefetched as scalars and the
