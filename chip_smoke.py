@@ -2,7 +2,7 @@
 """Drive the PyTorch port (`repro_torch`, under src/) on one CUDA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --quick    # no full-size runs (phases 5-7)
+    python3 chip_smoke.py --quick    # no full-size runs (phases 5-7b)
 
 Phases, each printing JSON lines:
 
@@ -47,13 +47,31 @@ Phases, each printing JSON lines:
    and ``kway-sharded``, 8 sweeps): card labels against the CPU's from the
    same raw labels, cuts against the recorded JAX cuts (4690 / 4679 /
    4319), K4 launches against the sweeps run.
+   ``guard`` — on the quality mesh, ``default`` and ``rsb_inverse`` (AMG)
+   with the guard on and off on the card (labels bit-identical, the guard's
+   report clean); the two-component graph (``grid_graph_2d(12, 11)`` and
+   ``(7, 9)``, no coords) at 2, 4 and 5 parts, the card's default labels
+   against the CPU's, cuts beside `repro`'s (0, 20, 28); the
+   ``multilevel-quality`` and ``multilevel`` presets, cut within 1.05 x the
+   recorded JAX cut (8916).
+   ``chaos`` — ``benchmarks/smoke_check.py::check_chaos``'s mesh
+   (``pebble_mesh(8, 8, 8, n_pebbles=3, seed=0)``, 8 parts) under each
+   fault site on the card: full labels, 0 disconnected parts, weighted
+   imbalance <= 1.10, the guard report equal to the CPU port's for the same
+   configuration, fallbacks > 0 (``halo_truncate``: the plan rebuilt clean,
+   no host fallback); K1 launches inside ``solver_nan``'s rescues, K2 in
+   ``cg_divergence``, K4 after ``halo_truncate``'s rebuild.
 5. ``full``    — ``box_mesh(80, 64, 48)`` (245,760 elements) into 64 parts,
-   ``default`` preset (Lanczos, K1), on the card: seconds per stage (host
-   and device), per level, K1 launches, peak device memory, the cut against
-   the ``geometric`` preset's.
+   ``default`` preset (Lanczos, K1, guarded by default), on the card:
+   seconds per stage (host and device; ``guard:validate`` and
+   ``guard:finalize`` among them, and finalize's check re-run part by
+   part: ``finalize_split``), per level, K1 launches, peak device memory,
+   the cut against the ``geometric`` preset's; the guard's report must be
+   clean (no retry, fallback, expired deadline or host fallback).
 6. ``full_inverse`` — the same box and parts by AMG-preconditioned inverse
    iteration (the paper's solver, K2): the same records plus inner flexcg
-   iterations per level; the cut against the ``geometric`` cut of ``full``.
+   iterations per level; the cut against the ``geometric`` cut of ``full``;
+   ``finalize_split``; a clean guard report.
 7. ``full_sharded`` — the post chains of ``run_sharded`` on ``full``'s raw
    labels (no second eigensolve): ``repair+refine`` on the host, then
    ``repair+refine-sharded`` and ``kway-sharded`` (8 sweeps, K4 every
@@ -62,6 +80,16 @@ Phases, each printing JSON lines:
    cuts; the sharded cut within 1% of the host refined cut; the card's
    sweep labels against the NumPy mirror's on the same plan, from the raw
    labels and from a seeded perturbation of them (2% of the elements).
+   Each chain runs in the guard's post-stage envelope; its report must be
+   clean.
+7b. ``full_multilevel`` — the ``multilevel`` preset (host V-cycle, no
+   kernel: launches checked 0) on the same box into 64 parts: seconds per
+   stage, the V-cycle's levels, coarsest size and solver, FM and balance
+   moves, the cut within 1.05 x `repro`'s (578,574, CPU; another NumPy's
+   `eigh` splits the coarsest graph otherwise) beside the ``default`` and
+   ``geometric`` cuts of ``full``, 0 disconnected parts, 64 non-empty
+   parts, the corridor, a clean guard report; before it, the same preset
+   on ``box_mesh(40, 32, 24)``, cut within 1.01 x `repro`'s 137,965.
 8. ``kernels`` (segment_sum) — K4 at the sweep's shape (``main``: the
    frontier plan of ``full``'s raw labels, 64 shards; with ``--quick``,
    of RCB labels of the same box) and a tiny one, K3 at
@@ -137,7 +165,8 @@ Phases, each printing JSON lines:
     users, on the card against the CPU: states within 1e-5, top-100 ids
     identical.
 
-Then the line ``{"kernels": [...]}`` (every ported kernel: launches on its
+Then ``done`` (the script's seconds), the line ``{"kernels": [...]}``
+(every ported kernel: launches on its
 main path — K1 in ``full``, K2 in ``full_inverse``, K4 in the two sharded
 chains of ``full_sharded``, K3 on none, K6 in the two ``serve`` runs, K5
 in the three ``recsys`` runs, with the counters set to 0 just before each
@@ -178,6 +207,22 @@ SHARDED_CHAINS = {"repair+refine": (("repair", "refine"), {}),
                   "repair+refine-sharded": (("repair", "refine-sharded"),
                                             {"sweeps": 8}),
                   "kway-sharded": (("kway-sharded",), {"sweeps": 8})}
+# BENCH_partition.json, quality: the multilevel preset's cut (16 parts)
+QUALITY_ML_JAX_CUT = 8916.0
+# `repro`'s default (guarded) cuts on the two-component graph of
+# two_grids() (repro/core/pipeline.py, CPU; ROADMAP Queue 3)
+TWO_GRIDS_JAX_CUTS = {2: 0.0, 4: 20.0, 5: 28.0}
+# `repro`'s multilevel cuts into 64 parts (CPU, NumPy 2.0.2): box_mesh(80,
+# 64, 48), and box_mesh(40, 32, 24), whose V-cycle the port reproduces bit
+# for bit on the card's host (NumPy 2.3.5).  At the full box both hosts
+# build the same coarsening ladder and the same coarsest graph
+# (tools/ml_ladder.py), and the two NumPy builds' `eigh` split that graph
+# differently (PERF.md §6), so that cut is bounded as the other cuts
+# recorded on another machine are, at 1.05x.
+FULL_ML_JAX_CUT = 578574.0
+MEDIUM_ML_JAX_CUT = 137965.0
+CHAOS_SITES = ("solver_nan", "empty_split", "cg_divergence", "deadline",
+               "halo_truncate")
 N_SLOTS = 262144              # next_pow2(245,760): the full run's packed size
 K2_BLOCKS, K2_BLOCK = 32, 7680    # tree level 5 of the 64-part run
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -596,19 +641,27 @@ def level_rows(ctx) -> list:
             for lv in ctx.report.levels]
 
 
-def run_chains(graph, raw, nparts, weights, device) -> dict:
+def run_chains(graph, raw, nparts, weights, device, guarded=False) -> dict:
     """`run_sharded`'s post chains from one set of raw labels on ``device``:
     per chain the labels, cut, invariants, seconds (split for the sharded
     stage into plan build, sweeps and host admission), moves per sweep,
-    K4 launches and peak device memory."""
+    K4 launches and peak device memory.  ``guarded``: each chain runs in
+    the guard's post-stage envelope, as a guarded pipeline runs it (a
+    ``SolverGuard`` of the default policy), and the row has its report."""
     from repro_torch.core.metrics import partition_metrics
     from repro_torch.core.pipeline import run_post_stages
     from repro_torch.core.refine import balance_corridor
+    from repro_torch.guard import GuardPolicy, GuardReport, SolverGuard
     from repro_torch.kernels.segment_sum import cuda as ss_cuda
 
     floor, cap = balance_corridor(raw, nparts, weights, 0.05)
     out = {}
     for name, (post, kw) in SHARDED_CHAINS.items():
+        post_kw = dict(kw)
+        greport = GuardReport() if guarded else None
+        if guarded:
+            post_kw["guard"] = SolverGuard(GuardPolicy(), seed=0,
+                                           method="post", report=greport)
         if device == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -616,7 +669,7 @@ def run_chains(graph, raw, nparts, weights, device) -> dict:
         t0 = time.perf_counter()
         parts, agg, records = run_post_stages(graph, raw, nparts, post,
                                               weights=weights,
-                                              post_kw=dict(kw), device=device)
+                                              post_kw=post_kw, device=device)
         wall = time.perf_counter() - t0
         pm = partition_metrics(graph, parts, nparts, weights=weights)
         pw = np.bincount(parts, weights=weights, minlength=nparts)
@@ -625,8 +678,12 @@ def run_chains(graph, raw, nparts, weights, device) -> dict:
                    corridor=bool(pw.min() >= floor and pw.max() <= cap),
                    nonempty=int((np.bincount(parts, minlength=nparts) > 0).sum()),
                    seconds=wall, k4_launches=ss_cuda.BATCHED_LAUNCHES - before,
-                   stages=[dict(name=r.name, seconds=r.seconds) for r in records],
+                   stages=[dict(name=r.name, seconds=r.seconds,
+                                steps=r.info["stages"]) for r in records],
                    moves_per_sweep=[r.moves for r in agg.sweeps])
+        if guarded:
+            row["guard"] = dict(report=greport.to_dict(),
+                                host_fallback=host_fallbacks(records))
         sharded = [r.info["sharded"] for r in records if "sharded" in r.info]
         if sharded:
             info = sharded[0]
@@ -664,6 +721,254 @@ def check_chains(tag, runs, nparts) -> None:
 def chain_rows(runs) -> dict:
     return {k: {kk: vv for kk, vv in v.items() if kk != "parts"}
             for k, v in runs.items()}
+
+
+def host_fallbacks(records) -> list:
+    """The post stages whose sharded sweeps degraded to the host refiner."""
+    return [r.name for r in records
+            if r.kind == "post" and "host-fallback" in r.info["stages"]]
+
+
+def guard_row(ctx) -> dict:
+    """The guard's part of a pipeline run: its stages' seconds and report."""
+    secs = {s.name: s.seconds for s in ctx.stages if s.kind == "guard"}
+    gr = ctx.report.guard
+    return dict(validate_s=secs.get("validate"),
+                finalize_s=secs.get("finalize"),
+                report=None if gr is None else gr.to_dict(),
+                host_fallback=host_fallbacks(ctx.stages))
+
+
+def finalize_split(ctx, nparts) -> dict:
+    """``guard:finalize``'s check re-run part by part on the run's final
+    labels and graph (the same work as `check_output`): the same-part edge
+    filter, `connected_labels`, the two ``np.unique`` counts and the
+    corridor's ``bincount``, in host seconds; and the rounds of
+    `connected_labels`' min-label propagation and its pointer-doubling
+    steps, counted by a copy of its loop."""
+    from repro_torch.mesh.graphs import connected_labels
+
+    g, p = ctx.require_graph(), np.asarray(ctx.parts)
+    t0 = time.perf_counter()
+    same = p[g.rows] == p[g.indices]
+    src, dst = g.rows[same], g.indices[same]
+    t1 = time.perf_counter()
+    labels = connected_labels(g.n, src, dst)
+    t2 = time.perf_counter()
+    fragments = int(np.unique(labels).size - np.unique(p).size)
+    t3 = time.perf_counter()
+    np.bincount(p, weights=ctx.weights, minlength=nparts)
+    t4 = time.perf_counter()
+    label, rounds, doublings = np.arange(g.n, dtype=np.int64), 0, 0
+    while src.size:
+        rounds += 1
+        m = np.minimum(label[src], label[dst])
+        np.minimum.at(label, src, m)
+        np.minimum.at(label, dst, m)
+        while True:
+            nxt = label[label]
+            if np.array_equal(nxt, label):
+                break
+            label, doublings = nxt, doublings + 1
+        if (label[src] == label[dst]).all():
+            break
+    return dict(filter_s=t1 - t0, connected_labels_s=t2 - t1,
+                unique_s=t3 - t2, bincount_s=t4 - t3, fragments=fragments,
+                rounds=rounds, doublings=doublings)
+
+
+def check_clean(tag, row) -> None:
+    """A healthy full-size run: guarded, no retry, fallback or expired
+    deadline, and no sharded stage on the host fallback."""
+    rep = row["report"]
+    check(rep is not None, f"{tag}: the run was not guarded")
+    check(rep["retries"] == rep["fallbacks"] == 0
+          and not rep["deadline_expired"] and not row["host_fallback"],
+          f"{tag}: guard report not clean: {rep}, host fallback in "
+          f"{row['host_fallback']}")
+
+
+def two_grids():
+    """One graph of two `grid_graph_2d` components (12x11 and 7x9), no
+    coords: the input on which an unguarded default run differs from
+    `repro`'s guarded one."""
+    from repro_torch.mesh import grid_graph_2d
+    from repro_torch.mesh.graphs import build_csr
+
+    a, b = grid_graph_2d(12, 11), grid_graph_2d(7, 9)
+    return build_csr(np.concatenate([a.rows, b.rows + a.n]),
+                     np.concatenate([a.indices, b.indices + a.n]), a.n + b.n,
+                     weights=np.concatenate([a.weights, b.weights]),
+                     symmetrize=False)
+
+
+def phase_guard():
+    """The guard on the quality mesh: guard on against guard off on the
+    card (bit-identical labels), the two-component graph's default labels
+    on the card against the CPU's, and the multilevel presets' cuts."""
+    from repro_torch.core.pipeline import partition
+    from repro_torch.core.refine import edge_cut
+    from repro_torch.kernels.ell_spmv import cuda
+    from repro_torch.mesh import pebble_mesh
+
+    mesh = pebble_mesh(12, 12, 12, n_pebbles=5, warp=0.15, seed=1)
+    onoff = {}
+    for name, bkw in (("default", {}), ("rsb_inverse_amg", INVERSE_AMG)):
+        row = {}
+        ctxs = {}
+        for guard in (True, False):
+            before = cuda.LAUNCHES + cuda.BATCHED_LAUNCHES
+            ctx, pm, wall, corridor, nonempty = run_preset(
+                "default", mesh, 16, "cuda", bisect_kw=bkw, guard=guard)
+            ctxs[guard] = ctx
+            row["on" if guard else "off"] = dict(
+                cut=pm.edge_cut, seconds=wall,
+                launches=cuda.LAUNCHES + cuda.BATCHED_LAUNCHES - before)
+        on, off = ctxs[True], ctxs[False]
+        row["guard"] = guard_row(on)
+        row["identical"] = bool(np.array_equal(on.parts, off.parts)
+                                and np.array_equal(on.parts_raw, off.parts_raw))
+        onoff[name] = row
+        check(row["identical"], f"guard {name}: guarded labels differ from "
+              "the unguarded run's on the card")
+        check_clean(f"guard {name}", row["guard"])
+        check(off.report.guard is None, f"guard {name}: guard=False guarded")
+
+    g = two_grids()
+    two = {}
+    for k, jax_cut in TWO_GRIDS_JAX_CUTS.items():
+        card = partition(g, k, device="cuda")
+        cpu = partition(g, k, device="cpu")
+        two[k] = dict(cut=edge_cut(g, card), jax_cut=jax_cut,
+                      equal_to_cpu=bool(np.array_equal(card, cpu)))
+        check(two[k]["equal_to_cpu"], f"guard two_grids {k}: card labels "
+              "differ from the CPU's")
+
+    ml = {}
+    for preset in ("multilevel-quality", "multilevel"):
+        ctx, pm, wall, corridor, nonempty = run_preset(preset, mesh, 16,
+                                                       "cuda")
+        ml[preset] = dict(cut=pm.edge_cut, seconds=wall,
+                          disconnected=pm.disconnected_parts,
+                          corridor=corridor, levels=ctx.report.ml.levels,
+                          coarse_solver=ctx.report.ml.coarse_solver,
+                          guard=guard_row(ctx))
+        check(pm.disconnected_parts == 0 and corridor and nonempty == 16,
+              f"guard {preset}: invariants")
+        check(pm.edge_cut <= 1.05 * QUALITY_ML_JAX_CUT,
+              f"guard {preset}: cut {pm.edge_cut} > 1.05 x "
+              f"{QUALITY_ML_JAX_CUT}")
+        check_clean(f"guard {preset}", ml[preset]["guard"])
+    emit("guard", mesh="pebble_mesh(12,12,12,n_pebbles=5,warp=0.15,seed=1)",
+         nparts=16, on_off=onoff,
+         two_grids=dict(graph="grid_graph_2d(12,11) + grid_graph_2d(7,9)",
+                        parts=two),
+         multilevel=dict(jax_cut=QUALITY_ML_JAX_CUT, presets=ml))
+
+
+def chaos_pipeline(site, device):
+    """`benchmarks/smoke_check.py::check_chaos`'s configuration for one
+    fault site: inverse iteration for ``cg_divergence``, the sharded chain
+    for ``halo_truncate``."""
+    from repro_torch.core.pipeline import PartitionPipeline
+
+    return PartitionPipeline(
+        pre="rcb", bisect="rsb-batched",
+        post=(("repair", "refine-sharded") if site == "halo_truncate"
+              else ("repair", "refine")),
+        bisect_kw={"method": "inverse"} if site == "cg_divergence" else {},
+        guard=True, guard_kw={"chaos": (site,)}, device=device)
+
+
+def phase_chaos():
+    """Each chaos site on ``pebble_mesh(8, 8, 8, n_pebbles=3, seed=0)``
+    into 8 parts on the card: the output invariants, the guard report
+    against the CPU port's for the same configuration, and the kernels
+    where each site puts them (K1 inside the rescues of ``solver_nan``, K2
+    in ``cg_divergence``, K4 after ``halo_truncate``'s plan rebuild)."""
+    from repro_torch.dist import plan_halo_sharding, verify_halo_plan
+    from repro_torch.guard import chaos, count_disconnected, policy
+    from repro_torch.kernels.ell_spmv import cuda
+    from repro_torch.kernels.segment_sum import cuda as ss_cuda
+    from repro_torch.mesh import pebble_mesh
+
+    mesh = pebble_mesh(8, 8, 8, n_pebbles=3, seed=0)
+    w = np.asarray(mesh.weights, np.float64)
+    rescue = {"K1": 0, "K2": 0}
+    plain_rescue = policy.SolverGuard.rescue
+
+    def counted_rescue(self, *a, **k):
+        k1, k2 = cuda.LAUNCHES, cuda.BATCHED_LAUNCHES
+        try:
+            return plain_rescue(self, *a, **k)
+        finally:
+            rescue["K1"] += cuda.LAUNCHES - k1
+            rescue["K2"] += cuda.BATCHED_LAUNCHES - k2
+
+    rows = {}
+    policy.SolverGuard.rescue = counted_rescue
+    try:
+        for site in CHAOS_SITES:
+            rescue.update(K1=0, K2=0)
+            k1, k2, k4 = (cuda.LAUNCHES, cuda.BATCHED_LAUNCHES,
+                          ss_cuda.BATCHED_LAUNCHES)
+            t0 = time.perf_counter()
+            ctx = chaos_pipeline(site, "cuda").run(mesh, 8)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"K1": cuda.LAUNCHES - k1,
+                        "K2": cuda.BATCHED_LAUNCHES - k2,
+                        "K4": ss_cuda.BATCHED_LAUNCHES - k4}
+            in_rescue = dict(rescue)
+            cpu = chaos_pipeline(site, "cpu").run(mesh, 8)
+            gr = ctx.report.guard
+            parts = ctx.parts
+            pw = np.bincount(parts, weights=w, minlength=8)
+            row = dict(seconds=wall, launches=launches,
+                       rescue_launches=in_rescue, report=gr.to_dict(),
+                       report_equal_to_cpu=gr.to_dict()
+                       == cpu.report.guard.to_dict(),
+                       labels_differing_from_cpu=int((parts != cpu.parts).sum()),
+                       disconnected=count_disconnected(ctx.require_graph(),
+                                                       parts, 8),
+                       w_imb=float(pw.max() / (w.sum() / 8)),
+                       host_fallback=host_fallbacks(ctx.stages))
+            tag = f"chaos[{site}]"
+            check(sorted(np.unique(parts)) == list(range(8)),
+                  f"{tag}: labels do not cover 0..7")
+            check(row["disconnected"] == 0, f"{tag}: disconnected parts")
+            check(row["w_imb"] <= 1.10, f"{tag}: weighted imbalance "
+                  f"{row['w_imb']:.3f} > 1.10")
+            check(row["report_equal_to_cpu"], f"{tag}: guard report "
+                  f"{gr.to_dict()} differs from the CPU port's "
+                  f"{cpu.report.guard.to_dict()}")
+            if site == "halo_truncate":
+                # The plan self-check rebuilds the truncated plan, so the
+                # sweeps run on the clean plan: no fallback, K4 launches.
+                g = ctx.require_graph()
+                clean = plan_halo_sharding(g, parts, 8)
+                with chaos.overlay(("halo_truncate",)):
+                    rebuilt = plan_halo_sharding(g, parts, 8)
+                row["plan_rebuilt"] = bool(
+                    not verify_halo_plan(rebuilt)
+                    and np.array_equal(rebuilt.export_mask, clean.export_mask))
+                check(row["plan_rebuilt"], f"{tag}: plan not rebuilt clean")
+                check(not row["host_fallback"] and launches["K4"] > 0,
+                      f"{tag}: K4 never launched after the rebuild")
+            else:
+                check(gr.fallbacks > 0, f"{tag}: guard report shows no "
+                      "fallbacks: the fault was not exercised")
+            if site == "solver_nan":
+                check(in_rescue["K1"] > 0, f"{tag}: no K1 in the rescues")
+            if site == "cg_divergence":
+                check(launches["K2"] > 0, f"{tag}: K2 never launched")
+            if site == "deadline":
+                check(gr.deadline_expired, f"{tag}: deadline not expired")
+            rows[site] = row
+    finally:
+        policy.SolverGuard.rescue = plain_rescue
+    emit("chaos", mesh="pebble_mesh(8,8,8,n_pebbles=3,seed=0)",
+         nelems=mesh.nelems, nparts=8, sites=rows)
 
 
 def phase_quality():
@@ -778,12 +1083,15 @@ def phase_full(box):
     launches = cuda.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     _, gpm, gwall, _, _ = run_preset("geometric", box, 64, "cuda")
+    guard = guard_row(ctx)
     emit("full", mesh="box_mesh(80,64,48)", nelems=box.nelems, nparts=64,
          seconds=wall, stages=stage_split(ctx), levels=level_rows(ctx),
          k1_launches=launches, max_memory_allocated=peak, cut=pm.edge_cut,
          geometric_cut=gpm.edge_cut, geometric_seconds=gwall,
          disconnected=pm.disconnected_parts, w_imb=pm.weighted_imbalance,
-         corridor=corridor, nonempty_parts=nonempty)
+         corridor=corridor, nonempty_parts=nonempty, guard=guard,
+         finalize_split=finalize_split(ctx, 64))
+    check_clean("full", guard)
     check(nonempty == 64, "full: an empty part")
     check(pm.disconnected_parts == 0, "full: disconnected parts")
     check(corridor, "full: balance corridor broken")
@@ -795,7 +1103,7 @@ def phase_full(box):
     # 313371 against RCB's 307836).  The check bounds the gap.
     check(pm.edge_cut <= 1.05 * gpm.edge_cut,
           f"full: cut {pm.edge_cut} above 1.05 x the geometric cut {gpm.edge_cut}")
-    return launches, gpm.edge_cut, ctx
+    return launches, gpm.edge_cut, ctx, pm.edge_cut
 
 
 def phase_full_inverse(box, geometric_cut):
@@ -814,7 +1122,9 @@ def phase_full_inverse(box, geometric_cut):
          cut=pm.edge_cut, geometric_cut=geometric_cut,
          disconnected=pm.disconnected_parts, w_imb=pm.weighted_imbalance,
          corridor=corridor, nonempty_parts=nonempty,
-         precond=ctx.report.precond)
+         precond=ctx.report.precond, guard=guard_row(ctx),
+         finalize_split=finalize_split(ctx, 64))
+    check_clean("full_inverse", guard_row(ctx))
     check(nonempty == 64, "full_inverse: an empty part")
     check(pm.disconnected_parts == 0, "full_inverse: disconnected parts")
     check(corridor, "full_inverse: balance corridor broken")
@@ -861,9 +1171,11 @@ def phase_full_sharded(ctx):
 
     g, raw, w = ctx.require_graph(), ctx.parts_raw, ctx.weights
     ss_cuda.LAUNCHES = ss_cuda.BATCHED_LAUNCHES = 0  # this path's counts
-    runs = run_chains(g, raw, 64, w, "cuda")
+    runs = run_chains(g, raw, 64, w, "cuda", guarded=True)
     launches = {"K3": ss_cuda.LAUNCHES, "K4": ss_cuda.BATCHED_LAUNCHES}
     check_chains("full_sharded", runs, 64)
+    for name, r in runs.items():
+        check_clean(f"full_sharded {name}", r["guard"])
     check(launches["K4"] > 0, "full_sharded: K4 never launched")
     mirror_raw, fp = mirror_check("full_sharded raw", g, raw, w, 64)
     rng = np.random.default_rng(0)
@@ -877,6 +1189,66 @@ def phase_full_sharded(ctx):
          chains=chain_rows(runs), launches=launches,
          mirror=dict(raw=mirror_raw, perturbed_2pct=mirror_pert))
     return launches, fp, raw
+
+
+def phase_full_multilevel(box, rsb_cut, geometric_cut):
+    """The ``multilevel`` preset on the full box into 64 parts: host NumPy
+    only (no kernel launches; checked), guarded; its stages, the
+    V-cycle's statistics, the cut against `repro`'s on the same input and
+    against the RSB ``default`` and ``geometric`` cuts of ``full``; first
+    the same preset on ``box_mesh(40, 32, 24)``, against `repro`'s cut."""
+    from repro_torch.kernels.ell_spmv import cuda
+    from repro_torch.kernels.segment_sum import cuda as ss_cuda
+    from repro_torch.mesh import box_mesh
+
+    _, mpm, mwall, _, _ = run_preset("multilevel", box_mesh(40, 32, 24), 64,
+                                     "cuda")
+    check(mpm.edge_cut <= 1.01 * MEDIUM_ML_JAX_CUT,
+          f"full_multilevel: box_mesh(40,32,24) cut {mpm.edge_cut} above "
+          f"1.01 x repro's {MEDIUM_ML_JAX_CUT}")
+
+    counts = (cuda.LAUNCHES, cuda.BATCHED_LAUNCHES, ss_cuda.LAUNCHES,
+              ss_cuda.BATCHED_LAUNCHES)
+    ctx, pm, wall, corridor, nonempty = run_preset("multilevel", box, 64,
+                                                   "cuda")
+    launches = (cuda.LAUNCHES + cuda.BATCHED_LAUNCHES + ss_cuda.LAUNCHES
+                + ss_cuda.BATCHED_LAUNCHES) - sum(counts)
+    ml = ctx.report.ml
+    w = np.asarray(box.weights, np.float64)
+    pw = np.bincount(ctx.parts, weights=w, minlength=64) / (w.sum() / 64)
+    guard = guard_row(ctx)
+    emit("full_multilevel", mesh="box_mesh(80,64,48)", nelems=box.nelems,
+         nparts=64, kernels="none: the V-cycle is host NumPy",
+         kernel_launches=launches, seconds=wall, stages=stage_split(ctx),
+         ml=dict(levels=ml.levels, n_fine=ml.n_fine,
+                 n_coarsest=ml.n_coarsest, coarsen_ratio=ml.coarsen_ratio,
+                 coarse_solver=ml.coarse_solver,
+                 coarsen_s=ml.coarsen_seconds,
+                 coarsest_s=ml.coarsest_seconds,
+                 refine_s=ml.refine_seconds, coarse_cut=ml.coarse_cut,
+                 fm_moves=ml.fm_moves, balance_moves=ml.balance_moves,
+                 records=[dict(level=r.level, n=r.n, n_coarse=r.n_coarse,
+                               fm_moves=r.fm_moves,
+                               balance_moves=r.balance_moves, cut=r.cut)
+                          for r in ml.records]),
+         cut=pm.edge_cut, jax_cut=FULL_ML_JAX_CUT,
+         equal_to_jax_cut=pm.edge_cut == FULL_ML_JAX_CUT,
+         medium=dict(mesh="box_mesh(40,32,24)", cut=mpm.edge_cut,
+                     jax_cut=MEDIUM_ML_JAX_CUT, seconds=mwall,
+                     equal_to_jax_cut=mpm.edge_cut == MEDIUM_ML_JAX_CUT),
+         rsb_default_cut=rsb_cut, geometric_cut=geometric_cut,
+         disconnected=pm.disconnected_parts, w_imb=pm.weighted_imbalance,
+         balance_range=[float(pw.min()), float(pw.max())],
+         corridor=corridor, nonempty_parts=nonempty, guard=guard,
+         finalize_split=finalize_split(ctx, 64))
+    check(launches == 0, f"full_multilevel: {launches} kernel launches")
+    check_clean("full_multilevel", guard)
+    check(nonempty == 64, "full_multilevel: an empty part")
+    check(pm.disconnected_parts == 0, "full_multilevel: disconnected parts")
+    check(corridor, "full_multilevel: balance corridor broken")
+    check(pm.edge_cut <= 1.05 * FULL_ML_JAX_CUT,
+          f"full_multilevel: cut {pm.edge_cut} above 1.05 x repro's "
+          f"{FULL_ML_JAX_CUT}")
 
 
 def quick_plan(box=None):
@@ -1614,6 +1986,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     from repro_torch.core.rcb import rcb_order
     from repro_torch.kernels.ell_spmv import cuda
     from repro_torch.kernels.embedding_bag import cuda as eb_cuda
@@ -1651,13 +2024,16 @@ def main(argv=None) -> int:
     k2_profiles()
     del k1_profiles, k2_profiles
     phase_quality()
+    phase_guard()
+    phase_chaos()
     k1_launches = k2_launches = None
     ss_launches = {"K3": None, "K4": None}
     if not args.quick:
-        k1_launches, geometric_cut, full_ctx = phase_full(box)
+        k1_launches, geometric_cut, full_ctx, rsb_cut = phase_full(box)
         k2_launches = phase_full_inverse(box, geometric_cut)
         ss_launches, fp, sweep_parts = phase_full_sharded(full_ctx)
         del full_ctx
+        phase_full_multilevel(box, rsb_cut, geometric_cut)
     else:
         fp, sweep_parts = quick_plan(box)
     ss_rows = phase_kernels_segsum(fp, sweep_parts)
@@ -1683,6 +2059,7 @@ def main(argv=None) -> int:
     bag_row = dict(bag_rows[("retrieval", "float32")],
                    kernel_ms=bag_rows[("retrieval", "float32")]["dev_ms"])
 
+    emit("done", seconds=time.perf_counter() - t_script, quick=args.quick)
     src = "src/repro_torch/kernels/ell_spmv/csrc/ell_spmv.cu"
     ss_src = "src/repro_torch/kernels/segment_sum/csrc/segment_sum.cu"
     print(json.dumps({"kernels": [

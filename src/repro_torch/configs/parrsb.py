@@ -2,9 +2,9 @@
 
 `ParRSBConfig` is `repro.configs.parrsb`'s, field for field, plus the
 named partition-pipeline presets (pre → bisect → post; see
-``repro_torch.core.pipeline``).  Only the presets whose stages the port
-has are here — ``default``, ``raw``, ``quality``, ``geometric``, ``kway``
-and ``quality-kway``; the others raise "not yet ported".
+``repro_torch.core.pipeline``).  Every preset of `repro` but
+``reference`` (the recursive engine) is here; ``reference`` raises "not
+yet ported".
 """
 
 from __future__ import annotations
@@ -37,8 +37,8 @@ class ParRSBConfig:
     coarse_factor: int = 8
     ml_refine_passes: int = 2
     ml_stall: int = 32
-    # Fault-tolerance guard (repro.guard) — not yet ported: the port runs
-    # unguarded, which a healthy guarded run of repro matches bit for bit.
+    # Fault-tolerance guard (repro_torch.guard): None defers to
+    # REPRO_GUARD (default on), as in repro.
     guard: bool | None = None
 
 
@@ -78,11 +78,24 @@ PIPELINE_PRESETS: dict = {
     "quality-kway": dict(pre="rib", bisect="rsb-batched",
                          post=("repair", "kway"),
                          post_kw=dict(passes=12, balance_tol=0.03)),
+    # Multilevel k-way V-cycle (core/multilevel.py): coarsen →
+    # partition-coarsest → prolong+refine, no eigensolves on the fine
+    # graph.  Knobs come from the config (coarse_factor/ml_stall/
+    # ml_refine_passes) via make_pipeline.
+    "multilevel": dict(pre="none", bisect="multilevel",
+                       post=("repair", "kway")),
+    # Quality-leaning V-cycle: coarser target (shallower ladder), more
+    # refinement per level, deeper final climb.
+    "multilevel-quality": dict(pre="none", bisect="multilevel",
+                               post=("repair", "kway"),
+                               bisect_kw=dict(coarse_factor=16,
+                                              refine_passes=4, stall=128),
+                               post_kw=dict(passes=12, balance_tol=0.03)),
 }
 
-# `repro`'s other presets, whose stages (recursive engine, multilevel
-# V-cycle) wait for later slices.
-UNPORTED_PRESETS = ("reference", "multilevel", "multilevel-quality")
+# `repro`'s other preset, whose stage (the recursive engine) waits for a
+# later slice.
+UNPORTED_PRESETS = ("reference",)
 
 
 def make_pipeline(preset: str | None = None, *,
@@ -92,7 +105,8 @@ def make_pipeline(preset: str | None = None, *,
     (``refine_sweeps``/``balance_tol``) and the default preset name
     (``pipeline``); preset-specific ``post_kw`` overrides them and keyword
     overrides win over both (`post_kw`/`bisect_kw` merge, other fields —
-    e.g. ``device`` — replace)."""
+    e.g. ``device`` — replace).  The multilevel presets seed ``bisect_kw``
+    from the config's V-cycle knobs the same way."""
     from repro_torch.core.pipeline import PartitionPipeline
 
     cfg = make_config() if config is None else config
@@ -103,12 +117,21 @@ def make_pipeline(preset: str | None = None, *,
         raise ValueError(
             f"unknown pipeline preset: {preset!r} "
             f"(have {tuple(PIPELINE_PRESETS)})")
-    spec = dict(PIPELINE_PRESETS[preset])
+    spec = {k: (dict(v) if isinstance(v, dict) else v)
+            for k, v in PIPELINE_PRESETS[preset].items()}
     post_kw = dict(sweeps=cfg.refine_sweeps, passes=cfg.kway_passes,
                    balance_tol=cfg.balance_tol)
     post_kw.update(spec.pop("post_kw", {}))
     post_kw.update(overrides.pop("post_kw", {}))
-    bisect_kw = dict(overrides.pop("bisect_kw", {}))
+    bisect_kw = {}
+    if spec.get("bisect") == "multilevel":
+        # V-cycle presets get their base knobs from the config, same
+        # layering as post_kw: preset bisect_kw overrides, caller wins.
+        bisect_kw = dict(coarse_factor=cfg.coarse_factor,
+                         refine_passes=cfg.ml_refine_passes,
+                         stall=cfg.ml_stall, balance_tol=cfg.balance_tol)
+    bisect_kw.update(spec.pop("bisect_kw", {}))
+    bisect_kw.update(overrides.pop("bisect_kw", {}))
     spec.setdefault("guard", cfg.guard)
     spec.update(overrides)
     return PartitionPipeline(post_kw=post_kw, bisect_kw=bisect_kw, **spec)

@@ -22,8 +22,9 @@ shape bucket share one per-problem-masked flexcg, preconditioned by Jacobi
 from the operator's own diagonal (the default) or by a packed
 `BatchedAMG` V-cycle.  Its matvecs are K2 on the card.
 
-Not ported: `repro`'s chaos hooks (the fault injection of `repro.guard`),
-which belong with the guard (ROADMAP B5).
+`repro`'s ``cg_divergence`` chaos hook (`repro_torch.guard.chaos`) sits
+where `repro` has it in both outer loops: when it fires, the outer step's
+Rayleigh quotient becomes NaN and the breakdown path runs.
 
 The Gram solve differs from JAX's in one way that matters: where
 `jnp.linalg.solve` answers a singular matrix with non-finite values (which
@@ -43,6 +44,7 @@ import torch
 from repro_torch.core.flexcg import CGResult, _project_out_ones, flexcg
 from repro_torch.core.lanczos import _full_fp32_matmul
 from repro_torch.device import resolve_device
+from repro_torch.guard import chaos
 
 
 @dataclasses.dataclass
@@ -147,6 +149,8 @@ def inverse_iteration(
             b = _project_out_ones(y / ynorm, mask)
             b = b / torch.clamp(torch.linalg.vector_norm(b), min=1e-30)
             lam, res = _rayleigh(op, b, mask)
+            if chaos.should_fire("cg_divergence", outer):
+                lam = torch.tensor(float("nan"))
             if not (np.isfinite(float(lam)) and np.isfinite(float(res))):
                 # Numerical breakdown: keep the last good iterate and stop,
                 # flagging the stale Rayleigh pair for the caller.
@@ -277,6 +281,8 @@ def inverse_iteration_batched(
             inner_counts.append(iters_h)
             lam_h = lam_h.astype(np.float64)
             res_h = res_h.astype(np.float64)
+            if chaos.should_fire("cg_divergence", outer):
+                lam_h = np.full_like(lam_h, np.nan)
             finite = np.isfinite(lam_h) & np.isfinite(res_h)
             upd = ~done & finite  # a non-finite update keeps the last good state
             outer_iters[upd] = outer

@@ -1,14 +1,22 @@
-"""Composable partition pipeline: pre → bisect → post (unguarded).
+"""Composable partition pipeline: pre → bisect → post, inside the guard.
 
-The port of `repro.core.pipeline` without the guard envelope:
+The port of `repro.core.pipeline`:
 
 * :class:`PartitionPipeline` — three stage slots.  ``pre`` ∈ {"rcb",
   "rib", "sfc", "none"}: "rcb"/"rib" select the per-level reorder the RSB
   engine applies at every tree node, "sfc" one global space-filling-curve
-  permutation up front.  ``bisect`` ∈ {"rsb-batched", "rcb", "rib", "sfc",
-  "random"}.  ``post`` — an ordered tuple of {"repair", "refine", "kway",
-  "refine-sharded", "kway-sharded"}, by default ("repair", "refine"), run
-  under ONE balance corridor (:func:`run_post_stages`).
+  permutation up front.  ``bisect`` ∈ {"rsb-batched", "multilevel", "rcb",
+  "rib", "sfc", "random"} ("multilevel" is the host V-cycle of
+  `core/multilevel.py`).  ``post`` — an ordered tuple of {"repair",
+  "refine", "kway", "refine-sharded", "kway-sharded"}, by default
+  ("repair", "refine"), run under ONE balance corridor
+  (:func:`run_post_stages`).
+* The guard (`repro_torch.guard`), on by default as in `repro`
+  (``guard=None`` defers to ``REPRO_GUARD``, default on): the
+  ``guard:validate`` front door, per-component dispatch of a disconnected
+  input, a ``SolverGuard`` around every spectral solve and the sharded
+  post stages, and the ``guard:finalize`` output invariant.  A healthy
+  guarded run returns the labels of ``guard=False`` bit for bit.
 * :class:`PartitionContext` — what flows through the stages, with one
   :class:`StageRecord` per stage (wall seconds, and for the spectral
   bisect stage the part of them spent in device solves).
@@ -20,17 +28,17 @@ The spectral bisect stage and the sharded post stages ("refine-sharded",
 "kway-sharded", whose sweeps run there) use it; the other stages are host
 NumPy, bit-identical to `repro` on the same inputs.
 
-Stage names `repro` knows but the port does not have yet (the recursive
-engine, multilevel) raise NotImplementedError;
-unknown names raise ValueError, as in `repro`.  ``guard=True`` raises: the
-guard stages are not ported, and an unguarded run is what a healthy
-guarded `repro` run returns bit for bit.
+The one stage name `repro` knows but the port does not have yet (the
+recursive engine) raises NotImplementedError; unknown names raise
+ValueError, as in `repro`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
+import os
 
 import numpy as np
 
@@ -44,6 +52,22 @@ from repro_torch.core.refine import (
 )
 from repro_torch.core.rsb import RSBReport, rsb_partition_graph
 from repro_torch.device import resolve_device
+from repro_torch.guard import chaos
+from repro_torch.guard.errors import GuardReport
+from repro_torch.guard.policy import (
+    GuardPolicy,
+    SolverGuard,
+    check_output,
+    enforce_output,
+)
+from repro_torch.guard.validate import (
+    component_labels,
+    pack_components,
+    proportional_budgets,
+    validate_graph,
+    validate_mesh,
+    validate_nparts,
+)
 from repro_torch.mesh.graphs import Graph, dual_graph_from_incidence
 
 
@@ -51,7 +75,7 @@ from repro_torch.mesh.graphs import Graph, dual_graph_from_incidence
 class StageRecord:
     """One executed stage: where the wall-clock went and what it did."""
 
-    kind: str          # "pre" | "bisect" | "post"
+    kind: str          # "setup" | "guard" | "pre" | "bisect" | "post"
     name: str
     seconds: float
     info: dict = dataclasses.field(default_factory=dict)
@@ -95,7 +119,7 @@ class PartitionContext:
 PRE_STAGES = ("rcb", "rib", "sfc", "none")
 
 # Stages `repro` registers that the port does not have yet.
-_UNPORTED_BISECT = ("rsb-recursive", "multilevel")
+_UNPORTED_BISECT = ("rsb-recursive",)
 
 _BISECT_STAGES: dict = {}
 _POST_STAGES: dict = {}
@@ -145,6 +169,16 @@ def _random_stage(ctx: PartitionContext, pre, *, seed: int = 0):
     return rng.permutation(np.arange(ctx.n) % ctx.nparts), None
 
 
+def _multilevel_stage(ctx: PartitionContext, pre, **kw):
+    """METIS-style multilevel k-way V-cycle (core/multilevel.py): coarsen →
+    partition-coarsest → prolong+refine, on the host.  The ``pre`` reorder
+    hint is irrelevant (matching is order-free)."""
+    from repro_torch.core.multilevel import multilevel_partition
+
+    return multilevel_partition(ctx.require_graph(), ctx.nparts,
+                                weights=ctx.weights, **kw)
+
+
 def _stage_kw(fn, post_kw: dict) -> dict:
     """Filter ``post_kw`` to the keywords ``fn``'s signature accepts."""
     params = inspect.signature(fn).parameters
@@ -190,6 +224,7 @@ def _register_builtin_stages() -> None:
     register_bisect_stage("sfc", _geometric_stage(
         lambda c, p, w, **kw: sfc_parts(c, p, w, **kw)))
     register_bisect_stage("random", _random_stage)
+    register_bisect_stage("multilevel", _multilevel_stage)
     register_post_stage("repair", repair_components)
     register_post_stage("refine", refine_stage)
     register_post_stage("kway", kway_stage)
@@ -232,10 +267,44 @@ def _permuted_input(ctx: PartitionContext, order: np.ndarray):
     )
 
 
-def _check_guard(guard) -> None:
-    if guard:
-        raise NotImplementedError(
-            "guard stages (repro.guard) are not yet ported; pass guard=False")
+def _subset_context(ctx: PartitionContext, idx: np.ndarray,
+                    nparts: int) -> PartitionContext:
+    """A sub-context over the nodes in ``idx`` (one connected component),
+    renumbered contiguously — what the per-component bisect runs on."""
+    if ctx.mesh is not None:
+        mesh = ctx.mesh.take(idx)
+        return PartitionContext(nparts=nparts, mesh=mesh,
+                                coords=mesh.coords, weights=mesh.weights)
+    return PartitionContext(
+        nparts=nparts, graph=ctx.require_graph().sub(idx),
+        coords=None if ctx.coords is None else ctx.coords[idx],
+        weights=None if ctx.weights is None else ctx.weights[idx],
+    )
+
+
+def _guard_enabled(flag: bool | None) -> bool:
+    """Resolve the pipeline guard switch: an explicit ``guard=`` wins;
+    otherwise ``REPRO_GUARD`` (default on; off/0/false/no disable)."""
+    if flag is not None:
+        return bool(flag)
+    env = os.environ.get("REPRO_GUARD", "on").strip().lower()
+    return env not in ("off", "0", "false", "no")
+
+
+def _merge_guard(dst: GuardReport, src) -> None:
+    """Fold one bisect stage's GuardReport into the pipeline-wide one
+    (the RSB engine creates its own per-stage report)."""
+    if src is None or src is dst:
+        return
+    dst.validated |= src.validated
+    dst.sanitized |= src.sanitized
+    dst.issues.extend(src.issues)
+    dst.components = max(dst.components, src.components)
+    dst.retries += src.retries
+    dst.fallbacks += src.fallbacks
+    dst.sanitize_fixes += src.sanitize_fixes
+    dst.deadline_expired |= src.deadline_expired
+    dst.degraded.extend(src.degraded)
 
 
 def run_post_stages(
@@ -292,7 +361,10 @@ def run_post_stages(
                 "fragments": stats.fragments_repaired,
                 "moves": stats.moves_applied,
                 "corridor": tuple(stats.corridor)
-                if stats.corridor else None}
+                if stats.corridor else None,
+                # the stage's own steps ("host-fallback" where the sharded
+                # sweeps degraded to the host refiner)
+                "stages": list(stats.stages)}
         if stats.sharded is not None:
             info["sharded"] = stats.sharded
         records.append(StageRecord(kind="post", name=name, seconds=dt,
@@ -311,6 +383,13 @@ class PartitionPipeline:
     post stage, filtered against each stage's signature.  ``device`` is
     where the spectral bisect stage solves and the sharded post stages
     sweep (``None``: the card).
+
+    ``guard`` switches the fault-tolerance envelope (module docstring;
+    ``None`` defers to ``REPRO_GUARD``, default on).  ``guard_kw``
+    parameterizes the :class:`~repro_torch.guard.policy.GuardPolicy`
+    (``sanitize``, ``max_retries``, ``switch_method``, ``deadline``,
+    ``balance_tol``) plus the chaos overlay (``chaos`` — a tuple of fault
+    sites — ``chaos_seed``, ``chaos_rate``), as in `repro`.
     """
 
     pre: str = "rcb"
@@ -319,10 +398,10 @@ class PartitionPipeline:
     bisect_kw: dict = dataclasses.field(default_factory=dict)
     post_kw: dict = dataclasses.field(default_factory=dict)
     guard: bool | None = None
+    guard_kw: dict = dataclasses.field(default_factory=dict)
     device: object = None
 
     def __post_init__(self):
-        _check_guard(self.guard)
         if self.pre not in PRE_STAGES:
             raise ValueError(
                 f"unknown pre stage: {self.pre!r} (have {PRE_STAGES})")
@@ -346,14 +425,182 @@ class PartitionPipeline:
         device = resolve_device(self.device)
         ctx = _make_context(obj, nparts, coords, weights)
         spectral = self.bisect.startswith("rsb")
+        guard_on = _guard_enabled(self.guard)
         ctx.config = {"pre": self.pre, "bisect": self.bisect,
                       "post": list(self.post), "nparts": nparts, "n": ctx.n,
-                      "guard": False, "device": str(device)}
-        self._run_stages(ctx, nparts, spectral, device)
+                      "guard": guard_on, "device": str(device)}
+        if guard_on:
+            self._run_guarded(ctx, nparts, spectral, device)
+        else:
+            self._run_stages(ctx, nparts, spectral, device)
         return ctx
 
+    # -- the guarded path: validate → (components?) → stages → finalize --
+
+    def _run_guarded(self, ctx: PartitionContext, nparts: int,
+                     spectral: bool, device) -> None:
+        policy = GuardPolicy.from_kw(self.guard_kw)
+        greport = GuardReport()
+        sites = tuple(self.guard_kw.get("chaos") or ())
+        overlay = (chaos.overlay(
+            sites, seed=int(self.guard_kw.get("chaos_seed", 0)),
+            rate=float(self.guard_kw.get("chaos_rate", 1.0)))
+            if sites else contextlib.nullcontext())
+        with overlay:
+            ncomp, comp = self._validate_input(ctx, nparts, policy, greport)
+            if ncomp > 1:
+                self._run_components(ctx, nparts, spectral, device, policy,
+                                     greport, comp, ncomp)
+            else:
+                self._run_stages(ctx, nparts, spectral, device,
+                                 policy=policy, greport=greport)
+            self._finalize(ctx, nparts, policy, greport, ncomp)
+
+    def _validate_input(self, ctx: PartitionContext, nparts: int,
+                        policy: GuardPolicy, greport: GuardReport):
+        """``guard:validate`` — the implicit first stage: typed
+        :class:`GuardError` in strict mode, recorded repairs in sanitize
+        mode, plus component detection (disconnected inputs are handled
+        downstream, never rejected here).  A mesh's dual graph is
+        assembled here, once per run (its own ``setup`` record)."""
+        with obs.timed("guard:validate") as t:
+            validate_nparts(nparts, ctx.n)
+            if ctx.mesh is not None:
+                mesh = ctx.mesh
+                if (ctx.coords is not mesh.coords
+                        or ctx.weights is not mesh.weights):
+                    mesh = dataclasses.replace(
+                        mesh, coords=np.asarray(ctx.coords, np.float64),
+                        weights=np.asarray(ctx.weights, np.float64))
+                mesh = validate_mesh(mesh, nparts=nparts,
+                                     sanitize=policy.sanitize,
+                                     report=greport)
+                ctx.mesh = mesh
+                ctx.coords, ctx.weights = mesh.coords, mesh.weights
+            else:
+                g, c, w = validate_graph(
+                    ctx.graph, coords=ctx.coords, weights=ctx.weights,
+                    nparts=nparts, sanitize=policy.sanitize, report=greport)
+                ctx.graph, ctx.coords, ctx.weights = g, c, w
+            n_before = len(ctx.stages)
+            comp, ncomp = component_labels(ctx.require_graph())
+            greport.components = max(greport.components, ncomp)
+        setup = sum(s.seconds for s in ctx.stages[n_before:])
+        ctx.config["components"] = ncomp
+        ctx.stages.append(StageRecord(
+            kind="guard", name="validate", seconds=t.seconds - setup,
+            info={"issues": len(greport.issues),
+                  "fixes": greport.sanitize_fixes,
+                  "components": ncomp},
+        ))
+        return ncomp, comp
+
+    def _run_components(self, ctx: PartitionContext, nparts: int,
+                        spectral: bool, device, policy: GuardPolicy,
+                        greport: GuardReport, comp: np.ndarray,
+                        ncomp: int) -> None:
+        """Partition a disconnected input component by component.
+
+        ``ncomp <= nparts``: largest-remainder part budgets per component,
+        each component run through pre+bisect with its own budget; the
+        post chain then runs ONCE over the full graph (no edge crosses
+        components, so refinement can never merge them back).
+        ``ncomp > nparts``: whole components are packed onto parts
+        (greedy heaviest-first).
+        """
+        w = np.ones(ctx.n) if ctx.weights is None else \
+            np.asarray(ctx.weights, np.float64)
+        comp_w = np.bincount(comp, weights=w, minlength=ncomp)
+        ctx.stages.append(StageRecord(
+            kind="pre", name=self.pre, seconds=0.0,
+            info={"mode": "per-component", "components": ncomp}))
+
+        parts = np.zeros(ctx.n, dtype=np.int64)
+        merged = RSBReport(records=[], seconds=0.0, engine="-", pre=self.pre)
+        with obs.timed(f"bisect:{self.bisect}") as t_bisect:
+            if ncomp > nparts:
+                parts = pack_components(comp_w, nparts)[comp]
+                merged.engine = "pack-components"
+                greport.degrade(f"input:packed-{ncomp}-components")
+            else:
+                budgets = proportional_budgets(comp_w, nparts)
+                offset = 0
+                for c in range(ncomp):
+                    idx = np.flatnonzero(comp == c)
+                    k = int(budgets[c])
+                    if k <= 1 or idx.size <= 1:
+                        parts[idx] = offset
+                    else:
+                        sub = _subset_context(ctx, idx, k)
+                        self._run_stages(sub, k, spectral, device,
+                                         policy=policy, greport=greport,
+                                         with_post=False)
+                        parts[idx] = offset + np.asarray(sub.parts,
+                                                         np.int64)
+                        for s in sub.stages:
+                            s.info["component"] = c
+                        ctx.stages.extend(sub.stages)
+                        merged.records.extend(sub.report.records)
+                        merged.engine = sub.report.engine
+                    offset += k
+        merged.seconds = t_bisect.seconds
+        ctx.parts = parts
+        ctx.parts_raw = parts.copy()
+        ctx.report = merged
+        ctx.stages.append(StageRecord(
+            kind="bisect", name=self.bisect, seconds=t_bisect.seconds,
+            info={"mode": ("pack" if ncomp > nparts else "per-component"),
+                  "components": ncomp,
+                  "iterations": merged.total_iterations}))
+
+        if self.post:
+            parts, agg, records = run_post_stages(
+                ctx.require_graph(), ctx.parts, nparts, self.post,
+                weights=ctx.weights, post_kw=self.post_kw, device=device)
+            ctx.parts = parts
+            ctx.stages.extend(records)
+            merged.post = agg
+
+    def _finalize(self, ctx: PartitionContext, nparts: int,
+                  policy: GuardPolicy, greport: GuardReport,
+                  ncomp: int) -> None:
+        """``guard:finalize`` — the output-invariant closer.  Checks every
+        run; *mutates* only when labels are structurally invalid or a
+        degraded solve path left problems behind, so a healthy guarded run
+        returns bit-identical labels to ``guard=False``."""
+        with obs.timed("guard:finalize") as t:
+            graph = ctx.require_graph()
+            expected = max(0, ncomp - nparts)
+            problems = check_output(
+                graph, ctx.parts, nparts, weights=ctx.weights,
+                balance_tol=policy.balance_tol,
+                expected_disconnected=expected)
+            structural = any(p.startswith("labels") for p in problems)
+            degraded = bool(greport.fallbacks or greport.deadline_expired)
+            enforced = False
+            if structural or (problems and degraded):
+                ctx.parts = enforce_output(
+                    graph, ctx.parts, nparts, weights=ctx.weights,
+                    balance_tol=policy.balance_tol, report=greport)
+                enforced = True
+                problems = check_output(
+                    graph, ctx.parts, nparts, weights=ctx.weights,
+                    balance_tol=policy.balance_tol,
+                    expected_disconnected=expected)
+        ctx.stages.append(StageRecord(
+            kind="guard", name="finalize", seconds=t.seconds,
+            info={"problems": list(problems), "enforced": enforced,
+                  "retries": greport.retries,
+                  "fallbacks": greport.fallbacks},
+        ))
+        if ctx.report is not None:
+            ctx.report.guard = greport
+
     def _run_stages(self, ctx: PartitionContext, nparts: int,
-                    spectral: bool, device) -> None:
+                    spectral: bool, device, *,
+                    policy: GuardPolicy | None = None,
+                    greport: GuardReport | None = None,
+                    with_post: bool = True) -> None:
         # --- pre: reorder hint (rcb/rib) or one-shot permutation (sfc)
         with obs.timed(f"pre:{self.pre}") as t_pre:
             hint, order = None, None
@@ -376,6 +623,9 @@ class PartitionPipeline:
         bkw = dict(self.bisect_kw)
         if spectral:
             bkw["device"] = device
+            if policy is not None:
+                bkw.setdefault("guard", policy)
+        n_before = len(ctx.stages)
         with obs.timed(f"bisect:{self.bisect}") as t_bisect:
             parts, report = _BISECT_STAGES[self.bisect](run_ctx, hint, **bkw)
         dt = t_bisect.seconds
@@ -392,10 +642,14 @@ class PartitionPipeline:
         if report is None:
             report = RSBReport(records=[], seconds=dt, engine="-",
                                pre=self.pre)
+        if greport is not None:
+            _merge_guard(greport, report.guard)
         ctx.parts = np.asarray(parts, dtype=np.int64)
         ctx.parts_raw = ctx.parts.copy()
         ctx.report = report
-        setup = sum(s.seconds for s in ctx.stages if s.kind == "setup")
+        # the dual graph, where the bisect stage assembled it
+        setup = sum(s.seconds for s in ctx.stages[n_before:]
+                    if s.kind == "setup")
         ctx.stages.append(StageRecord(
             kind="bisect", name=self.bisect, seconds=dt - setup,
             info={"iterations": report.total_iterations,
@@ -404,10 +658,17 @@ class PartitionPipeline:
 
         # --- post (one corridor per chain, fixed from the bisection's
         # part weights — see run_post_stages)
-        if self.post:
+        if self.post and with_post:
+            post_kw = dict(self.post_kw)
+            if policy is not None and "guard" not in post_kw:
+                # Stages that declare a ``guard`` keyword (the sharded
+                # refinement pair) get the stage-deadline envelope; the
+                # host stages never see it (_stage_kw filters).
+                post_kw["guard"] = SolverGuard(
+                    policy, seed=0, method="post", report=greport)
             parts, agg, records = run_post_stages(
                 ctx.require_graph(), ctx.parts, nparts, self.post,
-                weights=ctx.weights, post_kw=self.post_kw, device=device)
+                weights=ctx.weights, post_kw=post_kw, device=device)
             ctx.parts = parts
             ctx.stages.extend(records)
             report.post = agg
@@ -426,6 +687,8 @@ _RSB_MESH_KW = _RSB_KW | {"laplacian", "use_kernel"}
 _RSB_GRAPH_KW = _RSB_KW | {"use_kernel"}
 _GEOM_KW = {"rcb": set(), "rib": set(), "sfc": {"curve", "bits"},
             "random": {"seed"}}
+_ML_KW = {"coarse_factor", "coarse_solver", "refine_passes", "stall",
+          "coarse_passes", "seed", "max_levels", "min_coarsen_ratio"}
 
 _REFINE_SPECS = {
     "none": (), "repair": ("repair",), "refine": ("refine",),
@@ -476,29 +739,30 @@ def partition(
     refine_sweeps: int = 4,
     balance_tol: float = 0.05,
     guard: bool | None = None,
+    guard_kw: dict | None = None,
     device=None,
     **kw,
 ) -> np.ndarray:
-    """Uniform front door: partitioner ∈ {rsb, rsb_inverse, rcb, rib, sfc,
-    random}, built as a :class:`PartitionPipeline` run; returns the labels.
+    """Uniform front door: partitioner ∈ {rsb, rsb_inverse, multilevel,
+    rcb, rib, sfc, random}, built as a :class:`PartitionPipeline` run;
+    returns the labels.
 
     ``refine`` selects the post stages ("repair+refine" by default for RSB,
-    "none" for the geometric/random baselines; "repair+kway" the k-way FM,
-    "repair+refine-sharded" / "kway-sharded" the sharded sweeps).
-    ``device`` (default: the card) is where the spectral solves and the
-    sharded sweeps run.  Remaining keywords are routed
-    to the selected stage and unknown keys raise.  ``partitioner=
-    "rsb_inverse"`` is RSB with ``method="inverse"`` (``precond=`` "jacobi",
-    the default, or "amg").  ``partitioner="multilevel"``,
-    ``engine="recursive"`` and ``guard=True`` are not yet ported and raise.
+    "repair+kway" for multilevel, "none" for the geometric/random
+    baselines; "repair+kway" the k-way FM, "repair+refine-sharded" /
+    "kway-sharded" the sharded sweeps).  ``device`` (default: the card) is
+    where the spectral solves and the sharded sweeps run.  Remaining
+    keywords are routed to the selected stage and unknown keys raise.
+    ``partitioner="rsb_inverse"`` is RSB with ``method="inverse"``
+    (``precond=`` "jacobi", the default, or "amg").  ``guard``/``guard_kw``
+    switch and parameterize the guard (:class:`PartitionPipeline`; the
+    default defers to ``REPRO_GUARD``, on unless set off).
+    ``engine="recursive"`` is not yet ported and raises.
     """
-    _check_guard(guard)
     is_mesh = hasattr(obj, "vert_gid")
     post_kw = dict(sweeps=refine_sweeps, balance_tol=balance_tol)
+    gkw = dict(guard=guard, guard_kw=dict(guard_kw or {}), device=device)
 
-    if partitioner == "multilevel":
-        raise NotImplementedError(
-            f"partitioner {partitioner!r} is not yet ported")
     if partitioner in ("rsb", "rsb_lanczos", "rsb_inverse"):
         if engine not in _ENGINE_TO_BISECT:
             raise ValueError(f"unknown engine: {engine}")
@@ -508,15 +772,23 @@ def partition(
         pre = kw.pop("pre", "rcb")
         pipe = PartitionPipeline(
             pre=pre or "none", bisect=_ENGINE_TO_BISECT[engine],
-            post=parse_refine(refine), bisect_kw=kw, post_kw=post_kw,
-            device=device,
+            post=parse_refine(refine), bisect_kw=kw, post_kw=post_kw, **gkw,
+        )
+    elif partitioner == "multilevel":
+        # The V-cycle's default post chain is repair+kway, as in `repro`.
+        _check_kw(kw, _ML_KW, partitioner)
+        pipe = PartitionPipeline(
+            pre="none", bisect="multilevel",
+            post=parse_refine("repair+kway" if refine is None else refine),
+            bisect_kw=dict(balance_tol=balance_tol, **kw), post_kw=post_kw,
+            **gkw,
         )
     elif partitioner in _GEOM_KW:
         _check_kw(kw, _GEOM_KW[partitioner], partitioner)
         pipe = PartitionPipeline(
             pre="none", bisect=partitioner,
             post=parse_refine("none" if refine is None else refine),
-            bisect_kw=kw, post_kw=post_kw, device=device,
+            bisect_kw=kw, post_kw=post_kw, **gkw,
         )
     else:
         raise ValueError(f"unknown partitioner: {partitioner}")

@@ -19,8 +19,16 @@ level L of the bisection tree are independent, so each level
 Per-node start vectors are seeded from (seed, level, p_lo) as in `repro`.
 ``use_kernel`` defaults to **True** (the JAX engine leaves its Pallas
 kernels off): on the card every matvec runs a CUDA ELL SpMV (K1 packed,
-K2 batched).  The recursive engine and the guard hooks are not yet
-ported.
+K2 batched).
+
+``guard`` (a :class:`~repro_torch.guard.policy.GuardPolicy`, passed by a
+guarded pipeline) re-admits every node's result through a
+:class:`~repro_torch.guard.policy.SolverGuard`, as `repro` does: a failed
+solve re-solves alone through `fiedler_from_graph` on the same device
+(retry, then the other method), and falls back to a geometric or index
+vector last.  A re-solve that raises on the card raises out of the engine
+(`~repro_torch.guard.policy.absorbable`).  The recursive engine is not
+yet ported.
 """
 
 from __future__ import annotations
@@ -33,11 +41,13 @@ from repro_torch import obs
 from repro_torch.core.fiedler import (
     _DENSE_CUTOFF,
     check_fiedler_method,
+    fiedler_from_graph,
     fiedler_from_graph_batched,
     next_pow2,
 )
 from repro_torch.core.rcb import rcb_order, rib_order
 from repro_torch.device import resolve_device
+from repro_torch.guard.policy import SolverGuard
 from repro_torch.mesh.graphs import Graph, dual_graph_from_incidence, extract_subgraphs
 
 _ENGINES = ("batched", "recursive")
@@ -55,7 +65,7 @@ class BisectionRecord:
     seconds: float
     levels: int = 0    # multilevel warm-start hierarchy depth; 0 = none
     split_seconds: float = 0.0   # this node's sort/split + child extraction
-    breakdown: bool = False      # solver breakdown here
+    breakdown: bool = False      # solver breakdown (or guard fallback) here
 
 
 @dataclasses.dataclass
@@ -85,6 +95,8 @@ class RSBReport:
     precond: str = "none"      # inverse-iteration preconditioner ("jacobi"/"amg")
     multilevel: bool = False   # coarse-to-fine warm starts active
     post: object = None        # refine.PostStats once pipeline post stages ran
+    ml: object = None          # multilevel.MultilevelStats (V-cycle bisect)
+    guard: object = None       # guard.GuardReport: what degraded and why
 
     @property
     def total_iterations(self) -> int:
@@ -102,10 +114,25 @@ class RSBReport:
 
 def _node_seed(seed: int, level: int, p_lo: int, attempt: int = 0) -> int:
     """Deterministic per-node seed from (seed, level, p_lo): siblings never
-    share a start vector.  The same hash as `repro.core.rsb._node_seed`."""
+    share a start vector; ``attempt`` decorrelates guard retries (0 leaves
+    the node's seed as it is).  The same hash as
+    `repro.core.rsb._node_seed`."""
     h = (seed * 0x9E3779B1 + level * 0x85EBCA77 + p_lo * 0xC2B2AE3D
          + attempt * 0x27D4EB2F) & 0x7FFFFFFF
     return int(h)
+
+
+def _guarded(sg: SolverGuard | None, res, solve_fn, *, level: int,
+             p_lo: int, size: int, coords_sub=None):
+    """Admit one solve through the guard (no-op when unguarded).
+    ``res`` may be None when the primary solve was skipped."""
+    if sg is None:
+        return res
+    res2, why = sg.admit(res, level=level, p_lo=p_lo, size=size)
+    if why is None:
+        return res2
+    return sg.rescue(solve_fn, why, level=level, p_lo=p_lo, size=size,
+                     coords=coords_sub)
 
 
 def _warm_vector(c: np.ndarray) -> np.ndarray:
@@ -174,6 +201,7 @@ def rsb_partition_mesh(
     precond: str = "jacobi",
     use_kernel: bool = True,
     device=None,
+    guard=None,
 ) -> tuple[np.ndarray, RSBReport]:
     """Partition a HexMesh into ``nparts`` via RSB on its dual graph.
 
@@ -189,6 +217,7 @@ def rsb_partition_mesh(
         max_restarts=max_restarts, seed=seed, warm_start=warm_start,
         use_kernel=use_kernel, engine=engine, multilevel=multilevel,
         fine_restarts=fine_restarts, precond=precond, device=device,
+        guard=guard,
     )
 
 
@@ -211,6 +240,7 @@ def rsb_partition_graph(
     fine_restarts: int | None = 3,
     precond: str = "jacobi",
     device=None,
+    guard=None,
 ) -> tuple[np.ndarray, RSBReport]:
     """Partition a generic graph (assembled ELL Laplacian) via RSB.
 
@@ -218,7 +248,8 @@ def rsb_partition_graph(
     without ``coords``); ``multilevel``/``fine_restarts``/``window`` set the
     coarse-to-fine solver schedule; ``warm_start=True`` seeds each node
     from its coordinates instead.  ``device`` (default: the card) is where
-    the packed solves run.
+    the packed solves run.  ``guard``: a ``GuardPolicy`` (module docstring)
+    or None.
     """
     _check_method(method, engine)
     dev = resolve_device(device)
@@ -231,18 +262,20 @@ def rsb_partition_graph(
         graph, nparts, coords=coords, weights=weights, method=method,
         pre=pre, tol=tol, window=window, max_restarts=max_restarts,
         seed=seed, warm_start=warm_start, use_kernel=use_kernel,
-        multilevel=multilevel, precond=precond, device=dev)
+        multilevel=multilevel, precond=precond, device=dev, guard=guard)
 
 
 def _rsb_graph_batched(
     graph, nparts, *, coords, weights, method, pre, tol, window, max_restarts,
-    seed, warm_start, use_kernel, multilevel, precond, device,
+    seed, warm_start, use_kernel, multilevel, precond, device, guard=None,
 ) -> tuple[np.ndarray, RSBReport]:
     n = graph.n
     w = np.ones(n) if weights is None else np.asarray(weights, np.float64)
     records: list[BisectionRecord] = []
     levels: list[LevelRecord] = []
     parts = np.zeros(n, dtype=np.int64)
+    sg = (SolverGuard(guard, seed=seed, method=method, device=device)
+          if guard is not None and guard.enabled else None)
     with obs.timed("engine", engine="batched") as t_total:
         # Run-wide packing pins: subgraph degrees never exceed the root's,
         # so the root ELL width bounds every level, and a level's padded
@@ -271,21 +304,45 @@ def _rsb_graph_batched(
                 break
 
             with obs.timed("solve", level=level) as t_solve:
-                results = fiedler_from_graph_batched(
-                    [g for g, _, _, _ in solve_nodes],
-                    method=method,
-                    seeds=[_node_seed(seed, level, p_lo)
-                           for _, _, p_lo, _ in solve_nodes],
-                    warms=[
-                        _warm_vector(coords[idx])
-                        if warm_start and coords is not None else None
-                        for _, idx, _, _ in solve_nodes
-                    ],
-                    tol=tol, window=window, max_restarts=max_restarts,
-                    pack_slots=pack_slots, pack_segs=pack_segs,
-                    width_pad=width_pad, use_kernel=use_kernel,
-                    multilevel=multilevel, precond=precond, device=device,
-                )
+                if sg is not None and sg.expired():
+                    # Past the stage deadline: skip the level solve and
+                    # let every node take the fallback rung below.
+                    results = [None] * len(solve_nodes)
+                else:
+                    results = fiedler_from_graph_batched(
+                        [g for g, _, _, _ in solve_nodes],
+                        method=method,
+                        seeds=[_node_seed(seed, level, p_lo)
+                               for _, _, p_lo, _ in solve_nodes],
+                        warms=[
+                            _warm_vector(coords[idx])
+                            if warm_start and coords is not None else None
+                            for _, idx, _, _ in solve_nodes
+                        ],
+                        tol=tol, window=window, max_restarts=max_restarts,
+                        pack_slots=pack_slots, pack_segs=pack_segs,
+                        width_pad=width_pad, use_kernel=use_kernel,
+                        multilevel=multilevel, precond=precond,
+                        device=device,
+                    )
+            if sg is not None:
+                # Re-admit every node's result; failed ones re-solve
+                # individually through the escalation ladder.
+                rescued = []
+                for (g, idx, p_lo, p_hi), res in zip(solve_nodes, results):
+                    def solve_fn(m, s, _g=g):
+                        return fiedler_from_graph(
+                            _g, method=m, order=None, seed=s, tol=tol,
+                            window=window, max_restarts=max_restarts,
+                            use_kernel=use_kernel, multilevel=multilevel,
+                            device=device,
+                        )
+                    rescued.append(_guarded(
+                        sg, res, solve_fn, level=level, p_lo=p_lo,
+                        size=int(idx.size),
+                        coords_sub=coords[idx] if coords is not None
+                        else None))
+                results = rescued
             with obs.timed("split", level=level) as t_split:
                 next_active = []
                 for (g, idx, p_lo, p_hi), res in zip(solve_nodes, results):
@@ -328,5 +385,5 @@ def _rsb_graph_batched(
         records=records, seconds=t_total.seconds,
         levels=levels, engine="batched", pre=pre or "none",
         precond=precond if method == "inverse" else "none",
-        multilevel=multilevel,
+        multilevel=multilevel, guard=sg.report if sg is not None else None,
     )

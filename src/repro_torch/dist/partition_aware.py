@@ -27,10 +27,11 @@ Layout
   once, in its destination's shard.
 
 All planning is host-side NumPy, copied from `repro.dist.partition_aware`
-and bit-identical to it.  Not ported yet: the ``halo_truncate`` chaos hook
-and its rebuild (with the guard), the plan's obs counters, and the
-distributed halo exchange and adjacency matvec (with the collectives).
-A plan that fails its self-check raises.
+and bit-identical to it, with `repro`'s ``halo_truncate`` chaos hook: a
+plan that fails its self-check is rebuilt once with the chaos sites muted,
+and raises if the rebuild fails too.  Not ported yet: the plan's obs
+counters, and the distributed halo exchange and adjacency matvec (with the
+collectives).
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from repro_torch.guard import chaos
 
 
 @dataclasses.dataclass(frozen=True, eq=False)  # identity eq/hash: ndarray
@@ -116,12 +119,20 @@ def plan_halo_sharding(graph, parts, nparts: int | None = None,
         raise ValueError(f"pad_to must be >= 1, got {pad_to}")
 
     plan = _assemble_plan(graph, parts, nparts, pad_to)
+    if chaos.should_fire("halo_truncate", n, nparts):
+        plan = _truncate_exports(plan)
+
     # Always-on cheap self-check (O(nnz), no graph re-walk): a plan whose
     # remote edge sources are not all exported would silently read zeros in
-    # every sweep.
+    # every sweep.  A corrupt plan is rebuilt once with fault injection
+    # muted — the repair path must not be re-corrupted.
     problems = verify_halo_plan(plan)
     if problems:
-        raise ValueError(f"halo plan invalid: {problems}")
+        with chaos.suppressed():
+            plan = _assemble_plan(graph, parts, nparts, pad_to)
+        rest = verify_halo_plan(plan)
+        if rest:
+            raise ValueError(f"halo plan invalid after rebuild: {rest}")
     return plan
 
 
@@ -196,6 +207,17 @@ def _assemble_plan(graph, parts: np.ndarray, nparts: int,
         edge_src=edge_src, edge_dst=edge_dst,
         edge_weight=edge_weight, edge_mask=edge_mask,
     )
+
+
+def _truncate_exports(plan: HaloPlan) -> HaloPlan:
+    """``halo_truncate`` chaos: drop the last real export row of every
+    shard — the classic truncated-exchange bug a rank mismatch produces."""
+    mask = plan.export_mask.copy()
+    for s in range(plan.n_shards):
+        real = np.flatnonzero(mask[s] > 0)
+        if real.size:
+            mask[s, real[-1]] = 0.0
+    return dataclasses.replace(plan, export_mask=mask)
 
 
 def verify_halo_plan(plan: HaloPlan) -> list:

@@ -54,10 +54,13 @@ Where the port differs from `repro`'s device sweep, and why:
   between its device path and its host mirror (box and pebble meshes:
   node weights 1 or 2, edge weights 1, 2 or 4).  Non-integer weights may
   differ from `repro` in the last bit.
-* **No fallback.**  `repro` degrades to the host FM refiner on any
-  exception; here a kernel, launch or validity failure raises.  ``guard``
-  takes None only (the guard is not ported), and ``backend="host"`` runs
-  the NumPy mirror only when asked.
+* **No fallback on the card.**  Like `repro`, the stages degrade to the
+  host FM refiner (``"host-fallback"`` in the stage list) when the
+  ``guard``'s deadline has expired, and, on the CPU, when the sweep path
+  fails or returns invalid labels.  Unlike `repro`, any failure of the
+  sweep path on the card raises, as does a kernel's or the card's fault
+  anywhere (`~repro_torch.guard.policy.absorbable`).
+  ``backend="host"`` runs the NumPy mirror only when asked.
 * No obs counters: ``info["gathers"]``, the sweep records and K4's
   ``BATCHED_LAUNCHES`` show the one-table-per-sweep contract instead.
 
@@ -81,6 +84,7 @@ from repro_torch.core.refine import (
     balance_corridor,
     close_with_repair,
     edge_cut,
+    refine_boundary,
 )
 from repro_torch.device import resolve_device
 from repro_torch.dist.partition_aware import (
@@ -88,6 +92,7 @@ from repro_torch.dist.partition_aware import (
     plan_halo_sharding,
     scatter_features,
 )
+from repro_torch.guard.policy import absorbable
 from repro_torch.kernels.segment_sum.ops import connection_table_batched
 
 EPS = 1e-6   # strict-positive-gain threshold (f32-safe)
@@ -599,26 +604,42 @@ def refine_sharded_host(fp: FrontierPlan, parts: np.ndarray, nparts: int, *,
 
 def _sharded_pass(graph, parts, nparts, *, weights, sweeps, corridor,
                   backend, guard, device, stats: PostStats) -> np.ndarray:
-    """Shared core of the two stages: frontier plan → sharded sweeps →
-    validity checks, which raise (no host fallback).  ``stats.sharded``
-    gets the run's ``info`` plus ``plan_seconds``."""
-    if guard is not None:
-        raise NotImplementedError(
-            "the guard (repro.guard) is not yet ported; pass guard=None")
+    """Shared core of the two stages: guard envelope → frontier plan →
+    sharded sweeps → validity checks, falling back to the host FM refiner
+    where `repro` does, except on the card (module docstring).
+    ``stats.sharded`` gets the run's ``info`` plus ``plan_seconds``."""
     parts = np.asarray(parts, dtype=np.int64)
-    t0 = time.perf_counter()
-    fp = build_frontier_plan(graph, parts, nparts, weights=weights)
-    plan_s = time.perf_counter() - t0
-    out, records, info = run_sharded_sweeps(
-        fp, parts, nparts, sweeps=sweeps, corridor=corridor,
-        backend=backend, device=device)
-    out = np.asarray(out, dtype=np.int64)
-    if out.shape != parts.shape or out.min() < 0 or out.max() >= nparts:
-        raise ValueError("sharded refinement produced invalid labels")
-    cut_now = edge_cut(graph, out)
-    if cut_now > stats.cut_before + 1e-6:
-        raise ValueError(f"sharded refinement increased the cut "
-                         f"({stats.cut_before} -> {cut_now})")
+    if guard is not None and getattr(guard, "expired", lambda: False)():
+        stats.stages.append("host-fallback")
+        return refine_boundary(graph, parts, nparts, weights=weights,
+                               sweeps=sweeps, corridor=corridor)[0]
+    # Resolved outside the envelope: a missing card is no sweep failure.
+    dev = None if backend == "host" else resolve_device(device)
+    try:
+        t0 = time.perf_counter()
+        fp = build_frontier_plan(graph, parts, nparts, weights=weights)
+        plan_s = time.perf_counter() - t0
+        out, records, info = run_sharded_sweeps(
+            fp, parts, nparts, sweeps=sweeps, corridor=corridor,
+            backend=backend, device=dev)
+        out = np.asarray(out, dtype=np.int64)
+        if out.shape != parts.shape or out.min() < 0 or out.max() >= nparts:
+            raise ValueError("sharded refinement produced invalid labels")
+        cut_now = edge_cut(graph, out)
+        if cut_now > stats.cut_before + 1e-6:
+            raise ValueError(f"sharded refinement increased the cut "
+                             f"({stats.cut_before} -> {cut_now})")
+    except Exception as exc:
+        if not absorbable(exc, dev):
+            raise
+        # The exchange/sweep path failed off the card: degrade to the host
+        # FM refiner rather than ship a corrupt partition.
+        stats.stages.append("host-fallback")
+        out, fstats = refine_boundary(graph, parts, nparts, weights=weights,
+                                      sweeps=sweeps, corridor=corridor)
+        stats.sweeps.extend(fstats.sweeps)
+        stats.moves_applied += fstats.moves_applied
+        return out
     stats.sweeps.extend(records)
     stats.moves_applied += info["moves"]
     stats.sharded = dict(info, plan_seconds=plan_s, halo=fp.plan.halo,

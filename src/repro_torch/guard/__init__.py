@@ -1,18 +1,47 @@
-"""repro_torch.guard: typed diagnostics and the CLI front-door checks.
+"""repro_torch.guard: fault-tolerant partitioning, the port of `repro.guard`.
 
-Ported so far: all of `repro.guard.errors` (`GuardError`, `GuardIssue`,
-`GuardReport`, `KNOWN_CODES`) and `check_positive_int` from
-`repro.guard.validate`.  Graph and mesh validation, the solver escalation
-policy and the fault-injection harness wait for ROADMAP B5.
+Validation front door (:mod:`repro_torch.guard.validate`), solver
+escalation policy (:mod:`repro_torch.guard.policy`), typed diagnostics
+(:mod:`repro_torch.guard.errors`) and the deterministic fault-injection
+harness (:mod:`repro_torch.guard.chaos`).  All host NumPy, bit-identical
+to `repro`'s; a guarded pipeline run takes the same decisions as
+`repro`'s on the same inputs.
 """
 
+from repro_torch.guard import chaos
 from repro_torch.guard.errors import (
     KNOWN_CODES,
     GuardError,
     GuardIssue,
     GuardReport,
 )
-from repro_torch.guard.validate import check_positive_int
+from repro_torch.guard.policy import (
+    GuardPolicy,
+    SolverGuard,
+    absorbable,
+    check_output,
+    count_disconnected,
+    device_fault,
+    enforce_output,
+    failure_reason,
+    fallback_vector,
+)
+from repro_torch.guard.validate import (
+    check_positive_int,
+    component_labels,
+    pack_components,
+    proportional_budgets,
+    validate_graph,
+    validate_mesh,
+    validate_nparts,
+)
 
-__all__ = ["KNOWN_CODES", "GuardError", "GuardIssue", "GuardReport",
-           "check_positive_int"]
+__all__ = [
+    "KNOWN_CODES", "GuardError", "GuardIssue", "GuardReport", "chaos",
+    "check_positive_int", "component_labels", "pack_components",
+    "proportional_budgets", "validate_graph", "validate_mesh",
+    "validate_nparts", "GuardPolicy", "SolverGuard", "absorbable",
+    "check_output",
+    "count_disconnected", "device_fault", "enforce_output",
+    "failure_reason", "fallback_vector",
+]

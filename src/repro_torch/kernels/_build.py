@@ -10,7 +10,12 @@ rebuilt and a stale build is never loaded.  Nothing here runs at import:
 the module imports on a machine with no `nvcc` and no card.
 
 :func:`launch_context` is every wrapper's one way to pick the device and
-the stream a launch goes on.
+the stream a launch goes on.  Every fault of the toolchain or of a launch
+raises one type, :class:`KernelError`: a missing ``nvcc``, a failed build,
+a library that does not load and a launch that returns an error
+(:func:`check_launch`).  The guard's catches (`guard/policy.py`,
+`dist/refine_sharded.py`) let it through, so no fallback hides a broken
+kernel.
 """
 
 from __future__ import annotations
@@ -30,6 +35,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel could not be built, loaded or launched."""
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise :class:`KernelError` when a launch returned a CUDA error."""
+    if rc != 0:
+        raise KernelError(f"{name}: launch failed with CUDA error {rc}")
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
         or "/usr/local/cuda"
@@ -38,8 +53,8 @@ def _nvcc() -> str:
         return cand
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
-                           "cannot be built")
+        raise KernelError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                          "cannot be built")
     return found
 
 
@@ -58,8 +73,8 @@ def build(source: Path) -> tuple[Path, str]:
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {source.name}:"
-                           f"\n{proc.stderr}")
+        raise KernelError(f"nvcc failed ({proc.returncode}) on {source.name}:"
+                          f"\n{proc.stderr}")
     os.replace(tmp, out)
     return out, proc.stderr
 
@@ -69,11 +84,14 @@ def load(source: Path, signatures: dict) -> ctypes.CDLL:
     exported C function to its ``argtypes`` (every one returns the launch's
     ``cudaGetLastError()`` as an int)."""
     path, _ = build(source)
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in signatures.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+    try:
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+    except (OSError, AttributeError) as exc:
+        raise KernelError(f"cannot load {path.name}: {exc}") from exc
     return lib
 
 

@@ -94,8 +94,7 @@ def ell_spmv_cuda(cols_t: torch.Tensor, vals_t: torch.Tensor,
     with ctx:
         rc = fn(cols_t.data_ptr(), vals_t.data_ptr(), x.data_ptr(),
                 y.data_ptr(), n, w, stream)
-    if rc != 0:
-        raise RuntimeError(f"ell_spmv_cuda: launch failed with CUDA error {rc}")
+    _build.check_launch("ell_spmv_cuda", rc)
     LAUNCHES += 1
     return y
 
@@ -123,8 +122,6 @@ def ell_spmv_batched_cuda(cols_t: torch.Tensor, vals_t: torch.Tensor,
     with ctx:
         rc = fn(cols_t.data_ptr(), vals_t.data_ptr(), x.data_ptr(),
                 y.data_ptr(), B, n, w, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"ell_spmv_batched_cuda: launch failed with CUDA error {rc}")
+    _build.check_launch("ell_spmv_batched_cuda", rc)
     BATCHED_LAUNCHES += 1
     return y

@@ -97,8 +97,6 @@ def embedding_bag_cuda(table: torch.Tensor, indices: torch.Tensor,
             table.data_ptr(), indices.data_ptr(), segments.data_ptr(),
             weights.data_ptr(), out.data_ptr(), _DTYPES[table.dtype],
             indices.shape[0], n_bags, d, stream)
-    if rc != 0:
-        raise RuntimeError(f"embedding_bag_fwd: launch failed with CUDA "
-                           f"error {rc}")
+    _build.check_launch("embedding_bag_fwd", rc)
     LAUNCHES += 1
     return out

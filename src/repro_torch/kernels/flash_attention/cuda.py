@@ -168,8 +168,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if ws is None else ws.data_ptr(),
             None if counters is None else counters.data_ptr(), n_split,
             stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd: launch failed with CUDA "
-                           f"error {rc}")
+    _build.check_launch("flash_attention_fwd", rc)
     LAUNCHES += 1
     return out

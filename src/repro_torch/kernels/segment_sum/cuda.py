@@ -84,8 +84,7 @@ def _launch(fn, labels, cols, wts, out, lead, nparts: int) -> None:
     with ctx:
         rc = fn(labels.data_ptr(), cols.data_ptr(), wts.data_ptr(),
                 out.data_ptr(), *lead, B, w, labels.shape[-1], nparts, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__}: launch failed with CUDA error {rc}")
+    _build.check_launch(fn.__name__, rc)
 
 
 def connection_table_cuda(labels: torch.Tensor, cols: torch.Tensor,

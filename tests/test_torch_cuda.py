@@ -13,7 +13,8 @@ to the same solve on the CPU: eigenvalue within ``rel=1e-3`` and
 |cos| ≥ 0.999 (the solves stop at ``tol=1e-4``).  K3 and K4 add each
 part's weights in the plain version's slot order, so they are held to it
 bit for bit, and a sharded refinement on the card (K4 every sweep) to the
-same run on the CPU label for label (integer weights: exact sums).  K6,
+same run on the CPU label for label (integer weights: exact sums); on the
+card the guard's two catches let every exception through.  K6,
 the flash attention, is held to its plain version with
 tests/test_kernels.py's `_tol` (fp32 2e-5, bf16 2e-2), its split-KV decode
 route also to itself (repeated calls bit-identical), and the smoke LM's
@@ -256,6 +257,33 @@ def test_sharded_refinement_on_card_matches_cpu(card):
         assert [r.moves for r in rec] == [r.moves for r in other[1]]
         assert info["cut"] == other[2]["cut"]
     assert info["moves"] > 0
+
+
+@pytest.mark.cuda
+def test_guard_catches_raise_on_card(card, monkeypatch):
+    """On the card neither guard catch absorbs an exception, whatever its
+    type: a failing table build in the sharded pass, and a failing rescue
+    re-solve in the guarded RSB engine, both raise."""
+    import repro_torch.core.rsb as rsb
+    import repro_torch.dist.refine_sharded as rs
+    from repro_torch.core.pipeline import PartitionPipeline
+    from repro_torch.core.rcb import rcb_parts
+    from repro_torch.mesh import box_mesh, dual_graph, grid_graph_2d
+
+    def generic(*a, **k):
+        raise RuntimeError("launch failed")
+
+    mesh = box_mesh(6, 6, 4)
+    parts = rcb_parts(mesh.coords, 4, mesh.weights)
+    monkeypatch.setattr(rs, "connection_table_batched", generic)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rs.refine_sharded_stage(dual_graph(mesh), parts, 4,
+                                weights=mesh.weights, device=card)
+    monkeypatch.setattr(rsb, "fiedler_from_graph", generic)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        PartitionPipeline(pre="none", guard=True,
+                          guard_kw={"chaos": ("solver_nan",)},
+                          device=card).run(grid_graph_2d(16, 16), 4)
 
 
 # (B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal): the smoke LM's prefill

@@ -77,7 +77,10 @@ def test_inverse_pipeline_matches_repro(runs, precond):
     assert ct.report.total_iterations == pytest.approx(
         cj.report.total_iterations, abs=len(ct.report.levels))
     assert all(lv.inner_iterations > 0 for lv in ct.report.levels)
-    assert ct.stages[2].info["device_seconds"] > 0.0
+    # guarded by default: setup, guard:validate, pre, then the bisect stage
+    assert [s.kind for s in ct.stages][:4] == ["setup", "guard", "pre",
+                                               "bisect"]
+    assert ct.stages[3].info["device_seconds"] > 0.0
 
 
 @pytest.mark.parametrize("precond", PRECONDS)
@@ -100,10 +103,9 @@ def test_engine_reports_precond_only_for_inverse(runs):
 
 def test_still_not_ported():
     mt = _pebble(mesh_t)
-    for kw in (dict(partitioner="multilevel"), dict(engine="recursive"),
-               dict(guard=True), dict(partitioner="rsb_inverse",
-                                      engine="recursive")):
+    for kw in (dict(engine="recursive"),
+               dict(partitioner="rsb_inverse", engine="recursive")):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             partition(mt, NPARTS, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        PartitionPipeline(bisect="multilevel")
+        PartitionPipeline(bisect="rsb-recursive")

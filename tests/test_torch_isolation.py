@@ -52,7 +52,8 @@ _SLICE_MODULES = {"repro_torch.core.lanczos", "repro_torch.core.flexcg",
                   "repro_torch.models.recsys.embedding",
                   "repro_torch.models.recsys.sasrec",
                   "repro_torch.configs.sasrec", "repro_torch.data.synthetic",
-                  "repro_torch.launch.cells"}
+                  "repro_torch.launch.cells", "repro_torch.guard.chaos",
+                  "repro_torch.guard.policy", "repro_torch.core.multilevel"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():

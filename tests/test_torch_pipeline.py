@@ -125,8 +125,10 @@ def test_spectral_presets_match_cut(quality, runs, preset):
     assert pw.min() >= floor and pw.max() <= cap
     assert ct.report.total_iterations == pytest.approx(
         cj.report.total_iterations, abs=len(ct.report.levels))
-    assert [s.kind for s in ct.stages][:3] == ["pre", "setup", "bisect"]
-    assert ct.stages[2].info["device_seconds"] > 0.0
+    # guarded by default: the dual graph is assembled by guard:validate
+    assert [s.kind for s in ct.stages][:4] == ["setup", "guard", "pre",
+                                               "bisect"]
+    assert ct.stages[3].info["device_seconds"] > 0.0
 
 
 def test_geometric_preset_identical(runs):
@@ -161,13 +163,9 @@ def test_front_door_and_sfc_pre(quality, runs):
 def test_unported_and_device_contract(quality, monkeypatch):
     mt = quality[1]
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        partition(mt, NPARTS, guard=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
         cfg_t.make_pipeline("reference", device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        partition(mt, NPARTS, partitioner="multilevel", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cfg_t.make_pipeline("multilevel", device="cpu")
+        partition(mt, NPARTS, engine="recursive", device="cpu")
     with pytest.raises(ValueError, match="unknown pipeline preset"):
         cfg_t.make_pipeline("nope")
     with pytest.raises(ValueError, match="unknown bisect stage"):

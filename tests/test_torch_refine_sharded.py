@@ -216,26 +216,64 @@ def test_empty_frontier_is_noop():
 
 
 def test_no_fallback_and_contract(monkeypatch):
-    """A failing table build raises (no host-refiner fallback), a guard
-    object raises, and without a card the device path raises."""
+    """On the card any failure of the sweep path raises: a generic error in
+    the table build and invalid sweep labels (no host-refiner fallback).
+    Off the card a kernel failure raises too, while a generic error and
+    invalid labels take the host refiner, as in `repro`.  Without a card
+    the device path raises."""
+    from repro_torch.core.refine import refine_boundary
+    from repro_torch.kernels._build import KernelError
+
     _, gt, parts, w, corr = _seeded_case((6, 6, 4), 4, 5)
+    corr4 = balance_corridor(parts, 4, w, 0.05)
+    host, _ = refine_boundary(gt, parts, 4, weights=w, sweeps=4,
+                              corridor=corr4)
 
     def broken(*a, **k):
+        raise KernelError("launch failed")
+
+    def generic(*a, **k):
         raise RuntimeError("launch failed")
 
-    with pytest.raises(NotImplementedError, match="guard"):
-        rs_t.refine_sharded_stage(gt, parts, 4, weights=w, guard=object(),
-                                  device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
         rs_t.run_sharded_sweeps(rs_t.build_frontier_plan(gt, parts, 4), parts,
                                 4, corridor=corr, backend="tpu")
     monkeypatch.setattr(rs_t, "connection_table_batched", broken)
-    with pytest.raises(RuntimeError, match="launch failed"):
+    with pytest.raises(KernelError, match="launch failed"):
         rs_t.kway_sharded_stage(gt, parts, 4, weights=w, device="cpu")
+    monkeypatch.setattr(rs_t, "connection_table_batched", generic)
+    out, stats = rs_t.refine_sharded_stage(gt, parts, 4, weights=w,
+                                           device="cpu")
+    assert stats.stages[:2] == ["refine-sharded", "host-fallback"]
+    assert edge_cut(gt, out) <= edge_cut(gt, host)
+
+    # The sweep path on the card: the device is resolved before the
+    # envelope, and the sweeps are stubbed to fail as the card's would.
+    card = torch.device("cuda")
+    monkeypatch.setattr(rs_t, "resolve_device", lambda device=None: card)
+
+    def sweeps_raise(fp, p, n, *, device, **k):
+        assert device == card
+        generic()
+
+    def sweeps_invalid(fp, p, n, *, device, **k):
+        assert device == card
+        return p * 0 - 1, [], {"moves": 0}
+
+    monkeypatch.setattr(rs_t, "run_sharded_sweeps", sweeps_raise)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rs_t.refine_sharded_stage(gt, parts, 4, weights=w)
+    monkeypatch.setattr(rs_t, "run_sharded_sweeps", sweeps_invalid)
+    with pytest.raises(ValueError, match="invalid labels"):
+        rs_t.kway_sharded_stage(gt, parts, 4, weights=w)
+    monkeypatch.undo()
+
     monkeypatch.setattr(rs_t, "run_sharded_sweeps",
                         lambda fp, p, n, **k: (p * 0 - 1, [], {"moves": 0}))
-    with pytest.raises(ValueError, match="invalid labels"):
-        rs_t.refine_sharded_stage(gt, parts, 4, weights=w, device="cpu")
+    out, stats = rs_t.refine_sharded_stage(gt, parts, 4, weights=w,
+                                           device="cpu")
+    assert stats.stages[:2] == ["refine-sharded", "host-fallback"]
+    assert edge_cut(gt, out) <= edge_cut(gt, host)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pipe_t.run_post_stages(gt, parts, 4, ("refine-sharded",), weights=w)
