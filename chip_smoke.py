@@ -2,7 +2,7 @@
 """Drive the PyTorch port (`repro_torch`, under src/) on one CUDA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --quick    # no full-size runs (phases 5-7b)
+    python3 chip_smoke.py --quick    # no full-size runs (phases 5-7c)
 
 Phases, each printing JSON lines:
 
@@ -30,7 +30,11 @@ Phases, each printing JSON lines:
    main shape, launch-bound), with K2's device time per launch at ``main``
    and ``level0`` from `torch.profiler`; then one AMG-preconditioned flexcg
    iteration at the main shape: its time, CUDA kernels and K2 launches.
-   Every timing is taken before the first profiler session.
+   ``obs_overhead``: one packed Lanczos solve of one restart profiled with
+   tracing off, on, and on with the profiler ranges: the same CUDA events
+   by name (kernels and copies) in all three.  Every timing is taken
+   before the first profiler session, the gather-scatter one of phase 4c
+   included.
 4. ``quality`` — the quality mesh (``pebble_mesh(12, 12, 12, n_pebbles=5,
    warp=0.15, seed=1)``, 1,669 elements) into 16 parts with the
    ``default``, ``raw`` and ``geometric`` presets and with inverse iteration
@@ -46,7 +50,11 @@ Phases, each printing JSON lines:
    (Lanczos raw labels, then ``repair+refine``, ``repair+refine-sharded``
    and ``kway-sharded``, 8 sweeps): card labels against the CPU's from the
    same raw labels, cuts against the recorded JAX cuts (4690 / 4679 /
-   4319), K4 launches against the sweeps run.
+   4319), K4 launches against the sweeps run.  ``obs``: ``default``
+   with ``REPRO_OBS`` off and on (labels bit-identical, both walls, the
+   trace's counters), then once in a profiler capture under
+   ``REPRO_OBS_TORCH=1``: every K1 kernel in the capture launched inside
+   a ``fiedler:lanczos…`` range (joined by correlation id).
    ``guard`` — on the quality mesh, ``default`` and ``rsb_inverse`` (AMG)
    with the guard on and off on the card (labels bit-identical, the guard's
    report clean); the two-component graph (``grid_graph_2d(12, 11)`` and
@@ -60,14 +68,35 @@ Phases, each printing JSON lines:
    imbalance <= 1.10, the guard report equal to the CPU port's for the same
    configuration, fallbacks > 0 (``halo_truncate``: the plan rebuilt clean,
    no host fallback); K1 launches inside ``solver_nan``'s rescues, K2 in
-   ``cg_divergence``, K4 after ``halo_truncate``'s rebuild.
+   ``cg_divergence``, K4 after ``halo_truncate``'s rebuild; the trace's
+   ``guard_fallbacks`` and ``guard_retries`` equal to the report's
+   (``benchmarks/smoke_check.py::check_chaos``), and for
+   ``halo_truncate`` the one rebuild.
+4c. ``reference`` — the ``reference`` preset (the recursive engine on the
+   matrix-free gather-scatter Laplacian) on the quality mesh into 16
+   parts: card labels equal to the CPU's, the cut within 1.05 x the JAX
+   cut (8918, BENCH_partition.json's ``rsb_weighted_recursive``), the
+   invariants, a clean guard report; ``engine="recursive"`` on its dual
+   graph as a Graph (K1 every matvec, counted by the profiler); the
+   recursive AMG-preconditioned inverse solve on the 959-element mesh (K1
+   in the AMG levels); and ``gs_against_ell``: at the full box's root
+   shape (N = 262144) the GS apply against K1's ELL Laplacian of the same
+   dual graph within 1e-5 of Σ|terms|, bit-identical on a second call,
+   and device ms by CUDA events of one GS apply (the port's ordered
+   gather; float32 atomics and ``segment_reduce`` beside it), one K1
+   matvec and one ELL apply, each beside its bound (each input read once
+   over 3.35 TB/s).
 5. ``full``    — ``box_mesh(80, 64, 48)`` (245,760 elements) into 64 parts,
    ``default`` preset (Lanczos, K1, guarded by default), on the card:
    seconds per stage (host and device; ``guard:validate`` and
    ``guard:finalize`` among them, and finalize's check re-run part by
    part: ``finalize_split``), per level, K1 launches, peak device memory,
    the cut against the ``geometric`` preset's; the guard's report must be
-   clean (no retry, fallback, expired deadline or host fallback).
+   clean (no retry, fallback, expired deadline or host fallback).  This
+   phase, ``full_inverse``, ``full_sharded`` (one trace per chain:
+   ``sharded_gathers == sharded_sweeps`` = the chain's gathers) and
+   ``full_reference`` print their trace's span tree at depth 2 and put its
+   root counters in their line.
 6. ``full_inverse`` — the same box and parts by AMG-preconditioned inverse
    iteration (the paper's solver, K2): the same records plus inner flexcg
    iterations per level; the cut against the ``geometric`` cut of ``full``;
@@ -90,6 +119,12 @@ Phases, each printing JSON lines:
    ``geometric`` cuts of ``full``, 0 disconnected parts, 64 non-empty
    parts, the corridor, a clean guard report; before it, the same preset
    on ``box_mesh(40, 32, 24)``, cut within 1.01 x `repro`'s 137,965.
+7c. ``full_reference`` — the ``reference`` preset on the same box into 64
+   parts (every node on its sub-mesh's gather-scatter Laplacian): seconds
+   per stage split host / device, per level, kernel launches, the trace's
+   counters, one GS Lanczos restart at the root shape profiled (wall ms,
+   CUDA kernels, device ms), the cut within 1.05 x the ``geometric`` cut
+   of ``full``, the invariants and a clean guard report.
 8. ``kernels`` (segment_sum) — K4 at the sweep's shape (``main``: the
    frontier plan of ``full``'s raw labels, 64 shards; with ``--quick``,
    of RCB labels of the same box) and a tiny one, K3 at
@@ -199,6 +234,7 @@ FP32_FLOPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 QUALITY_JAX_CUT = 8918.0      # BENCH_partition.json, quality, rsb_weighted
 QUALITY_KWAY_JAX_CUT = 8764.0  # BENCH_partition.json, quality, rsb_weighted_kway
+QUALITY_REF_JAX_CUT = 8918.0  # BENCH_partition.json, quality, rsb_weighted_recursive
 SMOKE_INV_RAW, SMOKE_INV_CUT = 4891.0, 4626.0   # partition_time_smoke, inverse
 # BENCH_partition.json, partition_sharded: the three chains' JAX cuts
 SHARDED_JAX_CUTS = {"repair+refine": 4690.0, "repair+refine-sharded": 4679.0,
@@ -461,6 +497,17 @@ def top_kernels(by_name, k=8):
     return [dict(name=n[:80], count=v[0], ms=v[1]) for n, v in top]
 
 
+def trace_counters(tag, trace) -> dict:
+    """A traced run's root counters (its subtree totals, `repro`'s merge
+    semantics); its span tree at depth 2 goes out first, on lines of its
+    own.  A missing trace fails: ``REPRO_OBS`` is on by default."""
+    from repro_torch import obs
+
+    check(trace is not None, f"{tag}: no trace recorded (REPRO_OBS off?)")
+    print(f"[trace {tag}]\n" + obs.render(trace, max_depth=2), flush=True)
+    return trace.total_counters()
+
+
 def phase_kernels(root):
     """K1 at the main path's shapes and one packed Lanczos restart at the
     main shape (level 0: one problem, the segment count pinned to 64 as in
@@ -510,9 +557,52 @@ def phase_kernels(root):
                  k1_profiled_ms_per_launch=k1[0][1] / k1[0][0] if k1 else None,
                  cuda_kernels=sum(v[0] for v in by_name.values()) or None,
                  device_ms=sum(v[1] for v in by_name.values()) or None,
-                 top=top_kernels(by_name)))
+                 top=top_kernels(by_name)),
+             obs_overhead=obs_restart_check(op, N, n_seg, seg, mask, q))
 
     return rows, profile_and_emit
+
+
+def obs_restart_check(op, N, n_seg, seg, mask, q) -> dict:
+    """One packed Lanczos solve of one restart (`lanczos_fiedler_batched`,
+    ``max_restarts=1``) profiled with tracing off, on (inside a trace) and
+    on with the profiler ranges (``REPRO_OBS_TORCH=1``): the CUDA events
+    by name — kernels and copies — must be the same in all three, so the
+    obs layer adds no kernel and no device-to-host copy."""
+    import os
+
+    from repro_torch import obs
+    from repro_torch.core.lanczos import lanczos_fiedler_batched
+
+    b0 = q.cpu().numpy()
+
+    def solve():
+        lanczos_fiedler_batched(op, N, seg=seg, n_seg=n_seg, mask=mask,
+                                b0=b0, window=20, max_restarts=1, tol=0.0)
+
+    counts = {}
+    solve()
+    for mode in ("off", "on", "on+ranges"):
+        if mode == "on+ranges":
+            os.environ["REPRO_OBS_TORCH"] = "1"
+        try:
+            if mode == "off":
+                with obs.disabled():
+                    by_name = device_profile(solve, warmup=1)
+            else:
+                with obs.trace("bench:obs_restart"):
+                    by_name = device_profile(solve, warmup=1)
+        finally:
+            os.environ.pop("REPRO_OBS_TORCH", None)
+        counts[mode] = {k: v[0] for k, v in by_name.items()}
+    row = {mode: dict(cuda_events=sum(c.values()),
+                      memcpy_dtoh=sum(n for k, n in c.items() if "DtoH" in k))
+           for mode, c in counts.items()}
+    row["identical"] = counts["off"] == counts["on"] == counts["on+ranges"]
+    check(row["identical"], f"obs overhead: the restart's CUDA events differ "
+          f"with obs on: {row}")
+    check(row["off"]["cuda_events"] > 0, "obs overhead: nothing traced")
+    return row
 
 
 def phase_kernels_batched(root):
@@ -606,6 +696,82 @@ def phase_kernels_batched(root):
     return rows, profile_and_emit
 
 
+def gs_apply_variant(L, x, seg=None):
+    """The gather-scatter Laplacian's apply with another segment sum in
+    place of the port's ordered gather — float32 atomics (``index_add_``),
+    or with ``seg`` = (perm, offsets) ``torch.segment_reduce`` over the
+    ids sorted once: the alternatives the port did not take, timed beside
+    it only."""
+    (_, h), = L.terms
+    K = h.gid.shape[-1]
+    u = x[:, None].expand(x.shape[0], K).reshape(-1)
+    if seg is None:
+        summed = torch.zeros(h.occ.shape[1], device=x.device).index_add_(
+            0, h.take, u)
+    else:
+        summed = torch.segment_reduce(u.index_select(0, seg[0]), "sum",
+                                      offsets=seg[1])
+    return L.degree_full * x - summed.index_select(0, h.take).view(-1, K).sum(-1)
+
+
+def gs_against_ell(box, perm, root):
+    """The gather-scatter Laplacian against K1's packed ELL Laplacian of
+    the same dual graph at the root shape of the full box (the level-0
+    packed layout: N = 262144 slots): agreement within 1e-5 of Σ|terms|
+    on a seeded x, and device ms by CUDA events of one GS apply (the
+    port's ordered gather; float32 atomics and ``segment_reduce`` beside
+    it), one K1 matvec and the ELL apply, each beside its bound: every
+    input read once and the output written once over 3.35 TB/s.  Timed
+    before the first profiler session."""
+    from repro_torch.core.fiedler import (_pack_layout, _packed_ell_laplacian,
+                                          _packed_gs_laplacian)
+    from repro_torch.kernels.ell_spmv import cuda
+
+    offs, N, _, _, _ = _pack_layout([root.n], N_SLOTS, 64)
+    t0 = time.perf_counter()
+    gs = _packed_gs_laplacian([box.vert_gid[perm]], offs, N, device="cuda")
+    torch.cuda.synchronize()
+    gs_setup_s = time.perf_counter() - t0
+    ell = _packed_ell_laplacian([root], offs, N, 32, device="cuda")
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.normal(size=N).astype(np.float32)).cuda()
+    y_gs, y_ell = gs.apply(x), ell.apply(x)
+    scale = torch.clamp(gs.degree_full * x.abs() + gs.adj_apply(x.abs()),
+                        min=1.0)
+    err = float(((y_gs - y_ell).abs() / scale).max())
+    (_, h), = gs.terms
+    K, M, n_used = h.gid.shape[-1], h.occ.shape[0], h.occ.shape[1]
+    counts = torch.bincount(h.take, minlength=n_used)
+    seg = (torch.argsort(h.take, stable=True),
+           torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)]))
+    errs = {}
+    for name, y in (("atomic", gs_apply_variant(gs, x)),
+                    ("segment_reduce", gs_apply_variant(gs, x, seg))):
+        errs[name] = float(((y - y_ell).abs() / scale).max())
+    repeat_equal = bool(torch.equal(y_gs, gs.apply(x)))
+    check(err <= 1e-5, f"GS against ELL: {err} > 1e-5 of the terms")
+    check(repeat_equal, "GS apply: two calls on the card differ")
+    gs_bytes = 2 * N * 4 + M * n_used * 8 + N * K * 8 + N * 4
+    k1_bytes = 2 * ell.cols_t.numel() * 4 + 2 * N * 4
+    ell_bytes = k1_bytes + N * 4
+    row = dict(
+        N=N, K=K, ids_used=n_used, max_multiplicity=M, w=ell.cols_t.shape[0],
+        gs_setup_seconds=gs_setup_s, max_rel_err=err,
+        max_rel_err_variants=errs, repeat_bit_identical=repeat_equal,
+        gs_apply_ms=time_ms(lambda: gs.apply(x)),
+        gs_apply_atomic_ms=time_ms(lambda: gs_apply_variant(gs, x)),
+        gs_apply_segment_reduce_ms=time_ms(
+            lambda: gs_apply_variant(gs, x, seg), reps=10, rounds=5),
+        k1_matvec_ms=time_ms(lambda: cuda.ell_spmv_cuda(ell.cols_t,
+                                                         ell.vals_t, x)),
+        ell_apply_ms=time_ms(lambda: ell.apply(x)),
+        gs_bound_ms=gs_bytes / HBM_BYTES_PER_S * 1e3,
+        k1_bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3,
+        ell_apply_bound_ms=ell_bytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes")
+    return row
+
+
 def run_preset(preset, mesh, nparts, device, **overrides):
     from repro_torch.configs.parrsb import make_pipeline
     from repro_torch.core.metrics import partition_metrics
@@ -648,6 +814,7 @@ def run_chains(graph, raw, nparts, weights, device, guarded=False) -> dict:
     K4 launches and peak device memory.  ``guarded``: each chain runs in
     the guard's post-stage envelope, as a guarded pipeline runs it (a
     ``SolverGuard`` of the default policy), and the row has its report."""
+    from repro_torch import obs
     from repro_torch.core.metrics import partition_metrics
     from repro_torch.core.pipeline import run_post_stages
     from repro_torch.core.refine import balance_corridor
@@ -667,9 +834,11 @@ def run_chains(graph, raw, nparts, weights, device, guarded=False) -> dict:
             torch.cuda.reset_peak_memory_stats()
         before = ss_cuda.BATCHED_LAUNCHES
         t0 = time.perf_counter()
-        parts, agg, records = run_post_stages(graph, raw, nparts, post,
-                                              weights=weights,
-                                              post_kw=post_kw, device=device)
+        with obs.trace(f"bench:sharded/{name}") as root:
+            parts, agg, records = run_post_stages(graph, raw, nparts, post,
+                                                  weights=weights,
+                                                  post_kw=post_kw,
+                                                  device=device)
         wall = time.perf_counter() - t0
         pm = partition_metrics(graph, parts, nparts, weights=weights)
         pw = np.bincount(parts, weights=weights, minlength=nparts)
@@ -680,7 +849,8 @@ def run_chains(graph, raw, nparts, weights, device, guarded=False) -> dict:
                    seconds=wall, k4_launches=ss_cuda.BATCHED_LAUNCHES - before,
                    stages=[dict(name=r.name, seconds=r.seconds,
                                 steps=r.info["stages"]) for r in records],
-                   moves_per_sweep=[r.moves for r in agg.sweeps])
+                   moves_per_sweep=[r.moves for r in agg.sweeps],
+                   trace=root)
         if guarded:
             row["guard"] = dict(report=greport.to_dict(),
                                 host_fallback=host_fallbacks(records))
@@ -712,6 +882,11 @@ def check_chains(tag, runs, nparts) -> None:
         check(r["k4_launches"] == r["gathers"] == r["sweeps_run"] > 0,
               f"{tag} {name}: K4 launches {r['k4_launches']}, gathers "
               f"{r['gathers']}, sweeps {r['sweeps_run']}")
+        c = r["trace"].total_counters()
+        check(c.get("sharded_gathers") == c.get("sharded_sweeps")
+              == r["gathers"] and c.get("halo_bytes") == 4 * c["halo_words"],
+              f"{tag} {name}: trace counters {c} against {r['gathers']} "
+              "gathers")
         if name == "repair+refine-sharded":
             check(r["cut"] <= 1.01 * host,
                   f"{tag}: sharded cut {r['cut']} above 1.01 x the host "
@@ -719,7 +894,8 @@ def check_chains(tag, runs, nparts) -> None:
 
 
 def chain_rows(runs) -> dict:
-    return {k: {kk: vv for kk, vv in v.items() if kk != "parts"}
+    return {k: {kk: (vv.total_counters() if kk == "trace" else vv)
+                for kk, vv in v.items() if kk != "parts"}
             for k, v in runs.items()}
 
 
@@ -924,8 +1100,14 @@ def phase_chaos():
             gr = ctx.report.guard
             parts = ctx.parts
             pw = np.bincount(parts, weights=w, minlength=8)
+            traced = trace_counters(f"chaos[{site}]", ctx.trace)
             row = dict(seconds=wall, launches=launches,
                        rescue_launches=in_rescue, report=gr.to_dict(),
+                       trace_guard=dict(
+                           fallbacks=traced.get("guard_fallbacks", 0.0),
+                           retries=traced.get("guard_retries", 0.0),
+                           deadline_expired=traced.get(
+                               "guard_deadline_expired", 0.0)),
                        report_equal_to_cpu=gr.to_dict()
                        == cpu.report.guard.to_dict(),
                        labels_differing_from_cpu=int((parts != cpu.parts).sum()),
@@ -955,9 +1137,17 @@ def phase_chaos():
                 check(row["plan_rebuilt"], f"{tag}: plan not rebuilt clean")
                 check(not row["host_fallback"] and launches["K4"] > 0,
                       f"{tag}: K4 never launched after the rebuild")
+                check(row["trace_guard"]["fallbacks"] == 1.0,
+                      f"{tag}: trace guard_fallbacks "
+                      f"{row['trace_guard']['fallbacks']}, not the one rebuild")
             else:
                 check(gr.fallbacks > 0, f"{tag}: guard report shows no "
                       "fallbacks: the fault was not exercised")
+                # benchmarks/smoke_check.py::check_chaos's trace check
+                check(row["trace_guard"]["fallbacks"] == gr.fallbacks
+                      and row["trace_guard"]["retries"] == gr.retries,
+                      f"{tag}: trace guard counters {row['trace_guard']} "
+                      f"differ from the report's {gr.to_dict()}")
             if site == "solver_nan":
                 check(in_rescue["K1"] > 0, f"{tag}: no K1 in the rescues")
             if site == "cg_divergence":
@@ -969,6 +1159,47 @@ def phase_chaos():
         policy.SolverGuard.rescue = plain_rescue
     emit("chaos", mesh="pebble_mesh(8,8,8,n_pebbles=3,seed=0)",
          nelems=mesh.nelems, nparts=8, sites=rows)
+
+
+def quality_obs(mesh) -> dict:
+    """The ``default`` preset on the quality mesh with ``REPRO_OBS`` off
+    and on (labels bit-identical, both walls), then once under
+    ``REPRO_OBS_TORCH=1`` in a profiler capture: every K1 kernel the
+    capture holds was launched inside a ``fiedler:lanczos…`` range."""
+    import os
+
+    from repro_torch import obs
+    from repro_torch.kernels.ell_spmv import cuda
+
+    with obs.disabled():
+        off, _, wall_off, _, _ = run_preset("default", mesh, 16, "cuda")
+    on, _, wall_on, _, _ = run_preset("default", mesh, 16, "cuda")
+    row = dict(seconds_off=wall_off, seconds_on=wall_on,
+               identical=bool(np.array_equal(on.parts, off.parts)
+                              and np.array_equal(on.parts_raw,
+                                                 off.parts_raw)),
+               trace_counters=trace_counters("quality default", on.trace))
+    check(row["identical"], "quality obs: labels differ with REPRO_OBS off")
+    check(off.trace is None, "quality obs: a trace with REPRO_OBS off")
+
+    os.environ["REPRO_OBS_TORCH"] = "1"
+    os.environ["REPRO_OBS_TORCH_DIR"] = str(ROOT / "build" / "torchprof")
+    try:
+        cap = obs.maybe_start_trace()
+        before = cuda.LAUNCHES
+        run_preset("default", mesh, 16, "cuda")
+        launches = cuda.LAUNCHES - before
+        path = obs.maybe_stop_trace(cap)
+    finally:
+        os.environ.pop("REPRO_OBS_TORCH", None)
+        os.environ.pop("REPRO_OBS_TORCH_DIR", None)
+    ranged = ranged_k1(path)
+    row["profiler_ranges"] = dict(ranged, k1_launches=launches)
+    check(0 < ranged["k1_kernels"] == ranged["k1_in_ranges"]
+          and ranged["k1_kernels"] <= launches,
+          f"quality obs: K1 kernels outside the fiedler:lanczos ranges: "
+          f"{row['profiler_ranges']}")
+    return row
 
 
 def phase_quality():
@@ -1004,6 +1235,7 @@ def phase_quality():
           f"quality default cut {out['default']['cut']} > 1.05 x {QUALITY_JAX_CUT}")
     check(out["default"]["cut"] < out["geometric"]["cut"],
           "quality default cut not below the geometric cut")
+    obs_rows = quality_obs(mesh)
 
     smoke = pebble_mesh(10, 10, 10, n_pebbles=6, seed=0)
     inverse_smoke = {}
@@ -1060,6 +1292,7 @@ def phase_quality():
               f"{SHARDED_JAX_CUTS[name]}")
     emit("quality", mesh="pebble_mesh(12,12,12,n_pebbles=5,warp=0.15,seed=1)",
          nelems=mesh.nelems, nparts=16, jax_cut=QUALITY_JAX_CUT, presets=out,
+         obs=obs_rows,
          kway_presets=kway, kway_jax_cut=QUALITY_KWAY_JAX_CUT,
          inverse_smoke=dict(mesh="pebble_mesh(10,10,10,n_pebbles=6,seed=0)",
                             nelems=smoke.nelems, nparts=8,
@@ -1082,9 +1315,11 @@ def phase_full(box):
     ctx, pm, wall, corridor, nonempty = run_preset("default", box, 64, "cuda")
     launches = cuda.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
+    counters = trace_counters("full", ctx.trace)
     _, gpm, gwall, _, _ = run_preset("geometric", box, 64, "cuda")
     guard = guard_row(ctx)
     emit("full", mesh="box_mesh(80,64,48)", nelems=box.nelems, nparts=64,
+         trace_counters=counters,
          seconds=wall, stages=stage_split(ctx), levels=level_rows(ctx),
          k1_launches=launches, max_memory_allocated=peak, cut=pm.edge_cut,
          geometric_cut=gpm.edge_cut, geometric_seconds=gwall,
@@ -1115,8 +1350,10 @@ def phase_full_inverse(box, geometric_cut):
                                                    bisect_kw=INVERSE_AMG)
     launches, k1 = cuda.BATCHED_LAUNCHES, cuda.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
+    counters = trace_counters("full_inverse", ctx.trace)
     emit("full_inverse", mesh="box_mesh(80,64,48)", nelems=box.nelems,
          nparts=64, bisect_kw=INVERSE_AMG, seconds=wall,
+         trace_counters=counters,
          stages=stage_split(ctx), levels=level_rows(ctx),
          k2_launches=launches, k1_launches=k1, max_memory_allocated=peak,
          cut=pm.edge_cut, geometric_cut=geometric_cut,
@@ -1173,6 +1410,8 @@ def phase_full_sharded(ctx):
     ss_cuda.LAUNCHES = ss_cuda.BATCHED_LAUNCHES = 0  # this path's counts
     runs = run_chains(g, raw, 64, w, "cuda", guarded=True)
     launches = {"K3": ss_cuda.LAUNCHES, "K4": ss_cuda.BATCHED_LAUNCHES}
+    for name, r in runs.items():
+        trace_counters(f"full_sharded {name}", r["trace"])
     check_chains("full_sharded", runs, 64)
     for name, r in runs.items():
         check_clean(f"full_sharded {name}", r["guard"])
@@ -1249,6 +1488,176 @@ def phase_full_multilevel(box, rsb_cut, geometric_cut):
     check(pm.edge_cut <= 1.05 * FULL_ML_JAX_CUT,
           f"full_multilevel: cut {pm.edge_cut} above 1.05 x repro's "
           f"{FULL_ML_JAX_CUT}")
+
+
+def ranged_k1(trace_path) -> dict:
+    """From a torch.profiler Chrome trace: K1's kernels, and how many of
+    them were launched inside a ``fiedler:lanczos…`` range (the launch's
+    runtime call, joined to the kernel by its correlation id, lies within
+    a range of that name on the same thread)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    ranges = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("ph") == "X"
+              and str(e.get("name", "")).startswith("fiedler:lanczos")]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+                and "correlation" in e.get("args", {})}
+    k1 = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+          and "ell_spmv_kernel" in str(e.get("name", ""))]
+    inside = 0
+    for e in k1:
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        if launch is not None and any(
+                tid == launch["tid"] and t0 <= launch["ts"] <= t1
+                for tid, t0, t1 in ranges):
+            inside += 1
+    return dict(ranges=len(ranges), k1_kernels=len(k1), k1_in_ranges=inside)
+
+
+def phase_reference(gs_row):
+    """The ``reference`` preset (recursive engine, matrix-free
+    gather-scatter solves) on the quality mesh on the card against the
+    CPU; ``engine="recursive"`` on its dual graph as a Graph (K1 on every
+    matvec, counted by the profiler) and the AMG-preconditioned recursive
+    inverse solve on the 959-element mesh (K1 in the AMG levels); and the
+    GS-against-ELL comparison at the full box's root shape."""
+    from repro_torch.core.metrics import partition_metrics
+    from repro_torch.core.pipeline import partition
+    from repro_torch.kernels.ell_spmv import cuda
+    from repro_torch.mesh import dual_graph, pebble_mesh
+
+    mesh = pebble_mesh(12, 12, 12, n_pebbles=5, warp=0.15, seed=1)
+    before = cuda.LAUNCHES + cuda.BATCHED_LAUNCHES
+    ctx, pm, wall, corridor, nonempty = run_preset("reference", mesh, 16,
+                                                   "cuda")
+    launches = cuda.LAUNCHES + cuda.BATCHED_LAUNCHES - before
+    counters = trace_counters("reference", ctx.trace)
+    cpu, pm_cpu, wall_cpu, _, _ = run_preset("reference", mesh, 16, "cpu")
+    w = np.asarray(mesh.weights, np.float64)
+    pw = np.bincount(ctx.parts, weights=w, minlength=16) / (w.sum() / 16)
+    row = dict(cut=pm.edge_cut, cut_cpu=pm_cpu.edge_cut,
+               labels_differing_from_cpu=int((ctx.parts != cpu.parts).sum()),
+               seconds=wall, seconds_cpu=wall_cpu,
+               disconnected=pm.disconnected_parts, corridor=corridor,
+               balance_range=[float(pw.min()), float(pw.max())],
+               kernel_launches=launches, stages=stage_split(ctx),
+               levels=level_rows(ctx), guard=guard_row(ctx),
+               trace_counters=counters)
+    check(row["labels_differing_from_cpu"] == 0,
+          f"reference: {row['labels_differing_from_cpu']} card labels differ "
+          "from the CPU's")
+    check(pm.edge_cut <= 1.05 * QUALITY_REF_JAX_CUT,
+          f"reference: cut {pm.edge_cut} > 1.05 x {QUALITY_REF_JAX_CUT}")
+    check(pm.disconnected_parts == 0 and corridor and nonempty == 16,
+          "reference: invariants")
+    check_clean("reference", row["guard"])
+
+    # the graph engine: fiedler_from_graph on every node, K1 every matvec
+    g = dual_graph(mesh)
+    k1_before = cuda.LAUNCHES
+    labels = {}
+
+    def graph_run():
+        labels["card"] = partition(g, 16, coords=mesh.coords,
+                                   weights=mesh.weights, engine="recursive",
+                                   device="cuda")
+
+    t0 = time.perf_counter()
+    by_name = device_profile(graph_run)
+    graph_wall = time.perf_counter() - t0
+    k1_prof = sum(v[0] for k, v in by_name.items() if "ell_spmv_kernel" in k)
+    labels["cpu"] = partition(g, 16, coords=mesh.coords, weights=mesh.weights,
+                              engine="recursive", device="cpu")
+    gpm = partition_metrics(g, labels["card"], 16)
+    graph = dict(seconds_profiled=graph_wall, cut=gpm.edge_cut,
+                 cut_cpu=partition_metrics(g, labels["cpu"], 16).edge_cut,
+                 labels_differing_from_cpu=int(
+                     (labels["card"] != labels["cpu"]).sum()),
+                 disconnected=gpm.disconnected_parts,
+                 k1_launches=cuda.LAUNCHES - k1_before,
+                 k1_kernels_profiled=k1_prof)
+    check(k1_prof > 0, "reference graph engine: the profiler saw no K1")
+    check(gpm.disconnected_parts == 0, "reference graph engine: invariants")
+
+    # the recursive inverse solve: AMG levels through K1
+    smoke = pebble_mesh(10, 10, 10, n_pebbles=6, seed=0)
+    k1_before = cuda.LAUNCHES
+    t0 = time.perf_counter()
+    inv = partition(smoke, 8, partitioner="rsb_inverse", precond="amg",
+                    engine="recursive", device="cuda")
+    inv_wall = time.perf_counter() - t0
+    inv_cpu = partition(smoke, 8, partitioner="rsb_inverse", precond="amg",
+                        engine="recursive", device="cpu")
+    ipm = partition_metrics(dual_graph(smoke), inv, 8)
+    inverse = dict(seconds=inv_wall, cut=ipm.edge_cut,
+                   cut_cpu=partition_metrics(dual_graph(smoke), inv_cpu,
+                                             8).edge_cut,
+                   labels_differing_from_cpu=int((inv != inv_cpu).sum()),
+                   disconnected=ipm.disconnected_parts,
+                   k1_launches=cuda.LAUNCHES - k1_before)
+    check(inverse["k1_launches"] > 0, "reference inverse: K1 never launched")
+    check(ipm.disconnected_parts == 0, "reference inverse: invariants")
+    emit("reference", mesh="pebble_mesh(12,12,12,n_pebbles=5,warp=0.15,seed=1)",
+         nelems=mesh.nelems, nparts=16, jax_cut=QUALITY_REF_JAX_CUT,
+         preset=row, graph_engine=graph,
+         inverse_amg=dict(mesh="pebble_mesh(10,10,10,n_pebbles=6,seed=0)",
+                          nparts=8, **inverse),
+         gs_against_ell=gs_row)
+
+
+def phase_full_reference(box, geometric_cut):
+    """The ``reference`` preset on the full box into 64 parts: every node
+    solved on its sub-mesh's gather-scatter Laplacian; stages split host /
+    device, levels, the trace's counters, kernel launches (none expected:
+    the GS apply is plain PyTorch), one GS Lanczos restart at the root
+    profiled, and the cut against the ``geometric`` cut of ``full``."""
+    from repro_torch.core.fiedler import _noise_b0, _padded_gs_laplacian
+    from repro_torch.core.lanczos import lanczos_fiedler
+    from repro_torch.core.rcb import rcb_order
+    from repro_torch.kernels.ell_spmv import cuda
+
+    torch.cuda.reset_peak_memory_stats()
+    before = cuda.LAUNCHES + cuda.BATCHED_LAUNCHES
+    ctx, pm, wall, corridor, nonempty = run_preset("reference", box, 64,
+                                                   "cuda")
+    launches = cuda.LAUNCHES + cuda.BATCHED_LAUNCHES - before
+    peak = torch.cuda.max_memory_allocated()
+    counters = trace_counters("full_reference", ctx.trace)
+    guard = guard_row(ctx)
+
+    # one Lanczos restart of the root solve's shape on its GS operator
+    vg = box.vert_gid[rcb_order(box.coords, box.weights)]
+    op = _padded_gs_laplacian(vg, N_SLOTS, device="cuda")
+    mask = (torch.arange(N_SLOTS, device="cuda") < box.nelems).float()
+    b0 = torch.from_numpy(_noise_b0(0, N_SLOTS)).cuda()
+
+    def restart():
+        lanczos_fiedler(op, N_SLOTS, mask=mask, b0=b0, window=20,
+                        max_restarts=1, tol=0.0)
+
+    restart()
+    restart_wall_ms = wall_s(restart) * 1e3
+    by_name = device_profile(restart, warmup=1)
+    emit("full_reference", mesh="box_mesh(80,64,48)", nelems=box.nelems,
+         nparts=64, seconds=wall, stages=stage_split(ctx),
+         levels=level_rows(ctx), kernel_launches=launches,
+         max_memory_allocated=peak, cut=pm.edge_cut,
+         geometric_cut=geometric_cut, disconnected=pm.disconnected_parts,
+         w_imb=pm.weighted_imbalance, corridor=corridor,
+         nonempty_parts=nonempty, guard=guard, trace_counters=counters,
+         gs_restart=dict(window=20, N=N_SLOTS, wall_ms=restart_wall_ms,
+                         cuda_kernels=sum(v[0] for v in by_name.values()),
+                         device_ms=sum(v[1] for v in by_name.values()),
+                         top=top_kernels(by_name)),
+         finalize_split=finalize_split(ctx, 64))
+    check_clean("full_reference", guard)
+    check(nonempty == 64, "full_reference: an empty part")
+    check(pm.disconnected_parts == 0, "full_reference: disconnected parts")
+    check(corridor, "full_reference: balance corridor broken")
+    check(pm.edge_cut <= 1.05 * geometric_cut,
+          f"full_reference: cut {pm.edge_cut} above 1.05 x the geometric "
+          f"cut {geometric_cut}")
 
 
 def quick_plan(box=None):
@@ -2014,18 +2423,21 @@ def main(argv=None) -> int:
                 if "entry function" in ln or "registers" in ln or "spill" in ln])
 
     box = box_mesh(80, 64, 48)
-    root = dual_graph(box).sub(rcb_order(box.coords, box.weights))  # level 0
+    perm = rcb_order(box.coords, box.weights)
+    root = dual_graph(box).sub(perm)  # level 0
     # Everything is timed before the first torch.profiler session; the
     # profile functions hold the kernel phase's tensors until they are
     # dropped, before the full-size runs measure peak memory.
     k1_rows, k1_profiles = phase_kernels(root)
     k2_rows, k2_profiles = phase_kernels_batched(root)
+    gs_row = gs_against_ell(box, perm, root)
     k1_profiles()
     k2_profiles()
     del k1_profiles, k2_profiles
     phase_quality()
     phase_guard()
     phase_chaos()
+    phase_reference(gs_row)
     k1_launches = k2_launches = None
     ss_launches = {"K3": None, "K4": None}
     if not args.quick:
@@ -2034,6 +2446,7 @@ def main(argv=None) -> int:
         ss_launches, fp, sweep_parts = phase_full_sharded(full_ctx)
         del full_ctx
         phase_full_multilevel(box, rsb_cut, geometric_cut)
+        phase_full_reference(box, geometric_cut)
     else:
         fp, sweep_parts = quick_plan(box)
     ss_rows = phase_kernels_segsum(fp, sweep_parts)

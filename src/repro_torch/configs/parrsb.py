@@ -2,9 +2,7 @@
 
 `ParRSBConfig` is `repro.configs.parrsb`'s, field for field, plus the
 named partition-pipeline presets (pre → bisect → post; see
-``repro_torch.core.pipeline``).  Every preset of `repro` but
-``reference`` (the recursive engine) is here; ``reference`` raises "not
-yet ported".
+``repro_torch.core.pipeline``): every preset of `repro`.
 """
 
 from __future__ import annotations
@@ -71,6 +69,10 @@ PIPELINE_PRESETS: dict = {
     # Geometry-only fast path: RCB labels healed by the post stage — no
     # eigensolves at all.
     "geometric": dict(pre="none", bisect="rcb", post=("repair", "refine")),
+    # Recursive reference engine (matrix-free gather-scatter solves),
+    # refined — parity testing at full quality.
+    "reference": dict(pre="rcb", bisect="rsb-recursive",
+                      post=("repair", "refine")),
     # Hill-climbing k-way FM post stage (core/kway.py): negative-gain
     # prefixes + rollback recover cut the greedy sweeps cannot.
     "kway": dict(pre="rcb", bisect="rsb-batched", post=("repair", "kway")),
@@ -93,10 +95,6 @@ PIPELINE_PRESETS: dict = {
                                post_kw=dict(passes=12, balance_tol=0.03)),
 }
 
-# `repro`'s other preset, whose stage (the recursive engine) waits for a
-# later slice.
-UNPORTED_PRESETS = ("reference",)
-
 
 def make_pipeline(preset: str | None = None, *,
                   config: ParRSBConfig | None = None, **overrides):
@@ -111,8 +109,6 @@ def make_pipeline(preset: str | None = None, *,
 
     cfg = make_config() if config is None else config
     preset = cfg.pipeline if preset is None else preset
-    if preset in UNPORTED_PRESETS:
-        raise NotImplementedError(f"pipeline preset {preset!r} is not yet ported")
     if preset not in PIPELINE_PRESETS:
         raise ValueError(
             f"unknown pipeline preset: {preset!r} "

@@ -1,5 +1,5 @@
-"""parRSB core in PyTorch: the ported part of `repro.core` (slices A, B1
-and B2, k-way FM)."""
+"""parRSB core in PyTorch: the port of `repro.core` (both RSB engines,
+the gather-scatter operator, inverse iteration, k-way FM, the V-cycle)."""
 
 from repro_torch.core.amg import (
     AMG,
@@ -12,9 +12,20 @@ from repro_torch.core.fiedler import (
     FiedlerResult,
     fiedler_from_graph,
     fiedler_from_graph_batched,
+    fiedler_from_mesh,
+    fiedler_from_mesh_batched,
     multilevel_warm_start,
 )
 from repro_torch.core.flexcg import CGResult, flexcg
+from repro_torch.core.gather_scatter import (
+    GSHandle,
+    GSLaplacian,
+    aw_apply,
+    gs_apply,
+    gs_setup,
+    unweighted_laplacian,
+    weighted_laplacian,
+)
 from repro_torch.core.inverse_iteration import (
     BatchedInverseIterInfo,
     InverseIterInfo,

@@ -50,8 +50,7 @@ depth, best-prefix index, per-pass cut trajectory) rides through
 ``PostStats.kway`` into ``RSBReport.post``.
 
 Host Python/NumPy copied from `repro.core.kway`, bit-identical on given
-labels; its inner loop is scalar by design and stays on the host.  The
-obs counters (``fm_passes`` …) are not ported yet.
+labels; its inner loop is scalar by design and stays on the host.
 """
 
 from __future__ import annotations
@@ -332,6 +331,10 @@ def kway_fm(
 
         stats.cut_after = edge_cut(graph, parts_np)
     stats.seconds = t.seconds
+    obs.counter_add("fm_passes", kstats.passes)
+    obs.counter_add("fm_moves_attempted", kstats.moves_attempted)
+    obs.counter_add("fm_moves", kstats.moves_kept)
+    obs.counter_add("fm_rollbacks", kstats.rolled_back)
     return parts_np, stats
 
 

@@ -23,10 +23,13 @@ may outweigh ``total/(coarse_factor·nparts)``), and any residual
 violation is repaired during uncoarsening by :func:`_rebalance` rather
 than grandfathered in through corridor widening.
 
-`repro`'s spans and metrics (``mlevel:N``, ``ml_levels``, ...) are wall
-timers here (`repro_torch.obs.timed`) whose seconds land in
-:class:`MLLevel` and :class:`MultilevelStats`; the port has no gauges or
-counters yet.
+Observability, as in `repro`: one ``mlevel:N`` span per ladder level on
+the way down (matching + coarsening) and again on the way up (prolong +
+refine), a ``coarsen`` span over the whole ladder, a ``coarsest`` span
+around the direct solve, ``finalize`` around the closing repair and
+rebalance, and the ``ml_levels`` / ``ml_coarsen_ratio`` / ``ml_fm_moves``
+/ ``edge_cut`` metrics.  ``mlevel:0`` is emitted even when the input is
+already coarse enough to skip the ladder.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from repro_torch.core.kway import kway_fm, kway_fm_boundary
 from repro_torch.core.laplacian import dense_laplacian_np
 from repro_torch.core.refine import (
     _part_weights,
+    edge_cut,
     refine_boundary,
     repair_components,
 )
@@ -442,6 +446,10 @@ def multilevel_partition(
         stats.refine_seconds = (
             sum(r.refine_seconds for r in stats.records) + t_fin.seconds)
 
+    obs.gauge_set("ml_levels", stats.levels)
+    obs.gauge_set("ml_coarsen_ratio", stats.coarsen_ratio)
+    obs.counter_add("ml_fm_moves", stats.fm_moves)
+    obs.gauge_set("edge_cut", edge_cut(graph, parts))
 
     records = [BisectionRecord(
         level=r.level, size=r.n, nparts=nparts, method="hem+kway",

@@ -5,11 +5,13 @@ The port of `repro.core.pipeline`:
 * :class:`PartitionPipeline` — three stage slots.  ``pre`` ∈ {"rcb",
   "rib", "sfc", "none"}: "rcb"/"rib" select the per-level reorder the RSB
   engine applies at every tree node, "sfc" one global space-filling-curve
-  permutation up front.  ``bisect`` ∈ {"rsb-batched", "multilevel", "rcb",
-  "rib", "sfc", "random"} ("multilevel" is the host V-cycle of
-  `core/multilevel.py`).  ``post`` — an ordered tuple of {"repair",
-  "refine", "kway", "refine-sharded", "kway-sharded"}, by default
-  ("repair", "refine"), run under ONE balance corridor
+  permutation up front.  ``bisect`` ∈ {"rsb-batched", "rsb-recursive",
+  "multilevel", "rcb", "rib", "sfc", "random"} ("rsb-recursive" is the
+  depth-first reference engine, matrix-free gather-scatter solves on a
+  mesh; "multilevel" the host V-cycle of `core/multilevel.py`).
+  ``post`` — an ordered tuple of {"repair", "refine", "kway",
+  "refine-sharded", "kway-sharded"}, by default ("repair", "refine"),
+  run under ONE balance corridor
   (:func:`run_post_stages`).
 * The guard (`repro_torch.guard`), on by default as in `repro`
   (``guard=None`` defers to ``REPRO_GUARD``, default on): the
@@ -20,6 +22,12 @@ The port of `repro.core.pipeline`:
 * :class:`PartitionContext` — what flows through the stages, with one
   :class:`StageRecord` per stage (wall seconds, and for the spectral
   bisect stage the part of them spent in device solves).
+* Tracing (`repro_torch.obs`), as in `repro`: with ``REPRO_OBS`` on (the
+  default) every run happens inside one ``partition`` root span —
+  ``ctx.trace`` — with one child span per stage; ``ctx.export_manifest()``
+  writes it as a JSONL manifest, ``ctx.export_trace_events()`` as a
+  Chrome trace, and ``REPRO_OBS_DIR`` writes a manifest there on every
+  run.
 * :func:`partition` — the keyword front door, returning labels only.
 
 ``device`` (default ``None``, meaning the card) is resolved when a run
@@ -28,9 +36,7 @@ The spectral bisect stage and the sharded post stages ("refine-sharded",
 "kway-sharded", whose sweeps run there) use it; the other stages are host
 NumPy, bit-identical to `repro` on the same inputs.
 
-The one stage name `repro` knows but the port does not have yet (the
-recursive engine) raises NotImplementedError; unknown names raise
-ValueError, as in `repro`.
+Unknown stage names raise ValueError, as in `repro`.
 """
 
 from __future__ import annotations
@@ -50,7 +56,11 @@ from repro_torch.core.refine import (
     refine_stage,
     repair_components,
 )
-from repro_torch.core.rsb import RSBReport, rsb_partition_graph
+from repro_torch.core.rsb import (
+    RSBReport,
+    rsb_partition_graph,
+    rsb_partition_mesh,
+)
 from repro_torch.device import resolve_device
 from repro_torch.guard import chaos
 from repro_torch.guard.errors import GuardReport
@@ -94,6 +104,7 @@ class PartitionContext:
     parts_raw: np.ndarray | None = None  # bisect output, before any post stage
     report: RSBReport | None = None
     stages: list = dataclasses.field(default_factory=list)  # [StageRecord]
+    trace: object | None = None          # obs.Span root (None: REPRO_OBS=off)
     config: dict = dataclasses.field(default_factory=dict)  # pipeline shape
 
     @property
@@ -104,12 +115,32 @@ class PartitionContext:
         """The dual graph — assembled on first use for mesh inputs."""
         if self.graph is None:
             m = self.mesh
-            with obs.timed("dual_graph") as t:
+            with obs.stopwatch() as t:
                 self.graph = dual_graph_from_incidence(m.vert_gid, m.n_vert,
                                                        m.nelems)
             self.stages.append(StageRecord(kind="setup", name="dual_graph",
                                            seconds=t.seconds))
         return self.graph
+
+    def export_manifest(self, path: str | None = None, *,
+                        name: str = "partition",
+                        runs_dir: str = "runs") -> str | None:
+        """Write this run's JSONL manifest (span tree + counters + config
+        + git SHA).  Returns the path, or None when no trace was recorded
+        (``REPRO_OBS=off``)."""
+        if self.trace is None:
+            return None
+        if path is None:
+            path = obs.run_path(runs_dir, name)
+        return obs.write_manifest(self.trace, path, name=name,
+                                  config=self.config)
+
+    def export_trace_events(self, path: str) -> str | None:
+        """Write the Chrome/Perfetto ``trace_event`` JSON for this run;
+        None when no trace was recorded."""
+        if self.trace is None:
+            return None
+        return obs.write_trace_events(self.trace, path)
 
 
 # ---------------------------------------------------------------------------
@@ -117,9 +148,6 @@ class PartitionContext:
 # ---------------------------------------------------------------------------
 
 PRE_STAGES = ("rcb", "rib", "sfc", "none")
-
-# Stages `repro` registers that the port does not have yet.
-_UNPORTED_BISECT = ("rsb-recursive",)
 
 _BISECT_STAGES: dict = {}
 _POST_STAGES: dict = {}
@@ -145,15 +173,30 @@ def post_stage_names() -> tuple:
     return tuple(sorted(_POST_STAGES))
 
 
-def _rsb_stage(ctx: PartitionContext, pre, *, device=None, **kw):
-    # A mesh input runs the graph engine on its dual graph, assembled
-    # through the context ONCE per run — the post stages reuse it.
-    laplacian = kw.pop("laplacian", "weighted")
-    if laplacian not in ("weighted", "unweighted"):
-        raise ValueError(laplacian)
-    return rsb_partition_graph(ctx.require_graph(), ctx.nparts,
-                               coords=ctx.coords, weights=ctx.weights,
-                               pre=pre, device=device, **kw)
+def _rsb_stage(engine):
+    def stage(ctx: PartitionContext, pre, *, device=None, **kw):
+        if ctx.mesh is not None and engine == "recursive":
+            # The recursive mesh engine solves on the mesh's gather-scatter
+            # operator and reads coords/weights off the mesh: hand it an
+            # overridden copy so both engines balance the same weights.
+            mesh = ctx.mesh
+            if ctx.coords is not mesh.coords or ctx.weights is not mesh.weights:
+                mesh = dataclasses.replace(
+                    mesh, coords=np.asarray(ctx.coords, np.float64),
+                    weights=np.asarray(ctx.weights, np.float64))
+            return rsb_partition_mesh(mesh, ctx.nparts, pre=pre,
+                                      engine=engine, device=device, **kw)
+        # A mesh input runs the batched graph engine on its dual graph,
+        # assembled through the context ONCE per run — the post stages
+        # reuse it.
+        laplacian = kw.pop("laplacian", "weighted")
+        if laplacian not in ("weighted", "unweighted"):
+            raise ValueError(laplacian)
+        return rsb_partition_graph(ctx.require_graph(), ctx.nparts,
+                                   coords=ctx.coords, weights=ctx.weights,
+                                   pre=pre, engine=engine, device=device,
+                                   **kw)
+    return stage
 
 
 def _geometric_stage(fn):
@@ -216,7 +259,8 @@ def _register_builtin_stages() -> None:
     from repro_torch.core.rcb import rcb_parts, rib_parts
     from repro_torch.core.sfc import sfc_parts
 
-    register_bisect_stage("rsb-batched", _rsb_stage)
+    register_bisect_stage("rsb-batched", _rsb_stage("batched"))
+    register_bisect_stage("rsb-recursive", _rsb_stage("recursive"))
     register_bisect_stage("rcb", _geometric_stage(
         lambda c, p, w, **kw: rcb_parts(c, p, w, **kw)))
     register_bisect_stage("rib", _geometric_stage(
@@ -405,9 +449,6 @@ class PartitionPipeline:
         if self.pre not in PRE_STAGES:
             raise ValueError(
                 f"unknown pre stage: {self.pre!r} (have {PRE_STAGES})")
-        if self.bisect in _UNPORTED_BISECT:
-            raise NotImplementedError(
-                f"bisect stage {self.bisect!r} is not yet ported")
         if self.bisect not in _BISECT_STAGES:
             raise ValueError(
                 f"unknown bisect stage: {self.bisect!r} "
@@ -421,7 +462,13 @@ class PartitionPipeline:
 
     def run(self, obj, nparts: int, *, coords: np.ndarray | None = None,
             weights: np.ndarray | None = None) -> PartitionContext:
-        """Partition a HexMesh or Graph; returns the full context."""
+        """Partition a HexMesh or Graph; returns the full context.
+
+        When tracing is on (``REPRO_OBS`` unset/on) the whole run happens
+        inside one ``partition`` root span — ``ctx.trace`` — with one
+        child span per stage; ``ctx.export_manifest()`` serializes it, and
+        setting ``REPRO_OBS_DIR`` writes a manifest there automatically.
+        """
         device = resolve_device(self.device)
         ctx = _make_context(obj, nparts, coords, weights)
         spectral = self.bisect.startswith("rsb")
@@ -429,10 +476,20 @@ class PartitionPipeline:
         ctx.config = {"pre": self.pre, "bisect": self.bisect,
                       "post": list(self.post), "nparts": nparts, "n": ctx.n,
                       "guard": guard_on, "device": str(device)}
-        if guard_on:
-            self._run_guarded(ctx, nparts, spectral, device)
-        else:
-            self._run_stages(ctx, nparts, spectral, device)
+
+        root = obs.trace("partition", nparts=nparts, n=ctx.n,
+                         pre=self.pre, bisect=self.bisect,
+                         post=",".join(self.post), guard=guard_on)
+        with root:
+            if guard_on:
+                self._run_guarded(ctx, nparts, spectral, device)
+            else:
+                self._run_stages(ctx, nparts, spectral, device)
+        if isinstance(root, obs.Span):
+            ctx.trace = root
+            out_dir = os.environ.get("REPRO_OBS_DIR")
+            if out_dir:
+                ctx.export_manifest(runs_dir=out_dir)
         return ctx
 
     # -- the guarded path: validate → (components?) → stages → finalize --
@@ -485,6 +542,9 @@ class PartitionPipeline:
             n_before = len(ctx.stages)
             comp, ncomp = component_labels(ctx.require_graph())
             greport.components = max(greport.components, ncomp)
+            if greport.sanitize_fixes:
+                obs.counter_add("guard_sanitize_fixes",
+                                greport.sanitize_fixes)
         setup = sum(s.seconds for s in ctx.stages[n_before:])
         ctx.config["components"] = ncomp
         ctx.stages.append(StageRecord(
@@ -511,8 +571,10 @@ class PartitionPipeline:
         w = np.ones(ctx.n) if ctx.weights is None else \
             np.asarray(ctx.weights, np.float64)
         comp_w = np.bincount(comp, weights=w, minlength=ncomp)
+        with obs.timed(f"pre:{self.pre}") as t_pre:
+            pass        # pre runs inside each component's sub-pipeline
         ctx.stages.append(StageRecord(
-            kind="pre", name=self.pre, seconds=0.0,
+            kind="pre", name=self.pre, seconds=t_pre.seconds,
             info={"mode": "per-component", "components": ncomp}))
 
         parts = np.zeros(ctx.n, dtype=np.int64)
@@ -757,7 +819,8 @@ def partition(
     (``precond=`` "jacobi", the default, or "amg").  ``guard``/``guard_kw``
     switch and parameterize the guard (:class:`PartitionPipeline`; the
     default defers to ``REPRO_GUARD``, on unless set off).
-    ``engine="recursive"`` is not yet ported and raises.
+    ``engine`` selects the RSB driver ("batched", or "recursive": the
+    depth-first reference engine, gather-scatter solves on a mesh).
     """
     is_mesh = hasattr(obj, "vert_gid")
     post_kw = dict(sweeps=refine_sweeps, balance_tol=balance_tol)

@@ -264,6 +264,8 @@ def repair_components(
 
         stats.cut_after = edge_cut(graph, parts)
     stats.seconds = t.seconds
+    obs.counter_add("fragments_repaired", stats.fragments_repaired)
+    obs.counter_add("forced_moves", stats.forced_moves)
     return parts, stats
 
 
@@ -358,6 +360,8 @@ def refine_boundary(
 
         stats.cut_after = edge_cut(graph, parts)
     stats.seconds = t.seconds
+    obs.counter_add("refine_moves", stats.moves_applied)
+    obs.counter_add("refine_sweeps", len(stats.sweeps))
     return parts, stats
 
 

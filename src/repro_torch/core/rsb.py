@@ -1,7 +1,9 @@
-"""Recursive Spectral Bisection driver (paper Algorithm 1), batched engine.
+"""Recursive Spectral Bisection driver (paper Algorithm 1).
 
-The level-synchronous engine of `repro.core.rsb`: all 2^L subdomains at
-level L of the bisection tree are independent, so each level
+Two engines, as in `repro.core.rsb`, sharing the same math.
+
+**engine="batched"** (default) — the level-synchronous engine: all 2^L
+subdomains at level L of the bisection tree are independent, so each level
 
   1. reorders every active node's elements by RCB/RIB (paper §8, host
      NumPy),
@@ -16,19 +18,30 @@ level L of the bisection tree are independent, so each level
      component, cut at ⌊P/2⌋ / ⌈P/2⌉ of the weight) and extracts the
      children's subgraphs in one vectorized pass.
 
+**engine="recursive"** — the host-side depth-first recursion, one solve
+per tree node: the reference engine.  On a mesh (`_rsb_mesh_recursive`)
+each node solves on the matrix-free gather-scatter Laplacian of its
+sub-mesh (`fiedler_from_mesh`, paper §5): Lanczos with no kernel, inverse
+iteration with the per-graph `AMG` of the node's assembled dual graph,
+whose levels run K1.  On a graph (`_rsb_graph_recursive`) each node
+solves through `fiedler_from_graph`, K1 on every matvec.
+
 Per-node start vectors are seeded from (seed, level, p_lo) as in `repro`.
 ``use_kernel`` defaults to **True** (the JAX engine leaves its Pallas
-kernels off): on the card every matvec runs a CUDA ELL SpMV (K1 packed,
-K2 batched).
+kernels off): on the card every assembled matvec runs a CUDA ELL SpMV (K1
+flat, K2 batched).  Spans as in `repro`: ``engine``, ``solve`` and
+``split`` in both engines, the batched engine's ``solve`` and ``split``
+under one ``level:<N>`` span per tree level.
 
 ``guard`` (a :class:`~repro_torch.guard.policy.GuardPolicy`, passed by a
 guarded pipeline) re-admits every node's result through a
 :class:`~repro_torch.guard.policy.SolverGuard`, as `repro` does: a failed
 solve re-solves alone through `fiedler_from_graph` on the same device
 (retry, then the other method), and falls back to a geometric or index
-vector last.  A re-solve that raises on the card raises out of the engine
-(`~repro_torch.guard.policy.absorbable`).  The recursive engine is not
-yet ported.
+vector last; past the guard's deadline a node skips its solve and takes
+the fallback.  The recursive engines also catch their primary solve's
+error, as `repro`'s do, under the same rule: an exception raised on the
+card raises out of the engine (`~repro_torch.guard.policy.absorbable`).
 """
 
 from __future__ import annotations
@@ -40,14 +53,16 @@ import numpy as np
 from repro_torch import obs
 from repro_torch.core.fiedler import (
     _DENSE_CUTOFF,
+    _graph_from_vert_gid,
     check_fiedler_method,
     fiedler_from_graph,
     fiedler_from_graph_batched,
+    fiedler_from_mesh,
     next_pow2,
 )
 from repro_torch.core.rcb import rcb_order, rib_order
 from repro_torch.device import resolve_device
-from repro_torch.guard.policy import SolverGuard
+from repro_torch.guard.policy import SolverGuard, absorbable
 from repro_torch.mesh.graphs import Graph, dual_graph_from_incidence, extract_subgraphs
 
 _ENGINES = ("batched", "recursive")
@@ -66,6 +81,10 @@ class BisectionRecord:
     levels: int = 0    # multilevel warm-start hierarchy depth; 0 = none
     split_seconds: float = 0.0   # this node's sort/split + child extraction
     breakdown: bool = False      # solver breakdown (or guard fallback) here
+    # The recursive engines' own solve: its device part and its flexcg
+    # iterations (0 in the batched engine, whose LevelRecord has them).
+    device_seconds: float = 0.0
+    inner_iterations: int = 0
 
 
 @dataclasses.dataclass
@@ -175,12 +194,51 @@ def _resolve_solver_opts(window, max_restarts, multilevel, fine_restarts,
     return window, max_restarts
 
 
+def _levels_from_records(records: list) -> list:
+    """Aggregate per-node records into per-level records (recursive
+    engines)."""
+    by_level: dict = {}
+    for r in records:
+        by_level.setdefault(r.level, []).append(r)
+    out = []
+    for level in sorted(by_level):
+        rs = by_level[level]
+        out.append(LevelRecord(
+            level=level,
+            n_nodes=len(rs),
+            total_size=sum(r.size for r in rs),
+            buckets=_size_buckets([r.size for r in rs]),
+            iterations=sum(r.iterations for r in rs),
+            solve_seconds=sum(r.seconds for r in rs),
+            split_seconds=sum(r.split_seconds for r in rs),
+            device_seconds=sum(r.device_seconds for r in rs),
+            inner_iterations=sum(r.inner_iterations for r in rs),
+        ))
+    return out
+
+
 def _check_method(method: str, engine: str) -> None:
     if engine not in _ENGINES:
         raise ValueError(f"unknown engine: {engine}")
-    if engine == "recursive":
-        raise NotImplementedError("engine='recursive' is not yet ported")
     check_fiedler_method(method)
+
+
+def _primary_solve(sg: SolverGuard | None, solve_fn, method: str, seed: int,
+                   device):
+    """A recursive node's first solve: unguarded it runs (and raises) as
+    is; guarded it is skipped past the deadline (the rescue takes the
+    fallback rung), and an error it raises becomes a failed solve where
+    :func:`~repro_torch.guard.policy.absorbable`."""
+    if sg is None:
+        return solve_fn(method, seed)
+    if sg.expired():
+        return None
+    try:
+        return solve_fn(method, seed)
+    except Exception as exc:
+        if not absorbable(exc, device):
+            raise
+        return None
 
 
 def rsb_partition_mesh(
@@ -205,19 +263,109 @@ def rsb_partition_mesh(
 ) -> tuple[np.ndarray, RSBReport]:
     """Partition a HexMesh into ``nparts`` via RSB on its dual graph.
 
-    The batched engine assembles the weighted dual graph and runs the
-    graph engine on it (``laplacian`` is validated only, as in `repro`)."""
+    ``engine="batched"`` assembles the weighted dual graph and runs the
+    batched graph engine on it; ``engine="recursive"`` solves every node
+    on the matrix-free gather-scatter Laplacian of its sub-mesh (inverse
+    iteration: always with the node's own `AMG`, whatever ``precond``).
+    ``laplacian`` is validated only, as in `repro`: both settings
+    partition the shared-vertex-weighted dual graph."""
     if laplacian not in ("weighted", "unweighted"):
         raise ValueError(laplacian)
     _check_method(method, engine)
-    graph = dual_graph_from_incidence(mesh.vert_gid, mesh.n_vert, mesh.nelems)
-    return rsb_partition_graph(
-        graph, nparts, coords=mesh.coords, weights=mesh.weights,
-        method=method, pre=pre, tol=tol, window=window,
+    if engine == "batched":
+        graph = dual_graph_from_incidence(mesh.vert_gid, mesh.n_vert,
+                                          mesh.nelems)
+        return rsb_partition_graph(
+            graph, nparts, coords=mesh.coords, weights=mesh.weights,
+            method=method, pre=pre, tol=tol, window=window,
+            max_restarts=max_restarts, seed=seed, warm_start=warm_start,
+            use_kernel=use_kernel, engine=engine, multilevel=multilevel,
+            fine_restarts=fine_restarts, precond=precond, device=device,
+            guard=guard,
+        )
+    window, max_restarts = _resolve_solver_opts(
+        window, max_restarts, multilevel, fine_restarts,
+        ordered=pre in ("rcb", "rib") and not warm_start,
+    )
+    return _rsb_mesh_recursive(
+        mesh, nparts, method=method, pre=pre, tol=tol, window=window,
         max_restarts=max_restarts, seed=seed, warm_start=warm_start,
-        use_kernel=use_kernel, engine=engine, multilevel=multilevel,
-        fine_restarts=fine_restarts, precond=precond, device=device,
-        guard=guard,
+        multilevel=multilevel, use_kernel=use_kernel,
+        device=resolve_device(device), guard=guard)
+
+
+def _rsb_mesh_recursive(
+    mesh, nparts, *, method, pre, tol, window, max_restarts, seed, warm_start,
+    multilevel, use_kernel, device, guard=None,
+) -> tuple[np.ndarray, RSBReport]:
+    records: list[BisectionRecord] = []
+    parts = np.zeros(mesh.nelems, dtype=np.int64)
+    sg = (SolverGuard(guard, seed=seed, method=method, device=device)
+          if guard is not None and guard.enabled else None)
+
+    def rec(idx: np.ndarray, p_lo: int, p_hi: int, level: int) -> None:
+        np_here = p_hi - p_lo
+        if np_here <= 1 or idx.size <= 1:
+            parts[idx] = p_lo
+            return
+        # Geometric pre-partitioning: make active data locally contiguous.
+        if pre in ("rcb", "rib"):
+            fn = rcb_order if pre == "rcb" else rib_order
+            idx = idx[fn(mesh.coords[idx], mesh.weights[idx])]
+
+        sub_vg = mesh.vert_gid[idx]
+        warm = _warm_vector(mesh.coords[idx]) if warm_start else None
+        amg_cache: dict = {}
+
+        def solve_fn(m, s, _sub_vg=sub_vg, _size=int(idx.size)):
+            graph_amg = order_amg = None
+            if m == "inverse":
+                if "g" not in amg_cache:
+                    amg_cache["g"] = _graph_from_vert_gid(_sub_vg)
+                graph_amg = amg_cache["g"]
+                order_amg = np.arange(_size)  # already RCB-ordered above
+            return fiedler_from_mesh(
+                _sub_vg, method=m, graph_for_amg=graph_amg, order=order_amg,
+                seed=s, tol=tol, window=window, max_restarts=max_restarts,
+                warm=warm, multilevel=multilevel, use_kernel=use_kernel,
+                device=device,
+            )
+
+        with obs.timed("solve", level=level, n=int(idx.size)) as t_solve:
+            res = _primary_solve(sg, solve_fn, method,
+                                 _node_seed(seed, level, p_lo), device)
+            res = _guarded(sg, res, solve_fn, level=level, p_lo=p_lo,
+                           size=int(idx.size), coords_sub=mesh.coords[idx])
+        n_left = np_here // 2
+        with obs.timed("split", level=level) as t_split:
+            lo, hi = _proportional_split(
+                res.vector, mesh.weights[idx], n_left, np_here)
+            idx_lo, idx_hi = idx[lo], idx[hi]
+        records.append(_node_record(res, level, int(idx.size), np_here,
+                                    t_solve.seconds, t_split.seconds))
+        rec(idx_lo, p_lo, p_lo + n_left, level + 1)
+        rec(idx_hi, p_lo + n_left, p_hi, level + 1)
+
+    with obs.timed("engine", engine="recursive") as t_total:
+        rec(np.arange(mesh.nelems, dtype=np.int64), 0, nparts, 0)
+    return parts, RSBReport(
+        records=records, seconds=t_total.seconds,
+        levels=_levels_from_records(records), engine="recursive",
+        pre=pre or "none", precond="amg" if method == "inverse" else "none",
+        multilevel=multilevel, guard=sg.report if sg is not None else None,
+    )
+
+
+def _node_record(res, level: int, size: int, nparts: int, seconds: float,
+                 split_seconds: float) -> BisectionRecord:
+    """One recursive-engine node's record."""
+    return BisectionRecord(
+        level=level, size=size, nparts=nparts, method=res.method,
+        iterations=res.iterations, eigenvalue=res.eigenvalue,
+        residual=res.residual, seconds=seconds, levels=res.levels,
+        split_seconds=split_seconds, breakdown=res.breakdown,
+        device_seconds=res.device_seconds,
+        inner_iterations=res.inner_iterations,
     )
 
 
@@ -258,11 +406,73 @@ def rsb_partition_graph(
         ordered=(pre in ("rcb", "rib") and coords is not None
                  and not warm_start),
     )
-    return _rsb_graph_batched(
-        graph, nparts, coords=coords, weights=weights, method=method,
-        pre=pre, tol=tol, window=window, max_restarts=max_restarts,
-        seed=seed, warm_start=warm_start, use_kernel=use_kernel,
-        multilevel=multilevel, precond=precond, device=dev, guard=guard)
+    kw = dict(coords=coords, weights=weights, method=method, pre=pre,
+              tol=tol, window=window, max_restarts=max_restarts, seed=seed,
+              warm_start=warm_start, use_kernel=use_kernel,
+              multilevel=multilevel, device=dev, guard=guard)
+    if engine == "batched":
+        return _rsb_graph_batched(graph, nparts, precond=precond, **kw)
+    return _rsb_graph_recursive(graph, nparts, **kw)
+
+
+def _rsb_graph_recursive(
+    graph, nparts, *, coords, weights, method, pre, tol, window, max_restarts,
+    seed, warm_start, use_kernel, multilevel, device, guard=None,
+) -> tuple[np.ndarray, RSBReport]:
+    n = graph.n
+    w = np.ones(n) if weights is None else np.asarray(weights, np.float64)
+    records: list[BisectionRecord] = []
+    parts = np.zeros(n, dtype=np.int64)
+    sg = (SolverGuard(guard, seed=seed, method=method, device=device)
+          if guard is not None and guard.enabled else None)
+
+    def rec(g: Graph, idx: np.ndarray, p_lo: int, p_hi: int,
+            level: int) -> None:
+        np_here = p_hi - p_lo
+        if np_here <= 1 or idx.size <= 1:
+            parts[idx] = p_lo
+            return
+        if pre in ("rcb", "rib") and coords is not None:
+            fn = rcb_order if pre == "rcb" else rib_order
+            perm = fn(coords[idx], w[idx])
+            idx = idx[perm]
+            g = g.sub(perm)
+        warm = None
+        if warm_start and coords is not None:
+            warm = _warm_vector(coords[idx])
+
+        def solve_fn(m, s, _g=g):
+            return fiedler_from_graph(
+                _g, method=m, order=None, seed=s, warm=warm, tol=tol,
+                window=window, max_restarts=max_restarts,
+                use_kernel=use_kernel, multilevel=multilevel, device=device,
+            )
+
+        with obs.timed("solve", level=level, n=int(idx.size)) as t_solve:
+            res = _primary_solve(sg, solve_fn, method,
+                                 _node_seed(seed, level, p_lo), device)
+            res = _guarded(
+                sg, res, solve_fn, level=level, p_lo=p_lo,
+                size=int(idx.size),
+                coords_sub=coords[idx] if coords is not None else None)
+        n_left = np_here // 2
+        with obs.timed("split", level=level) as t_split:
+            lo, hi = _proportional_split(res.vector, w[idx], n_left, np_here)
+            g_lo, g_hi = g.sub(lo), g.sub(hi)
+            idx_lo, idx_hi = idx[lo], idx[hi]
+        records.append(_node_record(res, level, int(idx.size), np_here,
+                                    t_solve.seconds, t_split.seconds))
+        rec(g_lo, idx_lo, p_lo, p_lo + n_left, level + 1)
+        rec(g_hi, idx_hi, p_lo + n_left, p_hi, level + 1)
+
+    with obs.timed("engine", engine="recursive") as t_total:
+        rec(graph, np.arange(n, dtype=np.int64), 0, nparts, 0)
+    return parts, RSBReport(
+        records=records, seconds=t_total.seconds,
+        levels=_levels_from_records(records), engine="recursive",
+        pre=pre or "none", precond="amg" if method == "inverse" else "none",
+        multilevel=multilevel, guard=sg.report if sg is not None else None,
+    )
 
 
 def _rsb_graph_batched(
@@ -289,7 +499,7 @@ def _rsb_graph_batched(
         level = 0
         while active:
             solve_nodes = []
-            with obs.timed("order", level=level) as t_order:
+            with obs.stopwatch() as t_order:
                 for g, idx, p_lo, p_hi in active:
                     if p_hi - p_lo <= 1 or idx.size <= 1:
                         parts[idx] = p_lo
@@ -303,63 +513,64 @@ def _rsb_graph_batched(
             if not solve_nodes:
                 break
 
-            with obs.timed("solve", level=level) as t_solve:
-                if sg is not None and sg.expired():
-                    # Past the stage deadline: skip the level solve and
-                    # let every node take the fallback rung below.
-                    results = [None] * len(solve_nodes)
-                else:
-                    results = fiedler_from_graph_batched(
-                        [g for g, _, _, _ in solve_nodes],
-                        method=method,
-                        seeds=[_node_seed(seed, level, p_lo)
-                               for _, _, p_lo, _ in solve_nodes],
-                        warms=[
-                            _warm_vector(coords[idx])
-                            if warm_start and coords is not None else None
-                            for _, idx, _, _ in solve_nodes
-                        ],
-                        tol=tol, window=window, max_restarts=max_restarts,
-                        pack_slots=pack_slots, pack_segs=pack_segs,
-                        width_pad=width_pad, use_kernel=use_kernel,
-                        multilevel=multilevel, precond=precond,
-                        device=device,
-                    )
-            if sg is not None:
-                # Re-admit every node's result; failed ones re-solve
-                # individually through the escalation ladder.
-                rescued = []
-                for (g, idx, p_lo, p_hi), res in zip(solve_nodes, results):
-                    def solve_fn(m, s, _g=g):
-                        return fiedler_from_graph(
-                            _g, method=m, order=None, seed=s, tol=tol,
-                            window=window, max_restarts=max_restarts,
-                            use_kernel=use_kernel, multilevel=multilevel,
+            with obs.span(f"level:{level}", nodes=len(solve_nodes)):
+                with obs.timed("solve", level=level) as t_solve:
+                    if sg is not None and sg.expired():
+                        # Past the stage deadline: skip the level solve and
+                        # let every node take the fallback rung below.
+                        results = [None] * len(solve_nodes)
+                    else:
+                        results = fiedler_from_graph_batched(
+                            [g for g, _, _, _ in solve_nodes],
+                            method=method,
+                            seeds=[_node_seed(seed, level, p_lo)
+                                   for _, _, p_lo, _ in solve_nodes],
+                            warms=[
+                                _warm_vector(coords[idx])
+                                if warm_start and coords is not None else None
+                                for _, idx, _, _ in solve_nodes
+                            ],
+                            tol=tol, window=window, max_restarts=max_restarts,
+                            pack_slots=pack_slots, pack_segs=pack_segs,
+                            width_pad=width_pad, use_kernel=use_kernel,
+                            multilevel=multilevel, precond=precond,
                             device=device,
                         )
-                    rescued.append(_guarded(
-                        sg, res, solve_fn, level=level, p_lo=p_lo,
-                        size=int(idx.size),
-                        coords_sub=coords[idx] if coords is not None
-                        else None))
-                results = rescued
-            with obs.timed("split", level=level) as t_split:
-                next_active = []
-                for (g, idx, p_lo, p_hi), res in zip(solve_nodes, results):
-                    np_here = p_hi - p_lo
-                    records.append(BisectionRecord(
-                        level=level, size=int(idx.size), nparts=np_here,
-                        method=res.method, iterations=res.iterations,
-                        eigenvalue=res.eigenvalue, residual=res.residual,
-                        seconds=t_solve.seconds / len(solve_nodes),
-                        levels=res.levels, breakdown=res.breakdown,
-                    ))
-                    n_left = np_here // 2
-                    lo, hi = _proportional_split(
-                        res.vector, w[idx], n_left, np_here)
-                    g_lo, g_hi = extract_subgraphs(g, [lo, hi])
-                    next_active.append((g_lo, idx[lo], p_lo, p_lo + n_left))
-                    next_active.append((g_hi, idx[hi], p_lo + n_left, p_hi))
+                if sg is not None:
+                    # Re-admit every node's result; failed ones re-solve
+                    # individually through the escalation ladder.
+                    rescued = []
+                    for (g, idx, p_lo, p_hi), res in zip(solve_nodes, results):
+                        def solve_fn(m, s, _g=g):
+                            return fiedler_from_graph(
+                                _g, method=m, order=None, seed=s, tol=tol,
+                                window=window, max_restarts=max_restarts,
+                                use_kernel=use_kernel, multilevel=multilevel,
+                                device=device,
+                            )
+                        rescued.append(_guarded(
+                            sg, res, solve_fn, level=level, p_lo=p_lo,
+                            size=int(idx.size),
+                            coords_sub=coords[idx] if coords is not None
+                            else None))
+                    results = rescued
+                with obs.timed("split", level=level) as t_split:
+                    next_active = []
+                    for (g, idx, p_lo, p_hi), res in zip(solve_nodes, results):
+                        np_here = p_hi - p_lo
+                        records.append(BisectionRecord(
+                            level=level, size=int(idx.size), nparts=np_here,
+                            method=res.method, iterations=res.iterations,
+                            eigenvalue=res.eigenvalue, residual=res.residual,
+                            seconds=t_solve.seconds / len(solve_nodes),
+                            levels=res.levels, breakdown=res.breakdown,
+                        ))
+                        n_left = np_here // 2
+                        lo, hi = _proportional_split(
+                            res.vector, w[idx], n_left, np_here)
+                        g_lo, g_hi = extract_subgraphs(g, [lo, hi])
+                        next_active.append((g_lo, idx[lo], p_lo, p_lo + n_left))
+                        next_active.append((g_hi, idx[hi], p_lo + n_left, p_hi))
             levels.append(LevelRecord(
                 level=level,
                 n_nodes=len(solve_nodes),

@@ -29,9 +29,10 @@ Layout
 All planning is host-side NumPy, copied from `repro.dist.partition_aware`
 and bit-identical to it, with `repro`'s ``halo_truncate`` chaos hook: a
 plan that fails its self-check is rebuilt once with the chaos sites muted,
-and raises if the rebuild fails too.  Not ported yet: the plan's obs
-counters, and the distributed halo exchange and adjacency matvec (with the
-collectives).
+and raises if the rebuild fails too, and with its obs counters: the
+plan's wire volume (``halo_words``, ``halo_bytes``, ``halo_max_degree``)
+and ``guard_fallbacks`` for a rebuild.  Not ported yet: the distributed
+halo exchange and adjacency matvec (with the collectives).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.guard import chaos
 
 
@@ -130,9 +132,17 @@ def plan_halo_sharding(graph, parts, nparts: int | None = None,
     if problems:
         with chaos.suppressed():
             plan = _assemble_plan(graph, parts, nparts, pad_to)
+        obs.counter_add("guard_fallbacks", 1)
         rest = verify_halo_plan(plan)
         if rest:
             raise ValueError(f"halo plan invalid after rebuild: {rest}")
+
+    # Wire volume of the plan — what the partition's edge cut costs the
+    # runtime, per sweep per feature column (float32 ⇒ 4 bytes/word).
+    words = plan.collective_words_per_feature
+    obs.counter_add("halo_words", float(words))
+    obs.counter_add("halo_bytes", 4.0 * words)
+    obs.gauge_max("halo_max_degree", int(plan.halo))
     return plan
 
 

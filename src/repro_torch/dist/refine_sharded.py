@@ -61,8 +61,13 @@ Where the port differs from `repro`'s device sweep, and why:
   sweep path on the card raises, as does a kernel's or the card's fault
   anywhere (`~repro_torch.guard.policy.absorbable`).
   ``backend="host"`` runs the NumPy mirror only when asked.
-* No obs counters: ``info["gathers"]``, the sweep records and K4's
-  ``BATCHED_LAUNCHES`` show the one-table-per-sweep contract instead.
+* Observability as in `repro`: one ``sweep:<N>`` span per sweep with the
+  ``halo_words``/``halo_bytes`` wire counters and ``sharded_gathers`` /
+  ``sharded_sweeps`` (always equal: one gather and one K4 table a sweep)
+  and ``sharded_moves``, taken from the host values the sweep's one
+  scalar copy already brought back; ``sharded_sweeps_total`` around each
+  stage's pass, ``refine_moves`` after it, and ``guard_fallbacks`` where
+  the pass degrades to the host refiner.
 
 Labels, proposals and the connection table stay on the device.
 :func:`refine_sharded_host` is the NumPy mirror of the same arithmetic
@@ -434,15 +439,22 @@ def run_sharded_sweeps(fp: FrontierPlan, parts: np.ndarray, nparts: int, *,
     ptgt = torch.full((nsh, halo), -1, dtype=torch.int32, device=dev)
 
     records, total_moves, gathers, cut = [], 0, 0, cut0
+    words = nsh * fp.gather_row_words
     for s in range(sweeps):
-        labels, pgain, ptgt, mv, gn, pend = _sweep_body(
-            _identity_gather, admit, 0, nparts, corridor[0], corridor[1],
-            labels, pgain, ptgt, consts)
-        per_shard = torch.stack([mv, gn, pend]).cpu().numpy()   # (3, G) f32
-        mv = int(per_shard[0].sum())
-        gn = float(per_shard[1].sum())
-        pend = int(per_shard[2].sum())
-        gathers += 1
+        with obs.timed(f"sweep:{s}"):
+            labels, pgain, ptgt, mv, gn, pend = _sweep_body(
+                _identity_gather, admit, 0, nparts, corridor[0], corridor[1],
+                labels, pgain, ptgt, consts)
+            per_shard = torch.stack([mv, gn, pend]).cpu().numpy()  # (3, G)
+            mv = int(per_shard[0].sum())
+            gn = float(per_shard[1].sum())
+            pend = int(per_shard[2].sum())
+            gathers += 1
+            obs.counter_add("halo_words", float(words))
+            obs.counter_add("halo_bytes", 4.0 * words)
+            obs.counter_add("sharded_gathers", 1)
+            obs.counter_add("sharded_sweeps", 1)
+            obs.counter_add("sharded_moves", mv)
         records.append(SweepRecord(sweep=s, moves=mv, cut_before=cut,
                                    cut_after=cut - gn))
         cut -= gn
@@ -634,6 +646,7 @@ def _sharded_pass(graph, parts, nparts, *, weights, sweeps, corridor,
             raise
         # The exchange/sweep path failed off the card: degrade to the host
         # FM refiner rather than ship a corrupt partition.
+        obs.counter_add("guard_fallbacks", 1)
         stats.stages.append("host-fallback")
         out, fstats = refine_boundary(graph, parts, nparts, weights=weights,
                                       sweeps=sweeps, corridor=corridor)
@@ -675,6 +688,7 @@ def refine_sharded_stage(
                               backend=backend, guard=guard, device=device,
                               stats=stats)
     stats.seconds = t.seconds
+    obs.counter_add("refine_moves", stats.moves_applied)
     return close_with_repair(graph, parts, nparts, stats, weights=weights,
                              balance_tol=balance_tol, corridor=corridor)
 
@@ -713,5 +727,6 @@ def kway_sharded_stage(
     stats.kway = kstats.kway
     stats.moves_applied += kstats.moves_applied
     stats.seconds += kstats.seconds
+    obs.counter_add("refine_moves", stats.moves_applied)
     return close_with_repair(graph, parts, nparts, stats, weights=weights,
                              balance_tol=balance_tol, corridor=corridor)

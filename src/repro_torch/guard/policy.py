@@ -28,8 +28,9 @@ a :func:`device_fault` anywhere (a
 accelerator error).  On the card the ladder absorbs what `repro`'s
 absorbs apart from exceptions: results that :meth:`SolverGuard.admit`
 rejects (chaos faults included) and the deadline.  On the CPU it also
-absorbs the solvers' own errors, as `repro` does.  The guard's counts live on the :class:`GuardReport`
-only (the port has no trace counters yet).
+absorbs the solvers' own errors, as `repro` does.  The guard's counts go
+to the :class:`GuardReport` and, as `repro`'s, to the active trace
+(``guard_retries``, ``guard_fallbacks``, ``guard_deadline_expired``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.guard import chaos
 from repro_torch.guard.errors import GuardReport
 from repro_torch.kernels._build import KernelError
@@ -168,6 +170,7 @@ class SolverGuard:
         if not self.report.deadline_expired:
             self.report.deadline_expired = True
             self.report.degrade("deadline-expired")
+            obs.counter_add("guard_deadline_expired", 1)
 
     def rescue(self, solve_fn, first_why: str, *, level: int, p_lo: int,
                size: int, coords=None):
@@ -186,6 +189,7 @@ class SolverGuard:
                 res, why = self.admit(res, level=level, p_lo=p_lo,
                                       size=size, attempt=attempt)
                 self.report.retries += 1
+                obs.counter_add("guard_retries", 1)
                 if why is None:
                     return res
                 if self.expired():
@@ -198,6 +202,7 @@ class SolverGuard:
                 res, why = self.admit(res, level=level, p_lo=p_lo,
                                       size=size, attempt=attempt)
                 self.report.fallbacks += 1
+                obs.counter_add("guard_fallbacks", 1)
                 if why is None:
                     self.report.degrade(
                         f"solver:switched-to-{alt}@L{level}:{p_lo}")
@@ -209,6 +214,7 @@ class SolverGuard:
         # Rung 3: deterministic geometric/index fallback — cannot fail.
         vec = fallback_vector(size, coords)
         self.report.fallbacks += 1
+        obs.counter_add("guard_fallbacks", 1)
         kind = "geom" if coords is not None else "index"
         self.report.degrade(f"solver:fallback-{kind}@L{level}:{p_lo}"
                             f" ({why})")
@@ -302,6 +308,7 @@ def enforce_output(graph, parts, nparts: int, *, weights=None,
         if report is not None:
             report.degrade("finalize:reassigned-labels")
             report.fallbacks += 1
+        obs.counter_add("guard_fallbacks", 1)
     p = p.astype(np.int64, copy=True)
 
     mean = float(w.sum()) / nparts

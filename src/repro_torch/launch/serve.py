@@ -112,9 +112,13 @@ def main(argv=None) -> None:
     model = Transformer(cfg, init_params(cfg, gen))
     prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, cfg.vocab, (args.batch, args.prompt_len))).to(device)
-    toks, t_prefill, step_secs = generate(
-        cfg, model, prompts, args.steps, temperature=args.temperature,
-        generator=gen)
+    # One serve-run trace: generate's prefill span and one span per
+    # decode step under a ``serve`` root, as in `repro`'s launcher.
+    with obs.trace("serve", arch=cfg.name, batch=args.batch,
+                   steps=args.steps):
+        toks, t_prefill, step_secs = generate(
+            cfg, model, prompts, args.steps, temperature=args.temperature,
+            generator=gen)
     t_decode = sum(step_secs)
 
     toks = toks.cpu().numpy()

@@ -19,7 +19,11 @@ the flash attention, is held to its plain version with
 tests/test_kernels.py's `_tol` (fp32 2e-5, bf16 2e-2), its split-KV decode
 route also to itself (repeated calls bit-identical), and the smoke LM's
 greedy tokens on the card to the CPU's exactly (fp32; logits within
-1e-3).  K5, the embedding bag, is held to its plain version per element
+1e-3).  The gather-scatter Laplacian (no kernel of its own: an ordered
+``segment_reduce`` and a take) is held to its CPU apply within 1e-5 of
+Σ|terms| and to itself bit for bit on repeated calls, and the
+``reference`` preset (recursive engine, K1 in its AMG levels) on the
+card to the CPU run label for label.  K5, the embedding bag, is held to its plain version per element
 relative to the bag's Σ|w·row| (fp32 1e-5: the plain version adds with
 atomics in another order; bf16 2e-2), and bit for bit on bags of one in
 fp32; the smoke SASRec on the card to the CPU run: user states within
@@ -658,3 +662,56 @@ def test_sasrec_smoke_on_card_matches_cpu(card):
             cfg, cpu, seq[:1], cand), atol=1e-4, rtol=0)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ---------------------------------------------------------------------------
+# The gather-scatter Laplacian and the recursive engine on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True])
+def test_gs_apply_on_card_matches_cpu(card, batched):
+    from repro_torch.core import fiedler as fd
+    from repro_torch.core import gather_scatter as gs
+    from repro_torch.mesh import box_mesh, pebble_mesh
+
+    vg = pebble_mesh(12, 12, 12, n_pebbles=5, warp=0.15, seed=1).vert_gid
+    if batched:
+        parts = [vg[:800], vg[800:]]
+        L = {d: fd._padded_gs_laplacian_batched(parts, 1024, 2, device=d)
+             for d in ("cpu", card)}
+        shape = (2, 1024)
+    else:
+        vg = box_mesh(40, 32, 24).vert_gid
+        L = {d: gs.weighted_laplacian(vg, device=d) for d in ("cpu", card)}
+        shape = (vg.shape[0],)
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=shape)
+                         .astype(np.float32))
+    want = L["cpu"].apply(x).numpy()
+    scale = (L["cpu"].degree_full * x.abs()
+             + L["cpu"].adj_apply(x.abs())).numpy()
+    got = L[card].apply(x.to(card))
+    again = L[card].apply(x.to(card))
+    assert torch.equal(got, again)            # deterministic on the card
+    got = got.cpu().numpy()
+    assert np.all(np.abs(got - want) <= 1e-5 * np.maximum(scale, 1.0))
+
+
+@pytest.mark.cuda
+def test_reference_preset_on_card_matches_cpu(card):
+    from repro_torch.configs.parrsb import make_pipeline
+    from repro_torch.core.pipeline import partition
+    from repro_torch.core.refine import edge_cut
+    from repro_torch.mesh import pebble_mesh
+
+    mesh = pebble_mesh(12, 12, 12, n_pebbles=5, warp=0.15, seed=1)
+    on_card = make_pipeline("reference", device=card).run(mesh, 16)
+    on_cpu = make_pipeline("reference", device="cpu").run(mesh, 16)
+    assert np.array_equal(on_card.parts, on_cpu.parts)
+    assert edge_cut(on_card.require_graph(), on_card.parts) <= 1.05 * 8918.0
+    assert on_card.report.guard.clean
+    before = cuda.LAUNCHES
+    partition(pebble_mesh(10, 10, 10, n_pebbles=6, seed=0), 8,
+              partitioner="rsb_inverse", precond="amg", engine="recursive",
+              device=card)
+    assert cuda.LAUNCHES > before             # K1 in the AMG levels

@@ -102,10 +102,19 @@ def test_engine_reports_precond_only_for_inverse(runs):
 
 
 def test_still_not_ported():
+    """The recursive engine is ported: both methods run through the front
+    door (Lanczos on the gather-scatter operator, inverse iteration with
+    the per-node AMG) and keep the invariants."""
     mt = _pebble(mesh_t)
     for kw in (dict(engine="recursive"),
-               dict(partitioner="rsb_inverse", engine="recursive")):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            partition(mt, NPARTS, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PartitionPipeline(bisect="rsb-recursive")
+               dict(partitioner="rsb_inverse", precond="amg",
+                    engine="recursive")):
+        labels = partition(mt, NPARTS, device="cpu", **kw)
+        g = mesh_t.dual_graph(mt)
+        pm = partition_metrics(g, labels, NPARTS)
+        assert pm.disconnected_parts == 0
+        assert sorted(np.unique(labels)) == list(range(NPARTS))
+    pipe = PartitionPipeline(bisect="rsb-recursive", bisect_kw=dict(
+        method="inverse"), device="cpu")
+    ctx = pipe.run(mt, NPARTS)
+    assert ctx.report.engine == "recursive" and ctx.report.precond == "amg"

@@ -53,7 +53,10 @@ _SLICE_MODULES = {"repro_torch.core.lanczos", "repro_torch.core.flexcg",
                   "repro_torch.models.recsys.sasrec",
                   "repro_torch.configs.sasrec", "repro_torch.data.synthetic",
                   "repro_torch.launch.cells", "repro_torch.guard.chaos",
-                  "repro_torch.guard.policy", "repro_torch.core.multilevel"}
+                  "repro_torch.guard.policy", "repro_torch.core.multilevel",
+                  "repro_torch.core.gather_scatter", "repro_torch.obs",
+                  "repro_torch.obs.trace", "repro_torch.obs.registry",
+                  "repro_torch.obs.export", "repro_torch.obs.profiler"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
@@ -62,14 +65,14 @@ def test_import_pulls_in_no_jax_and_no_repro():
                          text=True, env=env, cwd=_REPO, timeout=300)
     assert out.returncode == 0, out.stderr
     count, names, bad = out.stdout.strip().split(" ", 2)
-    assert int(count) >= 62
+    assert int(count) >= 67
     assert _SLICE_MODULES <= set(names.split(","))
     assert bad == "[]", bad
 
 
 def test_sources_name_no_jax_and_no_repro():
     files = sorted(_PORT.rglob("*.py")) + [_REPO / "chip_smoke.py"]
-    assert len(files) >= 64
+    assert len(files) >= 69
     hits = [f"{f.relative_to(_REPO)}: {m.group(0).strip()}"
             for f in files for m in _FORBIDDEN.finditer(f.read_text())]
     assert hits == []

@@ -162,10 +162,12 @@ def test_front_door_and_sfc_pre(quality, runs):
 
 def test_unported_and_device_contract(quality, monkeypatch):
     mt = quality[1]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cfg_t.make_pipeline("reference", device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        partition(mt, NPARTS, engine="recursive", device="cpu")
+    # the recursive engine and its preset are ported (labels held to
+    # repro's in tests/test_torch_recursive.py)
+    assert cfg_t.make_pipeline("reference", device="cpu").bisect == \
+        "rsb-recursive"
+    labels = partition(mt, NPARTS, engine="recursive", device="cpu")
+    assert sorted(np.unique(labels)) == list(range(NPARTS))
     with pytest.raises(ValueError, match="unknown pipeline preset"):
         cfg_t.make_pipeline("nope")
     with pytest.raises(ValueError, match="unknown bisect stage"):
