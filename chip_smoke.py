@@ -2,7 +2,8 @@
 """Drive the PyTorch port (`repro_torch`, under src/) on one CUDA card.
 
     python3 chip_smoke.py            # every phase; needs one CUDA card
-    python3 chip_smoke.py --quick    # no full-size runs (phases 5-7c)
+    python3 chip_smoke.py --quick    # no full-size runs (phases 5-7c;
+                                     # 7a on RCB labels of the full box)
 
 Phases, each printing JSON lines:
 
@@ -111,6 +112,27 @@ Phases, each printing JSON lines:
    labels and from a seeded perturbation of them (2% of the elements).
    Each chain runs in the guard's post-stage envelope; its report must be
    clean.
+7a. ``dist`` — the distribution layer across processes on the card
+   (`phase_dist`): four gloo ranks sharing the card (their collectives
+   through the host) and one NCCL rank (a real communicator whose gathers
+   degenerate), spawned together after the kernels are built, each with
+   one torch thread and a ``file://`` rendezvous.  (a) The 959-element
+   protocol's chains on both groups: labels = the one-process card
+   labels of phase 4, cuts within 1.05 x 4679 / 4319, K4 = gathers =
+   sweeps on every rank; (b) both sharded chains of ``full_sharded`` on
+   ``full``'s raw labels across the 4 ranks (G = 16), guarded: labels =
+   ``full_sharded``'s bit for bit, gathers = sweeps, the sweep seconds and
+   the bytes a sweep gathers; (c) the halo matvec under a 4-shard RCB plan
+   of the full box's dual graph against K1's ELL matvec on one process
+   (1e-5 of max|y|); (d) the distributed gather-scatter Laplacian of the
+   full box (4 blocks of elements; 1 under NCCL) against the one-process
+   apply (1e-5 of Σ|terms|); (e) ``ring_allreduce`` against ``all_reduce``
+   (bit-equal on integer-valued floats, 1e-6 otherwise); (f)
+   ``fiedler_pair_from_graph`` on the quality mesh's dual graph on the
+   card (K1 launches > 0, counted from 0 just before) against the CPU's
+   (λ₂, λ₃ within 1e-4, the pair's span cos ≥ 0.999).  A rank that fails
+   fails the phase.  Under ``--quick`` the full-width inputs are RCB labels
+   of the box with 0.2% moved at random and their one-process chains.
 7b. ``full_multilevel`` — the ``multilevel`` preset (host V-cycle, no
    kernel: launches checked 0) on the same box into 64 parts: seconds per
    stage, the V-cycle's levels, coarsest size and solver, FM and balance
@@ -203,7 +225,7 @@ Phases, each printing JSON lines:
 Then ``done`` (the script's seconds), the line ``{"kernels": [...]}``
 (every ported kernel: launches on its
 main path — K1 in ``full``, K2 in ``full_inverse``, K4 in the two sharded
-chains of ``full_sharded``, K3 on none, K6 in the two ``serve`` runs, K5
+chains of ``full_sharded`` (``dist`` prints its own per rank), K3 on none, K6 in the two ``serve`` runs, K5
 in the three ``recsys`` runs, with the counters set to 0 just before each
 — error against the plain version, times and bound), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -216,6 +238,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import json
 import statistics
 import subprocess
@@ -807,13 +830,15 @@ def level_rows(ctx) -> list:
             for lv in ctx.report.levels]
 
 
-def run_chains(graph, raw, nparts, weights, device, guarded=False) -> dict:
+def run_chains(graph, raw, nparts, weights, device, guarded=False,
+               names=tuple(SHARDED_CHAINS)) -> dict:
     """`run_sharded`'s post chains from one set of raw labels on ``device``:
     per chain the labels, cut, invariants, seconds (split for the sharded
     stage into plan build, sweeps and host admission), moves per sweep,
     K4 launches and peak device memory.  ``guarded``: each chain runs in
     the guard's post-stage envelope, as a guarded pipeline runs it (a
-    ``SolverGuard`` of the default policy), and the row has its report."""
+    ``SolverGuard`` of the default policy), and the row has its report.
+    ``names``: the chains to run (all three by default)."""
     from repro_torch import obs
     from repro_torch.core.metrics import partition_metrics
     from repro_torch.core.pipeline import run_post_stages
@@ -823,7 +848,8 @@ def run_chains(graph, raw, nparts, weights, device, guarded=False) -> dict:
 
     floor, cap = balance_corridor(raw, nparts, weights, 0.05)
     out = {}
-    for name, (post, kw) in SHARDED_CHAINS.items():
+    for name in names:
+        post, kw = SHARDED_CHAINS[name]
         post_kw = dict(kw)
         greport = GuardReport() if guarded else None
         if guarded:
@@ -1305,6 +1331,8 @@ def phase_quality():
                             chains=chain_rows(sharded),
                             cpu_cuts={k: v["cut"]
                                       for k, v in sharded_cpu.items()}))
+    return (ctx.require_graph(), ctx.parts_raw, ctx.weights,
+            {k: v["parts"] for k, v in sharded.items()})
 
 
 def phase_full(box):
@@ -1403,7 +1431,8 @@ def phase_full_sharded(ctx):
     """`run_sharded`'s chains on the full box's raw labels (``full``'s
     context: no second eigensolve), then the card's sweeps against the
     NumPy mirror.  Returns the K3 and K4 launches of the chains, the
-    frontier plan of the raw labels (K4's ``main`` shape) and the labels."""
+    frontier plan of the raw labels (K4's ``main`` shape), the labels, and
+    each chain's labels."""
     from repro_torch.kernels.segment_sum import cuda as ss_cuda
 
     g, raw, w = ctx.require_graph(), ctx.parts_raw, ctx.weights
@@ -1427,7 +1456,342 @@ def phase_full_sharded(ctx):
     emit("full_sharded", mesh="box_mesh(80,64,48)", nelems=g.n, nparts=64,
          chains=chain_rows(runs), launches=launches,
          mirror=dict(raw=mirror_raw, perturbed_2pct=mirror_pert))
-    return launches, fp, raw
+    return launches, fp, raw, {k: v["parts"] for k, v in runs.items()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7a: the distribution layer across processes
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 4                # gloo ranks sharing the card
+DIST_TIMEOUT = 600.0          # seconds the ranks of one group may take
+DIST_TOL = 1e-5               # matvec and GS apply: of max|y| / Σ|terms|
+
+
+def _dist_entry(rank, world, backend, workdir, payload_path):
+    """One rank: a fresh group over a ``file://`` rendezvous, one torch
+    thread, :func:`dist_rank` on the pickled payload, its result pickled
+    next to it."""
+    import pickle
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    if backend == "nccl":                 # NCCL takes the current device
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=f"file://{workdir}/rdv",
+                            rank=rank, world_size=world)
+    try:
+        with open(payload_path, "rb") as f:
+            payload = pickle.load(f)
+        out = dist_rank(payload)
+        with open(f"{workdir}/rank{rank}.pkl", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def start_ranks(payload, world: int, backend: str):
+    """Spawn ``world`` ranks of a fresh ``backend`` group running
+    :func:`dist_rank` on ``payload`` (pickled once, read by each rank)."""
+    import pickle
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.TemporaryDirectory(prefix=f"dist_{backend}_")
+    path = f"{tmp.name}/payload.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(payload, f, protocol=pickle.HIGHEST_PROTOCOL)
+    ctx = mp.start_processes(_dist_entry,
+                             args=(world, backend, tmp.name, path),
+                             nprocs=world, join=False, start_method="spawn")
+    return ctx, tmp, world
+
+
+def join_ranks(handle, timeout: float = DIST_TIMEOUT) -> list:
+    """Every rank's result in rank order.  A rank that raises or dies
+    raises here (`ProcessContext.join`, which stops the others), as does
+    the timeout."""
+    import pickle
+
+    ctx, tmp, world = handle
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=1.0):
+        check(time.monotonic() < deadline,
+              f"dist: {world} ranks still running after {timeout} s")
+    out = []
+    for r in range(world):
+        with open(f"{tmp.name}/rank{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def stop_ranks(handle) -> None:
+    """Kill every rank of ``handle`` still running and remove its files."""
+    ctx, tmp, _ = handle
+    for p in ctx.processes:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    tmp.cleanup()
+
+
+def dist_rank(payload) -> dict:
+    """What one rank of the dist phase runs, each case on its card across
+    the default group: the post chains of ``run_sharded`` (``smoke``, and
+    the two sharded ones of ``full`` at full width, guarded), the halo matvec (``matvec``), the
+    distributed GS Laplacian (``gs``: this rank's block of elements) and
+    the ring (``ring``: ``ring_allreduce`` and ``all_reduce`` of this
+    rank's vectors)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import (adjacency_matvec_distributed,
+                                  dist_lap_apply_allreduce,
+                                  plan_halo_sharding, ring_allreduce)
+    from repro_torch.dist import group as dist_group
+
+    r, world = dist.get_rank(), dist.get_world_size()
+    out = {}
+    # the smoke protocol whole; at full width the two sharded chains (the
+    # host chain has nothing to spread over the ranks)
+    for key, nparts, guarded, names in (
+            ("smoke", 8, False, tuple(SHARDED_CHAINS)),
+            ("full", 64, True, ("repair+refine-sharded", "kway-sharded"))):
+        if key not in payload:
+            continue
+        g, raw, w = payload[key]
+        runs = run_chains(g, raw, nparts, w, "cuda", guarded=guarded,
+                          names=names)
+        out[key] = {name: dict(
+            parts=row["parts"], cut=row["cut"], k4=row["k4_launches"],
+            gathers=row.get("gathers"), sweeps_run=row.get("sweeps_run"),
+            halo=row.get("halo"),
+            sweeps_s=row.get("sweeps_s"), admit_s=row.get("admit_s"),
+            plan_s=row.get("plan_s"), seconds=row["seconds"],
+            counters=row["trace"].total_counters(),
+            guard=row.get("guard")) for name, row in runs.items()}
+    if "matvec" in payload:
+        g, parts, x = payload["matvec"]
+        plan = plan_halo_sharding(g, parts, world)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = adjacency_matvec_distributed(plan, None, x)
+        out["matvec"] = dict(y=y, seconds=time.perf_counter() - t0,
+                             halo=plan.halo)
+    if "gs" in payload:
+        gid, x, deg, n_global = payload["gs"]
+        rows = slice(r * len(x) // world, (r + 1) * len(x) // world)
+        dev = dist_group.rank_device(None)
+        args = (torch.from_numpy(gid[rows]).to(dev),
+                torch.from_numpy(x[rows]).to(dev),
+                torch.from_numpy(deg[rows]).to(dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = dist_lap_apply_allreduce(*args, n_global, None)
+        torch.cuda.synchronize()
+        out["gs"] = dict(y=y.cpu().numpy(), seconds=time.perf_counter() - t0)
+    if "ring" in payload:
+        dev = dist_group.rank_device(None)
+        out["ring"] = {}
+        for kind, xs in payload["ring"].items():
+            x = torch.from_numpy(xs[r]).to(dev)
+            out["ring"][kind] = (
+                ring_allreduce(x, None).cpu().numpy(),
+                dist_group.all_reduce_sum(x, dist.group.WORLD).cpu().numpy())
+    return out
+
+
+def dist_inputs_quick(box):
+    """``--quick``'s inputs for phase 7a at full width: RCB labels of the
+    box into 64 parts with 0.2% of them moved at random (no eigensolve),
+    and the one-process card runs of the two sharded chains of
+    ``run_sharded`` from them (guarded)."""
+    from repro_torch.core.rcb import rcb_parts
+    from repro_torch.mesh import dual_graph
+
+    g = dual_graph(box)
+    raw = rcb_parts(box.coords, 64, box.weights)
+    rng = np.random.default_rng(0)
+    pick = rng.random(raw.size) < 0.002
+    raw[pick] = rng.integers(0, 64, int(pick.sum()))
+    runs = run_chains(g, raw, 64, box.weights, "cuda", guarded=True,
+                      names=("repair+refine-sharded", "kway-sharded"))
+    return g, raw, box.weights, {k: v["parts"] for k, v in runs.items()}
+
+
+def dist_references(graph, x_mv, L, x_gs):
+    """What phase 7a holds the ranks to, computed on this process while
+    they run: K1's adjacency matvec of ``graph`` on ``x_mv``, the GS
+    apply of ``L`` on ``x_gs`` and its Σ|terms|; and (f), the pair solve
+    on the quality mesh, checked here."""
+    from repro_torch.core.fiedler import (_padded_ell_laplacian,
+                                          best_cut_in_pair,
+                                          fiedler_pair_from_graph, next_pow2)
+    from repro_torch.kernels.ell_spmv import cuda
+    from repro_torch.mesh import dual_graph, pebble_mesh
+
+    n_pad = next_pow2(graph.n)
+    ell = _padded_ell_laplacian(graph, n_pad,
+                                next_pow2(int(graph.degrees.max())),
+                                device="cuda")
+    y_ell = ell.adj_apply(torch.from_numpy(
+        np.pad(x_mv, (0, n_pad - graph.n))).cuda())[:graph.n].cpu().numpy()
+    xg = torch.from_numpy(x_gs).cuda()
+    y_gs = L.apply(xg).cpu().numpy()
+    gs_scale = (L.degree_full * xg.abs() + L.adj_apply(xg.abs())) \
+        .clamp(min=1.0).cpu().numpy()
+
+    qg = dual_graph(pebble_mesh(12, 12, 12, n_pebbles=5, warp=0.15, seed=1))
+    cuda.LAUNCHES = 0                     # this path's K1 count starts here
+    t0 = time.perf_counter()
+    y1, y2, l2, l3 = fiedler_pair_from_graph(qg, device="cuda")
+    pair_s = time.perf_counter() - t0
+    pair_k1 = cuda.LAUNCHES
+    c1, c2, c_l2, c_l3 = fiedler_pair_from_graph(qg, device="cpu")
+    basis = [np.linalg.qr(np.stack(p, 1).astype(np.float64))[0]
+             for p in ((y1, y2), (c1, c2))]
+    pair_cos = float(np.linalg.svd(basis[0].T @ basis[1],
+                                   compute_uv=False).min())
+    _, theta, pair_cut = best_cut_in_pair(qg, y1, y2)
+    check(pair_k1 > 0, "dist: fiedler_pair_from_graph launched no K1")
+    check(abs(l2 - c_l2) <= 1e-4 * c_l2 and abs(l3 - c_l3) <= 1e-4 * c_l3,
+          f"dist pair: eigenvalues {l2}, {l3} against the CPU's {c_l2}, "
+          f"{c_l3}")
+    check(pair_cos >= 0.999, f"dist pair: span cos {pair_cos} < 0.999")
+    return y_ell, y_gs, gs_scale, dict(
+        n=qg.n, lambda2=l2, lambda3=l3, cpu_lambda2=c_l2, cpu_lambda3=c_l3,
+        span_min_cos=pair_cos, k1=pair_k1, seconds=pair_s, best_theta=theta,
+        best_cut=pair_cut)
+
+
+def phase_dist(smoke, box, full):
+    """Phase 7a: the distribution layer across processes on the card.
+
+    ``smoke``: (graph, raw labels, weights, card labels by chain) of the
+    959-element protocol (phase 4); ``full``: the same of the full box
+    (``full``'s raw labels and ``full_sharded``'s card labels; under
+    ``--quick``, `dist_inputs_quick`'s).  Four gloo ranks share the card
+    (their collectives through the host) and one NCCL rank runs alone (a
+    real communicator whose gathers degenerate), both started together.
+    (a) the smoke chains on both groups: labels = the one-process card
+    labels, cuts within 1.05 x the recorded ones, K4 on every rank;
+    (b) both sharded chains on the full box across the 4 ranks (G = 16):
+    labels = the one-process card labels, gathers = sweeps, the sweep
+    seconds and the bytes a sweep gathers; (c) the halo matvec under a
+    4-shard RCB plan of the full box's dual graph against K1's ELL
+    matvec on one process (1e-5 of max|y|); (d) the distributed GS
+    Laplacian of the full box (4 blocks of elements; NCCL: one) against
+    the one-process GS apply (1e-5 of Σ|terms|); (e) the ring against
+    ``all_reduce`` (bit-equal on integer-valued floats, 1e-6 otherwise);
+    (f) `fiedler_pair_from_graph` on the quality mesh's dual graph on the
+    card, K1 launched, against the CPU (λ within tol, span cos ≥ 0.999).
+    Returns the phase's row."""
+    from repro_torch.core.gather_scatter import gs_setup, weighted_laplacian
+    from repro_torch.core.rcb import rcb_parts
+
+    t_phase = time.perf_counter()
+    sg, sraw, sw, s_ref = smoke
+    fg, fraw, fw, f_ref = full
+    rng = np.random.default_rng(11)
+    x_mv = rng.normal(size=fg.n).astype(np.float32)
+    h = gs_setup(box.vert_gid, device="cuda")
+    L = weighted_laplacian(box.vert_gid, device="cuda")
+    x_gs = rng.normal(size=box.nelems).astype(np.float32)
+    gs_payload = (h.gid.cpu().numpy(), x_gs, L.degree_full.cpu().numpy(),
+                  h.n_global)
+    ring = {"ints": rng.integers(-1000, 1000, (DIST_WORLD, 1 << 16))
+            .astype(np.float32),
+            "rand": rng.normal(size=(DIST_WORLD, 1 << 16)).astype(np.float32)}
+    with contextlib.ExitStack() as ranks_alive:
+        gloo = start_ranks(dict(smoke=(sg, sraw, sw), full=(fg, fraw, fw),
+                                matvec=(fg, rcb_parts(box.coords, DIST_WORLD,
+                                                      box.weights), x_mv),
+                                gs=gs_payload, ring=ring), DIST_WORLD, "gloo")
+        ranks_alive.callback(stop_ranks, gloo)
+        nccl = start_ranks(dict(smoke=(sg, sraw, sw), gs=gs_payload,
+                                ring={k: v[:1] for k, v in ring.items()}),
+                           1, "nccl")
+        ranks_alive.callback(stop_ranks, nccl)
+        refs = dist_references(fg, x_mv, L, x_gs)
+        t_wait = time.perf_counter()
+        got = {"gloo": join_ranks(gloo), "nccl": join_ranks(nccl)}
+        wait_s = time.perf_counter() - t_wait
+    y_ell, y_gs, gs_scale, pair = refs
+    row = {}
+    for backend, ranks in got.items():
+        rb = row[backend] = dict(world=len(ranks))
+        for key, ref, nsh in (("smoke", s_ref, 8), ("full", f_ref, 64)):
+            if key not in ranks[0]:
+                continue
+            chains = {}
+            for name in ranks[0][key]:
+                want = ref[name]
+                per = [rk[key][name] for rk in ranks]
+                for i, c in enumerate(per):
+                    check(np.array_equal(c["parts"], want),
+                          f"dist {backend} {key} {name} rank {i}: labels "
+                          "differ from the one-process card run's")
+                    if name == "repair+refine":
+                        continue
+                    check(c["k4"] > 0 and c["k4"] == c["gathers"]
+                          == c["sweeps_run"] == c["counters"]["sharded_gathers"]
+                          == c["counters"]["sharded_sweeps"],
+                          f"dist {backend} {key} {name} rank {i}: K4 "
+                          f"{c['k4']}, gathers {c['gathers']}, sweeps "
+                          f"{c['sweeps_run']}, counters {c['counters']}")
+                    if c["guard"] is not None:
+                        check_clean(f"dist {backend} {key} {name} rank {i}",
+                                    c["guard"])
+                c0 = per[0]
+                chains[name] = dict(
+                    cut=c0["cut"], seconds=[c["seconds"] for c in per],
+                    k4_per_rank=[c["k4"] for c in per],
+                    gathers=c0["gathers"], sweeps_s=[c["sweeps_s"] for c in per],
+                    admit_s=[c["admit_s"] for c in per],
+                    plan_s=[c["plan_s"] for c in per],
+                    counters=c0["counters"], halo=c0["halo"])
+                if c0["halo"] is not None:
+                    # the packed buffer of every shard, and the (G, 3)
+                    # scalars of every shard, a sweep (float32)
+                    chains[name].update(
+                        gather_bytes_per_sweep=4 * nsh * (3 * c0["halo"]
+                                                          + 2 * nsh),
+                        scalar_gather_bytes_per_sweep=4 * 3 * nsh)
+                if key == "smoke" and name in SHARDED_JAX_CUTS:
+                    check(c0["cut"] <= 1.05 * SHARDED_JAX_CUTS[name],
+                          f"dist {backend} smoke {name}: cut {c0['cut']} > "
+                          f"1.05 x {SHARDED_JAX_CUTS[name]}")
+            rb[key] = chains
+        if "matvec" in ranks[0]:
+            ys = [rk["matvec"]["y"] for rk in ranks]
+            err = float(np.abs(ys[0] - y_ell).max() / np.abs(y_ell).max())
+            check(all(np.array_equal(y, ys[0]) for y in ys),
+                  f"dist {backend} matvec: the ranks' y differ")
+            check(err <= DIST_TOL, f"dist {backend} matvec: {err} > "
+                  f"{DIST_TOL} of max|y| against K1's ELL matvec")
+            rb["matvec"] = dict(max_rel_err=err, halo=ranks[0]["matvec"]["halo"],
+                                seconds=[rk["matvec"]["seconds"]
+                                         for rk in ranks])
+        y = np.concatenate([rk["gs"]["y"] for rk in ranks])
+        err = float((np.abs(y - y_gs) / gs_scale).max())
+        check(err <= DIST_TOL, f"dist {backend} GS apply: {err} > "
+              f"{DIST_TOL} of the terms against the one-process apply")
+        rb["gs"] = dict(max_rel_err=err,
+                        seconds=[rk["gs"]["seconds"] for rk in ranks])
+        for i, rk in enumerate(ranks):
+            for kind, (a, b) in rk["ring"].items():
+                ok = (np.array_equal(a, b) if kind == "ints" else
+                      float(np.abs(a - b).max()) <= 1e-6 * float(np.abs(b).max()))
+                check(ok, f"dist {backend} ring {kind} rank {i}: ring "
+                      "differs from all_reduce")
+        rb["ring"] = {k: float(np.abs(a - b).max())
+                      for k, (a, b) in ranks[0]["ring"].items()}
+    row["pair"] = pair
+    row["wait_s"] = wait_s
+    row["seconds"] = time.perf_counter() - t_phase
+    emit("dist", **row)
+    return row
 
 
 def phase_full_multilevel(box, rsb_cut, geometric_cut):
@@ -2434,7 +2798,7 @@ def main(argv=None) -> int:
     k1_profiles()
     k2_profiles()
     del k1_profiles, k2_profiles
-    phase_quality()
+    smoke = phase_quality()
     phase_guard()
     phase_chaos()
     phase_reference(gs_row)
@@ -2443,11 +2807,14 @@ def main(argv=None) -> int:
     if not args.quick:
         k1_launches, geometric_cut, full_ctx, rsb_cut = phase_full(box)
         k2_launches = phase_full_inverse(box, geometric_cut)
-        ss_launches, fp, sweep_parts = phase_full_sharded(full_ctx)
-        del full_ctx
+        ss_launches, fp, sweep_parts, full_runs = phase_full_sharded(full_ctx)
+        phase_dist(smoke, box, (full_ctx.require_graph(), full_ctx.parts_raw,
+                                full_ctx.weights, full_runs))
+        del full_ctx, full_runs
         phase_full_multilevel(box, rsb_cut, geometric_cut)
         phase_full_reference(box, geometric_cut)
     else:
+        phase_dist(smoke, box, dist_inputs_quick(box))
         fp, sweep_parts = quick_plan(box)
     ss_rows = phase_kernels_segsum(fp, sweep_parts)
     del fp, sweep_parts

@@ -10,10 +10,12 @@ from repro_torch.core.amg import (
 )
 from repro_torch.core.fiedler import (
     FiedlerResult,
+    best_cut_in_pair,
     fiedler_from_graph,
     fiedler_from_graph_batched,
     fiedler_from_mesh,
     fiedler_from_mesh_batched,
+    fiedler_pair_from_graph,
     multilevel_warm_start,
 )
 from repro_torch.core.flexcg import CGResult, flexcg

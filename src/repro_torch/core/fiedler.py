@@ -33,8 +33,16 @@ assembled matvec goes through K1 or K2.  Every solve emits `repro`'s
 solver metrics into the active trace (`_emit_fiedler_metrics`,
 ``amg_levels``, ``cg_inner_iters``) from the host values the solvers
 already read back, and runs inside a profiler range (``fiedler:lanczos``,
-``fiedler:inverse``, ...; `repro_torch.obs.profiler`).  The degenerate-pair
-tools are not ported yet.
+``fiedler:inverse``, ...; `repro_torch.obs.profiler`).
+
+The degenerate-pair tools (paper §9) are `repro`'s:
+`fiedler_pair_from_graph` solves again on the deflated operator
+``L + σ·y₂y₂ᵀ`` (its Laplacian part K1 on the card), and
+`best_cut_in_pair` sweeps the pair's span on the host.  `repro` draws the
+second solve's start vector from ``jax.random.PRNGKey(seed + 1)``, the
+port from NumPy ``default_rng(seed + 1)``; where λ₂ is double the second
+vector is then another member of the eigenspace, and the pair's span and
+cut, not the vectors, are what agree.
 """
 
 from __future__ import annotations
@@ -892,3 +900,85 @@ def fiedler_from_mesh_batched(
         results[i].device_seconds = dev_s
     _emit_fiedler_metrics(results)
     return results
+
+
+# ---------------------------------------------------------------------------
+# Degenerate Fiedler pairs (paper §9 future work)
+# ---------------------------------------------------------------------------
+
+def fiedler_pair_from_graph(
+    graph: Graph,
+    *,
+    seed: int = 0,
+    tol: float = 1e-4,
+    window: int = 40,
+    max_restarts: int = 60,
+    use_kernel: bool = True,
+    device=None,
+) -> tuple[np.ndarray, np.ndarray, float, float]:
+    """(y₂, y₃, λ₂, λ₃): the two smallest nontrivial eigenpairs.
+
+    Paper §9: on topologically-checkerboard graphs λ₂ has multiplicity 2
+    and single-vector Lanczos returns an arbitrary member of the eigenspace
+    whose cut quality varies (45° cuts expose ≈2N faces vs N).  The second
+    vector comes from SPECTRAL DEFLATION: Lanczos again on
+    ``L' = L + σ·y₂y₂ᵀ`` (σ above a Gershgorin bound on λ_max pushes y₂'s
+    eigenvalue out of the way), the padded ELL Laplacian's ``apply`` (K1
+    on the card) plus a rank-one term.  ``device``: where both solves run
+    (None: the card)."""
+    res1 = fiedler_from_graph(graph, method="lanczos", seed=seed, tol=tol,
+                              window=window, max_restarts=max_restarts,
+                              use_kernel=use_kernel, device=device)
+    y1 = res1.vector / max(np.linalg.norm(res1.vector), 1e-30)
+
+    dev = resolve_device(device)
+    n = graph.n
+    n_pad = next_pow2(n)
+    width = int(graph.degrees.max()) if graph.nnz else 1
+    op = _padded_ell_laplacian(graph, n_pad, next_pow2(max(width, 2)),
+                               device=dev, use_kernel=use_kernel)
+    mask = torch.from_numpy((np.arange(n_pad) < n).astype(np.float32)).to(dev)
+    y1p = torch.from_numpy(
+        np.pad(y1.astype(np.float32), (0, n_pad - n))).to(dev)
+    # Gershgorin bound on λ_max; σ above it exiles y₂'s eigenvalue
+    sigma = 4.0 * float(op.diag.max()) + 1.0
+
+    def deflated(x):
+        return op.apply(x) + sigma * y1p * torch.dot(y1p, x)
+
+    with obs.annotate("fiedler:lanczos"):
+        y, info = lanczos_fiedler(
+            deflated, n_pad, mask=mask, seed=seed + 1, window=window,
+            max_restarts=max_restarts, tol=tol,
+        )
+    y2 = y[:n].cpu().numpy()
+    y2 = y2 - y1 * float(y1 @ y2)          # exact orthogonality polish
+    y2 /= max(np.linalg.norm(y2), 1e-30)
+    return y1, y2, res1.eigenvalue, info.eigenvalue
+
+
+def best_cut_in_pair(
+    graph: Graph,
+    y1: np.ndarray,
+    y2: np.ndarray,
+    *,
+    n_theta: int = 16,
+    weights: np.ndarray | None = None,
+) -> tuple[np.ndarray, float, float]:
+    """Paper §9: sweep θ over span{y₂, y₃} and keep the balanced bisection
+    with the minimum ω-cut.  Returns (fiedler-like vector, θ, cut).  Host
+    NumPy, `repro`'s line for line."""
+    w = np.ones(graph.n) if weights is None else np.asarray(weights, np.float64)
+    rows, cols, ew = graph.rows, graph.indices, graph.weights
+    best = (None, 0.0, np.inf)
+    for theta in np.linspace(0.0, np.pi, n_theta, endpoint=False):
+        v = np.cos(theta) * y1 + np.sin(theta) * y2
+        order = np.argsort(v, kind="stable")
+        half = np.zeros(graph.n, dtype=bool)
+        cw = np.cumsum(w[order])
+        k = int(np.searchsorted(cw - w[order] / 2, cw[-1] / 2)) + 1
+        half[order[:k]] = True
+        cut = float(ew[half[rows] != half[cols]].sum() / 2.0)
+        if cut < best[2]:
+            best = (v, float(theta), cut)
+    return best

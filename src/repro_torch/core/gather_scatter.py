@@ -98,14 +98,30 @@ def gs_setup(gid_table: np.ndarray, *, device=None) -> GSHandle:
     return _handle(inv.reshape(gid_table.shape), int(uniq.size), device)
 
 
-def _gs_values(handle: GSHandle, values: torch.Tensor) -> torch.Tensor:
-    """`Q Qᵀ` of (numel, ...) values: each id's values summed in the
-    order of their flat positions, from zero, then copied back."""
+def _id_sums(handle: GSHandle, values: torch.Tensor) -> torch.Tensor:
+    """(n_used, ...) — each occurring id's (numel, ...) values summed in
+    the order of their flat positions, from zero; ids ascending."""
     ext = torch.cat([values, values.new_zeros((1,) + values.shape[1:])])
     summed = values.new_zeros((handle.occ.shape[1],) + values.shape[1:])
     for col in handle.occ:
         summed = summed + ext.index_select(0, col)
-    return summed.index_select(0, handle.take)
+    return summed
+
+
+def _gs_values(handle: GSHandle, values: torch.Tensor) -> torch.Tensor:
+    """`Q Qᵀ` of (numel, ...) values: `_id_sums`, copied back."""
+    return _id_sums(handle, values).index_select(0, handle.take)
+
+
+def segment_sum(handle: GSHandle, values: torch.Tensor) -> torch.Tensor:
+    """`Qᵀ` of a flat handle: (numel,) values summed into the whole
+    ``(n_global,)`` id space (``jax.ops.segment_sum(values, gid.ravel(),
+    n_global)``), each id in the order of its flat positions; ids that do
+    not occur are 0.  Deterministic, as `gs_apply` is."""
+    flat = handle.gid.reshape(-1)
+    ids = flat.new_empty(handle.occ.shape[1]).scatter_(0, handle.take, flat)
+    out = values.new_zeros((handle.n_global,) + values.shape[1:])
+    return out.index_copy_(0, ids, _id_sums(handle, values))
 
 
 def gs_apply(handle: GSHandle, u_local: torch.Tensor) -> torch.Tensor:

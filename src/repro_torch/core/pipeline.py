@@ -90,6 +90,18 @@ class StageRecord:
     seconds: float
     info: dict = dataclasses.field(default_factory=dict)
 
+    def to_dict(self) -> dict:
+        """`repro`'s row: kind, name, seconds and the stage's info, less
+        the keys only the port records (:data:`_PORT_INFO`)."""
+        return {"kind": self.kind, "name": self.name,
+                "seconds": self.seconds,
+                **{k: v for k, v in self.info.items() if k not in _PORT_INFO}}
+
+
+# Stage info the port records beyond `repro`'s: a bisect stage's device
+# seconds, a post stage's own steps and its sharded sweeps' figures.
+_PORT_INFO = ("device_seconds", "stages", "sharded")
+
 
 @dataclasses.dataclass
 class PartitionContext:
@@ -121,6 +133,30 @@ class PartitionContext:
             self.stages.append(StageRecord(kind="setup", name="dual_graph",
                                            seconds=t.seconds))
         return self.graph
+
+    def stage_seconds(self, kind: str | None = None) -> float:
+        return sum(s.seconds for s in self.stages
+                   if kind is None or s.kind == kind)
+
+    @property
+    def seconds(self) -> float:
+        return self.stage_seconds()
+
+    def stats(self) -> dict:
+        """JSON-able run summary (benchmark rows, experiment records) with
+        `repro`'s keys: the port's own ``setup`` records (the dual graph's
+        assembly, inside ``guard:validate`` in `repro`) are left out of
+        ``stages`` and counted in ``seconds``."""
+        out = {
+            "nparts": self.nparts,
+            "n": self.n,
+            "seconds": self.seconds,
+            "stages": [s.to_dict() for s in self.stages
+                       if s.kind != "setup"],
+        }
+        if self.report is not None and self.report.post is not None:
+            out["post"] = self.report.post.row()
+        return out
 
     def export_manifest(self, path: str | None = None, *,
                         name: str = "partition",
@@ -232,7 +268,7 @@ def _stage_kw(fn, post_kw: dict) -> dict:
 
 def _refine_sharded_stage(graph, parts, nparts, *, weights=None, sweeps=4,
                           balance_tol=0.05, corridor=None, backend="auto",
-                          guard=None, device=None):
+                          guard=None, device=None, group=None):
     """Device-resident sharded boundary refinement (repro_torch.dist).  The
     signature mirrors dist.refine_sharded.refine_sharded_stage so
     ``_stage_kw`` filters correctly; the import is lazy because the dist
@@ -241,18 +277,19 @@ def _refine_sharded_stage(graph, parts, nparts, *, weights=None, sweeps=4,
     return refine_sharded_stage(graph, parts, nparts, weights=weights,
                                 sweeps=sweeps, balance_tol=balance_tol,
                                 corridor=corridor, backend=backend,
-                                guard=guard, device=device)
+                                guard=guard, device=device, group=group)
 
 
 def _kway_sharded_stage(graph, parts, nparts, *, weights=None, sweeps=4,
                         passes=2, balance_tol=0.05, corridor=None,
-                        backend="auto", guard=None, device=None):
+                        backend="auto", guard=None, device=None, group=None):
     """Sharded sweeps + host boundary k-way polish (repro_torch.dist)."""
     from repro_torch.dist.refine_sharded import kway_sharded_stage
     return kway_sharded_stage(graph, parts, nparts, weights=weights,
                               sweeps=sweeps, passes=passes,
                               balance_tol=balance_tol, corridor=corridor,
-                              backend=backend, guard=guard, device=device)
+                              backend=backend, guard=guard, device=device,
+                              group=group)
 
 
 def _register_builtin_stages() -> None:
@@ -360,6 +397,7 @@ def run_post_stages(
     weights: np.ndarray | None = None,
     post_kw: dict | None = None,
     device=None,
+    group=None,
 ) -> tuple[np.ndarray, PostStats, list]:
     """Run an ordered chain of registered post stages over ``parts``.
 
@@ -368,13 +406,18 @@ def run_post_stages(
     cap-exceeding forced move in one stage cannot widen the corridor for
     the stages after it.  ``device`` (None: the card) goes to the stages
     that declare a ``device`` keyword (the sharded ones) and is resolved
-    only when the chain has one.  Returns the refined labels, the
+    only when the chain has one; ``group`` (None: the default group when
+    `torch.distributed` is initialized) to the stages that declare a
+    ``group`` keyword: the sharded sweeps run across its ranks, the host
+    stages run on every rank alike.  Returns the refined labels, the
     aggregated :class:`PostStats`, and one :class:`StageRecord` per stage.
     """
     post_kw = dict(post_kw or {})
     if any("device" in inspect.signature(_POST_STAGES[name]).parameters
            for name in post):
         post_kw["device"] = resolve_device(device)
+    if group is not None:
+        post_kw["group"] = group
     parts = np.asarray(parts, dtype=np.int64)
     if post_kw.get("corridor") is None:
         post_kw["corridor"] = balance_corridor(
@@ -426,7 +469,9 @@ class PartitionPipeline:
     ``bisect_kw`` goes to the bisect stage verbatim; ``post_kw`` to every
     post stage, filtered against each stage's signature.  ``device`` is
     where the spectral bisect stage solves and the sharded post stages
-    sweep (``None``: the card).
+    sweep (``None``: the card); ``group`` the process group the sharded
+    post stages sweep across (`run_post_stages`; ``None``: the default
+    group when `torch.distributed` is initialized).
 
     ``guard`` switches the fault-tolerance envelope (module docstring;
     ``None`` defers to ``REPRO_GUARD``, default on).  ``guard_kw``
@@ -444,6 +489,7 @@ class PartitionPipeline:
     guard: bool | None = None
     guard_kw: dict = dataclasses.field(default_factory=dict)
     device: object = None
+    group: object = None
 
     def __post_init__(self):
         if self.pre not in PRE_STAGES:
@@ -618,7 +664,8 @@ class PartitionPipeline:
         if self.post:
             parts, agg, records = run_post_stages(
                 ctx.require_graph(), ctx.parts, nparts, self.post,
-                weights=ctx.weights, post_kw=self.post_kw, device=device)
+                weights=ctx.weights, post_kw=self.post_kw, device=device,
+                group=self.group)
             ctx.parts = parts
             ctx.stages.extend(records)
             merged.post = agg
@@ -730,7 +777,8 @@ class PartitionPipeline:
                     policy, seed=0, method="post", report=greport)
             parts, agg, records = run_post_stages(
                 ctx.require_graph(), ctx.parts, nparts, self.post,
-                weights=ctx.weights, post_kw=post_kw, device=device)
+                weights=ctx.weights, post_kw=post_kw, device=device,
+                group=self.group)
             ctx.parts = parts
             ctx.stages.extend(records)
             report.post = agg
@@ -803,6 +851,7 @@ def partition(
     guard: bool | None = None,
     guard_kw: dict | None = None,
     device=None,
+    group=None,
     **kw,
 ) -> np.ndarray:
     """Uniform front door: partitioner ∈ {rsb, rsb_inverse, multilevel,
@@ -813,7 +862,9 @@ def partition(
     "repair+kway" for multilevel, "none" for the geometric/random
     baselines; "repair+kway" the k-way FM, "repair+refine-sharded" /
     "kway-sharded" the sharded sweeps).  ``device`` (default: the card) is
-    where the spectral solves and the sharded sweeps run.  Remaining
+    where the spectral solves and the sharded sweeps run; ``group`` the
+    process group the sharded sweeps run across (every rank runs the rest
+    alike; :class:`PartitionPipeline`).  Remaining
     keywords are routed to the selected stage and unknown keys raise.
     ``partitioner="rsb_inverse"`` is RSB with ``method="inverse"``
     (``precond=`` "jacobi", the default, or "amg").  ``guard``/``guard_kw``
@@ -824,7 +875,8 @@ def partition(
     """
     is_mesh = hasattr(obj, "vert_gid")
     post_kw = dict(sweeps=refine_sweeps, balance_tol=balance_tol)
-    gkw = dict(guard=guard, guard_kw=dict(guard_kw or {}), device=device)
+    gkw = dict(guard=guard, guard_kw=dict(guard_kw or {}), device=device,
+               group=group)
 
     if partitioner in ("rsb", "rsb_lanczos", "rsb_inverse"):
         if engine not in _ENGINE_TO_BISECT:

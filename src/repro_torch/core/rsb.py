@@ -86,6 +86,10 @@ class BisectionRecord:
     device_seconds: float = 0.0
     inner_iterations: int = 0
 
+    def to_dict(self) -> dict:
+        """`repro`'s fields (the port's own timings are left out)."""
+        return _repro_fields(self, _PORT_RECORD_FIELDS)
+
 
 @dataclasses.dataclass
 class LevelRecord:
@@ -102,6 +106,10 @@ class LevelRecord:
     device_seconds: float = 0.0  # the device solve alone (incl. its copies)
     order_seconds: float = 0.0   # RCB/RIB reorder of the level's nodes
     inner_iterations: int = 0    # Σ per-node flexcg iterations (inverse)
+
+    def to_dict(self) -> dict:
+        """`repro`'s fields (the port's own timings are left out)."""
+        return _repro_fields(self, _PORT_LEVEL_FIELDS)
 
 
 @dataclasses.dataclass
@@ -129,6 +137,35 @@ class RSBReport:
     def precond_levels(self) -> int:
         """Deepest Galerkin ladder (warm start or AMG) used by any solve."""
         return max((r.levels for r in self.records), default=0)
+
+    def to_dict(self) -> dict:
+        """JSON-able form, with `repro`'s keys — the one the benchmark rows
+        and run manifests serialize instead of re-extracting fields."""
+        return {
+            "engine": self.engine,
+            "pre": self.pre,
+            "precond": self.precond,
+            "multilevel": self.multilevel,
+            "seconds": self.seconds,
+            "total_iterations": self.total_iterations,
+            "precond_levels": self.precond_levels,
+            "records": [r.to_dict() for r in self.records],
+            "levels": [lv.to_dict() for lv in self.levels],
+            "post": self.post.to_dict() if self.post is not None else None,
+            "ml": self.ml.to_dict() if self.ml is not None else None,
+            "guard": self.guard.to_dict() if self.guard is not None else None,
+        }
+
+
+# The fields the port's records add to `repro`'s; `to_dict` leaves them
+# out, so a serialized report has `repro`'s keys.
+_PORT_RECORD_FIELDS = ("device_seconds", "inner_iterations")
+_PORT_LEVEL_FIELDS = ("device_seconds", "order_seconds", "inner_iterations")
+
+
+def _repro_fields(record, port_fields) -> dict:
+    return {k: v for k, v in dataclasses.asdict(record).items()
+            if k not in port_fields}
 
 
 def _node_seed(seed: int, level: int, p_lo: int, attempt: int = 0) -> int:

@@ -1,0 +1,157 @@
+"""The port's stand-in for a JAX mesh axis: a `torch.distributed` group.
+
+`repro` runs its distributed code under ``shard_map`` over one mesh axis of
+the local devices.  The port runs it across the ranks of a process group,
+one process a rank.  This module holds what the distributed paths need
+about that group and nothing more:
+
+* :func:`active` — the group a call runs over: the one passed, else the
+  default group when `torch.distributed` is initialized, else ``None``
+  (one process, `repro`'s one-device path);
+* :func:`rank_device` — a rank's device: ``cuda:{local_rank % count}``
+  (``device=None`` means the card, as everywhere in the port), the CPU
+  only when asked for;
+* :func:`pick_ranks` — `repro.dist.refine_sharded._pick_devices` counting
+  ranks: the largest divisor of the shard count that the group holds;
+* :func:`subgroup` — the group of the first ``d`` ranks, created by every
+  rank of the parent (`torch.distributed.new_group` is collective);
+* the collectives the distributed paths call, each chosen by the
+  backend's name (:data:`_HOST_WIRE`), never by catching a failed call:
+  NCCL moves device tensors; gloo is a host transport, so a tensor on the
+  card goes to the host for the call and comes back (one copy each way:
+  on one H100 at 700 W, gloo's own CUDA path gathered a megabyte in 4–15
+  ms and its point-to-point calls on device tensors aborted the ranks).
+  A backend with no entry raises.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+
+# Backends the distributed paths run on, and whether a tensor crosses the
+# wire from the host (gloo) or from its own device (NCCL).
+_HOST_WIRE = {"gloo": True, "nccl": False}
+
+# `all_gather_single` is the newer name of `all_gather_into_tensor` (the
+# old one warns where both exist); the same signature.
+_all_gather_single = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+def active(group=None):
+    """``group``; else the default group when `torch.distributed` is
+    initialized; else ``None`` (one process)."""
+    if group is not None:
+        return group
+    if dist.is_available() and dist.is_initialized():
+        return dist.group.WORLD
+    return None
+
+
+def rank(group) -> int:
+    return dist.get_rank(group)
+
+
+def size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def rank_device(device=None) -> torch.device:
+    """This rank's device: ``device`` when it names one (the CPU, or a
+    card by index); ``None`` or ``"cuda"`` is ``cuda:{local_rank %
+    device_count}``, ``LOCAL_RANK`` if the launcher set it, else the rank
+    in the default group.  Raises without a card unless the CPU was asked
+    for (`repro_torch.device.resolve_device`)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    local = int(os.environ.get(
+        "LOCAL_RANK", dist.get_rank() if dist.is_initialized() else 0))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def pick_ranks(n_shards: int, group, max_devices: int | None = None) -> int:
+    """Largest divisor of ``n_shards`` that fits the group's size (and
+    ``max_devices``): each of the first ``d`` ranks then owns a contiguous
+    block of ``n_shards / d`` shards."""
+    avail = size(group) if max_devices is None \
+        else min(max_devices, size(group))
+    for d in range(min(n_shards, avail), 0, -1):
+        if n_shards % d == 0:
+            return d
+    return 1
+
+
+_SUBGROUPS: dict = {}
+
+
+def subgroup(group, d: int):
+    """The group of ``group``'s first ``d`` ranks (``group`` itself when it
+    has ``d``).  Every rank of ``group`` must call this with the same ``d``:
+    creating a group is collective.  Made once per (group, d) and kept."""
+    if d == size(group):
+        return group
+    key = (group, d)
+    if key not in _SUBGROUPS:
+        ranks = [dist.get_global_rank(group, r) for r in range(d)]
+        _SUBGROUPS[key] = dist.new_group(ranks)
+    return _SUBGROUPS[key]
+
+
+def _backend(group) -> str:
+    name = str(dist.get_backend(group))
+    if name not in _HOST_WIRE:
+        raise NotImplementedError(
+            f"torch.distributed backend {name!r} is not supported by the "
+            f"distributed paths (have {sorted(_HOST_WIRE)})")
+    return name
+
+
+def _to_wire(x: torch.Tensor, group) -> torch.Tensor:
+    if _HOST_WIRE[_backend(group)]:
+        return x.cpu()
+    return x
+
+
+def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along dim 0, in rank order (each
+    rank's ``x`` has the same shape); on ``x``'s device."""
+    xw = _to_wire(x.contiguous(), group)
+    out = xw.new_empty((size(group) * x.shape[0],) + tuple(x.shape[1:]))
+    _all_gather_single(out, xw, group=group)
+    return out.to(x.device)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over the ranks of ``x``, a new tensor on ``x``'s device."""
+    xw = _to_wire(x, group).clone()
+    dist.all_reduce(xw, op=dist.ReduceOp.SUM, group=group)
+    return xw.to(x.device)
+
+
+def shift(x: torch.Tensor, group) -> torch.Tensor:
+    """One ring hop: send ``x`` to the next rank, return the previous
+    rank's (``ppermute`` with ``i → i+1 mod n``)."""
+    n, r = size(group), rank(group)
+    send = _to_wire(x.contiguous(), group)
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, (r + 1) % n),
+                      group=group),
+           dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, (r - 1) % n),
+                      group=group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return recv.to(x.device)
+
+
+def broadcast_object(obj, group, src: int = 0):
+    """``obj`` of ``group``'s rank ``src`` on every rank of ``group``."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, src),
+                               group=group)
+    return box[0]

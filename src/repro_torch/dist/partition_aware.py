@@ -31,17 +31,28 @@ and bit-identical to it, with `repro`'s ``halo_truncate`` chaos hook: a
 plan that fails its self-check is rebuilt once with the chaos sites muted,
 and raises if the rebuild fails too, and with its obs counters: the
 plan's wire volume (``halo_words``, ``halo_bytes``, ``halo_max_degree``)
-and ``guard_fallbacks`` for a rebuild.  Not ported yet: the distributed
-halo exchange and adjacency matvec (with the collectives).
+and ``guard_fallbacks`` for a rebuild.
+
+The distributed matvec (:func:`adjacency_matvec_distributed`) runs across
+the ranks of a `torch.distributed` group, one shard a rank: each rank
+exchanges its exports in ONE gather (:func:`halo_exchange`), then takes
+and segment-sums its incoming edges in plain torch, as `repro`'s
+``_matvec_kernel`` does in plain ``jnp`` (no Pallas kernel lies on this
+path).  Where `repro` reads the sharded result back to the host, the port
+gathers the ranks' blocks once more, so every rank ends with the whole
+``y``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
+import torch
 
 from repro_torch import obs
+from repro_torch.dist import group as dist_group
 from repro_torch.guard import chaos
 
 
@@ -287,3 +298,68 @@ def gather_features(plan: HaloPlan, blocks: np.ndarray) -> np.ndarray:
             f"plan expects {(plan.n_shards, plan.n_local)}"
         )
     return blocks[plan.shard_of, plan.slot_of]
+
+
+# ---------------------------------------------------------------------------
+# Distributed adjacency matvec (one halo exchange per sweep)
+# ---------------------------------------------------------------------------
+
+def halo_exchange(x_local: torch.Tensor, export_idx: torch.Tensor,
+                  export_mask: torch.Tensor, group) -> torch.Tensor:
+    """One rank's halo exchange: gather every rank's exports and return the
+    combined ``(n_local + P·halo, F)`` table edge sources index."""
+    exported = x_local.index_select(0, export_idx) * export_mask[:, None]
+    buf = dist_group.all_gather_rows(exported, group)
+    return torch.cat([x_local, buf], dim=0)
+
+
+@functools.lru_cache(maxsize=32)
+def _matvec_consts(plan: HaloPlan, group, device: torch.device) -> tuple:
+    """This rank's rows of the plan on ``device``, copied once per
+    (plan, group, device) rather than every call (`repro`'s
+    ``_matvec_kernel`` cache)."""
+    r = dist_group.rank(group)
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a[r])).to(device, dtype)
+
+    return (put(plan.edge_src, torch.int64), put(plan.edge_dst, torch.int64),
+            put(plan.edge_weight, torch.float32),
+            put(plan.export_idx, torch.int64),
+            put(plan.export_mask, torch.float32))
+
+
+def adjacency_matvec_distributed(plan: HaloPlan, group, x: np.ndarray, *,
+                                 device=None) -> np.ndarray:
+    """``y = A x`` for the plan's graph, each rank of ``group`` (None: the
+    default group) one shard, with ONE export gather — wire volume ∝ edge
+    cut — and one gather of the result blocks, so every rank returns the
+    whole ``y``.
+
+    ``x`` is host-side ``(n,)`` or ``(n, F)`` on every rank; the result
+    matches its shape.  ``device``: where this rank computes
+    (`repro_torch.dist.group.rank_device`; None: its card).  The dense
+    oracle is ``A[dst, src] = w`` over the symmetric CSR.
+    """
+    grp = dist_group.active(group)
+    if grp is None:
+        raise ValueError("adjacency_matvec_distributed needs a process "
+                         "group: torch.distributed is not initialized")
+    n_ranks = dist_group.size(grp)
+    if plan.n_shards != n_ranks:
+        raise ValueError(
+            f"plan has {plan.n_shards} shards but the process group has "
+            f"{n_ranks} ranks")
+    dev = dist_group.rank_device(device)
+    x = np.asarray(x)
+    squeeze = x.ndim == 1
+    xb = scatter_features(plan, x.reshape(plan.n, -1).astype(np.float32))
+    esrc, edst, ew, xidx, xmask = _matvec_consts(plan, grp, dev)
+    xl = torch.from_numpy(xb[dist_group.rank(grp)]).to(dev)
+    combined = halo_exchange(xl, xidx, xmask, grp)
+    contrib = combined.index_select(0, esrc) * ew[:, None]
+    yl = torch.zeros_like(xl).index_add_(0, edst, contrib)
+    blocks = dist_group.all_gather_rows(yl, grp)
+    y = gather_features(plan, blocks.cpu().numpy().reshape(
+        plan.n_shards, plan.n_local, -1))
+    return y[:, 0] if squeeze else y

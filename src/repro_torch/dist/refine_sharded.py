@@ -30,10 +30,15 @@ Protocol (per sweep)
 5. **Propose** — fresh positive-gain proposals for the next sweep (first
    maximal target, cap-feasible only) ride the next gather.
 
-One process drives one card, so all P shards form one group (G = P) and
-the gather is the identity: `repro`'s one-device path.  :func:`_sweep_body`
-takes the gather as a callable and the group's first shard as ``shard0``,
-so a multi-process gather plugs in without a rewrite.
+Where `repro` spreads the shards over its local devices (``shard_map``
+over ``_pick_devices`` of them), the port spreads them over the ranks of
+a `torch.distributed` group (`repro_torch.dist.group`): the first
+d = ``pick_ranks(P)`` ranks each own G = P/d contiguous shards
+(``shard0 = rank·G``), the rest sit out and receive the result.  With no
+group and `torch.distributed` not initialized, one process holds all P
+shards (G = P) and the gather is the identity: `repro`'s one-device path.
+:func:`_sweep_body` is the same code on both paths; only its ``gather``
+differs.
 
 Where the port differs from `repro`'s device sweep, and why:
 
@@ -61,6 +66,18 @@ Where the port differs from `repro`'s device sweep, and why:
   sweep path on the card raises, as does a kernel's or the card's fault
   anywhere (`~repro_torch.guard.policy.absorbable`).
   ``backend="host"`` runs the NumPy mirror only when asked.
+* **Across ranks, two more collectives.**  `repro` reads each sweep's
+  per-shard moves, gain and pending counts back from its sharded outputs
+  on the host; a rank sees only its own.  So each sweep also gathers the
+  ranks' (G, 3) scalars (``sharded_scalar_gathers``, one a sweep), which
+  every rank sums in shard order, as the one-process path does: every
+  rank stops at the same sweep with the same records.  After the last
+  sweep one gather of the (G, n_local) label blocks gives every rank the
+  labels (``sharded_label_gathers``, one a run), and ranks that sat out
+  get rank 0's result by one broadcast.  A stage run across ranks agrees
+  on the guard's deadline by one all-reduce before its sweeps, so no rank
+  takes the host fallback alone; and nothing absorbs a failure there: a
+  failed collective or rank raises on every rank that sees it.
 * Observability as in `repro`: one ``sweep:<N>`` span per sweep with the
   ``halo_words``/``halo_bytes`` wire counters and ``sharded_gathers`` /
   ``sharded_sweeps`` (always equal: one gather and one K4 table a sweep)
@@ -92,6 +109,7 @@ from repro_torch.core.refine import (
     refine_boundary,
 )
 from repro_torch.device import resolve_device
+from repro_torch.dist import group as dist_group
 from repro_torch.dist.partition_aware import (
     HaloPlan,
     plan_halo_sharding,
@@ -230,28 +248,30 @@ class _Consts:
     exp_w_flat: torch.Tensor    # (P·halo,) float32
 
 
-def _device_consts(fp: FrontierPlan, device) -> _Consts:
+def _device_consts(fp: FrontierPlan, device, rows: slice) -> _Consts:
+    """The shards ``rows`` of the per-shard arrays, and every shard's
+    proposal-row arrays, on ``device``."""
     def dev(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
 
     return _Consts(
-        exp_slot=dev(fp.exp_slot, torch.int64),
-        exp_slot_sc=dev(fp.exp_slot_sc, torch.int64),
-        exp_mask=dev(fp.exp_mask > 0, torch.bool),
-        exp_w=dev(fp.exp_w, torch.float32),
-        exp_gid=dev(fp.exp_gid, torch.int32),
-        ell_cols=dev(fp.ell_cols, torch.int32),
-        ell_wts=dev(fp.ell_wts, torch.float32),
-        nbr_prow=dev(fp.nbr_prow, torch.int64),
-        node_w=dev(fp.node_w, torch.float32),
-        node_mask=dev(fp.node_mask, torch.float32),
+        exp_slot=dev(fp.exp_slot[rows], torch.int64),
+        exp_slot_sc=dev(fp.exp_slot_sc[rows], torch.int64),
+        exp_mask=dev(fp.exp_mask[rows] > 0, torch.bool),
+        exp_w=dev(fp.exp_w[rows], torch.float32),
+        exp_gid=dev(fp.exp_gid[rows], torch.int32),
+        ell_cols=dev(fp.ell_cols[rows], torch.int32),
+        ell_wts=dev(fp.ell_wts[rows], torch.float32),
+        nbr_prow=dev(fp.nbr_prow[rows], torch.int64),
+        node_w=dev(fp.node_w[rows], torch.float32),
+        node_mask=dev(fp.node_mask[rows], torch.float32),
         prow_gid=dev(fp.exp_gid.reshape(-1), torch.int32),
         exp_w_flat=dev(fp.exp_w.reshape(-1), torch.float32),
     )
 
 
 def _identity_gather(buf: torch.Tensor) -> torch.Tensor:
-    """The gather of a group that holds every shard (G == P)."""
+    """The gather of one process that holds every shard (G == P)."""
     return buf
 
 
@@ -406,17 +426,24 @@ _BACKENDS = ("auto", "device", "host")
 
 def run_sharded_sweeps(fp: FrontierPlan, parts: np.ndarray, nparts: int, *,
                        sweeps: int = 4, corridor: tuple,
-                       backend: str = "auto", device=None):
+                       backend: str = "auto", device=None, group=None,
+                       max_devices: int | None = None):
     """Run the sharded sweep loop; returns ``(labels, records, info)``.
 
     ``sweeps`` counts gather rounds (the first round only seeds proposals,
     so moves land from round 2 on).  ``backend``: "auto"/"device" runs the
-    sweep on ``device`` (None: the card) with one connection-table launch
+    sweep on ``device`` (None: the card; across ranks, each rank's card,
+    `repro_torch.dist.group.rank_device`) with one connection-table launch
     per sweep (K4 on the card, its plain version on the CPU); "host" runs
-    the NumPy mirror.  ``info``: ``moves``, ``gathers`` (sweeps run — one
-    gather and one table each), ``cut``, and on the device path
-    ``sweep_seconds`` (its wall time, the plan's upload included) and
-    ``admit_seconds`` (its host admission loops).
+    the NumPy mirror.  ``group``: the process group whose first
+    ``pick_ranks(P, group, max_devices)`` ranks share the shards (None: the
+    default group when `torch.distributed` is initialized, else this
+    process alone); every rank of it must call, and every rank returns the
+    same labels and records.  ``info``: ``moves``, ``gathers`` (sweeps run
+    — one gather and one table each), ``cut``, ``ranks`` and
+    ``shards_per_rank``, and on the device path ``sweep_seconds`` (its wall
+    time, the plan's upload included) and ``admit_seconds`` (its host
+    admission loops) — rank 0's where ranks sat out.
     """
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend: {backend!r} (have {_BACKENDS})")
@@ -428,24 +455,56 @@ def run_sharded_sweeps(fp: FrontierPlan, parts: np.ndarray, nparts: int, *,
     if backend == "host":
         return refine_sharded_host(fp, parts, nparts, sweeps=sweeps,
                                    corridor=corridor)
-    dev = resolve_device(device)
-    t0 = time.perf_counter()
-    consts = _device_consts(fp, dev)
-    admit = _HostAdmission()
+    grp = dist_group.active(group)
+    if grp is None:
+        return _device_sweeps(fp, parts, nparts, sweeps, corridor,
+                              resolve_device(device), None, cut0)
+    d = dist_group.pick_ranks(plan.n_shards, grp, max_devices)
+    sub = dist_group.subgroup(grp, d)     # collective: every rank makes it
+    result = None
+    if dist_group.rank(grp) < d:
+        result = _device_sweeps(fp, parts, nparts, sweeps, corridor,
+                                dist_group.rank_device(device), sub, cut0)
+    if d < dist_group.size(grp):
+        result = dist_group.broadcast_object(result, grp)
+    return result
+
+
+def _device_sweeps(fp: FrontierPlan, parts: np.ndarray, nparts: int,
+                   sweeps: int, corridor: tuple, dev, sub, cut0: float):
+    """The device sweep loop of one process: all P shards (``sub`` None) or
+    the G = P/d shards of this rank of ``sub`` (d ranks)."""
+    plan = fp.plan
     nsh, halo = plan.n_shards, plan.halo
+    if sub is None:
+        d, r, gather = 1, 0, _identity_gather
+    else:
+        d, r = dist_group.size(sub), dist_group.rank(sub)
+
+        def gather(buf):
+            return dist_group.all_gather_rows(buf, sub)
+    G = nsh // d
+    rows = slice(r * G, (r + 1) * G)
+    t0 = time.perf_counter()
+    consts = _device_consts(fp, dev, rows)
+    admit = _HostAdmission()
     labels = torch.from_numpy(
-        scatter_features(plan, parts).astype(np.int32)).to(dev)
-    pgain = torch.full((nsh, halo), -1.0, dtype=torch.float32, device=dev)
-    ptgt = torch.full((nsh, halo), -1, dtype=torch.int32, device=dev)
+        scatter_features(plan, parts)[rows].astype(np.int32)).to(dev)
+    pgain = torch.full((G, halo), -1.0, dtype=torch.float32, device=dev)
+    ptgt = torch.full((G, halo), -1, dtype=torch.int32, device=dev)
 
     records, total_moves, gathers, cut = [], 0, 0, cut0
     words = nsh * fp.gather_row_words
     for s in range(sweeps):
         with obs.timed(f"sweep:{s}"):
             labels, pgain, ptgt, mv, gn, pend = _sweep_body(
-                _identity_gather, admit, 0, nparts, corridor[0], corridor[1],
+                gather, admit, r * G, nparts, corridor[0], corridor[1],
                 labels, pgain, ptgt, consts)
-            per_shard = torch.stack([mv, gn, pend]).cpu().numpy()  # (3, G)
+            per_shard = torch.stack([mv, gn, pend], dim=1)        # (G, 3)
+            if sub is not None:       # every rank's scalars, shard order
+                per_shard = dist_group.all_gather_rows(per_shard, sub)
+                obs.counter_add("sharded_scalar_gathers", 1)
+            per_shard = np.ascontiguousarray(per_shard.cpu().numpy().T)
             mv = int(per_shard[0].sum())
             gn = float(per_shard[1].sum())
             pend = int(per_shard[2].sum())
@@ -462,10 +521,13 @@ def run_sharded_sweeps(fp: FrontierPlan, parts: np.ndarray, nparts: int, *,
         if mv == 0 and pend == 0:
             break
 
+    if sub is not None:                # every rank's label blocks
+        labels = dist_group.all_gather_rows(labels, sub)
+        obs.counter_add("sharded_label_gathers", 1)
     blocks = labels.cpu().numpy().astype(np.int64)
     out = blocks[plan.shard_of, plan.slot_of]
     return out, records, {"moves": total_moves, "gathers": gathers,
-                          "cut": cut,
+                          "cut": cut, "ranks": d, "shards_per_rank": G,
                           "sweep_seconds": time.perf_counter() - t0,
                           "admit_seconds": admit.seconds}
 
@@ -615,25 +677,38 @@ def refine_sharded_host(fp: FrontierPlan, parts: np.ndarray, nparts: int, *,
 # ---------------------------------------------------------------------------
 
 def _sharded_pass(graph, parts, nparts, *, weights, sweeps, corridor,
-                  backend, guard, device, stats: PostStats) -> np.ndarray:
+                  backend, guard, device, group, stats: PostStats) -> np.ndarray:
     """Shared core of the two stages: guard envelope → frontier plan →
     sharded sweeps → validity checks, falling back to the host FM refiner
-    where `repro` does, except on the card (module docstring).
-    ``stats.sharded`` gets the run's ``info`` plus ``plan_seconds``."""
+    where `repro` does, except on the card or across ranks (module
+    docstring).  ``stats.sharded`` gets the run's ``info`` plus
+    ``plan_seconds``."""
     parts = np.asarray(parts, dtype=np.int64)
-    if guard is not None and getattr(guard, "expired", lambda: False)():
+    # Resolved outside the envelope: a missing card is no sweep failure.
+    grp = None if backend == "host" else dist_group.active(group)
+    if backend == "host":
+        dev = None
+    elif grp is None:
+        dev = resolve_device(device)
+    else:
+        dev = dist_group.rank_device(device)
+    expired = guard is not None and getattr(guard, "expired", lambda: False)()
+    if grp is not None and dist_group.size(grp) > 1:
+        # One deadline for every rank: any rank's expiry sends all of them
+        # to the host refiner, none sweeps alone.
+        flag = torch.tensor([float(expired)], device=dev)
+        expired = bool(dist_group.all_reduce_sum(flag, grp).item() > 0)
+    if expired:
         stats.stages.append("host-fallback")
         return refine_boundary(graph, parts, nparts, weights=weights,
                                sweeps=sweeps, corridor=corridor)[0]
-    # Resolved outside the envelope: a missing card is no sweep failure.
-    dev = None if backend == "host" else resolve_device(device)
     try:
         t0 = time.perf_counter()
         fp = build_frontier_plan(graph, parts, nparts, weights=weights)
         plan_s = time.perf_counter() - t0
         out, records, info = run_sharded_sweeps(
             fp, parts, nparts, sweeps=sweeps, corridor=corridor,
-            backend=backend, device=dev)
+            backend=backend, device=dev, group=grp)
         out = np.asarray(out, dtype=np.int64)
         if out.shape != parts.shape or out.min() < 0 or out.max() >= nparts:
             raise ValueError("sharded refinement produced invalid labels")
@@ -642,7 +717,7 @@ def _sharded_pass(graph, parts, nparts, *, weights, sweeps, corridor,
             raise ValueError(f"sharded refinement increased the cut "
                              f"({stats.cut_before} -> {cut_now})")
     except Exception as exc:
-        if not absorbable(exc, dev):
+        if grp is not None or not absorbable(exc, dev):
             raise
         # The exchange/sweep path failed off the card: degrade to the host
         # FM refiner rather than ship a corrupt partition.
@@ -673,11 +748,13 @@ def refine_sharded_stage(
     backend: str = "auto",
     guard=None,
     device=None,
+    group=None,
 ) -> tuple[np.ndarray, PostStats]:
     """The pipeline's "refine-sharded" stage: device-resident frontier FM
     sweeps (one boundary-label gather and one K4 table per sweep) + a
     closing repair pass.  Cut-non-increasing under ONE corridor, like the
-    host stage.  ``device``: where the sweeps run (None: the card)."""
+    host stage.  ``device``: where the sweeps run (None: the card);
+    ``group``: the process group they run across (`run_sharded_sweeps`)."""
     if corridor is None:
         corridor = balance_corridor(parts, nparts, weights, balance_tol)
     stats = PostStats(stages=["refine-sharded"], corridor=tuple(corridor),
@@ -686,7 +763,7 @@ def refine_sharded_stage(
         parts = _sharded_pass(graph, parts, nparts, weights=weights,
                               sweeps=sweeps, corridor=corridor,
                               backend=backend, guard=guard, device=device,
-                              stats=stats)
+                              group=group, stats=stats)
     stats.seconds = t.seconds
     obs.counter_add("refine_moves", stats.moves_applied)
     return close_with_repair(graph, parts, nparts, stats, weights=weights,
@@ -706,6 +783,7 @@ def kway_sharded_stage(
     backend: str = "auto",
     guard=None,
     device=None,
+    group=None,
 ) -> tuple[np.ndarray, PostStats]:
     """The "kway-sharded" stage: sharded frontier sweeps for the bulk of
     the gain, then a host boundary-restricted hill-climbing k-way polish
@@ -720,7 +798,7 @@ def kway_sharded_stage(
         parts = _sharded_pass(graph, parts, nparts, weights=weights,
                               sweeps=sweeps, corridor=corridor,
                               backend=backend, guard=guard, device=device,
-                              stats=stats)
+                              group=group, stats=stats)
     stats.seconds = t.seconds
     parts, kstats = kway_fm_boundary(graph, parts, nparts, weights=weights,
                                      passes=passes, corridor=corridor)

@@ -264,6 +264,45 @@ def test_sharded_refinement_on_card_matches_cpu(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_sharded_sweep_across_ranks_on_card(card, backend, world, tmp_path):
+    """The sweep across a process group on the card (gloo: 2 ranks sharing
+    it, their collectives through the host; NCCL: one rank, a real
+    communicator) gives the one-process card labels, K4 every sweep."""
+    import _dist_ranks
+    from repro_torch.core.rcb import rcb_parts
+    from repro_torch.core.refine import balance_corridor
+    from repro_torch.dist.refine_sharded import (build_frontier_plan,
+                                                 run_sharded_sweeps)
+    from repro_torch.kernels.segment_sum import cuda as ss_cuda
+    from repro_torch.mesh import box_mesh, dual_graph
+
+    mesh = box_mesh(12, 10, 8)
+    g = dual_graph(mesh)
+    rng = np.random.default_rng(3)
+    parts = rcb_parts(mesh.coords, 16, mesh.weights)
+    sel = rng.random(g.n) < 0.12
+    parts[sel] = rng.integers(0, 16, sel.sum())
+    corr = balance_corridor(parts, 16, mesh.weights, 0.05)
+    ss_cuda.build()                 # once, before the ranks load it
+    fp = build_frontier_plan(g, parts, 16, weights=mesh.weights)
+    out, rec, _ = run_sharded_sweeps(fp, parts, 16, sweeps=10, corridor=corr,
+                                     device=card)
+    ranks = _dist_ranks.run_ranks(
+        _dist_ranks.run_cases,
+        {"sweep": ("case_sweep", dict(graph=g, parts=parts, nparts=16,
+                                      weights=mesh.weights, corridor=corr,
+                                      device="cuda"))},
+        world, tmp_path, backend=backend)
+    for got in ranks:
+        got = got["sweep"]
+        assert np.array_equal(got["labels"], out)
+        assert got["moves"] == [r.moves for r in rec]
+        assert got["k4"] == got["counters"]["sharded_gathers"] == len(rec)
+        assert got["info"]["ranks"] == world
+
+
+@pytest.mark.cuda
 def test_guard_catches_raise_on_card(card, monkeypatch):
     """On the card neither guard catch absorbs an exception, whatever its
     type: a failing table build in the sharded pass, and a failing rescue

@@ -56,7 +56,8 @@ _SLICE_MODULES = {"repro_torch.core.lanczos", "repro_torch.core.flexcg",
                   "repro_torch.guard.policy", "repro_torch.core.multilevel",
                   "repro_torch.core.gather_scatter", "repro_torch.obs",
                   "repro_torch.obs.trace", "repro_torch.obs.registry",
-                  "repro_torch.obs.export", "repro_torch.obs.profiler"}
+                  "repro_torch.obs.export", "repro_torch.obs.profiler",
+                  "repro_torch.dist.collectives", "repro_torch.dist.group"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():
