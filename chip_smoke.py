@@ -164,7 +164,11 @@ Phases, each printing JSON lines:
    (tinyllama: H = 32, Hkv = 4, D = 64; ``prefill`` B=4, S=512,
    ``long_prefill`` B=1, S=4096, ``decode`` B=4 over a 576-row cache with
    kv_len 575, ``continuation`` 128 queries after a 512-row cached prefix,
-   ``long_decode`` one query over 4096 rows), at tests/test_kernels.py's
+   ``long_decode`` one query over 4096 rows), at the MoE serve path's
+   shapes (D = 128; deepseek-moe-16b, H = Hkv = 16: ``deepseek_prefill``
+   B=4, S=512 and ``deepseek_decode`` B=4 over 576 rows with kv_len 575;
+   qwen3-moe-30b-a3b, H = 32, Hkv = 4: ``qwen3_prefill``,
+   ``qwen3_decode``), at tests/test_kernels.py's
    five shapes and one non-causal call: error, CUDA-event ms, profiler
    device ms, TFLOP/s, the kernel that ran (every bf16 call with Sq·G > 16
    must run ``flash_attention_kernel_bf16``, every call with Sq·G <= 16,
@@ -175,7 +179,8 @@ Phases, each printing JSON lines:
    sliced to kv_len, an explicit mask where the queries are not top-left
    aligned).
 10. ``serve`` — `tinyllama-1.1b` at full width (``make_config()``, bf16,
-    parameters from a seeded generator) through `launch.serve.generate`:
+    parameters from a seeded generator, built one layer at a time by
+    `build_model`) through `launch.serve.generate`:
     ``requests`` (batch 4, prompt 512, 64 greedy steps) and ``long``
     (batch 1, prompt 4096, 16 steps), each with prefill ms, decode ms,
     tok/s, p50/p99 step ms, peak memory and K6 launches (= 22 x steps);
@@ -189,6 +194,37 @@ Phases, each printing JSON lines:
     through 22 layers: two GEMM shapes round differently); (c) the smoke
     config in fp32: greedy tokens on the card identical to the CPU's,
     logits within 1e-3.
+10b. ``serve_moe`` — ``deepseek-moe-16b`` (28 layers, 64 experts top-6 + 2
+    shared), ``qwen3-moe-30b-a3b`` (48 layers, 128 experts top-8) and the
+    dense ``command-r-35b`` (40 layers, d 8192) at full width in bf16, each
+    built one layer at a time on the card (`build_model`: 33.8, 61.1 and
+    64.8 GB of weights) after the earlier phases' tensors are freed, and
+    freed before the next: ``requests`` and (MoE) ``long`` through
+    `generate`, with ``serve``'s numbers, ``init_s``, weight bytes and K6
+    launches (= layers x steps); one ``requests`` decode step profiled
+    under ``REPRO_OBS_TORCH=1`` (device ms by ``moe:route`` /
+    ``moe:dispatch`` / ``moe:experts`` / ``moe:combine`` / ``moe:shared``
+    range and K6, joined by correlation id) beside its floor (every weight
+    but the embedding and the cache's rows once over 3.35 TB/s: the
+    static-capacity dispatch multiplies every expert each step); the share
+    of (token, choice) pairs past capacity in the ``requests`` prefill,
+    counted from the routing. The profiled step and the decode steps of
+    (a) and (b) are fed seeded random ids (the greedy tokens of random
+    weights repeat one id). Checks: (a) (MoE) a forward over the
+    ``requests`` prompts, then their prefill and 32 teacher-forced steps
+    with K6 against the plain attention, (b) (MoE) the prompts' prefill
+    and 63 teacher-forced steps against one forward over the same 2,300
+    tokens with capacity_factor = E / top_k (no drops), both with forward
+    hooks on every MoE layer recomputing the expert sets: the share of
+    (token, layer) pairs whose sets differ ((b)'s over the prefill's
+    positions and over the steps') at most the arch's limit, and a
+    control's — the same run with the plain attention's output rounded to
+    4 mantissa bits in place of K6 — above it; the logit gaps (<= 3e-2 /
+    5e-2 of max |logit|) over the rows routed alike in every layer; (c) the smoke
+    config in fp32, card against CPU (tokens identical, logits <= 1e-3);
+    (d) (MoE) one full-width MoE layer in fp32 at 512 tokens, card against
+    CPU: expert ids and keep mask equal, y <= 1e-5 of max |y|, two card
+    calls bit-identical. Every arch runs before the phase fails.
 11. ``kernels`` (embedding_bag) — K5 against its plain version
     (`ref.embedding_bag_ref`) in fp32 and bf16: over SASRec's full table
     (1,000,448 × 50) ``lookup`` (``serve_p99``'s 25,600 items, bags of
@@ -225,7 +261,8 @@ Phases, each printing JSON lines:
 Then ``done`` (the script's seconds), the line ``{"kernels": [...]}``
 (every ported kernel: launches on its
 main path — K1 in ``full``, K2 in ``full_inverse``, K4 in the two sharded
-chains of ``full_sharded`` (``dist`` prints its own per rank), K3 on none, K6 in the two ``serve`` runs, K5
+chains of ``full_sharded`` (``dist`` prints its own per rank), K3 on none,
+K6 in the two ``serve`` runs and the five ``serve_moe`` runs, K5
 in the three ``recsys`` runs, with the counters set to 0 just before each
 — error against the plain version, times and bound), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -239,6 +276,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -302,6 +340,12 @@ FLASH_CASES = {
     "continuation": (1, 128, 700, 32, 4, 64, 512, 640, True),
     # the `long` serve run's decode step over its 4096 rows
     "long_decode": (1, 1, 4096, 32, 4, 64, 4095, 4096, True),
+    # serve_moe's shapes: deepseek-moe-16b (MHA, G = 1) and
+    # qwen3-moe-30b-a3b (G = 8), D = 128: requests prefill and decode
+    "deepseek_prefill": (4, 512, 512, 16, 16, 128, None, None, True),
+    "deepseek_decode": (4, 1, 576, 16, 16, 128, 574, 575, True),
+    "qwen3_prefill": (4, 512, 512, 32, 4, 128, None, None, True),
+    "qwen3_decode": (4, 1, 576, 32, 4, 128, 574, 575, True),
 }
 # bf16 calls with more than this many flattened (position, head) rows take
 # K6's bf16 prefill kernel; calls with at most this many, fp32 and bf16,
@@ -314,6 +358,25 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SERVE_RUNS = {"requests": (4, 512, 64), "long": (1, 4096, 16)}
 SERVE_TOL_REF = 3e-2       # (a) K6 model vs plain-attention model, bf16
 SERVE_TOL_FORWARD = 5e-2   # (b) decode vs full forward, bf16
+SERVE_SMOKE_TOL = 1e-3     # (c) smoke logits, card vs CPU, fp32
+# serve_moe: the archs at full width, each built one layer at a time
+SERVE_MOE_ARCHS = ("deepseek-moe-16b", "qwen3-moe-30b-a3b", "command-r-35b")
+SERVE_MOE_STEPS_A = 32     # teacher-forced decode steps of check (a)
+# Routing flips: the share of (token, layer) pairs whose expert sets differ,
+# (a) between K6 and the plain attention and (b) between the prefill and
+# decode steps and the forward over the same positions (the prefill's
+# positions and the steps' apart), is at most the arch's limit, and each
+# control's, the plain attention with its output rounded to
+# SERVE_MOE_CONTROL_BITS explicit mantissa bits (bf16 keeps 7) in place of
+# K6, above it.  Each limit lies between the two readings on the H100
+# (PERF.md §6, PR 24)
+SERVE_MOE_FLIP_MAX = {"deepseek-moe-16b": 0.055, "qwen3-moe-30b-a3b": 0.1}
+SERVE_MOE_CONTROL_BITS = (4,)
+MOE_LAYER_TOKENS = 512     # (d) one full-width MoE layer, card vs CPU
+MOE_LAYER_TOL = 1e-5       # (d) of max|y|, fp32
+# (d) least top-k router-logit margin of the input: logits are O(1) sums
+# of 2,048 fp32 products, rounded ~1e-6 apart by two summation orders
+MOE_LAYER_MARGIN = 1e-4
 # K5 cases: name → (n_bags, kind); "lookup", "retrieval" and "pooled" run
 # over SASRec's full table (make_config(): 1,000,448 × 50), the rest over
 # tables of their own (V, d).
@@ -1856,27 +1919,14 @@ def phase_full_multilevel(box, rsb_cut, geometric_cut):
 
 def ranged_k1(trace_path) -> dict:
     """From a torch.profiler Chrome trace: K1's kernels, and how many of
-    them were launched inside a ``fiedler:lanczos…`` range (the launch's
-    runtime call, joined to the kernel by its correlation id, lies within
-    a range of that name on the same thread)."""
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    ranges = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in events
-              if e.get("ph") == "X"
-              and str(e.get("name", "")).startswith("fiedler:lanczos")]
-    launches = {e["args"]["correlation"]: e for e in events
-                if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
-                and "correlation" in e.get("args", {})}
-    k1 = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
-          and "ell_spmv_kernel" in str(e.get("name", ""))]
-    inside = 0
-    for e in k1:
-        launch = launches.get(e.get("args", {}).get("correlation"))
-        if launch is not None and any(
-                tid == launch["tid"] and t0 <= launch["ts"] <= t1
-                for tid, t0, t1 in ranges):
-            inside += 1
-    return dict(ranges=len(ranges), k1_kernels=len(k1), k1_in_ranges=inside)
+    them were launched inside a ``fiedler:lanczos…`` range, by range name
+    (`range_device_ms`)."""
+    parts = range_device_ms(trace_path, "fiedler:lanczos",
+                            kernel="ell_spmv_kernel")
+    total = sum(v[0] for v in parts.values())
+    return dict(k1_kernels=total,
+                k1_in_ranges=total - parts.get("other", [0])[0],
+                by_range={k: v[0] for k, v in sorted(parts.items())})
 
 
 def phase_reference(gs_row):
@@ -2288,16 +2338,12 @@ def phase_serve():
     """`tinyllama-1.1b` at full width served through `generate` (see the
     module docstring); returns K6's launches over the two runs."""
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention import cuda as fa_cuda
-    from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as tt
-    from repro_torch.obs import percentiles
 
     arch = get_arch("tinyllama-1.1b")
     cfg = arch.make_config()
     t0 = time.perf_counter()
-    model = tt.Transformer(cfg, tt.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0)))
+    model = tt.build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -2306,34 +2352,7 @@ def phase_serve():
         return torch.from_numpy(np.random.default_rng(0).integers(
             0, cfg.vocab, (B, P))).cuda()
 
-    # Warm-up (cuBLAS handles and workspaces, K6's library load) outside
-    # the counted runs.
-    generate(cfg, model, prompts_of(4, 512), 2)
-    generate(cfg, model, prompts_of(1, 4096), 2)
-
-    runs, kept = {}, {}
-    fa_cuda.LAUNCHES = 0                 # the serve path's count starts here
-    for name, (B, P, steps) in SERVE_RUNS.items():
-        prompts = prompts_of(B, P)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = fa_cuda.LAUNCHES
-        toks, t_pre, step_s = generate(cfg, model, prompts, steps)
-        launches = fa_cuda.LAUNCHES - before
-        check(launches == cfg.n_layers * steps,
-              f"serve {name}: {launches} K6 launches, not "
-              f"{cfg.n_layers} x {steps}")
-        t_dec = sum(step_s)
-        pct = percentiles(step_s)
-        runs[name] = dict(
-            batch=B, prompt_len=P, steps=steps, prefill_ms=t_pre * 1e3,
-            prefill_tok_per_s=B * P / t_pre, decode_ms=t_dec * 1e3,
-            tok_per_s=B * (steps - 1) / t_dec, p50_step_ms=pct["p50"] * 1e3,
-            p99_step_ms=pct["p99"] * 1e3,
-            max_memory_allocated=torch.cuda.max_memory_allocated(),
-            k6_launches=launches, sample_tokens=toks[0, :12].tolist())
-        kept[name] = (prompts, toks)
-    k6_launches = fa_cuda.LAUNCHES
+    runs, kept, k6_launches = serve_runs(cfg, model, SERVE_RUNS, prompts_of)
 
     prompts, toks = kept["requests"]
     B, P, steps = SERVE_RUNS["requests"]
@@ -2396,7 +2415,251 @@ def phase_serve():
               f"serve (b): decode vs forward logits {gap_fwd}")
         del full, cache
 
-    # (c) the smoke config in fp32: card against CPU.
+    emit("serve", arch=cfg.name, dtype=str(cfg.dtype).split(".")[-1],
+         n_params=cfg.n_params(), weight_bytes=weight_bytes, init_s=init_s,
+         runs=runs, k6_launches=k6_launches, profile=profile,
+         check_a_ref_gap=gap_ref, check_a_tol=SERVE_TOL_REF,
+         check_b_forward_gap=gap_fwd, check_b_tol=SERVE_TOL_FORWARD,
+         check_c=smoke_on_card(arch))
+    del model
+    torch.cuda.empty_cache()
+    return k6_launches
+
+
+class RoutingCapture:
+    """Forward hooks on every MoE layer of ``model``: for each call of a
+    layer, the expert sets (B, S, k, ascending ids) that `models.moe.route`
+    picks from the captured input, in call order (prefill: layer 0 … L−1,
+    then each decode step)."""
+
+    def __init__(self, model):
+        from repro_torch.models import moe as mt
+
+        self.records = []
+
+        def hook(module, args, out):
+            h, moe = args
+            _, _, top_e = mt.route(moe, module.router,
+                                   h.reshape(-1, h.shape[-1]))
+            self.records.append(top_e.sort(-1).values.view(*h.shape[:2], -1))
+
+        self.handles = [layer.moe.register_forward_hook(hook)
+                        for layer in model.layers]
+
+    def close(self):
+        for handle in self.handles:
+            handle.remove()
+
+    def by_layer(self, n_layers):
+        """Per layer, the sets of every call joined along the sequence:
+        [(B, S_total, k)]."""
+        return [torch.cat(self.records[i::n_layers], 1)
+                for i in range(n_layers)]
+
+
+def routing_diff(run_a, run_b) -> dict:
+    """Two runs' routing over the same tokens (lists by layer from
+    `RoutingCapture.by_layer`): the share of (token, layer) pairs whose
+    expert sets differ, and which tokens are routed alike in every layer
+    (B, S)."""
+    differ = torch.stack([(sa != sb).any(-1)
+                          for sa, sb in zip(run_a, run_b)])    # (L, B, S)
+    return dict(flip_share=float(differ.float().mean()),
+                pairs=int(differ.numel()), flips=int(differ.sum()),
+                alike=~differ.any(0))
+
+
+@contextlib.contextmanager
+def coarse_attention(bits):
+    """Checks (a) and (b)'s control: inside, every attention call of the LM
+    runs the plain attention with its output rounded to ``bits`` explicit
+    mantissa bits (bf16 keeps 7; round to nearest even), a stand-in for an
+    attention kernel that computes coarser than bf16."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+    from repro_torch.models import transformer as tt
+
+    scale = 2.0 ** (bits + 1)
+
+    def attention(q, k, v, *, prefer, **kw):
+        out = flash_attention_plain(q, k, v, **kw)
+        m, e = torch.frexp(out.float())
+        return torch.ldexp(torch.round(m * scale) / scale, e).to(out.dtype)
+
+    kept = tt.flash_attention
+    tt.flash_attention = attention
+    try:
+        yield
+    finally:
+        tt.flash_attention = kept
+
+
+def dropped_share(capture_layers, moe, n_tokens) -> float:
+    """Share of (token, choice) pairs past their expert's capacity, over
+    every layer, counted from the routing alone: each expert keeps its
+    first C = capacity(moe, T) entries."""
+    from repro_torch.models.moe import capacity
+
+    C = capacity(moe, n_tokens)
+    dropped = total = 0
+    for sets in capture_layers:
+        counts = torch.bincount(sets.reshape(-1), minlength=moe.n_experts)
+        dropped += int((counts - C).clamp_min(0).sum())
+        total += sets.numel()
+    return dropped / total
+
+
+def gated_gap(got, want, rows_alike) -> tuple:
+    """`logit_gap` over the rows routed alike (a bool per row of the
+    leading dims), and how many rows that is."""
+    n = int(rows_alike.sum())
+    if n == 0:
+        return None, 0
+    return logit_gap(got[rows_alike], want[rows_alike]), n
+
+
+def range_device_ms(trace_path, prefix, *, kernel=None, within=None,
+                    names=None) -> dict:
+    """The device events (kernels, copies, fills) of a torch.profiler Chrome
+    trace by the innermost range named ``prefix…`` their launch lies in
+    (the launch's runtime call, joined to the event by its correlation id,
+    on the same thread), else ``"other"`` (also an event with no launch in
+    the trace): {bucket: [count, ms]}.  Only kernels whose name holds
+    ``kernel``, where given; only events launched inside a range named
+    ``within``, where given; a kernel whose name holds a key of ``names``
+    goes to that key's bucket, whatever its range."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    annotations = [(e["tid"], e["ts"], e["ts"] + e["dur"], str(e["name"]))
+                   for e in events if e.get("cat") == "user_annotation"]
+    outer = [r for r in annotations if r[3] == within]
+    ranges = sorted((r for r in annotations if r[3].startswith(prefix)),
+                    key=lambda r: r[2] - r[1])          # innermost first
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out: dict = {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset") or (
+                kernel is not None and kernel not in e["name"]):
+            continue
+        launch = launches.get(e.get("args", {}).get("correlation"))
+        tid, ts = (launch["tid"], launch["ts"]) if launch else (None, None)
+        if within is not None and not any(
+                t == tid and a <= ts <= b for t, a, b, _ in outer):
+            continue
+        name = next((n for key, n in (names or {}).items()
+                     if key in e["name"]), None) or next(
+            (n for t, a, b, n in ranges if t == tid and a <= ts <= b),
+            "other")
+        d = out.setdefault(name, [0, 0.0])
+        d[0] += 1
+        d[1] += e["dur"] / 1e3
+    return out
+
+
+def profile_decode_step(model, cache, tok, pos) -> dict:
+    """Two decode steps in one torch.profiler capture under
+    ``REPRO_OBS_TORCH=1`` (the MoE layer's ``moe:*`` ranges on), each in a
+    range of its own; the second step's device ms split by range."""
+    import os
+
+    from repro_torch import obs
+    from repro_torch.models import transformer as tt
+
+    os.environ["REPRO_OBS_TORCH"] = "1"
+    os.environ["REPRO_OBS_TORCH_DIR"] = str(ROOT / "build" / "torchprof")
+    try:
+        with torch.inference_mode():
+            cap = obs.maybe_start_trace()
+            for i in range(2):
+                with torch.profiler.record_function(f"serve_moe:step{i}"):
+                    tt.decode_step(model, cache, tok, pos)
+                torch.cuda.synchronize()
+            path = obs.maybe_stop_trace(cap)
+    finally:
+        os.environ.pop("REPRO_OBS_TORCH", None)
+        os.environ.pop("REPRO_OBS_TORCH_DIR", None)
+    parts = range_device_ms(path, "moe:", within="serve_moe:step1",
+                            names={"flash_attention_kernel": "k6"})
+    total = sum(v[1] for v in parts.values())
+    return dict(cuda_events=sum(v[0] for v in parts.values()),
+                device_ms=total,
+                by_range={k: dict(count=v[0], ms=v[1],
+                                  share=v[1] / total if total else None)
+                          for k, v in sorted(parts.items())})
+
+
+def decode_floor_ms(model, B, pos) -> float:
+    """The least device ms of one decode step at position ``pos``: every
+    weight but the embedding read once (the static-capacity dispatch
+    multiplies every expert each step), and the KV cache's first pos + 1
+    rows of every layer, over 3.35 TB/s."""
+    cfg = model.cfg
+    weights = sum(p.numel() * p.element_size() for n, p in
+                  model.named_parameters() if n != "embed")
+    kv = 2 * cfg.n_layers * B * (pos + 1) * cfg.n_kv_heads * cfg.d_head \
+        * torch.finfo(cfg.dtype).bits // 8
+    return (weights + kv) / HBM_BYTES_PER_S * 1e3
+
+
+def teacher_forced(model, seq, P, steps):
+    """Prefill seq[:, :P] into a cache, then ``steps`` decode steps fed
+    seq's next tokens: the prefill's logits (B, V) and each step's (B,
+    steps, V)."""
+    from repro_torch.models import transformer as tt
+
+    B = seq.shape[0]
+    cache = tt.init_cache(model.cfg, B, P + steps, "cuda")
+    lp, cache = tt.prefill(model, seq[:, :P], cache)
+    out = []
+    for t in range(P, P + steps):
+        ld, cache = tt.decode_step(model, cache, seq[:, t:t + 1], t)
+        out.append(ld[:, 0])
+    return lp[:, 0], torch.stack(out, 1)
+
+
+def serve_runs(cfg, model, runs_spec, prompts_of) -> tuple:
+    """`generate` over each run of ``runs_spec`` (after one unrecorded
+    2-step warm-up per shape): prefill ms, tok/s, p50/p99 step ms, peak
+    memory and K6 launches (checked = n_layers × steps); the runs' K6
+    launches, counted from 0 just before them."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.launch.serve import generate
+    from repro_torch.obs import percentiles
+
+    for B, P, _ in runs_spec.values():
+        generate(cfg, model, prompts_of(B, P), 2)
+    runs, kept = {}, {}
+    fa_cuda.LAUNCHES = 0
+    for name, (B, P, steps) in runs_spec.items():
+        prompts = prompts_of(B, P)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = fa_cuda.LAUNCHES
+        toks, t_pre, step_s = generate(cfg, model, prompts, steps)
+        launches = fa_cuda.LAUNCHES - before
+        check(launches == cfg.n_layers * steps,
+              f"serve {cfg.name} {name}: {launches} K6 launches, not "
+              f"{cfg.n_layers} x {steps}")
+        t_dec = sum(step_s)
+        pct = percentiles(step_s)
+        runs[name] = dict(
+            batch=B, prompt_len=P, steps=steps, prefill_ms=t_pre * 1e3,
+            prefill_tok_per_s=B * P / t_pre, decode_ms=t_dec * 1e3,
+            tok_per_s=B * (steps - 1) / t_dec, p50_step_ms=pct["p50"] * 1e3,
+            p99_step_ms=pct["p99"] * 1e3,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            k6_launches=launches, sample_tokens=toks[0, :12].tolist())
+        kept[name] = (prompts, toks)
+    return runs, kept, fa_cuda.LAUNCHES
+
+
+def smoke_on_card(arch) -> dict:
+    """(c) the arch's smoke config in fp32 through `generate`: greedy tokens
+    on the card identical to the CPU's, full-forward logits within 1e-3."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as tt
+
     smoke = arch.make_smoke_config()
     params = tt.init_params(smoke, torch.Generator().manual_seed(0))
     cpu, gpu = tt.Transformer(smoke, params), tt.Transformer(smoke, params).cuda()
@@ -2405,22 +2668,289 @@ def phase_serve():
     tc, _, _ = generate(smoke, cpu, sp, 32)
     with torch.inference_mode():
         seq = torch.cat([sp, tc], dim=1)
-        smoke_gap = float((tt.forward(gpu, seq.cuda()).cpu()
-                           - tt.forward(cpu, seq)).abs().max())
-    check(torch.equal(tg.cpu(), tc), "serve (c): smoke tokens on the card "
-          "differ from the CPU's")
-    check(smoke_gap <= 1e-3, f"serve (c): smoke logits differ by {smoke_gap}")
+        gap = float((tt.forward(gpu, seq.cuda()).cpu()
+                     - tt.forward(cpu, seq)).abs().max())
+    check(torch.equal(tg.cpu(), tc), f"serve (c) {smoke.name}: tokens on the "
+          "card differ from the CPU's")
+    check(gap <= SERVE_SMOKE_TOL, f"serve (c) {smoke.name}: logits differ by "
+          f"{gap}")
+    return dict(config=smoke.name, steps=32, tokens_equal=True,
+                max_abs_logit_gap=gap)
 
-    emit("serve", arch=cfg.name, dtype=str(cfg.dtype).split(".")[-1],
-         n_params=cfg.n_params(), weight_bytes=weight_bytes, init_s=init_s,
-         runs=runs, k6_launches=k6_launches, profile=profile,
-         check_a_ref_gap=gap_ref, check_a_tol=SERVE_TOL_REF,
-         check_b_forward_gap=gap_fwd, check_b_tol=SERVE_TOL_FORWARD,
-         check_c=dict(config=smoke.name, steps=32, tokens_equal=True,
-                      max_abs_logit_gap=smoke_gap))
+
+def moe_layer_on_card(cfg) -> dict:
+    """(d) one MoE layer at the config's full width in fp32 on the card
+    against the CPU at MOE_LAYER_TOKENS tokens: expert ids and keep mask
+    equal, y within 1e-5 of max|y|, two card calls bit-identical.  The
+    input is the first of a seeded series whose every token has a top-k
+    router-logit margin (k-th − (k+1)-th) above MOE_LAYER_MARGIN on the
+    CPU: a near tie flips on the last bit of another summation order, a
+    property of the input, not of the port."""
+    from repro_torch.models import moe as mt
+
+    moe, d = cfg.moe, cfg.d_model
+    p = mt.init_moe(moe, d, torch.Generator().manual_seed(0), torch.float32)
+    p["router"] = p["router"].to(cfg.dtype).float()    # as the model holds it
+    for seed in range(16):
+        x = torch.from_numpy(np.random.default_rng(seed).normal(
+            size=(1, MOE_LAYER_TOKENS, d)).astype(np.float32))
+        _, _, top_e = mt.route(moe, p["router"], x[0])
+        srt = (x[0] @ p["router"]).sort(-1, descending=True).values
+        margin = float((srt[:, moe.top_k - 1] - srt[:, moe.top_k]).min())
+        if margin > MOE_LAYER_MARGIN:
+            break
+    check(margin > MOE_LAYER_MARGIN, f"serve_moe (d) {cfg.name}: no input of "
+          f"the series clears the top-k margin ({margin})")
+    want = mt.moe_apply(moe, p, x, torch.float32)
+    _, keep_cpu, _ = mt.dispatch(moe, top_e, MOE_LAYER_TOKENS)
+    pc = {k: v.cuda() for k, v in p.items()}
+    xc = x.cuda()
+    _, _, top_e_card = mt.route(moe, pc["router"], xc[0])
+    _, keep_card, _ = mt.dispatch(moe, top_e_card, MOE_LAYER_TOKENS)
+    got = [mt.moe_apply(moe, pc, xc, torch.float32) for _ in range(2)]
+    torch.cuda.synchronize()
+    gap = float((got[0].cpu() - want).abs().max() / want.abs().max())
+    row = dict(tokens=MOE_LAYER_TOKENS, input_seed=seed, top_k_margin=margin,
+               top_e_equal=bool(torch.equal(top_e_card.cpu(), top_e)),
+               keep_equal=bool(torch.equal(keep_card.cpu(), keep_cpu)),
+               dropped=int((~keep_cpu).sum()), y_gap=gap,
+               bit_identical=bool(torch.equal(got[0], got[1])))
+    check(row["top_e_equal"] and row["keep_equal"],
+          f"serve_moe (d) {cfg.name}: routing differs from the CPU's: {row}")
+    check(gap <= MOE_LAYER_TOL, f"serve_moe (d) {cfg.name}: y differs by "
+          f"{gap} of max|y|")
+    check(row["bit_identical"], f"serve_moe (d) {cfg.name}: two card calls "
+          "differ")
+    return row
+
+
+def serve_moe_arch(arch_id) -> tuple:
+    """One arch of phase ``serve_moe`` (see the module docstring); returns
+    its line and its K6 launches over the serve runs."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.moe import capacity
+
+    t_arch = time.perf_counter()
+    arch = get_arch(arch_id)
+    cfg = arch.make_config()
+    is_moe = cfg.moe is not None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = tt.build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+
+    def prompts_of(B, P):
+        return torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (B, P))).cuda()
+
+    spec = SERVE_RUNS if is_moe else {"requests": SERVE_RUNS["requests"]}
+    runs, kept, k6_launches = serve_runs(cfg, model, spec, prompts_of)
+    prompts, _ = kept["requests"]
+    B, P, steps = SERVE_RUNS["requests"]
+    # the decode traffic of the profile and checks (a), (b): seeded random
+    # ids (the greedy tokens of random weights repeat one id)
+    forced = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, steps))).cuda()
+    row = dict(arch=cfg.name, dtype=str(cfg.dtype).split(".")[-1],
+               n_params=cfg.n_params(), n_active_params=cfg.n_active_params(),
+               weight_bytes=weight_bytes, resident_before_bytes=resident,
+               init_s=init_s, init_peak_bytes=init_peak, runs=runs,
+               k6_launches=k6_launches)
+
+    with torch.inference_mode():
+        cache = tt.init_cache(cfg, B, P + 1, "cuda")
+        tt.prefill(model, prompts, cache)
+        row["decode_floor_ms"] = decode_floor_ms(model, B, P)
+        row["decode_profile"] = profile_decode_step(model, cache,
+                                                    forced[:, :1], P)
+        del cache
+
+        # (a) K6 against the plain attention, same weights: (MoE) a forward
+        # over the requests prompts (the prefill route, every position's
+        # logits), then their prefill and 32 teacher-forced decode steps.
+        seq = torch.cat([prompts, forced], dim=1)
+
+        def run_a():
+            cap = RoutingCapture(model) if is_moe else None
+            out = (tt.forward(model, prompts) if is_moe else None,
+                   *teacher_forced(model, seq, P, SERVE_MOE_STEPS_A))
+            if cap is None:
+                return out, None
+            cap.close()
+            return out, cap.by_layer(cfg.n_layers)
+
+        logits, routing = {}, {}
+        for prefer in ("auto", "ref"):
+            model.attn_prefer = prefer
+            logits[prefer], routing[prefer] = run_a()
+        model.attn_prefer = "auto"
+        (lf_a, lp_a, ld_a), (lf_r, lp_r, ld_r) = logits.pop("auto"), \
+            logits.pop("ref")
+        check_a = dict(tol=SERVE_TOL_REF, prefill_gap=logit_gap(lp_a, lp_r),
+                       decode_gap=logit_gap(ld_a, ld_r))
+        if is_moe:
+            check_a["forward_gap"] = logit_gap(lf_a, lf_r)
+            # sequence positions of the routing records: the forward's P,
+            # the prefill's P, the steps
+            diff = routing_diff(routing["auto"], routing["ref"])
+            alike = diff.pop("alike")
+            check_a.update(diff, flip_max=SERVE_MOE_FLIP_MAX[cfg.name])
+            check_a["forward_gap_alike"], check_a["forward_rows_alike"] = \
+                gated_gap(lf_a, lf_r, alike[:, :P])
+            check_a["decode_gap_alike"], check_a["decode_rows_alike"] = \
+                gated_gap(ld_a, ld_r, alike[:, 2 * P:])
+            row["dropped_share_requests_prefill"] = dropped_share(
+                [sets[:, :P] for sets in routing["auto"]], cfg.moe, B * P)
+            del lf_a, lf_r
+            # the controls: the same runs with a coarser attention, held to
+            # the plain attention's routing as K6 is
+            controls = {}
+            for bits in SERVE_MOE_CONTROL_BITS:
+                with coarse_attention(bits):
+                    _, run_c = run_a()
+                controls[str(bits)] = routing_diff(
+                    run_c, routing["ref"])["flip_share"]
+                del run_c
+            check_a["control_flip_shares"] = controls
+            del routing
+        row["check_a"] = check_a
+
+        if is_moe:
+            # (b) the prompts' prefill and 63 teacher-forced decode steps
+            # against one forward over the same 2,300 tokens, with C ≥ T
+            # (capacity_factor = E / top_k): no token drops in either, so
+            # they compute the same function.  Routing is compared apart
+            # over the prefill's positions and the steps' (K6's decode
+            # kernel, products of B rows); the controls run the prefill and
+            # the steps with a coarser attention.
+            E, k = cfg.moe.n_experts, cfg.moe.top_k
+            model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=E / k))
+            S = P + steps - 1
+            seq = seq[:, :S]
+            cap = RoutingCapture(model)
+            full = tt.forward(model, seq)
+            cap.close()
+            run_full = cap.by_layer(cfg.n_layers)
+
+            def run_b():
+                cap = RoutingCapture(model)
+                out = teacher_forced(model, seq, P, S - P)
+                cap.close()
+                return out, cap.by_layer(cfg.n_layers)
+
+            def diff_b(run):
+                return [routing_diff([r[:, part] for r in run_full],
+                                     [r[:, part] for r in run])
+                        for part in (slice(0, P), slice(P, S))]
+
+            (lp, ld), run_dec = run_b()
+            pre, dec = diff_b(run_dec)
+            controls = {}
+            for bits in SERVE_MOE_CONTROL_BITS:
+                with coarse_attention(bits):
+                    _, run_c = run_b()
+                controls[str(bits)] = [d["flip_share"] for d in diff_b(run_c)]
+                del run_c
+            model.cfg = cfg
+            want_p, want_d = full[:, P - 1], full[:, P:]
+            check_b = dict(
+                tol=SERVE_TOL_FORWARD, tokens=B * S, capacity_factor=E / k,
+                capacity=capacity(cfg.moe, B * S), decode_steps=S - P,
+                prefill_gap=logit_gap(lp, want_p),
+                decode_gap=logit_gap(ld, want_d),
+                flip_max=SERVE_MOE_FLIP_MAX[cfg.name])
+            for part, d, i in (("prefill", pre, 0), ("decode", dec, 1)):
+                check_b.update({
+                    f"{part}_flip_share": d["flip_share"],
+                    f"{part}_flips": d["flips"], f"{part}_pairs": d["pairs"],
+                    f"{part}_control_flip_shares":
+                        {b: v[i] for b, v in controls.items()}})
+            check_b["prefill_gap_alike"], check_b["prefill_rows_alike"] = \
+                gated_gap(lp, want_p, pre["alike"][:, P - 1])
+            check_b["decode_gap_alike"], check_b["decode_rows_alike"] = \
+                gated_gap(ld, want_d, dec["alike"])
+            row["check_b"] = check_b
+            del full, run_full, run_dec
+    row["check_c"] = smoke_on_card(arch)
+    if is_moe:
+        row["check_d"] = moe_layer_on_card(cfg)
     del model
+    gc.collect()
     torch.cuda.empty_cache()
-    return k6_launches
+    row["seconds"] = time.perf_counter() - t_arch
+    return row, k6_launches
+
+
+def serve_moe_failures(row) -> list:
+    """Checks (a) and (b) of one ``serve_moe`` line.  Dense: the logit gaps
+    within their bounds.  MoE: the gaps within their bounds over the rows
+    routed alike in every layer (at least one such row a comparison), and
+    each share of (token, layer) pairs whose expert sets differ ((a)'s;
+    (b)'s over the prefill's positions and over the steps') within the
+    arch's ``flip_max``, with every control's share above it: the run
+    shows that the limit catches an attention coarser than bf16
+    (SERVE_MOE_FLIP_MAX)."""
+    out, name = [], row["arch"]
+    for key in ("check_a", "check_b"):
+        c = row.get(key)
+        if c is None:
+            continue
+        if "flip_share" not in c:
+            gaps = [c[k] for k in ("forward_gap", "prefill_gap", "decode_gap")
+                    if k in c]
+            if max(gaps) > c["tol"]:
+                out.append(f"{name} {key}: logit gaps {gaps} above {c['tol']}")
+            continue
+        for part in ("forward", "prefill", "decode"):
+            if f"{part}_rows_alike" not in c:
+                continue
+            gap, n = c[f"{part}_gap_alike"], c[f"{part}_rows_alike"]
+            if n == 0:
+                out.append(f"{name} {key}: no {part} row routed alike in "
+                           "every layer")
+            elif gap > c["tol"]:
+                out.append(f"{name} {key}: {part} logit gap {gap} over "
+                           f"{n} rows routed alike, above {c['tol']}")
+        for part in ("", "prefill_", "decode_"):
+            if f"{part}flip_share" not in c:
+                continue
+            share, limit = c[f"{part}flip_share"], c["flip_max"]
+            if share > limit:
+                out.append(f"{name} {key}: expert sets differ in {share} of "
+                           f"the {part}(token, layer) pairs, above {limit}")
+            for bits, ctl in c[f"{part}control_flip_shares"].items():
+                if ctl <= limit:
+                    out.append(f"{name} {key}: the {part}control at {bits} "
+                               f"mantissa bits flips {ctl}, not above {limit}")
+    return out
+
+
+def phase_serve_moe():
+    """`deepseek-moe-16b`, `qwen3-moe-30b-a3b` and `command-r-35b` at full
+    width, each built one layer at a time on the card (see the module
+    docstring); returns K6's launches over their serve runs.  Every arch
+    runs before the phase fails on the checks of `serve_moe_failures`."""
+    t_phase = time.perf_counter()
+    failures, launches = [], 0
+    for arch_id in SERVE_MOE_ARCHS:
+        row, k6 = serve_moe_arch(arch_id)
+        row["failures"] = serve_moe_failures(row)
+        emit("serve_moe", **row)
+        failures += row["failures"]
+        launches += k6
+    emit("serve_moe_done", seconds=time.perf_counter() - t_phase,
+         k6_launches=launches, failures=failures)
+    check(not failures, "serve_moe: " + "; ".join(failures))
+    return launches
 
 
 def zipf_items(rng, shape, n_items):
@@ -2820,6 +3350,7 @@ def main(argv=None) -> int:
     del fp, sweep_parts
     fa_rows = phase_kernels_flash()
     k6_launches = phase_serve()
+    k6_launches += phase_serve_moe()
     bag_rows, k5_launches = phase_recsys()
 
     def main_f32(rows):

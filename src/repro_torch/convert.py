@@ -84,8 +84,10 @@ def lm_params_from_numpy(cfg: LMConfig, params: dict,
                          device=None) -> Transformer:
     """The port's LM (on ``device``, default the card) with the values of
     `repro`'s parameter tree ``params`` — ``embed``, ``head``,
-    ``final_norm`` and the stacked ``layers`` — given with NumPy leaves
-    (e.g. ``jax.tree_util.tree_map(np.asarray, params)``)."""
+    ``final_norm`` and the stacked ``layers``, whose FFN is ``ffn`` {wi, wg,
+    wo} or, for an MoE config, ``moe`` {router, wi, wg, wo, shared_wi,
+    shared_wg, shared_wo} — given with NumPy leaves (e.g.
+    ``jax.tree_util.tree_map(np.asarray, params)``)."""
     return Transformer(cfg, _tensors(params, resolve_device(device)))
 
 

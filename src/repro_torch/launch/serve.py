@@ -2,8 +2,11 @@
 
 `python -m repro_torch.launch.serve --arch tinyllama-1.1b --batch 4
 --steps 32` runs prefill + N decode steps of the smoke config on the card
-(``--full``: the published config; ``--device cpu``: the plain attention
-on the CPU).  Parameters come from a `torch.Generator` and prompts from
+(``--full``: the published config, e.g. ``--arch qwen3-moe-30b-a3b
+--full``, built one layer at a time so that its 61 GB of bf16 weights fit
+one card; ``--device cpu``: the plain attention on the CPU).  The dense
+LMs and the MoE LMs (``deepseek-moe-16b``, ``qwen3-moe-30b-a3b``) take the
+same path.  Parameters come from a `torch.Generator` and prompts from
 NumPy's ``default_rng``, both seeded by ``--seed``; `repro`'s serve draws
 them from `jax.random`, so the two runs give different tokens — parity
 with `repro` goes through converted parameters (`repro_torch.convert`).
@@ -24,9 +27,9 @@ from repro_torch.guard import GuardError, check_positive_int
 from repro_torch.models.transformer import (
     LMConfig,
     Transformer,
+    build_model,
     decode_step,
     init_cache,
-    init_params,
     prefill,
 )
 
@@ -109,7 +112,7 @@ def main(argv=None) -> None:
     cfg = arch.make_config() if args.full else arch.make_smoke_config()
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = Transformer(cfg, init_params(cfg, gen))
+    model = build_model(cfg, gen)
     prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, cfg.vocab, (args.batch, args.prompt_len))).to(device)
     # One serve-run trace: generate's prefill span and one span per

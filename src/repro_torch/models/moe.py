@@ -1,0 +1,178 @@
+"""Mixture-of-Experts layer: shared + routed experts, top-k token choice.
+
+Port of `repro.models.moe` (``MoEConfig``, ``init_moe``, ``capacity``,
+``moe_apply``, ``load_balance_aux``) for serving.  The dispatch is
+`repro`'s static-capacity one: token→expert assignments are sorted by
+expert id (a stable sort) and scattered into a fixed ``(E, C, d)`` buffer,
+``C = capacity(moe, T)``; an entry past its expert's ``C`` slots goes to
+the overflow row ``E·C``, which is cut off, so tokens over capacity drop
+exactly where `repro` drops them.  The three expert products are batched
+matmuls over the ``(E, C, ·)`` buffer (`torch.bmm`, as `repro` leaves its
+einsums to XLA): every expert's weights are multiplied each call, whether
+or not a token reached it.
+
+Routing is fp32: ``x.float() @ router``, softmax, top-k, renormalised by
+``max(Σ, 1e-9)``.  The router is held in the layer's compute type (as
+`repro`'s ``_cast_layers`` casts it) and used in fp32.
+
+The combine is ordered and deterministic: each token's k contributions are
+gathered and added one after another in ascending expert order, rounding
+to the compute type at each add — the order of `repro`'s ``.at[st].add``
+over the expert-sorted entries.  No atomics: two calls on the card give
+the same bits, and the overflow row is the only place a scatter meets a
+duplicate index.
+
+Not ported: ``moe_apply_shardmap`` (expert parallelism, slice C3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.models.common import dense_init
+from repro_torch.obs.profiler import annotate
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    n_shared: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001  # load-balance aux loss (GShard-style)
+    impl: str = "pjit"                # "pjit" (sorted dispatch) | "shardmap" (C3)
+
+
+def init_moe(moe: MoEConfig, d_model: int, generator: torch.Generator,
+             dtype) -> dict:
+    """`repro`'s MoE tree: ``router`` (d, E) in fp32, ``wi``/``wg`` (E, d,
+    f) and ``wo`` (E, f, d), and with shared experts ``shared_wi``/
+    ``shared_wg`` (d, f·n_shared) and ``shared_wo`` (f·n_shared, d), in
+    ``dtype``."""
+    e, f = moe.n_experts, moe.d_ff_expert
+    p = {
+        "router": dense_init(generator, (d_model, e), dtype=torch.float32),
+        "wi": dense_init(generator, (e, d_model, f), in_axis=1, dtype=dtype),
+        "wg": dense_init(generator, (e, d_model, f), in_axis=1, dtype=dtype),
+        "wo": dense_init(generator, (e, f, d_model), in_axis=1, dtype=dtype),
+    }
+    if moe.n_shared:
+        fs = f * moe.n_shared
+        p["shared_wi"] = dense_init(generator, (d_model, fs), dtype=dtype)
+        p["shared_wg"] = dense_init(generator, (d_model, fs), dtype=dtype)
+        p["shared_wo"] = dense_init(generator, (fs, d_model), dtype=dtype)
+    return p
+
+
+def capacity(moe: MoEConfig, n_tokens: int) -> int:
+    c = int(n_tokens * moe.top_k * moe.capacity_factor / moe.n_experts) + 1
+    return max(8, -(-c // 8) * 8)  # a multiple of 8, as `repro`'s
+
+
+def route(moe: MoEConfig, router: torch.Tensor, xt: torch.Tensor):
+    """fp32 routing of tokens xt (T, d): the gates (T, E), the renormalised
+    top-k weights (T, k) and expert ids (T, k), by descending gate."""
+    gates = torch.softmax(xt.float() @ router.float(), dim=-1)
+    top_w, top_e = torch.topk(gates, moe.top_k, dim=-1)
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return gates, top_w, top_e
+
+
+def dispatch(moe: MoEConfig, top_e: torch.Tensor, n_tokens: int):
+    """The static-capacity assignment of the (T, k) expert ids, in `repro`'s
+    order: the entries sorted stably by expert, each entry's position in
+    its expert's block, ``keep = position < C`` and its buffer row ``slot``
+    (``E·C`` past capacity).  ``slot`` and ``keep`` are returned in the
+    (T, k) layout of ``top_e``; with C."""
+    E, k = moe.n_experts, moe.top_k
+    C = capacity(moe, n_tokens)
+    dev = top_e.device
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    seg_start = torch.searchsorted(se, torch.arange(E, device=dev),
+                                   side="left")
+    pos_in_e = torch.arange(n_tokens * k, device=dev) - seg_start[se]
+    keep_s = pos_in_e < C
+    slot_s = torch.where(keep_s, se * C + pos_in_e, E * C)
+    slot = torch.empty_like(slot_s).index_put_((order,), slot_s)
+    keep = torch.empty_like(keep_s).index_put_((order,), keep_s)
+    return slot.view(n_tokens, k), keep.view(n_tokens, k), C
+
+
+def expert_ffn(p: dict, buf: torch.Tensor) -> torch.Tensor:
+    """The routed experts' SwiGLU over the (E, C, d) buffer: three batched
+    matmuls, silu as ``g * sigmoid(g)``."""
+    zg = torch.bmm(buf, p["wg"])
+    z = zg * torch.sigmoid(zg) * torch.bmm(buf, p["wi"])
+    return torch.bmm(z, p["wo"])
+
+
+def combine(out_buf: torch.Tensor, top_e, top_w, slot, keep, dtype):
+    """Each token's k expert outputs, weighted, added in ascending expert
+    order (T, d); a dropped entry adds zero."""
+    T, k = top_e.shape
+    rank = torch.argsort(top_e, dim=-1)          # ascending expert id
+    slot = torch.gather(slot, 1, rank).clamp_max(out_buf.shape[0] - 1)
+    w = torch.gather(top_w * keep, 1, rank).to(dtype)
+    contrib = out_buf[slot] * w[..., None]       # (T, k, d)
+    y = contrib[:, 0]
+    for j in range(1, k):
+        y = y + contrib[:, j]
+    return y
+
+
+def moe_apply(moe: MoEConfig, p: dict, x: torch.Tensor, dtype) -> torch.Tensor:
+    """x: (B, S, d) → (B, S, d), `repro`'s ``moe_apply``."""
+    B, S, d = x.shape
+    T, E = B * S, moe.n_experts
+    xt = x.reshape(T, d)
+    with annotate("moe:route"):
+        _, top_w, top_e = route(moe, p["router"], xt)
+    with annotate("moe:dispatch"):
+        slot, keep, C = dispatch(moe, top_e, T)
+        buf = torch.zeros((E * C + 1, d), dtype=dtype, device=x.device)
+        buf[slot.reshape(-1)] = xt.to(dtype).repeat_interleave(moe.top_k, 0)
+        buf = buf[:E * C].view(E, C, d)
+    with annotate("moe:experts"):
+        out_buf = expert_ffn(p, buf).reshape(E * C, d)
+    with annotate("moe:combine"):
+        y = combine(out_buf, top_e, top_w, slot, keep, dtype)
+    if moe.n_shared:
+        with annotate("moe:shared"):
+            xs = xt.to(dtype)
+            g = xs @ p["shared_wg"]
+            y = y + (g * torch.sigmoid(g) * (xs @ p["shared_wi"])) @ p["shared_wo"]
+    return y.reshape(B, S, d)
+
+
+def load_balance_aux(gates: torch.Tensor, top_e: torch.Tensor,
+                     n_experts: int) -> torch.Tensor:
+    """GShard aux loss: E · Σ_e (fraction routed to e) · (mean gate of e)."""
+    T = gates.shape[0]
+    frac = torch.zeros(n_experts, device=gates.device).index_add_(
+        0, top_e.reshape(-1), torch.ones(top_e.numel(), device=gates.device))
+    frac = frac / (T * top_e.shape[-1])
+    return n_experts * torch.sum(frac * gates.mean(0))
+
+
+class MoE(nn.Module):
+    """One layer's MoE weights in the compute type, under `repro`'s key
+    names; ``forward(h, moe)`` is `moe_apply` with the config passed in
+    (the model's, so a caller can change the capacity factor)."""
+
+    def __init__(self, p: dict, dtype):
+        super().__init__()
+        self.dtype = dtype
+        for name, t in p.items():
+            setattr(self, name, nn.Parameter(t.to(dtype), requires_grad=False))
+
+    def tree(self) -> dict:
+        return dict(self.named_parameters(recurse=False))
+
+    def forward(self, h: torch.Tensor, moe: MoEConfig) -> torch.Tensor:
+        return moe_apply(moe, self.tree(), h, self.dtype)

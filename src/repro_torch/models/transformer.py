@@ -1,9 +1,11 @@
-"""Decoder-only transformer LM (dense): GQA + RoPE + RMSNorm + SwiGLU.
+"""Decoder-only transformer LM: GQA + RoPE + RMSNorm + SwiGLU (+ MoE).
 
 Port of `repro.models.transformer` for serving: `forward`, `prefill`,
 `decode_step` and `init_cache`, with `repro`'s layouts at the public
 functions — activations (B, S, H, D), the KV cache (L, B, max_seq, Hkv, D)
-and JAX's parameter shapes (stacked per layer) in `init_params`.
+and JAX's parameter shapes (stacked per layer) in `init_params`.  The FFN
+of a layer is the dense SwiGLU or, with ``cfg.moe``, the MoE layer of
+`models/moe.py` (`repro`'s ``ffn_block`` dispatch).
 
 Every attention call, prefill and decode, goes through K6
 (`kernels/flash_attention`): on a CUDA tensor the hand-written kernel, on
@@ -22,9 +24,13 @@ Differences from `repro` by design:
   the same), into a preallocated cache when one is passed.
 * `decode_step` writes the new K and V into the cache **in place** at
   ``pos`` and returns the same cache; it takes one token per sequence.
-* Not ported: MoE layers (ROADMAP D1b), the sliding-window variant (K6
-  has no window, like the Pallas kernel), `loss_fn` and remat (the
-  training slice); ``remat`` and ``unroll`` stay as config fields.
+* `build_model` draws the weights one layer at a time and casts each
+  layer to ``cfg.dtype`` before the next is drawn, so the fp32 masters
+  are never held whole: a 30B-parameter model fits one 80 GB card.
+* Not ported: ``moe.impl="shardmap"`` (expert parallelism, slice C3),
+  the sliding-window variant (K6 has no window, like the Pallas kernel),
+  `loss_fn` and remat (the training slice); ``remat`` and ``unroll`` stay
+  as config fields.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.common import dense_init, embed_init, rms_norm
+from repro_torch.models.moe import MoE, MoEConfig, init_moe
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +56,7 @@ class LMConfig:
     d_head: int
     d_ff: int
     vocab: int
-    moe: Any = None                    # `repro`'s MoEConfig; not ported
+    moe: MoEConfig | None = None
     rope_theta: float = 1e4
     norm_eps: float = 1e-5
     dtype: Any = torch.bfloat16        # compute dtype
@@ -79,12 +86,22 @@ class LMConfig:
             ffn += d * self.moe.n_experts  # router
         return self.n_layers * (attn + ffn + 2 * d) + 2 * self.vocab * d + d
 
+    def n_active_params(self) -> int:
+        if self.moe is None:
+            return self.n_params()
+        d = self.d_model
+        h, kv = self.n_heads * self.d_head, self.n_kv_heads * self.d_head
+        attn = d * h + 2 * d * kv + h * d
+        ffn = 3 * d * self.moe.d_ff_expert * (self.moe.top_k + self.moe.n_shared)
+        return self.n_layers * (attn + ffn + 2 * d) + 2 * self.vocab * d + d
+
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise for what the port does not run yet."""
-    if cfg.moe is not None:
+    if cfg.moe is not None and cfg.moe.impl == "shardmap":
         raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP D1b)")
+            f"{cfg.name}: moe.impl='shardmap' (expert parallelism) waits "
+            "for the sharding slice (ROADMAP C3)")
     if cfg.attn != "full":
         raise NotImplementedError(
             f"{cfg.name}: attn={cfg.attn!r} is not ported; K6, like the "
@@ -95,54 +112,84 @@ def check_supported(cfg: LMConfig) -> None:
 # Params
 # ---------------------------------------------------------------------------
 
+def init_layer(cfg: LMConfig, generator: torch.Generator) -> dict:
+    """One layer's parameter tree in ``cfg.param_dtype`` on the generator's
+    device (`repro`'s ``init_layer``): norms, wq (d, H, dh), wk/wv (d, Hkv,
+    dh), wo (H, dh, d), and ``ffn`` {wi, wg, wo} or ``moe`` (`init_moe`)."""
+    check_supported(cfg)
+    d, dh, pd = cfg.d_model, cfg.d_head, cfg.param_dtype
+    ones = torch.ones((d,), dtype=pd, device=generator.device)
+    p = {
+        "attn_norm": ones,
+        "wq": dense_init(generator, (d, cfg.n_heads, dh), dtype=pd),
+        "wk": dense_init(generator, (d, cfg.n_kv_heads, dh), dtype=pd),
+        "wv": dense_init(generator, (d, cfg.n_kv_heads, dh), dtype=pd),
+        "wo": dense_init(generator, (cfg.n_heads, dh, d), dtype=pd),
+        "ffn_norm": ones.clone(),
+    }
+    if cfg.moe is None:
+        p["ffn"] = {"wi": dense_init(generator, (d, cfg.d_ff), dtype=pd),
+                    "wg": dense_init(generator, (d, cfg.d_ff), dtype=pd),
+                    "wo": dense_init(generator, (cfg.d_ff, d), dtype=pd)}
+    else:
+        p["moe"] = init_moe(cfg.moe, d, generator, pd)
+    return p
+
+
+def _outer(cfg: LMConfig, generator: torch.Generator, dtype) -> dict:
+    """``embed`` (V, d), ``head`` (d, V) and ``final_norm`` (d,), drawn in
+    fp32 and cast to ``dtype``."""
+    d = cfg.d_model
+    return {"embed": embed_init(generator, (cfg.vocab, d), dtype),
+            "head": dense_init(generator, (d, cfg.vocab), dtype=dtype),
+            "final_norm": torch.ones((d,), dtype=dtype,
+                                     device=generator.device)}
+
+
+def _stack(trees: list) -> dict:
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
 def init_params(cfg: LMConfig, generator: torch.Generator) -> dict:
     """`repro`'s parameter tree in ``cfg.param_dtype`` on the generator's
     device: ``embed`` (V, d), ``head`` (d, V), ``final_norm`` (d,) and
-    ``layers``, each leaf stacked over a leading (n_layers,) dim."""
+    ``layers``, `init_layer`'s leaves stacked over a leading (n_layers,)
+    dim.  Draws embed, head, then layer 0, 1, … (`build_model`'s order)."""
     check_supported(cfg)
-    L, d, dh = cfg.n_layers, cfg.d_model, cfg.d_head
-    H, Hkv, pd = cfg.n_heads, cfg.n_kv_heads, cfg.param_dtype
-
-    def dense(shape, in_axis=0):
-        return dense_init(generator, (L, *shape), in_axis=1 + in_axis, dtype=pd)
-
-    def ones(n):
-        return torch.ones((n,), dtype=pd, device=generator.device)
-
-    layers = {
-        "attn_norm": ones(d).expand(L, d).clone(),
-        "wq": dense((d, H, dh)),
-        "wk": dense((d, Hkv, dh)),
-        "wv": dense((d, Hkv, dh)),
-        "wo": dense((H, dh, d)),
-        "ffn_norm": ones(d).expand(L, d).clone(),
-        "ffn": {"wi": dense((d, cfg.d_ff)), "wg": dense((d, cfg.d_ff)),
-                "wo": dense((cfg.d_ff, d))},
-    }
-    return {"embed": embed_init(generator, (cfg.vocab, d), pd),
-            "head": dense_init(generator, (d, cfg.vocab), dtype=pd),
-            "final_norm": ones(d), "layers": layers}
+    params = _outer(cfg, generator, cfg.param_dtype)
+    params["layers"] = _stack([init_layer(cfg, generator)
+                               for _ in range(cfg.n_layers)])
+    return params
 
 
 class Layer(nn.Module):
-    """One decoder layer's weights, in JAX's shapes: wq (d, H, dh), wk/wv
-    (d, Hkv, dh), wo (H, dh, d), wi/wg (d, d_ff), w_down (d_ff, d)."""
+    """One decoder layer's weights in ``cfg.dtype``, in JAX's shapes: wq (d,
+    H, dh), wk/wv (d, Hkv, dh), wo (H, dh, d); the dense FFN's wi/wg (d,
+    d_ff) and w_down (d_ff, d), or ``moe`` (`models.moe.MoE`)."""
 
-    def __init__(self, p: dict, dtype):
+    def __init__(self, cfg: LMConfig, p: dict):
         super().__init__()
+        dtype = cfg.dtype
 
         def param(t):
             return nn.Parameter(t.to(dtype), requires_grad=False)
 
         for name in ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm"):
             setattr(self, name, param(p[name]))
-        self.wi = param(p["ffn"]["wi"])
-        self.wg = param(p["ffn"]["wg"])
-        self.w_down = param(p["ffn"]["wo"])
+        if cfg.moe is None:
+            self.wi = param(p["ffn"]["wi"])
+            self.wg = param(p["ffn"]["wg"])
+            self.w_down = param(p["ffn"]["wo"])
+        else:
+            self.moe = MoE(p["moe"], dtype)
 
 
 class Transformer(nn.Module):
     """The LM's weights in ``cfg.dtype``, the stacked layers unstacked.
+    ``params["layers"]`` is `init_params`' stacked tree or an iterable of
+    `init_layer` trees, each cast as it comes (`build_model`).
 
     ``attn_prefer`` is K6's dispatch for every attention call (`ops`
     ``prefer``): ``"auto"`` runs the kernel on the card and the plain
@@ -161,13 +208,32 @@ class Transformer(nn.Module):
         self.embed = param(params["embed"])
         self.head = param(params["head"])
         self.final_norm = param(params["final_norm"])
-        stacked = params["layers"]
-        self.layers = nn.ModuleList(
-            Layer(_layer_slice(stacked, i), cfg.dtype)
-            for i in range(cfg.n_layers))
+        layers = params["layers"]
+        if isinstance(layers, dict):             # stacked over n_layers
+            stacked = layers
+            layers = (_layer_slice(stacked, i) for i in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Layer(cfg, p) for p in layers)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return forward(self, tokens)
+
+
+def build_model(cfg: LMConfig, generator: torch.Generator) -> Transformer:
+    """The model drawn one layer at a time on the generator's device: each
+    layer's leaves in ``cfg.param_dtype`` by `init_layer`, cast to
+    ``cfg.dtype``, the fp32 draw dropped before the next layer is drawn.
+    Peak memory is the model in ``cfg.dtype`` plus one layer in fp32 (and,
+    before any layer, the fp32 draw of the embedding or the head).
+
+    The draws come in `init_params`' order from the same generator, so the
+    weights equal ``Transformer(cfg, init_params(cfg, generator))``'s;
+    `repro`'s come from `jax.random` and differ (parity with `repro` goes
+    through converted weights, `convert.lm_params_from_numpy`)."""
+    check_supported(cfg)
+    params = _outer(cfg, generator, cfg.dtype)
+    params["layers"] = (init_layer(cfg, generator)
+                        for _ in range(cfg.n_layers))
+    return Transformer(cfg, params)
 
 
 def _layer_slice(tree: dict, i: int) -> dict:
@@ -226,8 +292,11 @@ def attention_block(model: Transformer, layer: Layer, x: torch.Tensor,
 
 def ffn_block(model: Transformer, layer: Layer, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: ``silu(h @ wg) * (h @ wi) @ w_down``, silu as ``g *
-    sigmoid(g)`` (each op rounded to x's type, as `jax.nn.silu`)."""
+    sigmoid(g)`` (each op rounded to x's type, as `jax.nn.silu`); with
+    ``cfg.moe``, the MoE layer on the same normed h."""
     h = rms_norm(x, layer.ffn_norm, model.cfg.norm_eps)
+    if model.cfg.moe is not None:
+        return layer.moe(h, model.cfg.moe)
     g = h @ layer.wg
     return (g * torch.sigmoid(g) * (h @ layer.wi)) @ layer.w_down
 

@@ -19,7 +19,8 @@ the flash attention, is held to its plain version with
 tests/test_kernels.py's `_tol` (fp32 2e-5, bf16 2e-2), its split-KV decode
 route also to itself (repeated calls bit-identical), and the smoke LM's
 greedy tokens on the card to the CPU's exactly (fp32; logits within
-1e-3).  The gather-scatter Laplacian (no kernel of its own: an ordered
+1e-3), the MoE smoke LMs' likewise, and `moe_apply` on the card to
+itself bit for bit.  The gather-scatter Laplacian (no kernel of its own: an ordered
 ``segment_reduce`` and a take) is held to its CPU apply within 1e-5 of
 Σ|terms| and to itself bit for bit on repeated calls, and the
 ``reference`` preset (recursive engine, K1 in its AMG levels) on the
@@ -522,6 +523,55 @@ def test_generate_on_card_matches_cpu(card):
         torch.testing.assert_close(tt.prefill(gpu, prompts.to(card))[0].cpu(),
                                    tt.prefill(cpu, prompts)[0], atol=1e-3,
                                    rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["deepseek-moe-16b", "qwen3-moe-30b-a3b"])
+def test_moe_generate_on_card_matches_cpu(card, arch_id):
+    """The MoE smoke LMs (fp32) through `generate` on the card against the
+    CPU run: identical greedy tokens, full-forward logits within 1e-3."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import transformer as tt
+
+    cfg = get_arch(arch_id).make_smoke_config()
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0))
+    cpu = tt.Transformer(cfg, params)
+    gpu = tt.Transformer(cfg, params).to(card)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, 16)))
+    fa_cuda.LAUNCHES = 0
+    toks_gpu, _, _ = generate(cfg, gpu, prompts.to(card), 12)
+    assert fa_cuda.LAUNCHES == cfg.n_layers * 12
+    toks_cpu, _, _ = generate(cfg, cpu, prompts, 12)
+    assert torch.equal(toks_gpu.cpu(), toks_cpu)
+    full = torch.cat([prompts, toks_cpu], 1)
+    with torch.inference_mode():
+        torch.testing.assert_close(tt.forward(gpu, full.to(card)).cpu(),
+                                   tt.forward(cpu, full), atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_apply_on_card_is_deterministic(card, dtype):
+    """Two card calls of `moe_apply` give the same bits (the combine adds
+    in a fixed order, no atomics), with tokens dropped past capacity."""
+    from repro_torch.models import moe as mt
+
+    moe = mt.MoEConfig(n_experts=16, top_k=4, n_shared=1, d_ff_expert=64,
+                       capacity_factor=0.5)
+    p = {k: v.to(card, dtype) for k, v in
+         mt.init_moe(moe, 128, torch.Generator().manual_seed(0),
+                     torch.float32).items()}
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(4, 96, 128)).astype(np.float32)).to(card, dtype)
+    _, _, top_e = mt.route(moe, p["router"], x.reshape(-1, 128))
+    _, keep, _ = mt.dispatch(moe, top_e, 4 * 96)
+    assert not bool(keep.all())
+    runs = [mt.moe_apply(moe, p, x, dtype) for _ in range(5)]
+    for y in runs[1:]:
+        assert torch.equal(y, runs[0])
 
 
 # K5 cases: (V, d, nnz, n_bags, kind); kind "sorted" (tests/test_kernels.py's

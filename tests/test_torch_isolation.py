@@ -57,7 +57,11 @@ _SLICE_MODULES = {"repro_torch.core.lanczos", "repro_torch.core.flexcg",
                   "repro_torch.core.gather_scatter", "repro_torch.obs",
                   "repro_torch.obs.trace", "repro_torch.obs.registry",
                   "repro_torch.obs.export", "repro_torch.obs.profiler",
-                  "repro_torch.dist.collectives", "repro_torch.dist.group"}
+                  "repro_torch.dist.collectives", "repro_torch.dist.group",
+                  "repro_torch.models.moe",
+                  "repro_torch.configs.deepseek_moe_16b",
+                  "repro_torch.configs.qwen3_moe_30b_a3b",
+                  "repro_torch.configs.command_r_35b"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():

@@ -24,9 +24,10 @@ from repro.models import transformer as tj
 from repro.models.common import rms_norm as rms_norm_j
 from repro_torch.configs import get_arch
 from repro_torch.convert import lm_params_from_numpy
-from repro_torch.models import common, transformer as tt
+from repro_torch.models import common, moe as mt, transformer as tt
 
-TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+from _lm_port import TORCH_DTYPE, as_np, port_config
+
 CONFIGS = {
     # tests/test_models_lm.py:22
     "tiny": tj.LMConfig(name="t", n_layers=2, d_model=64, n_heads=4,
@@ -54,14 +55,6 @@ def _one_torch_thread():
     torch.set_num_threads(prev)
 
 
-def port_config(cfg_j) -> tt.LMConfig:
-    fields = {f.name: getattr(cfg_j, f.name)
-              for f in dataclasses.fields(tj.LMConfig)}
-    fields["dtype"] = TORCH_DTYPE[fields["dtype"]]
-    fields["param_dtype"] = TORCH_DTYPE[fields["param_dtype"]]
-    return tt.LMConfig(**fields)
-
-
 def both_models(cfg_j, seed=0):
     params = tj.init_params(cfg_j, jax.random.PRNGKey(seed))
     model = lm_params_from_numpy(port_config(cfg_j),
@@ -74,11 +67,6 @@ def tokens(cfg_j, B, S, seed):
     return np.random.default_rng(seed).integers(0, cfg_j.vocab, (B, S))
 
 
-def _np(x):
-    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor)
-                      else np.asarray(x, np.float32), np.float32)
-
-
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_forward_matches_repro(name):
     cfg = CONFIGS[name]
@@ -87,7 +75,7 @@ def test_forward_matches_repro(name):
     want = FORWARD_J(cfg, params, jnp.asarray(toks))
     got = tt.forward(model, torch.from_numpy(toks))
     assert got.shape == (2, 24, cfg.vocab)
-    np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(as_np(got), as_np(want), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -100,10 +88,10 @@ def test_prefill_and_decode_match_repro(name):
     P = 8
     lj, cj = PREFILL_J(cfg, params, jnp.asarray(toks[:, :P]))
     lt, ct = tt.prefill(model, torch.from_numpy(toks[:, :P]))
-    np.testing.assert_allclose(_np(lt), _np(lj), atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(as_np(lt), as_np(lj), atol=1e-4, rtol=1e-4)
     for key in ("k", "v"):
         assert ct[key].shape == cj[key].shape
-        np.testing.assert_allclose(_np(ct[key]), _np(cj[key]), atol=1e-4,
+        np.testing.assert_allclose(as_np(ct[key]), as_np(cj[key]), atol=1e-4,
                                    rtol=1e-4)
 
     cj = {k: jnp.pad(v, ((0, 0), (0, 0), (0, 4), (0, 0), (0, 0)))
@@ -116,9 +104,9 @@ def test_prefill_and_decode_match_repro(name):
         dt, ct2 = tt.decode_step(model, ct, torch.from_numpy(toks[:, t:t + 1]),
                                  t)
         assert ct2 is ct                         # written in place
-        np.testing.assert_allclose(_np(dt), _np(dj), atol=5e-4, rtol=5e-4)
+        np.testing.assert_allclose(as_np(dt), as_np(dj), atol=5e-4, rtol=5e-4)
     for key in ("k", "v"):
-        np.testing.assert_allclose(_np(ct[key]), _np(cj[key]), atol=1e-4,
+        np.testing.assert_allclose(as_np(ct[key]), as_np(cj[key]), atol=1e-4,
                                    rtol=1e-4)
 
 
@@ -164,8 +152,8 @@ def test_bf16_forward_and_decode_close_to_repro():
     cfg = dataclasses.replace(CONFIGS["gqa"], dtype=jnp.bfloat16)
     params, model = both_models(cfg)
     toks = tokens(cfg, 2, 16, 6)
-    want = _np(FORWARD_J(cfg, params, jnp.asarray(toks)))
-    got = _np(tt.forward(model, torch.from_numpy(toks)))
+    want = as_np(FORWARD_J(cfg, params, jnp.asarray(toks)))
+    got = as_np(tt.forward(model, torch.from_numpy(toks)))
     scale = np.abs(want).max()
     assert np.abs(got - want).max() <= 5e-2 * scale
     lj, cj = PREFILL_J(cfg, params, jnp.asarray(toks[:, :12]))
@@ -176,7 +164,7 @@ def test_bf16_forward_and_decode_close_to_repro():
     dj, _ = DECODE_J(cfg, params, cj, jnp.asarray(toks[:, 12:13]),
                      jnp.int32(12))
     dt, _ = tt.decode_step(model, ct, torch.from_numpy(toks[:, 12:13]), 12)
-    assert np.abs(_np(dt) - _np(dj)).max() <= 5e-2 * np.abs(_np(dj)).max()
+    assert np.abs(as_np(dt) - as_np(dj)).max() <= 5e-2 * np.abs(as_np(dj)).max()
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
@@ -188,13 +176,13 @@ def test_rope_and_rms_norm_match_repro(dtype):
     got = tt.rope(torch.from_numpy(x).to(TORCH_DTYPE[dtype]),
                   torch.from_numpy(np.ascontiguousarray(pos)), 1e4)
     tol = 1e-6 if dtype == jnp.float32 else 1e-2
-    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+    np.testing.assert_allclose(as_np(got), as_np(want), atol=tol, rtol=tol)
     h = rng.normal(size=(3, 5, 32)).astype(np.float32)
     g = rng.normal(size=(32,)).astype(np.float32)
     want = rms_norm_j(jnp.asarray(h, dtype), jnp.asarray(g), 1e-5)
     got = common.rms_norm(torch.from_numpy(h).to(TORCH_DTYPE[dtype]),
                           torch.from_numpy(g), 1e-5)
-    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+    np.testing.assert_allclose(as_np(got), as_np(want), atol=tol, rtol=tol)
 
 
 def test_init_params_layout_and_counts():
@@ -229,13 +217,14 @@ def test_init_params_layout_and_counts():
 def test_unported_configs_raise():
     from repro_torch.configs.tinyllama_1_1b import make_sliding_window_config
 
-    moe = dataclasses.replace(port_config(CONFIGS["tiny"]), moe=object())
-    with pytest.raises(NotImplementedError, match="D1b"):
+    moe = dataclasses.replace(port_config(CONFIGS["tiny"]), moe=mt.MoEConfig(
+        n_experts=4, top_k=2, d_ff_expert=16, impl="shardmap"))
+    with pytest.raises(NotImplementedError, match="C3"):
         tt.init_params(moe, torch.Generator())
     with pytest.raises(NotImplementedError, match="sliding"):
         tt.check_supported(make_sliding_window_config())
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_arch("deepseek-moe-16b")
+    with pytest.raises(KeyError, match="not ported yet.*C3"):
+        get_arch("mistral-large-123b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("gpt-9")
 
@@ -246,11 +235,16 @@ def test_registry_matches_repro():
     from repro_torch.configs import NOT_PORTED, REGISTRY
 
     assert set(REGISTRY) | set(NOT_PORTED) == set(REGISTRY_J)
-    for make in ("make_config", "make_smoke_config"):
-        want = getattr(get_arch_j("tinyllama-1.1b"), make)()
-        got = getattr(get_arch("tinyllama-1.1b"), make)()
-        assert got == port_config(want), make
-    arch = get_arch("tinyllama-1.1b")
-    assert set(arch.shapes) == set(get_arch_j("tinyllama-1.1b").shapes)
-    assert arch.make_config().n_params() == \
-        get_arch_j("tinyllama-1.1b").make_config().n_params()
+    assert not set(REGISTRY) & set(NOT_PORTED)
+    for arch_id in ("tinyllama-1.1b", "deepseek-moe-16b", "qwen3-moe-30b-a3b",
+                    "command-r-35b"):
+        arch, arch_j = get_arch(arch_id), get_arch_j(arch_id)
+        for make in ("make_config", "make_smoke_config"):
+            want = getattr(arch_j, make)()
+            got = getattr(arch, make)()
+            assert got == port_config(want), (arch_id, make)
+            assert got.n_params() == want.n_params(), (arch_id, make)
+            assert got.n_active_params() == want.n_active_params(), (arch_id, make)
+        assert set(arch.shapes) == set(arch_j.shapes)
+        assert (arch.family, arch.source, arch.skips) == \
+            (arch_j.family, arch_j.source, arch_j.skips)
