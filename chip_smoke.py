@@ -177,7 +177,16 @@ Phases, each printing JSON lines:
    ``scaled_dot_product_attention`` call's ms by events (``library_ms``)
    and by the profiler over all its kernels (``library_dev_ms``; keys
    sliced to kv_len, an explicit mask where the queries are not top-left
-   aligned).
+   aligned).  The sliding window (FLASH_WINDOW_CASES, fp32 and bf16):
+   ``window_prefill`` (tinyllama's heads, B 1, S = 8192, window 4096),
+   ``window_decode`` (one query at position 524,287 over a 524,288-row
+   cache slice, window 4096: its device ms is printed beside
+   ``long_decode``'s, both reading 4,096 keys) and ``window_ragged`` (a
+   window of 100, its lower edge mid-tile), each bound on the window's
+   keys.  Then K6's gradient (``grad``): dq, dk, dv through its autograd
+   function on the card against autograd through the plain version at
+   the ``prefill`` shape, fp32 (1e-5) and bf16 (2e-2 of each max),
+   without and with a window of 128, with both passes' ms.
 10. ``serve`` — `tinyllama-1.1b` at full width (``make_config()``, bf16,
     parameters from a seeded generator, built one layer at a time by
     `build_model`) through `launch.serve.generate`:
@@ -194,7 +203,39 @@ Phases, each printing JSON lines:
     through 22 layers: two GEMM shapes round differently); (c) the smoke
     config in fp32: greedy tokens on the card identical to the CPU's,
     logits within 1e-3.
-10b. ``serve_moe`` — ``deepseek-moe-16b`` (28 layers, 64 experts top-6 + 2
+10a. ``serve_window`` — the sliding-window `tinyllama-1.1b`
+    (``make_sliding_window_config(4096)``, full width, bf16, seeded
+    weights, `build_model`): (a) the K6 model against the plain-attention
+    model at a prompt of 8192 and one decode step, ≤ 3e-2 of max |logit|;
+    (b) a prefill of 4,193 and 7 decode steps against one forward over
+    4,200 tokens, ≤ 5e-2; (c) the smoke config with a window of 8, fp32,
+    card against CPU (tokens identical, logits ≤ 1e-3).  Then the
+    ``long_500k`` shape: batch 1, a 524,288-token prompt, prefill and 16
+    decode steps: prefill s, p50/p99 step ms, peak memory, the cache's
+    bytes, K6 launches (= 22 × 17); the last step profiled (K6's device
+    ms at that position) and held to the plain attention over the whole
+    cache with the window's mask (≤ 3e-2).
+10b. ``train`` — `tinyllama-1.1b` at its published widths trained through
+    `launch.cells.lm_train_step`: bf16 compute, fp32 masters and AdamW,
+    remat, train_4k's sequence of 4096; the global batch cut from 256 to
+    16 (4 microbatches of 4), one `token_batches` batch repeated; one
+    unrecorded step, then 4: step s, tokens/s, 6·N·tokens / step s over
+    989 TFLOP/s (remat's recompute not counted), peak memory, K6 launches
+    (= 22 × 4 × 4 × 2: remat runs each layer's forward twice) and K5's (=
+    4 × 4 × 2).  Checks: (a) the loss finite and lower after the 4 steps;
+    (b) on one microbatch of 2 sequences, the loss and every gradient leaf
+    with K6 against the plain attention, and a control's (the plain
+    attention's output rounded to 4 mantissa bits, its gradient passed
+    straight through): the loss's relative gap and the largest ‖Δ‖₂ /
+    ‖g‖₂ over the leaves, each limit (TRAIN_LOSS_LIMIT,
+    TRAIN_GRAD_LIMIT) between K6's reading and the control's; (c) the smoke config in fp32, 3 steps, card against CPU
+    (loss and params ≤ 1e-5); (d) one step again from the first state:
+    the same bits; (e) `fit` on the smoke config on the card, preempted
+    after step 7 of 20 and resumed, bit-equal to an uninterrupted run; (f)
+    a `CheckpointManager` save and restore of the full-width params and
+    AdamW state in a temporary directory, timed, bit for bit.  Every
+    check runs before the phase fails.
+10c. ``serve_moe`` — ``deepseek-moe-16b`` (28 layers, 64 experts top-6 + 2
     shared), ``qwen3-moe-30b-a3b`` (48 layers, 128 experts top-8) and the
     dense ``command-r-35b`` (40 layers, d 8192) at full width in bf16, each
     built one layer at a time on the card (`build_model`: 33.8, 61.1 and
@@ -258,12 +299,31 @@ Phases, each printing JSON lines:
     users, on the card against the CPU: states within 1e-5, top-100 ids
     identical.
 
+12b. ``recsys_train`` — `sasrec` at its published widths (fp32, AdamW)
+    trained through `launch.cells.recsys_train_step` on train_batch's
+    65,536 users × 50 (uncut): one unrecorded step, then 5: step ms,
+    users/s, peak memory, K5 launches (6 a step: three lookups and their
+    transposed-bag backward), one step profiled (K5's device ms beside
+    the step's, the top kernels); K5's backward alone at the ``pos_items``
+    lookup's shape (3,276,800 entries into 1,000,448 rows) against one
+    ``embedding_dense_backward`` call (1e-5 of each row's Σ|terms|),
+    timed beside its bound, the plain version and that call.  Checks: (a)
+    gradients with K5, with the plain lookups and their autograd, and
+    with the plain ones in fp64: K5's largest gap to fp64 (of each leaf's
+    max) at most 1.1 × the plain fp32 one's (two fp32 orders of a row's
+    ~10^6 entries already differ by ~1e-5); (b) one step again from the
+    first state: the same bits; (c) the smoke config, one step, card
+    against CPU (loss and params ≤ 1e-5).  Every check runs before the
+    phase fails.
+
 Then ``done`` (the script's seconds), the line ``{"kernels": [...]}``
 (every ported kernel: launches on its
 main path — K1 in ``full``, K2 in ``full_inverse``, K4 in the two sharded
 chains of ``full_sharded`` (``dist`` prints its own per rank), K3 on none,
-K6 in the two ``serve`` runs and the five ``serve_moe`` runs, K5
-in the three ``recsys`` runs, with the counters set to 0 just before each
+K6 in the two ``serve`` runs, ``serve_window``'s long_500k run, the 4
+steps of ``train`` and the five ``serve_moe`` runs, K5 in the three
+``recsys`` runs, the 5 steps of ``recsys_train`` and the 4 of ``train``,
+with the counters set to 0 just before each
 — error against the plain version, times and bound), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits nonzero without the last line; so does a
@@ -276,8 +336,10 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -347,6 +409,18 @@ FLASH_CASES = {
     "qwen3_prefill": (4, 512, 512, 32, 4, 128, None, None, True),
     "qwen3_decode": (4, 1, 576, 32, 4, 128, 574, 575, True),
 }
+# K6 with a sliding window: FLASH_CASES' fields and the window.  The
+# sliding-window tinyllama's prefill at 8192 (window 4096), its decode step
+# at long_500k's last prompt position over a 524,288-row cache slice, and a
+# window of 100 whose lower edge falls mid-tile
+FLASH_WINDOW_CASES = {
+    "window_prefill": (1, 8192, 8192, 32, 4, 64, None, None, True, 4096),
+    "window_decode": (1, 1, 524288, 32, 4, 64, 524287, 524288, True, 4096),
+    "window_ragged": (2, 700, 700, 32, 4, 64, None, None, True, 100),
+}
+# K6's gradient on the card: the `prefill` shape, without and with a window
+FLASH_GRAD_CASE, FLASH_GRAD_WINDOW = "prefill", 128
+FLASH_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # bf16 calls with more than this many flattened (position, head) rows take
 # K6's bf16 prefill kernel; calls with at most this many, fp32 and bf16,
 # its split-KV decode kernel
@@ -360,6 +434,30 @@ SERVE_TOL_REF = 3e-2       # (a) K6 model vs plain-attention model, bf16
 SERVE_TOL_FORWARD = 5e-2   # (b) decode vs full forward, bf16
 SERVE_SMOKE_TOL = 1e-3     # (c) smoke logits, card vs CPU, fp32
 # serve_moe: the archs at full width, each built one layer at a time
+# serve_window: make_sliding_window_config(4096) at full width, bf16
+SERVE_WINDOW = 4096
+SERVE_WINDOW_PROMPT_A = 8192   # (a) prompt (batch 1)
+SERVE_WINDOW_SEQ_B = 4200      # (b) tokens: a prefill of 4193, 7 steps
+SERVE_WINDOW_SMOKE = 8         # (c) the smoke config's window
+LONG_500K = (1, 524288, 16)    # long_500k: batch, prompt, decode steps
+# train: tinyllama at its published widths, train_4k's sequence; the
+# global batch cut from 256 to 16 (4 microbatches of 4)
+TRAIN_BATCH, TRAIN_MICRO, TRAIN_SEQ, TRAIN_STEPS = 16, 4, 4096, 4
+TRAIN_GRAD_ROWS = 2            # (b): one microbatch of 2 sequences
+TRAIN_CONTROL_BITS = 4         # (b)'s control: the plain attention's output
+                               # rounded to 4 mantissa bits
+# (b): over the gradient leaves, the largest ‖Δ‖₂ / ‖g‖₂ against the plain
+# attention's, its limit between K6's reading (0.0100) and the control's
+# (0.0273-0.0285) on the card; the loss's relative gap does not separate
+# the two (both 1e-6-2e-5, PERF.md §6) and is held to a bound
+TRAIN_GRAD_LIMIT = 0.0165
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_SMOKE_TOL = 1e-5         # (c) loss (relative) and params, card vs CPU
+TRAIN_FIT = (20, 7)            # (e) steps, preempted after this step
+# recsys_train: sasrec at its published widths, train_batch's users
+RECSYS_TRAIN_STEPS = 5
+RECSYS_TRAIN_TOL = 1e-5        # (c) card vs CPU
+RECSYS_TRAIN_FP64_SLACK = 1.1  # (a) K5's gap to fp64 over the plain one's
 SERVE_MOE_ARCHS = ("deepseek-moe-16b", "qwen3-moe-30b-a3b", "command-r-35b")
 SERVE_MOE_STEPS_A = 32     # teacher-forced decode steps of check (a)
 # Routing flips: the share of (token, layer) pairs whose expert sets differ,
@@ -2216,50 +2314,60 @@ def time_auto(fn) -> float:
     return time_ms(fn, reps=max(1, int(20 / one)), rounds=5, warmup=1)
 
 
-def flash_work(B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal, elsize):
+def flash_work(B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal, elsize,
+               window=None):
     """Bytes (q, the keys and values the queries need, o; each once) and
-    flops (4·D per unmasked (query, key) pair and head) of one call."""
+    flops (4·D per unmasked (query, key) pair and head) of one call; with a
+    window, only the keys some query's window reaches."""
     qpos = q_offset + np.arange(Sq)
-    if causal:
-        keys = np.clip(np.minimum(kv_len, qpos + 1), 0, None)
-        kv_used = int(keys.max()) if Sq else 0
-    else:
-        keys = np.full(Sq, kv_len)
-        kv_used = kv_len
+    hi = np.minimum(kv_len, qpos + 1) if causal else np.full(Sq, kv_len)
+    lo = np.maximum(qpos - window + 1, 0) if window else np.zeros(Sq, int)
+    keys = np.clip(hi - lo, 0, None)
+    kv_used = int(hi.max() - lo.min()) if Sq else 0
     nbytes = elsize * (2 * B * Sq * H * D + 2 * B * kv_used * Hkv * D)
     flops = 4 * D * H * B * int(keys.sum())
     return nbytes, flops
 
 
-def sdpa_call(q, k, v, causal, q_offset, kv_len):
+def sdpa_call(q, k, v, causal, q_offset, kv_len, window=None):
     """One `scaled_dot_product_attention` call computing the same function
     (the yardstick; the port never calls it).  Its causal mask is aligned
     top-left, right only where the queries start at key 0, so the keys are
-    sliced to kv_len and any other alignment gets an explicit mask."""
+    sliced to kv_len (with a window, from the first query's first visible
+    key) and any other alignment, or a window, gets an explicit mask."""
     import torch.nn.functional as F
 
     Sq = q.shape[1]
+    lo = max(0, q_offset - window + 1) if window else 0
     qt = q.transpose(1, 2)
-    kt, vt = k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
+    kt, vt = (t[:, lo:kv_len].transpose(1, 2) for t in (k, v))
     kw = dict(enable_gqa=True)
-    if causal and q_offset == 0 and Sq == kv_len:
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    kpos = torch.arange(lo, kv_len, device=q.device)
+    if window:
+        mask = (qpos[:, None] >= kpos[None]) & (qpos[:, None] - kpos[None]
+                                                < window)
+        if not bool(mask.all()):               # else every query sees every key
+            kw["attn_mask"] = mask
+    elif causal and q_offset == 0 and Sq == kv_len:
         kw["is_causal"] = True
     elif causal and q_offset < kv_len - 1:   # else every query sees every key
-        qpos = q_offset + torch.arange(Sq, device=q.device)
-        kw["attn_mask"] = qpos[:, None] >= torch.arange(kv_len,
-                                                        device=q.device)[None]
+        kw["attn_mask"] = qpos[:, None] >= kpos[None]
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw).transpose(1, 2)
 
 
 def phase_kernels_flash():
-    """K6 against its plain version at every case of FLASH_CASES, fp32 and
-    bf16, timed beside its bound, the plain version and SDPA."""
+    """K6 against its plain version at every case of FLASH_CASES and
+    FLASH_WINDOW_CASES, fp32 and bf16, timed beside its bound, the plain
+    version and SDPA; then K6's gradient (`flash_grad_rows`)."""
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
     rows = {}
-    for seed, (case, (B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal)) in \
-            enumerate(FLASH_CASES.items()):
+    cases = {**{c: v + (None,) for c, v in FLASH_CASES.items()},
+             **FLASH_WINDOW_CASES}
+    for seed, (case, (B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal,
+                      window)) in enumerate(cases.items()):
         kv_len = Skv if kv_len is None else kv_len
         q_offset = kv_len - Sq if q_offset is None else q_offset
         rng = np.random.default_rng(seed)
@@ -2268,7 +2376,8 @@ def phase_kernels_flash():
         v32 = torch.from_numpy(rng.normal(size=(B, Skv, Hkv, D)).astype(np.float32)).cuda()
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = q32.to(dtype), k32.to(dtype), v32.to(dtype)
-            kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+            kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
+                      window=window)
 
             def kernel():
                 return fa_cuda.flash_attention_cuda(q, k, v, **kw)
@@ -2284,13 +2393,14 @@ def phase_kernels_flash():
             excess = float((diff - tol * want.float().abs()).max())
             check(excess <= tol, f"K6 {case} {dtype}: max err {err} "
                   f"(atol = rtol = {tol})")
-            lib = sdpa_call(q, k, v, causal, q_offset, kv_len)
+            lib = sdpa_call(q, k, v, causal, q_offset, kv_len, window)
             lib_err = float((lib().float() - want.float()).abs().max())
             check(lib_err <= (1e-3 if dtype == torch.float32 else 5e-2),
                   f"SDPA {case} {dtype} disagrees with the plain version "
                   f"by {lib_err}")
             nbytes, flops = flash_work(B, Sq, Skv, H, Hkv, D, q_offset,
-                                       kv_len, causal, q.element_size())
+                                       kv_len, causal, q.element_size(),
+                                       window)
             bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
                 else FP32_FLOPS_PER_S
@@ -2311,7 +2421,8 @@ def phase_kernels_flash():
             rows[(case, str(dtype).split(".")[-1])] = dict(
                 case=case, dtype=str(dtype).split(".")[-1], B=B, Sq=Sq,
                 Skv=Skv, H=H, Hkv=Hkv, D=D, q_offset=q_offset, kv_len=kv_len,
-                causal=causal, max_abs_err=err, library_max_abs_err=lib_err,
+                causal=causal, window=window, max_abs_err=err,
+                library_max_abs_err=lib_err,
                 kernel_ms=kernel_ms,
                 dev_ms=k_ms,
                 dev_ms_by="profiler" if dev_ms is not None else "cuda_events",
@@ -2324,8 +2435,57 @@ def phase_kernels_flash():
                 bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
                 else "operations")
             del got, want
-    emit("kernels", kernel="flash_attention", cases=list(rows.values()))
+        del q32, k32, v32
+    wd, ld = rows[("window_decode", "bfloat16")], rows[("long_decode",
+                                                         "bfloat16")]
+    emit("kernels", kernel="flash_attention", cases=list(rows.values()),
+         window_decode_vs_long_decode=dict(
+             window_decode_dev_ms=wd["dev_ms"], long_decode_dev_ms=ld["dev_ms"],
+             ratio=wd["dev_ms"] / ld["dev_ms"]),
+         grad=flash_grad_rows())
     return rows
+
+
+def flash_grad_rows() -> list:
+    """K6's gradient on the card: dq, dk, dv through its autograd function
+    (the kernel's forward, the plain recompute's backward) against
+    autograd through the plain version, at FLASH_GRAD_CASE's shape in fp32
+    and bf16, without and with a window; each pass's ms by CUDA events."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B, Sq, Skv, H, Hkv, D = FLASH_CASES[FLASH_GRAD_CASE][:6]
+    rng = np.random.default_rng(40)
+    arrays = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda()
+              for s in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D),
+                        (B, Sq, H, D))]
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (None, FLASH_GRAD_WINDOW):
+            dout = arrays[3].to(dtype)
+
+            def grads(prefer):
+                leaves = [a.to(dtype, copy=True).requires_grad_()
+                          for a in arrays[:3]]
+                fa_ops.flash_attention(*leaves, causal=True, window=window,
+                                       prefer=prefer).backward(dout)
+                return [t.grad for t in leaves]
+
+            before = fa_cuda.LAUNCHES
+            got = grads("auto")
+            check(fa_cuda.LAUNCHES == before + 1,
+                  "K6 grad: the forward did not launch K6 once")
+            want = grads("ref")
+            errs = [float((a.float() - b.float()).abs().max()
+                          / b.float().abs().max()) for a, b in zip(got, want)]
+            tol = FLASH_GRAD_TOL[dtype]
+            check(max(errs) <= tol, f"K6 grad {dtype} window={window}: "
+                  f"dq, dk, dv off by {errs} of their max (tol {tol})")
+            out.append(dict(case=FLASH_GRAD_CASE, dtype=str(dtype).split(".")[-1],
+                            window=window, rel_err_dq_dk_dv=errs, tol=tol,
+                            ms=time_auto(lambda: grads("auto")),
+                            plain_autograd_ms=time_auto(lambda: grads("ref"))))
+    return out
 
 
 def logit_gap(got, want) -> float:
@@ -2426,6 +2586,392 @@ def phase_serve():
     return k6_launches
 
 
+def phase_serve_window():
+    """The sliding-window `tinyllama-1.1b` (window 4096) at full width in
+    bf16: checks a-c, then the long_500k shape (one 524,288-token prompt,
+    prefill and 16 decode steps); returns K6's launches over that run."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.tinyllama_1_1b import make_sliding_window_config
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.models import transformer as tt
+    from repro_torch.obs import percentiles
+
+    t_phase = time.perf_counter()
+    cfg = make_sliding_window_config(SERVE_WINDOW)
+    t0 = time.perf_counter()
+    model = tt.build_model(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(6)
+
+    def ids(B, n):
+        return torch.from_numpy(rng.integers(0, cfg.vocab, (B, n))).cuda()
+
+    with torch.inference_mode():
+        # (a) K6 against the plain attention: a prefill of 8192 (past the
+        # window) and one decode step
+        P = SERVE_WINDOW_PROMPT_A
+        prompt, nxt = ids(1, P), ids(1, 1)
+        logits = {}
+        for prefer in ("auto", "ref"):
+            model.attn_prefer = prefer
+            cache = tt.init_cache(cfg, 1, P + 1, "cuda")
+            lp, cache = tt.prefill(model, prompt, cache)
+            ld, _ = tt.decode_step(model, cache, nxt, P)
+            logits[prefer] = (lp, ld)
+            del cache
+        model.attn_prefer = "auto"
+        gap_ref = {"prefill": logit_gap(logits["auto"][0], logits["ref"][0]),
+                   "decode": logit_gap(logits["auto"][1], logits["ref"][1])}
+        check(max(gap_ref.values()) <= SERVE_TOL_REF,
+              f"serve_window (a): K6 vs plain attention logits {gap_ref}")
+        del logits
+        torch.cuda.empty_cache()
+
+        # (b) a prefill and 7 decode steps against one forward
+        seq = ids(1, SERVE_WINDOW_SEQ_B)
+        S = seq.shape[1]
+        full = tt.forward(model, seq)
+        cache = tt.init_cache(cfg, 1, S, "cuda")
+        lp, cache = tt.prefill(model, seq[:, :S - 7], cache)
+        gap_fwd = {"prefill": logit_gap(lp[:, 0], full[:, S - 8])}
+        for t in range(S - 7, S):
+            ld, cache = tt.decode_step(model, cache, seq[:, t:t + 1], t)
+        gap_fwd["last_decode"] = logit_gap(ld[:, 0], full[:, S - 1])
+        check(max(gap_fwd.values()) <= SERVE_TOL_FORWARD,
+              f"serve_window (b): decode vs forward logits {gap_fwd}")
+        del full, cache
+        torch.cuda.empty_cache()
+
+        # long_500k: prefill 524,288 tokens, then 16 greedy decode steps
+        B, P, steps = LONG_500K
+        prompt = ids(B, P)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa_cuda.LAUNCHES = 0                  # this run's count starts here
+        cache = tt.init_cache(cfg, B, P + steps, "cuda")
+        cache_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+        t0 = time.perf_counter()
+        lp, cache = tt.prefill(model, prompt, cache)
+        tok = torch.argmax(lp[:, -1], dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        step_s = []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            last = tok
+            ld, cache = tt.decode_step(model, cache, tok, P + i)
+            tok = torch.argmax(ld[:, -1], dim=-1, keepdim=True)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        launches = fa_cuda.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+        check(launches == cfg.n_layers * (1 + steps),
+              f"serve_window long_500k: {launches} K6 launches, not "
+              f"{cfg.n_layers} x {1 + steps}")
+        check(bool(torch.isfinite(ld).all()),
+              "serve_window long_500k: non-finite logits")
+        pos = P + steps - 1
+        # the last step again, profiled (it rewrites its own cache row with
+        # the same values), then with the plain attention over the whole
+        # cache and the window's mask
+        by_name = device_profile(lambda: tt.decode_step(model, cache, last, pos))
+        k6 = [v for n, v in by_name.items() if "flash_attention_kernel" in n]
+        model.attn_prefer = "ref"
+        ld_ref, _ = tt.decode_step(model, cache, last, pos)
+        model.attn_prefer = "auto"
+        gap_long = logit_gap(ld, ld_ref)
+        check(gap_long <= SERVE_TOL_REF,
+              f"serve_window long_500k: last step vs plain attention {gap_long}")
+        pct = percentiles(step_s)
+        long_run = dict(
+            batch=B, prompt_len=P, steps=steps, prefill_s=prefill_s,
+            prefill_tok_per_s=B * P / prefill_s, p50_step_ms=pct["p50"] * 1e3,
+            p99_step_ms=pct["p99"] * 1e3, max_memory_allocated=peak,
+            cache_bytes=cache_bytes, k6_launches=launches,
+            last_step=dict(position=pos,
+                           cuda_kernels=sum(v[0] for v in by_name.values()),
+                           device_ms=sum(v[1] for v in by_name.values()),
+                           k6_launches=sum(v[0] for v in k6),
+                           k6_dev_ms=sum(v[1] for v in k6) if k6 else None,
+                           gap_vs_plain=gap_long))
+        del cache, prompt, ld, ld_ref
+
+    smoke = dataclasses.replace(get_arch("tinyllama-1.1b").make_smoke_config(),
+                                attn="sliding_window", window=SERVE_WINDOW_SMOKE)
+    emit("serve_window", arch=cfg.name, window=cfg.window,
+         dtype=str(cfg.dtype).split(".")[-1], init_s=init_s,
+         long_500k=long_run, check_a_ref_gap=gap_ref,
+         check_a_tol=SERVE_TOL_REF, check_b_forward_gap=gap_fwd,
+         check_b_tol=SERVE_TOL_FORWARD,
+         check_c=smoke_on_card(get_arch("tinyllama-1.1b"), smoke),
+         seconds=time.perf_counter() - t_phase)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tree_gap(got, want, norm="l2") -> float:
+    """The largest relative gap over the leaves: ‖got − want‖₂ / ‖want‖₂
+    (``norm="l2"``), or max |got − want| / max |want| (``"max"``)."""
+    from repro_torch.models.common import tree_leaves
+
+    def gap(a, b):
+        d, b = (a.double() - b.double()), b.double()
+        if norm == "max":
+            return d.abs().max() / b.abs().max().clamp_min(1e-300)
+        return d.norm() / b.norm().clamp_min(1e-300)
+
+    return max(float(gap(a, b)) for a, b in zip(tree_leaves(got),
+                                                 tree_leaves(want)))
+
+
+def trees_equal(a, b) -> bool:
+    from repro_torch.models.common import tree_leaves
+
+    return all(torch.equal(x, y.to(x.device))
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def phase_train():
+    """`tinyllama-1.1b` trained at its published widths (bf16 compute, fp32
+    masters and AdamW, remat): one unrecorded step and TRAIN_STEPS steps
+    on one `token_batches` batch, and checks a-f, every one run before
+    the phase fails on those that failed; returns K6's and K5's launches
+    over the recorded steps."""
+    import itertools
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.launch.cells import lm_train_step
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.common import count_params, tree_leaves, tree_map
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import fit, value_and_grad
+
+    t_phase = time.perf_counter()
+    failures = []
+
+    def gate(cond, what):
+        if not cond:
+            failures.append(what)
+
+    arch = get_arch("tinyllama-1.1b")
+    cfg = arch.make_config()
+    check(cfg.remat and arch.shapes["train_4k"]["seq_len"] == TRAIN_SEQ,
+          "train: tinyllama's config or train_4k changed")
+    t0 = time.perf_counter()
+    params = tt.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = count_params(params)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves((params, opt)))
+    batch = {k: v.cuda() for k, v in next(token_batches(
+        TRAIN_BATCH, TRAIN_SEQ, cfg.vocab, seed=0)).items()}
+
+    def step(p, o):
+        return lm_train_step(cfg, p, o, batch, microbatch=TRAIN_MICRO)
+
+    p0 = params
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, loss0 = step(p0, opt)                 # unrecorded
+    torch.cuda.synchronize()
+    first = {"params": [t.cpu() for t in tree_leaves(params)],
+             "loss": loss0.cpu()}
+    fa_cuda.LAUNCHES = eb_cuda.LAUNCHES = 0            # the recorded steps
+    secs, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    k6, k5 = fa_cuda.LAUNCHES, eb_cuda.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(secs)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # the loss after the TRAIN_STEPS updates, on the same batch
+    with torch.no_grad():
+        mb = TRAIN_BATCH // TRAIN_MICRO
+        loss_after = sum(float(tt.loss_fn(cfg, params, {
+            k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}))
+            for i in range(TRAIN_MICRO)) / TRAIN_MICRO
+    # where a step's time goes: one microbatch's forward and backward
+    mb_batch = {k: v[:TRAIN_BATCH // TRAIN_MICRO] for k, v in batch.items()}
+    by_name = device_profile(lambda: value_and_grad(
+        lambda p, b: tt.loss_fn(cfg, p, b))(params, mb_batch))
+    k6_prof = [v for n, v in by_name.items() if "flash_attention_kernel" in n]
+    profile = dict(cuda_kernels=sum(v[0] for v in by_name.values()),
+                   device_ms=sum(v[1] for v in by_name.values()),
+                   k6_launches=sum(v[0] for v in k6_prof),
+                   k6_ms=sum(v[1] for v in k6_prof),
+                   top=top_kernels(by_name))
+    del by_name
+    parts_s = {"steps": sum(secs)}
+    run = dict(arch=cfg.name, dtype=str(cfg.dtype).split(".")[-1],
+               n_params=n_params, remat=cfg.remat, seq_len=TRAIN_SEQ,
+               global_batch=TRAIN_BATCH, microbatches=TRAIN_MICRO,
+               reduced=f"global batch {arch.shapes['train_4k']['global_batch']}"
+                       f" -> {TRAIN_BATCH} ({TRAIN_MICRO} microbatches of "
+                       f"{TRAIN_BATCH // TRAIN_MICRO}); one batch repeated",
+               init_s=init_s, steps=TRAIN_STEPS, step_s=secs,
+               median_step_s=step_s, tokens_per_s=tokens / step_s,
+               mfu_6nd=6 * n_params * tokens / step_s / BF16_FLOPS_PER_S,
+               mfu_note="6·N·tokens / step s over 989 TFLOP/s; remat's "
+                        "recompute not counted",
+               max_memory_allocated=peak, state_bytes=state_bytes,
+               loss_first=float(loss0), losses=losses,
+               loss_after=loss_after, k6_launches=k6, k5_launches=k5,
+               microbatch_profile=profile)
+    emit("train_run", **run)
+    # (a) finite and lower
+    gate(all(np.isfinite(losses)) and np.isfinite(loss_after)
+         and loss_after < float(loss0),
+         f"train (a): loss {float(loss0)} -> {losses} -> {loss_after}")
+    gate(k6 == cfg.n_layers * TRAIN_MICRO * TRAIN_STEPS * 2,
+         f"train: {k6} K6 launches, not {cfg.n_layers} x {TRAIN_MICRO} x "
+         f"{TRAIN_STEPS} x 2 (remat)")
+    gate(k5 == TRAIN_MICRO * TRAIN_STEPS * 2,
+         f"train: {k5} K5 launches, not {TRAIN_MICRO} x {TRAIN_STEPS} x 2")
+
+    # (d) one step again from the first state: the same bits
+    torch.cuda.synchronize()
+    t_part = time.perf_counter()
+    again, _, loss_again = step(p0, adamw_init(p0))
+    check_d = bool(torch.equal(loss_again.cpu(), first["loss"])
+                   and all(torch.equal(a.cpu(), b) for a, b in
+                           zip(tree_leaves(again), first["params"])))
+    gate(check_d, "train (d): two identical steps gave different bits")
+    del again, first, p0
+    torch.cuda.empty_cache()
+    parts_s["d"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (b) one microbatch's loss and gradients: K6 against the plain
+    # attention, and the control (the plain attention rounded coarser)
+    sub = {k: v[:TRAIN_GRAD_ROWS] for k, v in batch.items()}
+
+    def loss_and_grads(prefer):
+        return value_and_grad(lambda p, b: tt.loss_fn(
+            cfg, p, b, attn_prefer=prefer))(params, sub)
+
+    torch.cuda.empty_cache()
+    l_ref, g_ref = loss_and_grads("ref")      # compared on the card
+    readings = {}
+    for name, ctx in (("k6", contextlib.nullcontext()),
+                      ("control", coarse_attention(TRAIN_CONTROL_BITS,
+                                                   grad=True))):
+        with ctx:
+            l, g = loss_and_grads("auto" if name == "k6" else "ref")
+        readings[name] = dict(
+            loss_gap=abs(float(l) - float(l_ref)) / abs(float(l_ref)),
+            grad_gap=tree_gap(g, g_ref), grad_gap_max=tree_gap(g, g_ref, "max"))
+        del g
+    del g_ref
+    check_b = dict(rows=TRAIN_GRAD_ROWS, loss_tol=TRAIN_LOSS_TOL,
+                   grad_limit=TRAIN_GRAD_LIMIT,
+                   control_bits=TRAIN_CONTROL_BITS, **readings)
+    emit("train_check_b", **check_b)
+    k6r, ctl = readings["k6"], readings["control"]
+    gate(k6r["loss_gap"] <= TRAIN_LOSS_TOL
+         and k6r["grad_gap"] <= TRAIN_GRAD_LIMIT < ctl["grad_gap"],
+         f"train (b): K6 {k6r}, control {ctl}, loss tol {TRAIN_LOSS_TOL}, "
+         f"grad limit {TRAIN_GRAD_LIMIT}")
+    parts_s["b"] = time.perf_counter() - t_part
+
+    # (f) a full-width checkpoint of params and AdamW state, saved and
+    # restored bit for bit, in a temporary directory removed afterwards
+    tree = {"params": params, "opt": opt}
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, keep=1)
+        t0 = time.perf_counter()
+        f = mgr.save(TRAIN_STEPS + 1, tree)
+        save_s = time.perf_counter() - t0
+        file_bytes = os.path.getsize(f)
+        t0 = time.perf_counter()
+        restored_step, restored, _ = mgr.restore_latest(tree)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    check_f = restored_step == TRAIN_STEPS + 1 and trees_equal(restored, tree)
+    gate(check_f, "train (f): the restored checkpoint differs")
+    ckpt_row = dict(bytes=file_bytes, state_bytes=state_bytes,
+                    save_s=save_s, restore_s=load_s)
+    del restored, tree, opt, params, batch
+    torch.cuda.empty_cache()
+    parts_s["f"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (c) the smoke config in fp32: three steps, card against CPU
+    smoke = arch.make_smoke_config()
+    sp = tt.init_params(smoke, torch.Generator().manual_seed(0))
+    sb = next(token_batches(4, 32, smoke.vocab, seed=1))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), sp)
+        o, ls = adamw_init(p), []
+        b = {k: v.to(dev) for k, v in sb.items()}
+        for _ in range(3):
+            p, o, l = lm_train_step(smoke, p, o, b, microbatch=2)
+            ls.append(float(l))
+        runs[dev] = (p, ls)
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"][1],
+                                                      runs["cpu"][1]))
+    param_gap = max(float((a.cpu() - b).abs().max()) for a, b in
+                    zip(tree_leaves(runs["cuda"][0]),
+                        tree_leaves(runs["cpu"][0])))
+    gate(loss_gap <= TRAIN_SMOKE_TOL and param_gap <= TRAIN_SMOKE_TOL,
+         f"train (c): card vs CPU loss {loss_gap}, params {param_gap}")
+
+    # (e) fit on the card, preempted and resumed, against an uninterrupted
+    # run (one repeated batch: `fit` restarts the data on resume)
+    class Preempted(RuntimeError):
+        pass
+
+    def preempt(s):
+        if s == TRAIN_FIT[1]:
+            raise Preempted()
+
+    sbc = {k: v.cuda() for k, v in sb.items()}
+
+    def fit_run(d, **kw):
+        return fit(lambda p, b: tt.loss_fn(smoke, p, b),
+                   tree_map(lambda t: t.cuda(), sp), itertools.repeat(sbc),
+                   steps=TRAIN_FIT[0], opt_cfg=AdamWConfig(lr=1e-3),
+                   ckpt_dir=d, ckpt_every=2, log_every=100,
+                   log=lambda s: None, **kw)
+
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            fit_run(os.path.join(d, "run"), preemption_hook=preempt)
+            check(False, "train (e): the preemption hook did not fire")
+        except Preempted:
+            pass
+        resumed = fit_run(os.path.join(d, "run"))
+        whole = fit_run(os.path.join(d, "whole"))
+    check_e = trees_equal(resumed.params, whole.params)
+    parts_s["c_e"] = time.perf_counter() - t_part
+    gate(check_e, "train (e): the resumed fit differs from the uninterrupted "
+         "one")
+
+    emit("train", **run, check_b=check_b,
+         check_c=dict(loss_gap=loss_gap, param_gap=param_gap,
+                      tol=TRAIN_SMOKE_TOL),
+         check_d_bit_identical=check_d, check_e_resume_bit_identical=check_e,
+         check_f=dict(ckpt_row, bit_identical=check_f), failures=failures,
+         parts_s=parts_s, seconds=time.perf_counter() - t_phase)
+    check(not failures, "train: " + "; ".join(failures))
+    torch.cuda.empty_cache()
+    return k6, k5
+
+
 class RoutingCapture:
     """Forward hooks on every MoE layer of ``model``: for each call of a
     layer, the expert sets (B, S, k, ascending ids) that `models.moe.route`
@@ -2470,11 +3016,13 @@ def routing_diff(run_a, run_b) -> dict:
 
 
 @contextlib.contextmanager
-def coarse_attention(bits):
+def coarse_attention(bits, grad=False):
     """Checks (a) and (b)'s control: inside, every attention call of the LM
     runs the plain attention with its output rounded to ``bits`` explicit
     mantissa bits (bf16 keeps 7; round to nearest even), a stand-in for an
-    attention kernel that computes coarser than bf16."""
+    attention kernel that computes coarser than bf16.  With ``grad`` the
+    rounding passes the plain attention's gradient straight through (the
+    train phase's control)."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
     from repro_torch.models import transformer as tt
 
@@ -2482,8 +3030,9 @@ def coarse_attention(bits):
 
     def attention(q, k, v, *, prefer, **kw):
         out = flash_attention_plain(q, k, v, **kw)
-        m, e = torch.frexp(out.float())
-        return torch.ldexp(torch.round(m * scale) / scale, e).to(out.dtype)
+        m, e = torch.frexp(out.detach().float())
+        coarse = torch.ldexp(torch.round(m * scale) / scale, e).to(out.dtype)
+        return out + (coarse - out).detach() if grad else coarse
 
     kept = tt.flash_attention
     tt.flash_attention = attention
@@ -2654,13 +3203,14 @@ def serve_runs(cfg, model, runs_spec, prompts_of) -> tuple:
     return runs, kept, fa_cuda.LAUNCHES
 
 
-def smoke_on_card(arch) -> dict:
-    """(c) the arch's smoke config in fp32 through `generate`: greedy tokens
-    on the card identical to the CPU's, full-forward logits within 1e-3."""
+def smoke_on_card(arch, smoke=None) -> dict:
+    """(c) the arch's smoke config (or ``smoke``) in fp32 through
+    `generate`: greedy tokens on the card identical to the CPU's,
+    full-forward logits within 1e-3."""
     from repro_torch.launch.serve import generate
     from repro_torch.models import transformer as tt
 
-    smoke = arch.make_smoke_config()
+    smoke = smoke or arch.make_smoke_config()
     params = tt.init_params(smoke, torch.Generator().manual_seed(0))
     cpu, gpu = tt.Transformer(smoke, params), tt.Transformer(smoke, params).cuda()
     sp = torch.from_numpy(np.random.default_rng(0).integers(0, smoke.vocab, (4, 16)))
@@ -3272,6 +3822,181 @@ def phase_recsys():
     return bag_rows, k5_launches
 
 
+def bag_backward_row(table_rows, ids, d) -> dict:
+    """K5's backward at one training lookup's shape: the transposed bag of
+    ``ids`` (bags of one, weight 1) into a dense (table_rows, d) gradient —
+    entries sorted by row, the output's gradient as the table — held to
+    one `embedding_dense_backward` call (the same function: weight 1) and
+    timed by CUDA events and the profiler beside its bound, the plain
+    version and that call."""
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    n = ids.numel()
+    idx = ids.reshape(-1).long()
+    dout = torch.from_numpy(np.random.default_rng(41).normal(
+        size=(n, d)).astype(np.float32)).cuda()
+    order = torch.argsort(idx, stable=True)
+    rows, seg = idx[order].to(torch.int32), order.to(torch.int32)
+    w = torch.ones(n, dtype=torch.float32, device="cuda")
+
+    def kernel():
+        return eb_cuda.embedding_bag_cuda(dout, seg, rows, w, table_rows)
+
+    def plain():
+        return embedding_bag_ref(dout, seg, rows, table_rows, weights=w)
+
+    def library():
+        return torch.ops.aten.embedding_dense_backward(dout, idx, table_rows,
+                                                       -1, False)
+
+    got, want, lib = kernel(), plain(), library()
+    err = float((got - lib).abs().max() / lib.abs().max())
+    # the two sum a row's entries in other orders: held to 1e-5 of the
+    # row's Σ|terms| (K5 over |dout|), the tolerance of every fp32 sum here
+    terms = eb_cuda.embedding_bag_cuda(dout.abs(), seg, rows, w, table_rows)
+    excess = float(((got - lib).abs() - 1e-5 * terms).max())
+    check(excess <= 0, f"K5 backward vs embedding_dense_backward: max "
+          f"{err} of max |g|, past 1e-5 of Σ|terms| by {excess}")
+    dev_ms, _, _ = profiled_ms(kernel, "embedding_bag_kernel")
+    nbytes = 4 * (n * d + 3 * n + table_rows * d)
+    return dict(entries=n, rows=table_rows, d=d, rel_err_vs_library=err,
+                plain_rel_err=float((want - lib).abs().max()
+                                    / lib.abs().max()),
+                ms=time_auto(kernel), dev_ms=dev_ms, plain_ms=time_auto(plain),
+                library_ms=time_auto(library),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                largest_row_entries=int(torch.bincount(idx).max()))
+
+
+def phase_recsys_train():
+    """`sasrec` trained at its published widths (fp32, AdamW) on
+    train_batch's 65,536 users: one unrecorded step and RECSYS_TRAIN_STEPS
+    steps, checks a-c; returns K5's launches over the recorded steps."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import recsys_batches
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.launch.cells import recsys_train_step
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.recsys import init_sasrec, sasrec_train_loss
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_loop import value_and_grad
+
+    t_phase = time.perf_counter()
+    failures = []
+
+    def gate(cond, what):
+        if not cond:
+            failures.append(what)
+
+    arch = get_arch("sasrec")
+    cfg = arch.make_config()
+    B = arch.shapes["train_batch"]["batch"]
+    params = init_sasrec(cfg, torch.Generator(device="cuda").manual_seed(0))
+    batch = {k: v.cuda() for k, v in next(recsys_batches(
+        B, cfg.seq_len, cfg.n_items, seed=4)).items()}
+
+    def step(p, o):
+        return recsys_train_step(cfg, p, o, batch)
+
+    p0 = params
+    torch.cuda.reset_peak_memory_stats()
+    first = step(p0, adamw_init(p0))                  # unrecorded
+    params, opt, loss0 = first
+    eb_cuda.LAUNCHES = 0                              # the recorded steps
+    secs, losses = [], []
+    for _ in range(RECSYS_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    k5 = eb_cuda.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    step_s = statistics.median(secs)
+    # where a step's time goes: K5's six launches (three lookups, three
+    # transposed-bag backwards) beside the step's other kernels
+    by_name = device_profile(lambda: step(params, opt), warmup=1)
+    k5_prof = [v for n, v in by_name.items() if "embedding_bag_kernel" in n]
+    profile = dict(cuda_kernels=sum(v[0] for v in by_name.values()),
+                   device_ms=sum(v[1] for v in by_name.values()),
+                   k5_launches=sum(v[0] for v in k5_prof),
+                   k5_ms=sum(v[1] for v in k5_prof),
+                   top=top_kernels(by_name))
+    del by_name
+    run = dict(arch=cfg.name, dtype=str(cfg.dtype).split(".")[-1], users=B,
+               seq_len=cfg.seq_len, steps=RECSYS_TRAIN_STEPS,
+               step_ms=[s * 1e3 for s in secs], median_step_ms=step_s * 1e3,
+               users_per_s=B / step_s, max_memory_allocated=peak,
+               loss_first=float(loss0), losses=losses, k5_launches=k5,
+               step_profile=profile)
+    emit("recsys_train_run", **run)
+    gate(k5 == 6 * RECSYS_TRAIN_STEPS,
+         f"recsys_train: {k5} K5 launches, not 6 x {RECSYS_TRAIN_STEPS}")
+    gate(all(np.isfinite(losses)), f"recsys_train: loss {float(loss0)} -> "
+         f"{losses}")
+
+    # (a) gradients with K5 against the plain lookups and their autograd,
+    # both beside the plain ones in fp64
+    def grads_of(prefer, dtype):
+        p = tree_map(lambda t: t.to(dtype), p0)
+        return value_and_grad(lambda q, b: sasrec_train_loss(
+            cfg, q, b, bag_prefer=prefer))(p, batch)[1]
+
+    g_k5, g_ref = grads_of("auto", torch.float32), grads_of("ref",
+                                                            torch.float32)
+    g_64 = grads_of("ref", torch.float64)
+    gaps_a = dict(k5_vs_plain=tree_gap(g_k5, g_ref, "max"),
+                  k5_vs_fp64=tree_gap(g_k5, g_64, "max"),
+                  plain_vs_fp64=tree_gap(g_ref, g_64, "max"))
+    # Two fp32 sums of one row's ~10^6 entries in other orders differ by
+    # ~1e-5 of the leaf's max, and both sit ~6.5e-4 from fp64 (PERF.md
+    # §6): K5 is held to be as close to the fp64 gradient as the plain
+    # fp32 backward is, within RECSYS_TRAIN_FP64_SLACK
+    gate(gaps_a["k5_vs_fp64"]
+         <= RECSYS_TRAIN_FP64_SLACK * gaps_a["plain_vs_fp64"],
+         f"recsys_train (a): K5 vs plain gradients {gaps_a}")
+    del g_k5, g_ref, g_64
+    # (b) the first step again: the same bits
+    again = step(p0, adamw_init(p0))
+    check_b = bool(torch.equal(again[2], first[2])
+                   and trees_equal(again[0], first[0]))
+    gate(check_b, "recsys_train (b): two identical steps gave different bits")
+    del again, first
+
+    # (c) the smoke config: one step, card against CPU
+    smoke = arch.make_smoke_config()
+    sp = init_sasrec(smoke, torch.Generator().manual_seed(0))
+    sb = next(recsys_batches(64, smoke.seq_len, smoke.n_items, seed=1))
+    sb["item_seq"][:8, :5] = 0                               # left padding
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), sp)
+        out[dev] = recsys_train_step(smoke, p, adamw_init(p),
+                                     {k: v.to(dev) for k, v in sb.items()})
+    loss_gap = abs(float(out["cuda"][2]) - float(out["cpu"][2])) \
+        / abs(float(out["cpu"][2]))
+    param_gap = max(float((a.cpu() - b).abs().max()) for a, b in
+                    zip(tree_leaves(out["cuda"][0]), tree_leaves(out["cpu"][0])))
+    gate(loss_gap <= RECSYS_TRAIN_TOL and param_gap <= RECSYS_TRAIN_TOL,
+         f"recsys_train (c): card vs CPU loss {loss_gap}, params {param_gap}")
+
+    k5_backward = bag_backward_row(cfg.table_rows, batch["pos_items"],
+                                   cfg.embed_dim)
+    emit("recsys_train", **run, check_a=gaps_a,
+         check_a_slack=RECSYS_TRAIN_FP64_SLACK,
+         k5_backward=k5_backward,
+         check_b_bit_identical=check_b,
+         check_c=dict(loss_gap=loss_gap, param_gap=param_gap,
+                      tol=RECSYS_TRAIN_TOL), failures=failures,
+         seconds=time.perf_counter() - t_phase)
+    check(not failures, "recsys_train: " + "; ".join(failures))
+    del params, opt, p0, batch
+    torch.cuda.empty_cache()
+    return k5
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -3350,8 +4075,12 @@ def main(argv=None) -> int:
     del fp, sweep_parts
     fa_rows = phase_kernels_flash()
     k6_launches = phase_serve()
+    k6_launches += phase_serve_window()
+    k6_train, k5_train = phase_train()
+    k6_launches += k6_train
     k6_launches += phase_serve_moe()
     bag_rows, k5_launches = phase_recsys()
+    k5_launches += k5_train + phase_recsys_train()
 
     def main_f32(rows):
         return next(r for r in rows

@@ -3,7 +3,12 @@
 For the partitioner what carries across is the input and its assembled
 operators — the mesh, its dual graph, the ELL Laplacian and the halo
 sharding plan; for the LM and SASRec it is the weights
-(`lm_params_from_numpy`, `sasrec_params_from_numpy`).
+(`lm_params_from_numpy`, `sasrec_params_from_numpy`, and back from the
+port's modules: `lm_params_to_numpy`, `sasrec_params_to_numpy`), and for
+training the master tree and the AdamW state, both ways
+(`tree_from_numpy`, `tree_to_numpy`): the port's trees have `repro`'s
+keys and shapes, so a `repro` state resumes in the port and the
+reverse.
 These builders take exactly the arrays a `repro` object holds
 (``graph.indptr``, ``op.cols``, ``plan.export_idx``, ``params["layers"]
 ["wq"]`` …, as NumPy), so a test can hand both packages the identical
@@ -98,3 +103,53 @@ def sasrec_params_from_numpy(cfg: SASRecConfig, params: dict,
     ``blocks`` (stacked by ``vmap``: leading axis n_blocks), ``final_ln_g``
     and ``final_ln_b`` — given with NumPy leaves."""
     return SASRec(cfg, _tensors(params, resolve_device(device)))
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def tree_from_numpy(tree: dict, device=None) -> dict:
+    """A tree of `repro`'s with NumPy leaves — a parameter tree (LM:
+    `init_params`; SASRec: `init_sasrec`) or an AdamW state {m, v, count}
+    — as the port's tree of tensors on ``device`` (default the card),
+    keys, shapes and dtypes kept: the fp32 master tree that `loss_fn`,
+    `sasrec_train_loss` and `train.fit` take, or the state `adamw_update`
+    takes."""
+    return _tensors(tree, resolve_device(device))
+
+
+def tree_to_numpy(tree: dict) -> dict:
+    """The port's parameter tree or AdamW state as NumPy arrays in
+    `repro`'s layout (the same keys and shapes)."""
+    return _numpy(tree)
+
+
+def lm_params_to_numpy(model: Transformer) -> dict:
+    """The reverse of `lm_params_from_numpy`: a `Transformer`'s weights (in
+    its compute type) as `repro`'s tree — ``embed``, ``head``,
+    ``final_norm`` and ``layers`` stacked over a leading (n_layers,) dim,
+    the FFN under ``ffn`` {wi, wg, wo} or ``moe``."""
+    trees = []
+    for layer in model.layers:
+        t = layer.tree()
+        if "moe" in t:
+            t["moe"] = t["moe"].tree()
+        trees.append(_numpy(t))
+    return {"embed": _numpy(model.embed), "head": _numpy(model.head),
+            "final_norm": _numpy(model.final_norm),
+            "layers": _stack_numpy(trees)}
+
+
+def _stack_numpy(trees: list) -> dict:
+    return {k: _stack_numpy([t[k] for t in trees]) if isinstance(v, dict)
+            else np.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
+def sasrec_params_to_numpy(model: SASRec) -> dict:
+    """The reverse of `sasrec_params_from_numpy`: a `SASRec`'s weights as
+    `repro`'s tree (``blocks`` stacked over n_blocks)."""
+    return _numpy(model.tree())

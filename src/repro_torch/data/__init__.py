@@ -1,1 +1,2 @@
-"""Synthetic data (`synthetic`): the recsys batches of `repro.data`."""
+"""Synthetic data (`synthetic`: the LM and recsys batches of `repro.data`)
+and the host prefetcher (`pipeline.Prefetcher`)."""

@@ -1,13 +1,36 @@
-"""Synthetic recsys traffic: `repro.data.synthetic.recsys_batches`.
+"""Synthetic LM and recsys traffic: `repro.data.synthetic`'s `lm_batch`,
+`token_batches` and `recsys_batches`.
 
 The same NumPy draws from the same seed, so the port and `repro` see the
-same item sequences; the batches are int32 torch tensors on the host.
+same tokens and item sequences; the batches are int32 torch tensors on the
+host.  The GNN generators wait for the GNN slice (D3).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def lm_batch(rng: np.random.Generator, batch: int, seq: int,
+             vocab: int) -> dict:
+    """Zipf(1.3) tokens with a deterministic bigram drift (a learnable
+    signal): ``{"tokens", "labels"}``, each (batch, seq) int32, labels the
+    tokens shifted by one."""
+    z = rng.zipf(1.3, size=(batch, seq + 1)) % vocab
+    drift = (np.cumsum(z, axis=1) * 7) % vocab
+    toks = ((z + drift) // 2 % vocab).astype(np.int32)
+    return {
+        "tokens": torch.from_numpy(np.ascontiguousarray(toks[:, :-1])),
+        "labels": torch.from_numpy(np.ascontiguousarray(toks[:, 1:])),
+    }
+
+
+def token_batches(batch: int, seq: int, vocab: int, *, seed: int = 0):
+    """Endless `lm_batch` draws from one seeded generator."""
+    rng = np.random.default_rng(seed)
+    while True:
+        yield lm_batch(rng, batch, seq, vocab)
 
 
 def recsys_batches(batch: int, seq: int, n_items: int, *, seed: int = 0):

@@ -134,6 +134,14 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return xw.to(x.device)
 
 
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the ranks of ``x``, a new tensor on ``x``'s
+    device (``pmax``)."""
+    xw = _to_wire(x, group).clone()
+    dist.all_reduce(xw, op=dist.ReduceOp.MAX, group=group)
+    return xw.to(x.device)
+
+
 def shift(x: torch.Tensor, group) -> torch.Tensor:
     """One ring hop: send ``x`` to the next rank, return the previous
     rank's (``ppermute`` with ``i → i+1 mod n``)."""

@@ -10,6 +10,18 @@
 There is no fallback: on a CUDA tensor a build or launch failure raises.
 `repro` pads the row width to 128 lanes for the Pallas kernel; nothing
 binds the port to that, so nothing is padded here.
+
+Gradients.  Where the table requires a gradient (and grad mode is on), a
+call that takes the kernel (or, on the CPU, its plain version) goes
+through :class:`EmbeddingBag`, a `torch.autograd.Function` whose backward
+is K5 again on the transposed problem: the entries stable-sorted by table
+row, the table's rows as the bags and the output's gradient as the table,
+the weights as given, so ``dtable[r] = Σ_{idx_i = r} w_i · dout[seg_i]``
+and a row no entry reads is zero.  That is a dense gradient, as JAX's
+``take`` gradient is, summed in a fixed order with no atomics: two
+identical steps give identical bits on the card.  The weights are
+constants (not differentiated).  ``prefer="ref"`` differentiates the
+plain version directly (its backward adds with atomics on the card).
 """
 
 from __future__ import annotations
@@ -20,6 +32,37 @@ from repro_torch.kernels.embedding_bag import cuda
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
 _PREFER = ("auto", "cuda", "ref")
+
+
+def _forward(table, indices, segments, weights, n_bags):
+    """The kernel on a CUDA table, the plain version on a CPU one; the
+    segments sorted, the weights of the table's type."""
+    if not table.is_cuda:
+        return embedding_bag_ref(table, indices, segments, n_bags,
+                                 weights=weights)
+    return cuda.embedding_bag_cuda(
+        table, indices.to(torch.int32).contiguous(),
+        segments.to(torch.int32).contiguous(), weights.contiguous(), n_bags)
+
+
+class EmbeddingBag(torch.autograd.Function):
+    """K5 under autograd: the forward is K5 (the kernel on the card, the
+    plain version on the CPU); the backward is K5 on the transposed
+    problem (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, table, indices, segments, weights, n_bags):
+        ctx.save_for_backward(indices, segments, weights)
+        ctx.rows = table.shape[0]
+        return _forward(table, indices, segments, weights, n_bags)
+
+    @staticmethod
+    def backward(ctx, dout):
+        indices, segments, weights = ctx.saved_tensors
+        order = torch.argsort(indices, stable=True)
+        dtable = _forward(dout.contiguous(), segments[order], indices[order],
+                          weights[order], ctx.rows)
+        return dtable, None, None, None, None
 
 
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
@@ -45,12 +88,13 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
         order = torch.argsort(segments, stable=True)
         indices, segments, weights = indices[order], segments[order], \
             weights[order]
-    if prefer == "ref" or (prefer == "auto" and not table.is_cuda):
+    if prefer == "ref":
         return embedding_bag_ref(table, indices, segments, n_bags,
                                  weights=weights)
-    if not table.is_cuda:
+    if prefer == "cuda" and not table.is_cuda:
         raise ValueError("prefer='cuda' needs CUDA tensors: the CUDA "
                          "embedding bag has no CPU mode")
-    return cuda.embedding_bag_cuda(
-        table, indices.to(torch.int32).contiguous(),
-        segments.to(torch.int32).contiguous(), weights.contiguous(), n_bags)
+    if torch.is_grad_enabled() and table.requires_grad:
+        return EmbeddingBag.apply(table, indices, segments,
+                                  weights.detach(), n_bags)
+    return _forward(table, indices, segments, weights, n_bags)

@@ -5,7 +5,8 @@
 // call of the port's transformer, prefill and KV-cache decode alike:
 //
 //   s[i, j] = (q[b, i, h, :] . k[b, j, h / G, :]) * scale        (fp32)
-//   s[i, j] = -1e30  where j >= kv_len, or (causal) j > q_offset + i
+//   s[i, j] = -1e30  where j >= kv_len, or (causal) j > q_offset + i, or
+//                    (window w > 0) q_offset + i - j >= w
 //   o[b, i, h, :] = sum_j softmax_j(s)[i, j] * v[b, j, h / G, :]
 //
 // q (B, Sq, H, D), k and v (B, Skv, Hkv, D), read in place through their
@@ -22,8 +23,12 @@
 // shared memory: for tinyllama (G = 8) K and V are read once per group, not
 // once per head.  KV tiles hold 64 keys; tiles wholly past kv_len or above
 // the causal diagonal of a block's last row are not visited
-// (kernel.py:67-73); keys past Skv in the last tile are zero-filled and
-// masked.  Three routes, chosen at launch from the shape and type:
+// (kernel.py:67-73), nor, with a sliding window w, tiles wholly below
+// the window of a block's first row (keys < q_offset + first row / G - w
+// + 1: a decode at position 524,287 with w = 4096 reads 64 tiles, not
+// 8,192); keys past Skv in the last tile are zero-filled and masked.  The
+// window is `repro`'s sliding-window mask (repro/models/transformer.py:
+// 180-183); the Pallas kernel has none.  Three routes, chosen at launch from the shape and type:
 //   * decode (Sq * G <= 16; flash_attention_kernel_decode): split-KV in one
 //     launch.  The grid is (n_split, Hkv, B): the wrapper cuts the key tiles
 //     below kv_end into n_split contiguous runs (about one block per SM,
@@ -136,6 +141,7 @@ struct Args {
   int64_t vsb, vss, vsh;      // v strides
   int Sq, Skv, H, G;
   int q_offset, kv_len, causal;
+  int window;                 // > 0: key j is visible to position p iff p - j < window
   int vec;                    // every row start 16-byte aligned: 16-byte loads
   float scale;
   // decode route: key tiles per split, the partials' workspace and one
@@ -202,7 +208,7 @@ constexpr int smem_floats() {
   return D * (R + 1) + D * (kBK + 1) + kBK * D + kBK * (R + 32 / NCG);
 }
 
-template <typename T, int D, int TM, int NRG, int NCG>
+template <typename T, int D, int TM, int NRG, int NCG, bool W>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const Args a) {
   static_assert(NRG * NCG == kThreads, "one thread per (row group, column group)");
@@ -263,6 +269,14 @@ flash_attention_kernel(const Args a) {
     if (causal_end < kv_end) kv_end = causal_end;
   }
 
+  // ... and, with a window, at or past the first tile the window of its
+  // first row reaches.
+  int64_t kv_begin = 0;
+  if constexpr (W) {
+    const int64_t first = a.q_offset + rho0 / a.G - a.window + 1;
+    if (first > 0) kv_begin = first / kBK * kBK;
+  }
+
   float m[TM], l[TM], acc[TM][DPT];
 #pragma unroll
   for (int mm = 0; mm < TM; ++mm) {
@@ -274,7 +288,7 @@ flash_attention_kernel(const Args a) {
 
   const T* const kv[2] = {k + b * a.ksb + static_cast<int64_t>(kvh) * a.ksh,
                           v + b * a.vsb + static_cast<int64_t>(kvh) * a.vsh};
-  for (int64_t k0 = 0; k0 < kv_end; k0 += kBK) {
+  for (int64_t k0 = kv_begin; k0 < kv_end; k0 += kBK) {
     __syncthreads();                    // the last tile's Ks/Vs/Ps are read
     stage<T, D, kBK, 2>(
         a.vec, kv,
@@ -310,7 +324,8 @@ flash_attention_kernel(const Args a) {
 #pragma unroll
       for (int jj = 0; jj < TN; ++jj) {
         const int64_t kp = k0 + cg + NCG * jj;
-        const bool valid = kp < a.kv_len && (!a.causal || kp <= qpos[mm]);
+        const bool valid = kp < a.kv_len && (!a.causal || kp <= qpos[mm]) &&
+                           (!W || qpos[mm] - kp < a.window);
         s[mm][jj] = valid ? s[mm][jj] * a.scale : kNegInf;
         mt = fmaxf(mt, s[mm][jj]);
       }
@@ -474,7 +489,7 @@ __device__ __forceinline__ void lds_vec(T (&dst)[N], const T* src) {
 // cores (mma.sync m16n8k16, bf16 in, fp32 accumulate; 16 rows), each warp
 // owning 16 of a tile's 64 keys with its own online softmax, the four
 // warps' states merged in warp order at the end of the run.
-template <typename T, int D, int R>
+template <typename T, int D, int R, bool W>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel_decode(const Args a) {
   using L = DecodeLayout<T, D>;
@@ -499,11 +514,15 @@ flash_attention_kernel_decode(const Args a) {
   const int rows = a.Sq * a.G;
 
   // This split's key tiles: tiles below kv_end (kv_len and, causally, the
-  // last row's position + 1), tiles_per_split of them from split * that.
+  // last row's position + 1) and, with a window, from the tile that holds
+  // the first row's first visible key (q_offset - window + 1), cut into
+  // runs of tiles_per_split: this split's is the split-th.
   int kv_end = a.kv_len;
   if (a.causal && a.q_offset + a.Sq < kv_end) kv_end = a.q_offset + a.Sq;
   const int ntiles = kv_end > 0 ? (kv_end - 1) / kBK + 1 : 0;
-  const int t0 = split * a.tiles_per_split;
+  const int t_lo = W && a.q_offset - a.window + 1 > 0
+                       ? (a.q_offset - a.window + 1) / kBK : 0;
+  const int t0 = t_lo + split * a.tiles_per_split;
   const int t1 = t0 + a.tiles_per_split < ntiles ? t0 + a.tiles_per_split : ntiles;
 
   const T* qbase = static_cast<const T*>(a.q);
@@ -626,7 +645,8 @@ flash_attention_kernel_decode(const Args a) {
         for (int e = 0; e < 4; ++e) {
           const int kp = t * kBK + kw + nt * 8 + 2 * t4 + (e & 1);
           const int hr = e >> 1;
-          const bool valid = real[hr] && kp < a.kv_len && (!a.causal || kp <= qpos[hr]);
+          const bool valid = real[hr] && kp < a.kv_len && (!a.causal || kp <= qpos[hr]) &&
+                             (!W || qpos[hr] - kp < a.window);
           s[nt][e] = valid ? s[nt][e] * a.scale : -CUDART_INF_F;
           smax[hr] = fmaxf(smax[hr], s[nt][e]);
         }
@@ -756,8 +776,9 @@ flash_attention_kernel_decode(const Args a) {
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           const int r = rh * RPT + i;
-          const bool valid = r < rows && kp < a.kv_len &&
-                             (!a.causal || kp <= a.q_offset + r / a.G);
+          const int pos = a.q_offset + r / a.G;
+          const bool valid = r < rows && kp < a.kv_len && (!a.causal || kp <= pos) &&
+                             (!W || pos - kp < a.window);
           Ss[r * kSST + key] = valid ? s[i] * a.scale : -CUDART_INF_F;
         }
       }
@@ -1075,7 +1096,7 @@ constexpr size_t bf16_smem_bytes() {
 //   WG = true (D = 64, 128): wgmma m64n64k16, each of the two warpgroups
 //     owning 64 rows: S from Q and K in shared memory (K-major), P V with P
 //     from registers and V in shared memory (MN-major).
-template <int D, int NS, int MINB, bool WG>
+template <int D, int NS, int MINB, bool WG, bool W>
 __global__ void __launch_bounds__(kPThreads, MINB)
 flash_attention_kernel_bf16(const Args a) {
   using T = __nv_bfloat16;
@@ -1124,6 +1145,13 @@ flash_attention_kernel_bf16(const Args a) {
     if (causal_end < kv_end) kv_end = causal_end;
   }
   const int nkv = kv_end > 0 ? (kv_end - 1) / kBK + 1 : 0;
+  // With a window, the first tile the window of the block's first row
+  // reaches; the ring starts there.
+  int j0 = 0;
+  if constexpr (W) {
+    const int64_t first = a.q_offset + rho0 / a.G - a.window + 1;
+    if (first > 0) j0 = static_cast<int>(first / kBK);
+  }
 
   const T* kbase = static_cast<const T*>(a.k) + b * a.ksb + static_cast<int64_t>(kvh) * a.ksh;
   const T* vbase = static_cast<const T*>(a.v) + b * a.vsb + static_cast<int64_t>(kvh) * a.vsh;
@@ -1138,7 +1166,7 @@ flash_attention_kernel_bf16(const Args a) {
   };
 #pragma unroll
   for (int j = 0; j < NS - 1; ++j) {
-    if (j < nkv) load_kv(j);
+    if (j0 + j < nkv) load_kv(j0 + j);
     cp_async_commit();
   }
 
@@ -1153,14 +1181,16 @@ flash_attention_kernel_bf16(const Args a) {
       ldsm_x4(qa[ks], smem_addr(Qs + (wr0 + (lane & 15)) * L::ROW + ks * 16 + (lane >> 4) * 8));
   }
 
-  // Positions of this lane's rows, of the warp's first row and of the last
-  // row of the warp (mma.sync) or warpgroup (wgmma), which skips a tile
-  // wholly above its rows.
+  // Positions of this lane's rows, of the warp's first row and of the
+  // first and last rows of the warp (mma.sync) or warpgroup (wgmma), which
+  // skips a tile wholly above its rows or wholly below their windows.
   const int qpos[2] = {a.q_offset + static_cast<int>((rho0 + wr0 + g) / a.G),
                        a.q_offset + static_cast<int>((rho0 + wr0 + g + 8) / a.G)};
   const int wpos_lo = a.q_offset + static_cast<int>((rho0 + wr0) / a.G);
   const int wpos_hi = a.q_offset + static_cast<int>(
       (rho0 + (WG ? (warp >> 2) * 64 + 63 : wr0 + 15)) / a.G);
+  const int upos_lo = a.q_offset + static_cast<int>(
+      (rho0 + (WG ? (warp >> 2) * 64 : wr0)) / a.G);
   const float c2 = a.scale * kLog2e;    // s * c2 is the score in log2 units
 
   float m2[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
@@ -1170,7 +1200,7 @@ flash_attention_kernel_bf16(const Args a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
 
-  for (int j = 0; j < nkv; ++j) {
+  for (int j = j0; j < nkv; ++j) {
     cp_async_wait<NS - 2>();            // tile j has landed (this thread's part)
     if constexpr (WG) fence_proxy_async();
     __syncthreads();                    // ... every thread's; tile j - 1 is used
@@ -1179,6 +1209,7 @@ flash_attention_kernel_bf16(const Args a) {
 
     const int k0 = j * kBK;
     if (a.causal && k0 > wpos_hi) continue;
+    if (W && k0 + kBK - 1 < upos_lo - a.window + 1) continue;
     const T* Ks = KVs + (j % NS) * 2 * L::TILE;
     const uint32_t ks_addr = smem_addr(Ks), vs_addr = smem_addr(Ks + L::TILE);
 
@@ -1216,14 +1247,18 @@ flash_attention_kernel_bf16(const Args a) {
     }
 
     // s[nt][e]: row wr0 + g + 8 (e / 2), key k0 + 8 nt + 2 t + e % 2.  Only
-    // a tile that crosses kv_len or one of the warp's diagonals is masked.
-    if (k0 + kBK > a.kv_len || (a.causal && k0 + kBK - 1 > wpos_lo)) {
+    // a tile that crosses kv_len, one of the warp's diagonals or the lower
+    // edge of a window is masked.
+    if (k0 + kBK > a.kv_len || (a.causal && k0 + kBK - 1 > wpos_lo) ||
+        (W && k0 <= wpos_hi - a.window)) {
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = k0 + nt * 8 + 2 * t + (e & 1);
-          if (kp >= a.kv_len || (a.causal && kp > qpos[e >> 1])) s[nt][e] = -CUDART_INF_F;
+          if (kp >= a.kv_len || (a.causal && kp > qpos[e >> 1]) ||
+              (W && qpos[e >> 1] - kp >= a.window))
+            s[nt][e] = -CUDART_INF_F;
         }
     }
     float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
@@ -1322,9 +1357,9 @@ int launch_grid(Kernel kernel, size_t bytes, int R, const Args& a, int B, int Hk
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D, int TM, int NRG, int NCG>
+template <typename T, int D, int TM, int NRG, int NCG, bool W>
 int launch_shape(const Args& a, int B, int Hkv, cudaStream_t stream) {
-  return launch_grid(flash_attention_kernel<T, D, TM, NRG, NCG>,
+  return launch_grid(flash_attention_kernel<T, D, TM, NRG, NCG, W>,
                      sizeof(float) * smem_floats<D, TM * NRG, NCG>(), TM * NRG, a, B,
                      Hkv, stream);
 }
@@ -1332,12 +1367,12 @@ int launch_shape(const Args& a, int B, int Hkv, cudaStream_t stream) {
 // The bf16 prefill's grid: x runs over (row tile, KV head), KV head
 // fastest, y over the batch.  D = 64 and 128 take wgmma, D = 16 and 32
 // mma.sync.
-template <int D>
+template <int D, bool W>
 int launch_bf16(const Args& a, int B, int Hkv, cudaStream_t stream) {
   constexpr bool WG = D >= 64;
   constexpr int NS = D == 64 ? 4 : D < 64 ? 3 : 2;   // ring stages
   constexpr int MINB = D <= 64 ? 2 : 1; // blocks per SM the registers allow
-  const auto kernel = flash_attention_kernel_bf16<D, NS, MINB, WG>;
+  const auto kernel = flash_attention_kernel_bf16<D, NS, MINB, WG, W>;
   constexpr size_t bytes = bf16_smem_bytes<D, NS, WG>();
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1354,9 +1389,9 @@ int launch_bf16(const Args& a, int B, int Hkv, cudaStream_t stream) {
 // The decode route's grid: (n_split, Hkv, B).  fp32 pads to R = 8 rows
 // where Sq * G <= 8 (its scalar products use every thread), else 16; bf16
 // always to 16 (the rows of an mma tile).
-template <typename T, int D, int R>
+template <typename T, int D, int R, bool W>
 int launch_decode(const Args& a, int B, int Hkv, int n_split, cudaStream_t stream) {
-  const auto kernel = flash_attention_kernel_decode<T, D, R>;
+  const auto kernel = flash_attention_kernel_decode<T, D, R, W>;
   constexpr size_t bytes = decode_smem_bytes<T, D, R>();
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1371,29 +1406,37 @@ int launch_decode(const Args& a, int B, int Hkv, int n_split, cudaStream_t strea
 // Decode (at most 16 rows) on the split-KV route; a bf16 prefill on the
 // tensor cores; an fp32 prefill on the 64-row scalar shape (fp32 products
 // are exact only outside the tensor cores).
-template <typename T, int D>
+template <typename T, int D, bool W>
 int launch_dim(const Args& a, int B, int Hkv, int n_split, cudaStream_t stream) {
   constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   const int64_t rows = static_cast<int64_t>(a.Sq) * a.G;
   if constexpr (!kBf16) {
-    if (rows <= 8) return launch_decode<T, D, 8>(a, B, Hkv, n_split, stream);
+    if (rows <= 8) return launch_decode<T, D, 8, W>(a, B, Hkv, n_split, stream);
   }
-  if (rows <= kDecodeRows) return launch_decode<T, D, 16>(a, B, Hkv, n_split, stream);
+  if (rows <= kDecodeRows) return launch_decode<T, D, 16, W>(a, B, Hkv, n_split, stream);
   if constexpr (kBf16)
-    return launch_bf16<D>(a, B, Hkv, stream);
+    return launch_bf16<D, W>(a, B, Hkv, stream);
   else
-    return launch_shape<T, D, 4, 16, 8>(a, B, Hkv, stream);
+    return launch_shape<T, D, 4, 16, 8, W>(a, B, Hkv, stream);
 }
 
-template <typename T>
-int launch_type(const Args& a, int B, int Hkv, int D, int n_split, cudaStream_t stream) {
+template <typename T, bool W>
+int launch_window(const Args& a, int B, int Hkv, int D, int n_split, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_dim<T, 16>(a, B, Hkv, n_split, stream);
-    case 32: return launch_dim<T, 32>(a, B, Hkv, n_split, stream);
-    case 64: return launch_dim<T, 64>(a, B, Hkv, n_split, stream);
-    case 128: return launch_dim<T, 128>(a, B, Hkv, n_split, stream);
+    case 16: return launch_dim<T, 16, W>(a, B, Hkv, n_split, stream);
+    case 32: return launch_dim<T, 32, W>(a, B, Hkv, n_split, stream);
+    case 64: return launch_dim<T, 64, W>(a, B, Hkv, n_split, stream);
+    case 128: return launch_dim<T, 128, W>(a, B, Hkv, n_split, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The window is a template flag: without one, every route compiles to
+// the kernel it was before the window, with no test of it in its loops.
+template <typename T>
+int launch_type(const Args& a, int B, int Hkv, int D, int n_split, cudaStream_t stream) {
+  return a.window > 0 ? launch_window<T, true>(a, B, Hkv, D, n_split, stream)
+                      : launch_window<T, false>(a, B, Hkv, D, n_split, stream);
 }
 
 }  // namespace
@@ -1404,13 +1447,14 @@ int launch_type(const Args& a, int B, int Hkv, int D, int n_split, cudaStream_t 
 // KV head); with n_split > 1 they need ws (B * Hkv * n_split * Sq * H / Hkv
 // * (D + 2) floats, 16-byte aligned) and counters (B * Hkv ints, zero; the
 // kernel leaves them zero), which no other call may use at the same time.
-// Other calls ignore n_split, ws and counters.
+// Other calls ignore n_split, ws and counters.  window > 0 is the sliding
+// window (key j visible to position p iff p - j < window); 0 is none.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int H, int Hkv, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, int q_offset, int kv_len, int causal,
-    float scale, void* ws, void* counters, int n_split, void* stream) {
+    int window, float scale, void* ws, void* counters, int n_split, void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -1426,6 +1470,7 @@ extern "C" int flash_attention_fwd(
   a.q_offset = q_offset;
   a.kv_len = kv_len;
   a.causal = causal;
+  a.window = window > 0 ? window : 0;
   a.scale = scale;
   a.ws = static_cast<float*>(ws);
   a.counters = static_cast<int*>(counters);
@@ -1435,11 +1480,15 @@ extern "C" int flash_attention_fwd(
         (n_split > 1 && (ws == nullptr || counters == nullptr ||
                          reinterpret_cast<uintptr_t>(ws) % 16 != 0)))
       return static_cast<int>(cudaErrorInvalidValue);
-    // the kernel's kv_end and tile count, cut into n_split runs
+    // the kernel's tiles [t_lo, ntiles): below kv_end and, with a window,
+    // from the first row's first visible key; cut into n_split runs
     long long kv_end = kv_len;
     if (causal && static_cast<long long>(q_offset) + Sq < kv_end) kv_end = q_offset + Sq;
     const long long ntiles = kv_end > 0 ? (kv_end - 1) / kBK + 1 : 0;
-    a.tiles_per_split = ntiles > 0 ? static_cast<int>((ntiles + n_split - 1) / n_split) : 1;
+    const long long first = static_cast<long long>(q_offset) - a.window + 1;
+    const long long t_lo = a.window > 0 && first > 0 ? first / kBK : 0;
+    const long long n = ntiles > t_lo ? ntiles - t_lo : 0;
+    a.tiles_per_split = n > 0 ? static_cast<int>((n + n_split - 1) / n_split) : 1;
   }
   // 16-byte loads need every row start 16-byte aligned: the base pointers
   // and every stride a multiple of 16 bytes (D always is).

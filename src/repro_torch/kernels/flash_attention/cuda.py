@@ -12,6 +12,11 @@ stream and raises if the launch returned a CUDA error.  ``LAUNCHES`` counts
 its launches (and nothing else), so a run can show that it went through
 K6.
 
+``window`` (the sliding-window variant) masks key ``j`` for the query at
+``p`` unless ``p − j < window``, and every route skips the key tiles
+wholly below a block's window: a decode step far into a long cache reads
+about ``window`` keys, not the whole cache.
+
 A decode call (``Sq * H / Hkv <= 16`` flattened rows) is one launch of
 the split-KV route: :func:`decode_splits` cuts its key tiles into
 ``n_split`` runs, each split writes a partial into a workspace from the
@@ -60,12 +65,12 @@ def _load():
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         _lib = _build.load(SOURCE, {
             "flash_attention_fwd": [ptr] * 4 + [i32] * 7 + [i64] * 9
-            + [i32] * 3 + [ctypes.c_float, ptr, ptr, i32, ptr],
+            + [i32] * 4 + [ctypes.c_float, ptr, ptr, i32, ptr],
         })
     return _lib
 
 
-def _check(q, k, v, q_offset: int, kv_len: int) -> None:
+def _check(q, k, v, q_offset: int, kv_len: int, window) -> None:
     who = "flash_attention_cuda"
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -91,20 +96,37 @@ def _check(q, k, v, q_offset: int, kv_len: int) -> None:
         raise ValueError(f"{who}: head dim {D} not in {HEAD_DIMS}")
     if not 0 <= kv_len <= Skv:
         raise ValueError(f"{who}: kv_len={kv_len} outside [0, Skv={Skv}]")
+    if window is not None and not 1 <= window <= _INT_MAX:
+        raise ValueError(f"{who}: window={window} outside [1, {_INT_MAX}]")
     if max(Sq * H, Skv, abs(q_offset) + Sq) > _INT_MAX \
             or max(B, Hkv) > _GRID_MAX:
         raise ValueError(f"{who}: sizes past the kernel's int or grid range")
 
 
-def decode_splits(B: int, Hkv: int, Sq: int, *, causal: bool, q_offset: int,
-                  kv_len: int, n_sm: int) -> int:
-    """How many runs the decode route cuts its key tiles into: about
-    ``BLOCKS_PER_SM`` blocks per SM over the ``B * Hkv`` (batch, KV head)
-    pairs, at least one tile a run, at most ``MAX_SPLITS``; then as few runs
-    as give the same tiles per run, so no run is empty.  The tiles are those
-    below kv_end: ``kv_len`` and, causally, the last query's position + 1."""
+def decode_tiles(Sq: int, *, causal: bool, q_offset: int, kv_len: int,
+                 window: int | None = None) -> tuple[int, int]:
+    """The key tiles [t_lo, t_hi) a decode call reads: those below kv_end
+    (``kv_len`` and, causally, the last query's position + 1) and, with a
+    window, from the tile holding the first query's first visible key
+    (``q_offset − window + 1``); the kernel's host entry computes the
+    same."""
     kv_end = min(kv_len, q_offset + Sq) if causal else kv_len
-    n_tiles = -(-max(kv_end, 0) // KEY_TILE)
+    t_hi = -(-max(kv_end, 0) // KEY_TILE)
+    first = q_offset - window + 1 if window is not None else 0
+    t_lo = first // KEY_TILE if first > 0 else 0
+    return t_lo, max(t_lo, t_hi)
+
+
+def decode_splits(B: int, Hkv: int, Sq: int, *, causal: bool, q_offset: int,
+                  kv_len: int, n_sm: int, window: int | None = None) -> int:
+    """How many runs the decode route cuts its key tiles (`decode_tiles`)
+    into: about ``BLOCKS_PER_SM`` blocks per SM over the ``B * Hkv``
+    (batch, KV head) pairs, at least one tile a run, at most
+    ``MAX_SPLITS``; then as few runs as give the same tiles per run, so no
+    run is empty."""
+    t_lo, t_hi = decode_tiles(Sq, causal=causal, q_offset=q_offset,
+                              kv_len=kv_len, window=window)
+    n_tiles = t_hi - t_lo
     want = -(-BLOCKS_PER_SM * n_sm // (B * Hkv))
     n = max(1, min(n_tiles, want, MAX_SPLITS))
     per = -(-n_tiles // n)
@@ -132,17 +154,18 @@ def _ticket_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool, q_offset: int,
-                         kv_len: int) -> torch.Tensor:
+                         *, causal: bool, q_offset: int, kv_len: int,
+                         window: int | None = None) -> torch.Tensor:
     """K6: ``flash_attention_pallas(q, k, v, causal=, q_offset=, kv_len=)``
-    on the card.
+    on the card, with `repro`'s sliding-window mask where ``window`` is
+    given.
 
     q (B, Sq, H, D), k and v (B, Skv, Hkv, D), float32 or bfloat16, on one
     CUDA device, each with its last dim contiguous (other strides are
     free: a slice of the KV cache goes in as it is).  Returns a contiguous
     (B, Sq, H, D) tensor of q's type."""
     global LAUNCHES
-    _check(q, k, v, q_offset, kv_len)
+    _check(q, k, v, q_offset, kv_len, window)
     B, Sq, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
@@ -155,7 +178,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if rows <= DECODE_ROWS:
             n_split = decode_splits(B, Hkv, Sq, causal=causal,
                                     q_offset=q_offset, kv_len=kv_len,
-                                    n_sm=_sms(q.device))
+                                    n_sm=_sms(q.device), window=window)
             if n_split > 1:
                 ws = torch.empty(B * Hkv * n_split * rows * (D + 2),
                                  dtype=torch.float32, device=q.device)
@@ -164,7 +187,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], B, Sq, Skv, H, Hkv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            q_offset, kv_len, int(causal), 1.0 / math.sqrt(D),
+            q_offset, kv_len, int(causal), window or 0, 1.0 / math.sqrt(D),
             None if ws is None else ws.data_ptr(),
             None if counters is None else counters.data_ptr(), n_split,
             stream)

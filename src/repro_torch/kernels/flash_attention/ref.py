@@ -9,7 +9,15 @@ arguments: query ``i`` sits at position ``q_offset + i``, keys at or past
 PV sums are fp32 with ``p`` rounded to the input type first, and the
 denominator is clamped to ``1e-30``.  Both take q ``(B, Sq, H, D)`` and k, v
 ``(B, Skv, Hkv, D)`` with ``H`` a multiple of ``Hkv``; query head ``h``
-reads KV head ``h // (H // Hkv)``.
+reads KV head ``h // (H // Hkv)``.  With ``window`` (the sliding-window
+variant) key ``j`` is visible to the query at ``p`` only if ``p − j <
+window``, `repro`'s mask (``repro/models/transformer.py:180-183``).
+
+:func:`flash_attention_grads` is K6's backward, plain by design: `repro`
+trains through its pure-JAX attention under ``jax.checkpoint`` and the
+Pallas kernel has no backward, so the gradient recomputes the attention
+here, block of queries by block, with its gradient written out in plain
+torch.
 
 A row with no valid key (only padded tail queries have one) is not held to
 anything: here it averages every key, in K6 it is zero.
@@ -43,28 +51,132 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(B, Sq, H, D)
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True, q_offset: int | None = None,
-                          kv_len: int | None = None) -> torch.Tensor:
-    """What ``flash_attention_pallas(q, k, v, causal=, q_offset=, kv_len=)``
-    computes (`repro` ``kernel.py:86``), in one pass over all keys.
-
-    ``kv_len`` defaults to ``Skv`` and ``q_offset`` to ``kv_len - Sq``
-    (queries end-aligned with the real keys)."""
-    B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    G = H // Hkv
-    kv_len = Skv if kv_len is None else kv_len
-    q_offset = kv_len - Sq if q_offset is None else q_offset
-    qg = q.reshape(B, Sq, Hkv, G, D).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (1.0 / math.sqrt(D))
-    kpos = torch.arange(Skv, device=q.device)
+def _visible(Sq: int, Skv: int, q_offset: int, kv_len: int, causal: bool,
+             window: int | None, device) -> torch.Tensor:
+    """(Sq, Skv) bool: key j is real and visible to query i."""
+    kpos = torch.arange(Skv, device=device)
     valid = (kpos < kv_len)[None, :]
-    if causal:
-        qpos = q_offset + torch.arange(Sq, device=q.device)
-        valid = valid & (qpos[:, None] >= kpos[None, :])
+    if causal or window is not None:
+        qpos = q_offset + torch.arange(Sq, device=device)
+        if causal:
+            valid = valid & (qpos[:, None] >= kpos[None, :])
+        if window is not None:
+            valid = valid & (qpos[:, None] - kpos[None, :] < window)
+    return valid
+
+
+def _plain(qf, kf, vf, p_dtype, *, causal, q_offset, kv_len, window):
+    """The plain attention on fp32 q, k, v with p rounded to ``p_dtype``
+    before the PV product; fp32 (B, Sq, H, D)."""
+    B, Sq, H, D = qf.shape
+    Skv, Hkv = kf.shape[1], kf.shape[2]
+    qg = qf.reshape(B, Sq, Hkv, H // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * (1.0 / math.sqrt(D))
+    valid = _visible(Sq, Skv, q_offset, kv_len, causal, window, qf.device)
     s = torch.where(valid, s, NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
-    o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float()) / l
-    return o.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p.to(p_dtype).float(), vf) / l
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, q_offset: int | None = None,
+                          kv_len: int | None = None,
+                          window: int | None = None) -> torch.Tensor:
+    """What ``flash_attention_pallas(q, k, v, causal=, q_offset=, kv_len=)``
+    computes (`repro` ``kernel.py:86``), in one pass over all keys, with
+    `repro`'s sliding-window mask where ``window`` is given.
+
+    ``kv_len`` defaults to ``Skv`` and ``q_offset`` to ``kv_len - Sq``
+    (queries end-aligned with the real keys)."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    kv_len = Skv if kv_len is None else kv_len
+    q_offset = kv_len - Sq if q_offset is None else q_offset
+    o = _plain(q.float(), k.float(), v.float(), v.dtype, causal=causal,
+               q_offset=q_offset, kv_len=kv_len, window=window)
+    return o.to(q.dtype)
+
+
+def key_range(q0: int, q1: int, *, causal: bool, q_offset: int, kv_len: int,
+              window: int | None) -> tuple[int, int]:
+    """The keys [lo, hi) that queries q0..q1−1 can see."""
+    hi = min(kv_len, q_offset + q1) if causal else kv_len
+    lo = max(0, q_offset + q0 - window + 1) if window is not None else 0
+    return lo, max(lo, hi)
+
+
+BACKWARD_SCORES = 2**27   # score elements a block of the backward holds
+
+
+def _plain_grads(qf, kf, vf, dof, p_dtype, *, causal, q_offset, kv_len,
+                 window):
+    """dq, dk, dv (fp32) of `_plain` at fp32 q, k, v for the fp32 output
+    gradient ``dof``, written out: with s the masked scaled scores, p =
+    exp(s − max s), l = Σp, p̃ = p rounded to ``p_dtype`` and o = p̃ v / l,
+
+        dv = (p̃ / l)ᵀ dO,   dp = (dO vᵀ − Σ p̃ ∘ dO vᵀ / l) / l,
+        ds = p ∘ dp (0 where masked),   dq = ds k · scale,   dk = dsᵀ q · scale,
+
+    the rounding of p passed straight through, as autograd passes it.
+    Autograd through `_plain` also sends a gradient through the row max,
+    which is zero where p̃ = p (fp32) and of p's rounding in bf16."""
+    B, Sq, H, D = qf.shape
+    Skv, Hkv = kf.shape[1], kf.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qg = qf.reshape(B, Sq, Hkv, H // Hkv, D)
+    dog = dof.reshape(B, Sq, Hkv, H // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    valid = _visible(Sq, Skv, q_offset, kv_len, causal, window, qf.device)
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.exp(s.sub_(s.amax(-1, keepdim=True)))
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    pr = p.to(p_dtype).float() if p_dtype != torch.float32 else p
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)          # dO vᵀ
+    c = (pr * dp).sum(-1, keepdim=True) / l
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", pr / l, dog)
+    ds = dp.sub_(c).mul_(p).div_(l).masked_fill_(~valid, 0.0)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(B, Sq, H, D)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    return dq * scale, dk * scale, dv
+
+
+def _block_rows(B, H, Sq, kv_keys, window) -> int:
+    """Query rows a backward block takes: its scores (B · H · rows · the
+    keys it sees) within ``BACKWARD_SCORES``; with a window a block of r
+    rows sees at most r + window keys."""
+    budget = BACKWARD_SCORES // (B * H)
+    rows = max(1, budget // max(1, kv_keys))
+    if window is not None:
+        while rows < Sq and 2 * rows * min(kv_keys, 2 * rows + window) <= budget:
+            rows *= 2
+    return min(rows, Sq)
+
+
+def flash_attention_grads(q, k, v, dout, *, causal: bool, q_offset: int,
+                          kv_len: int, window: int | None = None):
+    """dq, dk, dv of `flash_attention_plain` at (q, k, v) for the output
+    gradient ``dout``: the attention recomputed in fp32 over blocks of
+    queries, each over the keys it can see (`key_range`), and its
+    gradient written out (`_plain_grads`); dk and dv are summed over the
+    blocks in fp32 and each gradient is cast once to its input's type.  A
+    block holds at most ``BACKWARD_SCORES`` scores."""
+    B, Sq, H, D = q.shape
+    rows = _block_rows(B, H, Sq, min(kv_len, k.shape[1]), window)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for q0 in range(0, Sq, rows):
+        q1 = min(Sq, q0 + rows)
+        lo, hi = key_range(q0, q1, causal=causal, q_offset=q_offset,
+                           kv_len=kv_len, window=window)
+        if hi == lo:                           # no key: no gradient
+            continue
+        gq, gk, gv = _plain_grads(
+            q[:, q0:q1].float(), k[:, lo:hi].float(), v[:, lo:hi].float(),
+            dout[:, q0:q1].float(), v.dtype, causal=causal,
+            q_offset=q_offset + q0 - lo, kv_len=hi - lo, window=window)
+        dq[:, q0:q1] = gq
+        dk[:, lo:hi] += gk
+        dv[:, lo:hi] += gv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

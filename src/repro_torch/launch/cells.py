@@ -1,6 +1,8 @@
-"""The recsys serving steps of `repro.launch.cells._recsys_cell`, as plain
-functions on one device.
+"""The steps of `repro.launch.cells`, as plain functions on one device.
 
+* :func:`lm_train_step` — ``_lm_train_cell``'s step: gradient accumulation
+  over microbatches, then AdamW with ``OPT_CFG``;
+* :func:`recsys_train_step` — ``_recsys_cell``'s ``train`` step;
 * :func:`recsys_serve_topk` — the ``serve`` cells (``serve_p99``,
   ``serve_bulk``): each user's top-k items over the whole catalog, the
   users in chunks of at most ``user_chunk`` and the table streamed in
@@ -26,7 +28,60 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.recsys.sasrec import SASRec, SASRecConfig
+from repro_torch.models import transformer as T
+from repro_torch.models.common import tree_map
+from repro_torch.models.recsys.sasrec import (
+    SASRec,
+    SASRecConfig,
+    sasrec_train_loss,
+)
+from repro_torch.train.optimizer import AdamWConfig, adamw_update
+from repro_torch.train.train_loop import value_and_grad
+
+OPT_CFG = AdamWConfig(lr=1e-4)
+
+
+def lm_train_step(cfg: T.LMConfig, params: dict, opt_state: dict,
+                  batch: dict, *, microbatch: int = 1):
+    """`repro`'s ``_lm_train_cell`` step body: batch ``tokens``/``labels``
+    (B, S) split into ``microbatch`` microbatches of B / microbatch rows
+    (activations live for one microbatch), the losses and fp32 gradients
+    summed in microbatch order and divided by the count, then
+    `adamw_update` with ``OPT_CFG``.  Returns (params, opt_state, loss)."""
+    vg = value_and_grad(lambda p, b: T.loss_fn(cfg, p, b))
+    if microbatch > 1:
+        B = batch["tokens"].shape[0]
+        if B % microbatch:
+            raise ValueError(f"batch {B} is not a multiple of microbatch "
+                             f"{microbatch}")
+        mb = B // microbatch
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=batch["tokens"].device)
+        grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                               device=p.device), params)
+        for i in range(microbatch):
+            l, g = vg(params, {k: v[i * mb:(i + 1) * mb]
+                               for k, v in batch.items()})
+            loss = loss + l
+            tree_map(lambda s, x: s.add_(x), grads, g)   # gsum + g, in place
+            del g
+        loss = loss / microbatch
+        grads = tree_map(lambda g: g / microbatch, grads)
+    else:
+        loss, grads = vg(params, batch)
+    params, opt_state, _ = adamw_update(OPT_CFG, grads, opt_state, params)
+    return params, opt_state, loss
+
+
+def recsys_train_step(cfg: SASRecConfig, params: dict, opt_state: dict,
+                      batch: dict):
+    """`repro`'s ``_recsys_cell`` ``train`` step: `sasrec_train_loss`'s
+    value and gradient, then `adamw_update` with ``OPT_CFG``.  Returns
+    (params, opt_state, loss)."""
+    loss, grads = value_and_grad(
+        lambda p, b: sasrec_train_loss(cfg, p, b))(params, batch)
+    params, opt_state, _ = adamw_update(OPT_CFG, grads, opt_state, params)
+    return params, opt_state, loss
 
 
 def recsys_serve_topk(cfg: SASRecConfig, model: SASRec,

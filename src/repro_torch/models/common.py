@@ -1,5 +1,5 @@
 """Shared model building blocks: init helpers, RMSNorm, LayerNorm, parameter
-trees.
+trees (`tree_map`, `tree_leaves` in JAX's order, `tree_cast`).
 
 Ports of `repro.models.common`.  The init functions take an explicit
 `torch.Generator` (their tensors are made on its device); `jax.random` and
@@ -54,15 +54,45 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y.to(x.dtype) * gamma.to(x.dtype) + beta.to(x.dtype)
 
 
-def _leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list/tuple tree in JAX's flattening
+    order (dict keys sorted); ``None`` is an empty subtree, as in JAX."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [] if tree is None else [tree]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure with its leaves replaced, in JAX's order (as
+    `tree_leaves` lists them), by the items of ``leaves``."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return None if t is None else next(it)
+
+    return build(like)
+
+
+def tree_map(fn, tree, *rest):
+    """``jax.tree_util.tree_map`` over nested dicts, lists and tuples: ``fn``
+    of each leaf of ``tree`` and the leaves at the same place in ``rest``
+    (trees of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
 
 
 def tree_cast(tree, dtype):
@@ -77,8 +107,8 @@ def tree_cast(tree, dtype):
 
 
 def count_params(tree) -> int:
-    return sum(t.numel() for t in _leaves(tree))
+    return sum(t.numel() for t in tree_leaves(tree))
 
 
 def param_bytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))

@@ -1,5 +1,5 @@
 """RecSys: the embedding bag and the SASRec sequential recommender
-(serving; `sasrec_train_loss` waits for the training slice)."""
+(serving and training)."""
 
 from repro_torch.models.recsys.embedding import embedding_bag
 from repro_torch.models.recsys.sasrec import (
@@ -7,8 +7,10 @@ from repro_torch.models.recsys.sasrec import (
     SASRecConfig,
     init_sasrec,
     sasrec_score_candidates,
+    sasrec_train_loss,
     sasrec_user_state,
 )
 
 __all__ = ["embedding_bag", "SASRec", "SASRecConfig", "init_sasrec",
-           "sasrec_score_candidates", "sasrec_user_state"]
+           "sasrec_score_candidates", "sasrec_train_loss",
+           "sasrec_user_state"]

@@ -1,5 +1,5 @@
 """SASRec (Kang & McAuley, arXiv:1808.09781): self-attentive sequential
-recommendation, for serving.  Port of `repro.models.recsys.sasrec`.
+recommendation.  Port of `repro.models.recsys.sasrec`.
 
 The final hidden state is the user representation; candidates are scored
 by dot product against the item embeddings.  Both table lookups go through
@@ -12,11 +12,19 @@ scores are -1e30 (not -inf), so a left-padded query whose keys are all
 masked gets a uniform softmax and is then zeroed by the mask, as in
 `repro`.
 
-Differences from `repro` by design: the parameters live in a `SASRec`
-module (the stacked block tensors as `repro` stacks them), and
+Training: `sasrec_train_loss` (next-item prediction, one sampled
+negative per positive, `repro`'s objective) over `init_sasrec`'s parameter
+tree, whose leaves may require gradients.  Its three lookups (the item
+sequence, the positives, the negatives) run on K5's autograd function,
+whose backward is K5 on the transposed problem: a dense table gradient
+summed in a fixed order.  The serving `SASRec` module and the tree share
+one copy of the math (`user_state`).
+
+Differences from `repro` by design: for serving the parameters live in a
+`SASRec` module (the stacked block tensors as `repro` stacks them), and
 `sasrec_user_state` / `sasrec_score_candidates` take it in place of the
-parameter tree.  `repro`'s `ShardRules` is an identity on one device and is
-not ported; `sasrec_train_loss` waits for the training slice.
+parameter tree (`user_state` takes the tree).  `repro`'s `ShardRules` is
+an identity on one device and is not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
@@ -114,29 +123,22 @@ class SASRec(nn.Module):
         self.final_ln_g = param(params["final_ln_g"])
         self.final_ln_b = param(params["final_ln_b"])
 
+    def tree(self) -> dict:
+        """The weights as `init_sasrec`'s tree (the module's tensors)."""
+        return {"item_embed": self.item_embed, "pos_embed": self.pos_embed,
+                "blocks": dict(self.blocks), "final_ln_g": self.final_ln_g,
+                "final_ln_b": self.final_ln_b}
+
     def lookup(self, ids: torch.Tensor, weight: float) -> torch.Tensor:
         """``weight · item_embed[ids]`` for ids (N,) → (N, d): N bags of one
         row each on K5."""
-        n = ids.shape[0]
-        dev = self.item_embed.device
-        segments = torch.arange(n, dtype=torch.int32, device=dev)
-        weights = torch.full((n,), weight, dtype=torch.float32, device=dev)
-        return embedding_bag(self.item_embed, ids.to(torch.int32), segments,
-                             n, weights=weights, prefer=self.bag_prefer)
+        return lookup(self.item_embed, ids, weight, prefer=self.bag_prefer)
 
     def user_state(self, item_seq: torch.Tensor) -> torch.Tensor:
         """item_seq (B, S) int (0 = pad) → per-position user states (B, S,
         d)."""
-        cfg = self.cfg
-        B, S = item_seq.shape
-        d = cfg.embed_dim
-        mask = (item_seq > 0).to(cfg.dtype)
-        x = self.lookup(item_seq.reshape(-1), math.sqrt(d)).reshape(B, S, d)
-        x = x + self.pos_embed[None, :S]
-        x = x * mask[:, :, None]
-        for i in range(cfg.n_blocks):
-            x = _block(cfg, {k: v[i] for k, v in self.blocks.items()}, x, mask)
-        return layer_norm(x, self.final_ln_g, self.final_ln_b)
+        return user_state(self.cfg, self.tree(), item_seq,
+                          bag_prefer=self.bag_prefer)
 
     def score_candidates(self, item_seq: torch.Tensor,
                          candidates: torch.Tensor) -> torch.Tensor:
@@ -144,6 +146,54 @@ class SASRec(nn.Module):
         h = self.user_state(item_seq)[:, -1]               # (B, d)
         ce = self.lookup(candidates, 1.0)                  # (N_c, d)
         return h @ ce.T
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor, weight: float, *,
+           prefer: str = "auto") -> torch.Tensor:
+    """``weight · table[ids]`` for ids (N,) → (N, d): N bags of one row each
+    on K5 (differentiable in the table)."""
+    n = ids.shape[0]
+    dev = table.device
+    segments = torch.arange(n, dtype=torch.int32, device=dev)
+    weights = torch.full((n,), weight, dtype=torch.float32, device=dev)
+    return embedding_bag(table, ids.to(torch.int32), segments, n,
+                         weights=weights, prefer=prefer)
+
+
+def user_state(cfg: SASRecConfig, params: dict, item_seq: torch.Tensor, *,
+               bag_prefer: str = "auto") -> torch.Tensor:
+    """`repro`'s ``sasrec_user_state`` over a parameter tree: item_seq (B,
+    S) int (0 = pad) → per-position user states (B, S, d)."""
+    B, S = item_seq.shape
+    d = cfg.embed_dim
+    mask = (item_seq > 0).to(cfg.dtype)
+    x = lookup(params["item_embed"], item_seq.reshape(-1), math.sqrt(d),
+               prefer=bag_prefer).reshape(B, S, d)
+    x = x + params["pos_embed"][None, :S]
+    x = x * mask[:, :, None]
+    for i in range(cfg.n_blocks):
+        x = _block(cfg, {k: v[i] for k, v in params["blocks"].items()}, x,
+                   mask)
+    return layer_norm(x, params["final_ln_g"], params["final_ln_b"])
+
+
+def sasrec_train_loss(cfg: SASRecConfig, params: dict, batch: dict, *,
+                      bag_prefer: str = "auto") -> torch.Tensor:
+    """`repro`'s ``sasrec_train_loss``: batch ``item_seq``, ``pos_items``,
+    ``neg_items`` (B, S) int; −(log σ(h·e⁺) + log σ(−h·e⁻)) over the
+    positions whose positive is not padding, mean over max(count, 1)."""
+    h = user_state(cfg, params, batch["item_seq"], bag_prefer=bag_prefer)
+    B, S, d = h.shape
+    table = params["item_embed"]
+    pe = lookup(table, batch["pos_items"].reshape(-1), 1.0,
+                prefer=bag_prefer).reshape(B, S, d)
+    ne = lookup(table, batch["neg_items"].reshape(-1), 1.0,
+                prefer=bag_prefer).reshape(B, S, d)
+    pos_logit = (h * pe).sum(-1)
+    neg_logit = (h * ne).sum(-1)
+    mask = (batch["pos_items"] > 0).to(cfg.dtype)
+    loss = -(F.logsigmoid(pos_logit) + F.logsigmoid(-neg_logit)) * mask
+    return loss.sum() / mask.sum().clamp_min(1.0)
 
 
 def _block(cfg: SASRecConfig, p: dict, x: torch.Tensor,

@@ -1,18 +1,39 @@
 """Decoder-only transformer LM: GQA + RoPE + RMSNorm + SwiGLU (+ MoE).
 
-Port of `repro.models.transformer` for serving: `forward`, `prefill`,
-`decode_step` and `init_cache`, with `repro`'s layouts at the public
+Port of `repro.models.transformer`, with `repro`'s layouts at the public
 functions — activations (B, S, H, D), the KV cache (L, B, max_seq, Hkv, D)
-and JAX's parameter shapes (stacked per layer) in `init_params`.  The FFN
-of a layer is the dense SwiGLU or, with ``cfg.moe``, the MoE layer of
-`models/moe.py` (`repro`'s ``ffn_block`` dispatch).
+and JAX's parameter shapes (stacked per layer) in `init_params`:
 
-Every attention call, prefill and decode, goes through K6
+* serving: `prefill`, `decode_step` and `init_cache` on a `Transformer`
+  module (weights cast to ``cfg.dtype`` once);
+* training: `loss_fn(cfg, params, batch)` over `init_params`' fp32 master
+  tree, whose leaves may require gradients.
+
+`forward` dispatches on its first argument: ``forward(model, tokens)``
+runs a `Transformer`, ``forward(cfg, params, tokens)`` is `repro`'s
+training forward over the master tree — the embedding lookup on K5
+(`kernels/embedding_bag`, differentiable), each layer cast to
+``cfg.dtype`` inside autograd (`repro`'s ``_cast_layers``), so gradients
+land on the fp32 masters, and with ``cfg.remat`` each layer under
+``torch.utils.checkpoint(..., use_reentrant=False)``, `repro`'s
+``jax.checkpoint(nothing_saveable)``: its forward runs again in the
+backward.  Both paths run the same layer math (`attention_block`,
+`ffn_block`, `rope`) on a layer given as a dict of `repro`'s keys: a
+module's `Layer.tree` or a cast slice of the master tree.  The FFN of a
+layer is the dense SwiGLU or, with ``cfg.moe``, the MoE layer of
+`models/moe.py` (`repro`'s ``ffn_block`` dispatch); `loss_fn` adds no
+load-balancing term, as `repro`'s adds none.
+
+Every attention call, prefill, decode and training, goes through K6
 (`kernels/flash_attention`): on a CUDA tensor the hand-written kernel, on
-a CPU tensor its plain version.  Query head ``h`` reads KV head ``h // G``,
-the mapping of `repro`'s ``jnp.repeat(k, G, axis=2)``; the kernel does it
-natively, with no repeated copy.  Projections, the FFN and the head are
-plain large products (`torch.matmul`), as `repro` leaves them to XLA.
+a CPU tensor its plain version; under autograd its `FlashAttention`
+function, whose backward recomputes the attention in plain torch (by
+design: `repro`'s Pallas kernel has no backward).  With ``cfg.attn ==
+"sliding_window"`` every call passes ``window=cfg.window``.  Query head
+``h`` reads KV head ``h // G``, the mapping of `repro`'s
+``jnp.repeat(k, G, axis=2)``; the kernel does it natively, with no
+repeated copy.  Projections, the FFN and the head are plain large
+products (`torch.matmul`), as `repro` leaves them to XLA.
 
 Differences from `repro` by design:
 
@@ -27,10 +48,9 @@ Differences from `repro` by design:
 * `build_model` draws the weights one layer at a time and casts each
   layer to ``cfg.dtype`` before the next is drawn, so the fp32 masters
   are never held whole: a 30B-parameter model fits one 80 GB card.
-* Not ported: ``moe.impl="shardmap"`` (expert parallelism, slice C3),
-  the sliding-window variant (K6 has no window, like the Pallas kernel),
-  `loss_fn` and remat (the training slice); ``remat`` and ``unroll`` stay
-  as config fields.
+* The training forward walks the layers in a Python loop (`repro` scans
+  over the stack); ``unroll`` stays a config field.
+* Not ported: ``moe.impl="shardmap"`` (expert parallelism, slice C3).
 """
 
 from __future__ import annotations
@@ -40,10 +60,12 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import dense_init, embed_init, rms_norm
-from repro_torch.models.moe import MoE, MoEConfig, init_moe
+from repro_torch.models.common import dense_init, embed_init, rms_norm, tree_cast
+from repro_torch.models.moe import MoE, MoEConfig, init_moe, moe_apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,10 +124,8 @@ def check_supported(cfg: LMConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: moe.impl='shardmap' (expert parallelism) waits "
             "for the sharding slice (ROADMAP C3)")
-    if cfg.attn != "full":
-        raise NotImplementedError(
-            f"{cfg.name}: attn={cfg.attn!r} is not ported; K6, like the "
-            "Pallas kernel, has no sliding window")
+    if cfg.attn not in ("full", "sliding_window"):
+        raise ValueError(f"{cfg.name}: unknown attn={cfg.attn!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -185,6 +205,17 @@ class Layer(nn.Module):
         else:
             self.moe = MoE(p["moe"], dtype)
 
+    def tree(self) -> dict:
+        """The layer under `repro`'s keys, as `attention_block` and
+        `ffn_block` take it (``moe`` is the `MoE` module)."""
+        p = {name: getattr(self, name) for name in
+             ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm")}
+        if hasattr(self, "moe"):
+            p["moe"] = self.moe
+        else:
+            p["ffn"] = {"wi": self.wi, "wg": self.wg, "wo": self.w_down}
+        return p
+
 
 class Transformer(nn.Module):
     """The LM's weights in ``cfg.dtype``, the stacked layers unstacked.
@@ -257,74 +288,152 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
 
 
-def attention_block(model: Transformer, layer: Layer, x: torch.Tensor,
+def attention_block(cfg: LMConfig, p: dict, x: torch.Tensor,
                     pos: torch.Tensor, k_cache: torch.Tensor | None = None,
-                    v_cache: torch.Tensor | None = None, start: int = 0):
-    """Self-attention of x (B, S, d) at positions pos (B, S).
+                    v_cache: torch.Tensor | None = None, start: int = 0, *,
+                    prefer: str = "auto"):
+    """Self-attention of x (B, S, d) at positions pos (B, S); ``p`` holds
+    the layer's ``attn_norm``, ``wq``, ``wk``, ``wv`` and ``wo`` in x's
+    type.
 
     Without a cache, the S queries attend causally over their own keys
     (K6 with ``q_offset=0, kv_len=S``).  With one layer's cache (B,
     max_seq, Hkv, D), K and V are first written into it in place at
     ``start``, and the queries attend over the cache's first ``start + S``
-    rows (``q_offset=start, kv_len=start + S``).  Returns the block's
-    output and this call's K (after rope) and V."""
-    cfg = model.cfg
+    rows (``q_offset=start, kv_len=start + S``).  The sliding-window
+    variant passes ``window=cfg.window`` to every call.  ``prefer`` is
+    K6's dispatch.  Returns the block's output and this call's K (after
+    rope) and V."""
     B, S, d = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    h = rms_norm(x, layer.attn_norm, cfg.norm_eps)
-    q = (h @ layer.wq.reshape(d, H * dh)).view(B, S, H, dh)
-    k = (h @ layer.wk.reshape(d, Hkv * dh)).view(B, S, Hkv, dh)
-    v = (h @ layer.wv.reshape(d, Hkv * dh)).view(B, S, Hkv, dh)
+    window = cfg.window if cfg.attn == "sliding_window" else None
+    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    q = (h @ p["wq"].reshape(d, H * dh)).view(B, S, H, dh)
+    k = (h @ p["wk"].reshape(d, Hkv * dh)).view(B, S, Hkv, dh)
+    v = (h @ p["wv"].reshape(d, Hkv * dh)).view(B, S, Hkv, dh)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
     if k_cache is None:
         out = flash_attention(q, k, v, causal=True, q_offset=0, kv_len=S,
-                              prefer=model.attn_prefer)
+                              window=window, prefer=prefer)
     else:
         k_cache[:, start:start + S] = k
         v_cache[:, start:start + S] = v
         out = flash_attention(q, k_cache, v_cache, causal=True,
                               q_offset=start, kv_len=start + S,
-                              prefer=model.attn_prefer)
-    y = out.reshape(B, S, H * dh) @ layer.wo.reshape(H * dh, d)
+                              window=window, prefer=prefer)
+    y = out.reshape(B, S, H * dh) @ p["wo"].reshape(H * dh, d)
     return y, (k, v)
 
 
-def ffn_block(model: Transformer, layer: Layer, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``silu(h @ wg) * (h @ wi) @ w_down``, silu as ``g *
-    sigmoid(g)`` (each op rounded to x's type, as `jax.nn.silu`); with
-    ``cfg.moe``, the MoE layer on the same normed h."""
-    h = rms_norm(x, layer.ffn_norm, model.cfg.norm_eps)
-    if model.cfg.moe is not None:
-        return layer.moe(h, model.cfg.moe)
-    g = h @ layer.wg
-    return (g * torch.sigmoid(g) * (h @ layer.wi)) @ layer.w_down
+def ffn_block(cfg: LMConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU over ``p["ffn"]`` {wi, wg, wo}: ``silu(h @ wg) * (h @ wi) @
+    wo``, silu as ``g * sigmoid(g)`` (each op rounded to x's type, as
+    `jax.nn.silu`); with ``cfg.moe``, the MoE layer ``p["moe"]`` (a `MoE`
+    module or `init_moe`'s tree) on the same normed h."""
+    h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    if cfg.moe is not None:
+        moe = p["moe"]
+        if isinstance(moe, MoE):
+            return moe(h, cfg.moe)
+        return moe_apply(cfg.moe, moe, h, cfg.dtype)
+    f = p["ffn"]
+    g = h @ f["wg"]
+    return (g * torch.sigmoid(g) * (h @ f["wi"])) @ f["wo"]
 
 
-def _layer(model, layer, x, pos, k_cache=None, v_cache=None, start=0):
-    a, kv = attention_block(model, layer, x, pos, k_cache, v_cache, start)
+def _layer(cfg, p, x, pos, k_cache=None, v_cache=None, start=0, *,
+           prefer="auto"):
+    a, kv = attention_block(cfg, p, x, pos, k_cache, v_cache, start,
+                            prefer=prefer)
     x = x + a
-    return x + ffn_block(model, layer, x), kv
+    return x + ffn_block(cfg, p, x), kv
 
 
-def _logits(model: Transformer, x: torch.Tensor) -> torch.Tensor:
-    x = rms_norm(x, model.final_norm, model.cfg.norm_eps)
-    return x @ model.head
+def _logits(cfg: LMConfig, final_norm, head, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, final_norm, cfg.norm_eps)
+    return x @ head
 
 
 # ---------------------------------------------------------------------------
-# Forward passes and serving (KV cache)
+# Forward passes: the module (serving) and the master tree (training)
 # ---------------------------------------------------------------------------
 
-def forward(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) → logits (B, S, V)."""
+def forward(model_or_cfg, *args, **kwargs) -> torch.Tensor:
+    """tokens (B, S) → logits (B, S, V): ``forward(model, tokens)`` runs a
+    `Transformer`; ``forward(cfg, params, tokens, *, attn_prefer="auto")``
+    is `repro`'s training forward over the master tree (see the module
+    docstring)."""
+    if isinstance(model_or_cfg, LMConfig):
+        return _forward_params(model_or_cfg, *args, **kwargs)
+    return _forward_model(model_or_cfg, *args, **kwargs)
+
+
+def _forward_model(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
     B, S = tokens.shape
     x = model.embed[tokens]
     pos = torch.arange(S, device=tokens.device).expand(B, S)
     for layer in model.layers:
-        x, _ = _layer(model, layer, x, pos)
-    return _logits(model, x)
+        x, _ = _layer(cfg, layer.tree(), x, pos, prefer=model.attn_prefer)
+    return _logits(cfg, model.final_norm, model.head, x)
 
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]`` (B, S, d) on K5 as bags of one row (weight 1),
+    differentiable: `repro`'s ``jnp.take(embed, tokens, axis=0)``."""
+    B, S = tokens.shape
+    n = B * S
+    seg = torch.arange(n, dtype=torch.int32, device=tokens.device)
+    return embedding_bag(table, tokens.reshape(n).to(torch.int32), seg,
+                         n).view(B, S, table.shape[1])
+
+
+def _train_layer(cfg: LMConfig, p_master: dict, x: torch.Tensor,
+                 pos: torch.Tensor, prefer: str) -> torch.Tensor:
+    """One layer of the training forward: its master slice cast to
+    ``cfg.dtype`` (inside autograd), then the layer."""
+    x, _ = _layer(cfg, tree_cast(p_master, cfg.dtype), x, pos, prefer=prefer)
+    return x
+
+
+def _forward_params(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
+                    attn_prefer: str = "auto") -> torch.Tensor:
+    check_supported(cfg)
+    B, S = tokens.shape
+    x = embed_tokens(params["embed"].to(cfg.dtype), tokens)
+    pos = torch.arange(S, device=tokens.device).expand(B, S)
+    for i in range(cfg.n_layers):
+        p = _layer_slice(params["layers"], i)
+        if cfg.remat:
+            x = checkpoint(_train_layer, cfg, p, x, pos, attn_prefer,
+                           use_reentrant=False)
+        else:
+            x = _train_layer(cfg, p, x, pos, attn_prefer)
+    return _logits(cfg, params["final_norm"], params["head"].to(cfg.dtype), x)
+
+
+def loss_fn(cfg: LMConfig, params: dict, batch: dict, *,
+            attn_prefer: str = "auto") -> torch.Tensor:
+    """`repro`'s ``loss_fn``: next-token cross-entropy of ``batch``'s
+    ``tokens`` against its ``labels`` (both (B, S) int), fp32 logsumexp −
+    gold logit, masked mean by ``batch["mask"]`` (ones if absent) over
+    max(Σmask, 1).  ``attn_prefer`` is K6's dispatch (``"ref"``: the plain
+    attention)."""
+    logits = forward(cfg, params, batch["tokens"],
+                     attn_prefer=attn_prefer).float()
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = logz - gold
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+# ---------------------------------------------------------------------------
+# Serving (KV cache)
+# ---------------------------------------------------------------------------
 
 def init_cache(cfg: LMConfig, batch: int, max_seq: int,
                device=None) -> dict:
@@ -352,10 +461,11 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     x = model.embed[tokens]
     pos = torch.arange(S, device=tokens.device).expand(B, S)
     for i, layer in enumerate(model.layers):
-        x, (k, v) = _layer(model, layer, x, pos)
+        x, (k, v) = _layer(model.cfg, layer.tree(), x, pos,
+                           prefer=model.attn_prefer)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
-    return _logits(model, x[:, -1:]), cache
+    return _logits(model.cfg, model.final_norm, model.head, x[:, -1:]), cache
 
 
 def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
@@ -374,5 +484,6 @@ def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
     x = model.embed[tokens]
     posb = torch.full((B, 1), pos, device=tokens.device)
     for i, layer in enumerate(model.layers):
-        x, _ = _layer(model, layer, x, posb, cache["k"][i], cache["v"][i], pos)
-    return _logits(model, x), cache
+        x, _ = _layer(model.cfg, layer.tree(), x, posb, cache["k"][i],
+                      cache["v"][i], pos, prefer=model.attn_prefer)
+    return _logits(model.cfg, model.final_norm, model.head, x), cache

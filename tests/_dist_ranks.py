@@ -141,3 +141,12 @@ def case_post_chain(graph, raw, nparts, weights, post, post_kw,
                 counters=root.total_counters(),
                 k4=ss_cuda.BATCHED_LAUNCHES - before,
                 stages=[r.info["stages"] for r in records])
+
+
+def case_compressed_psum(xs):
+    """`compressed_psum` of this rank's row of ``xs`` across the default
+    group."""
+    from repro_torch.train.grad_compression import compressed_psum
+
+    x = torch.from_numpy(xs[dist.get_rank()])
+    return compressed_psum(x, dist.group.WORLD).numpy()

@@ -28,7 +28,10 @@ card to the CPU run label for label.  K5, the embedding bag, is held to its plai
 relative to the bag's Σ|w·row| (fp32 1e-5: the plain version adds with
 atomics in another order; bf16 2e-2), and bit for bit on bags of one in
 fp32; the smoke SASRec on the card to the CPU run: user states within
-1e-5, streamed top-100 ids identical.
+1e-5, streamed top-100 ids identical.  Training: K6 with a sliding window
+on its three routes against the plain mask; K6's and K5's gradients
+against autograd through their plain versions, K5's bit-identical twice;
+a smoke LM and a smoke SASRec train step bit-identical twice.
 """
 
 import re
@@ -493,6 +496,169 @@ def test_flash_attention_decode_on_two_streams(card):
             np.testing.assert_allclose(got.float().cpu().numpy(),
                                        want.numpy(),
                                        **_FLASH_TOL[torch.bfloat16])
+
+
+# The sliding window on K6's three routes: (B, Sq, Skv, H, Hkv, D,
+# q_offset, kv_len, window).  Windows whose lower edge falls mid-tile, on a
+# tile edge, of one key, past every key; the bf16 prefill at D = 64 and
+# 128 (wgmma) and 16 (mma.sync); a continuation over a cached prefix; the
+# decode route far into a cache (its splits cut [kv_start, kv_end)), at G
+# = 1 over 16 positions, and a window that reaches every key.
+WINDOW_CASES = {
+    "prefill_w64": (2, 300, 300, 32, 4, 64, None, None, 64),
+    "prefill_w100": (1, 333, 333, 16, 4, 64, None, None, 100),
+    "prefill_w1": (1, 70, 70, 8, 2, 32, None, None, 1),
+    "prefill_d128_w129": (1, 300, 300, 16, 2, 128, None, None, 129),
+    "prefill_d16_w37": (2, 70, 70, 8, 1, 16, None, None, 37),
+    "continuation_w200": (1, 128, 700, 32, 4, 64, 512, 640, 200),
+    "decode_w4096": (1, 1, 8192, 32, 4, 64, 8191, 8192, 4096),
+    "decode_w65": (2, 1, 640, 32, 4, 64, 576, 577, 65),
+    "decode_g1_sq16_w30": (2, 16, 300, 4, 4, 32, 184, 200, 30),
+    "decode_w_all": (1, 1, 600, 32, 4, 64, 550, 551, 10**6),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(WINDOW_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_window_on_card(card, case, dtype):
+    """K6 with a sliding window against the plain version's mask."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    B, Sq, Skv, H, Hkv, D, q_offset, kv_len, window = WINDOW_CASES[case]
+    rng = np.random.default_rng(21)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(card, dtype)
+               for s in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    kw = dict(causal=True, q_offset=q_offset, kv_len=kv_len, window=window)
+    before = fa_cuda.LAUNCHES
+    got = fa_ops.flash_attention(q, k, v, prefer="cuda", **kw)
+    torch.cuda.synchronize()
+    assert fa_cuda.LAUNCHES == before + 1
+    want = fa_ref.flash_attention_plain(q, k, v, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **_FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_grad_on_card(card, dtype, window):
+    """dq, dk, dv through K6's autograd function (the kernel's forward, the
+    plain recompute's backward) against autograd through the plain
+    version on the card: the same plain gradient, summed over the
+    backward's query blocks in another order (fp32 1e-5, bf16 2e-2 of each
+    gradient's max)."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B, S, H, Hkv, D = 2, 256, 32, 4, 64
+    rng = np.random.default_rng(22)
+    arrays = [rng.normal(size=s).astype(np.float32) for s in
+              ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D), (B, S, H, D))]
+
+    def grads(prefer):
+        q, k, v = (torch.from_numpy(a).to(card, dtype).requires_grad_()
+                   for a in arrays[:3])
+        out = fa_ops.flash_attention(q, k, v, causal=True, window=window,
+                                     prefer=prefer)
+        out.backward(torch.from_numpy(arrays[3]).to(card, dtype))
+        return [t.grad.float().cpu() for t in (q, k, v)]
+
+    before = fa_cuda.LAUNCHES
+    got = grads("auto")
+    assert fa_cuda.LAUNCHES == before + 1
+    want = grads("ref")
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_grad_on_card(card, dtype):
+    """K5's backward (K5 on the transposed problem) against autograd through
+    the plain version in fp32 on the same values (fp32 1e-5, bf16 2e-2 of
+    the gradient's max: the plain backward adds with atomics in another
+    order), two backward passes bit-identical, rows no entry reads
+    zero."""
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+
+    rng = np.random.default_rng(23)
+    V, d, nnz, n_bags = 5000, 50, 40000, 3000
+    table = rng.normal(size=(V, d)).astype(np.float32)
+    idx = torch.from_numpy(rng.zipf(1.2, nnz) % (V - 100)).to(card)
+    seg = torch.from_numpy(np.sort(rng.integers(0, n_bags, nnz))).to(card)
+    w = torch.from_numpy(rng.normal(size=nnz).astype(np.float32)).to(card)
+    dout = torch.from_numpy(rng.normal(size=(n_bags, d)).astype(np.float32)
+                            ).to(card, dtype)
+
+    def grad(prefer):
+        t = torch.from_numpy(table).to(card, dtype).requires_grad_()
+        eb_ops.embedding_bag(t, idx, seg, n_bags, weights=w,
+                             prefer=prefer).backward(dout)
+        return t.grad
+
+    before = eb_cuda.LAUNCHES
+    g1, g2 = grad("auto"), grad("auto")
+    torch.cuda.synchronize()
+    assert eb_cuda.LAUNCHES == before + 4        # forward + backward, twice
+    assert torch.equal(g1, g2)
+    assert float(g1[V - 100:].abs().max()) == 0.0
+    # the plain version's autograd in fp32 (in bf16 its atomics add into
+    # the bf16 gradient one entry at a time, far coarser than K5's sum)
+    table32 = torch.from_numpy(table).to(card, dtype).float().requires_grad_()
+    eb_ops.embedding_bag(table32, idx, seg, n_bags, weights=w.to(dtype),
+                         prefer="ref").backward(dout.float())
+    want = table32.grad
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert float((g1.float() - want).abs().max()) <= tol * float(
+        want.abs().max())
+
+
+@pytest.mark.cuda
+def test_train_steps_on_card_are_bit_identical(card):
+    """Two identical train steps from one state give the same bits on the
+    card: the smoke LM (fp32, two microbatches; K6 forward twice a layer
+    and microbatch under remat, K5 forward and backward a microbatch) and
+    the smoke SASRec (three K5 lookups and their backward)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import recsys_batches, token_batches
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.launch.cells import lm_train_step, recsys_train_step
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.recsys import init_sasrec
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = get_arch("tinyllama-1.1b").make_smoke_config()
+    params = tt.init_params(cfg, torch.Generator(device=card).manual_seed(0))
+    batch = {k: v.to(card) for k, v in next(token_batches(
+        4, 32, cfg.vocab)).items()}
+    runs = []
+    for _ in range(2):
+        k6, k5 = fa_cuda.LAUNCHES, eb_cuda.LAUNCHES
+        runs.append(lm_train_step(cfg, params, adamw_init(params), batch,
+                                  microbatch=2))
+        assert fa_cuda.LAUNCHES - k6 == 2 * cfg.n_layers * 2
+        assert eb_cuda.LAUNCHES - k5 == 2 * 2
+    assert torch.equal(runs[0][2], runs[1][2])
+    for a, b in zip(tree_leaves(runs[0][0]), tree_leaves(runs[1][0])):
+        assert torch.equal(a, b)
+
+    scfg = get_arch("sasrec").make_smoke_config()
+    sp = init_sasrec(scfg, torch.Generator(device=card).manual_seed(1))
+    sb = {k: v.to(card) for k, v in next(recsys_batches(
+        64, scfg.seq_len, scfg.n_items, seed=2)).items()}
+    s1 = recsys_train_step(scfg, sp, adamw_init(sp), sb)
+    s2 = recsys_train_step(scfg, sp, adamw_init(sp), sb)
+    assert torch.equal(s1[2], s2[2])
+    for a, b in zip(tree_leaves(s1[0]), tree_leaves(s2[0])):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

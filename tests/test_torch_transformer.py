@@ -215,14 +215,10 @@ def test_init_params_layout_and_counts():
 
 
 def test_unported_configs_raise():
-    from repro_torch.configs.tinyllama_1_1b import make_sliding_window_config
-
     moe = dataclasses.replace(port_config(CONFIGS["tiny"]), moe=mt.MoEConfig(
         n_experts=4, top_k=2, d_ff_expert=16, impl="shardmap"))
     with pytest.raises(NotImplementedError, match="C3"):
         tt.init_params(moe, torch.Generator())
-    with pytest.raises(NotImplementedError, match="sliding"):
-        tt.check_supported(make_sliding_window_config())
     with pytest.raises(KeyError, match="not ported yet.*C3"):
         get_arch("mistral-large-123b")
     with pytest.raises(KeyError, match="unknown arch"):

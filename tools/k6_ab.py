@@ -9,13 +9,15 @@ process of its own, in the order given, so a comparison of two commits on
 one card reads ``parent change change parent``.  Each prints one JSON line:
 the root, and for the bf16 cases ``prefill``, ``long_prefill``,
 ``continuation``, ``decode`` and ``long_decode`` of chip_smoke.py's
-FLASH_CASES the profiler's device ms per launch of the K6 kernel and the
-kernel's name.  Each checkout builds its own K6 library under its own
+FLASH_CASES the profiler's device ms per launch of the K6 kernel, the
+kernel's name and a digest of the output's bits (two checkouts whose
+digests agree gave the same output).  Each checkout builds its own K6 library under its own
 ``build/``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -51,10 +53,12 @@ def one(root: str) -> dict:
             return fa.flash_attention_cuda(q, k, v, causal=causal,
                                            q_offset=qo, kv_len=kl)
 
-        call()
+        o = call()
         torch.cuda.synchronize()
+        digest = hashlib.sha256(o.view(torch.int16).cpu().numpy().tobytes())
         ms, _, name = cs.profiled_ms(call, "flash_attention_kernel")
-        out[case] = {"dev_ms": ms, "kernel": name}
+        out[case] = {"dev_ms": ms, "kernel": name,
+                     "digest": digest.hexdigest()[:16]}
     return out
 
 

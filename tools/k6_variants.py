@@ -127,7 +127,7 @@ def main(argv: list[str]) -> int:
     fns = {}
     for name, lib in libs.items():
         fn = ctypes.CDLL(str(lib)).flash_attention_fwd
-        fn.argtypes = [ptr] * 4 + [i32] * 7 + [i64] * 9 + [i32] * 3 \
+        fn.argtypes = [ptr] * 4 + [i32] * 7 + [i64] * 9 + [i32] * 4 \
             + [ctypes.c_float, ptr, ptr, i32, ptr]
         fn.restype = ctypes.c_int
         fns[name] = fn
@@ -159,7 +159,7 @@ def main(argv: list[str]) -> int:
                 rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                         1, B, Sq, Skv, H, Hkv, D, *q.stride()[:3],
                         *k.stride()[:3], *v.stride()[:3], qo, kl, int(causal),
-                        1.0 / math.sqrt(D), ws.data_ptr(), counters.data_ptr(),
+                        0, 1.0 / math.sqrt(D), ws.data_ptr(), counters.data_ptr(),
                         n, stream)
                 if rc != 0:
                     raise RuntimeError(f"variant {name}: CUDA error {rc}")
