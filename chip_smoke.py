@@ -130,8 +130,13 @@ Phases, each printing JSON lines:
    (bit-equal on integer-valued floats, 1e-6 otherwise); (f)
    ``fiedler_pair_from_graph`` on the quality mesh's dual graph on the
    card (K1 launches > 0, counted from 0 just before) against the CPU's
-   (λ₂, λ₃ within 1e-4, the pair's span cos ≥ 0.999).  A rank that fails
-   fails the phase.  Under ``--quick`` the full-width inputs are RCB labels
+   (λ₂, λ₃ within 1e-4, the pair's span cos ≥ 0.999); (g) the halo
+   GraphCast at full width (16 × 512, 227 vars, recompute on) on
+   ``stencil_graph_3d(16, 16, 16)`` split by the RSB ``default`` preset
+   into 4 parts (NCCL: one shard): every rank's forward block, loss and
+   all-reduced gradients against the one-process full-graph run on the
+   card (1e-4 of max), the ranks' gradients bit-equal, the plan's words
+   per feature beside an RCB plan's.  A rank that fails fails the phase.  Under ``--quick`` the full-width inputs are RCB labels
    of the box with 0.2% moved at random and their one-process chains.
 7b. ``full_multilevel`` — the ``multilevel`` preset (host V-cycle, no
    kernel: launches checked 0) on the same box into 64 parts: seconds per
@@ -315,6 +320,31 @@ Phases, each printing JSON lines:
     first state: the same bits; (c) the smoke config, one step, card
     against CPU (loss and params ≤ 1e-5).  Every check runs before the
     phase fails.
+
+13. ``gnn`` — the four GNNs of `repro` at their published widths (fp32,
+    AdamW with ``OPT_CFG``, seeded parameters) through
+    `launch.cells.gnn_train_step`: `meshgraphnet` (15 × 128) and
+    `graphcast` (16 × 512, 227 vars) on ``full_graph_sm`` (``rmat_graph(
+    2708, 5278)``, d_feat 1,433, padded to 10,556 edge slots) and
+    ``minibatch_lg`` (`sample_neighbors` of 1,024 seeds, fan-out (15, 10),
+    from ``rmat_graph(232965, 2000000)`` — the parent cut from 114.6M
+    edges; the static capacity 169,984 × 168,960, d_feat 602), `nequip` (5
+    × 32) and `mace` (2 × 128, ν 3) on ``molecule`` (128 × 30 atoms, 8,192
+    edges): one unrecorded step and 3 timed (median), peak memory,
+    ``gnn_model_flops`` over the step against 67 TFLOP/s, whether
+    GraphCast recomputed its layers at ``minibatch_lg`` (the peak without
+    recompute at 2 and 4 layers extrapolated to 16, against 70 GB).
+    Checks: (a) the loss falls over the 4 steps (one cell an arch); (b)
+    two identical steps give the same bits (`meshgraphnet` at
+    ``minibatch_lg``, `mace`); (c) each smoke config, one step, card
+    against CPU ≤ 1e-5; (d) `nequip` and `mace` energies at full width
+    unchanged under a rotation and a translation (rtol 1e-4, atol 1e-3);
+    (e) the ordered sum and `gather`'s backward against ``index_add_`` at
+    ``minibatch_lg``'s destinations and sources, d 128 and 512: ≤ 1e-5 of
+    Σ|terms|, the same bits twice, both device ms beside the bytes bound;
+    (f) one GraphCast ``minibatch_lg`` step profiled: device ms, kernels,
+    the top eight, the takes' and the sums' shares.  Every check runs
+    before the phase fails.  No kernel of the port lies on this path.
 
 Then ``done`` (the script's seconds), the line ``{"kernels": [...]}``
 (every ported kernel: launches on its
@@ -1702,9 +1732,9 @@ def dist_rank(payload) -> dict:
     """What one rank of the dist phase runs, each case on its card across
     the default group: the post chains of ``run_sharded`` (``smoke``, and
     the two sharded ones of ``full`` at full width, guarded), the halo matvec (``matvec``), the
-    distributed GS Laplacian (``gs``: this rank's block of elements) and
-    the ring (``ring``: ``ring_allreduce`` and ``all_reduce`` of this
-    rank's vectors)."""
+    distributed GS Laplacian (``gs``: this rank's block of elements), the
+    ring (``ring``: ``ring_allreduce`` and ``all_reduce`` of this rank's
+    vectors) and the halo GraphCast (``halo``: `halo_rank`)."""
     import torch.distributed as dist
 
     from repro_torch.dist import (adjacency_matvec_distributed,
@@ -1760,7 +1790,132 @@ def dist_rank(payload) -> dict:
             out["ring"][kind] = (
                 ring_allreduce(x, None).cpu().numpy(),
                 dist_group.all_reduce_sum(x, dist.group.WORLD).cpu().numpy())
+    if "halo" in payload:
+        out["halo"] = halo_rank(payload["halo"])
     return out
+
+
+GNN_HALO_SIDE = 16             # dist (g): stencil_graph_3d(16, 16, 16)
+GNN_HALO_TOL = 1e-4            # dist (g): of max|out|, of each leaf's max
+
+
+def halo_rank(payload) -> dict:
+    """Dist case (g) on one rank: the full-width halo GraphCast on this
+    rank's shard of the payload's plan, its loss differentiated across the
+    group with recompute (five processes share the card: 16 layers' saved
+    activations of the whole graph take ~43 GB) and the gradients
+    all-reduced; the forward block, the loss, a digest of the gradients
+    (rank 0 also returns them), the seconds and the peak memory."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.dist import group as dist_group
+    from repro_torch.dist import plan_halo_sharding
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.gnn.halo import (graphcast_halo_local,
+                                             graphcast_halo_loss,
+                                             halo_batch_from_plan)
+    from repro_torch.train.train_loop import value_and_grad
+
+    g, parts, feat, tgt = payload
+    r, world = dist.get_rank(), dist.get_world_size()
+    dev = dist_group.rank_device(None)
+    plan = plan_halo_sharding(g, parts, world)
+    cfg = gnn_config("graphcast", None)
+    p = tree_map(lambda t: t.to(dev), gnn_init("graphcast", cfg, "cpu"))
+    b = halo_batch_from_plan(plan, feat, tgt, device=dev).shard(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = value_and_grad(
+        lambda q, bb: graphcast_halo_loss(cfg, q, bb, remat=True))(p, b)
+    grads = tree_map(lambda x: dist_group.all_reduce_sum(x, dist.group.WORLD),
+                     grads)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        pred = graphcast_halo_local(cfg, p, b)
+    leaves = [x.cpu().numpy() for x in tree_leaves(grads)]
+    digest = hashlib.sha1(b"".join(x.tobytes() for x in leaves)).hexdigest()
+    return dict(pred=pred.cpu().numpy(), loss=float(loss), digest=digest,
+                grads=leaves if r == 0 else None, seconds=seconds,
+                max_memory_allocated=peak, halo=plan.halo)
+
+
+def halo_inputs():
+    """Dist case (g)'s graph, its RSB ``default`` labels (4 parts, on the
+    card), an RCB plan's labels beside them, and seeded features and
+    targets at GraphCast's published width."""
+    from repro_torch.configs.parrsb import make_pipeline
+    from repro_torch.core.rcb import rcb_parts
+    from repro_torch.mesh import grid_coords_3d, stencil_graph_3d
+
+    s = GNN_HALO_SIDE
+    g = stencil_graph_3d(s, s, s)
+    coords = grid_coords_3d(s, s, s)
+    t0 = time.perf_counter()
+    rsb = make_pipeline("default", device="cuda").run(
+        g, DIST_WORLD, coords=coords).parts
+    rsb_s = time.perf_counter() - t0
+    rcb = rcb_parts(coords, DIST_WORLD)
+    cfg = gnn_config("graphcast", None)
+    rng = np.random.default_rng(12)
+    feat = rng.normal(size=(g.n, cfg.d_in)).astype(np.float32)
+    tgt = (0.1 * rng.normal(size=(g.n, cfg.n_vars))).astype(np.float32)
+    return g, rsb, rcb, feat, tgt, rsb_s
+
+
+def halo_reference(g, feat, tgt) -> tuple:
+    """The one-process full-graph GraphCast on the card: forward, loss and
+    gradients (NumPy leaves, recompute on), with the ranks' weights."""
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.models.gnn import graphcast_forward, graphcast_loss
+    from repro_torch.models.gnn.common import GraphBatch
+    from repro_torch.train.train_loop import value_and_grad
+
+    cfg = gnn_config("graphcast", None)
+    p = tree_map(lambda t: t.cuda(), gnn_init("graphcast", cfg, "cpu"))
+    b = GraphBatch(node_feat=torch.from_numpy(feat),
+                   edge_src=torch.from_numpy(g.indices.astype(np.int32)),
+                   edge_dst=torch.from_numpy(g.rows.astype(np.int32)),
+                   node_mask=torch.ones(g.n), edge_mask=torch.ones(g.nnz),
+                   targets=torch.from_numpy(tgt)).to("cuda")
+    with torch.no_grad():
+        out = graphcast_forward(cfg, p, b).cpu().numpy()
+    loss, grads = value_and_grad(lambda q, bb: graphcast_loss(
+        cfg, q, bb, remat=True))(p, b)
+    return out, float(loss), [x.cpu().numpy() for x in tree_leaves(grads)]
+
+
+def halo_check(backend, ranks, g, parts, ref) -> dict:
+    """Every rank of one group held to the one-process reference."""
+    from repro_torch.dist import plan_halo_sharding
+
+    out, loss, grads = ref
+    plan = plan_halo_sharding(g, parts, len(ranks))
+    scale = float(np.abs(out).max())
+    fwd = []
+    for r, rk in enumerate(ranks):
+        rows = np.flatnonzero(plan.shard_of == r)
+        got = rk["halo"]["pred"][plan.slot_of[rows]]
+        fwd.append(float(np.abs(got - out[rows]).max()) / scale)
+    loss_gaps = [abs(rk["halo"]["loss"] - loss) / abs(loss) for rk in ranks]
+    grad_gap = max(float(np.abs(a - w).max()) / max(float(np.abs(w).max()),
+                                                     1e-30)
+                   for a, w in zip(ranks[0]["halo"]["grads"], grads))
+    same = len({rk["halo"]["digest"] for rk in ranks}) == 1
+    check(max(fwd) <= GNN_HALO_TOL and max(loss_gaps) <= GNN_HALO_TOL
+          and grad_gap <= GNN_HALO_TOL and same,
+          f"dist {backend} halo GraphCast: forward {fwd}, loss {loss_gaps}, "
+          f"gradients {grad_gap}, digests alike {same}")
+    return dict(forward_gap=fwd, loss_gap=loss_gaps, grad_gap=grad_gap,
+                ranks_agree=same, halo=ranks[0]["halo"]["halo"],
+                collective_words_per_feature=plan.collective_words_per_feature,
+                seconds=[rk["halo"]["seconds"] for rk in ranks],
+                max_memory_allocated=[rk["halo"]["max_memory_allocated"]
+                                      for rk in ranks])
 
 
 def dist_inputs_quick(box):
@@ -1846,8 +2001,13 @@ def phase_dist(smoke, box, full):
     the one-process GS apply (1e-5 of Σ|terms|); (e) the ring against
     ``all_reduce`` (bit-equal on integer-valued floats, 1e-6 otherwise);
     (f) `fiedler_pair_from_graph` on the quality mesh's dual graph on the
-    card, K1 launched, against the CPU (λ within tol, span cos ≥ 0.999).
-    Returns the phase's row."""
+    card, K1 launched, against the CPU (λ within tol, span cos ≥ 0.999);
+    (g) the halo GraphCast at full width on ``stencil_graph_3d(16, 16,
+    16)``, the RSB ``default`` labels into 4 parts (NCCL: one shard): every
+    rank's forward block, loss and all-reduced gradients against the
+    one-process full-graph run on the card (1e-4 of max), the ranks'
+    gradients bit-equal, the plan's words per feature beside an RCB
+    plan's.  Returns the phase's row."""
     from repro_torch.core.gather_scatter import gs_setup, weighted_laplacian
     from repro_torch.core.rcb import rcb_parts
 
@@ -1864,17 +2024,25 @@ def phase_dist(smoke, box, full):
     ring = {"ints": rng.integers(-1000, 1000, (DIST_WORLD, 1 << 16))
             .astype(np.float32),
             "rand": rng.normal(size=(DIST_WORLD, 1 << 16)).astype(np.float32)}
+    hg, h_rsb, h_rcb, h_feat, h_tgt, h_rsb_s = halo_inputs()
+    h_one = np.zeros(hg.n, dtype=np.int64)          # NCCL: one shard
     with contextlib.ExitStack() as ranks_alive:
         gloo = start_ranks(dict(smoke=(sg, sraw, sw), full=(fg, fraw, fw),
                                 matvec=(fg, rcb_parts(box.coords, DIST_WORLD,
                                                       box.weights), x_mv),
-                                gs=gs_payload, ring=ring), DIST_WORLD, "gloo")
+                                gs=gs_payload, ring=ring,
+                                halo=(hg, h_rsb, h_feat, h_tgt)),
+                           DIST_WORLD, "gloo")
         ranks_alive.callback(stop_ranks, gloo)
         nccl = start_ranks(dict(smoke=(sg, sraw, sw), gs=gs_payload,
-                                ring={k: v[:1] for k, v in ring.items()}),
+                                ring={k: v[:1] for k, v in ring.items()},
+                                halo=(hg, h_one, h_feat, h_tgt)),
                            1, "nccl")
         ranks_alive.callback(stop_ranks, nccl)
         refs = dist_references(fg, x_mv, L, x_gs)
+        t_ref = time.perf_counter()
+        h_ref = halo_reference(hg, h_feat, h_tgt)
+        h_ref_s = time.perf_counter() - t_ref
         t_wait = time.perf_counter()
         got = {"gloo": join_ranks(gloo), "nccl": join_ranks(nccl)}
         wait_s = time.perf_counter() - t_wait
@@ -1948,6 +2116,17 @@ def phase_dist(smoke, box, full):
                       "differs from all_reduce")
         rb["ring"] = {k: float(np.abs(a - b).max())
                       for k, (a, b) in ranks[0]["ring"].items()}
+        rb["halo"] = halo_check(backend, ranks, hg,
+                                h_rsb if backend == "gloo" else h_one, h_ref)
+    from repro_torch.dist import plan_halo_sharding
+
+    row["halo_graph"] = dict(
+        side=GNN_HALO_SIDE, nodes=hg.n, nnz=hg.nnz, rsb_s=h_rsb_s,
+        reference_s=h_ref_s,
+        rsb_words_per_feature=plan_halo_sharding(
+            hg, h_rsb, DIST_WORLD).collective_words_per_feature,
+        rcb_words_per_feature=plan_halo_sharding(
+            hg, h_rcb, DIST_WORLD).collective_words_per_feature)
     row["pair"] = pair
     row["wait_s"] = wait_s
     row["seconds"] = time.perf_counter() - t_phase
@@ -3997,6 +4176,364 @@ def phase_recsys_train():
     return k5
 
 
+GNN_STEPS = 3                  # measured steps, after one unrecorded
+GNN_REMAT_LIMIT = 70e9         # bytes: GraphCast recomputes its layers above
+GNN_SMOKE_TOL = 1e-5           # (c) loss (relative) and params, card vs CPU
+GNN_ROT_TOL = dict(rtol=1e-4, atol=1e-3)   # (d), tests/test_models_gnn.py's
+GNN_SCATTER_TOL = 1e-5         # (e) of Σ|terms|
+GNN_PARENT = (232_965, 2_000_000)   # minibatch_lg's parent R-MAT (cut)
+GNN_RUNS = (("meshgraphnet", "full_graph_sm"), ("meshgraphnet", "minibatch_lg"),
+            ("graphcast", "full_graph_sm"), ("graphcast", "minibatch_lg"),
+            ("nequip", "molecule"), ("mace", "molecule"))
+GNN_FALL_CELL = {"meshgraphnet": "full_graph_sm", "graphcast": "full_graph_sm",
+                 "nequip": "molecule", "mace": "molecule"}
+GNN_SCATTER_KERNELS = ("segment_reduce", "index_copy")   # (f) the sums
+
+
+def gnn_cell_batches(seed: int = 0) -> dict:
+    """The GNN cells' host batches: ``full_graph_sm`` (``rmat_graph(2708,
+    5278)`` by `gnn_full_batch`, d_feat 1,433, padded to 10,556 edge slots
+    with masked slots at node 0, as ``_gnn_batch_abstract`` pads),
+    ``minibatch_lg`` (`sample_neighbors` of 1,024 seeds, fan-out (15, 10),
+    from ``rmat_graph(*GNN_PARENT)``, at the static capacity 169,984 ×
+    168,960, d_feat 602: features and targets drawn for the sampled
+    nodes, column 0 their normalised parent degree) and ``molecule``
+    (``molecule_batches(128, 30, 64)``).  Node targets are drawn 227 wide
+    (GraphCast's n_vars); MeshGraphNet takes the first 3."""
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.data.synthetic import gnn_full_batch, molecule_batches
+    from repro_torch.mesh.graphs import rmat_graph
+    from repro_torch.models.gnn.common import GraphBatch
+    from repro_torch.models.gnn.sampler import sample_neighbors
+
+    t0 = time.perf_counter()
+    out = {}
+    sm = GNN_SHAPES["full_graph_sm"]
+    g = rmat_graph(sm["n_nodes"], sm["n_edges"] // 2, seed=seed)
+    b = gnn_full_batch(g, d_feat=sm["d_feat"], d_out=227, seed=seed)
+    pad = sm["n_edges"] - g.nnz
+    z = torch.zeros(pad, dtype=torch.int32)
+    out["full_graph_sm"] = dataclasses.replace(
+        b, edge_src=torch.cat([b.edge_src, z]),
+        edge_dst=torch.cat([b.edge_dst, z]),
+        edge_mask=torch.cat([b.edge_mask, torch.zeros(pad)]), plans={})
+    mb = GNN_SHAPES["minibatch_lg"]
+    parent = rmat_graph(*GNN_PARENT, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    seeds = rng.choice(parent.n, mb["batch_nodes"], replace=False)
+    sub = sample_neighbors(parent, seeds, mb["fanout"], rng=rng)
+    n_real = int(sub.node_mask.sum())
+    feat = np.zeros((sub.node_ids.size, mb["d_feat"]), np.float32)
+    feat[:n_real] = rng.standard_normal((n_real, mb["d_feat"]),
+                                        dtype=np.float32)
+    deg = parent.degrees[sub.node_ids[:n_real]].astype(np.float32)
+    feat[:n_real, 0] = (deg - deg.mean()) / max(deg.std(), 1.0)
+    tgt = np.zeros((sub.node_ids.size, 227), np.float32)
+    tgt[:n_real] = 0.1 * rng.standard_normal((n_real, 227), dtype=np.float32)
+    out["minibatch_lg"] = GraphBatch(
+        node_feat=torch.from_numpy(feat),
+        edge_src=torch.from_numpy(sub.edge_src),
+        edge_dst=torch.from_numpy(sub.edge_dst),
+        node_mask=torch.from_numpy(sub.node_mask),
+        edge_mask=torch.from_numpy(sub.edge_mask),
+        targets=torch.from_numpy(tgt))
+    mol = GNN_SHAPES["molecule"]
+    out["molecule"] = next(molecule_batches(mol["batch"], mol["n_nodes"],
+                                            mol["n_edges"], seed=seed))
+    info = dict(host_s=time.perf_counter() - t0,
+                full_graph_sm=dict(nnz=g.nnz, padded_slots=pad),
+                minibatch_lg=dict(parent_nodes=parent.n,
+                                  parent_nnz=parent.nnz, sampled_nodes=n_real,
+                                  sampled_edges=int(sub.edge_mask.sum())),
+                molecule=dict(atoms=out["molecule"].n_nodes,
+                              edges=int(out["molecule"].edge_src.shape[0])))
+    return out, info
+
+
+def gnn_config(arch_id, cell, smoke=False):
+    """The arch's config for the cell, as ``_gnn_cell`` sizes it (d_in from
+    the cell's d_feat; ``cell`` None: ``make_config()``); the equivariant
+    ones as the launcher's (no extra scalar features: the molecules carry
+    none)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import GNN_SHAPES
+
+    arch = get_arch(arch_id)
+    if smoke:
+        return arch.make_smoke_config()
+    if cell is None:                   # the published config as it stands
+        return arch.make_config()
+    d_feat = GNN_SHAPES[cell].meta.get("d_feat", 0)
+    if arch_id == "meshgraphnet":
+        return arch.make_config(d_in=max(d_feat, 3), d_out=3)
+    if arch_id == "graphcast":
+        return arch.make_config(d_in=max(d_feat, 1))
+    return arch.make_config()
+
+
+def gnn_batch_for(arch_id, cfg, batch):
+    """``batch`` with the arch's targets (MeshGraphNet: the first d_out
+    columns), on the card."""
+    if arch_id == "meshgraphnet":
+        batch = dataclasses.replace(batch, targets=batch.targets[:, :cfg.d_out]
+                                    .contiguous(), plans={})
+    return batch.to("cuda")
+
+
+def gnn_init(arch_id, cfg, device="cuda", seed=0):
+    from repro_torch.models import gnn
+
+    init = {"meshgraphnet": gnn.init_mgn, "graphcast": gnn.init_graphcast,
+            "nequip": gnn.init_nequip, "mace": gnn.init_mace}[arch_id]
+    return init(cfg, torch.Generator(device=device).manual_seed(seed))
+
+
+def gnn_remat_choice(cfg, batch) -> dict:
+    """Whether GraphCast recomputes its layers at ``batch``: the peak of one
+    step without recompute at 2 and 4 layers, extrapolated linearly to
+    the config's depth, against GNN_REMAT_LIMIT."""
+    from repro_torch.launch.cells import gnn_train_step
+    from repro_torch.train.optimizer import adamw_init
+
+    peaks = {}
+    for depth in (2, 4):
+        c = dataclasses.replace(cfg, n_layers=depth)
+        p = gnn_init("graphcast", c)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = gnn_train_step("graphcast", c, p, adamw_init(p), batch)
+        torch.cuda.synchronize()
+        peaks[depth] = torch.cuda.max_memory_allocated()
+        del p, out
+    per_layer = (peaks[4] - peaks[2]) / 2
+    predicted = peaks[2] + (cfg.n_layers - 2) * per_layer
+    return dict(peak_2_layers=peaks[2], peak_4_layers=peaks[4],
+                per_layer_bytes=per_layer, predicted_peak=predicted,
+                limit=GNN_REMAT_LIMIT, remat=bool(predicted > GNN_REMAT_LIMIT))
+
+
+def gnn_run(arch_id, cell, batch, remat=False) -> tuple:
+    """One (arch, cell) at full width: one unrecorded step, GNN_STEPS
+    timed (median), peak memory, the FLOP share; returns (row, params0,
+    the state after the first step, the step function)."""
+    from repro_torch.launch.cells import gnn_model_flops, gnn_train_step
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = gnn_config(arch_id, cell)
+    b = gnn_batch_for(arch_id, cfg, batch)
+    p0 = gnn_init(arch_id, cfg)
+
+    def step(p, o):
+        return gnn_train_step(arch_id, cfg, p, o, b, remat=remat)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, loss0 = step(p0, adamw_init(p0))          # plans built here
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    secs, losses = [], [float(loss0)]
+    for _ in range(GNN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, loss = step(params, opt)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    step_s = statistics.median(secs)
+    n_nodes, n_edges = b.n_nodes, int(b.edge_src.shape[0])
+    flops = gnn_model_flops(arch_id, cfg, n_nodes, n_edges)
+    row = dict(arch=arch_id, cell=cell, n_layers=cfg.n_layers,
+               d_hidden=cfg.d_hidden, nodes=n_nodes, edges=n_edges,
+               first_step_s=first_s, step_ms=[s * 1e3 for s in secs],
+               median_step_ms=step_s * 1e3,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               model_flops=flops, tflops=flops / step_s / 1e12,
+               fp32_share=flops / step_s / FP32_FLOPS_PER_S,
+               remat=remat, losses=losses)
+    return row, (cfg, b, p0, step, params, opt)
+
+
+def gnn_scatter_case(index, n, d, seed) -> dict:
+    """(e): the ordered sum against ``index_add_`` at one index (the batch's
+    destinations: `scatter_sum`; its sources: `gather`'s backward), d
+    wide: the gap over Σ|terms|, both device ms (profiler), the bytes
+    bound (the values and the index read once, the rows written once)."""
+    from repro_torch.models.gnn.common import gather, scatter_sum, segment_plan
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    E = index.shape[0]
+    v = torch.randn(E, d, generator=gen, device="cuda")
+    plan = segment_plan(index, n)
+    got = scatter_sum(v, plan, n)
+    want = torch.zeros(n, d, device="cuda").index_add_(0, index, v)
+    terms = torch.zeros(n, d, device="cuda").index_add_(0, index, v.abs())
+    gap = float(((got - want).abs() / terms.clamp(min=1e-30)).max())
+    same = bool(torch.equal(got, scatter_sum(v, plan, n)))
+    x = torch.zeros(n, d, device="cuda", requires_grad=True)
+    (g1,) = torch.autograd.grad((gather(x, plan) * v).sum(), x)
+    (g2,) = torch.autograd.grad((gather(x, plan) * v).sum(), x)
+    back_same = bool(torch.equal(g1, g2))
+    back_gap = float(((g1 - want).abs() / terms.clamp(min=1e-30)).max())
+    nbytes = E * d * 4 + E * 8 + n * d * 4
+    row = dict(d=d, E=E, n=n, levels=len(plan.tree) + 1,
+               longest_row=int(torch.bincount(index, minlength=n).max()),
+               max_err_of_terms=gap, backward_max_err_of_terms=back_gap,
+               bits_twice=same, backward_bits_twice=back_same,
+               ordered_dev_ms=profiled_call_ms(
+                   lambda: scatter_sum(v, plan, n), sessions=5),
+               index_add_dev_ms=profiled_call_ms(
+                   lambda: torch.zeros(n, d, device="cuda")
+                   .index_add_(0, index, v), sessions=5),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return row
+
+
+def phase_gnn():
+    """Phase 13: the four GNNs trained at their published widths (fp32,
+    AdamW) through `launch.cells.gnn_train_step` on their cells, and the
+    checks a-f; every check runs before the phase fails."""
+    from repro_torch.launch.cells import gnn_train_step
+    from repro_torch.models import gnn
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train.optimizer import adamw_init
+
+    t_phase = time.perf_counter()
+    failures = []
+
+    def gate(cond, what):
+        if not cond:
+            failures.append(what)
+
+    batches, info = gnn_cell_batches()
+    emit("gnn_cells", **info)
+    gc_cfg = gnn_config("graphcast", "minibatch_lg")
+    choice = gnn_remat_choice(gc_cfg, gnn_batch_for("graphcast", gc_cfg,
+                                                    batches["minibatch_lg"]))
+    runs = {}
+    for arch_id, cell in GNN_RUNS:
+        remat = arch_id == "graphcast" and cell == "minibatch_lg" \
+            and choice["remat"]
+        row, state = gnn_run(arch_id, cell, batches[cell], remat=remat)
+        cfg, b, p0, step, params, opt = state
+        if GNN_FALL_CELL[arch_id] == cell:                        # (a)
+            row["check_a_loss_falls"] = bool(
+                np.isfinite(row["losses"]).all()
+                and row["losses"][-1] < row["losses"][0])
+            gate(row["check_a_loss_falls"],
+                 f"gnn (a) {arch_id} {cell}: loss {row['losses']}")
+        if (arch_id, cell) in (("meshgraphnet", "minibatch_lg"),
+                               ("mace", "molecule")):             # (b)
+            a = step(p0, adamw_init(p0))
+            c = step(p0, adamw_init(p0))
+            row["check_b_bits_twice"] = bool(
+                torch.equal(a[2], c[2]) and trees_equal(a[0], c[0]))
+            gate(row["check_b_bits_twice"],
+                 f"gnn (b) {arch_id} {cell}: two steps differ")
+            del a, c
+        if arch_id in ("nequip", "mace"):                         # (d)
+            rng = np.random.default_rng(3)
+            Q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+            if np.linalg.det(Q) < 0:
+                Q[:, 0] *= -1
+            energy = gnn.nequip_energy if arch_id == "nequip" \
+                else gnn.mace_energy
+            pos = b.positions.double()
+
+            def e_at(x):
+                bb = dataclasses.replace(b, positions=x.float())
+                with torch.no_grad():
+                    return energy(cfg, p0, bb).cpu().numpy()
+
+            e1 = e_at(pos)
+            e2 = e_at(pos @ torch.from_numpy(Q.T).cuda())
+            e3 = e_at(pos + torch.from_numpy(rng.normal(size=3)).cuda())
+            rot = float(np.abs(e2 - e1).max())
+            tr = float(np.abs(e3 - e1).max())
+            ok = bool(np.allclose(e2, e1, **GNN_ROT_TOL)
+                      and np.allclose(e3, e1, **GNN_ROT_TOL))
+            row["check_d"] = dict(rotation_gap=rot, translation_gap=tr,
+                                  max_abs_energy=float(np.abs(e1).max()),
+                                  ok=ok)
+            gate(ok, f"gnn (d) {arch_id}: energies moved {rot}, {tr}")
+        if arch_id == "graphcast" and cell == "minibatch_lg":     # (f)
+            by_name = device_profile(lambda: step(params, opt), warmup=1)
+            dev_ms = sum(v[1] for v in by_name.values())
+
+            def is_sum(name):
+                return any(k in name for k in GNN_SCATTER_KERNELS)
+
+            def is_take(name):          # index_select's gather kernels
+                low = name.lower()
+                return ("gather" in low or "indexselect" in low) \
+                    and not is_sum(name)
+
+            def share(pick):
+                return sum(v[1] for n, v in by_name.items() if pick(n)) \
+                    / max(dev_ms, 1e-9)
+
+            row["check_f_profile"] = dict(
+                device_ms=dev_ms,
+                cuda_kernels=sum(v[0] for v in by_name.values()),
+                gather_share=share(is_take), scatter_share=share(is_sum),
+                gather_scatter_kernels=[
+                    dict(name=n[:100], count=v[0], ms=v[1])
+                    for n, v in by_name.items() if is_take(n) or is_sum(n)],
+                top=top_kernels(by_name))
+            gate(dev_ms > 0, "gnn (f): the profiler traced no device time")
+        if arch_id == "graphcast" and cell == "minibatch_lg":
+            row["remat_choice"] = choice
+        emit("gnn_run", **row)
+        runs[(arch_id, cell)] = row
+        del state, cfg, b, p0, step, params, opt
+        torch.cuda.empty_cache()
+
+    # (c) each smoke config, one step, card against CPU
+    from repro_torch.launch.train import make_loss_and_data
+
+    check_c = {}
+    for arch_id in GNN_FALL_CELL:
+        cfg, params, _, data = make_loss_and_data(arch_id, True, 8, 8, 0,
+                                                  device="cpu")
+        batch = next(data)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = tree_map(lambda t: t.to(dev), params)
+            out[dev] = gnn_train_step(arch_id, cfg, p, adamw_init(p),
+                                      batch.to(dev))
+        loss_gap = abs(float(out["cuda"][2]) - float(out["cpu"][2])) \
+            / abs(float(out["cpu"][2]))
+        param_gap = max(float((a.cpu() - c).abs().max()) for a, c in
+                        zip(tree_leaves(out["cuda"][0]),
+                            tree_leaves(out["cpu"][0])))
+        check_c[arch_id] = dict(loss_gap=loss_gap, param_gap=param_gap)
+        gate(loss_gap <= GNN_SMOKE_TOL and param_gap <= GNN_SMOKE_TOL,
+             f"gnn (c) {arch_id}: card vs CPU loss {loss_gap}, params "
+             f"{param_gap}")
+
+    # (e) the ordered sum against index_add_ at minibatch_lg's layout
+    mb = batches["minibatch_lg"]
+    check_e = []
+    for which in ("edge_dst", "edge_src"):
+        index = getattr(mb, which).long().cuda()
+        for d in (128, 512):
+            r = gnn_scatter_case(index, mb.n_nodes, d, seed=d)
+            r["index"] = which
+            check_e.append(r)
+            gate(r["max_err_of_terms"] <= GNN_SCATTER_TOL
+                 and r["backward_max_err_of_terms"] <= GNN_SCATTER_TOL
+                 and r["bits_twice"] and r["backward_bits_twice"],
+                 f"gnn (e) {which} d {d}: {r}")
+    emit("gnn", runs=list(runs.values()), check_c=check_c,
+         check_c_tol=GNN_SMOKE_TOL, check_e=check_e,
+         check_e_tol=GNN_SCATTER_TOL, failures=failures,
+         seconds=time.perf_counter() - t_phase)
+    check(not failures, "gnn: " + "; ".join(failures))
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4081,6 +4618,7 @@ def main(argv=None) -> int:
     k6_launches += phase_serve_moe()
     bag_rows, k5_launches = phase_recsys()
     k5_launches += k5_train + phase_recsys_train()
+    phase_gnn()
 
     def main_f32(rows):
         return next(r for r in rows

@@ -3,14 +3,20 @@
 
 The registry holds the architectures the port runs: the LMs
 ``tinyllama-1.1b`` and ``command-r-35b`` (dense) and ``deepseek-moe-16b``
-and ``qwen3-moe-30b-a3b`` (MoE), served, and ``sasrec`` (serving and
-retrieval).  Every other arch id of `repro`'s registry raises `KeyError`
-naming it as not ported yet, with the slice it waits for.
+and ``qwen3-moe-30b-a3b`` (MoE), served and trained; ``sasrec`` (serving,
+retrieval and training); and the GNNs ``meshgraphnet``, ``graphcast``,
+``nequip`` and ``mace`` (trained).  ``mistral-large-123b``, the one other
+arch id of `repro`'s registry, raises `KeyError` naming it as not ported
+yet, with the slice it waits for.
 """
 
 from repro_torch.configs import (
     command_r_35b,
     deepseek_moe_16b,
+    graphcast,
+    mace,
+    meshgraphnet,
+    nequip,
     qwen3_moe_30b_a3b,
     sasrec,
     tinyllama_1_1b,
@@ -19,16 +25,13 @@ from repro_torch.configs.base import ArchDef, ShapeCell
 
 REGISTRY = {m.ARCH.arch_id: m.ARCH
             for m in (deepseek_moe_16b, qwen3_moe_30b_a3b, tinyllama_1_1b,
-                      command_r_35b, sasrec)}
+                      command_r_35b, mace, nequip, graphcast, meshgraphnet,
+                      sasrec)}
 
 # `repro`'s other arch ids, each with the slice it waits for.
 NOT_PORTED = {
     "mistral-large-123b": "246 GB of bf16 weights: needs the sharding "
                           "slice across cards (ROADMAP C3)",
-    "mace": "the GNN slice (ROADMAP D3)",
-    "nequip": "the GNN slice (ROADMAP D3)",
-    "graphcast": "the GNN slice (ROADMAP D3)",
-    "meshgraphnet": "the GNN slice (ROADMAP D3)",
 }
 
 

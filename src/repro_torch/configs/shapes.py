@@ -1,9 +1,10 @@
-"""The LM and recsys input-shape suites (`repro.configs.shapes.LM_SHAPES`
-and ``RECSYS_SHAPES``); the GNN suite comes with its models (ROADMAP D3)."""
+"""The input-shape suites (`repro.configs.shapes`): ``LM_SHAPES``,
+``GNN_SHAPES`` and ``RECSYS_SHAPES``."""
 
 from __future__ import annotations
 
 from repro_torch.configs.base import ShapeCell
+from repro_torch.models.gnn.sampler import subgraph_capacity
 
 LM_SHAPES = {
     "train_4k": ShapeCell("train_4k", "train",
@@ -21,6 +22,24 @@ LM_SHAPES = {
 LM_SKIPS = {
     "long_500k": "pure full-attention arch (assignment rule: skip; "
                  "see DESIGN.md §6)",
+}
+
+_MB_NODES, _MB_EDGES = subgraph_capacity(1024, (15, 10))
+
+GNN_SHAPES = {
+    "full_graph_sm": ShapeCell("full_graph_sm", "train",
+                               {"n_nodes": 2708, "n_edges": 10556,
+                                "d_feat": 1433}),
+    "minibatch_lg": ShapeCell("minibatch_lg", "train",
+                              {"n_nodes": 232965, "n_edges": 114615892,
+                               "batch_nodes": 1024, "fanout": (15, 10),
+                               "sub_nodes": _MB_NODES, "sub_edges": _MB_EDGES,
+                               "d_feat": 602}),
+    "ogb_products": ShapeCell("ogb_products", "train",
+                              {"n_nodes": 2449029, "n_edges": 61859140,
+                               "d_feat": 100}),
+    "molecule": ShapeCell("molecule", "train",
+                          {"n_nodes": 30, "n_edges": 64, "batch": 128}),
 }
 
 RECSYS_SHAPES = {

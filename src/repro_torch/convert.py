@@ -4,7 +4,9 @@ For the partitioner what carries across is the input and its assembled
 operators — the mesh, its dual graph, the ELL Laplacian and the halo
 sharding plan; for the LM and SASRec it is the weights
 (`lm_params_from_numpy`, `sasrec_params_from_numpy`, and back from the
-port's modules: `lm_params_to_numpy`, `sasrec_params_to_numpy`), and for
+port's modules: `lm_params_to_numpy`, `sasrec_params_to_numpy`), for the
+GNNs their parameter trees (`gnn_params_from_numpy`,
+`gnn_params_to_numpy`), and for
 training the master tree and the AdamW state, both ways
 (`tree_from_numpy`, `tree_to_numpy`): the port's trees have `repro`'s
 keys and shapes, so a `repro` state resumes in the port and the
@@ -25,6 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.dist.partition_aware import HaloPlan
 from repro_torch.mesh.box import HexMesh, derive_edge_face_gids
 from repro_torch.mesh.graphs import Graph
+from repro_torch.models.common import tree_leaves
 from repro_torch.models.recsys.sasrec import SASRec, SASRecConfig
 from repro_torch.models.transformer import LMConfig, Transformer
 
@@ -153,3 +156,41 @@ def sasrec_params_to_numpy(model: SASRec) -> dict:
     """The reverse of `sasrec_params_from_numpy`: a `SASRec`'s weights as
     `repro`'s tree (``blocks`` stacked over n_blocks)."""
     return _numpy(model.tree())
+
+
+# The top-level keys of each GNN's parameter tree (`repro`'s init_*), the
+# optional ``feat_proj`` of the equivariant ones aside.
+_GNN_KEYS = {
+    "meshgraphnet": {"enc_node", "enc_edge", "layers", "dec"},
+    "graphcast": {"enc", "enc_edge", "layers", "dec"},
+    "nequip": {"species_embed", "layers", "readout"},
+    "mace": {"species_embed", "layers"},
+}
+
+
+def gnn_params_from_numpy(arch_id: str, cfg, params: dict,
+                          device=None) -> dict:
+    """`repro`'s parameter tree of GNN ``arch_id`` (`init_mgn`,
+    `init_graphcast`, `init_nequip`, `init_mace`; NumPy leaves, the
+    per-layer blocks stacked over a leading ``n_layers`` dim) as the
+    port's tree of tensors on ``device`` (default the card): the same
+    keys, shapes and dtypes, which the port's GNN forwards and losses
+    take."""
+    keys = set(params) - {"feat_proj"}
+    if arch_id not in _GNN_KEYS or keys != _GNN_KEYS[arch_id]:
+        raise ValueError(f"not a {arch_id!r} parameter tree: keys "
+                         f"{sorted(params)}")
+    if bool(getattr(cfg, "d_feat_in", 0)) != ("feat_proj" in params):
+        raise ValueError(f"{arch_id}: feat_proj and d_feat_in "
+                         f"{getattr(cfg, 'd_feat_in', 0)} disagree")
+    depth = {np.shape(leaf)[0] for leaf in tree_leaves(params["layers"])}
+    if depth != {cfg.n_layers}:
+        raise ValueError(f"{arch_id}: layers stacked {sorted(depth)} deep, "
+                         f"config has {cfg.n_layers}")
+    return _tensors(params, resolve_device(device))
+
+
+def gnn_params_to_numpy(params: dict) -> dict:
+    """The reverse of `gnn_params_from_numpy`: the port's GNN tree as
+    `repro`'s, with NumPy leaves."""
+    return _numpy(params)

@@ -304,12 +304,36 @@ def gather_features(plan: HaloPlan, blocks: np.ndarray) -> np.ndarray:
 # Distributed adjacency matvec (one halo exchange per sweep)
 # ---------------------------------------------------------------------------
 
+class _GatherRows(torch.autograd.Function):
+    """`group.all_gather_rows`, differentiable: the gradient of the
+    gathered buffer is summed over the ranks (one all-reduce: gloo has no
+    reduce-scatter) and each rank keeps its own rows — every rank's
+    exports feed every rank's edges."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.rows = group, x.shape[0]
+        return dist_group.all_gather_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = dist_group.all_reduce_sum(grad.contiguous(), ctx.group)
+        r = dist_group.rank(ctx.group)
+        return total[r * ctx.rows:(r + 1) * ctx.rows], None
+
+
 def halo_exchange(x_local: torch.Tensor, export_idx: torch.Tensor,
                   export_mask: torch.Tensor, group) -> torch.Tensor:
     """One rank's halo exchange: gather every rank's exports and return the
-    combined ``(n_local + P·halo, F)`` table edge sources index."""
+    combined ``(n_local + P·halo, F)`` table edge sources index.
+    Differentiable (the halo GraphCast trains through it); a plan with no
+    exports (one shard) gathers nothing.  The take's backward adds into
+    distinct rows but for the padding rows, whose gradient the mask makes
+    zero, so its sum has one order."""
     exported = x_local.index_select(0, export_idx) * export_mask[:, None]
-    buf = dist_group.all_gather_rows(exported, group)
+    if exported.shape[0] == 0:
+        return x_local
+    buf = _GatherRows.apply(exported, group)
     return torch.cat([x_local, buf], dim=0)
 
 

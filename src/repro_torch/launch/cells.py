@@ -3,6 +3,9 @@
 * :func:`lm_train_step` — ``_lm_train_cell``'s step: gradient accumulation
   over microbatches, then AdamW with ``OPT_CFG``;
 * :func:`recsys_train_step` — ``_recsys_cell``'s ``train`` step;
+* :func:`gnn_train_step` — ``_gnn_cell``'s step: the arch's loss, its
+  gradient, then AdamW with ``OPT_CFG``; :func:`gnn_model_flops` —
+  ``_gnn_cell``'s count of a step's useful FLOPs;
 * :func:`recsys_serve_topk` — the ``serve`` cells (``serve_p99``,
   ``serve_bulk``): each user's top-k items over the whole catalog, the
   users in chunks of at most ``user_chunk`` and the table streamed in
@@ -30,6 +33,11 @@ import torch
 
 from repro_torch.models import transformer as T
 from repro_torch.models.common import tree_map
+from repro_torch.models.gnn import equivariant
+from repro_torch.models.gnn.graphcast import graphcast_loss
+from repro_torch.models.gnn.mace import mace_loss
+from repro_torch.models.gnn.meshgraphnet import mgn_loss
+from repro_torch.models.gnn.nequip import nequip_loss
 from repro_torch.models.recsys.sasrec import (
     SASRec,
     SASRecConfig,
@@ -82,6 +90,45 @@ def recsys_train_step(cfg: SASRecConfig, params: dict, opt_state: dict,
         lambda p, b: sasrec_train_loss(cfg, p, b))(params, batch)
     params, opt_state, _ = adamw_update(OPT_CFG, grads, opt_state, params)
     return params, opt_state, loss
+
+
+GNN_LOSSES = {"meshgraphnet": mgn_loss, "graphcast": graphcast_loss,
+              "nequip": nequip_loss, "mace": mace_loss}
+
+
+def gnn_train_step(arch_id: str, cfg, params: dict, opt_state: dict, batch,
+                   *, remat: bool = False):
+    """`repro`'s ``_gnn_cell`` step body: the value and gradient of
+    ``arch_id``'s loss on the `GraphBatch` ``batch``, then `adamw_update`
+    with ``OPT_CFG``.  ``remat`` (GraphCast only): recompute each processor
+    layer in the backward, the same bits.  Returns (params, opt_state,
+    loss)."""
+    if remat and arch_id != "graphcast":
+        raise ValueError(f"{arch_id}: remat is GraphCast's option")
+    loss = GNN_LOSSES[arch_id]
+    kw = {"remat": True} if remat else {}
+    l, grads = value_and_grad(lambda p, b: loss(cfg, p, b, **kw))(params,
+                                                                  batch)
+    params, opt_state, _ = adamw_update(OPT_CFG, grads, opt_state, params)
+    return params, opt_state, l
+
+
+def gnn_model_flops(arch_id: str, cfg, n_nodes: int, n_edges: int) -> float:
+    """``_gnn_cell``'s useful FLOPs of one train step (forward and
+    backward): ``3 · n_layers · (per_edge · E + per_node · N)``."""
+    if arch_id in ("meshgraphnet", "graphcast"):
+        d = cfg.d_hidden
+        per_edge = 2 * (3 * d * d + d * d)
+        per_node = 2 * (2 * d * d + d * d)
+    else:
+        C, Pn = cfg.d_hidden, equivariant.n_paths()
+        per_edge = 2 * (cfg.n_rbf * 64 + 64 * C * Pn) + 2 * Pn * 81 * C
+        if arch_id == "nequip":
+            per_node = 6 * C * C * 9
+        else:
+            per_node = (cfg.correlation - 1) * 2 * Pn * 729 * C \
+                + 10 * C * C * 9
+    return 3.0 * cfg.n_layers * (per_edge * n_edges + per_node * n_nodes)
 
 
 def recsys_serve_topk(cfg: SASRecConfig, model: SASRec,

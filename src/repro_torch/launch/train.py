@@ -5,12 +5,13 @@ smoke config by default (``--full``: the published config), with
 checkpoint/resume (``--ckpt-dir``, ``--ckpt-every``) and a simulated node
 failure (``--preempt-at N`` raises `SystemExit` after step N; rerun with
 the same ``--ckpt-dir`` to resume).  Runs on the card (``--device`` cuda,
-the default; no card raises) or on the CPU (``--device cpu``).  The ``lm``
-and ``recsys`` families run; the GNN family waits for the GNN slice (D3)
-and raises `NotImplementedError`.  Parameters come from a
-`torch.Generator` seeded by ``--seed`` (not `jax.random`: parity with
-`repro` goes through `repro_torch.convert`); the data are `repro`'s NumPy
-draws from the same seed.
+the default; no card raises) or on the CPU (``--device cpu``).  Every
+family runs: ``lm``, ``recsys`` and ``gnn`` (batched molecules for
+``mace``/``nequip``, one R-MAT graph for ``graphcast``/``meshgraphnet``,
+as `repro`'s launcher).  Parameters come from a `torch.Generator` seeded
+by ``--seed`` (not `jax.random`: parity with `repro` goes through
+`repro_torch.convert`); the data are `repro`'s NumPy draws from the same
+seed.
 """
 
 from __future__ import annotations
@@ -19,9 +20,14 @@ import argparse
 
 import torch
 
-from repro_torch.configs import NOT_PORTED, get_arch
+from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import Prefetcher
-from repro_torch.data.synthetic import recsys_batches, token_batches
+from repro_torch.data.synthetic import (
+    gnn_full_batch,
+    molecule_batches,
+    recsys_batches,
+    token_batches,
+)
 from repro_torch.device import resolve_device
 from repro_torch.models.common import count_params
 from repro_torch.train.optimizer import AdamWConfig
@@ -37,9 +43,6 @@ def make_loss_and_data(arch_id: str, smoke: bool, batch: int, seq: int,
     """(cfg, params, loss(params, batch), data) of ``arch_id``: the master
     tree on ``device`` (default the card) and an endless host iterator of
     batches, which the loss moves to the device."""
-    if arch_id in NOT_PORTED and "D3" in NOT_PORTED[arch_id]:
-        raise NotImplementedError(
-            f"{arch_id}: the GNN family is not ported yet (ROADMAP D3)")
     arch = get_arch(arch_id)
     cfg = arch.make_smoke_config() if smoke else arch.make_config()
     dev = resolve_device(device)
@@ -57,8 +60,28 @@ def make_loss_and_data(arch_id: str, smoke: bool, batch: int, seq: int,
         data = recsys_batches(batch, cfg.seq_len, cfg.n_items, seed=seed)
         return cfg, params, (lambda p, b: sasrec_train_loss(
             cfg, p, _on(b, dev))), data
-    raise NotImplementedError(f"{arch_id}: family {arch.family!r} is not "
-                              "ported yet")
+    # gnn
+    from repro_torch.launch.cells import GNN_LOSSES
+    from repro_torch.models import gnn
+
+    loss = GNN_LOSSES[arch_id]
+    if arch_id in ("mace", "nequip"):
+        init = gnn.init_mace if arch_id == "mace" else gnn.init_nequip
+        params = init(cfg, gen)
+        data = molecule_batches(max(batch // 8, 2), 10, 20, seed=seed)
+        return cfg, params, (lambda p, b: loss(cfg, p, b.to(dev))), data
+    from repro_torch.mesh.graphs import rmat_graph
+
+    g = rmat_graph(256, 1024, seed=seed)
+    if arch_id == "graphcast":
+        init = gnn.init_graphcast
+        b = gnn_full_batch(g, d_feat=cfg.d_in, d_out=cfg.n_vars, seed=seed)
+    else:
+        init = gnn.init_mgn
+        b = gnn_full_batch(g, d_feat=cfg.d_in, d_out=cfg.d_out, seed=seed)
+    params = init(cfg, gen)
+    b = b.to(dev)               # one static graph: planned once, on dev
+    return cfg, params, (lambda p, bb: loss(cfg, p, bb)), iter(lambda: b, None)
 
 
 def main(argv=None) -> None:

@@ -10,7 +10,11 @@ from repro_torch.mesh.graphs import (
     dual_graph,
     dual_graph_from_incidence,
     extract_subgraphs,
+    grid_coords_3d,
     grid_graph_2d,
     grid_graph_3d,
+    radius_molecule_batch,
+    rmat_graph,
+    stencil_graph_3d,
 )
 from repro_torch.mesh.pebble import pebble_mesh

@@ -2,9 +2,8 @@
 
 All construction is host-side NumPy (the `gs_setup` analogue), a copy of
 `repro.mesh.graphs` kept bit-identical to it; the arrays it produces are
-copied to the device once per operator by `repro_torch.core`.  The
-generators the main path does not need (R-MAT, molecule batches, 3-D
-stencils) are not ported yet.
+copied to the device once per operator by `repro_torch.core`, or made
+into GNN batches (`repro_torch.data.synthetic`).
 """
 
 from __future__ import annotations
@@ -263,3 +262,119 @@ def grid_graph_3d(nx: int, ny: int, nz: int) -> Graph:
     src = np.concatenate([idx[:-1].ravel(), idx[:, :-1].ravel(), idx[:, :, :-1].ravel()])
     dst = np.concatenate([idx[1:].ravel(), idx[:, 1:].ravel(), idx[:, :, 1:].ravel()])
     return build_csr(src, dst, nx * ny * nz)
+
+
+def rmat_graph(
+    n: int,
+    n_edges: int,
+    *,
+    a: float = 0.57,
+    b: float = 0.19,
+    c: float = 0.19,
+    seed: int = 0,
+    batch: int = 1 << 22,
+) -> Graph:
+    """R-MAT power-law generator (Chakrabarti et al.) — OGB-scale stand-in.
+
+    Generates `n_edges` directed samples batch-wise (memory-lean), then
+    symmetrizes + coalesces.  Used for the `minibatch_lg` / `ogb_products`
+    shape cells where real datasets are unavailable offline.
+    """
+    rng = np.random.default_rng(seed)
+    levels = int(np.ceil(np.log2(max(n, 2))))
+    probs = np.array([a, b, c, 1.0 - a - b - c])
+    srcs, dsts = [], []
+    remaining = n_edges
+    while remaining > 0:
+        m = min(batch, remaining)
+        quad = rng.choice(4, size=(m, levels), p=probs)
+        row_bit = (quad >= 2).astype(np.int64)
+        col_bit = (quad % 2).astype(np.int64)
+        weightv = (1 << np.arange(levels, dtype=np.int64))[::-1]
+        src = row_bit @ weightv
+        dst = col_bit @ weightv
+        ok = (src < n) & (dst < n) & (src != dst)
+        srcs.append(src[ok])
+        dsts.append(dst[ok])
+        remaining -= m
+    return build_csr(np.concatenate(srcs), np.concatenate(dsts), n)
+
+
+def radius_molecule_batch(
+    n_graphs: int,
+    n_nodes: int,
+    n_edges: int,
+    *,
+    seed: int = 0,
+    box: float = 4.0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Batched random 3D point clouds with k-NN edges (molecule shape cell).
+
+    Returns (positions (G·V, 3), species (G·V,), edge_src, edge_dst) with
+    exactly `n_edges` directed edges per graph (k-NN truncated/padded) and
+    node ids offset per graph — the standard batched-small-graphs layout.
+    """
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0, box, size=(n_graphs, n_nodes, 3))
+    species = rng.integers(0, 4, size=(n_graphs, n_nodes))
+    k = max(1, int(np.ceil(n_edges / n_nodes)))
+    d2 = ((pos[:, :, None, :] - pos[:, None, :, :]) ** 2).sum(-1)
+    d2 += np.eye(n_nodes)[None] * 1e9
+    nbr = np.argsort(d2, axis=-1)[:, :, :k]                    # (G, V, k)
+    src = np.tile(np.arange(n_nodes)[None, :, None], (n_graphs, 1, k))
+    src, nbr = src.reshape(n_graphs, -1), nbr.reshape(n_graphs, -1)
+    src, nbr = src[:, :n_edges], nbr[:, :n_edges]
+    offs = (np.arange(n_graphs, dtype=np.int64) * n_nodes)[:, None]
+    return (
+        pos.reshape(-1, 3),
+        species.reshape(-1),
+        (src + offs).ravel().astype(np.int64),
+        (nbr + offs).ravel().astype(np.int64),
+    )
+
+
+def stencil_graph_3d(nx: int, ny: int, nz: int, *, stencil: int = 26) -> Graph:
+    """26- (or 6-) neighbor 3D stencil graph — the dual graph of a box hex
+    mesh, built directly from offsets (memory-lean at millions of nodes).
+
+    At 135³ this reproduces the `ogb_products` cell scale (2.46M nodes,
+    ~63M directed edges) with spatial structure — representative of
+    GraphCast's icosahedral mesh (bounded degree, geometric locality).
+    """
+    idx = np.arange(nx * ny * nz, dtype=np.int64).reshape(nx, ny, nz)
+    offs = [
+        (dx, dy, dz)
+        for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)
+        if (dx, dy, dz) != (0, 0, 0)
+        and (stencil == 26 or abs(dx) + abs(dy) + abs(dz) == 1)
+    ]
+    srcs, dsts, ws = [], [], []
+    for dx, dy, dz in offs:
+        sx = slice(max(0, dx), nx + min(0, dx))
+        sy = slice(max(0, dy), ny + min(0, dy))
+        sz = slice(max(0, dz), nz + min(0, dz))
+        tx = slice(max(0, -dx), nx + min(0, -dx))
+        ty = slice(max(0, -dy), ny + min(0, -dy))
+        tz = slice(max(0, -dz), nz + min(0, -dz))
+        srcs.append(idx[sx, sy, sz].ravel())
+        dsts.append(idx[tx, ty, tz].ravel())
+        # hex-dual weights: face=4, edge=2, vertex=1 shared vertices
+        order = abs(dx) + abs(dy) + abs(dz)
+        w = {1: 4.0, 2: 2.0, 3: 1.0}[order]
+        ws.append(np.full(srcs[-1].size, w))
+    src = np.concatenate(srcs)
+    dst = np.concatenate(dsts)
+    w = np.concatenate(ws)
+    # already symmetric by construction; skip coalescing (offsets disjoint)
+    order = np.lexsort((dst, src))
+    src, dst, w = src[order], dst[order], w[order]
+    n = nx * ny * nz
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(indptr, src + 1, 1)
+    return Graph(n=n, indptr=np.cumsum(indptr), indices=dst, weights=w)
+
+
+def grid_coords_3d(nx: int, ny: int, nz: int) -> np.ndarray:
+    ii, jj, kk = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                             indexing="ij")
+    return np.stack([ii.ravel(), jj.ravel(), kk.ravel()], 1).astype(np.float64)

@@ -1,5 +1,5 @@
-"""Shared model building blocks: init helpers, RMSNorm, LayerNorm, parameter
-trees (`tree_map`, `tree_leaves` in JAX's order, `tree_cast`).
+"""Shared model building blocks: init helpers, RMSNorm, LayerNorm, MLPs,
+parameter trees (`tree_map`, `tree_leaves` in JAX's order, `tree_cast`).
 
 Ports of `repro.models.common`.  The init functions take an explicit
 `torch.Generator` (their tensors are made on its device); `jax.random` and
@@ -54,6 +54,30 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y.to(x.dtype) * gamma.to(x.dtype) + beta.to(x.dtype)
 
 
+def mlp_init(generator: torch.Generator, sizes, dtype=torch.float32) -> dict:
+    """`repro`'s ``mlp_init``: ``w{i}`` (sizes[i], sizes[i+1]) by
+    `dense_init` and ``b{i}`` zeros, one pair a layer."""
+    n = len(sizes) - 1
+    tree = {f"w{i}": dense_init(generator, (sizes[i], sizes[i + 1]),
+                                dtype=dtype) for i in range(n)}
+    tree.update({f"b{i}": torch.zeros((sizes[i + 1],), dtype=dtype,
+                                      device=generator.device)
+                 for i in range(n)})
+    return tree
+
+
+def mlp_apply(params: dict, x: torch.Tensor, *, act=torch.nn.functional.silu,
+              final_act: bool = False) -> torch.Tensor:
+    """`repro`'s ``mlp_apply``: ``x @ w{i} + b{i}`` a layer, ``act`` (SiLU)
+    between layers and none after the last unless ``final_act``."""
+    n = len([k for k in params if k.startswith("w")])
+    for i in range(n):
+        x = x @ params[f"w{i}"] + params[f"b{i}"]
+        if i < n - 1 or final_act:
+            x = act(x)
+    return x
+
+
 def tree_leaves(tree) -> list:
     """The leaves of a nested dict/list/tuple tree in JAX's flattening
     order (dict keys sorted); ``None`` is an empty subtree, as in JAX."""
@@ -93,6 +117,18 @@ def tree_map(fn, tree, *rest):
     if tree is None:
         return None
     return fn(tree, *rest)
+
+
+def stack_trees(trees: list):
+    """Trees of one structure stacked leaf by leaf along a new leading dim
+    (`repro`'s ``jax.vmap`` of a per-layer init)."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+def tree_slice(tree, i: int):
+    """Entry ``i`` of a stacked tree's leading dim (a view of each
+    leaf)."""
+    return tree_map(lambda t: t[i], tree)
 
 
 def tree_cast(tree, dtype):

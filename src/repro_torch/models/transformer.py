@@ -64,7 +64,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.common import dense_init, embed_init, rms_norm, tree_cast
+from repro_torch.models.common import (
+    dense_init,
+    embed_init,
+    rms_norm,
+    stack_trees,
+    tree_cast,
+    tree_slice,
+)
 from repro_torch.models.moe import MoE, MoEConfig, init_moe, moe_apply
 
 
@@ -166,12 +173,6 @@ def _outer(cfg: LMConfig, generator: torch.Generator, dtype) -> dict:
                                      device=generator.device)}
 
 
-def _stack(trees: list) -> dict:
-    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
-            else torch.stack([t[k] for t in trees])
-            for k, v in trees[0].items()}
-
-
 def init_params(cfg: LMConfig, generator: torch.Generator) -> dict:
     """`repro`'s parameter tree in ``cfg.param_dtype`` on the generator's
     device: ``embed`` (V, d), ``head`` (d, V), ``final_norm`` (d,) and
@@ -179,7 +180,7 @@ def init_params(cfg: LMConfig, generator: torch.Generator) -> dict:
     dim.  Draws embed, head, then layer 0, 1, … (`build_model`'s order)."""
     check_supported(cfg)
     params = _outer(cfg, generator, cfg.param_dtype)
-    params["layers"] = _stack([init_layer(cfg, generator)
+    params["layers"] = stack_trees([init_layer(cfg, generator)
                                for _ in range(cfg.n_layers)])
     return params
 
@@ -242,7 +243,7 @@ class Transformer(nn.Module):
         layers = params["layers"]
         if isinstance(layers, dict):             # stacked over n_layers
             stacked = layers
-            layers = (_layer_slice(stacked, i) for i in range(cfg.n_layers))
+            layers = (tree_slice(stacked, i) for i in range(cfg.n_layers))
         self.layers = nn.ModuleList(Layer(cfg, p) for p in layers)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -265,11 +266,6 @@ def build_model(cfg: LMConfig, generator: torch.Generator) -> Transformer:
     params["layers"] = (init_layer(cfg, generator)
                         for _ in range(cfg.n_layers))
     return Transformer(cfg, params)
-
-
-def _layer_slice(tree: dict, i: int) -> dict:
-    return {k: _layer_slice(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -404,7 +400,7 @@ def _forward_params(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
     x = embed_tokens(params["embed"].to(cfg.dtype), tokens)
     pos = torch.arange(S, device=tokens.device).expand(B, S)
     for i in range(cfg.n_layers):
-        p = _layer_slice(params["layers"], i)
+        p = tree_slice(params["layers"], i)
         if cfg.remat:
             x = checkpoint(_train_layer, cfg, p, x, pos, attn_prefer,
                            use_reentrant=False)

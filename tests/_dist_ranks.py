@@ -150,3 +150,31 @@ def case_compressed_psum(xs):
 
     x = torch.from_numpy(xs[dist.get_rank()])
     return compressed_psum(x, dist.group.WORLD).numpy()
+
+
+def case_halo_graphcast(cfg, params, plan, feat, tgt, device="cpu"):
+    """The halo GraphCast across the default group, rank r on shard r:
+    this rank's forward block, and without and with recompute the loss
+    and the parameter gradients summed over the ranks (NumPy trees)."""
+    from repro_torch.convert import gnn_params_from_numpy, gnn_params_to_numpy
+    from repro_torch.dist import group as dist_group
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.gnn.halo import (graphcast_halo_local,
+                                             graphcast_halo_loss,
+                                             halo_batch_from_plan)
+    from repro_torch.train.train_loop import value_and_grad
+
+    b = halo_batch_from_plan(plan, feat, tgt, device=device).shard(
+        dist.get_rank())
+    p = gnn_params_from_numpy("graphcast", cfg, params, device=device)
+    with torch.no_grad():
+        pred = graphcast_halo_local(cfg, p, b)
+    out = dict(pred=pred.cpu().numpy())
+    for remat in (False, True):
+        loss, grads = value_and_grad(lambda q, bb: graphcast_halo_loss(
+            cfg, q, bb, remat=remat))(p, b)
+        grads = tree_map(
+            lambda g: dist_group.all_reduce_sum(g, dist.group.WORLD), grads)
+        out["remat" if remat else "plain"] = dict(
+            loss=float(loss), grads=gnn_params_to_numpy(grads))
+    return out

@@ -31,7 +31,11 @@ fp32; the smoke SASRec on the card to the CPU run: user states within
 1e-5, streamed top-100 ids identical.  Training: K6 with a sliding window
 on its three routes against the plain mask; K6's and K5's gradients
 against autograd through their plain versions, K5's bit-identical twice;
-a smoke LM and a smoke SASRec train step bit-identical twice.
+a smoke LM and a smoke SASRec train step bit-identical twice.  The GNNs
+(no kernel of their own: a fixed-order ``segment_reduce`` and a take) —
+the ordered scatter and its backward against ``index_add_`` within 1e-5
+of Σ|terms| and bit-identical twice; one smoke train step of each arch on
+the card against the CPU within 1e-5 (loss, relative; parameters).
 """
 
 import re
@@ -970,3 +974,65 @@ def test_reference_preset_on_card_matches_cpu(card):
               partitioner="rsb_inverse", precond="amg", engine="recursive",
               device=card)
     assert cuda.LAUNCHES > before             # K1 in the AMG levels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 512])
+def test_gnn_ordered_scatter_on_card(card, d):
+    """`scatter_sum` and `gather`'s backward at a sampled batch's layout
+    (most slots padded onto row 0, a power-law source side) against
+    ``index_add_``, and the same bits twice."""
+    from repro_torch.models.gnn.common import (gather, ordered_sum,
+                                               scatter_sum, segment_plan)
+
+    rng = np.random.default_rng(d)
+    E, n = 40_000, 30_000
+    idx = np.minimum(rng.zipf(1.5, E) - 1, n - 1)
+    idx[rng.random(E) < 0.6] = 0
+    v = torch.from_numpy(rng.normal(size=(E, d)).astype(np.float32)).to(card)
+    it = torch.from_numpy(idx).to(card)
+    plan = segment_plan(it, n)
+    got = scatter_sum(v, plan, n)
+    want = torch.zeros(n, d, device=card).index_add_(0, it, v)
+    terms = torch.zeros(n, d, device=card).index_add_(0, it, v.abs())
+    assert float(((got - want).abs() / terms.clamp(min=1e-30)).max()) <= 1e-5
+    assert torch.equal(got, scatter_sum(v, plan, n))
+    cpu = ordered_sum(v.cpu(), segment_plan(idx, n))
+    assert float(((got.cpu() - cpu).abs()).max()) <= \
+        1e-5 * float(terms.max())
+    x = torch.zeros(n, d, device=card, requires_grad=True)
+    grads = []
+    for _ in range(2):
+        (g,) = torch.autograd.grad((gather(x, plan) * v).sum(), x)
+        grads.append(g)
+    assert torch.equal(grads[0], grads[1])
+    assert float(((grads[0] - want).abs() / terms.clamp(min=1e-30)).max()) \
+        <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch_id", ["meshgraphnet", "graphcast", "nequip",
+                                     "mace"])
+def test_gnn_smoke_step_on_card_matches_cpu(card, arch_id):
+    """One `gnn_train_step` of the smoke config on the launcher's data,
+    on the card against the CPU, and twice on the card: the same bits."""
+    from repro_torch.launch.cells import gnn_train_step
+    from repro_torch.launch.train import make_loss_and_data
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg, params, _, data = make_loss_and_data(arch_id, True, 8, 8, 0,
+                                              device="cpu")
+    batch = next(data)
+    out = {}
+    for dev in ("cpu", "cuda", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        out.setdefault(dev, []).append(
+            gnn_train_step(arch_id, cfg, p, adamw_init(p), batch.to(dev)))
+    (cpu,), (a, b) = out["cpu"], out["cuda"]
+    assert abs(float(a[2]) - float(cpu[2])) <= 1e-5 * abs(float(cpu[2]))
+    for x, y in zip(tree_leaves(a[0]), tree_leaves(cpu[0])):
+        assert float((x.cpu() - y).abs().max()) <= 1e-5
+    assert torch.equal(a[2], b[2])
+    assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a[0]),
+                                                  tree_leaves(b[0])))

@@ -219,6 +219,10 @@ def test_train_cli_preempts_and_resumes(tmp_path, capsys):
     assert "[fit] step 6/6" in out
 
 
-def test_train_cli_gnn_waits_for_d3():
-    with pytest.raises(NotImplementedError, match="D3"):
-        train_cli.make_loss_and_data("mace", True, 2, 8, 0, device="cpu")
+@pytest.mark.parametrize("arch_id", ["meshgraphnet", "graphcast", "nequip",
+                                     "mace"])
+def test_train_cli_runs_gnn(arch_id, capsys):
+    train_cli.main(["--arch", arch_id, "--steps", "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"[train] arch={arch_id}" in out
+    assert "[fit] step 2/2" in out and "[train] done: loss" in out
