@@ -345,6 +345,46 @@ Phases, each printing JSON lines:
     (f) one GraphCast ``minibatch_lg`` step profiled: device ms, kernels,
     the top eight, the takes' and the sums' shares.  Every check runs
     before the phase fails.  No kernel of the port lies on this path.
+14. ``shard`` — `repro`'s sharding rules across ranks: 4 gloo ranks
+    sharing the card (their collectives through the host), then 1 NCCL
+    rank at world size 1, each laying `DeviceMesh`es over its group.
+    (a) `mistral-large-123b` cut to 2 layers at full width, bf16, tensor
+    parallel over ``model`` = 4 (`build_model` with `lm_rules`: each rank
+    draws the layers and keeps its slices; vocab-parallel K5 lookup and
+    head): a 4 × 512 prefill and 16 greedy steps against the one-process
+    model of the same seed teacher-forced on the ranks' tokens —
+    ‖Δ‖₂ / ‖ref‖₂ of the logit rows ≤ SHARD_GAP_LIMIT, a limit set between
+    that reading and a control's (the one-process model with its attention
+    rounded to 4 mantissa bits), which must exceed it; a token that
+    differs from the one-process argmax only at a near tie; each rank's
+    weight bytes beside the one-process total.  (b) `deepseek-moe-16b`,
+    2 layers, ``impl="shardmap"`` (expert parallelism), at the capacity
+    factor E / top_k under which nothing drops, the same runs and gate;
+    at the published capacity factor two prefills bit-identical and the
+    dropped share; one full-width MoE layer in fp32 on 512 tokens against
+    one-process `moe_apply`, ≤ 2e-4 of max|y|.  (c) a deepseek train step
+    (1 layer, fp32 compute, no drops, no recompute; 4 × 256 tokens) on
+    (data, model) = (2, 2): the loss within 2e-3 of the one-process
+    step's; every rank's clipped gradient (AdamW's first moment after the
+    step) within 1e-4 of each leaf's max from the one-process step's
+    slices (saved by the parent, mapped by the ranks); every param further
+    than 1e-4 of its leaf's max from the one-process step's lies where the
+    one-process gradient is within 1e-4 of the leaf's max|g| of 0 (AdamW's
+    first step moves an entry by lr · g / (|g| + eps): a gradient at the
+    rounding's distance from 0 moves it either way); one step twice the
+    same bits.  (d) the NCCL rank runs (a)–(c) on (1, 1) meshes: tokens,
+    logits, loss and params bit-identical to one process.  (e) the step's
+    attention, norm, router and shared-expert leaves gathered from the
+    (2, 2) mesh, saved by rank 0 and restored onto a (1, 2) mesh of ranks
+    0 and 1, bit for bit.  (f) host only: each LM config's bytes a device
+    under `param_specs_lm` on (16, 16) and on one 8-card node (1, 8), bf16
+    weights and the fp32 train state, beside 80 GB.  (g) K6 at mistral's
+    local heads (24 over 2; the prefill, and a decode step over a strided
+    view of 2 of a cache's 8 KV heads) and K5's vocab-slice lookup (foreign
+    ids at weight 0) against their plain versions, timed.  K6 and K5
+    launches are counted from 0 on every rank over (a)–(c) (K6 = 2 × 17
+    in (a) and (b) on every rank, K5 = 17 on a gloo rank) and join the
+    ``kernels`` line.  Every check runs before the phase fails.
 
 Then ``done`` (the script's seconds), the line ``{"kernels": [...]}``
 (every ported kernel: launches on its
@@ -353,6 +393,7 @@ chains of ``full_sharded`` (``dist`` prints its own per rank), K3 on none,
 K6 in the two ``serve`` runs, ``serve_window``'s long_500k run, the 4
 steps of ``train`` and the five ``serve_moe`` runs, K5 in the three
 ``recsys`` runs, the 5 steps of ``recsys_train`` and the 4 of ``train``,
+and both in ``shard``'s ranks over (a)–(c),
 with the counters set to 0 just before each
 — error against the plain version, times and bound), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -1792,6 +1833,8 @@ def dist_rank(payload) -> dict:
                 dist_group.all_reduce_sum(x, dist.group.WORLD).cpu().numpy())
     if "halo" in payload:
         out["halo"] = halo_rank(payload["halo"])
+    if "shard" in payload:
+        out["shard"] = shard_rank(payload["shard"])
     return out
 
 
@@ -4534,6 +4577,692 @@ def phase_gnn():
     torch.cuda.empty_cache()
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 14: shard — the sharding rules across ranks (tensor, data and
+# expert parallelism; reshard; placements)
+# ---------------------------------------------------------------------------
+
+SHARD_WORLD = 4                 # gloo ranks sharing the card
+SHARD_LAYERS = 2                # (a), (b): layers of mistral and deepseek
+SHARD_TRAIN_LAYERS = 1          # (c): deepseek, fp32 compute
+SHARD_RUN = (4, 512, 16)        # (a), (b): batch, prompt, greedy steps
+SHARD_TRAIN_BATCH = (4, 256)    # (c): the global batch, split over data
+SHARD_SEED = 0
+# (a), (b): ‖Δ‖₂ / ‖ref‖₂ of every logit row (prefill's last position and
+# each step's) against the one-process run on the same tokens; each limit
+# lies between the sharded run's reading and a control's (the one-process
+# run with its attention output rounded to SHARD_CONTROL_BITS mantissa
+# bits), both read on the card
+SHARD_GAP_LIMIT = {"mistral-large-123b": 1e-2, "deepseek-moe-16b": 1e-2}
+SHARD_CONTROL_BITS = 4
+SHARD_MOE_TOKENS = 512          # (b) one fp32 MoE layer, EP vs one process
+SHARD_MOE_TOL = 2e-4            # (b): of max|y| (repro's gate)
+SHARD_LOSS_TOL = 2e-3           # (c): repro's gate, EP loss vs pjit loss
+SHARD_PARAM_TOL = 1e-4          # (c): of each leaf's max
+# (c): AdamW's first step moves an entry by lr · g / (|g| + eps), so where
+# the one-process gradient lies within the sharded run's rounding of 0 the
+# two steps move it apart (by up to 2 lr); a param entry further than
+# SHARD_PARAM_TOL from the one-process one must have |g| ≤ SHARD_FLAT_TOL
+# of its leaf's max|g|
+SHARD_FLAT_TOL = 1e-4
+SHARD_PLACEMENTS = {"pod": ((16, 16), ("data", "model")),
+                    "node": ((1, 8), ("data", "model"))}
+SHARD_CARD_BYTES = 80e9
+
+
+def shard_config(arch_id, layers, dtype=None, **moe_kw):
+    """``arch_id``'s published config cut to ``layers`` layers; ``moe_kw``
+    replaces fields of its MoE config."""
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(arch_id).make_config(),
+                              n_layers=layers)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if moe_kw:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe_kw))
+    return cfg
+
+
+def train_config(impl):
+    """(c)'s config: deepseek cut to SHARD_TRAIN_LAYERS layers, fp32
+    compute, no drops, no recompute (the same bits either way)."""
+    cfg = shard_config("deepseek-moe-16b", SHARD_TRAIN_LAYERS,
+                       dtype=torch.float32)
+    return dataclasses.replace(
+        shard_config("deepseek-moe-16b", SHARD_TRAIN_LAYERS,
+                     dtype=torch.float32, impl=impl,
+                     capacity_factor=no_drop(cfg)), remat=False)
+
+
+def no_drop(cfg):
+    """The MoE capacity factor E / top_k: C ≥ T, no token can drop."""
+    return cfg.moe.n_experts / cfg.moe.top_k
+
+
+def shard_greedy(model, prompts, steps, forced=None):
+    """Prefill ``prompts`` (B, P) and ``steps`` decode steps, each fed the
+    previous row's argmax (or ``forced[:, i]``): the tokens fed (B, steps)
+    and the logit rows (B, steps + 1, V) in fp32, on the host."""
+    from repro_torch.models import transformer as tt
+
+    B, P = prompts.shape
+    with torch.inference_mode():
+        cache = tt.init_cache(model.cfg, B, P + steps, "cuda",
+                              rules=model.rules)
+        logits, cache = tt.prefill(model, prompts, cache)
+        rows, toks = [logits[:, -1]], []
+        for i in range(steps):
+            nxt = rows[-1].argmax(-1) if forced is None else forced[:, i]
+            toks.append(nxt)
+            logits, cache = tt.decode_step(model, cache, nxt[:, None], P + i)
+            rows.append(logits[:, -1])
+    torch.cuda.synchronize()
+    return torch.stack(toks, 1).cpu(), torch.stack(rows, 1).float().cpu()
+
+
+@contextlib.contextmanager
+def count_drops():
+    """Inside, every `models.moe.dispatch` adds its dropped and total
+    (token, choice) entries to the yielded [dropped, total]."""
+    from repro_torch.models import moe as mt
+
+    kept, box = mt.dispatch, [0, 0]
+
+    def dispatch(moe, top_e, n_tokens):
+        slot, keep, C = kept(moe, top_e, n_tokens)
+        box[0] += int((~keep).sum())
+        box[1] += keep.numel()
+        return slot, keep, C
+
+    mt.dispatch = dispatch
+    try:
+        yield box
+    finally:
+        mt.dispatch = kept
+
+
+def shard_rank(p) -> dict:
+    """What one rank of phase ``shard`` runs (every rank of the default
+    group; gloo: 4 ranks sharing the card, NCCL: one): (a) mistral's TP
+    serve on a (1, world) mesh; (b) deepseek's EP serve there, its
+    published capacity twice, one fp32 MoE layer; (c) deepseek's train
+    step on (2, world / 2) (NCCL: (1, 1)), twice from one state, its
+    params and first moments against the one-process step's saved at
+    ``p["ref_path"]``; (e) with 4 ranks, the
+    step's attention and router leaves gathered, saved by rank 0 and
+    restored onto ranks 0 and 1.  K6 and K5 launches counted from 0 over
+    (a)–(c)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.dist.sharding import (lm_rules, local_slice,
+                                           param_specs_lm, spec_leaves,
+                                           tree_specs)
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.launch.cells import lm_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.moe import init_moe
+    from repro_torch.train.checkpoint import (load_checkpoint, reshard,
+                                              save_checkpoint, unshard)
+    from repro_torch.train.optimizer import adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_rank = time.perf_counter()
+    world, r = dist.get_world_size(), dist.get_rank()
+    tp = lm_rules(make_mesh((1, world), ("data", "model")))
+    B, P, steps = SHARD_RUN
+    out = dict(coords=tp.coords)
+    fa_cuda.LAUNCHES = 0
+    eb_cuda.LAUNCHES = 0
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for key, arch in (("a", "mistral-large-123b"), ("b", "deepseek-moe-16b")):
+        cfg = shard_config(arch, SHARD_LAYERS)
+        if cfg.moe is not None:
+            published = cfg.moe.capacity_factor
+            cfg = shard_config(arch, SHARD_LAYERS, impl="shardmap",
+                               capacity_factor=no_drop(cfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k6, k5 = fa_cuda.LAUNCHES, eb_cuda.LAUNCHES
+        t0 = time.perf_counter()
+        model = tt.build_model(cfg, torch.Generator(device="cuda")
+                               .manual_seed(SHARD_SEED), tp)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        prompts = torch.from_numpy(p["prompts"][arch]).cuda()
+        t0 = time.perf_counter()
+        toks, rows = shard_greedy(model, prompts, steps)
+        res = dict(tokens=toks.numpy(), logits=rows.numpy(), build_s=build_s,
+                   run_s=time.perf_counter() - t0,
+                   weight_bytes=sum(w.numel() * w.element_size()
+                                    for w in model.parameters()),
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   k6=fa_cuda.LAUNCHES - k6, k5=eb_cuda.LAUNCHES - k5)
+        if cfg.moe is not None:
+            # the published capacity factor: the prompts' prefill twice
+            model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=published))
+            with torch.inference_mode():
+                with count_drops() as drops:
+                    first, _ = tt.prefill(model, prompts)
+                again, _ = tt.prefill(model, prompts)
+            res.update(published=published, dropped=drops[0],
+                       entries=drops[1],
+                       published_bit_identical=bool(torch.equal(first,
+                                                                 again)))
+        out[key] = res
+        del model
+        free()
+
+    # (b) one fp32 MoE layer at full width: EP against the parent's
+    # one-process `moe_apply` on the same weights and tokens
+    cfg = shard_config("deepseek-moe-16b", 1, dtype=torch.float32,
+                       impl="shardmap", capacity_factor=8.0)
+    full = init_moe(cfg.moe, cfg.d_model, torch.Generator(device="cuda")
+                    .manual_seed(SHARD_SEED + 1), torch.float32)
+    specs = tree_specs(tp, {"moe": full}, layer=True)["moe"]
+    local = {k: tp.local(v, specs[k]).clone() for k, v in full.items()}
+    del full
+    with torch.inference_mode():
+        y = tt._moe_shardmap_block(cfg, local, torch.from_numpy(
+            p["layer_x"]).cuda(), tp)
+    out["layer"] = dict(y=y.cpu().numpy())
+    del local, y
+    free()
+
+    # (c) the train step: DP over data, TP and EP over model, FSDP experts
+    shape = (2, world // 2) if world > 1 else (1, 1)
+    rules = lm_rules(make_mesh(shape, ("data", "model")))
+    cfg = train_config(impl="shardmap")
+    full = tt.init_params(cfg, torch.Generator(device="cuda")
+                          .manual_seed(SHARD_SEED + 2))
+    specs = param_specs_lm(cfg, full, rules.mesh)
+    params = reshard(full, rules.mesh, specs)
+    del full
+    free()
+    opt = adamw_init(params)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in p["train"].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k6, k5 = fa_cuda.LAUNCHES, eb_cuda.LAUNCHES
+    t0 = time.perf_counter()
+    p1, o1, loss = lm_train_step(cfg, params, opt, batch, rules=rules)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    c = dict(mesh=shape, coords=rules.coords, loss=float(loss),
+             step_s=step_s, peak_bytes=torch.cuda.max_memory_allocated(),
+             k6=fa_cuda.LAUNCHES - k6, k5=eb_cuda.LAUNCHES - k5)
+    p1b, _, loss_b = lm_train_step(cfg, params, opt, batch, rules=rules)
+    c["repeat_equal"] = bool(float(loss_b) == float(loss) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(p1), tree_leaves(p1b))))
+    o1 = {"m": o1["m"]}
+    del p1b, params, opt
+    free()
+    ref = torch.load(p["ref_path"], mmap=True, weights_only=True)
+    gaps, m_gaps, equal, off, flat = [], [], True, 0, True
+    for got, m, want, want_m, spec in zip(
+            tree_leaves(p1), tree_leaves(o1["m"]), tree_leaves(ref["params"]),
+            tree_leaves(ref["m"]), spec_leaves(specs)):
+        want = local_slice(want, spec, rules.coords, rules.mesh).cuda()
+        want_m = local_slice(want_m, spec, rules.coords, rules.mesh).cuda()
+        d = (got - want).abs()
+        gaps.append(float(d.max() / want.abs().max()))
+        m_scale = want_m.abs().max().clamp_min(1e-30)
+        m_gaps.append(float((m - want_m).abs().max() / m_scale))
+        far = d > SHARD_PARAM_TOL * want.abs().max()
+        off += int(far.sum())
+        flat = flat and bool((want_m[far].abs()
+                              <= SHARD_FLAT_TOL * m_scale).all())
+        equal = equal and bool(torch.equal(got, want)) \
+            and bool(torch.equal(m, want_m))
+    c.update(param_gap=max(gaps), grad_gap=max(m_gaps), params_off=off,
+             params_off_flat=flat, n_local=sum(t.numel()
+                                               for t in tree_leaves(p1)),
+             params_equal=equal)
+    del ref
+    out["c"] = c
+    out["k6"], out["k5"] = fa_cuda.LAUNCHES, eb_cuda.LAUNCHES
+    out["a_to_c_s"] = time.perf_counter() - t_rank
+
+    if world == SHARD_WORLD:
+        # (e) saved from the 4 ranks of (c)'s (2, 2) mesh, restored onto a
+        # (1, 2) mesh of ranks 0 and 1
+        keys = ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo")
+        sub = {"layers": {k: p1["layers"][k] for k in keys}}
+        sub_specs = {"layers": {k: specs["layers"][k] for k in keys}}
+        sub["layers"]["moe"] = {k: p1["layers"]["moe"][k] for k in
+                                ("router", "shared_wi", "shared_wg",
+                                 "shared_wo")}
+        sub_specs["layers"]["moe"] = {k: specs["layers"]["moe"][k]
+                                      for k in sub["layers"]["moe"]}
+        t0 = time.perf_counter()
+        whole = unshard(sub, rules.mesh, sub_specs)
+        if r == 0:
+            save_checkpoint(p["ckpt_dir"], 1, whole)
+        dist.barrier()
+        kind = "cuda" if str(dist.get_backend()) == "nccl" else "cpu"
+        two = DeviceMesh(kind, torch.tensor([[0, 1]]),
+                         mesh_dim_names=("data", "model"))
+        e = dict(saved_from=shape, restored_onto=(1, 2),
+                 bytes=sum(t.numel() * t.element_size()
+                           for t in tree_leaves(whole)))
+        if r < 2:
+            _, restored, _ = load_checkpoint(
+                f"{p['ckpt_dir']}/ckpt_00000001.npz", whole)
+            specs2 = param_specs_lm(cfg, whole, two)
+            back = reshard(restored, two, specs2)
+            coords2 = dict(zip(two.mesh_dim_names, two.get_coordinate()))
+            e["bit_identical"] = all(
+                torch.equal(b, local_slice(w, s, coords2, two))
+                for b, w, s in zip(tree_leaves(back), tree_leaves(whole),
+                                   spec_leaves(specs2)))
+            e["sharded_leaves"] = sum(any(x is not None for x in s)
+                                      for s in spec_leaves(specs2))
+        e["seconds"] = time.perf_counter() - t0
+        dist.barrier()
+        out["e"] = e
+    return out
+
+
+def shard_placements() -> dict:
+    """(f) per-device parameter bytes of every LM config under
+    `param_specs_lm`, on `repro`'s (16, 16) mesh and on one 8-card node
+    (1, 8): bf16 weights, and the fp32 train state (masters and AdamW's
+    two moments, 12 bytes a parameter), beside 80 GB."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.dist.sharding import param_specs_lm, spec_bytes
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.transformer import abstract_params
+
+    rows = {}
+    for arch_id, arch in sorted(REGISTRY.items()):
+        if arch.family != "lm":
+            continue
+        cfg = arch.make_config()
+        tree = abstract_params(cfg)
+        row = dict(n_params=cfg.n_params(), bf16_bytes=2 * cfg.n_params())
+        for name, (shape, axes) in SHARD_PLACEMENTS.items():
+            mesh = MeshShape(shape, axes)
+            specs = param_specs_lm(cfg, tree, mesh)
+            w = spec_bytes(tree, specs, mesh, 2)
+            row[name] = dict(bf16_bytes_per_device=w,
+                             train_state_bytes_per_device=spec_bytes(
+                                 tree, specs, mesh, 12),
+                             bf16_fits=w <= SHARD_CARD_BYTES)
+        rows[arch_id] = row
+    return rows
+
+
+def shard_kernel_checks() -> dict:
+    """(g) K6 at mistral's local heads on a (1, 4) mesh (24 query heads
+    over 2 KV heads: the prefill, and a decode step over a strided view of
+    2 of a cache's 8 KV heads) and K5's vocab-parallel lookup (a quarter
+    of the vocab's rows, foreign ids at weight 0), bf16, each against its
+    plain version on the card, timed."""
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_plain
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    B, P, _ = SHARD_RUN
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(bf)
+
+    rows = {}
+    q, k, v = randn(B, P, 24, 128), randn(B, P, 2, 128), randn(B, P, 2, 128)
+    cache_k, cache_v = randn(B, P + 16, 8, 128), randn(B, P + 16, 8, 128)
+    qd = randn(B, 1, 24, 128)
+    cases = {
+        "prefill_24_2": ((q, k, v), dict(causal=True, q_offset=0, kv_len=P)),
+        "decode_24_2_strided": ((qd, cache_k[:, :, 2:4], cache_v[:, :, 2:4]),
+                                dict(causal=True, q_offset=P, kv_len=P + 1)),
+    }
+    for name, (args, kw) in cases.items():
+        got = flash_attention(*args, **kw)
+        want = flash_attention_plain(*args, **kw)
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        check(err <= FLASH_TOL[bf], f"shard (g) K6 {name}: {err} > "
+              f"{FLASH_TOL[bf]} of max|out| against the plain version")
+        rows[name] = dict(max_rel_err=err, tol=FLASH_TOL[bf],
+                          kernel_ms=time_ms(lambda: flash_attention(
+                              *args, **kw), reps=20, rounds=5),
+                          ref_ms=time_ms(lambda: flash_attention_plain(
+                              *args, **kw), reps=5, rounds=3, warmup=2))
+    V, d = 32768, 12288
+    rows_local = V // 4
+    table = randn(rows_local, d)
+    tok = torch.randint(0, V, (B * P,), generator=g, device="cuda")
+    local = tok - 1 * rows_local                   # the rank at model 1
+    own = (local >= 0) & (local < rows_local)
+    ids = torch.where(own, local, 0).to(torch.int32)
+    seg = torch.arange(B * P, dtype=torch.int32, device="cuda")
+    w = own.to(bf)
+    got = embedding_bag(table, ids, seg, B * P, weights=w)
+    want = embedding_bag_ref(table, ids, seg, B * P, weights=w)
+    rows["k5_vocab_slice"] = dict(
+        rows=rows_local, width=d, bags=B * P, own_share=float(own.float()
+                                                              .mean()),
+        bit_equal=bool(torch.equal(got, want)),
+        kernel_ms=time_ms(lambda: embedding_bag(table, ids, seg, B * P,
+                                                weights=w), reps=20, rounds=5),
+        ref_ms=time_ms(lambda: embedding_bag_ref(table, ids, seg, B * P,
+                                                 weights=w), reps=5, rounds=3,
+                       warmup=2))
+    check(rows["k5_vocab_slice"]["bit_equal"], "shard (g) K5: the masked "
+          "vocab-slice lookup differs from the plain version")
+    return rows
+
+
+def shard_train_reference(path, batch) -> dict:
+    """(c)'s one-process step (`NO_SHARD`, ``impl="pjit"``, the ranks'
+    seed): its params and first moments (0.1 × the clipped gradient)
+    saved at ``path`` for the ranks."""
+    from repro_torch.launch.cells import lm_train_step
+    from repro_torch.models import transformer as tt
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = train_config(impl="pjit")
+    params = tt.init_params(cfg, torch.Generator(device="cuda")
+                            .manual_seed(SHARD_SEED + 2))
+    b = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p1, o1, loss = lm_train_step(cfg, params, adamw_init(params), b)
+    torch.cuda.synchronize()
+    row = dict(loss=float(loss), step_s=time.perf_counter() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               n_params=cfg.n_params())
+    torch.save({"params": p1, "m": o1["m"]}, path)
+    del params, p1, o1
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def shard_layer_reference():
+    """(b)'s fp32 MoE layer on one process: the rank's weights (same seed),
+    the first of a seeded series of inputs (1, 512, d) whose every token's
+    top-k router-logit margin clears MOE_LAYER_MARGIN, and `moe_apply`'s
+    y."""
+    from repro_torch.models import moe as mt
+
+    cfg = shard_config("deepseek-moe-16b", 1, dtype=torch.float32,
+                       impl="shardmap", capacity_factor=8.0)
+    p = mt.init_moe(cfg.moe, cfg.d_model, torch.Generator(device="cuda")
+                    .manual_seed(SHARD_SEED + 1), torch.float32)
+    for seed in range(16):
+        x = torch.from_numpy(np.random.default_rng(100 + seed).normal(
+            size=(1, SHARD_MOE_TOKENS, cfg.d_model)).astype(np.float32))
+        srt = (x[0].cuda() @ p["router"]).sort(-1, descending=True).values
+        k = cfg.moe.top_k
+        margin = float((srt[:, k - 1] - srt[:, k]).min())
+        if margin > MOE_LAYER_MARGIN:
+            break
+    check(margin > MOE_LAYER_MARGIN, f"shard (b) layer: no input of the "
+          f"series clears the top-k margin ({margin})")
+    with torch.inference_mode():
+        y = mt.moe_apply(cfg.moe, p, x.cuda(), torch.float32).cpu().numpy()
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return x.numpy(), y, dict(input_seed=100 + seed, top_k_margin=margin)
+
+
+def l2_gap(got, want) -> float:
+    """‖got − want‖₂ / ‖want‖₂ over every logit, in fp64."""
+    got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
+    return float((got - want).norm() / want.norm())
+
+
+def shard_serve_reference(arch, prompts, gloo_tokens):
+    """(a), (b): the one-process model (same seed, `NO_SHARD`): its own
+    greedy run, and teacher-forced runs on the gloo ranks' tokens, with
+    K6 and with the control attention."""
+    from repro_torch.models import transformer as tt
+
+    cfg = shard_config(arch, SHARD_LAYERS)
+    if cfg.moe is not None:
+        cfg = shard_config(arch, SHARD_LAYERS, impl="shardmap",
+                           capacity_factor=no_drop(cfg))
+    model = tt.build_model(cfg, torch.Generator(device="cuda")
+                           .manual_seed(SHARD_SEED))
+    weight_bytes = sum(w.numel() * w.element_size()
+                       for w in model.parameters())
+    _, steps = gloo_tokens.shape
+    pr = torch.from_numpy(prompts).cuda()
+    own = shard_greedy(model, pr, steps)
+    forced = torch.from_numpy(gloo_tokens).cuda()
+    tf = shard_greedy(model, pr, steps, forced)
+    with coarse_attention(SHARD_CONTROL_BITS):
+        control = shard_greedy(model, pr, steps, forced)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(own=own, tf=tf, control=control, weight_bytes=weight_bytes)
+
+
+def shard_serve_check(key, arch, gloo, nccl, ref, need) -> dict:
+    """(a), (b): the gloo ranks' greedy tokens and logits against the
+    one-process run teacher-forced on them (tokens equal but where the
+    one-process top two logits lie closer than that row's gap; ‖Δ‖₂ of
+    every logit row ≤ the limit < the control's); every gloo rank's logits
+    the same bits; the NCCL rank (world size 1) = the one-process greedy
+    run bit for bit.  ``need(cond, what)`` records a failed check."""
+    limit = SHARD_GAP_LIMIT[arch]
+    g0 = gloo[0][key]
+    for i, rk in enumerate(gloo):
+        need(np.array_equal(rk[key]["tokens"], g0["tokens"])
+              and np.array_equal(rk[key]["logits"], g0["logits"]),
+              f"shard ({key}) gloo rank {i}: tokens or logits differ from "
+              "rank 0's")
+    tf_toks, tf_rows = ref["tf"]
+    got = torch.from_numpy(g0["logits"])
+    # the tokens: where the ranks' greedy token differs from the
+    # one-process argmax on the same prefix, both logits must lie within
+    # that row's gap of each other (a near tie)
+    want_arg = tf_rows.argmax(-1)
+    got_arg = got.argmax(-1)
+    flips = (want_arg != got_arg)
+    row_gap = (got - tf_rows).abs().amax(-1)
+    tie = tf_rows.gather(-1, want_arg[..., None])[..., 0] \
+        - tf_rows.gather(-1, got_arg[..., None])[..., 0]
+    near = bool((tie[flips] <= 2 * row_gap[flips]).all())
+    res = dict(gloo_world=len(gloo), limit=limit,
+               gap_l2=l2_gap(got, tf_rows),
+               gap_max=logit_gap(got, tf_rows),
+               control_gap_l2=l2_gap(ref["control"][1], tf_rows),
+               control_bits=SHARD_CONTROL_BITS,
+               token_flips=int(flips.sum()), flips_near_ties=near,
+               tokens_equal_own_greedy=bool(np.array_equal(
+                   g0["tokens"], ref["own"][0].numpy())),
+               sample_tokens=g0["tokens"][0, :8].tolist(),
+               weight_bytes_per_rank=[rk[key]["weight_bytes"]
+                                      for rk in gloo],
+               weight_bytes_one_process=ref["weight_bytes"],
+               peak_bytes_per_rank=[rk[key]["peak_bytes"] for rk in gloo],
+               build_s=[rk[key]["build_s"] for rk in gloo],
+               run_s=[rk[key]["run_s"] for rk in gloo],
+               k6_per_rank=[rk[key]["k6"] for rk in gloo],
+               k5_per_rank=[rk[key]["k5"] for rk in gloo])
+    need(res["gap_l2"] <= limit < res["control_gap_l2"],
+          f"shard ({key}) {arch}: logit gap {res['gap_l2']} (limit {limit}) "
+          f"against the control's {res['control_gap_l2']}")
+    need(near, f"shard ({key}) {arch}: a greedy token differs from the "
+          "one-process argmax away from a near tie")
+    n = nccl[0][key]
+    own_toks, own_rows = ref["own"]
+    res["nccl_bit_identical"] = bool(
+        np.array_equal(n["tokens"], own_toks.numpy())
+        and np.array_equal(n["logits"], own_rows.numpy()))
+    need(res["nccl_bit_identical"], f"shard ({key}) {arch}: the NCCL rank "
+          "(world size 1) differs from the one-process run")
+    if key == "b":
+        dropped = sum(rk[key]["dropped"] for rk in gloo)
+        entries = sum(rk[key]["entries"] for rk in gloo)
+        res.update(published_capacity_factor=g0["published"],
+                   published_dropped_share=dropped / entries,
+                   published_bit_identical=all(
+                       rk[key]["published_bit_identical"] for rk in gloo),
+                   no_drop_capacity_factor=no_drop(shard_config(arch, 1)))
+        need(res["published_bit_identical"], f"shard (b) {arch}: two "
+              "prefills at the published capacity factor differ")
+    return res
+
+
+def phase_shard():
+    """Phase 14 (see the module docstring).  Every check runs before the
+    phase fails.  Returns the K6 and K5 launches of (a)–(c) over every
+    rank."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    gc.collect()                    # the ranks share the card's memory
+    torch.cuda.empty_cache()
+    fails = []
+
+    def need(cond, what):
+        if not cond:
+            fails.append(what)
+
+    row = {"placements": shard_placements()}
+    t0 = time.perf_counter()
+    row["kernels"] = shard_kernel_checks()
+    row["kernels_s"] = time.perf_counter() - t0
+    B, P, _ = SHARD_RUN
+    rng = np.random.default_rng(5)
+    prompts = {arch: rng.integers(0, shard_config(arch, 1).vocab, (B, P))
+               for arch in ("mistral-large-123b", "deepseek-moe-16b")}
+    tb, ts = SHARD_TRAIN_BATCH
+    toks = rng.integers(0, shard_config("deepseek-moe-16b", 1).vocab,
+                        (tb, ts + 1))
+    train = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    tmp = tempfile.TemporaryDirectory(prefix="shard_")
+    try:
+        ref_path = f"{tmp.name}/ref_step.pt"
+        t0 = time.perf_counter()
+        row["c_reference"] = shard_train_reference(ref_path, train)
+        row["c_reference"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        layer_x, layer_y, layer_row = shard_layer_reference()
+        layer_row["reference_s"] = time.perf_counter() - t0
+        payload = dict(shard=dict(prompts=prompts, train=train,
+                                  ref_path=ref_path, layer_x=layer_x,
+                                  ckpt_dir=f"{tmp.name}/ckpt"))
+        got = {}
+        with contextlib.ExitStack() as alive:
+            t0 = time.perf_counter()
+            gloo = start_ranks(payload, SHARD_WORLD, "gloo")
+            alive.callback(stop_ranks, gloo)
+            got["gloo"] = [rk["shard"] for rk in join_ranks(gloo)]
+            row["gloo_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        refs = {arch: shard_serve_reference(
+            arch, prompts[arch], got["gloo"][0][key]["tokens"])
+            for key, arch in (("a", "mistral-large-123b"),
+                              ("b", "deepseek-moe-16b"))}
+        row["serve_reference_s"] = time.perf_counter() - t0
+        with contextlib.ExitStack() as alive:
+            t0 = time.perf_counter()
+            nccl = start_ranks(payload, 1, "nccl")
+            alive.callback(stop_ranks, nccl)
+            got["nccl"] = [rk["shard"] for rk in join_ranks(nccl)]
+            row["nccl_s"] = time.perf_counter() - t0
+    finally:
+        tmp.cleanup()
+    gloo, nccl = got["gloo"], got["nccl"]
+    for key, arch in (("a", "mistral-large-123b"), ("b", "deepseek-moe-16b")):
+        row[key] = shard_serve_check(key, arch, gloo, nccl, refs[arch],
+                                     need)
+        layers = SHARD_LAYERS
+        for rk in gloo + nccl:
+            need(rk[key]["k6"] == layers * (1 + SHARD_RUN[2]),
+                  f"shard ({key}): {rk[key]['k6']} K6 launches, not "
+                  f"{layers} x {1 + SHARD_RUN[2]}")
+        for rk in gloo:
+            need(rk[key]["k5"] == 1 + SHARD_RUN[2],
+                  f"shard ({key}): {rk[key]['k5']} K5 launches on a gloo "
+                  f"rank, not {1 + SHARD_RUN[2]}")
+    # (b) the fp32 layer, every rank's y against moe_apply's
+    for backend, ranks in got.items():
+        gaps = [float(np.abs(rk["layer"]["y"] - layer_y).max()
+                      / np.abs(layer_y).max()) for rk in ranks]
+        need(max(gaps) <= SHARD_MOE_TOL, f"shard (b) layer {backend}: EP "
+              f"{max(gaps)} of max|y| from moe_apply > {SHARD_MOE_TOL}")
+        layer_row[f"{backend}_gap"] = max(gaps)
+    row["b_layer"] = dict(layer_row, tokens=SHARD_MOE_TOKENS,
+                          tol=SHARD_MOE_TOL)
+    # (c) the train step
+    ref_c = row["c_reference"]
+    c = dict(tol_loss=SHARD_LOSS_TOL, tol_params=SHARD_PARAM_TOL,
+             tol_flat=SHARD_FLAT_TOL)
+    for backend, ranks in got.items():
+        cs = [rk["c"] for rk in ranks]
+        c[backend] = dict(
+            mesh=cs[0]["mesh"], loss=cs[0]["loss"],
+            rank_s=[rk["a_to_c_s"] for rk in ranks],
+            loss_gap=abs(cs[0]["loss"] - ref_c["loss"]),
+            param_gap=max(x["param_gap"] for x in cs),
+            grad_gap=max(x["grad_gap"] for x in cs),
+            params_off=sum(x["params_off"] for x in cs),
+            params_off_share=sum(x["params_off"] for x in cs)
+            / sum(x["n_local"] for x in cs),
+            params_off_flat=all(x["params_off_flat"] for x in cs),
+            repeat_equal=all(x["repeat_equal"] for x in cs),
+            params_equal=all(x["params_equal"] for x in cs),
+            step_s=[x["step_s"] for x in cs],
+            peak_bytes=[x["peak_bytes"] for x in cs],
+            k6=[x["k6"] for x in cs], k5=[x["k5"] for x in cs])
+        cb = c[backend]
+        need(len({x["loss"] for x in cs}) == 1, f"shard (c) {backend}: "
+              "ranks return different losses")
+        need(cb["loss_gap"] <= SHARD_LOSS_TOL, f"shard (c) {backend}: "
+              f"loss {cb['loss']} vs one-process {ref_c['loss']}")
+        need(cb["grad_gap"] <= SHARD_PARAM_TOL, f"shard (c) {backend}: "
+             f"the clipped gradient {cb['grad_gap']} of max from the "
+             "one-process step's")
+        need(cb["params_off_flat"], f"shard (c) {backend}: "
+             f"{cb['params_off']} params further than {SHARD_PARAM_TOL} of "
+             "max from the one-process step's, not all at a gradient "
+             f"within {SHARD_FLAT_TOL} of its leaf's max of 0")
+        need(cb["repeat_equal"], f"shard (c) {backend}: two steps from "
+              "one state differ")
+        need(min(cb["k6"]) > 0 and min(cb["k5"]) > 0,
+              f"shard (c) {backend}: K6 {cb['k6']}, K5 {cb['k5']}")
+    need(c["nccl"]["params_equal"] and c["nccl"]["loss_gap"] == 0.0,
+          "shard (c) NCCL rank (world size 1): differs from the one-process "
+          "step")
+    row["c"] = c
+    # (e) reshard
+    e = [rk["e"] for rk in gloo]
+    need(all(x.get("bit_identical", True) for x in e)
+          and all("bit_identical" in x for x in e[:2]),
+          "shard (e): the tree restored onto 2 ranks differs")
+    row["e"] = dict(e[0], seconds=[x["seconds"] for x in e])
+    k6 = sum(rk["k6"] for rk in gloo + nccl)
+    k5 = sum(rk["k5"] for rk in gloo + nccl)
+    row.update(k6_launches=k6, k5_launches=k5, failures=fails,
+               seconds=time.perf_counter() - t_phase)
+    emit("shard", **row)
+    check(not fails, "; ".join(fails))
+    return k6, k5
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -4619,6 +5348,9 @@ def main(argv=None) -> int:
     bag_rows, k5_launches = phase_recsys()
     k5_launches += k5_train + phase_recsys_train()
     phase_gnn()
+    k6_shard, k5_shard = phase_shard()
+    k6_launches += k6_shard
+    k5_launches += k5_shard
 
     def main_f32(rows):
         return next(r for r in rows

@@ -1,13 +1,13 @@
 """Configurations: the paper's parRSB workload and pipeline presets
 (`parrsb`), and the architecture registry (`--arch <id>` resolves here).
 
-The registry holds the architectures the port runs: the LMs
-``tinyllama-1.1b`` and ``command-r-35b`` (dense) and ``deepseek-moe-16b``
-and ``qwen3-moe-30b-a3b`` (MoE), served and trained; ``sasrec`` (serving,
-retrieval and training); and the GNNs ``meshgraphnet``, ``graphcast``,
-``nequip`` and ``mace`` (trained).  ``mistral-large-123b``, the one other
-arch id of `repro`'s registry, raises `KeyError` naming it as not ported
-yet, with the slice it waits for.
+The registry holds every architecture of `repro`'s: the LMs
+``tinyllama-1.1b``, ``command-r-35b`` and ``mistral-large-123b`` (dense;
+mistral's 245 GB of bf16 weights are built only sharded across ranks) and
+``deepseek-moe-16b`` and ``qwen3-moe-30b-a3b`` (MoE), served and trained;
+``sasrec`` (serving, retrieval and training); and the GNNs
+``meshgraphnet``, ``graphcast``, ``nequip`` and ``mace`` (trained).
+``NOT_PORTED`` names `repro`'s arch ids that wait for a slice (none).
 """
 
 from repro_torch.configs import (
@@ -16,6 +16,7 @@ from repro_torch.configs import (
     graphcast,
     mace,
     meshgraphnet,
+    mistral_large_123b,
     nequip,
     qwen3_moe_30b_a3b,
     sasrec,
@@ -25,14 +26,11 @@ from repro_torch.configs.base import ArchDef, ShapeCell
 
 REGISTRY = {m.ARCH.arch_id: m.ARCH
             for m in (deepseek_moe_16b, qwen3_moe_30b_a3b, tinyllama_1_1b,
-                      command_r_35b, mace, nequip, graphcast, meshgraphnet,
-                      sasrec)}
+                      command_r_35b, mistral_large_123b, mace, nequip,
+                      graphcast, meshgraphnet, sasrec)}
 
 # `repro`'s other arch ids, each with the slice it waits for.
-NOT_PORTED = {
-    "mistral-large-123b": "246 GB of bf16 weights: needs the sharding "
-                          "slice across cards (ROADMAP C3)",
-}
+NOT_PORTED: dict = {}
 
 
 def get_arch(arch_id: str) -> ArchDef:

@@ -4,7 +4,11 @@
   axis: a `torch.distributed` process group, its ranks, a rank's device,
   the subgroup of the first d ranks, and the collectives the layer calls,
   chosen by the backend's name (gloo on the CPU, and gloo or NCCL on the
-  card; gloo moves a card's tensor through the host).
+  card; gloo moves a card's tensor through the host), also under autograd.
+* :mod:`repro_torch.dist.sharding` — the logical-axis rules on a
+  `DeviceMesh` (or an abstract `MeshShape`): specs, placements, each
+  rank's slice, the LM, GNN and recsys rule tables, and the sharded
+  gradients' reduction and norm.
 * :mod:`repro_torch.dist.partition_aware` — halo sharding plans; a
   partition's edge cut becomes the gather volume of each sweep; the halo
   exchange and the distributed adjacency matvec (one export gather).
@@ -18,8 +22,7 @@
 Deviations from `repro`: across ranks a sweep also gathers its per-shard
 scalars and a run gathers its label blocks once
 (`refine_sharded`'s docstring), and the matvec gathers its result blocks
-so that every rank returns the whole ``y``.  Not ported: the sharding
-rules (`repro.dist.sharding`).
+so that every rank returns the whole ``y``.
 """
 
 from repro_torch.dist.collectives import dist_lap_apply_allreduce, ring_allreduce

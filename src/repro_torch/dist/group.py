@@ -20,8 +20,16 @@ about that group and nothing more:
   NCCL moves device tensors; gloo is a host transport, so a tensor on the
   card goes to the host for the call and comes back (one copy each way:
   on one H100 at 700 W, gloo's own CUDA path gathered a megabyte in 4–15
-  ms and its point-to-point calls on device tensors aborted the ranks).
-  A backend with no entry raises.
+  ms and its point-to-point calls on device tensors aborted the ranks);
+  over a group of one rank a host-wire collective is its input, and makes
+  no round trip through the host.  A backend with no entry raises;
+* the collectives under autograd that the sharded models call
+  (:func:`all_reduce`, :func:`all_gather`, :func:`reduce_scatter`,
+  :func:`all_to_all`), each a `torch.autograd.Function` whose backward is
+  its transpose — all-reduce ↔ all-reduce, all-gather ↔ reduce-scatter,
+  all-to-all ↔ the reverse all-to-all — over the same wire.  With these,
+  the gradient a rank computes is its share of the gradient of the sum of
+  the ranks' losses (`repro_torch.dist.sharding`).
 """
 
 from __future__ import annotations
@@ -41,6 +49,8 @@ _HOST_WIRE = {"gloo": True, "nccl": False}
 # old one warns where both exist); the same signature.
 _all_gather_single = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
 
 
 def active(group=None):
@@ -112,6 +122,11 @@ def _backend(group) -> str:
     return name
 
 
+def _alone(group) -> bool:
+    """A group of one rank on a host wire: the collective is its input."""
+    return size(group) == 1 and _HOST_WIRE[_backend(group)]
+
+
 def _to_wire(x: torch.Tensor, group) -> torch.Tensor:
     if _HOST_WIRE[_backend(group)]:
         return x.cpu()
@@ -121,6 +136,8 @@ def _to_wire(x: torch.Tensor, group) -> torch.Tensor:
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """Concatenate every rank's ``x`` along dim 0, in rank order (each
     rank's ``x`` has the same shape); on ``x``'s device."""
+    if _alone(group):
+        return x.contiguous()
     xw = _to_wire(x.contiguous(), group)
     out = xw.new_empty((size(group) * x.shape[0],) + tuple(x.shape[1:]))
     _all_gather_single(out, xw, group=group)
@@ -129,6 +146,8 @@ def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Σ over the ranks of ``x``, a new tensor on ``x``'s device."""
+    if _alone(group):
+        return x.clone()
     xw = _to_wire(x, group).clone()
     dist.all_reduce(xw, op=dist.ReduceOp.SUM, group=group)
     return xw.to(x.device)
@@ -137,6 +156,8 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max over the ranks of ``x``, a new tensor on ``x``'s
     device (``pmax``)."""
+    if _alone(group):
+        return x.clone()
     xw = _to_wire(x, group).clone()
     dist.all_reduce(xw, op=dist.ReduceOp.MAX, group=group)
     return xw.to(x.device)
@@ -163,3 +184,114 @@ def broadcast_object(obj, group, src: int = 0):
     dist.broadcast_object_list(box, src=dist.get_global_rank(group, src),
                                group=group)
     return box[0]
+
+
+# ---------------------------------------------------------------------------
+# Collectives along a tensor dim, and their autograd Functions
+# ---------------------------------------------------------------------------
+
+def gather_dim(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (a tiled
+    ``all_gather``); contiguous, on ``x``'s device."""
+    moved = x.movedim(dim, 0)
+    return all_gather_rows(moved, group).movedim(0, dim).contiguous()
+
+
+def scatter_sum_dim(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """Σ over the ranks of ``x``, of which this rank keeps chunk ``rank`` of
+    ``size(group)`` equal chunks along ``dim`` (a tiled
+    ``psum_scatter``)."""
+    n = size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"into {n} chunks")
+    if _alone(group):
+        return x.contiguous()
+    xw = _to_wire(x.movedim(dim, 0).contiguous(), group)
+    out = xw.new_empty((x.shape[dim] // n,) + tuple(xw.shape[1:]))
+    _reduce_scatter_single(out, xw, op=dist.ReduceOp.SUM, group=group)
+    return out.to(x.device).movedim(0, dim).contiguous()
+
+
+def exchange(x: torch.Tensor, group) -> torch.Tensor:
+    """All-to-all over dim 0: chunk ``j`` of ``size(group)`` equal chunks
+    goes to rank ``j``, and chunk ``i`` of the result came from rank
+    ``i``."""
+    n = size(group)
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} does not split into "
+                         f"{n} chunks")
+    if _alone(group):
+        return x.contiguous()
+    xw = _to_wire(x.contiguous(), group)
+    out = torch.empty_like(xw)
+    dist.all_to_all_single(out, xw, group=group)
+    return out.to(x.device)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return scatter_sum_dim(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return scatter_sum_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, ctx.group, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange(g, ctx.group), None
+
+
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Σ over the ranks (``psum``); its backward all-reduces the
+    gradient."""
+    return _AllReduce.apply(x, group)
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """`gather_dim` (``all_gather(tiled=True)``); its backward is the
+    reduce-scatter of the gradient along ``dim``."""
+    return _AllGather.apply(x, group, dim)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """`scatter_sum_dim` (``psum_scatter(tiled=True)``); its backward
+    all-gathers the gradient along ``dim``."""
+    return _ReduceScatter.apply(x, group, dim)
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """`exchange` (``all_to_all(split_axis=0, concat_axis=0)``); its
+    backward sends each gradient chunk back where its rows came from."""
+    return _AllToAll.apply(x, group)

@@ -22,9 +22,13 @@ sorted in descending order.  `repro` reshapes the users into equal chunks
 (its batch must be a multiple of ``user_chunk``); here the last chunk may
 be shorter.  Ties: ``jax.lax.top_k`` keeps the lower position of equal
 scores, ``torch.topk`` promises no order among them, so ids may differ
-where two scores are equal.  The rest of `repro`'s cells (`Cell` records,
-abstract arguments, PartitionSpecs, the pod topology) waits for the
-launch slice.
+where two scores are equal.
+
+`lm_train_step` takes ``rules``: on a `MeshRules` over a `DeviceMesh`
+each rank steps its slices of the parameters and moments (placed by
+`train.checkpoint.reshard` with `param_specs_lm`) on its rows of the
+batch.  The cells as records (`Cell`, abstract arguments, the
+production mesh and its topology) are the launch slice's (ROADMAP D5).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models import transformer as T
-from repro_torch.models.common import tree_map
+from repro_torch.models.common import NO_SHARD, ShardRules, tree_map
 from repro_torch.models.gnn import equivariant
 from repro_torch.models.gnn.graphcast import graphcast_loss
 from repro_torch.models.gnn.mace import mace_loss
@@ -49,35 +53,70 @@ from repro_torch.train.train_loop import value_and_grad
 OPT_CFG = AdamWConfig(lr=1e-4)
 
 
+def _rows(rules, batch: dict) -> dict:
+    """This rank's rows of a global batch (`batch_specs_lm`: the batch dim
+    over the data axes)."""
+    from repro_torch.dist.sharding import batch_specs_lm
+
+    specs = batch_specs_lm(rules.mesh)
+    return {k: rules.local(v, specs.get(k, specs["tokens"]))
+            for k, v in batch.items()}
+
+
 def lm_train_step(cfg: T.LMConfig, params: dict, opt_state: dict,
-                  batch: dict, *, microbatch: int = 1):
+                  batch: dict, *, microbatch: int = 1,
+                  rules: ShardRules = NO_SHARD):
     """`repro`'s ``_lm_train_cell`` step body: batch ``tokens``/``labels``
     (B, S) split into ``microbatch`` microbatches of B / microbatch rows
     (activations live for one microbatch), the losses and fp32 gradients
     summed in microbatch order and divided by the count, then
-    `adamw_update` with ``OPT_CFG``.  Returns (params, opt_state, loss)."""
-    vg = value_and_grad(lambda p, b: T.loss_fn(cfg, p, b))
+    `adamw_update` with ``OPT_CFG``.  Returns (params, opt_state, loss).
+
+    Under ``rules`` (a `MeshRules` on a `DeviceMesh`) ``batch`` is the
+    global batch, the same on every rank, and ``params``/``opt_state``
+    this rank's slices: each microbatch (global rows, as `repro` cuts
+    them) is split over the data axes, `loss_fn` returns its global loss,
+    each leaf's gradient shares are summed over the ranks that hold the
+    same slice (`reduce_grads`: the data-parallel all-reduce for leaves
+    replicated over ``data``; the FSDP expert weights got theirs from the
+    gather's reduce-scatter), and the clipping norm is the whole tree's
+    (`global_norm`), so every rank clips alike."""
+    sharded = getattr(rules, "mesh", None) is not None
+    vg = value_and_grad(lambda p, b: T.loss_fn(cfg, p, b, rules=rules))
+    B = batch["tokens"].shape[0]
+    if B % microbatch:
+        raise ValueError(f"batch {B} is not a multiple of microbatch "
+                         f"{microbatch}")
+    mb = B // microbatch
+
+    def rows(i):
+        b = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+        return _rows(rules, b) if sharded else b
+
     if microbatch > 1:
-        B = batch["tokens"].shape[0]
-        if B % microbatch:
-            raise ValueError(f"batch {B} is not a multiple of microbatch "
-                             f"{microbatch}")
-        mb = B // microbatch
         loss = torch.zeros((), dtype=torch.float32,
                            device=batch["tokens"].device)
         grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
         for i in range(microbatch):
-            l, g = vg(params, {k: v[i * mb:(i + 1) * mb]
-                               for k, v in batch.items()})
+            l, g = vg(params, rows(i))
             loss = loss + l
             tree_map(lambda s, x: s.add_(x), grads, g)   # gsum + g, in place
             del g
         loss = loss / microbatch
         grads = tree_map(lambda g: g / microbatch, grads)
     else:
-        loss, grads = vg(params, batch)
-    params, opt_state, _ = adamw_update(OPT_CFG, grads, opt_state, params)
+        loss, grads = vg(params, rows(0))
+    gnorm = None
+    if sharded:
+        from repro_torch.dist.sharding import (global_norm, reduce_grads,
+                                               tree_specs)
+
+        specs = tree_specs(rules, T.abstract_params(cfg))
+        grads = reduce_grads(grads, specs, rules)
+        gnorm = global_norm(grads, specs, rules)
+    params, opt_state, _ = adamw_update(OPT_CFG, grads, opt_state, params,
+                                        gnorm=gnorm)
     return params, opt_state, loss
 
 

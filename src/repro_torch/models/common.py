@@ -5,15 +5,35 @@ Ports of `repro.models.common`.  The init functions take an explicit
 `torch.Generator` (their tensors are made on its device); `jax.random` and
 torch give different numbers from one seed, so parity goes through
 converted parameters (`repro_torch.convert.lm_params_from_numpy`), not
-through the seed.  `repro`'s `ShardRules` is an identity on one device and
-is not ported (sharding is slice C3).
+through the seed.  `ShardRules` is `repro`'s hook that every model call
+takes; its default `NO_SHARD` is the one-process run, and
+`repro_torch.dist.sharding.MeshRules` binds it to a mesh.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Sequence
 
 import torch
+
+
+class ShardRules:
+    """Logical-axis → placement hook threaded through every model call.
+
+    Models name the axes of their weights and activations (``"batch"``,
+    ``"heads"``, ``"experts"`` …); `repro_torch.dist.sharding.MeshRules`
+    maps them onto mesh axes.  This default instance is the one-process
+    run: no spec, and ``shard`` returns its input."""
+
+    def spec(self, axes: Sequence[str | None], shape=None):
+        return None
+
+    def shard(self, x: torch.Tensor, axes: Sequence[str | None]) -> torch.Tensor:
+        return x
+
+
+NO_SHARD = ShardRules()
 
 
 def dense_init(generator: torch.Generator, shape, in_axis: int = 0,

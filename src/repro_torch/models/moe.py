@@ -22,7 +22,11 @@ over the expert-sorted entries.  No atomics: two calls on the card give
 the same bits, and the overflow row is the only place a scatter meets a
 duplicate index.
 
-Not ported: ``moe_apply_shardmap`` (expert parallelism, slice C3).
+`moe_apply_shardmap` is `repro`'s expert parallelism, run by each rank
+of a (data, model) mesh on its own tokens: local routing and capacity, the
+``(M, E_loc, C, d)`` buffer grouped by owner, one all-to-all over the
+model axis and its reverse, the local experts, the same ordered combine
+(the collectives of `repro_torch.dist.sharding.MeshRules`).
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ class MoEConfig:
     d_ff_expert: int = 0
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.001  # load-balance aux loss (GShard-style)
-    impl: str = "pjit"                # "pjit" (sorted dispatch) | "shardmap" (C3)
+    impl: str = "pjit"                # "pjit" (sorted dispatch) | "shardmap" (EP a2a)
 
 
 def init_moe(moe: MoEConfig, d_model: int, generator: torch.Generator,
@@ -126,6 +130,24 @@ def combine(out_buf: torch.Tensor, top_e, top_w, slot, keep, dtype):
     return y
 
 
+def fill(moe: MoEConfig, xt: torch.Tensor, slot: torch.Tensor, C: int,
+         dtype) -> torch.Tensor:
+    """The (E·C, d) capacity buffer: each kept (token, expert) entry's
+    token at its ``slot`` row, zeros elsewhere (`repro`'s ``.at[slot].set``;
+    dropped entries land on the overflow row, cut off)."""
+    E, d = moe.n_experts, xt.shape[1]
+    buf = torch.zeros((E * C + 1, d), dtype=dtype, device=xt.device)
+    buf[slot.reshape(-1)] = xt.to(dtype).repeat_interleave(moe.top_k, 0)
+    return buf[:E * C]
+
+
+def shared_ffn(xt: torch.Tensor, wi, wg, wo, dtype) -> torch.Tensor:
+    """The always-on shared experts' SwiGLU of tokens xt (T, d)."""
+    xs = xt.to(dtype)
+    g = xs @ wg
+    return (g * torch.sigmoid(g) * (xs @ wi)) @ wo
+
+
 def moe_apply(moe: MoEConfig, p: dict, x: torch.Tensor, dtype) -> torch.Tensor:
     """x: (B, S, d) → (B, S, d), `repro`'s ``moe_apply``."""
     B, S, d = x.shape
@@ -135,18 +157,74 @@ def moe_apply(moe: MoEConfig, p: dict, x: torch.Tensor, dtype) -> torch.Tensor:
         _, top_w, top_e = route(moe, p["router"], xt)
     with annotate("moe:dispatch"):
         slot, keep, C = dispatch(moe, top_e, T)
-        buf = torch.zeros((E * C + 1, d), dtype=dtype, device=x.device)
-        buf[slot.reshape(-1)] = xt.to(dtype).repeat_interleave(moe.top_k, 0)
-        buf = buf[:E * C].view(E, C, d)
+        buf = fill(moe, xt, slot, C, dtype).view(E, C, d)
     with annotate("moe:experts"):
         out_buf = expert_ffn(p, buf).reshape(E * C, d)
     with annotate("moe:combine"):
         y = combine(out_buf, top_e, top_w, slot, keep, dtype)
     if moe.n_shared:
         with annotate("moe:shared"):
-            xs = xt.to(dtype)
-            g = xs @ p["shared_wg"]
-            y = y + (g * torch.sigmoid(g) * (xs @ p["shared_wi"])) @ p["shared_wo"]
+            y = y + shared_ffn(xt, p["shared_wi"], p["shared_wg"],
+                               p["shared_wo"], dtype)
+    return y.reshape(B, S, d)
+
+
+def moe_apply_shardmap(moe: MoEConfig, p: dict, x: torch.Tensor, *,
+                       data_axes, model_axis: str, dtype, rules,
+                       fsdp_gather: bool = False,
+                       shared_gather: bool = True) -> torch.Tensor:
+    """Expert-parallel MoE with local dispatch and all-to-all, `repro`'s
+    ``moe_apply_shardmap`` on one rank of ``rules``' `DeviceMesh`.
+
+    x (B_loc, S_loc, d) holds this rank's tokens: each rank routes only
+    its own, with the capacity counted on them (``capacity(moe, T_loc)``),
+    fills a local (E, C, d) buffer grouped by owner as (M, E_loc, C, d),
+    and sends expert block ``m`` to the rank at ``model`` index ``m`` in
+    one all-to-all over ``model_axis`` (the reverse all-to-all brings the
+    outputs back).  ``p``'s ``wi``/``wg``/``wo`` are this rank's E_loc =
+    E / M experts; with ``fsdp_gather`` their ``d`` dim arrives sharded
+    over ``data_axes`` and is all-gathered first (its backward is the
+    reduce-scatter).  The shared experts' f-slices are all-gathered over
+    ``model_axis`` (``shared_gather=False``: they arrive whole), so each
+    rank applies the whole shared FFN to its own tokens.  The combine is
+    `combine`'s fixed order."""
+    B, S, d = x.shape
+    T = B * S
+    M = rules.sizes[model_axis]
+    xt = x.reshape(T, d)
+    wi, wg, wo = p["wi"], p["wg"], p["wo"]            # (E_loc, d?, f)
+    if fsdp_gather and data_axes:
+        wi = rules.gather(wi, data_axes, 1)
+        wg = rules.gather(wg, data_axes, 1)
+        wo = rules.gather(wo, data_axes, 2)
+    E = moe.n_experts
+    E_loc = wi.shape[0]
+    if E_loc * M != E:
+        raise ValueError(f"{E_loc} local experts on {M} ranks of "
+                         f"{model_axis!r}: the config has {E}")
+
+    with annotate("moe:route"):
+        _, top_w, top_e = route(moe, p["router"], xt)
+    with annotate("moe:dispatch"):
+        slot, keep, C = dispatch(moe, top_e, T)
+        buf = fill(moe, xt, slot, C, dtype).view(M, E_loc, C, d)
+        recv = rules.all_to_all(buf, model_axis)     # (M, E_loc, C, d)
+        tokens = recv.transpose(0, 1).reshape(E_loc, M * C, d)
+    with annotate("moe:experts"):
+        out = expert_ffn({"wi": wi, "wg": wg, "wo": wo}, tokens)
+    with annotate("moe:dispatch"):
+        back = out.reshape(E_loc, M, C, d).transpose(0, 1)
+        out_buf = rules.all_to_all(back, model_axis).reshape(E * C, d)
+    with annotate("moe:combine"):
+        y = combine(out_buf, top_e, top_w, slot, keep, dtype)
+    if moe.n_shared:
+        with annotate("moe:shared"):
+            swi, swg, swo = p["shared_wi"], p["shared_wg"], p["shared_wo"]
+            if shared_gather:
+                swi = rules.gather(swi, model_axis, 1)
+                swg = rules.gather(swg, model_axis, 1)
+                swo = rules.gather(swo, model_axis, 0)
+            y = y + shared_ffn(xt, swi, swg, swo, dtype)
     return y.reshape(B, S, d)
 
 

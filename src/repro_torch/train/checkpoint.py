@@ -13,8 +13,13 @@ keeps the last ``keep`` and restores the newest that loads.
 Trees are nested dicts (and lists) of tensors or arrays; a tensor is saved
 from the host (``.cpu().numpy()``: NumPy's types, so no bfloat16 leaf).
 `load_checkpoint` returns tensors on the devices of ``like``'s leaves.
-Not ported: ``reshard`` (placements on a device mesh wait for the
-sharding slice, C3).
+
+Elastic restart: `reshard` places a host tree on a mesh of ranks, each
+rank keeping its block of every leaf (`repro`'s ``reshard``, whose
+``device_put`` with a ``NamedSharding`` puts each device's block on it);
+`unshard` gathers a placed tree back to full arrays on every rank, as
+`repro` persists a sharded tree, so a checkpoint written from one mesh
+restores onto another (4 ranks → 8) bit for bit.
 """
 
 from __future__ import annotations
@@ -150,3 +155,41 @@ class CheckpointManager:
                 os.unlink(os.path.join(self.directory, f"ckpt_{s:08d}.npz"))
             except OSError:
                 pass
+
+
+def reshard(tree, mesh, spec_tree, device=None):
+    """This rank's placement of a host tree on ``mesh`` (a `DeviceMesh`
+    over the running ranks): each leaf's block under its spec
+    (`repro_torch.dist.sharding.local_slice` at this rank's coordinates),
+    copied to ``device`` (None: this rank's card, `dist.group.rank_device`)
+    — the elastic-restart path: the mesh may differ from the one the tree
+    was saved from."""
+    from repro_torch.dist.group import rank_device
+    from repro_torch.dist.sharding import local_slice, spec_map
+    from repro_torch.launch.mesh import axis_names
+
+    dev = rank_device(device)
+    coords = dict(zip(axis_names(mesh), mesh.get_coordinate()))
+
+    def put(x, spec):
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.asarray(x))
+        return local_slice(t, spec, coords, mesh).to(dev, copy=True)
+
+    return spec_map(put, tree, spec_tree)
+
+
+def unshard(tree, mesh, spec_tree):
+    """The full leaves of a tree placed by `reshard`, on every rank: each
+    leaf's blocks all-gathered along the dims its spec shards (the tensors
+    stay on their devices)."""
+    from repro_torch.dist.group import gather_dim
+    from repro_torch.dist.sharding import entry_axes, spec_map
+
+    def full(x, spec):
+        for dim, entry in enumerate(spec):
+            for a in reversed(entry_axes(entry)):
+                x = gather_dim(x, mesh.get_group(a), dim)
+        return x
+
+    return spec_map(full, tree, spec_tree)

@@ -47,11 +47,16 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def adamw_update(cfg: AdamWConfig, grads, opt_state: dict, params):
+def adamw_update(cfg: AdamWConfig, grads, opt_state: dict, params, *,
+                 gnorm: torch.Tensor | None = None):
     """Returns (new_params, new_opt_state, grad_norm): the gradients scaled
     by min(1, clip / max(‖g‖, 1e-12)), bias-corrected moments, and the
-    decoupled decay ``lr · wd · p``."""
-    gnorm = global_norm(grads)
+    decoupled decay ``lr · wd · p``.  ``gnorm`` is ‖g‖ when the caller has
+    it: the norm of the whole tree when ``grads`` are one rank's slices
+    (`repro_torch.dist.sharding.global_norm`), so every rank clips
+    alike.  Default: `global_norm` of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     count = opt_state["count"] + 1
     cf = count.float()

@@ -18,6 +18,7 @@ import pickle
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -178,3 +179,148 @@ def case_halo_graphcast(cfg, params, plan, feat, tgt, device="cpu"):
         out["remat" if remat else "plain"] = dict(
             loss=float(loss), grads=gnn_params_to_numpy(grads))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Sharding (tests/test_torch_moe_ep.py, tests/test_torch_tp.py): each case
+# lays a DeviceMesh over the group and returns NumPy trees.
+# ---------------------------------------------------------------------------
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return tree.detach().float().numpy()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _torch_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _torch_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree))
+
+
+def case_moe_ep(moe_kw, params, x, pspec, x_specs, mesh_shape):
+    """`moe_apply_shardmap` on this rank's block of ``x`` under each of
+    ``x_specs`` (name → spec), the weights placed by ``pspec``."""
+    from repro_torch.dist.sharding import Spec, lm_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.moe import MoEConfig, moe_apply_shardmap
+
+    rules = lm_rules(make_mesh(mesh_shape, ("data", "model")))
+    moe = MoEConfig(**moe_kw)
+    p = {k: rules.local(torch.from_numpy(v), Spec(*pspec[k]))
+         for k, v in params.items()}
+    out = {}
+    for name, spec in x_specs.items():
+        xl = rules.local(torch.from_numpy(x), Spec(*spec))
+        y = moe_apply_shardmap(moe, p, xl, data_axes="data",
+                               model_axis="model", dtype=torch.float32,
+                               rules=rules)
+        out[name] = y.numpy()
+    return dict(coords=rules.coords, y=out)
+
+
+def case_lm_step(cfg, params, batch, mesh_shape, steps=1, grads=False,
+                 serve=None):
+    """On a (data, model) mesh of ``mesh_shape``: the params placed by
+    `param_specs_lm`; ``steps`` sharded `lm_train_step`s (their losses and
+    this rank's params after each; whether the first step run twice gave
+    the same bits); with ``grads``, `loss_fn`'s value and
+    this rank's reduced gradient slices first; with ``serve`` = (prompt
+    tokens, steps), a sharded `Transformer`'s prefill and greedy decode
+    logits (every rank's batch: the data axis is 1)."""
+    from repro_torch.dist.sharding import lm_rules, param_specs_lm, reduce_grads
+    from repro_torch.launch.cells import lm_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train.checkpoint import reshard
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_loop import value_and_grad
+
+    rules = lm_rules(make_mesh(mesh_shape, ("data", "model")))
+    full = _torch_tree(params)
+    specs = param_specs_lm(cfg, full, rules.mesh)
+    p = reshard(full, rules.mesh, specs, device="cpu")
+    b = _torch_tree(batch)
+    out = dict(coords=rules.coords)
+    if grads:
+        from repro_torch.launch.cells import _rows
+
+        loss, g = value_and_grad(lambda q, bb: T.loss_fn(cfg, q, bb,
+                                                         rules=rules))(
+            p, _rows(rules, b))
+        out["loss"] = float(loss)
+        out["grads"] = _numpy_tree(reduce_grads(g, specs, rules))
+    opt = adamw_init(p)
+    again = lm_train_step(cfg, p, opt, b, rules=rules)[0]
+    losses, trees = [], []
+    for _ in range(steps):
+        p, opt, loss = lm_train_step(cfg, p, opt, b, rules=rules)
+        losses.append(float(loss))
+        trees.append(_numpy_tree(p))
+    out["losses"], out["params"] = losses, trees
+    out["repeat_equal"] = all(
+        np.array_equal(x, y) for x, y in zip(
+            _leaves(_numpy_tree(again)), _leaves(trees[0])))
+    if serve is not None:
+        prompt, n = serve
+        model = T.Transformer(cfg, full, rules)
+        tok = torch.from_numpy(prompt)
+        with torch.no_grad():
+            logits, cache = T.prefill(model, tok, T.init_cache(
+                cfg, tok.shape[0], tok.shape[1] + n, rules=rules))
+            seq = [logits]
+            for i in range(n):
+                nxt = seq[-1][:, -1].argmax(-1, keepdim=True)
+                logits, cache = T.decode_step(model, cache, nxt,
+                                              tok.shape[1] + i)
+                seq.append(logits)
+        out["serve"] = torch.cat(seq, 1).numpy()
+    return out
+
+
+def case_reshard(tree, save_shape, load_shape, spec, workdir):
+    """A tree placed on a (data, model) mesh of ``save_shape`` under
+    ``spec`` (per leaf), gathered and saved by rank 0; every rank waits,
+    then restores it onto ``load_shape``.  Returns this rank's block and
+    the file's step."""
+    from repro_torch.dist.sharding import Spec
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.checkpoint import (load_checkpoint, reshard,
+                                              save_checkpoint, unshard)
+
+    specs = {k: Spec(*v) for k, v in spec.items()}
+    full = _torch_tree(tree)
+    mesh = make_mesh(save_shape, ("data", "model"))
+    placed = reshard(full, mesh, specs, device="cpu")
+    gathered = unshard(placed, mesh, specs)
+    if dist.get_rank() == 0:
+        save_checkpoint(workdir, 7, gathered)
+    dist.barrier()
+    step, restored, _ = load_checkpoint(f"{workdir}/ckpt_00000007.npz", full)
+    mesh2 = make_mesh(load_shape, ("data", "model"))
+    back = reshard(restored, mesh2, specs, device="cpu")
+    coords = dict(zip(mesh2.mesh_dim_names, mesh2.get_coordinate()))
+    return dict(step=step, coords=coords,
+                placed={k: v.numpy() for k, v in placed.items()},
+                back={k: v.numpy() for k, v in back.items()})
+
+
+def case_meshes():
+    """`make_debug_mesh` over every rank, and `make_mesh`'s refusal of a
+    shape the group does not fill."""
+    from repro_torch.launch.mesh import make_debug_mesh, make_mesh
+
+    mesh = make_debug_mesh(axis="model")
+    try:
+        make_mesh((3, 2), ("data", "model"))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return dict(names=mesh.mesh_dim_names, shape=tuple(mesh.mesh.shape),
+                coord=mesh.get_coordinate(), refused=refused)

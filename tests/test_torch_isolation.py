@@ -61,7 +61,9 @@ _SLICE_MODULES = {"repro_torch.core.lanczos", "repro_torch.core.flexcg",
                   "repro_torch.models.moe",
                   "repro_torch.configs.deepseek_moe_16b",
                   "repro_torch.configs.qwen3_moe_30b_a3b",
-                  "repro_torch.configs.command_r_35b"}
+                  "repro_torch.configs.command_r_35b",
+                  "repro_torch.dist.sharding", "repro_torch.launch.mesh",
+                  "repro_torch.configs.mistral_large_123b"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():

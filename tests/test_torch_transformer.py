@@ -214,13 +214,27 @@ def test_init_params_layout_and_counts():
     assert cast["layers"]["ffn"]["wi"].dtype == torch.bfloat16
 
 
-def test_unported_configs_raise():
+def test_unported_configs_raise(monkeypatch):
+    """Every arch of `repro` is ported: ``impl="shardmap"`` builds and, on
+    one process, is `moe_apply`; mistral-large-123b is registered, and
+    building it on one process raises before drawing (its 245.2 GB of bf16
+    against an 80 GB card); an unknown arch raises."""
     moe = dataclasses.replace(port_config(CONFIGS["tiny"]), moe=mt.MoEConfig(
         n_experts=4, top_k=2, d_ff_expert=16, impl="shardmap"))
-    with pytest.raises(NotImplementedError, match="C3"):
-        tt.init_params(moe, torch.Generator())
-    with pytest.raises(KeyError, match="not ported yet.*C3"):
-        get_arch("mistral-large-123b")
+    params = tt.init_params(moe, torch.Generator().manual_seed(0))
+    toks = torch.randint(0, moe.vocab, (2, 8), generator=torch.Generator())
+    pjit = dataclasses.replace(moe, moe=dataclasses.replace(moe.moe,
+                                                            impl="pjit"))
+    assert torch.equal(tt.forward(moe, params, toks),
+                       tt.forward(pjit, params, toks))
+    cfg = get_arch("mistral-large-123b").make_config()
+    assert cfg.n_params() * 2 > 245e9
+    monkeypatch.setattr(tt, "_memory_bytes", lambda device: 80 * 10**9)
+    with pytest.raises(MemoryError, match=r"245\.2 GB of torch.bfloat16 "
+                       r"weights on one process do not fit the 80\.0 GB"):
+        tt.build_model(cfg, torch.Generator())
+    with pytest.raises(MemoryError, match="GB of torch.float32"):
+        tt.init_params(cfg, torch.Generator())
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("gpt-9")
 
@@ -232,8 +246,9 @@ def test_registry_matches_repro():
 
     assert set(REGISTRY) | set(NOT_PORTED) == set(REGISTRY_J)
     assert not set(REGISTRY) & set(NOT_PORTED)
+    assert not NOT_PORTED
     for arch_id in ("tinyllama-1.1b", "deepseek-moe-16b", "qwen3-moe-30b-a3b",
-                    "command-r-35b"):
+                    "command-r-35b", "mistral-large-123b"):
         arch, arch_j = get_arch(arch_id), get_arch_j(arch_id)
         for make in ("make_config", "make_smoke_config"):
             want = getattr(arch_j, make)()
