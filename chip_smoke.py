@@ -239,7 +239,9 @@ Phases, each printing JSON lines:
     after step 7 of 20 and resumed, bit-equal to an uninterrupted run; (f)
     a `CheckpointManager` save and restore of the full-width params and
     AdamW state in a temporary directory, timed, bit for bit.  Every
-    check runs before the phase fails.
+    check runs before the phase fails.  The unrecorded step runs under
+    `FlopCounterMode`, and its peak of allocated memory is kept, for phase
+    ``launch`` (b).
 10c. ``serve_moe`` — ``deepseek-moe-16b`` (28 layers, 64 experts top-6 + 2
     shared), ``qwen3-moe-30b-a3b`` (48 layers, 128 experts top-8) and the
     dense ``command-r-35b`` (40 layers, d 8192) at full width in bf16, each
@@ -385,6 +387,23 @@ Phases, each printing JSON lines:
     launches are counted from 0 on every rank over (a)–(c) (K6 = 2 × 17
     in (a) and (b) on every rank, K5 = 17 on a gloo rank) and join the
     ``kernels`` line.  Every check runs before the phase fails.
+15. ``launch`` — the dry run (`repro_torch.launch.dryrun`), host work
+    after every phase on the card, in LAUNCH_PROCS spawned processes: (a)
+    every runnable cell of ``all_cells()`` on `repro`'s (16, 16) and (2,
+    16, 16) production meshes over the H100 cluster, on meta tensors: one
+    ``launch_cell`` line a cell (live GB a device, ``fits_80gb``, the
+    dominant term, the roofline fraction, the three terms), beside the
+    card's name and power limit; no cell may fail, every LM cell must run
+    (the GNN and recsys cells are gaps, with their reason).  (b) Phase
+    ``train``'s step against its dry run on the card's one-device mesh
+    (the exec pass at full depth, FLOPs and bytes by layer differencing):
+    real / dry FLOPs (`FlopCounterMode` over ``train``'s unrecorded step)
+    within LAUNCH_FLOP_GATE, real / dry peak (that step's) inside
+    LAUNCH_MEM_GATE, the roofline bound / ``train``'s median step inside
+    LAUNCH_TIME_GATE, and controls that must miss: the dry run with K6
+    counted as its plain version (each gate), and the depth-2 census taken
+    for the whole step (the time gate, from below).  No launch of its own.
+    Every check runs before the phase fails.
 
 Then ``done`` (the script's seconds), the line ``{"kernels": [...]}``
 (every ported kernel: launches on its
@@ -1720,7 +1739,9 @@ def _dist_entry(rank, world, backend, workdir, payload_path):
         with open(f"{workdir}/rank{rank}.pkl", "wb") as f:
             pickle.dump(out, f)
     finally:
-        dist.destroy_process_group()
+        from repro_torch.dist import group as dist_group
+
+        dist_group.destroy()
 
 
 def start_ranks(payload, world: int, backend: str):
@@ -2960,9 +2981,13 @@ def phase_train():
     masters and AdamW, remat): one unrecorded step and TRAIN_STEPS steps
     on one `token_batches` batch, and checks a-f, every one run before
     the phase fails on those that failed; returns K6's and K5's launches
-    over the recorded steps."""
+    over the recorded steps, and for phase ``launch`` (b) the unrecorded
+    step's FLOPs (`FlopCounterMode`) and peak above the card's other
+    tensors, its arguments' bytes and the median step."""
     import itertools
     import tempfile
+
+    from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import token_batches
@@ -3001,9 +3026,16 @@ def phase_train():
         return lm_train_step(cfg, p, o, batch, microbatch=TRAIN_MICRO)
 
     p0 = params
-    torch.cuda.reset_peak_memory_stats()
-    params, opt, loss0 = step(p0, opt)                 # unrecorded
+    batch_bytes = sum(t.numel() * t.element_size() for t in batch.values())
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as flops:      # for `launch` (b)
+        params, opt, loss0 = step(p0, opt)             # unrecorded
+    torch.cuda.synchronize()
+    # the step's own peak: what it held above the card's other tensors
+    first_peak = torch.cuda.max_memory_allocated() - base + state_bytes \
+        + batch_bytes
     first = {"params": [t.cpu() for t in tree_leaves(params)],
              "loss": loss0.cpu()}
     fa_cuda.LAUNCHES = eb_cuda.LAUNCHES = 0            # the recorded steps
@@ -3191,7 +3223,8 @@ def phase_train():
          parts_s=parts_s, seconds=time.perf_counter() - t_phase)
     check(not failures, "train: " + "; ".join(failures))
     torch.cuda.empty_cache()
-    return k6, k5
+    return k6, k5, dict(flops=flops.get_total_flops(), peak_bytes=first_peak,
+                        args_bytes=state_bytes + batch_bytes, step_s=step_s)
 
 
 class RoutingCapture:
@@ -5263,6 +5296,164 @@ def phase_shard():
     return k6, k5
 
 
+# phase 15, launch: the dry run (host) and its calibration on the card
+LAUNCH_PROCS = 8               # host processes for the dry run's cells
+LAUNCH_FLOP_GATE = 0.01        # |real FLOPs / dry-run FLOPs - 1| at most
+LAUNCH_MEM_GATE = (0.9, 1.2)   # real step peak / dry-run peak inside
+LAUNCH_TIME_GATE = (0.4, 1.0)  # roofline bound / measured step s inside
+
+
+def launch_calibrate(job) -> dict:
+    """Host: the dry run of phase ``train``'s step (tinyllama, TRAIN_BATCH
+    × TRAIN_SEQ in TRAIN_MICRO microbatches) on the card's one-device
+    mesh.  ``job`` = (control, part): part ``"exec"`` is the exec pass at
+    full depth (the peak), ``"profile"`` the FLOPs and bytes by layer
+    differencing, as the dry run counts a deep model, and the depth-2
+    census alone (``depth2_*``: the differencing left out).  With
+    ``control``, K6 is counted as its plain version (the full S × S
+    scores) — a dry run that must miss the gates; the kernel's dispatch is
+    put back after it, since the worker goes on to other cells."""
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    control, part = job
+    kernel = ops._forward
+    if control:
+        def plain(q, k, v, causal, q_offset, kv_len, window):
+            return ref.flash_attention_plain(q, k, v, causal=causal,
+                                             q_offset=q_offset,
+                                             kv_len=kv_len, window=window)
+        ops._forward = plain
+    try:
+        return _launch_calibrate(part)
+    finally:
+        ops._forward = kernel     # the worker goes on to other cells
+
+
+def _launch_calibrate(part: str) -> dict:
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cells import lm_train_cell
+    from repro_torch.launch.mesh import MeshShape
+
+    cfg = get_arch("tinyllama-1.1b").make_config()
+    mesh = MeshShape((1, 1), ("data", "model"))
+
+    def make(n):
+        c = cfg if n is None else dataclasses.replace(cfg, n_layers=n)
+        return lm_train_cell(c, TRAIN_BATCH, TRAIN_SEQ, mesh,
+                             microbatch=TRAIN_MICRO)
+
+    t0 = time.perf_counter()
+    if part == "exec":
+        out = dryrun.exec_pass(make(None))
+    else:
+        qs = {n: dryrun.profile_census(make(n), mesh) for n in (2, 4)}
+        census = dryrun.layer_diff(qs, cfg.n_layers)
+        out = dict(flops=census["flops"], bytes=census["bytes"],
+                   depth2_flops=qs[2]["flops"], depth2_bytes=qs[2]["bytes"])
+    return dict(out, **{f"{part}_s": time.perf_counter() - t0})
+
+
+def phase_launch(smi: str, real: dict):
+    """The dry run, on the host after every phase on the card, in
+    LAUNCH_PROCS spawned processes.  (a) Every runnable cell of
+    ``all_cells()`` on both production meshes: one line a cell; no cell
+    may fail, every LM cell must run (a gap is reported with its reason).
+    (b) Phase ``train``'s step against its dry run on the card's
+    one-device mesh: real / dry FLOPs (``real``: `FlopCounterMode` over
+    ``train``'s unrecorded step), real / dry peak (that step's peak above
+    the card's other tensors, plus its arguments), and the roofline bound
+    (max of the compute and memory terms) / ``train``'s median step, each
+    inside its gate.  Controls that must miss: the dry run with K6 counted
+    as its plain version (FLOPs, peak and the bound, too high) and the
+    depth-2 census taken for the whole step (the bound, too low).  Every
+    check runs before the phase fails."""
+    import multiprocessing as mp
+
+    from repro_torch.configs import all_cells, get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+
+    t_phase = time.perf_counter()
+    fails = []
+
+    def need(cond, what):
+        if not cond:
+            fails.append(what)
+
+    jobs = [(a, s, mp_, True) for a, s, _, skip in all_cells()
+            if skip is None for mp_ in (False, True)]
+    with mp.get_context("spawn").Pool(LAUNCH_PROCS) as pool:
+        calib = pool.map_async(launch_calibrate, [
+            (c, part) for c in (False, True) for part in ("exec", "profile")],
+            chunksize=1)
+        cells = pool.map_async(dryrun.sweep_one, jobs, chunksize=1).get()
+        dry = calib.get()
+    pool_s = time.perf_counter() - t_phase
+
+    for rec in cells:
+        row = dict(card=smi, arch=rec["arch"], shape=rec["shape"],
+                   mesh=rec["mesh"], status=rec["status"])
+        if rec["status"] == "ok":
+            r = rec["roofline"]
+            row.update(live_gb=rec["live_bytes_per_device"] / 1e9,
+                       fits_80gb=rec["fits_80gb"], dominant=r["dominant"],
+                       roofline_fraction=r["roofline_fraction"],
+                       compute_s=r["compute_s"], memory_s=r["memory_s"],
+                       collective_s=r["collective_s"],
+                       useful_fraction=r["useful_fraction"],
+                       exec_s=rec["exec_compile_s"],
+                       profile_s=rec["profile_compile_s"])
+        else:
+            row["reason"] = rec.get("reason") or rec.get("error")
+        emit("launch_cell", **row)
+    statuses = [rec["status"] for rec in cells]
+    need("fail" not in statuses,
+         f"launch (a): {statuses.count('fail')} cell(s) failed")
+    need(all(rec["status"] == "ok" for rec in cells
+             if get_arch(rec["arch"]).family == "lm"),
+         "launch (a): an LM cell did not run")
+
+    dry_real, dry_control = ({**dry[i], **dry[i + 1]} for i in (0, 2))
+    dry_depth2 = dict(dry_real, flops=dry_real["depth2_flops"],
+                      bytes=dry_real["depth2_bytes"])
+
+    def ratios(d):
+        d["compute_s"] = d["flops"] / PEAK_FLOPS
+        d["memory_s"] = d["bytes"] / HBM_BW
+        return dict(flops=real["flops"] / d["flops"],
+                    memory=real["peak_bytes"] / d["peak_bytes"],
+                    time=max(d["compute_s"], d["memory_s"]) / real["step_s"])
+
+    def inside(r):
+        return dict(flops=abs(r["flops"] - 1) <= LAUNCH_FLOP_GATE,
+                    memory=LAUNCH_MEM_GATE[0] <= r["memory"]
+                    <= LAUNCH_MEM_GATE[1],
+                    time=LAUNCH_TIME_GATE[0] <= r["time"]
+                    <= LAUNCH_TIME_GATE[1])
+
+    got = ratios(dry_real)
+    controls = {"k6_plain": (ratios(dry_control), ("flops", "memory", "time")),
+                "depth2": (ratios(dry_depth2), ("time",))}
+    for k, ok in inside(got).items():
+        need(ok, f"launch (b): the {k} ratio {got[k]:.6g} is outside its "
+                 "gate")
+    for name, (ctl, gates) in controls.items():
+        ok = inside(ctl)
+        for k in gates:
+            need(not ok[k], f"launch (b): the {name} control's {k} ratio "
+                            f"{ctl[k]:.6g} is inside the gate")
+    emit("launch", card=smi, cells=len(cells),
+         ok=statuses.count("ok"), gap=statuses.count("gap"),
+         fail=statuses.count("fail"), pool_s=pool_s, procs=LAUNCH_PROCS,
+         real=real, dry=dry_real, dry_control=dry_control,
+         ratios=got, control_ratios={k: c for k, (c, _) in controls.items()},
+         gates=dict(flops=LAUNCH_FLOP_GATE, memory=LAUNCH_MEM_GATE,
+                    time=LAUNCH_TIME_GATE),
+         failures=fails, seconds=time.perf_counter() - t_phase)
+    check(not fails, "; ".join(fails))
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
@@ -5297,19 +5488,22 @@ def main(argv=None) -> int:
     emit("device", kind=name, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda)
 
-    # One nvcc per source, started together.
+    # One nvcc per source, started together; the full box is made on the
+    # host meanwhile.  The build's seconds: until the last nvcc is done.
+    def build(mod):
+        return mod.build(), time.perf_counter()
+
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        built = list(pool.map(lambda mod: mod.build(),
-                              (cuda, ss_cuda, fa_cuda, eb_cuda)))
-    emit("build", seconds=time.perf_counter() - t0,
+        builds = pool.map(build, (cuda, ss_cuda, fa_cuda, eb_cuda))
+        box = box_mesh(80, 64, 48)
+        perm = rcb_order(box.coords, box.weights)
+        root = dual_graph(box).sub(perm)  # level 0
+        built, ends = zip(*builds)
+    emit("build", seconds=max(ends) - t0,
          libraries=[path.name for path, _ in built],
          ptxas=[ln for _, report in built for ln in report.splitlines()
                 if "entry function" in ln or "registers" in ln or "spill" in ln])
-
-    box = box_mesh(80, 64, 48)
-    perm = rcb_order(box.coords, box.weights)
-    root = dual_graph(box).sub(perm)  # level 0
     # Everything is timed before the first torch.profiler session; the
     # profile functions hold the kernel phase's tensors until they are
     # dropped, before the full-size runs measure peak memory.
@@ -5342,7 +5536,7 @@ def main(argv=None) -> int:
     fa_rows = phase_kernels_flash()
     k6_launches = phase_serve()
     k6_launches += phase_serve_window()
-    k6_train, k5_train = phase_train()
+    k6_train, k5_train, train_real = phase_train()
     k6_launches += k6_train
     k6_launches += phase_serve_moe()
     bag_rows, k5_launches = phase_recsys()
@@ -5351,6 +5545,7 @@ def main(argv=None) -> int:
     k6_shard, k5_shard = phase_shard()
     k6_launches += k6_shard
     k5_launches += k5_shard
+    phase_launch(smi, train_real)
 
     def main_f32(rows):
         return next(r for r in rows

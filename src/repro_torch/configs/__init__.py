@@ -24,9 +24,10 @@ from repro_torch.configs import (
 )
 from repro_torch.configs.base import ArchDef, ShapeCell
 
+# In `repro`'s order, which `all_cells` keeps.
 REGISTRY = {m.ARCH.arch_id: m.ARCH
-            for m in (deepseek_moe_16b, qwen3_moe_30b_a3b, tinyllama_1_1b,
-                      command_r_35b, mistral_large_123b, mace, nequip,
+            for m in (deepseek_moe_16b, qwen3_moe_30b_a3b, mistral_large_123b,
+                      tinyllama_1_1b, command_r_35b, mace, nequip,
                       graphcast, meshgraphnet, sasrec)}
 
 # `repro`'s other arch ids, each with the slice it waits for.
@@ -42,4 +43,13 @@ def get_arch(arch_id: str) -> ArchDef:
     return REGISTRY[arch_id]
 
 
-__all__ = ["ArchDef", "ShapeCell", "REGISTRY", "NOT_PORTED", "get_arch"]
+def all_cells():
+    """Every (arch × shape) cell with its skip reason (None = runnable):
+    (arch_id, shape_name, ShapeCell, skip), in `repro`'s order."""
+    for arch_id, arch in REGISTRY.items():
+        for shape_name, cell, skip in arch.cells():
+            yield arch_id, shape_name, cell, skip
+
+
+__all__ = ["ArchDef", "ShapeCell", "REGISTRY", "NOT_PORTED", "all_cells",
+           "get_arch"]

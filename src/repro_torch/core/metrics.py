@@ -105,12 +105,13 @@ def partition_metrics(
 
 
 # Postal-model constants, the same values as `repro.core.metrics` (an
-# assumed ~1 µs start-up and a 50 GB/s link): model inputs, not a
+# assumed ~1 µs start-up; a 50 GB/s link, on the H100 cluster a card's
+# InfiniBand NDR port, `launch.mesh.IB_BW`): model inputs, not a
 # measurement of any machine the port runs on.  The m₂ crossover is where
 # the α (latency) and β (volume) terms are equal — messages larger than m₂
 # are volume-dominated, the paper's exascale regime.
 ALPHA_S = 1e-6          # ~1 µs collective start-up per hop
-BETA_S_PER_WORD = 8.0 / 50e9   # 64-bit words over a 50 GB/s ICI link
+BETA_S_PER_WORD = 8.0 / 50e9   # 64-bit words over a card's 50 GB/s IB link
 
 
 def m2_words(alpha: float = ALPHA_S, beta: float = BETA_S_PER_WORD) -> float:

@@ -29,11 +29,25 @@ about that group and nothing more:
   its transpose — all-reduce ↔ all-reduce, all-gather ↔ reduce-scatter,
   all-to-all ↔ the reverse all-to-all — over the same wire.  With these,
   the gradient a rank computes is its share of the gradient of the sum of
-  the ranks' losses (`repro_torch.dist.sharding`).
+  the ranks' losses (`repro_torch.dist.sharding`);
+* :func:`census` — while active, every collective that moves data reports
+  ``(op, local output bytes, group size, axis)`` (host values, no sync):
+  the roofline's input (`repro_torch.launch.roofline`);
+* :class:`AbstractGroup` — a group of ``size`` ranks seen from one of them,
+  with no wire: each collective answers with a ``meta`` tensor of the
+  right shape (and reports to the census), so a sharded step runs on one
+  process with no ranks (`repro_torch.launch.dryrun`);
+* :func:`destroy` — drop every group the port caches, then destroy the
+  default group.  A rank calls it at its end in place of
+  `torch.distributed.destroy_process_group`: a cached group outlived that
+  call until the interpreter shut down, and a gloo group freed there
+  aborted the rank now and then (``terminate called without an active
+  exception``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -53,6 +67,19 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single", None) \
     or dist.reduce_scatter_tensor
 
 
+class AbstractGroup:
+    """A group of ``size`` ranks seen from rank ``rank``, along mesh axis
+    ``axis``: no process and no wire.  The collectives here answer it with
+    ``meta`` tensors of the shape the real call returns (and refuse any
+    other tensor), after reporting to the census."""
+
+    def __init__(self, size: int, rank: int = 0, axis: str | None = None):
+        self.size, self.rank, self.axis = int(size), int(rank), axis
+
+    def __repr__(self) -> str:
+        return f"AbstractGroup({self.size}, rank={self.rank}, axis={self.axis!r})"
+
+
 def active(group=None):
     """``group``; else the default group when `torch.distributed` is
     initialized; else ``None`` (one process)."""
@@ -64,11 +91,78 @@ def active(group=None):
 
 
 def rank(group) -> int:
+    if isinstance(group, AbstractGroup):
+        return group.rank
     return dist.get_rank(group)
 
 
 def size(group) -> int:
+    if isinstance(group, AbstractGroup):
+        return group.size
     return dist.get_world_size(group)
+
+
+# ---------------------------------------------------------------------------
+# The census of collectives
+# ---------------------------------------------------------------------------
+
+class Census:
+    """The collectives a run moved data through: ``records`` holds one
+    ``(op, bytes, group size, axis)`` a call, ``bytes`` the call's local
+    output (`repro`'s HLO census counts the same); a group of one rank
+    moves nothing and is not recorded.  ``axes`` names the real groups a
+    `MeshRules` handed out (id → mesh axis)."""
+
+    def __init__(self):
+        self.records: list = []
+        self.axes: dict = {}
+
+    def axis_of(self, group):
+        if isinstance(group, AbstractGroup):
+            return group.axis
+        return self.axes.get(id(group))
+
+
+_CENSUS: Census | None = None
+
+
+@contextlib.contextmanager
+def census():
+    """Record every collective of the body (`Census`); nests by taking
+    over the outer census until the body ends."""
+    global _CENSUS
+    outer, _CENSUS = _CENSUS, Census()
+    try:
+        yield _CENSUS
+    finally:
+        _CENSUS = outer
+
+
+def name_axis(group, axis: str) -> None:
+    """Tell the active census that ``group`` runs along mesh ``axis``."""
+    if _CENSUS is not None:
+        _CENSUS.axes[id(group)] = axis
+
+
+def _note(op: str, shape, x: torch.Tensor, group) -> None:
+    """Report one collective of local output ``shape`` (x's type) to the
+    active census: shape × element size, host values only."""
+    if _CENSUS is None:
+        return
+    n = size(group)
+    if n > 1:
+        nbytes = x.element_size()
+        for d in shape:
+            nbytes *= int(d)
+        _CENSUS.records.append((op, nbytes, n, _CENSUS.axis_of(group)))
+
+
+def _abstract(x: torch.Tensor, shape) -> torch.Tensor:
+    """An `AbstractGroup`'s answer: a ``meta`` tensor of ``shape``."""
+    if x.device.type != "meta":
+        raise ValueError(f"an AbstractGroup moves only meta tensors, got one "
+                         f"on {x.device}")
+    return x.new_empty(tuple(shape))
 
 
 def rank_device(device=None) -> torch.device:
@@ -113,6 +207,31 @@ def subgroup(group, d: int):
     return _SUBGROUPS[key]
 
 
+_RELEASE: list = []
+
+
+def on_destroy(fn):
+    """Register ``fn`` (no arguments) to drop a cache that holds groups;
+    `destroy` calls it.  Returns ``fn``."""
+    _RELEASE.append(fn)
+    return fn
+
+
+def destroy() -> None:
+    """End this rank's part in `torch.distributed`: destroy the subgroups
+    `subgroup` made, drop every cached reference to a group (`on_destroy`),
+    then destroy the default group.  Every group is then freed while the
+    interpreter is whole, not during its shutdown."""
+    for g in _SUBGROUPS.values():
+        if isinstance(g, dist.ProcessGroup):
+            dist.destroy_process_group(g)
+    _SUBGROUPS.clear()
+    for fn in _RELEASE:
+        fn()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def _backend(group) -> str:
     name = str(dist.get_backend(group))
     if name not in _HOST_WIRE:
@@ -136,16 +255,23 @@ def _to_wire(x: torch.Tensor, group) -> torch.Tensor:
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """Concatenate every rank's ``x`` along dim 0, in rank order (each
     rank's ``x`` has the same shape); on ``x``'s device."""
+    shape = (size(group) * x.shape[0],) + tuple(x.shape[1:])
+    _note("all-gather", shape, x, group)
+    if isinstance(group, AbstractGroup):
+        return _abstract(x, shape)
     if _alone(group):
         return x.contiguous()
     xw = _to_wire(x.contiguous(), group)
-    out = xw.new_empty((size(group) * x.shape[0],) + tuple(x.shape[1:]))
+    out = xw.new_empty(shape)
     _all_gather_single(out, xw, group=group)
     return out.to(x.device)
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Σ over the ranks of ``x``, a new tensor on ``x``'s device."""
+    _note("all-reduce", x.shape, x, group)
+    if isinstance(group, AbstractGroup):
+        return _abstract(x, x.shape)
     if _alone(group):
         return x.clone()
     xw = _to_wire(x, group).clone()
@@ -156,6 +282,9 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max over the ranks of ``x``, a new tensor on ``x``'s
     device (``pmax``)."""
+    _note("all-reduce", x.shape, x, group)
+    if isinstance(group, AbstractGroup):
+        return _abstract(x, x.shape)
     if _alone(group):
         return x.clone()
     xw = _to_wire(x, group).clone()
@@ -166,6 +295,9 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
 def shift(x: torch.Tensor, group) -> torch.Tensor:
     """One ring hop: send ``x`` to the next rank, return the previous
     rank's (``ppermute`` with ``i → i+1 mod n``)."""
+    _note("collective-permute", x.shape, x, group)
+    if isinstance(group, AbstractGroup):
+        return _abstract(x, x.shape)
     n, r = size(group), rank(group)
     send = _to_wire(x.contiguous(), group)
     recv = torch.empty_like(send)
@@ -205,6 +337,11 @@ def scatter_sum_dim(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"into {n} chunks")
+    shape = list(x.shape)
+    shape[dim] //= n
+    _note("reduce-scatter", shape, x, group)
+    if isinstance(group, AbstractGroup):
+        return _abstract(x, shape)
     if _alone(group):
         return x.contiguous()
     xw = _to_wire(x.movedim(dim, 0).contiguous(), group)
@@ -221,6 +358,9 @@ def exchange(x: torch.Tensor, group) -> torch.Tensor:
     if x.shape[0] % n:
         raise ValueError(f"dim 0 of {tuple(x.shape)} does not split into "
                          f"{n} chunks")
+    _note("all-to-all", x.shape, x, group)
+    if isinstance(group, AbstractGroup):
+        return _abstract(x, x.shape)
     if _alone(group):
         return x.contiguous()
     xw = _to_wire(x.contiguous(), group)

@@ -353,6 +353,9 @@ def _matvec_consts(plan: HaloPlan, group, device: torch.device) -> tuple:
             put(plan.export_mask, torch.float32))
 
 
+dist_group.on_destroy(_matvec_consts.cache_clear)   # its keys hold groups
+
+
 def adjacency_matvec_distributed(plan: HaloPlan, group, x: np.ndarray, *,
                                  device=None) -> np.ndarray:
     """``y = A x`` for the plan's graph, each rank of ``group`` (None: the

@@ -9,8 +9,10 @@ not divide its mesh axes' product stays replicated, and each mesh axis is
 used once (the first logical axis that asks for it wins), so one rule set
 serves every config from the 1.1B dense LM to the 123B GQA model.
 
-The mesh is a `repro_torch.launch.mesh.MeshShape` (specs only, any size)
-or a torch `DeviceMesh` over the running ranks.  On a `DeviceMesh` the
+The mesh is a `repro_torch.launch.mesh.MeshShape` (specs only, any size),
+a torch `DeviceMesh` over the running ranks, or a
+`repro_torch.launch.mesh.RankView` (one rank of an abstract mesh: the
+sharded models run on ``meta`` tensors, the dry run).  On a `DeviceMesh` the
 rules also run the sharded models: `repro` leaves the partitioning of its
 math to GSPMD, the port's models slice their work by the spec
 :meth:`MeshRules.spec` returns for each actual shape and call the
@@ -192,7 +194,9 @@ class MeshRules(ShardRules):
         return _linear(entry_axes(entry), self.coords, self.sizes)
 
     def group(self, axis: str):
-        return self._device_mesh().get_group(axis)
+        g = self._device_mesh().get_group(axis)
+        dist_group.name_axis(g, axis)
+        return g
 
     @property
     def n_ranks(self) -> int:

@@ -22,11 +22,23 @@ and a row no entry reads is zero.  That is a dense gradient, as JAX's
 identical steps give identical bits on the card.  The weights are
 constants (not differentiated).  ``prefer="ref"`` differentiates the
 plain version directly (its backward adds with atomics on the card).
+
+The dry run.  The kernel route and the CPU route are also one operator,
+``torch.ops.repro_torch.embedding_bag`` (a `torch.library.custom_op`:
+the kernel on a CUDA table, the plain version on a CPU one, the same
+calls as before; taken only on ``meta`` tensors or under a dispatch
+mode), with a shape rule for ``meta`` tensors and a FLOP
+formula (:func:`kernel_flops`: a multiply and an add per element of each
+entry's row) registered with `torch.utils.flop_counter`, so a ``meta``
+step counts K5 as the kernel runs it, not as a dense gather.
+:func:`kernel_bytes` is its traffic for the dry run's byte count.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils._python_dispatch import is_in_torch_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.embedding_bag import cuda
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
@@ -34,7 +46,8 @@ from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 _PREFER = ("auto", "cuda", "ref")
 
 
-def _forward(table, indices, segments, weights, n_bags):
+def _run(table: torch.Tensor, indices: torch.Tensor, segments: torch.Tensor,
+         weights: torch.Tensor, n_bags: int) -> torch.Tensor:
     """The kernel on a CUDA table, the plain version on a CPU one; the
     segments sorted, the weights of the table's type."""
     if not table.is_cuda:
@@ -43,6 +56,46 @@ def _forward(table, indices, segments, weights, n_bags):
     return cuda.embedding_bag_cuda(
         table, indices.to(torch.int32).contiguous(),
         segments.to(torch.int32).contiguous(), weights.contiguous(), n_bags)
+
+
+_k5 = torch.library.custom_op("repro_torch::embedding_bag",
+                              mutates_args=())(_run)
+
+
+@_k5.register_fake
+def _k5_shape(table, indices, segments, weights, n_bags):
+    """The kernel's output: (n_bags, d) of the table's type."""
+    return table.new_empty((n_bags, table.shape[1]))
+
+
+def _forward(table, indices, segments, weights, n_bags):
+    """`_run` through the operator only where a ``meta`` tensor or a
+    dispatch mode (the dry run's meter, `FlopCounterMode`) has to see K5;
+    else called directly, with no operator dispatch."""
+    if table.is_meta or is_in_torch_dispatch_mode():
+        return torch.ops.repro_torch.embedding_bag(table, indices, segments,
+                                                   weights, n_bags)
+    return _run(table, indices, segments, weights, n_bags)
+
+
+def kernel_flops(nnz: int, d: int) -> int:
+    """K5's FLOPs: each entry's row scaled by its weight and added to its
+    bag, two per element."""
+    return 2 * nnz * d
+
+
+def kernel_bytes(table, indices, segments, weights, n_bags) -> int:
+    """K5's traffic: the row of each entry, its index, segment and weight
+    read once, the output written once (not the whole table)."""
+    nnz, d = indices.shape[0], table.shape[1]
+    per = d * table.element_size() + indices.element_size() \
+        + segments.element_size() + weights.element_size()
+    return nnz * per + n_bags * d * table.element_size()
+
+
+@register_flop_formula(torch.ops.repro_torch.embedding_bag, get_raw=True)
+def _k5_flops(table, indices, segments, weights, n_bags, *args, **kwargs):
+    return kernel_flops(indices.shape[0], table.shape[1])
 
 
 class EmbeddingBag(torch.autograd.Function):

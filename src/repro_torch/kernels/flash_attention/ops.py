@@ -20,11 +20,24 @@ design, not a
 fallback: `repro` trains through its pure-JAX attention under
 ``jax.checkpoint`` and its Pallas kernel has no backward.  ``prefer="ref"``
 differentiates the plain version directly.
+
+The dry run.  The kernel route and the CPU route are also one operator,
+``torch.ops.repro_torch.flash_attention`` (a `torch.library.custom_op`:
+the kernel on a CUDA tensor, the plain version on a CPU one, the same
+calls as before; taken only on ``meta`` tensors or under a dispatch
+mode), with a shape rule for ``meta`` tensors and a FLOP formula (:func:`kernel_flops`) registered with
+`torch.utils.flop_counter`: the work the kernel's tile loops do, so a
+``meta`` step (`repro_torch.launch.dryrun`) and `FlopCounterMode` on the
+card count what K6 runs, the causal and window-masked tiles it skips
+left out.  :func:`kernel_bytes` is its traffic for the dry run's byte
+count.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils._python_dispatch import is_in_torch_dispatch_mode
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.flash_attention import cuda
 from repro_torch.kernels.flash_attention.ref import (
@@ -35,7 +48,8 @@ from repro_torch.kernels.flash_attention.ref import (
 _PREFER = ("auto", "cuda", "ref")
 
 
-def _forward(q, k, v, causal, q_offset, kv_len, window):
+def _run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+         q_offset: int, kv_len: int, window: int | None) -> torch.Tensor:
     """The kernel on a CUDA tensor, the plain version on a CPU one."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal,
@@ -44,6 +58,120 @@ def _forward(q, k, v, causal, q_offset, kv_len, window):
     return cuda.flash_attention_cuda(q, k, v, causal=causal,
                                      q_offset=q_offset, kv_len=kv_len,
                                      window=window)
+
+
+_k6 = torch.library.custom_op("repro_torch::flash_attention",
+                              mutates_args=())(_run)
+
+
+@_k6.register_fake
+def _k6_shape(q, k, v, causal, q_offset, kv_len, window):
+    """The kernel's output: a contiguous (B, Sq, H, D) tensor of q's
+    type."""
+    return q.new_empty(q.shape)
+
+
+def _forward(q, k, v, causal, q_offset, kv_len, window):
+    """`_run` through the operator only where a ``meta`` tensor or a
+    dispatch mode (the dry run's meter, `FlopCounterMode`) has to see K6;
+    else called directly, so a launch-bound decode step pays no
+    operator dispatch."""
+    if q.is_meta or is_in_torch_dispatch_mode():
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal,
+                                                     q_offset, kv_len, window)
+    return _run(q, k, v, causal, q_offset, kv_len, window)
+
+
+PREFILL_ROWS = {torch.float32: 64, torch.bfloat16: 128}   # rows a block
+_WARP_ROWS = 16        # the bf16 prefill: 8 warps of 16 rows a block
+
+
+def _block_tiles(r0, R, rows, G, q_offset, kv_len, causal, window):
+    """A prefill block's key tiles [j0, nkv): from the tile holding its
+    first row's first visible key to its last row's causal end."""
+    T = cuda.KEY_TILE
+    kv_end = kv_len
+    if causal:
+        kv_end = min(kv_end, q_offset + min(rows - 1, r0 + R - 1) // G + 1)
+    j0 = 0
+    if window is not None:
+        first = q_offset + r0 // G - window + 1
+        j0 = first // T if first > 0 else 0
+    return j0, max(j0, -(-max(kv_end, 0) // T))
+
+
+def tile_pairs(q_shape, k_shape, dtype, causal: bool, q_offset: int,
+               kv_len: int, window: int | None) -> tuple[int, int, int]:
+    """What K6's tile loops multiply for one (batch, KV head): (pairs, t_lo,
+    t_hi) — the (real query row, key) pairs of every tile a block or warp
+    multiplies (query ``r // G`` of flattened row ``r``; ``cuda.KEY_TILE``
+    keys a tile, the ragged edge's masked keys included) and the span of
+    tiles [t_lo, t_hi) any of them reads.  Routes as the kernel's host
+    entry picks them: the split-KV decode (every row in one block, the
+    tiles of `cuda.decode_tiles`); the fp32 prefill (blocks of 64 rows,
+    each over its block's tiles); the bf16 prefill (blocks of 128 rows,
+    each warp of 16 skipping the tiles past its own causal end and, with
+    a window, those wholly before its unit's first visible key; at D >= 64
+    a unit is a warpgroup of 64 rows)."""
+    _, Sq, H, D = q_shape
+    G = H // k_shape[2]
+    rows, T = Sq * G, cuda.KEY_TILE
+    if rows <= cuda.DECODE_ROWS:
+        lo, hi = cuda.decode_tiles(Sq, causal=causal, q_offset=q_offset,
+                                   kv_len=kv_len, window=window)
+        return rows * T * (hi - lo), lo, hi
+    R = PREFILL_ROWS[dtype]
+    pairs, t_lo, t_hi = 0, None, 0
+    for r0 in range(0, rows, R):
+        j0, nkv = _block_tiles(r0, R, rows, G, q_offset, kv_len, causal,
+                               window)
+        t_lo = j0 if t_lo is None else min(t_lo, j0)
+        t_hi = max(t_hi, nkv)
+        if dtype != torch.bfloat16:
+            pairs += min(R, rows - r0) * T * (nkv - j0)
+            continue
+        for w0 in range(0, min(R, rows - r0), _WARP_ROWS):
+            unit0 = w0 // 64 * 64 if D >= 64 else w0
+            last = unit0 + 63 if D >= 64 else w0 + _WARP_ROWS - 1
+            hi = nkv
+            if causal:     # tiles starting past the unit's last position
+                hi = min(hi, (q_offset + (r0 + last) // G) // T + 1)
+            lo = j0
+            if window is not None:   # tiles ending before its first key
+                edge = q_offset + (r0 + unit0) // G - window + 1
+                lo = max(lo, -(-(edge - T + 1) // T))
+            pairs += min(_WARP_ROWS, rows - r0 - w0) * T * max(hi - lo, 0)
+    return pairs, t_lo or 0, t_hi
+
+
+def kernel_flops(q_shape, k_shape, dtype, causal, q_offset, kv_len,
+                 window) -> int:
+    """K6's FLOPs: 4·D per (row, key) pair its tiles multiply (Q Kᵀ and
+    P V; `tile_pairs`), over the B·Hkv (batch, KV head) pairs; tiles
+    wholly masked, causally or by the window, are skipped, as the kernel
+    skips them."""
+    B, _, _, D = q_shape
+    pairs = tile_pairs(q_shape, k_shape, dtype, causal, q_offset, kv_len,
+                       window)[0]
+    return 4 * D * pairs * B * k_shape[2]
+
+
+def kernel_bytes(q, k, v, causal, q_offset, kv_len, window) -> int:
+    """K6's traffic: q read and the output written once, and the K and V
+    rows of the tiles its blocks read (their span, once)."""
+    _, lo, hi = tile_pairs(q.shape, k.shape, q.dtype, causal, q_offset,
+                           kv_len, window)
+    T = cuda.KEY_TILE
+    B, Skv, Hkv, D = k.shape
+    keys = max(min(hi * T, Skv) - lo * T, 0)
+    return 2 * q.numel() * q.element_size() \
+        + 2 * B * keys * Hkv * D * k.element_size()
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention, get_raw=True)
+def _k6_flops(q, k, v, causal, q_offset, kv_len, window, *args, **kwargs):
+    return kernel_flops(q.shape, k.shape, q.dtype, causal, q_offset, kv_len,
+                        window)
 
 
 class FlashAttention(torch.autograd.Function):

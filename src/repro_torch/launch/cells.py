@@ -27,27 +27,65 @@ where two scores are equal.
 `lm_train_step` takes ``rules``: on a `MeshRules` over a `DeviceMesh`
 each rank steps its slices of the parameters and moments (placed by
 `train.checkpoint.reshard` with `param_specs_lm`) on its rows of the
-batch.  The cells as records (`Cell`, abstract arguments, the
-production mesh and its topology) are the launch slice's (ROADMAP D5).
+batch.
+
+The cells as records (`repro`'s ``launch/cells.py``): :func:`build_cell`
+turns one (arch × shape × mesh) into a :class:`Cell` — the step, its
+arguments as ``meta`` tensors of one rank's local shapes under the
+port's `MeshRules` (no memory), their specs, the donated arguments and
+`repro`'s count of the step's useful FLOPs (``model_flops``, its formulas
+exactly).  ``fn`` runs the port's own step on those arguments as rank 0
+of the mesh (`launch.mesh.RankView`: `AbstractGroup` collectives), which
+is what the dry run (`launch.dryrun`) measures:
+
+* LM ``train``: `lm_train_step` (the global batch rebuilt from the local
+  one as ``meta``, since every rank takes the global batch and slices its
+  rows); ``prefill`` / ``decode``: a `Transformer` built from the fp32
+  masters (`repro`'s arguments), then `prefill` / `decode_step` at the
+  cache's last position (``pos`` is a 0-d argument, as `repro`'s, but the
+  port's step takes a Python int).  Under a mesh the port shards MoE only
+  as expert parallelism, so a config whose ``moe.impl`` is ``"pjit"``
+  (GSPMD's dispatch) is a gap unless ``moe_impl="shardmap"``.
+* GNN and recsys cells have `repro`'s arguments and specs, and no step
+  (``fn`` None, ``gap`` the reason): `repro` leaves their sharding to
+  GSPMD, and the port's GNN and SASRec steps run on one device (the GNNs'
+  fixed-order segment plans are built on the host from the edge indices,
+  which a ``meta`` tensor does not have; the halo GraphCast needs a
+  partition's plan).
 """
 
 from __future__ import annotations
 
-import torch
+import dataclasses
+import functools
+import math
+from typing import Any, Callable
 
+import torch
+from torch.utils._python_dispatch import (TorchDispatchMode,
+                                          _disable_current_modes)
+
+from repro_torch.configs import get_arch
+from repro_torch.dist.sharding import (Spec, batch_specs_lm, cache_specs_lm,
+                                       entry_axes, lm_rules, param_specs_lm,
+                                       spec_map)
+from repro_torch.launch.mesh import RankView, axis_names, axis_sizes
 from repro_torch.models import transformer as T
 from repro_torch.models.common import NO_SHARD, ShardRules, tree_map
 from repro_torch.models.gnn import equivariant
-from repro_torch.models.gnn.graphcast import graphcast_loss
-from repro_torch.models.gnn.mace import mace_loss
-from repro_torch.models.gnn.meshgraphnet import mgn_loss
-from repro_torch.models.gnn.nequip import nequip_loss
+from repro_torch.models.gnn.common import GraphBatch
+from repro_torch.models.gnn.graphcast import graphcast_loss, init_graphcast
+from repro_torch.models.gnn.mace import init_mace, mace_loss
+from repro_torch.models.gnn.meshgraphnet import init_mgn, mgn_loss
+from repro_torch.models.gnn.nequip import init_nequip, nequip_loss
 from repro_torch.models.recsys.sasrec import (
     SASRec,
     SASRecConfig,
+    init_sasrec,
     sasrec_train_loss,
 )
-from repro_torch.train.optimizer import AdamWConfig, adamw_update
+from repro_torch.train.optimizer import (AdamWConfig, abstract_opt_state,
+                                         adamw_update)
 from repro_torch.train.train_loop import value_and_grad
 
 OPT_CFG = AdamWConfig(lr=1e-4)
@@ -56,8 +94,6 @@ OPT_CFG = AdamWConfig(lr=1e-4)
 def _rows(rules, batch: dict) -> dict:
     """This rank's rows of a global batch (`batch_specs_lm`: the batch dim
     over the data axes)."""
-    from repro_torch.dist.sharding import batch_specs_lm
-
     specs = batch_specs_lm(rules.mesh)
     return {k: rules.local(v, specs.get(k, specs["tokens"]))
             for k, v in batch.items()}
@@ -207,3 +243,406 @@ def recsys_retrieval(cfg: SASRecConfig, model: SASRec,
     """item_seq (B, S), candidates (N_c,) → (B, N_c) scores: two K5
     launches (the sequence and the candidates)."""
     return model.score_candidates(item_seq, candidates)
+
+
+# ---------------------------------------------------------------------------
+# Cells: one (arch × shape × mesh) as a record, for the dry run
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Cell:
+    arch_id: str
+    shape_name: str
+    kind: str
+    fn: Callable | None          # the port's step on abstract_args (None: gap)
+    abstract_args: tuple         # meta tensors, one rank's local shapes
+    in_specs: tuple              # the arguments' specs (`Spec` trees)
+    out_specs: Any
+    model_flops: float           # useful-math FLOPs per step (6ND etc.)
+    notes: str = ""
+    gap: str | None = None       # why the port has no step for this cell
+
+    def donate(self):
+        """Donated arg indices (params/opt/cache buffers), `repro`'s."""
+        if self.kind == "train":
+            return (0, 1)
+        if self.kind == "decode":
+            return (1,)
+        return ()
+
+
+def _pad_to(x: int, m: int) -> int:
+    return int(-(-x // m) * m)
+
+
+def _n_devices(mesh) -> int:
+    return math.prod(axis_sizes(mesh).values())
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _local_shape(shape, spec, mesh) -> tuple:
+    """One device's block of ``shape`` under ``spec``."""
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for dim, entry in enumerate(spec):
+        n = math.prod(sizes[a] for a in entry_axes(entry))
+        if out[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"over {entry} ({n} shards)")
+        out[dim] //= n
+    return tuple(out)
+
+
+def global_shape(local, spec, mesh) -> tuple:
+    """The full shape whose block under ``spec`` is ``local`` (a spec
+    shorter than the shape leaves the rest whole)."""
+    sizes = axis_sizes(mesh)
+    spec = tuple(spec) + (None,) * (len(local) - len(spec))
+    return tuple(d * math.prod(sizes[a] for a in entry_axes(e))
+                 for d, e in zip(tuple(local), spec))
+
+
+def _localize(tree, spec_tree, mesh):
+    """``meta`` leaves of the local shapes of a tree under its specs."""
+    return spec_map(lambda t, s: _meta(_local_shape(t.shape, s, mesh), t.dtype),
+                    tree, spec_tree)
+
+
+def _globalize(tree, spec_tree, mesh, *, hidden: bool = False):
+    """``meta`` leaves of the full shapes of a tree of local blocks: what
+    an entry point that slices full tensors itself takes.  ``hidden``
+    makes them out of sight of any dispatch mode (the dry run's meter):
+    stand-ins for weights the port builds from its shards, which no
+    device holds whole."""
+    def full():
+        return spec_map(lambda t, s: _meta(global_shape(t.shape, s, mesh),
+                                           t.dtype), tree, spec_tree)
+
+    if not hidden:
+        return full()
+    with _disable_current_modes():
+        return full()
+
+
+def _replicated(tree):
+    return tree_map(lambda _: Spec(), tree)
+
+
+class _ShapesOnly(TorchDispatchMode):
+    """Every op of the body on ``meta``: factories and random draws made
+    there, a scalar read answered 0 (an init's rejection loop ends at
+    once).  Shapes and types only (`jax.eval_shape`)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if func is torch.ops.aten._local_scalar_dense.default:
+            return False if args[0].dtype == torch.bool else 0
+        if "device" in kwargs:
+            kwargs["device"] = torch.device("meta")
+        if "generator" in kwargs:
+            kwargs["generator"] = None
+        return func(*args, **kwargs)
+
+
+@functools.lru_cache(maxsize=None)
+def _abstract_init(init, cfg):
+    """``init(cfg, generator)``'s tree as ``meta`` tensors, no memory."""
+    with _ShapesOnly():
+        return init(cfg, torch.Generator())
+
+
+def _data_axes(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in axis_names(mesh))
+
+
+def _view(mesh):
+    """Rank 0 of ``mesh`` (a `RankView` is kept as it is)."""
+    return mesh if isinstance(mesh, RankView) else RankView(mesh, 0)
+
+
+# -- LM cells ----------------------------------------------------------------
+
+def _arch_config(arch, moe_impl):
+    cfg = arch.make_config()
+    if moe_impl and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               impl=moe_impl))
+    return cfg
+
+
+def _lm_setup(cfg, mesh, seq_shard=True):
+    gap = None
+    one = _n_devices(mesh) == 1
+    if cfg.moe is not None and cfg.moe.impl != "shardmap" and not one:
+        gap = (f"moe.impl={cfg.moe.impl!r} is GSPMD's sorted dispatch; under "
+               "a mesh the port runs MoE as expert parallelism only "
+               "(moe_impl='shardmap')")
+    # one device: the one-process step (`NO_SHARD`), as a card runs it
+    rules = NO_SHARD if one else lm_rules(_view(mesh), seq_shard=seq_shard)
+    params_g = T.abstract_params(cfg)
+    pspec = param_specs_lm(cfg, params_g, mesh)
+    return rules, params_g, pspec, gap
+
+
+def _lm_train_cell(arch, cell, mesh, seq_shard=True, moe_impl=None,
+                   microbatch=1) -> Cell:
+    cfg = _arch_config(arch, moe_impl)
+    return lm_train_cell(cfg, cell["global_batch"], cell["seq_len"], mesh,
+                         seq_shard=seq_shard, microbatch=microbatch,
+                         arch_id=arch.arch_id, shape_name=cell.name)
+
+
+def lm_train_cell(cfg, batch: int, seq_len: int, mesh, *,
+                  seq_shard: bool = True, microbatch: int = 1,
+                  arch_id: str = "", shape_name: str = "train") -> Cell:
+    """The LM ``train`` cell of any config: `lm_train_step` on a (batch,
+    seq_len) global batch, as rank 0 of ``mesh`` (or the rank a
+    `RankView` names); on a one-device mesh, the one-process step."""
+    rules, params_g, pspec, gap = _lm_setup(cfg, mesh, seq_shard)
+    B, S = batch, seq_len
+    params = _localize(params_g, pspec, mesh)
+    opt = abstract_opt_state(params)
+    bspec = batch_specs_lm(mesh)
+    batch = _localize({"tokens": _meta((B, S), torch.int32),
+                       "labels": _meta((B, S), torch.int32)}, bspec, mesh)
+
+    def step(params, opt_state, batch):
+        if rules is not NO_SHARD:       # every rank takes the global batch
+            batch = _globalize(batch, bspec, mesh)
+        return lm_train_step(cfg, params, opt_state, batch,
+                             microbatch=microbatch, rules=rules)
+
+    ospec = {"m": pspec, "v": pspec, "count": Spec()}
+    n_active = cfg.n_active_params()
+    return Cell(
+        arch_id=arch_id, shape_name=shape_name, kind="train",
+        fn=None if gap else step, abstract_args=(params, opt, batch),
+        in_specs=(pspec, ospec, bspec), out_specs=(pspec, ospec, Spec()),
+        model_flops=6.0 * n_active * B * S,
+        notes=f"N_active={n_active:.3e}", gap=gap)
+
+
+def _lm_serve_cell(arch, cell, mesh, moe_impl=None) -> Cell:
+    cfg = _arch_config(arch, moe_impl)
+    rules, params_g, pspec, gap = _lm_setup(cfg, mesh)
+    B, S = cell["global_batch"], cell["seq_len"]
+    params = _localize(params_g, pspec, mesh)
+    cspec = cache_specs_lm(cfg, mesh)
+    data = _data_axes(mesh)
+    tspec = Spec(data, None)
+    out_specs = (Spec(data, None, "model"), cspec)
+    n_active = cfg.n_active_params()
+
+    def model(params):
+        return T.Transformer(cfg, _globalize(params, pspec, mesh,
+                                             hidden=True), rules)
+
+    if cell.kind == "prefill":
+        tokens = _meta(_local_shape((B, S), tspec, mesh), torch.int32)
+
+        def step(params, tokens):
+            return T.prefill(model(params), tokens)
+
+        attn = 4.0 * B * S * S * cfg.n_heads * cfg.d_head / 2  # causal half
+        return Cell(
+            arch_id=arch.arch_id, shape_name=cell.name, kind="prefill",
+            fn=None if gap else step, abstract_args=(params, tokens),
+            in_specs=(pspec, tspec), out_specs=out_specs,
+            model_flops=2.0 * n_active * B * S + attn,
+            notes=f"N_active={n_active:.3e}", gap=gap)
+
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
+    cache = {k: _meta(_local_shape(shape, cspec[k], mesh), cfg.dtype)
+             for k in ("k", "v")}
+    tokens = _meta(_local_shape((B, 1), tspec, mesh), torch.int32)
+    pos = _meta((), torch.int32)
+
+    def step(params, cache, tokens, pos):
+        return T.decode_step(model(params), cache, tokens, S - 1)
+
+    attn = 4.0 * B * S * cfg.n_heads * cfg.d_head
+    return Cell(
+        arch_id=arch.arch_id, shape_name=cell.name, kind="decode",
+        fn=None if gap else step, abstract_args=(params, cache, tokens, pos),
+        in_specs=(pspec, cspec, tspec, Spec()), out_specs=out_specs,
+        model_flops=2.0 * n_active * B + attn,
+        notes=f"N_active={n_active:.3e} kv_cache_tokens={S} (decode at "
+              f"position {S - 1})", gap=gap)
+
+
+# -- GNN cells ---------------------------------------------------------------
+
+def _gnn_batch_abstract(cell, mesh, *, d_feat: int, needs_geometry: bool,
+                        d_out: int, energy_targets: bool | None = None):
+    """`repro`'s ``_gnn_batch_abstract``: the padded `GraphBatch` of a GNN
+    cell (nodes and edges padded to a multiple of the device count,
+    striped over every mesh axis) as this rank's ``meta`` blocks, its
+    spec, the padded counts and a note."""
+    if energy_targets is None:
+        energy_targets = needs_geometry
+    if cell.name == "molecule":
+        needs_geometry = True         # molecules always carry positions
+        d_feat = max(d_feat, 4)       # synthesized node features if absent
+    D = _n_devices(mesh)
+    if cell.name == "molecule":
+        n_nodes = cell["n_nodes"] * cell["batch"]
+        n_edges = cell["n_edges"] * cell["batch"]
+        n_graphs = cell["batch"]
+    elif cell.name == "minibatch_lg":
+        n_nodes, n_edges, n_graphs = cell["sub_nodes"], cell["sub_edges"], 1
+    else:
+        n_nodes, n_edges, n_graphs = cell["n_nodes"], cell["n_edges"], 1
+    n_pad = _pad_to(n_nodes, D)
+    e_pad = _pad_to(n_edges, D)
+    f32, i32 = torch.float32, torch.int32
+    every = tuple(a for a in ("pod", "data", "model") if a in axis_names(mesh))
+    geo = needs_geometry
+    spec = GraphBatch(
+        node_feat=Spec(every, None), edge_src=Spec(every),
+        edge_dst=Spec(every), node_mask=Spec(every), edge_mask=Spec(every),
+        positions=Spec(every, None) if geo else None,
+        species=Spec(every) if geo else None,
+        graph_ids=Spec(every) if geo else None,
+        targets=Spec() if energy_targets else Spec(every, None),
+        n_graphs=n_graphs)
+    full = dict(node_feat=((n_pad, d_feat), f32), edge_src=((e_pad,), i32),
+                edge_dst=((e_pad,), i32), node_mask=((n_pad,), f32),
+                edge_mask=((e_pad,), f32),
+                positions=((n_pad, 3), f32) if geo else None,
+                species=((n_pad,), i32) if geo else None,
+                graph_ids=((n_pad,), i32) if geo else None,
+                targets=((n_graphs,) if energy_targets else (n_pad, d_out),
+                         f32))
+    batch = GraphBatch(**{
+        f: None if v is None
+        else _meta(_local_shape(v[0], getattr(spec, f), mesh), v[1])
+        for f, v in full.items()}, n_graphs=n_graphs)
+    note = f"padded nodes {n_nodes}->{n_pad}, edges {n_edges}->{e_pad}"
+    return batch, spec, n_pad, e_pad, note
+
+
+_GNN_GAP = ("the port's GNN steps run on one device: `repro` lets GSPMD "
+            "stripe nodes and edges over every mesh axis, and the port's "
+            "fixed-order segment plans are built on the host from the edge "
+            "indices, which meta tensors do not hold (the halo GraphCast "
+            "needs a partition's plan)")
+
+
+def _gnn_cell(arch, cell, mesh) -> Cell:
+    aid = arch.arch_id
+    d_feat = cell.meta.get("d_feat", 0)
+    if cell.name == "molecule":
+        d_feat = max(d_feat, 4)
+    needs_geometry = aid in ("mace", "nequip")
+    if aid == "meshgraphnet":
+        cfg, init, d_out = arch.make_config(d_in=max(d_feat, 3), d_out=3), \
+            init_mgn, 3
+    elif aid == "graphcast":
+        cfg, init = arch.make_config(d_in=max(d_feat, 1)), init_graphcast
+        d_out = cfg.n_vars
+    else:
+        cfg = arch.make_config(d_feat_in=d_feat)
+        init, d_out = (init_nequip if aid == "nequip" else init_mace), 1
+    batch, bspec, n_pad, e_pad, note = _gnn_batch_abstract(
+        cell, mesh, d_feat=d_feat, needs_geometry=needs_geometry,
+        d_out=d_out, energy_targets=needs_geometry)
+    params = _abstract_init(init, cfg)
+    pspec = _replicated(params)
+    ospec = {"m": pspec, "v": pspec, "count": Spec()}
+    return Cell(
+        arch_id=aid, shape_name=cell.name, kind="train", fn=None,
+        abstract_args=(params, abstract_opt_state(params), batch),
+        in_specs=(pspec, ospec, bspec), out_specs=(pspec, ospec, Spec()),
+        model_flops=gnn_model_flops(aid, cfg, n_pad, e_pad), notes=note,
+        gap=_GNN_GAP)
+
+
+# -- RecSys cells ------------------------------------------------------------
+
+_RECSYS_GAP = ("the port's SASRec runs on one device: `repro` shards the "
+               "item table over 'model' and the users over the data axes "
+               "through GSPMD, and the port has no sharded lookup or top-k "
+               "for it")
+
+
+def _recsys_cell(arch, cell, mesh) -> Cell:
+    cfg = arch.make_config()
+    params_g = _abstract_init(init_sasrec, cfg)
+    data = _data_axes(mesh)
+    pspec = _replicated(params_g)
+    pspec["item_embed"] = Spec("model", None)
+    params = _localize(params_g, pspec, mesh)
+    d, S = cfg.embed_dim, cfg.seq_len
+    blk_flops = 2 * (4 * d * d + 2 * d * cfg.d_ff) + 4 * S * d  # per token
+    B = cell["batch"]
+
+    def args(shapes, specs):
+        return _localize({k: _meta(v, torch.int32) for k, v in shapes.items()},
+                         specs, mesh)
+
+    if cell.kind == "train":
+        bspec = {k: Spec(data, None)
+                 for k in ("item_seq", "pos_items", "neg_items")}
+        batch = args({k: (B, S) for k in bspec}, bspec)
+        ospec = {"m": pspec, "v": pspec, "count": Spec()}
+        return Cell(
+            arch_id=arch.arch_id, shape_name=cell.name, kind="train", fn=None,
+            abstract_args=(params, abstract_opt_state(params), batch),
+            in_specs=(pspec, ospec, bspec), out_specs=(pspec, ospec, Spec()),
+            model_flops=3.0 * B * S * cfg.n_blocks * blk_flops,
+            gap=_RECSYS_GAP)
+    if cell.kind == "serve":
+        k, V = 100, cfg.table_rows
+        seq = args({"s": (B, S)}, {"s": Spec(data, None)})["s"]
+        return Cell(
+            arch_id=arch.arch_id, shape_name=cell.name, kind="serve", fn=None,
+            abstract_args=(params, seq), in_specs=(pspec, Spec(data, None)),
+            out_specs=(Spec(data, None), Spec(data, None)),
+            model_flops=B * S * cfg.n_blocks * blk_flops + 2.0 * B * V * d,
+            notes=f"top-{k} over {V}-row catalog; user_chunk="
+                  f"{min(B, 8192)}", gap=_RECSYS_GAP)
+    NC = cell["n_candidates"]
+    a = args({"s": (B, S), "c": (NC,)}, {"s": Spec(None, None),
+                                          "c": Spec("model")})
+    return Cell(
+        arch_id=arch.arch_id, shape_name=cell.name, kind="retrieval", fn=None,
+        abstract_args=(params, a["s"], a["c"]),
+        in_specs=(pspec, Spec(None, None), Spec("model")),
+        out_specs=Spec(None, "model"),
+        model_flops=B * S * cfg.n_blocks * blk_flops + 2.0 * B * NC * d,
+        gap=_RECSYS_GAP)
+
+
+def build_cell(arch_id: str, shape_name: str, mesh, *, unroll: bool = False,
+               n_layers: int | None = None, seq_shard: bool = True,
+               moe_impl: str | None = None, microbatch: int = 1) -> Cell:
+    """`repro`'s ``build_cell`` on a `MeshShape` (or one rank of it, a
+    `RankView`).  ``n_layers`` overrides the config depth (layer
+    differencing); ``unroll`` is accepted for `repro`'s signature: the
+    port's layers are a Python loop, always unrolled."""
+    arch = get_arch(arch_id)
+    if n_layers is not None:
+        base = arch.make_config
+
+        def _shallow(*a, **kw):
+            return dataclasses.replace(base(*a, **kw), n_layers=n_layers)
+
+        arch = dataclasses.replace(arch, make_config=_shallow)
+    if shape_name not in arch.shapes:
+        raise KeyError(f"{arch_id} has no shape {shape_name}")
+    if shape_name in arch.skips:
+        raise ValueError(
+            f"cell ({arch_id} × {shape_name}) is skipped: "
+            f"{arch.skips[shape_name]}")
+    cell = arch.shapes[shape_name]
+    if arch.family == "lm":
+        if cell.kind == "train":
+            return _lm_train_cell(arch, cell, mesh, seq_shard=seq_shard,
+                                  moe_impl=moe_impl, microbatch=microbatch)
+        return _lm_serve_cell(arch, cell, mesh, moe_impl=moe_impl)
+    if arch.family == "gnn":
+        return _gnn_cell(arch, cell, mesh)
+    return _recsys_cell(arch, cell, mesh)

@@ -13,18 +13,36 @@ default process group, one rank a device (`repro_torch.dist.group`).
   ranks, row-major (the last axis varies fastest, as `jax.make_mesh`
   lays out devices); :func:`make_debug_mesh` — its one-axis case.
 
+* :func:`make_production_mesh` — `repro`'s production meshes, (16, 16)
+  ``("data", "model")`` and (2, 16, 16) ``("pod", "data", "model")``, as
+  `MeshShape`s laid over an H100 cluster (:class:`Topology`): nodes of 8
+  H100 SXM cards on NVSwitch, InfiniBand between nodes, devices numbered
+  row-major so the last axis varies fastest.  A ``model`` group of 16
+  therefore spans two nodes and every ``data`` or ``pod`` group crosses
+  InfiniBand: :meth:`Topology.link_bw` gives each axis the bandwidth of
+  the slowest link its group crosses.
+* :class:`RankView` — one rank's view of a `MeshShape`: its coordinates
+  and an `AbstractGroup` per axis, so a `MeshRules` on it runs a sharded
+  step on ``meta`` tensors in one process (the dry run).
+
 The mesh's device type follows the default group's backend: ``"cuda"``
 under NCCL, ``"cpu"`` under gloo (a host transport; gloo ranks may still
 compute on the card, their collectives cross through the host).
-:func:`make_production_mesh` (the TPU pod topology and its H100 / NVLink
-analogue) waits for the launch slice (ROADMAP D5) and raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch.distributed as dist
+
+# The H100 SXM5 cluster's links, per card and per direction (NVIDIA H100
+# Tensor Core GPU datasheet, SXM5 column: NVLink 900 GB/s in both
+# directions; one ConnectX-7 NDR InfiniBand port of 400 Gb/s per card).
+NVLINK_BW = 450e9          # bytes/s, a card to the NVSwitch, one way
+IB_BW = 50e9               # bytes/s, a card to the InfiniBand fabric
+NODE_CARDS = 8             # H100 SXM cards per node, on one NVSwitch
 
 
 class MeshShape:
@@ -81,11 +99,79 @@ def make_debug_mesh(n_devices: int | None = None, axis: str = "data"):
     return make_mesh((n,), (axis,))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    """`repro`'s (16, 16) / (2, 16, 16) TPU pod meshes: their H100 /
-    NVLink analogue is the launch slice's (ROADMAP D5)."""
-    raise NotImplementedError(
-        "make_production_mesh: the production topology (repro's "
-        f"{'(2, 16, 16)' if multi_pod else '(16, 16)'} pod mesh, and its "
-        "H100 / NVLink analogue) waits for the launch slice (ROADMAP D5); "
-        "use MeshShape for specs and make_mesh over running ranks")
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """Cards in nodes of ``node_cards`` on one NVSwitch (``nvlink_bw`` a
+    card), nodes joined by InfiniBand (``ib_bw`` a card)."""
+
+    node_cards: int = NODE_CARDS
+    nvlink_bw: float = NVLINK_BW
+    ib_bw: float = IB_BW
+
+    def link_bw(self, mesh, axis: str) -> float:
+        """The bandwidth of the slowest link a group along ``axis`` crosses:
+        NVLink when the group's devices (row-major numbering) lie in one
+        node, InfiniBand otherwise."""
+        sizes = axis_sizes(mesh)
+        names = list(sizes)
+        stride = math.prod(sizes[a] for a in names[names.index(axis) + 1:])
+        span = stride * sizes[axis]          # devices from first to last + 1
+        inside = span <= self.node_cards and self.node_cards % span == 0
+        return self.nvlink_bw if inside else self.ib_bw
+
+
+H100_CLUSTER = Topology()
+
+
+class ProductionMesh(MeshShape):
+    """A `MeshShape` laid over a cluster (``topology``)."""
+
+    def __init__(self, shape, axis_names, topology: Topology = H100_CLUSTER):
+        super().__init__(shape, axis_names)
+        self.topology = topology
+
+    def __repr__(self) -> str:
+        return (f"ProductionMesh({tuple(self.shape.values())}, "
+                f"{self.axis_names})")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """`repro`'s production mesh, abstract: (16, 16) ``("data", "model")``
+    = 256 cards, or with ``multi_pod`` (2, 16, 16) ``("pod", "data",
+    "model")`` = 512, on the H100 cluster (`H100_CLUSTER`: 32 or 64 nodes
+    of 8).  The ``pod`` axis carries only data-parallel traffic by the
+    sharding rules, and always crosses InfiniBand."""
+    if multi_pod:
+        return ProductionMesh((2, 16, 16), ("pod", "data", "model"))
+    return ProductionMesh((16, 16), ("data", "model"))
+
+
+class RankView(MeshShape):
+    """Rank ``rank`` (row-major) of an abstract mesh, with the
+    `DeviceMesh` methods a `MeshRules` calls: ``get_coordinate`` and
+    ``get_group``, whose groups are `AbstractGroup`s (no process, no
+    wire)."""
+
+    def __init__(self, mesh, rank: int = 0):
+        super().__init__(tuple(axis_sizes(mesh).values()), axis_names(mesh))
+        n = math.prod(self.shape.values())
+        if not 0 <= rank < n:
+            raise ValueError(f"rank {rank} outside a mesh of {n}")
+        coord, r = [], rank
+        for size in reversed(list(self.shape.values())):
+            coord.append(r % size)
+            r //= size
+        self.coord = tuple(reversed(coord))
+
+    def get_coordinate(self) -> tuple:
+        return self.coord
+
+    def get_group(self, axis: str):
+        from repro_torch.dist.group import AbstractGroup
+
+        i = self.axis_names.index(axis)
+        return AbstractGroup(self.shape[axis], self.coord[i], axis)
+
+    def __repr__(self) -> str:
+        return (f"RankView({tuple(self.shape.values())}, {self.axis_names}, "
+                f"coord={self.coord})")

@@ -151,6 +151,17 @@ def tree_slice(tree, i: int):
     return tree_map(lambda t: t[i], tree)
 
 
+def tree_unbind(tree) -> list:
+    """Every entry of a stacked tree's leading dim, each leaf unbound once:
+    its backward is one stack of the entries' gradients, where a slice per
+    entry (`tree_slice`) makes a full-size gradient per entry, traffic
+    that grows with the square of the depth."""
+    leaves = tree_leaves(tree)
+    parts = [t.unbind(0) for t in leaves]
+    return [tree_unflatten(tree, [p[i] for p in parts])
+            for i in range(len(parts[0]))]
+
+
 def tree_cast(tree, dtype):
     """Every floating tensor of a nested dict/list cast to ``dtype``."""
     if isinstance(tree, torch.Tensor):

@@ -15,8 +15,8 @@ differentiable across the ranks: the exchange's backward all-reduces the
 gradient of the gathered buffer and keeps this rank's rows, and the
 loss's ``psum`` passes its gradient through unchanged, so each rank's
 parameter gradient is its part and `all_reduce_sum` of them is the
-gradient of the full-graph loss.  Not ported: ``make_halo_batch_abstract``
-(the dry-run's shapes; the port has no dry run).
+gradient of the full-graph loss.  `make_halo_batch_abstract` is the
+batch as ``meta`` tensors, for the dry run.
 """
 
 from __future__ import annotations
@@ -65,6 +65,23 @@ class HaloBatch:
         if key not in self.plans:
             self.plans[key] = segment_plan(getattr(self, field), n)
         return self.plans[key]
+
+
+def make_halo_batch_abstract(plan, d_feat: int, d_out: int) -> HaloBatch:
+    """`repro`'s ``make_halo_batch_abstract``: the `HaloBatch` of a plan
+    (anything with ``n_shards``, ``n_local``, ``halo`` and ``max_edges``)
+    as ``meta`` tensors, no memory."""
+    P_, NL, H, ME = plan.n_shards, plan.n_local, plan.halo, plan.max_edges
+    f32, i32 = torch.float32, torch.int32
+
+    def t(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    return HaloBatch(
+        node_feat=t((P_, NL, d_feat), f32), node_mask=t((P_, NL), f32),
+        targets=t((P_, NL, d_out), f32), export_idx=t((P_, H), i32),
+        export_mask=t((P_, H), f32), edge_src=t((P_, ME), i32),
+        edge_dst=t((P_, ME), i32), edge_mask=t((P_, ME), f32))
 
 
 def halo_batch_from_plan(plan: HaloPlan, node_feat, targets,

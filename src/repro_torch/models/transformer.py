@@ -109,6 +109,7 @@ from repro_torch.models.common import (
     stack_trees,
     tree_cast,
     tree_slice,
+    tree_unbind,
 )
 from repro_torch.models.moe import (
     MoE,
@@ -681,8 +682,7 @@ def _forward_params(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
     x = _embed(cfg, params["embed"].to(cfg.dtype), tokens, rules,
                embed_tokens)
     pos = torch.arange(S, device=tokens.device).expand(B, S)
-    for i in range(cfg.n_layers):
-        p = tree_slice(params["layers"], i)
+    for p in tree_unbind(params["layers"]):
         if cfg.remat:
             x = checkpoint(_train_layer, cfg, p, x, pos, attn_prefer, rules,
                            use_reentrant=False)

@@ -3,9 +3,10 @@
 
 from repro_torch.train.optimizer import (
     AdamWConfig,
+    abstract_opt_state,
     adamw_init,
     adamw_update,
     global_norm,
 )
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]
+__all__ = ["AdamWConfig", "abstract_opt_state", "adamw_init", "adamw_update", "global_norm"]

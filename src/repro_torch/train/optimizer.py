@@ -5,7 +5,8 @@ count a 0-d int32 tensor, master params updated in fp32 and cast back to
 each param's type.  Functional, as `repro`'s: `adamw_update` returns new
 trees and leaves its inputs alone.  Trees are nested dicts of tensors
 (`models.common.tree_map`); `global_norm` sums the leaves in JAX's
-flattening order.  ``abstract_opt_state`` waits for the launch slice (D5).
+flattening order.  `abstract_opt_state` is `adamw_init`'s tree as
+``meta`` tensors, for the dry run (`repro_torch.launch.dryrun`).
 """
 
 from __future__ import annotations
@@ -36,6 +37,17 @@ def adamw_init(params) -> dict:
     dev = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def abstract_opt_state(params) -> dict:
+    """`adamw_init`'s tree as ``meta`` tensors: the same keys, shapes and
+    types (fp32 moments, a 0-d int32 count), no memory (`repro`'s
+    ``abstract_opt_state``).  ``params`` may be ``meta`` tensors too."""
+    def like(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    return {"m": tree_map(like, params), "v": tree_map(like, params),
+            "count": torch.empty((), dtype=torch.int32, device="meta")}
 
 
 def global_norm(tree) -> torch.Tensor:

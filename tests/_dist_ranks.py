@@ -35,7 +35,9 @@ def _entry(rank, world, backend, workdir, task, payload):
         with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
-        dist.destroy_process_group()
+        from repro_torch.dist import group as dist_group
+
+        dist_group.destroy()
 
 
 def run_ranks(task, payload, world: int, workdir, *, backend: str = "gloo",
@@ -324,3 +326,27 @@ def case_meshes():
         refused = str(e)
     return dict(names=mesh.mesh_dim_names, shape=tuple(mesh.mesh.shape),
                 coord=mesh.get_coordinate(), refused=refused)
+
+
+def case_lm_census(cfg, params, batch, mesh_shape):
+    """One sharded `lm_train_step` on a (data, model) mesh of
+    ``mesh_shape`` under `FlopCounterMode` and the collective census:
+    this rank's coordinates, FLOPs and census records."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.dist import group as dist_group
+    from repro_torch.dist.sharding import lm_rules, param_specs_lm
+    from repro_torch.launch.cells import lm_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.checkpoint import reshard
+    from repro_torch.train.optimizer import adamw_init
+
+    rules = lm_rules(make_mesh(mesh_shape, ("data", "model")))
+    full = _torch_tree(params)
+    p = reshard(full, rules.mesh, param_specs_lm(cfg, full, rules.mesh),
+                device="cpu")
+    opt = adamw_init(p)
+    with dist_group.census() as cen, FlopCounterMode(display=False) as fc:
+        lm_train_step(cfg, p, opt, _torch_tree(batch), rules=rules)
+    return dict(coords=rules.coords, flops=fc.get_total_flops(),
+                records=cen.records)

@@ -31,7 +31,11 @@ fp32; the smoke SASRec on the card to the CPU run: user states within
 1e-5, streamed top-100 ids identical.  Training: K6 with a sliding window
 on its three routes against the plain mask; K6's and K5's gradients
 against autograd through their plain versions, K5's bit-identical twice;
-a smoke LM and a smoke SASRec train step bit-identical twice.  The GNNs
+a smoke LM and a smoke SASRec train step bit-identical twice.  The dry
+run's view of K6 and K5: `FlopCounterMode` over a launch on the card
+counts the tiles K6's loops multiply (tests/_k6_tiles.py) and two FLOPs an
+element of each of K5's entries; their shape rule on meta tensors gives
+the real output's shape, type and strides in every case above.  The GNNs
 (no kernel of their own: a fixed-order ``segment_reduce`` and a take) —
 the ordered scatter and its backward against ``index_add_`` within 1e-5
 of Σ|terms| and bit-identical twice; one smoke train step of each arch on
@@ -1036,3 +1040,127 @@ def test_gnn_smoke_step_on_card_matches_cpu(card, arch_id):
     assert torch.equal(a[2], b[2])
     assert all(torch.equal(x, y) for x, y in zip(tree_leaves(a[0]),
                                                   tree_leaves(b[0])))
+
+
+# ---------------------------------------------------------------------------
+# The dry run's view of K6 and K5 (src/repro_torch/launch/dryrun.py): their
+# FLOP formulas on the card's own launches, and their shape rule for meta
+# tensors against the real outputs of every case above.
+# ---------------------------------------------------------------------------
+
+# (case table, case, dtype): a causal bf16 prefill, a windowed one, the
+# split-KV decode
+K6_FLOP_CASES = {"causal": (FLASH_CASES, "prefill", torch.bfloat16),
+                 "window": (WINDOW_CASES, "prefill_w100", torch.bfloat16),
+                 "decode": (FLASH_CASES, "long_decode", torch.bfloat16)}
+
+
+def _flash_inputs(table, case, device, dtype, seed=31):
+    if table is WINDOW_CASES:
+        B, Sq, Skv, H, Hkv, D, q_offset, kv_len, window = table[case]
+        causal = True
+    else:
+        B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal = table[case]
+        window = None
+    kv_len = Skv if kv_len is None else kv_len
+    q_offset = kv_len - Sq if q_offset is None else q_offset
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(device, dtype)
+               for s in ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D)))
+    return q, k, v, (causal, q_offset, kv_len, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(K6_FLOP_CASES))
+def test_flash_attention_flops_on_card(card, name):
+    """`FlopCounterMode` over one K6 launch on the card counts the tiles
+    the kernel's loops multiply (tests/_k6_tiles.py), not the S × S
+    product; the output equals the plain version's."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from _k6_tiles import kernel_pairs
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    table, case, dtype = K6_FLOP_CASES[name]
+    q, k, v, (causal, q_offset, kv_len, window) = _flash_inputs(
+        table, case, card, dtype)
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
+    before = fa_cuda.LAUNCHES
+    with FlopCounterMode(display=False) as fc:
+        got = fa_ops.flash_attention(q, k, v, prefer="cuda", **kw)
+    torch.cuda.synchronize()
+    assert fa_cuda.LAUNCHES == before + 1
+    want = 4 * D * B * Hkv * kernel_pairs(Sq, H // Hkv, D, q_offset, kv_len,
+                                          causal, window, True)
+    assert fc.get_total_flops() == want > 0
+    if Sq > 16:        # prefill: the masked tiles are skipped
+        assert want < 4 * D * B * H * Sq * kv_len
+    np.testing.assert_allclose(
+        got.float().cpu().numpy(),
+        fa_ref.flash_attention_plain(q, k, v, **kw).float().cpu().numpy(),
+        **_FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BAG_CASES))
+def test_embedding_bag_flops_on_card(card, case):
+    """`FlopCounterMode` over one K5 launch counts two FLOPs an element of
+    each entry's row: the kernel's tile loop visits every entry once."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+
+    table, idx, seg, w, B, kind = _bag_case(case, card, torch.float32)
+    before = eb_cuda.LAUNCHES
+    with FlopCounterMode(display=False) as fc:
+        eb_ops.embedding_bag(table, idx, seg, B, weights=w,
+                             assume_sorted=kind != "unsorted", prefer="cuda")
+    torch.cuda.synchronize()
+    assert eb_cuda.LAUNCHES == before + 1
+    assert fc.get_total_flops() == 2 * idx.numel() * table.shape[1]
+
+
+def _meta_like(t):
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device="meta")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [("flash", c) for c in FLASH_CASES]
+                         + [("window", c) for c in WINDOW_CASES])
+def test_flash_attention_meta_shape_matches_card(card, case, dtype):
+    """K6's shape rule on meta tensors gives the card's output: its shape,
+    type and (contiguous) strides."""
+    kind, name = case
+    table = FLASH_CASES if kind == "flash" else WINDOW_CASES
+    q, k, v, args = _flash_inputs(table, name, card, dtype)
+    real = torch.ops.repro_torch.flash_attention(q, k, v, *args)
+    meta = torch.ops.repro_torch.flash_attention(
+        _meta_like(q), _meta_like(k), _meta_like(v), *args)
+    assert meta.device.type == "meta"
+    assert (meta.shape, meta.dtype, meta.stride()) == (real.shape, real.dtype,
+                                                       real.stride())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(BAG_CASES))
+def test_embedding_bag_meta_shape_matches_card(card, case, dtype):
+    """K5's shape rule on meta tensors gives the card's output."""
+    table, idx, seg, w, B, kind = _bag_case(case, card, dtype)
+    if kind == "unsorted":
+        order = torch.argsort(seg, stable=True)
+        idx, seg, w = idx[order], seg[order], w[order]
+    real = torch.ops.repro_torch.embedding_bag(table, idx, seg, w, B)
+    meta = torch.ops.repro_torch.embedding_bag(
+        *(_meta_like(t) for t in (table, idx, seg, w)), B)
+    assert meta.device.type == "meta"
+    assert (meta.shape, meta.dtype, meta.stride()) == (real.shape, real.dtype,
+                                                       real.stride())

@@ -63,7 +63,8 @@ _SLICE_MODULES = {"repro_torch.core.lanczos", "repro_torch.core.flexcg",
                   "repro_torch.configs.qwen3_moe_30b_a3b",
                   "repro_torch.configs.command_r_35b",
                   "repro_torch.dist.sharding", "repro_torch.launch.mesh",
-                  "repro_torch.configs.mistral_large_123b"}
+                  "repro_torch.configs.mistral_large_123b",
+                  "repro_torch.launch.dryrun", "repro_torch.launch.roofline"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():

@@ -145,5 +145,22 @@ def test_local_slice_and_placements():
     with pytest.raises(ValueError, match="does not split"):
         st.local_slice(torch.zeros(6), st.Spec("model"), {"model": 0}, mesh)
     assert st.Spec(("data",), ()) == ("data", None)
-    with pytest.raises(NotImplementedError, match="D5"):
-        make_production_mesh()
+    pod, multi = make_production_mesh(), make_production_mesh(multi_pod=True)
+    assert (pod.shape, pod.axis_names) == ({"data": 16, "model": 16},
+                                           ("data", "model"))
+    assert (multi.shape, multi.axis_names) == (
+        {"pod": 2, "data": 16, "model": 16}, ("pod", "data", "model"))
+    # nodes of 8 cards on NVSwitch: a model group of 16 spans two nodes,
+    # data and pod groups cross InfiniBand; a model group of 4 or 8 stays
+    # on NVLink
+    topo = pod.topology
+    assert topo.node_cards == 8 and (topo.nvlink_bw, topo.ib_bw) == (450e9,
+                                                                     50e9)
+    for m in (pod, multi):
+        assert {a: topo.link_bw(m, a) for a in m.axis_names} == \
+            dict.fromkeys(m.axis_names, 50e9)
+    for shape, want in (((2, 4), 450e9), ((2, 8), 450e9), ((1, 16), 50e9)):
+        small = MeshShape(shape, ("data", "model"))
+        assert topo.link_bw(small, "model") == want
+    assert topo.link_bw(MeshShape((2, 4), ("data", "model")), "data") == \
+        450e9
