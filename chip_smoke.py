@@ -139,13 +139,12 @@ Phases, each printing JSON lines:
    per feature beside an RCB plan's.  A rank that fails fails the phase.  Under ``--quick`` the full-width inputs are RCB labels
    of the box with 0.2% moved at random and their one-process chains.
 7b. ``full_multilevel`` — the ``multilevel`` preset (host V-cycle, no
-   kernel: launches checked 0) on the same box into 64 parts: seconds per
-   stage, the V-cycle's levels, coarsest size and solver, FM and balance
-   moves, the cut within 1.05 x `repro`'s (578,574, CPU; another NumPy's
-   `eigh` splits the coarsest graph otherwise) beside the ``default`` and
-   ``geometric`` cuts of ``full``, 0 disconnected parts, 64 non-empty
-   parts, the corridor, a clean guard report; before it, the same preset
-   on ``box_mesh(40, 32, 24)``, cut within 1.01 x `repro`'s 137,965.
+   kernel: launches checked 0) on ``box_mesh(40, 32, 24)`` into 64 parts:
+   seconds per stage, the V-cycle's levels, coarsest size and solver, FM
+   and balance moves, the cut within 1.01 x `repro`'s 137,965, a clean
+   guard report.  The full box's run (~75 s of host NumPy, no kernel) is
+   not repeated here: the CPU tests hold the V-cycle to `repro` bit for
+   bit.
 7c. ``full_reference`` — the ``reference`` preset on the same box into 64
    parts (every node on its sub-mesh's gather-scatter Laplacian): seconds
    per stage split host / device, per level, kernel launches, the trace's
@@ -383,18 +382,35 @@ Phases, each printing JSON lines:
     weights and the fp32 train state, beside 80 GB.  (g) K6 at mistral's
     local heads (24 over 2; the prefill, and a decode step over a strided
     view of 2 of a cache's 8 KV heads) and K5's vocab-slice lookup (foreign
-    ids at weight 0) against their plain versions, timed.  K6 and K5
-    launches are counted from 0 on every rank over (a)–(c) (K6 = 2 × 17
-    in (a) and (b) on every rank, K5 = 17 on a gloo rank) and join the
-    ``kernels`` line.  Every check runs before the phase fails.
+    ids at weight 0) against their plain versions, timed.  (h) SASRec
+    across ranks at its published widths (fp32, a 1,000,448 × 50 table, 2
+    blocks, sequence 50) under `recsys_rules` on (data 2, model 2) (NCCL:
+    (1, 1)): the users over ``data``, the table's rows over ``model``, its
+    three lookups vocab-parallel on K5: ``serve_p99`` (512 users, top-100
+    streamed over each rank's rows, one gather of the winners),
+    ``retrieval_cand`` (1 user × 10^6 candidates over ``model``) and
+    SHARD_RECSYS_STEPS train steps on 8,192 users (``train_batch``'s
+    65,536 cut: the gloo wire runs through the host), twice from one
+    state, against the parent's one-process runs of the same seed: states
+    and retrieval scores within 1e-5 of max, top-100 values within 1e-5
+    and ids equal where the scores are more than 1e-5 apart, both losses
+    within 1e-5 (relative), params within 1e-4 of each leaf's max, the
+    two runs the same bits, K5's forward and backward launches on every
+    rank; a control (each rank's rows shifted by one) must miss the
+    states gate; K5 at model rank 1's slice of the sequence lookup (foreign
+    ids at weight 0) against its plain version, timed beside its bound and
+    ``F.embedding_bag``.  K6 and K5 launches are counted from 0 on every
+    rank over (a)–(c) and (h) (K6 = 2 × 17 in (a) and (b) on every rank,
+    K5 = 17 on a gloo rank) and join the ``kernels`` line.  Every check
+    runs before the phase fails.
 15. ``launch`` — the dry run (`repro_torch.launch.dryrun`), host work
     after every phase on the card, in LAUNCH_PROCS spawned processes: (a)
     every runnable cell of ``all_cells()`` on `repro`'s (16, 16) and (2,
     16, 16) production meshes over the H100 cluster, on meta tensors: one
     ``launch_cell`` line a cell (live GB a device, ``fits_80gb``, the
     dominant term, the roofline fraction, the three terms), beside the
-    card's name and power limit; no cell may fail, every LM cell must run
-    (the GNN and recsys cells are gaps, with their reason).  (b) Phase
+    card's name and power limit; no cell may fail, every LM and recsys
+    cell must run (the GNN cells are gaps, with their reason).  (b) Phase
     ``train``'s step against its dry run on the card's one-device mesh
     (the exec pass at full depth, FLOPs and bytes by layer differencing):
     real / dry FLOPs (`FlopCounterMode` over ``train``'s unrecorded step)
@@ -412,7 +428,7 @@ chains of ``full_sharded`` (``dist`` prints its own per rank), K3 on none,
 K6 in the two ``serve`` runs, ``serve_window``'s long_500k run, the 4
 steps of ``train`` and the five ``serve_moe`` runs, K5 in the three
 ``recsys`` runs, the 5 steps of ``recsys_train`` and the 4 of ``train``,
-and both in ``shard``'s ranks over (a)–(c),
+and both in ``shard``'s ranks over (a)–(c) and K5 over (h),
 with the counters set to 0 just before each
 — error against the plain version, times and bound), the ``nvidia-smi``
 line, and last ``{"ok": true, "device": {...}}``.  Any failed check
@@ -461,14 +477,9 @@ QUALITY_ML_JAX_CUT = 8916.0
 # `repro`'s default (guarded) cuts on the two-component graph of
 # two_grids() (repro/core/pipeline.py, CPU; ROADMAP Queue 3)
 TWO_GRIDS_JAX_CUTS = {2: 0.0, 4: 20.0, 5: 28.0}
-# `repro`'s multilevel cuts into 64 parts (CPU, NumPy 2.0.2): box_mesh(80,
-# 64, 48), and box_mesh(40, 32, 24), whose V-cycle the port reproduces bit
-# for bit on the card's host (NumPy 2.3.5).  At the full box both hosts
-# build the same coarsening ladder and the same coarsest graph
-# (tools/ml_ladder.py), and the two NumPy builds' `eigh` split that graph
-# differently (PERF.md §6), so that cut is bounded as the other cuts
-# recorded on another machine are, at 1.05x.
-FULL_ML_JAX_CUT = 578574.0
+# `repro`'s multilevel cut of box_mesh(40, 32, 24) into 64 parts (CPU,
+# NumPy 2.0.2), whose V-cycle the port reproduces bit for bit on the card's
+# host (NumPy 2.3.5)
 MEDIUM_ML_JAX_CUT = 137965.0
 CHAOS_SITES = ("solver_nan", "empty_split", "cg_divergence", "deadline",
                "halo_truncate")
@@ -1617,7 +1628,7 @@ def phase_full(box):
     # 313371 against RCB's 307836).  The check bounds the gap.
     check(pm.edge_cut <= 1.05 * gpm.edge_cut,
           f"full: cut {pm.edge_cut} above 1.05 x the geometric cut {gpm.edge_cut}")
-    return launches, gpm.edge_cut, ctx, pm.edge_cut
+    return launches, gpm.edge_cut, ctx
 
 
 def phase_full_inverse(box, geometric_cut):
@@ -2198,64 +2209,48 @@ def phase_dist(smoke, box, full):
     return row
 
 
-def phase_full_multilevel(box, rsb_cut, geometric_cut):
-    """The ``multilevel`` preset on the full box into 64 parts: host NumPy
-    only (no kernel launches; checked), guarded; its stages, the
-    V-cycle's statistics, the cut against `repro`'s on the same input and
-    against the RSB ``default`` and ``geometric`` cuts of ``full``; first
-    the same preset on ``box_mesh(40, 32, 24)``, against `repro`'s cut."""
+def phase_full_multilevel():
+    """The ``multilevel`` preset on ``box_mesh(40, 32, 24)`` into 64 parts:
+    host NumPy only (no kernel launches; checked), guarded; its stages,
+    the V-cycle's statistics, the cut within 1.01 x `repro`'s on the same
+    input.  (The full box's run, ~75 s of host NumPy with no kernel, is
+    left to the CPU tests, which hold the V-cycle to `repro` bit for
+    bit.)"""
     from repro_torch.kernels.ell_spmv import cuda
     from repro_torch.kernels.segment_sum import cuda as ss_cuda
     from repro_torch.mesh import box_mesh
 
-    _, mpm, mwall, _, _ = run_preset("multilevel", box_mesh(40, 32, 24), 64,
-                                     "cuda")
-    check(mpm.edge_cut <= 1.01 * MEDIUM_ML_JAX_CUT,
-          f"full_multilevel: box_mesh(40,32,24) cut {mpm.edge_cut} above "
-          f"1.01 x repro's {MEDIUM_ML_JAX_CUT}")
+    def launches():
+        return (cuda.LAUNCHES + cuda.BATCHED_LAUNCHES + ss_cuda.LAUNCHES
+                + ss_cuda.BATCHED_LAUNCHES)
 
-    counts = (cuda.LAUNCHES, cuda.BATCHED_LAUNCHES, ss_cuda.LAUNCHES,
-              ss_cuda.BATCHED_LAUNCHES)
-    ctx, pm, wall, corridor, nonempty = run_preset("multilevel", box, 64,
+    mesh = box_mesh(40, 32, 24)
+    before = launches()
+    ctx, pm, wall, corridor, nonempty = run_preset("multilevel", mesh, 64,
                                                    "cuda")
-    launches = (cuda.LAUNCHES + cuda.BATCHED_LAUNCHES + ss_cuda.LAUNCHES
-                + ss_cuda.BATCHED_LAUNCHES) - sum(counts)
+    n_launches = launches() - before
     ml = ctx.report.ml
-    w = np.asarray(box.weights, np.float64)
-    pw = np.bincount(ctx.parts, weights=w, minlength=64) / (w.sum() / 64)
     guard = guard_row(ctx)
-    emit("full_multilevel", mesh="box_mesh(80,64,48)", nelems=box.nelems,
+    emit("full_multilevel", mesh="box_mesh(40,32,24)", nelems=mesh.nelems,
          nparts=64, kernels="none: the V-cycle is host NumPy",
-         kernel_launches=launches, seconds=wall, stages=stage_split(ctx),
+         kernel_launches=n_launches, seconds=wall, stages=stage_split(ctx),
          ml=dict(levels=ml.levels, n_fine=ml.n_fine,
                  n_coarsest=ml.n_coarsest, coarsen_ratio=ml.coarsen_ratio,
                  coarse_solver=ml.coarse_solver,
                  coarsen_s=ml.coarsen_seconds,
                  coarsest_s=ml.coarsest_seconds,
                  refine_s=ml.refine_seconds, coarse_cut=ml.coarse_cut,
-                 fm_moves=ml.fm_moves, balance_moves=ml.balance_moves,
-                 records=[dict(level=r.level, n=r.n, n_coarse=r.n_coarse,
-                               fm_moves=r.fm_moves,
-                               balance_moves=r.balance_moves, cut=r.cut)
-                          for r in ml.records]),
-         cut=pm.edge_cut, jax_cut=FULL_ML_JAX_CUT,
-         equal_to_jax_cut=pm.edge_cut == FULL_ML_JAX_CUT,
-         medium=dict(mesh="box_mesh(40,32,24)", cut=mpm.edge_cut,
-                     jax_cut=MEDIUM_ML_JAX_CUT, seconds=mwall,
-                     equal_to_jax_cut=mpm.edge_cut == MEDIUM_ML_JAX_CUT),
-         rsb_default_cut=rsb_cut, geometric_cut=geometric_cut,
+                 fm_moves=ml.fm_moves, balance_moves=ml.balance_moves),
+         cut=pm.edge_cut, jax_cut=MEDIUM_ML_JAX_CUT,
+         equal_to_jax_cut=pm.edge_cut == MEDIUM_ML_JAX_CUT,
          disconnected=pm.disconnected_parts, w_imb=pm.weighted_imbalance,
-         balance_range=[float(pw.min()), float(pw.max())],
          corridor=corridor, nonempty_parts=nonempty, guard=guard,
-         finalize_split=finalize_split(ctx, 64))
-    check(launches == 0, f"full_multilevel: {launches} kernel launches")
+         full_box="not run: host NumPy only (CPU tests hold it to repro)")
+    check(n_launches == 0, f"full_multilevel: {n_launches} kernel launches")
     check_clean("full_multilevel", guard)
-    check(nonempty == 64, "full_multilevel: an empty part")
-    check(pm.disconnected_parts == 0, "full_multilevel: disconnected parts")
-    check(corridor, "full_multilevel: balance corridor broken")
-    check(pm.edge_cut <= 1.05 * FULL_ML_JAX_CUT,
-          f"full_multilevel: cut {pm.edge_cut} above 1.05 x repro's "
-          f"{FULL_ML_JAX_CUT}")
+    check(pm.edge_cut <= 1.01 * MEDIUM_ML_JAX_CUT,
+          f"full_multilevel: box_mesh(40,32,24) cut {pm.edge_cut} above "
+          f"1.01 x repro's {MEDIUM_ML_JAX_CUT}")
 
 
 def ranged_k1(trace_path) -> dict:
@@ -4639,6 +4634,17 @@ SHARD_PARAM_TOL = 1e-4          # (c): of each leaf's max
 # SHARD_PARAM_TOL from the one-process one must have |g| ≤ SHARD_FLAT_TOL
 # of its leaf's max|g|
 SHARD_FLAT_TOL = 1e-4
+# (h) SASRec across ranks at its published widths: serve_p99 (512 users,
+# top-100), retrieval_cand (1 user, 10^6 candidates) and train steps on
+# train_batch's users cut from 65,536 to SHARD_RECSYS_USERS (the gloo
+# ranks' wire runs through the host), against the one-process runs on the
+# card (the parent's, same seed and inputs)
+SHARD_RECSYS_USERS = 8192
+SHARD_RECSYS_STEPS = 2
+SHARD_RECSYS_TOL = 1e-5         # states and scores (of max), top-100
+                                # values, loss (relative)
+SHARD_RECSYS_PARAM_TOL = 1e-4   # params after the steps, of each leaf's max
+SHARD_RECSYS_SEED = 0
 SHARD_PLACEMENTS = {"pod": ((16, 16), ("data", "model")),
                     "node": ((1, 8), ("data", "model"))}
 SHARD_CARD_BYTES = 80e9
@@ -4905,6 +4911,124 @@ def shard_rank(p) -> dict:
         e["seconds"] = time.perf_counter() - t0
         dist.barrier()
         out["e"] = e
+    del p1, o1
+    free()
+    out["h"] = shard_recsys_rank(p["recsys"])
+    return out
+
+
+def shard_recsys_rank(p) -> dict:
+    """(h) on one rank: SASRec's published config under `recsys_rules` on
+    (data 2, model world / 2) (NCCL: (1, 1)), the weights drawn from the
+    parent's seed and placed by `param_specs_recsys`: this rank's user
+    states, streamed top-100 and retrieval block, the states again with
+    each rank's rows shifted by one (the control), SHARD_RECSYS_STEPS
+    train steps twice from one state (losses, bits, params against the
+    parent's saved at ``p["ref_path"]``), and K5's forward and backward
+    launches."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import (Spec, local_slice,
+                                           param_specs_recsys, recsys_rules,
+                                           spec_leaves)
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.launch.cells import (recsys_retrieval,
+                                          recsys_serve_topk,
+                                          recsys_train_step)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.recsys import SASRec, init_sasrec
+    from repro_torch.models.recsys.sasrec import sasrec_train_loss
+    from repro_torch.train.checkpoint import reshard
+    from repro_torch.train.optimizer import adamw_init
+
+    t_rank = time.perf_counter()
+    world = dist.get_world_size()
+    shape = (2, world // 2) if world > 1 else (1, 1)
+    rules = recsys_rules(make_mesh(shape, ("data", "model")))
+    cfg = get_arch("sasrec").make_config()
+    full = init_sasrec(cfg, torch.Generator(device="cuda").manual_seed(
+        SHARD_RECSYS_SEED))
+    specs = param_specs_recsys(cfg, full, rules.mesh)
+    params = reshard(full, rules.mesh, specs)
+    shifted = reshard(dict(full, item_embed=full["item_embed"].roll(-1, 0)),
+                      rules.mesh, specs)["item_embed"]
+    del full
+    users = Spec(("data",), None)
+    seq = rules.local(torch.from_numpy(p["seq"]).cuda(), users)
+    seq1 = torch.from_numpy(p["seq1"]).cuda()
+    cand = rules.local(torch.from_numpy(p["cand"]).cuda(), Spec("model"))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in p["train"].items()}
+    out = dict(mesh=shape, coords=rules.coords,
+               table_rows_local=int(params["item_embed"].shape[0]))
+    model = SASRec(cfg, params)
+    chunk = p["user_chunk"] // shape[0]
+    torch.cuda.synchronize()
+    k5 = eb_cuda.LAUNCHES
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out["states"] = model.user_state(seq, rules).cpu().numpy()
+        t1 = time.perf_counter()
+        vals, ids = recsys_serve_topk(cfg, model, seq, k=RECSYS_K,
+                                      user_chunk=chunk, rules=rules)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out["topk"] = (vals.cpu().numpy(), ids.cpu().numpy())
+        t3 = time.perf_counter()
+        scores = recsys_retrieval(cfg, model, seq1, cand, rules=rules)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        out["scores"] = scores.cpu().numpy()
+        fwd = eb_cuda.LAUNCHES - k5
+        # one step's loss alone: its forward launches (the three lookups)
+        k5 = eb_cuda.LAUNCHES
+        loss0 = float(sasrec_train_loss(cfg, params, {
+            k: rules.local(v, users) for k, v in batch.items()}, rules=rules))
+        fwd_step = eb_cuda.LAUNCHES - k5
+    out.update(serve_s=t2 - t1, retrieval_s=t4 - t3, loss0=loss0,
+               forward_s=time.perf_counter() - t0)
+    with torch.inference_mode():      # the control: rows shifted by one
+        ctl = SASRec(cfg, dict(params, item_embed=shifted))
+        out["control_states"] = ctl.user_state(seq, rules).cpu().numpy()
+    del ctl, shifted
+
+    def steps():
+        q, o, losses = params, adamw_init(params), []
+        for _ in range(SHARD_RECSYS_STEPS):
+            q, o, loss = recsys_train_step(cfg, q, o, batch, rules=rules)
+            losses.append(float(loss))
+        return q, losses
+
+    torch.cuda.synchronize()
+    k5 = eb_cuda.LAUNCHES
+    t0 = time.perf_counter()
+    q1, losses = steps()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train = eb_cuda.LAUNCHES - k5
+    q2, losses2 = steps()
+    out["repeat_equal"] = losses == losses2 and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(q1), tree_leaves(q2)))
+    del q2
+    # a step's launches past its loss's forward ones are its backward's
+    # transposed bags
+    out.update(k5_forward=fwd, k5_train=train,
+               k5_train_forward=fwd_step * SHARD_RECSYS_STEPS,
+               k5_train_backward=train - fwd_step * SHARD_RECSYS_STEPS,
+               losses=losses, train_s=train_s)
+    ref = torch.load(p["ref_path"], mmap=True, weights_only=True)
+    gaps, equal = [], True
+    for got, want, spec in zip(tree_leaves(q1), tree_leaves(ref),
+                               spec_leaves(specs)):
+        want = local_slice(want, spec, rules.coords, rules.mesh).cuda()
+        gaps.append(float((got - want).abs().max() / want.abs().max()))
+        equal = equal and bool(torch.equal(got, want))
+    out.update(param_gap=max(gaps), params_equal=equal,
+               seconds=time.perf_counter() - t_rank)
+    del ref, q1, params, model
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -5057,6 +5181,189 @@ def shard_layer_reference():
     return x.numpy(), y, dict(input_seed=100 + seed, top_k_margin=margin)
 
 
+def shard_recsys_inputs() -> dict:
+    """(h)'s users, candidates and train batch (NumPy, from seeds):
+    serve_p99's 512 users, retrieval_cand's user and 10^6 candidates (a
+    permutation of the items), SHARD_RECSYS_USERS training users."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import recsys_batches
+
+    arch = get_arch("sasrec")
+    cfg, shapes = arch.make_config(), arch.shapes
+
+    def users(B, seed):
+        return {k: v.numpy() for k, v in next(recsys_batches(
+            B, cfg.seq_len, cfg.n_items, seed=seed)).items()}
+
+    B = shapes["serve_p99"]["batch"]
+    n_cand = shapes["retrieval_cand"]["n_candidates"]
+    return dict(seq=users(B, 0)["item_seq"],
+                seq1=users(shapes["retrieval_cand"]["batch"], 2)["item_seq"],
+                cand=(np.random.default_rng(1).permutation(n_cand)
+                      + 1).astype(np.int32),
+                train=users(SHARD_RECSYS_USERS, 4), user_chunk=min(B, 8192))
+
+
+def bag_slice_row(table_full, seq, n_model, rank) -> dict:
+    """K5 at (h)'s vocab-parallel lookup on one model rank: serve_p99's
+    sequence lookup (512 × 50 ids at √d) over rank ``rank``'s rows of
+    ``n_model``, foreign ids at row 0 and weight 0, against its plain
+    version (bit for bit), timed beside its bound and one
+    `F.embedding_bag` call on the same slice."""
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+    rows = table_full.shape[0] // n_model
+    table = table_full[rank * rows:(rank + 1) * rows]
+    local = seq.reshape(-1).long() - rank * rows
+    own = (local >= 0) & (local < rows)
+    idx = torch.where(own, local, 0).to(torch.int32)
+    n, d = idx.numel(), table.shape[1]
+    seg = torch.arange(n, dtype=torch.int32, device=idx.device)
+    w = own.float() * float(np.sqrt(d))
+
+    def kernel():
+        return eb_cuda.embedding_bag_cuda(table, idx, seg, w, n)
+
+    def plain():
+        return embedding_bag_ref(table, idx, seg, n, weights=w)
+
+    lib = bag_library(table, idx, seg, w, n)
+    got, want, lib_out = kernel(), plain(), lib()
+    check(torch.equal(got, want), "shard (h) K5: the vocab-slice lookup "
+          "differs from the plain version")
+    distinct = int(torch.unique(idx).numel())
+    nbytes = n * (4 + 4 + 4) + distinct * d * 4 + n * d * 4
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = 2 * n * d / FP32_FLOPS_PER_S * 1e3
+    dev_ms, traced, _ = profiled_ms(kernel, "embedding_bag_kernel")
+    kernel_ms = time_auto(kernel)
+    return dict(rows_local=rows, rank=rank, n_model=n_model, d=d, bags=n,
+                own_share=float(own.float().mean()), rows_distinct=distinct,
+                max_abs_err=float((got - want).abs().max()),
+                library_max_abs_err=float((lib_out - want).abs().max()),
+                kernel_ms=kernel_ms,
+                dev_ms=dev_ms if dev_ms is not None else kernel_ms,
+                dev_ms_by="profiler" if dev_ms is not None else "cuda_events",
+                profiler_cuda_events=traced, ref_ms=time_auto(plain),
+                library_ms=time_auto(lib), bytes=nbytes,
+                bound_ms=max(bound_bytes_ms, bound_ops_ms),
+                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+                else "operations")
+
+
+def shard_recsys_reference(path, inp) -> dict:
+    """(h)'s one-process runs on the card (`NO_SHARD`, the ranks' seed and
+    inputs): user states, the streamed top-100 and the full score matrix's
+    top-101 values, the retrieval scores, the losses and params of
+    SHARD_RECSYS_STEPS train steps (saved at ``path`` for the ranks), and
+    K5 at model rank 1's slice of two."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.cells import (recsys_retrieval,
+                                          recsys_serve_topk,
+                                          recsys_train_step)
+    from repro_torch.models.recsys import SASRec, init_sasrec
+    from repro_torch.train.optimizer import adamw_init
+
+    t0 = time.perf_counter()
+    cfg = get_arch("sasrec").make_config()
+    params = init_sasrec(cfg, torch.Generator(device="cuda").manual_seed(
+        SHARD_RECSYS_SEED))
+    model = SASRec(cfg, params)
+    seq = torch.from_numpy(inp["seq"]).cuda()
+    with torch.inference_mode():
+        states = model.user_state(seq)
+        vals, ids = recsys_serve_topk(cfg, model, seq, k=RECSYS_K,
+                                      user_chunk=inp["user_chunk"])
+        want_v, _ = torch.topk(states[:, -1] @ model.item_embed.T,
+                               RECSYS_K + 1, dim=1)
+        scores = recsys_retrieval(cfg, model, torch.from_numpy(
+            inp["seq1"]).cuda(), torch.from_numpy(inp["cand"]).cuda())
+    batch = {k: torch.from_numpy(v).cuda() for k, v in inp["train"].items()}
+    q, o, losses = params, adamw_init(params), []
+    for _ in range(SHARD_RECSYS_STEPS):
+        q, o, loss = recsys_train_step(cfg, q, o, batch)
+        losses.append(float(loss))
+    torch.save(q, path)
+    out = dict(states=states.cpu().numpy(), vals=vals.cpu().numpy(),
+               ids=ids.cpu().numpy(), want_v=want_v.cpu().numpy(),
+               scores=scores.cpu().numpy(), losses=losses)
+    out["k5_slice"] = bag_slice_row(model.item_embed.detach(), seq, 2, 1)
+    out["seconds"] = time.perf_counter() - t0
+    del model, params, q, o, states, want_v, scores
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_recsys_check(got, ref, need) -> dict:
+    """(h)'s gates, every rank of each backend against the one-process
+    runs: states (of max) and top-100 values within SHARD_RECSYS_TOL, ids
+    equal where the full top-101's scores are more than that apart,
+    retrieval scores within it (of max), both steps' losses within it
+    (relative), params within SHARD_RECSYS_PARAM_TOL of each leaf's max,
+    the two runs the same bits, K5's forward and backward launches; the
+    control (rows shifted by one) must miss the states gate."""
+    tol, k = SHARD_RECSYS_TOL, RECSYS_K
+    row = {}
+    for backend, ranks in got.items():
+        hs = [rk["h"] for rk in ranks]
+        shape = hs[0]["mesh"]
+        nb = ref["states"].shape[0] // shape[0]
+        nc = ref["scores"].shape[1] // shape[1]
+        r = dict(mesh=shape, states=[], control=[], values=[], ids_equal=[],
+                 scores=[], loss=[], params=[], repeat_equal=[],
+                 k5_forward=[], k5_train=[], k5_train_backward=[],
+                 serve_ms=[], retrieval_ms=[], train_step_ms=[], rank_s=[])
+        for h in hs:
+            d, m = h["coords"]["data"], h["coords"].get("model", 0)
+            rows = slice(d * nb, (d + 1) * nb)
+            want = ref["states"][rows]
+            scale = float(np.abs(want).max())
+            r["states"].append(float(np.abs(h["states"] - want).max())
+                               / scale)
+            r["control"].append(float(np.abs(h["control_states"]
+                                             - want).max()) / scale)
+            vals, ids = h["topk"]
+            r["values"].append(float(np.abs(vals - ref["vals"][rows]).max()))
+            step = np.abs(np.diff(ref["want_v"][rows], axis=1))   # (nb, k)
+            apart = step > tol
+            apart[:, 1:] &= step[:, :k - 1] > tol
+            r["ids_equal"].append(bool(
+                (ids[apart] == ref["ids"][rows][apart]).all()))
+            sw = ref["scores"][:, m * nc:(m + 1) * nc]
+            r["scores"].append(float(np.abs(h["scores"] - sw).max()
+                                     / np.abs(ref["scores"]).max()))
+            r["loss"].append(max(abs(a - b) / abs(b) for a, b in zip(
+                [h["loss0"]] + h["losses"], ref["losses"][:1]
+                + ref["losses"])))
+            r["params"].append(h["param_gap"])
+            r["repeat_equal"].append(h["repeat_equal"])
+            for key in ("k5_forward", "k5_train", "k5_train_backward"):
+                r[key].append(h[key])
+            r["serve_ms"].append(h["serve_s"] * 1e3)
+            r["retrieval_ms"].append(h["retrieval_s"] * 1e3)
+            r["train_step_ms"].append(h["train_s"] / SHARD_RECSYS_STEPS
+                                      * 1e3)
+            r["rank_s"].append(h["seconds"])
+        r["apart_share"] = float(apart.mean())
+        for key, lim in (("states", tol), ("values", tol), ("scores", tol),
+                         ("loss", tol), ("params", SHARD_RECSYS_PARAM_TOL)):
+            need(max(r[key]) <= lim, f"shard (h) {backend}: {key} "
+                 f"{max(r[key])} > {lim} from the one-process run")
+        need(min(r["control"]) > tol, f"shard (h) {backend}: the shifted "
+             f"rows' control reads {min(r['control'])}, inside {tol}")
+        need(all(r["ids_equal"]), f"shard (h) {backend}: top-{k} ids differ "
+             "where scores are apart")
+        need(all(r["repeat_equal"]), f"shard (h) {backend}: two runs of "
+             "the steps differ")
+        need(min(r["k5_forward"]) > 0 and min(r["k5_train_backward"]) > 0,
+             f"shard (h) {backend}: K5 forward {r['k5_forward']}, backward "
+             f"{r['k5_train_backward']}")
+        row[backend] = r
+    return row
+
+
 def l2_gap(got, want) -> float:
     """‖got − want‖₂ / ‖want‖₂ over every logit, in fp64."""
     got, want = torch.as_tensor(got).double(), torch.as_tensor(want).double()
@@ -5185,8 +5492,13 @@ def phase_shard():
     toks = rng.integers(0, shard_config("deepseek-moe-16b", 1).vocab,
                         (tb, ts + 1))
     train = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    recsys = shard_recsys_inputs()
     tmp = tempfile.TemporaryDirectory(prefix="shard_")
     try:
+        t0 = time.perf_counter()
+        ref_h = shard_recsys_reference(f"{tmp.name}/ref_recsys.pt", recsys)
+        row["h_reference_s"] = time.perf_counter() - t0
+        recsys["ref_path"] = f"{tmp.name}/ref_recsys.pt"
         ref_path = f"{tmp.name}/ref_step.pt"
         t0 = time.perf_counter()
         row["c_reference"] = shard_train_reference(ref_path, train)
@@ -5196,7 +5508,8 @@ def phase_shard():
         layer_row["reference_s"] = time.perf_counter() - t0
         payload = dict(shard=dict(prompts=prompts, train=train,
                                   ref_path=ref_path, layer_x=layer_x,
-                                  ckpt_dir=f"{tmp.name}/ckpt"))
+                                  ckpt_dir=f"{tmp.name}/ckpt",
+                                  recsys=recsys))
         got = {}
         with contextlib.ExitStack() as alive:
             t0 = time.perf_counter()
@@ -5287,8 +5600,20 @@ def phase_shard():
           and all("bit_identical" in x for x in e[:2]),
           "shard (e): the tree restored onto 2 ranks differs")
     row["e"] = dict(e[0], seconds=[x["seconds"] for x in e])
+    # (h) SASRec across ranks
+    from repro_torch.configs import get_arch
+
+    train_users = get_arch("sasrec").shapes["train_batch"]["batch"]
+    row["h"] = dict(shard_recsys_check(got, ref_h, need),
+                    k5_slice=ref_h["k5_slice"],
+                    reference_s=ref_h["seconds"],
+                    tol=SHARD_RECSYS_TOL, param_tol=SHARD_RECSYS_PARAM_TOL,
+                    cut=f"train_batch users {train_users} -> "
+                        f"{SHARD_RECSYS_USERS}: the gloo wire runs through "
+                        "the host")
     k6 = sum(rk["k6"] for rk in gloo + nccl)
-    k5 = sum(rk["k5"] for rk in gloo + nccl)
+    k5 = sum(rk["k5"] + rk["h"]["k5_forward"] + rk["h"]["k5_train"]
+             for rk in gloo + nccl)
     row.update(k6_launches=k6, k5_launches=k5, failures=fails,
                seconds=time.perf_counter() - t_phase)
     emit("shard", **row)
@@ -5358,7 +5683,8 @@ def phase_launch(smi: str, real: dict):
     """The dry run, on the host after every phase on the card, in
     LAUNCH_PROCS spawned processes.  (a) Every runnable cell of
     ``all_cells()`` on both production meshes: one line a cell; no cell
-    may fail, every LM cell must run (a gap is reported with its reason).
+    may fail, every LM and recsys cell must run (a GNN gap is reported with
+    its reason).
     (b) Phase ``train``'s step against its dry run on the card's
     one-device mesh: real / dry FLOPs (``real``: `FlopCounterMode` over
     ``train``'s unrecorded step), real / dry peak (that step's peak above
@@ -5411,8 +5737,8 @@ def phase_launch(smi: str, real: dict):
     need("fail" not in statuses,
          f"launch (a): {statuses.count('fail')} cell(s) failed")
     need(all(rec["status"] == "ok" for rec in cells
-             if get_arch(rec["arch"]).family == "lm"),
-         "launch (a): an LM cell did not run")
+             if get_arch(rec["arch"]).family in ("lm", "recsys")),
+         "launch (a): an LM or recsys cell did not run")
 
     dry_real, dry_control = ({**dry[i], **dry[i + 1]} for i in (0, 2))
     dry_depth2 = dict(dry_real, flops=dry_real["depth2_flops"],
@@ -5520,13 +5846,13 @@ def main(argv=None) -> int:
     k1_launches = k2_launches = None
     ss_launches = {"K3": None, "K4": None}
     if not args.quick:
-        k1_launches, geometric_cut, full_ctx, rsb_cut = phase_full(box)
+        k1_launches, geometric_cut, full_ctx = phase_full(box)
         k2_launches = phase_full_inverse(box, geometric_cut)
         ss_launches, fp, sweep_parts, full_runs = phase_full_sharded(full_ctx)
         phase_dist(smoke, box, (full_ctx.require_graph(), full_ctx.parts_raw,
                                 full_ctx.weights, full_runs))
         del full_ctx, full_runs
-        phase_full_multilevel(box, rsb_cut, geometric_cut)
+        phase_full_multilevel()
         phase_full_reference(box, geometric_cut)
     else:
         phase_dist(smoke, box, dist_inputs_quick(box))

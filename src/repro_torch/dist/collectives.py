@@ -75,6 +75,8 @@ def ring_allreduce(x: torch.Tensor, group) -> torch.Tensor:
                          "torch.distributed is not initialized")
     acc, buf = x, x
     for _ in range(1, dist_group.size(grp)):
-        buf = dist_group.shift(buf, grp)
+        # The N−1 hops ARE the ring schedule: the documented exception to
+        # one collective a sweep, as in `repro`.
+        buf = dist_group.shift(buf, grp)  # repro: ignore[DIST101]
         acc = acc + buf
     return acc

@@ -32,9 +32,9 @@ counts each slice once.
 * :func:`placements` — a spec's DTensor placements per mesh dim;
   :func:`local_slice` — what the rank at given coordinates holds.
 * :func:`lm_rules`, :func:`gnn_rules`, :func:`recsys_rules`;
-  :func:`param_specs_lm`, :func:`cache_specs_lm`, :func:`batch_specs_lm`
-  — `repro`'s rule tables and spec trees, over the port's parameter keys
-  (`repro`'s).
+  :func:`param_specs_lm`, :func:`cache_specs_lm`, :func:`batch_specs_lm`,
+  :func:`param_specs_recsys` — `repro`'s rule tables and spec trees, over
+  the port's parameter keys (`repro`'s).
 """
 
 from __future__ import annotations
@@ -45,7 +45,7 @@ import torch
 
 from repro_torch.dist import group as dist_group
 from repro_torch.launch.mesh import axis_names, axis_sizes
-from repro_torch.models.common import ShardRules, tree_leaves
+from repro_torch.models.common import ShardRules, tree_leaves, tree_map
 
 
 def _entry(d):
@@ -226,6 +226,14 @@ class MeshRules(ShardRules):
             x = dist_group.all_gather(x, self.group(a), dim)
         return x
 
+    def scatter(self, x: torch.Tensor, entry, dim: int) -> torch.Tensor:
+        """Σ over the ranks along the entry's axes, each rank keeping its
+        shard of ``dim`` (``psum_scatter(tiled=True)``; the inverse order
+        of :meth:`gather`), under autograd (its backward all-gathers)."""
+        for a in entry_axes(entry):
+            x = dist_group.reduce_scatter(x, self.group(a), dim)
+        return x
+
     def all_to_all(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """`repro_torch.dist.group.all_to_all` over one mesh axis."""
         return dist_group.all_to_all(x, self.group(axis))
@@ -280,6 +288,16 @@ def recsys_rules(mesh) -> MeshRules:
         "batch": _data_axes(mesh),
         "vocab": _model_axis(mesh),
     })
+
+
+def param_specs_recsys(cfg, params_abs, mesh) -> dict:
+    """SASRec's spec tree: ``item_embed``'s rows over the vocab's axes
+    (``Spec("model", None)``, divisibility-guarded), every other leaf
+    replicated."""
+    specs = tree_map(lambda _: Spec(), params_abs)
+    specs["item_embed"] = recsys_rules(mesh).spec(
+        ("vocab", None), tuple(params_abs["item_embed"].shape))
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -421,7 +439,10 @@ def reduce_grads(grads, spec_tree, rules: MeshRules):
     same slice (`replica_axes`), one axis at a time (no autograd)."""
     def one(g, spec):
         for a in replica_axes(spec, rules):
-            g = dist_group.all_reduce_sum(g, rules.group(a))
+            # one all-reduce a mesh axis: a torch group spans one axis,
+            # where GSPMD's psum takes them together (a loop over axes,
+            # not over data)
+            g = dist_group.all_reduce_sum(g, rules.group(a))  # repro: ignore[DIST101]
         return g
 
     return spec_map(one, grads, spec_tree)
@@ -444,7 +465,8 @@ def global_norm(tree, spec_tree, rules: MeshRules) -> torch.Tensor:
         sq.append(s)
     sums = torch.stack(sq)
     for a in rules.mesh_axis_names:
-        sums = dist_group.all_reduce_sum(sums, rules.group(a))
+        # one all-reduce a mesh axis, as in `reduce_grads`
+        sums = dist_group.all_reduce_sum(sums, rules.group(a))  # repro: ignore[DIST101]
     total = sums[0]
     for i in range(1, len(leaves)):
         total = total + sums[i]
@@ -454,7 +476,8 @@ def global_norm(tree, spec_tree, rules: MeshRules) -> torch.Tensor:
 __all__ = [
     "MeshRules", "Spec", "batch_specs_lm", "cache_specs_lm", "entry_axes",
     "global_norm", "gnn_rules", "lm_logical", "lm_rules",
-    "local_slice", "param_specs_lm", "placements", "recsys_rules",
+    "local_slice", "param_specs_lm", "param_specs_recsys", "placements",
+    "recsys_rules",
     "reduce_grads", "replica_axes", "spec_bytes", "spec_leaves", "spec_map",
     "tree_specs",
 ]

@@ -1,4 +1,5 @@
-"""The steps of `repro.launch.cells`, as plain functions on one device.
+"""The steps of `repro.launch.cells`, as plain functions (one process, or
+one rank of a mesh).
 
 * :func:`lm_train_step` — ``_lm_train_cell``'s step: gradient accumulation
   over microbatches, then AdamW with ``OPT_CFG``;
@@ -24,10 +25,11 @@ be shorter.  Ties: ``jax.lax.top_k`` keeps the lower position of equal
 scores, ``torch.topk`` promises no order among them, so ids may differ
 where two scores are equal.
 
-`lm_train_step` takes ``rules``: on a `MeshRules` over a `DeviceMesh`
+`lm_train_step`, `recsys_train_step`, `recsys_serve_topk` and
+`recsys_retrieval` take ``rules``: on a `MeshRules` over a `DeviceMesh`
 each rank steps its slices of the parameters and moments (placed by
-`train.checkpoint.reshard` with `param_specs_lm`) on its rows of the
-batch.
+`train.checkpoint.reshard` with `param_specs_lm` / `param_specs_recsys`)
+on its rows of the batch.
 
 The cells as records (`repro`'s ``launch/cells.py``): :func:`build_cell`
 turns one (arch × shape × mesh) into a :class:`Cell` — the step, its
@@ -46,12 +48,15 @@ is what the dry run (`launch.dryrun`) measures:
   port's step takes a Python int).  Under a mesh the port shards MoE only
   as expert parallelism, so a config whose ``moe.impl`` is ``"pjit"``
   (GSPMD's dispatch) is a gap unless ``moe_impl="shardmap"``.
-* GNN and recsys cells have `repro`'s arguments and specs, and no step
-  (``fn`` None, ``gap`` the reason): `repro` leaves their sharding to
-  GSPMD, and the port's GNN and SASRec steps run on one device (the GNNs'
-  fixed-order segment plans are built on the host from the edge indices,
-  which a ``meta`` tensor does not have; the halo GraphCast needs a
-  partition's plan).
+* recsys: the sharded `recsys_train_step` (the global batch rebuilt from
+  the local one, as the LM's), `recsys_serve_topk` (each rank's share of
+  `repro`'s ``user_chunk`` users at a time) and `recsys_retrieval`, under
+  `recsys_rules`.
+* GNN cells have `repro`'s arguments and specs, and no step (``fn`` None,
+  ``gap`` the reason): `repro` leaves their sharding to GSPMD, and the
+  port's GNN steps run on one device (their fixed-order segment plans are
+  built on the host from the edge indices, which a ``meta`` tensor does
+  not have; the halo GraphCast needs a partition's plan).
 """
 
 from __future__ import annotations
@@ -67,8 +72,9 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
 
 from repro_torch.configs import get_arch
 from repro_torch.dist.sharding import (Spec, batch_specs_lm, cache_specs_lm,
-                                       entry_axes, lm_rules, param_specs_lm,
-                                       spec_map)
+                                       entry_axes, global_norm, lm_rules,
+                                       param_specs_lm, param_specs_recsys,
+                                       recsys_rules, reduce_grads, spec_map)
 from repro_torch.launch.mesh import RankView, axis_names, axis_sizes
 from repro_torch.models import transformer as T
 from repro_torch.models.common import NO_SHARD, ShardRules, tree_map
@@ -81,8 +87,11 @@ from repro_torch.models.gnn.nequip import init_nequip, nequip_loss
 from repro_torch.models.recsys.sasrec import (
     SASRec,
     SASRecConfig,
+    candidate_scores,
     init_sasrec,
     sasrec_train_loss,
+    vocab_entry,
+    vocab_split,
 )
 from repro_torch.train.optimizer import (AdamWConfig, abstract_opt_state,
                                          adamw_update)
@@ -145,8 +154,7 @@ def lm_train_step(cfg: T.LMConfig, params: dict, opt_state: dict,
         loss, grads = vg(params, rows(0))
     gnorm = None
     if sharded:
-        from repro_torch.dist.sharding import (global_norm, reduce_grads,
-                                               tree_specs)
+        from repro_torch.dist.sharding import tree_specs
 
         specs = tree_specs(rules, T.abstract_params(cfg))
         grads = reduce_grads(grads, specs, rules)
@@ -157,13 +165,32 @@ def lm_train_step(cfg: T.LMConfig, params: dict, opt_state: dict,
 
 
 def recsys_train_step(cfg: SASRecConfig, params: dict, opt_state: dict,
-                      batch: dict):
+                      batch: dict, *, rules: ShardRules = NO_SHARD):
     """`repro`'s ``_recsys_cell`` ``train`` step: `sasrec_train_loss`'s
     value and gradient, then `adamw_update` with ``OPT_CFG``.  Returns
-    (params, opt_state, loss)."""
+    (params, opt_state, loss).
+
+    Under ``rules`` (`recsys_rules` on a `DeviceMesh`) ``batch`` is the
+    global batch, the same on every rank, and ``params``/``opt_state``
+    this rank's slices (`param_specs_recsys`: the rank's rows of
+    ``item_embed``, every other leaf whole): the rank takes its users (the
+    batch over the data axes), `sasrec_train_loss` returns the global
+    loss, `reduce_grads` sums each leaf's shares over the ranks that hold
+    the same slice and the clipping norm is the whole tree's
+    (`global_norm`)."""
+    sharded = getattr(rules, "mesh", None) is not None
+    if sharded:
+        spec = Spec(_data_axes(rules.mesh), None)
+        batch = {k: rules.local(v, spec) for k, v in batch.items()}
     loss, grads = value_and_grad(
-        lambda p, b: sasrec_train_loss(cfg, p, b))(params, batch)
-    params, opt_state, _ = adamw_update(OPT_CFG, grads, opt_state, params)
+        lambda p, b: sasrec_train_loss(cfg, p, b, rules=rules))(params, batch)
+    gnorm = None
+    if sharded:
+        specs = param_specs_recsys(cfg, params, rules.mesh)
+        grads = reduce_grads(grads, specs, rules)
+        gnorm = global_norm(grads, specs, rules)
+    params, opt_state, _ = adamw_update(OPT_CFG, grads, opt_state, params,
+                                        gnorm=gnorm)
     return params, opt_state, loss
 
 
@@ -208,18 +235,29 @@ def gnn_model_flops(arch_id: str, cfg, n_nodes: int, n_edges: int) -> float:
 
 def recsys_serve_topk(cfg: SASRecConfig, model: SASRec,
                       item_seq: torch.Tensor, k: int = 100,
-                      n_cat_chunks: int = 64,
-                      user_chunk: int = 8192) -> tuple[torch.Tensor,
-                                                       torch.Tensor]:
+                      n_cat_chunks: int = 64, user_chunk: int = 8192, *,
+                      rules: ShardRules = NO_SHARD
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """item_seq (B, S) → (values, ids), each (B, k): the k best items per
     user by ``h @ item_embed.T``, h the last position's user state.  One
-    K5 launch (the sequence lookup) per user chunk."""
+    K5 launch (the sequence lookup) per user chunk.
+
+    Under ``rules`` (`recsys_rules`) ``item_seq`` is this rank's users and
+    ``model`` holds the rank's rows of the table: the rank streams its own
+    rows in ``n_cat_chunks`` slices (ids offset by its first row) into a
+    (chunk, k) best of its own, then each user chunk makes one gather of
+    the ranks' winners over the vocab's axes (values and ids in one int32
+    tensor) and one merge to the global top-k: no collective per catalog
+    slice."""
     table = model.item_embed
+    vocab = vocab_entry(cfg, rules)
+    split = vocab_split(rules, vocab)
+    first = rules.index(vocab) * table.shape[0] if split else 0
     chunk = table.shape[0] // n_cat_chunks
     offsets = torch.arange(chunk, device=table.device)
     vals, ids = [], []
     for seqs in torch.split(item_seq, user_chunk):
-        h = model.user_state(seqs)[:, -1]                 # (uc, d)
+        h = model.user_state(seqs, rules)[:, -1]          # (uc, d)
         n = h.shape[0]
         best_v = torch.full((n, k), float("-inf"), dtype=h.dtype,
                             device=h.device)
@@ -228,21 +266,49 @@ def recsys_serve_topk(cfg: SASRecConfig, model: SASRec,
             rows = table[i * chunk:(i + 1) * chunk]
             scores = h @ rows.T                           # (uc, chunk)
             allv = torch.cat([best_v, scores], dim=1)
-            alli = torch.cat([best_i, (i * chunk + offsets).expand(n, chunk)],
-                             dim=1)
+            alli = torch.cat([best_i, (first + i * chunk + offsets)
+                              .expand(n, chunk)], dim=1)
             best_v, pos = torch.topk(allv, k, dim=1)
             best_i = torch.gather(alli, 1, pos)
+        if split:
+            best_v, best_i = _merge_topk(best_v, best_i, rules, vocab)
         vals.append(best_v)
         ids.append(best_i)
     return torch.cat(vals), torch.cat(ids)
 
 
+def _merge_topk(best_v: torch.Tensor, best_i: torch.Tensor, rules, vocab):
+    """The global top-k of every rank's (n, k) best along ``vocab``: one
+    all-gather of values (their fp32 bits) and ids as int32, one top-k."""
+    n, k = best_v.shape
+    packed = torch.cat([best_v.float().view(torch.int32),
+                        best_i.to(torch.int32)], dim=1)        # (n, 2k)
+    every = rules.gather(packed, vocab, 1).view(n, -1, 2, k)
+    allv = every[:, :, 0].reshape(n, -1).view(torch.float32)
+    alli = every[:, :, 1].reshape(n, -1).long()
+    v, pos = torch.topk(allv, k, dim=1)
+    return v.to(best_v.dtype), torch.gather(alli, 1, pos)
+
+
 def recsys_retrieval(cfg: SASRecConfig, model: SASRec,
-                     item_seq: torch.Tensor,
-                     candidates: torch.Tensor) -> torch.Tensor:
+                     item_seq: torch.Tensor, candidates: torch.Tensor, *,
+                     rules: ShardRules = NO_SHARD) -> torch.Tensor:
     """item_seq (B, S), candidates (N_c,) → (B, N_c) scores: two K5
-    launches (the sequence and the candidates)."""
-    return model.score_candidates(item_seq, candidates)
+    launches (the sequence and the candidates).
+
+    Under ``rules`` with the table's rows split (`repro`'s specs:
+    ``item_seq`` whole, ``candidates`` this rank's block over ``model``,
+    the scores ``Spec(None, "model")``): the candidates' ids gathered over
+    the vocab's axes, their rows looked up vocab-parallel, and the rank's
+    partial scores reduce-scattered to its block of columns (B, N_c /
+    ranks)."""
+    vocab = vocab_entry(cfg, rules)
+    if not vocab_split(rules, vocab):
+        return model.score_candidates(item_seq, candidates, rules)
+    every = rules.gather(candidates, vocab, 0)
+    h = model.user_state(item_seq, rules)[:, -1]
+    return candidate_scores(cfg, model.item_embed, h, every, rules,
+                            prefer=model.bag_prefer, scatter=True)
 
 
 # ---------------------------------------------------------------------------
@@ -562,58 +628,82 @@ def _gnn_cell(arch, cell, mesh) -> Cell:
 
 # -- RecSys cells ------------------------------------------------------------
 
-_RECSYS_GAP = ("the port's SASRec runs on one device: `repro` shards the "
-               "item table over 'model' and the users over the data axes "
-               "through GSPMD, and the port has no sharded lookup or top-k "
-               "for it")
-
-
 def _recsys_cell(arch, cell, mesh) -> Cell:
-    cfg = arch.make_config()
+    return recsys_cell(arch.make_config(), cell.kind, cell["batch"], mesh,
+                       n_candidates=cell.meta.get("n_candidates"),
+                       arch_id=arch.arch_id, shape_name=cell.name)
+
+
+def recsys_cell(cfg: SASRecConfig, kind: str, batch: int, mesh, *,
+                n_candidates: int | None = None, arch_id: str = "sasrec",
+                shape_name: str = "") -> Cell:
+    """A SASRec cell of any config: ``kind`` ``"train"``, ``"serve"``
+    (top-100) or ``"retrieval"`` (``n_candidates`` scores) on ``batch``
+    global users, as rank 0 of ``mesh`` (or the rank a `RankView` names);
+    on a one-device mesh, the one-process step."""
+    rules = NO_SHARD if _n_devices(mesh) == 1 else recsys_rules(_view(mesh))
     params_g = _abstract_init(init_sasrec, cfg)
     data = _data_axes(mesh)
-    pspec = _replicated(params_g)
-    pspec["item_embed"] = Spec("model", None)
+    pspec = param_specs_recsys(cfg, params_g, mesh)
     params = _localize(params_g, pspec, mesh)
     d, S = cfg.embed_dim, cfg.seq_len
     blk_flops = 2 * (4 * d * d + 2 * d * cfg.d_ff) + 4 * S * d  # per token
-    B = cell["batch"]
+    B = batch
 
     def args(shapes, specs):
         return _localize({k: _meta(v, torch.int32) for k, v in shapes.items()},
                          specs, mesh)
 
-    if cell.kind == "train":
+    if kind == "train":
         bspec = {k: Spec(data, None)
                  for k in ("item_seq", "pos_items", "neg_items")}
         batch = args({k: (B, S) for k in bspec}, bspec)
+
+        def step(params, opt_state, batch):
+            if rules is not NO_SHARD:   # every rank takes the global batch
+                batch = _globalize(batch, bspec, mesh)
+            return recsys_train_step(cfg, params, opt_state, batch,
+                                     rules=rules)
+
         ospec = {"m": pspec, "v": pspec, "count": Spec()}
         return Cell(
-            arch_id=arch.arch_id, shape_name=cell.name, kind="train", fn=None,
+            arch_id=arch_id, shape_name=shape_name, kind="train", fn=step,
             abstract_args=(params, abstract_opt_state(params), batch),
             in_specs=(pspec, ospec, bspec), out_specs=(pspec, ospec, Spec()),
-            model_flops=3.0 * B * S * cfg.n_blocks * blk_flops,
-            gap=_RECSYS_GAP)
-    if cell.kind == "serve":
+            model_flops=3.0 * B * S * cfg.n_blocks * blk_flops)
+    if kind == "serve":
         k, V = 100, cfg.table_rows
+        # repro chunks the global batch (user_chunk users, split over the
+        # data axes): a rank scores its share of each chunk at a time
+        user_chunk = min(B, 8192)
+        local_chunk = max(1, user_chunk // math.prod(
+            axis_sizes(mesh)[a] for a in data))
         seq = args({"s": (B, S)}, {"s": Spec(data, None)})["s"]
+
+        def step(params, item_seq):
+            return recsys_serve_topk(cfg, SASRec(cfg, params), item_seq, k=k,
+                                     user_chunk=local_chunk, rules=rules)
+
         return Cell(
-            arch_id=arch.arch_id, shape_name=cell.name, kind="serve", fn=None,
+            arch_id=arch_id, shape_name=shape_name, kind="serve", fn=step,
             abstract_args=(params, seq), in_specs=(pspec, Spec(data, None)),
             out_specs=(Spec(data, None), Spec(data, None)),
             model_flops=B * S * cfg.n_blocks * blk_flops + 2.0 * B * V * d,
-            notes=f"top-{k} over {V}-row catalog; user_chunk="
-                  f"{min(B, 8192)}", gap=_RECSYS_GAP)
-    NC = cell["n_candidates"]
+            notes=f"top-{k} over {V}-row catalog; user_chunk={user_chunk}")
+    NC = n_candidates
     a = args({"s": (B, S), "c": (NC,)}, {"s": Spec(None, None),
                                           "c": Spec("model")})
+
+    def step(params, item_seq, candidates):
+        return recsys_retrieval(cfg, SASRec(cfg, params), item_seq,
+                                candidates, rules=rules)
+
     return Cell(
-        arch_id=arch.arch_id, shape_name=cell.name, kind="retrieval", fn=None,
+        arch_id=arch_id, shape_name=shape_name, kind="retrieval", fn=step,
         abstract_args=(params, a["s"], a["c"]),
         in_specs=(pspec, Spec(None, None), Spec("model")),
         out_specs=Spec(None, "model"),
-        model_flops=B * S * cfg.n_blocks * blk_flops + 2.0 * B * NC * d,
-        gap=_RECSYS_GAP)
+        model_flops=B * S * cfg.n_blocks * blk_flops + 2.0 * B * NC * d)
 
 
 def build_cell(arch_id: str, shape_name: str, mesh, *, unroll: bool = False,

@@ -1,5 +1,7 @@
 """Shared model building blocks: init helpers, RMSNorm, LayerNorm, MLPs,
-parameter trees (`tree_map`, `tree_leaves` in JAX's order, `tree_cast`).
+parameter trees (`tree_map`, `tree_leaves` in JAX's order, `tree_cast`),
+and the vocab-parallel lookup the LM and SASRec share
+(`vocab_parallel_lookup`).
 
 Ports of `repro.models.common`.  The init functions take an explicit
 `torch.Generator` (their tensors are made on its device); `jax.random` and
@@ -16,6 +18,8 @@ import math
 from typing import Sequence
 
 import torch
+
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
 
 
 class ShardRules:
@@ -34,6 +38,51 @@ class ShardRules:
 
 
 NO_SHARD = ShardRules()
+
+
+class _GradScale(torch.autograd.Function):
+    """The identity, its gradient scaled by ``s``."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def grad_scale(x: torch.Tensor, s: float) -> torch.Tensor:
+    """``x``, its gradient scaled by ``s``: a sharded loss's share on one
+    rank (``s`` = 1 / ranks; `repro_torch.dist.sharding.reduce_grads` sums
+    the shares)."""
+    return _GradScale.apply(x, s)
+
+
+def vocab_parallel_lookup(table: torch.Tensor, ids: torch.Tensor,
+                          weight: float, rules: ShardRules, entry, *,
+                          prefer: str = "auto",
+                          reduce: bool = True) -> torch.Tensor:
+    """``weight · full[ids]`` for ids (N,) into the whole vocab → (N, d),
+    where ``table`` is this rank's rows of ``full``: its shard
+    ``rules.index(entry)`` of the vocab split over the spec entry's axes.
+    K5 runs over the rank's rows with the ids another rank owns at weight 0
+    (differentiable in ``table``: its backward is K5 on the transposed bag
+    of the rank's rows), then the rows are summed over the entry's axes
+    (``rules.psum``): one rank adds a row, the others exact zeros.  With
+    ``reduce=False`` the caller sums what it makes of the partial rows
+    (SASRec's candidate scores)."""
+    rows = table.shape[0]
+    local = ids - rules.index(entry) * rows
+    own = (local >= 0) & (local < rows)
+    n = ids.shape[0]
+    seg = torch.arange(n, dtype=torch.int32, device=ids.device)
+    w = own.to(table.dtype)
+    x = embedding_bag(table, torch.where(own, local, 0).to(torch.int32), seg,
+                      n, weights=w if weight == 1.0 else w * weight,
+                      prefer=prefer)
+    return rules.psum(x, entry) if reduce else x
 
 
 def dense_init(generator: torch.Generator, shape, in_axis: int = 0,

@@ -20,11 +20,28 @@ whose backward is K5 on the transposed problem: a dense table gradient
 summed in a fixed order.  The serving `SASRec` module and the tree share
 one copy of the math (`user_state`).
 
+Sharding.  `lookup`, `user_state`, `sasrec_train_loss` and the module's
+`SASRec.user_state` / `SASRec.score_candidates` take ``rules`` (`repro`'s
+`ShardRules` hook; default `NO_SHARD`, the one-process run).  Under
+`repro_torch.dist.sharding.recsys_rules` on a `DeviceMesh` each rank holds
+its rows of ``item_embed`` (``Spec("model", None)``: the vocab split over
+``model``) and its users (the batch split over the data axes); every
+other weight is whole on every rank.  The three lookups (the sequence at
+√d, the positives, the negatives) are `vocab_parallel_lookup`s: K5 over
+the rank's rows, foreign ids at weight 0, summed over ``model``.  The loss
+is `repro`'s mean over the global batch: its numerator and its count are
+each summed over the data axes before the divide, and its gradient on a
+rank is the rank's share (1 / ranks of the sum of the ranks' losses), as
+the LM's is (`repro_torch.dist.sharding.reduce_grads` sums the shares).
+Candidate scores are summed over ``model`` as scores, not as rows: each
+rank scores its partial rows (the foreign ones zero), so B·N_c numbers
+cross the wire, not N_c·d.  A single rank of the vocab (``model`` of size
+1, or `NO_SHARD`) runs the one-process lookups, bit for bit.
+
 Differences from `repro` by design: for serving the parameters live in a
 `SASRec` module (the stacked block tensors as `repro` stacks them), and
 `sasrec_user_state` / `sasrec_score_candidates` take it in place of the
-parameter tree (`user_state` takes the tree).  `repro`'s `ShardRules` is
-an identity on one device and is not ported.
+parameter tree (`user_state` takes the tree).
 """
 
 from __future__ import annotations
@@ -38,7 +55,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
-from repro_torch.models.common import dense_init, embed_init, layer_norm
+from repro_torch.models.common import (NO_SHARD, ShardRules, dense_init,
+                                       embed_init, grad_scale, layer_norm,
+                                       vocab_parallel_lookup)
 
 _BLOCK_KEYS = ("wq", "wk", "wv", "wo", "w1", "w2", "ln1_g", "ln1_b", "ln2_g",
                "ln2_b")
@@ -129,29 +148,53 @@ class SASRec(nn.Module):
                 "blocks": dict(self.blocks), "final_ln_g": self.final_ln_g,
                 "final_ln_b": self.final_ln_b}
 
-    def lookup(self, ids: torch.Tensor, weight: float) -> torch.Tensor:
+    def lookup(self, ids: torch.Tensor, weight: float,
+               rules: ShardRules = NO_SHARD) -> torch.Tensor:
         """``weight · item_embed[ids]`` for ids (N,) → (N, d): N bags of one
-        row each on K5."""
-        return lookup(self.item_embed, ids, weight, prefer=self.bag_prefer)
+        row each on K5 (under ``rules``, over the rank's rows)."""
+        return lookup(self.item_embed, ids, weight, prefer=self.bag_prefer,
+                      rules=rules, vocab=vocab_entry(self.cfg, rules))
 
-    def user_state(self, item_seq: torch.Tensor) -> torch.Tensor:
+    def user_state(self, item_seq: torch.Tensor,
+                   rules: ShardRules = NO_SHARD) -> torch.Tensor:
         """item_seq (B, S) int (0 = pad) → per-position user states (B, S,
-        d)."""
+        d); under ``rules``, this rank's users."""
         return user_state(self.cfg, self.tree(), item_seq,
-                          bag_prefer=self.bag_prefer)
+                          bag_prefer=self.bag_prefer, rules=rules)
 
     def score_candidates(self, item_seq: torch.Tensor,
-                         candidates: torch.Tensor) -> torch.Tensor:
-        """Score candidates (N_c,) for each user → (B, N_c) logits."""
-        h = self.user_state(item_seq)[:, -1]               # (B, d)
-        ce = self.lookup(candidates, 1.0)                  # (N_c, d)
-        return h @ ce.T
+                         candidates: torch.Tensor,
+                         rules: ShardRules = NO_SHARD) -> torch.Tensor:
+        """Score candidates (N_c,) for each user → (B, N_c) logits; under
+        ``rules``, this rank's users against every candidate."""
+        h = self.user_state(item_seq, rules)[:, -1]        # (B, d)
+        return candidate_scores(self.cfg, self.item_embed, h, candidates,
+                                rules, prefer=self.bag_prefer)
+
+
+def vocab_entry(cfg: SASRecConfig, rules: ShardRules):
+    """The spec entry ``item_embed``'s rows are split over (None: whole,
+    or `NO_SHARD`)."""
+    spec = rules.spec(("vocab", None), (cfg.table_rows, cfg.embed_dim))
+    return None if spec is None else spec[0]
+
+
+def vocab_split(rules: ShardRules, entry) -> bool:
+    """Whether the rows are split over more than one rank (``entry`` from
+    `vocab_entry`)."""
+    return entry is not None and rules.count(entry) > 1
 
 
 def lookup(table: torch.Tensor, ids: torch.Tensor, weight: float, *,
-           prefer: str = "auto") -> torch.Tensor:
+           prefer: str = "auto", rules: ShardRules = NO_SHARD,
+           vocab=None) -> torch.Tensor:
     """``weight · table[ids]`` for ids (N,) → (N, d): N bags of one row each
-    on K5 (differentiable in the table)."""
+    on K5 (differentiable in the table).  With the rows split over the
+    spec entry ``vocab`` (`vocab_entry`), ``table`` is the rank's rows and
+    the lookup is `vocab_parallel_lookup`."""
+    if vocab_split(rules, vocab):
+        return vocab_parallel_lookup(table, ids, weight, rules, vocab,
+                                     prefer=prefer)
     n = ids.shape[0]
     dev = table.device
     segments = torch.arange(n, dtype=torch.int32, device=dev)
@@ -160,15 +203,37 @@ def lookup(table: torch.Tensor, ids: torch.Tensor, weight: float, *,
                          weights=weights, prefer=prefer)
 
 
+def candidate_scores(cfg: SASRecConfig, table: torch.Tensor, h: torch.Tensor,
+                     candidates: torch.Tensor, rules: ShardRules = NO_SHARD,
+                     *, prefer: str = "auto",
+                     scatter: bool = False) -> torch.Tensor:
+    """``h @ table[candidates].T``: h (B, d), candidates (N_c,) → (B, N_c).
+    With the rows split, each rank scores its partial rows and the scores
+    are summed over the vocab's axes; with ``scatter`` the sum is a
+    reduce-scatter along the candidates, and the rank gets its block of
+    columns (B, N_c / ranks)."""
+    vocab = vocab_entry(cfg, rules)
+    if not vocab_split(rules, vocab):
+        return h @ lookup(table, candidates, 1.0, prefer=prefer).T
+    ce = vocab_parallel_lookup(table, candidates, 1.0, rules, vocab,
+                               prefer=prefer, reduce=False)
+    scores = h @ ce.T
+    if scatter:
+        return rules.scatter(scores, vocab, 1)
+    return rules.psum(scores, vocab)
+
+
 def user_state(cfg: SASRecConfig, params: dict, item_seq: torch.Tensor, *,
-               bag_prefer: str = "auto") -> torch.Tensor:
+               bag_prefer: str = "auto",
+               rules: ShardRules = NO_SHARD) -> torch.Tensor:
     """`repro`'s ``sasrec_user_state`` over a parameter tree: item_seq (B,
     S) int (0 = pad) → per-position user states (B, S, d)."""
     B, S = item_seq.shape
     d = cfg.embed_dim
     mask = (item_seq > 0).to(cfg.dtype)
     x = lookup(params["item_embed"], item_seq.reshape(-1), math.sqrt(d),
-               prefer=bag_prefer).reshape(B, S, d)
+               prefer=bag_prefer, rules=rules,
+               vocab=vocab_entry(cfg, rules)).reshape(B, S, d)
     x = x + params["pos_embed"][None, :S]
     x = x * mask[:, :, None]
     for i in range(cfg.n_blocks):
@@ -178,22 +243,35 @@ def user_state(cfg: SASRecConfig, params: dict, item_seq: torch.Tensor, *,
 
 
 def sasrec_train_loss(cfg: SASRecConfig, params: dict, batch: dict, *,
-                      bag_prefer: str = "auto") -> torch.Tensor:
+                      bag_prefer: str = "auto",
+                      rules: ShardRules = NO_SHARD) -> torch.Tensor:
     """`repro`'s ``sasrec_train_loss``: batch ``item_seq``, ``pos_items``,
     ``neg_items`` (B, S) int; −(log σ(h·e⁺) + log σ(−h·e⁻)) over the
-    positions whose positive is not padding, mean over max(count, 1)."""
-    h = user_state(cfg, params, batch["item_seq"], bag_prefer=bag_prefer)
+    positions whose positive is not padding, mean over max(count, 1).
+    Under ``rules``: ``params`` and ``batch`` are this rank's, and every
+    rank returns the global loss (see the module docstring)."""
+    h = user_state(cfg, params, batch["item_seq"], bag_prefer=bag_prefer,
+                   rules=rules)
     B, S, d = h.shape
     table = params["item_embed"]
+    vocab = vocab_entry(cfg, rules)
     pe = lookup(table, batch["pos_items"].reshape(-1), 1.0,
-                prefer=bag_prefer).reshape(B, S, d)
+                prefer=bag_prefer, rules=rules, vocab=vocab).reshape(B, S, d)
     ne = lookup(table, batch["neg_items"].reshape(-1), 1.0,
-                prefer=bag_prefer).reshape(B, S, d)
+                prefer=bag_prefer, rules=rules, vocab=vocab).reshape(B, S, d)
     pos_logit = (h * pe).sum(-1)
     neg_logit = (h * ne).sum(-1)
     mask = (batch["pos_items"] > 0).to(cfg.dtype)
     loss = -(F.logsigmoid(pos_logit) + F.logsigmoid(-neg_logit)) * mask
-    return loss.sum() / mask.sum().clamp_min(1.0)
+    num, den = loss.sum(), mask.sum()
+    if getattr(rules, "mesh", None) is None:
+        return num / den.clamp_min(1.0)
+    data = rules.spec(("batch",))[0]
+    if data is not None:
+        num, den = rules.psum(num, data), rules.psum(den, data)
+    loss = num / den.clamp_min(1.0)
+    return grad_scale(loss, 1.0 / rules.n_ranks) if rules.n_ranks > 1 \
+        else loss
 
 
 def _block(cfg: SASRecConfig, p: dict, x: torch.Tensor,
@@ -219,13 +297,15 @@ def _block(cfg: SASRecConfig, p: dict, x: torch.Tensor,
 
 
 def sasrec_user_state(cfg: SASRecConfig, model: SASRec,
-                      item_seq: torch.Tensor) -> torch.Tensor:
+                      item_seq: torch.Tensor,
+                      rules: ShardRules = NO_SHARD) -> torch.Tensor:
     """`repro`'s ``sasrec_user_state``: item_seq (B, S) → (B, S, d)."""
-    return model.user_state(item_seq)
+    return model.user_state(item_seq, rules)
 
 
 def sasrec_score_candidates(cfg: SASRecConfig, model: SASRec,
                             item_seq: torch.Tensor,
-                            candidates: torch.Tensor) -> torch.Tensor:
+                            candidates: torch.Tensor,
+                            rules: ShardRules = NO_SHARD) -> torch.Tensor:
     """`repro`'s ``sasrec_score_candidates``: (B, N_c) logits."""
-    return model.score_candidates(item_seq, candidates)
+    return model.score_candidates(item_seq, candidates, rules)

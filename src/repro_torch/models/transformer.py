@@ -105,11 +105,13 @@ from repro_torch.models.common import (
     ShardRules,
     dense_init,
     embed_init,
+    grad_scale,
     rms_norm,
     stack_trees,
     tree_cast,
     tree_slice,
     tree_unbind,
+    vocab_parallel_lookup,
 )
 from repro_torch.models.moe import (
     MoE,
@@ -607,22 +609,15 @@ def _logits(cfg: LMConfig, final_norm, head, x: torch.Tensor,
 def _embed(cfg: LMConfig, table: torch.Tensor, tokens: torch.Tensor,
            rules: ShardRules, plain) -> torch.Tensor:
     """The embedding of tokens (B, S): ``plain(table, tokens)`` when the
-    vocab is whole on the rank, else the vocab-parallel lookup — K5 over
-    the rank's rows with foreign ids at weight 0, all-reduced over the
+    vocab is whole on the rank, else `vocab_parallel_lookup` over the
     vocab's axes."""
     vocab = _vocab(cfg, rules)
     if _count(rules, vocab) == 1:
         x = plain(table, tokens)
         return x if vocab is None else rules.psum(x, vocab)
     B, S = tokens.shape
-    rows = table.shape[0]
-    local = tokens.reshape(-1) - rules.index(vocab) * rows
-    own = (local >= 0) & (local < rows)
-    n = B * S
-    seg = torch.arange(n, dtype=torch.int32, device=tokens.device)
-    x = embedding_bag(table, torch.where(own, local, 0).to(torch.int32), seg,
-                      n, weights=own.to(table.dtype))
-    return rules.psum(x.view(B, S, table.shape[1]), vocab)
+    x = vocab_parallel_lookup(table, tokens.reshape(-1), 1.0, rules, vocab)
+    return x.view(B, S, table.shape[1])
 
 
 def _index_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -692,19 +687,6 @@ def _forward_params(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
                    x, rules, gather)
 
 
-class _GradScale(torch.autograd.Function):
-    """The identity, its gradient scaled by ``s``."""
-
-    @staticmethod
-    def forward(ctx, x, s):
-        ctx.s = s
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g * ctx.s, None
-
-
 def loss_fn(cfg: LMConfig, params: dict, batch: dict, *,
             attn_prefer: str = "auto",
             rules: ShardRules = NO_SHARD) -> torch.Tensor:
@@ -747,7 +729,7 @@ def loss_fn(cfg: LMConfig, params: dict, batch: dict, *,
         num, den = rules.psum(num, data), rules.psum(den, data)
     loss = num / den.clamp_min(1.0)
     if _on_mesh(rules) and rules.n_ranks > 1:
-        loss = _GradScale.apply(loss, 1.0 / rules.n_ranks)
+        loss = grad_scale(loss, 1.0 / rules.n_ranks)
     return loss
 
 

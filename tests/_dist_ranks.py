@@ -350,3 +350,95 @@ def case_lm_census(cfg, params, batch, mesh_shape):
         lm_train_step(cfg, p, opt, _torch_tree(batch), rules=rules)
     return dict(coords=rules.coords, flops=fc.get_total_flops(),
                 records=cen.records)
+
+
+def case_recsys(cfg, params, batch, seq, cand, mesh_shape, k, n_cat_chunks,
+                user_chunk, steps=2):
+    """SASRec on a (data, model) mesh of ``mesh_shape`` under
+    `recsys_rules`, ``params`` placed by `param_specs_recsys`: this rank's
+    user states, streamed top-k and block of retrieval scores; the loss and
+    this rank's reduced gradient slices; ``steps`` `recsys_train_step`s
+    (losses and this rank's params after each) and whether the first step
+    run twice gave the same bits."""
+    from repro_torch.dist.sharding import (Spec, param_specs_recsys,
+                                           recsys_rules, reduce_grads)
+    from repro_torch.launch.cells import (recsys_retrieval,
+                                          recsys_serve_topk,
+                                          recsys_train_step)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.recsys.sasrec import SASRec, sasrec_train_loss
+    from repro_torch.train.checkpoint import reshard
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_loop import value_and_grad
+
+    rules = recsys_rules(make_mesh(mesh_shape, ("data", "model")))
+    full = _torch_tree(params)
+    specs = param_specs_recsys(cfg, full, rules.mesh)
+    p = reshard(full, rules.mesh, specs, device="cpu")
+    users = Spec("data", None)
+    seq_t = torch.from_numpy(seq)
+    mine = rules.local(seq_t, users)
+    model = SASRec(cfg, p)
+    out = dict(coords=rules.coords)
+    with torch.no_grad():
+        out["states"] = model.user_state(mine, rules).numpy()
+        v, i = recsys_serve_topk(cfg, model, mine, k, n_cat_chunks,
+                                 user_chunk, rules=rules)
+        out["topk"] = (v.numpy(), i.numpy())
+        out["scores"] = recsys_retrieval(
+            cfg, model, seq_t, rules.local(torch.from_numpy(cand),
+                                           Spec("model")),
+            rules=rules).numpy()
+    b = _torch_tree(batch)
+    rows = {key: rules.local(x, users) for key, x in b.items()}
+    loss, g = value_and_grad(lambda q, bb: sasrec_train_loss(
+        cfg, q, bb, rules=rules))(p, rows)
+    out["loss"] = float(loss)
+    out["grads"] = _numpy_tree(reduce_grads(g, specs, rules))
+    opt = adamw_init(p)
+    again = recsys_train_step(cfg, p, opt, b, rules=rules)
+    losses, trees = [], []
+    q = p
+    for _ in range(steps):
+        q, opt, loss = recsys_train_step(cfg, q, opt, b, rules=rules)
+        losses.append(float(loss))
+        trees.append(_numpy_tree(q))
+    out["losses"], out["params"] = losses, trees
+    out["repeat_equal"] = float(again[2]) == losses[0] and all(
+        np.array_equal(x, y) for x, y in zip(
+            _leaves(_numpy_tree(again[0])), _leaves(trees[0])))
+    return out
+
+
+def case_recsys_census(cfg, params, batch, seq, mesh_shape, local_chunk):
+    """One sharded `recsys_train_step` and one `recsys_serve_topk` (top-100,
+    this rank's users in chunks of ``local_chunk``) on a (data, model) mesh
+    of ``mesh_shape``, each under `FlopCounterMode` and the collective
+    census: this rank's coordinates, FLOPs and census records by step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.dist import group as dist_group
+    from repro_torch.dist.sharding import (Spec, param_specs_recsys,
+                                           recsys_rules)
+    from repro_torch.launch.cells import recsys_serve_topk, recsys_train_step
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.recsys.sasrec import SASRec
+    from repro_torch.train.checkpoint import reshard
+    from repro_torch.train.optimizer import adamw_init
+
+    rules = recsys_rules(make_mesh(mesh_shape, ("data", "model")))
+    full = _torch_tree(params)
+    p = reshard(full, rules.mesh, param_specs_recsys(cfg, full, rules.mesh),
+                device="cpu")
+    out = dict(coords=rules.coords)
+    with dist_group.census() as cen, FlopCounterMode(display=False) as fc:
+        recsys_train_step(cfg, p, adamw_init(p), _torch_tree(batch),
+                          rules=rules)
+    out["train"] = dict(flops=fc.get_total_flops(), records=cen.records)
+    mine = rules.local(torch.from_numpy(seq), Spec("data", None))
+    with torch.no_grad(), dist_group.census() as cen, \
+            FlopCounterMode(display=False) as fc:
+        recsys_serve_topk(cfg, SASRec(cfg, p), mine, k=100,
+                          user_chunk=local_chunk, rules=rules)
+    out["serve"] = dict(flops=fc.get_total_flops(), records=cen.records)
+    return out

@@ -64,7 +64,16 @@ _SLICE_MODULES = {"repro_torch.core.lanczos", "repro_torch.core.flexcg",
                   "repro_torch.configs.command_r_35b",
                   "repro_torch.dist.sharding", "repro_torch.launch.mesh",
                   "repro_torch.configs.mistral_large_123b",
-                  "repro_torch.launch.dryrun", "repro_torch.launch.roofline"}
+                  "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+                  "repro_torch.analysis", "repro_torch.analysis.engine",
+                  "repro_torch.analysis.__main__",
+                  "repro_torch.analysis.rules",
+                  "repro_torch.analysis.rules.collective_rules",
+                  "repro_torch.analysis.rules.determinism_rules",
+                  "repro_torch.analysis.rules.guard_rules",
+                  "repro_torch.analysis.rules.kernel_rules",
+                  "repro_torch.analysis.rules.obs_rules",
+                  "repro_torch.analysis.rules.trace_rules"}
 
 
 def test_import_pulls_in_no_jax_and_no_repro():

@@ -16,7 +16,8 @@ to `repro.launch` on the CPU.
 * The dry run on a smoke LM train step over a (2, 4) mesh: for every rank,
   the census (each collective's op, bytes, group size and axis) and the
   FLOPs of the ``meta`` run equal those the same step records on 8 real
-  gloo ranks on the CPU under `FlopCounterMode` (exact).
+  gloo ranks on the CPU under `FlopCounterMode` (exact); so do the smoke
+  SASRec's sharded train and top-100 serve steps.
 * Layer differencing from depth 2 and 4 gives the depth-6 count of FLOPs,
   bytes, wire bytes and collective counts exactly.
 * K6's FLOP formula equals the work of the tiles that
@@ -41,7 +42,8 @@ from repro_torch.dist.sharding import entry_axes
 from repro_torch.kernels.flash_attention import ops as k6_ops
 from repro_torch.launch import dryrun
 from repro_torch.launch import roofline as rl_t
-from repro_torch.launch.cells import build_cell, global_shape, lm_train_cell
+from repro_torch.launch.cells import (build_cell, global_shape, lm_train_cell,
+                                      recsys_cell)
 from repro_torch.launch.mesh import (MeshShape, RankView,
                                      make_production_mesh)
 from repro_torch.models import transformer as T
@@ -199,8 +201,10 @@ def test_build_cell_matches_repro(arch, shape, tag, repro_cells):
     assert got == want["args"]
     assert {x.device.type for x in args} == {"meta"}
     family = get_arch(arch).family
-    if family != "lm":    # GNN and recsys: no sharded step in the port
+    if family == "gnn":   # no sharded GNN step in the port
         assert cell.fn is None and cell.gap
+    elif family == "recsys":
+        assert callable(cell.fn) and cell.gap is None
     elif get_arch(arch).make_config().moe is not None:
         # GSPMD's MoE dispatch has no port; expert parallelism has
         assert cell.fn is None and "pjit" in cell.gap
@@ -348,6 +352,61 @@ def test_meta_census_and_flops_equal_the_ranks(name, ranks):
         assert {("all-to-all", "model"), ("all-gather", "data")} <= seen
 
 
+RECSYS_B = {"train": 8, "serve": 16}
+
+
+@pytest.fixture(scope="module")
+def recsys_ranks(tmp_path_factory):
+    """One sharded train step and one top-100 serve of the smoke SASRec on
+    8 gloo ranks: each rank's FLOPs and census, by step."""
+    from repro_torch.models.recsys.sasrec import init_sasrec
+
+    cfg = get_arch("sasrec").make_smoke_config()
+    p = init_sasrec(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+
+    def items(b):
+        return rng.integers(1, cfg.n_items + 1, (b, cfg.seq_len)).astype(
+            np.int32)
+
+    B = RECSYS_B["train"]
+    batch = {"item_seq": items(B), "pos_items": items(B),
+             "neg_items": items(B)}
+    case = ("case_recsys_census", dict(
+        cfg=cfg, params=_np_tree(p), batch=batch,
+        seq=items(RECSYS_B["serve"]), mesh_shape=MESH_SHAPE,
+        local_chunk=RECSYS_B["serve"] // MESH_SHAPE[0]))
+    return _dist_ranks.run_ranks(_dist_ranks.run_cases, {"r": case}, WORLD,
+                                 tmp_path_factory.mktemp("ranks_recsys"))
+
+
+@pytest.mark.parametrize("kind", RECSYS_B)
+def test_recsys_meta_census_and_flops_equal_the_ranks(kind, recsys_ranks):
+    """The dry run's recsys train and serve steps at the smoke size: for
+    every rank, the `AbstractGroup` census (op, bytes, group size, axis)
+    and the FLOPs of the ``meta`` run equal the real ranks' (exact)."""
+    mesh = MeshShape(MESH_SHAPE, ("data", "model"))
+    cfg = get_arch("sasrec").make_smoke_config()
+    seen = set()
+    for r in range(WORLD):
+        got = recsys_ranks[r]["r"]
+        view = RankView(mesh, r)
+        assert got["coords"] == dict(zip(view.axis_names, view.coord))
+        cell = recsys_cell(cfg, kind, RECSYS_B[kind], view)
+        with dist_group.census() as cen, FlopCounterMode(display=False) as fc:
+            cell.fn(*cell.abstract_args)
+        assert [tuple(x) for x in got[kind]["records"]] == cen.records, r
+        assert got[kind]["flops"] == fc.get_total_flops() > 0, r
+        seen.update((op, axis) for op, _, _, axis in cen.records)
+    # the lookups sum over model; the train step's loss and gradients over
+    # both axes; the serve step gathers its winners over model
+    assert ("all-reduce", "model") in seen
+    if kind == "train":
+        assert ("all-reduce", "data") in seen
+    else:
+        assert ("all-gather", "model") in seen
+
+
 def test_layer_differencing_gives_the_unrolled_count():
     mesh = RankView(MeshShape(MESH_SHAPE, ("data", "model")), 0)
     qs = {n: dryrun.profile_census(lm_train_cell(_smoke(n), B, S, mesh), mesh)
@@ -437,6 +496,10 @@ def test_dryrun_cli_writes_repro_keys(tmp_path, monkeypatch):
     train = json.loads((tmp_path / names[3]).read_text())
     assert train["profile_method"] == "layer-diff(2,4)->L=22"
     assert train["collectives"]["counts"]["all-reduce"] > 0
-    gap = dryrun.run_cell("sasrec", "serve_p99", multi_pod=True,
+    gap = dryrun.run_cell("meshgraphnet", "full_graph_sm", multi_pod=True,
                           verbose=False)
-    assert gap["status"] == "gap" and "SASRec" in gap["reason"]
+    assert gap["status"] == "gap" and "GNN" in gap["reason"]
+    ok = dryrun.run_cell("sasrec", "serve_p99", multi_pod=True,
+                         verbose=False)
+    assert ok["status"] == "ok" and ok["n_devices"] == 512
+    assert ok["collectives"]["counts"]["all-gather"] > 0
