@@ -399,7 +399,22 @@ Phases, each printing JSON lines:
     rank; a control (each rank's rows shifted by one) must miss the
     states gate; K5 at model rank 1's slice of the sequence lookup (foreign
     ids at weight 0) against its plain version, timed beside its bound and
-    ``F.embedding_bag``.  K6 and K5 launches are counted from 0 on every
+    ``F.embedding_bag``.  (i) The GNNs across ranks at their published
+    widths (fp32, AdamW with ``OPT_CFG``), uncut: MeshGraphNet and
+    GraphCast on ``full_graph_sm``, NequIP and MACE on ``molecule``, under
+    `gnn_rules` on (data 2, model 2) (NCCL: (1, 1)), each rank its stripe
+    of the nodes and edges: SHARD_GNN_STEPS steps from one state and the
+    first step again (its loss, first moment and params: the same bits),
+    against the parent's one-process steps of the same seed: every loss
+    within 1e-5 (relative), the clipped gradient (the first moment after
+    one step) within 1e-4 of each leaf's max, every param after one step
+    within 1e-4 of its leaf's max or at a gradient within 1e-4 of the
+    leaf's max|g| of 0 (as (c)), the two runs the same bits, the NCCL
+    rank bit for bit; a control (each gloo rank's node stripe taken from
+    the next rank, its own edges) must miss the gradient gate; each arch's
+    seconds a step per rank beside the one process's, and its
+    collectives' bytes a step; the part (reference, slowest gloo rank,
+    NCCL rank) within SHARD_GNN_SECONDS.  K6 and K5 launches are counted from 0 on every
     rank over (a)–(c) and (h) (K6 = 2 × 17 in (a) and (b) on every rank,
     K5 = 17 on a gloo rank) and join the ``kernels`` line.  Every check
     runs before the phase fails.
@@ -409,8 +424,8 @@ Phases, each printing JSON lines:
     16, 16) production meshes over the H100 cluster, on meta tensors: one
     ``launch_cell`` line a cell (live GB a device, ``fits_80gb``, the
     dominant term, the roofline fraction, the three terms), beside the
-    card's name and power limit; no cell may fail, every LM and recsys
-    cell must run (the GNN cells are gaps, with their reason).  (b) Phase
+    card's name and power limit; every cell must run, the 32 GNN rows
+    included (the sharded GNN step under `gnn_rules`).  (b) Phase
     ``train``'s step against its dry run on the card's one-device mesh
     (the exec pass at full depth, FLOPs and bytes by layer differencing):
     real / dry FLOPs (`FlopCounterMode` over ``train``'s unrecorded step)
@@ -4261,7 +4276,9 @@ GNN_FALL_CELL = {"meshgraphnet": "full_graph_sm", "graphcast": "full_graph_sm",
 GNN_SCATTER_KERNELS = ("segment_reduce", "index_copy")   # (f) the sums
 
 
-def gnn_cell_batches(seed: int = 0) -> dict:
+def gnn_cell_batches(seed: int = 0,
+                     cells=("full_graph_sm", "minibatch_lg", "molecule")
+                     ) -> dict:
     """The GNN cells' host batches: ``full_graph_sm`` (``rmat_graph(2708,
     5278)`` by `gnn_full_batch`, d_feat 1,433, padded to 10,556 edge slots
     with masked slots at node 0, as ``_gnn_batch_abstract`` pads),
@@ -4270,7 +4287,8 @@ def gnn_cell_batches(seed: int = 0) -> dict:
     168,960, d_feat 602: features and targets drawn for the sampled
     nodes, column 0 their normalised parent degree) and ``molecule``
     (``molecule_batches(128, 30, 64)``).  Node targets are drawn 227 wide
-    (GraphCast's n_vars); MeshGraphNet takes the first 3."""
+    (GraphCast's n_vars); MeshGraphNet takes the first 3.  ``cells``
+    without ``minibatch_lg`` skips its parent graph."""
     from repro_torch.configs.shapes import GNN_SHAPES
     from repro_torch.data.synthetic import gnn_full_batch, molecule_batches
     from repro_torch.mesh.graphs import rmat_graph
@@ -4278,7 +4296,7 @@ def gnn_cell_batches(seed: int = 0) -> dict:
     from repro_torch.models.gnn.sampler import sample_neighbors
 
     t0 = time.perf_counter()
-    out = {}
+    out, info = {}, {}
     sm = GNN_SHAPES["full_graph_sm"]
     g = rmat_graph(sm["n_nodes"], sm["n_edges"] // 2, seed=seed)
     b = gnn_full_batch(g, d_feat=sm["d_feat"], d_out=227, seed=seed)
@@ -4288,6 +4306,14 @@ def gnn_cell_batches(seed: int = 0) -> dict:
         b, edge_src=torch.cat([b.edge_src, z]),
         edge_dst=torch.cat([b.edge_dst, z]),
         edge_mask=torch.cat([b.edge_mask, torch.zeros(pad)]), plans={})
+    info["full_graph_sm"] = dict(nnz=g.nnz, padded_slots=pad)
+    mol = GNN_SHAPES["molecule"]
+    out["molecule"] = next(molecule_batches(mol["batch"], mol["n_nodes"],
+                                            mol["n_edges"], seed=seed))
+    info["molecule"] = dict(atoms=out["molecule"].n_nodes,
+                            edges=int(out["molecule"].edge_src.shape[0]))
+    if "minibatch_lg" not in cells:
+        return out, dict(info, host_s=time.perf_counter() - t0)
     mb = GNN_SHAPES["minibatch_lg"]
     parent = rmat_graph(*GNN_PARENT, seed=seed)
     rng = np.random.default_rng(seed + 1)
@@ -4308,16 +4334,10 @@ def gnn_cell_batches(seed: int = 0) -> dict:
         node_mask=torch.from_numpy(sub.node_mask),
         edge_mask=torch.from_numpy(sub.edge_mask),
         targets=torch.from_numpy(tgt))
-    mol = GNN_SHAPES["molecule"]
-    out["molecule"] = next(molecule_batches(mol["batch"], mol["n_nodes"],
-                                            mol["n_edges"], seed=seed))
-    info = dict(host_s=time.perf_counter() - t0,
-                full_graph_sm=dict(nnz=g.nnz, padded_slots=pad),
+    info.update(host_s=time.perf_counter() - t0,
                 minibatch_lg=dict(parent_nodes=parent.n,
                                   parent_nnz=parent.nnz, sampled_nodes=n_real,
-                                  sampled_edges=int(sub.edge_mask.sum())),
-                molecule=dict(atoms=out["molecule"].n_nodes,
-                              edges=int(out["molecule"].edge_src.shape[0])))
+                                  sampled_edges=int(sub.edge_mask.sum())))
     return out, info
 
 
@@ -4645,6 +4665,28 @@ SHARD_RECSYS_TOL = 1e-5         # states and scores (of max), top-100
                                 # values, loss (relative)
 SHARD_RECSYS_PARAM_TOL = 1e-4   # params after the steps, of each leaf's max
 SHARD_RECSYS_SEED = 0
+# (i) the GNNs across ranks at their published widths (fp32, AdamW,
+# OPT_CFG), uncut: MGN and GraphCast on full_graph_sm, NequIP and MACE on
+# molecule, under gnn_rules (gloo: (data 2, model 2), each rank a quarter
+# of the nodes and edges; NCCL: (1, 1)), SHARD_GNN_STEPS steps from one
+# state and the first again, against the parent's one-process steps on the
+# card (the same seed and batch)
+SHARD_GNN_RUNS = (("meshgraphnet", "full_graph_sm"),
+                  ("graphcast", "full_graph_sm"), ("nequip", "molecule"),
+                  ("mace", "molecule"))
+SHARD_GNN_STEPS = 2
+SHARD_GNN_LOSS_TOL = 1e-5       # relative, every step's loss
+SHARD_GNN_GRAD_TOL = 1e-4       # the clipped gradient (AdamW's first
+                                # moment after one step), of each leaf's max
+SHARD_GNN_PARAM_TOL = 1e-4      # the params after one step, of each leaf's
+                                # max; an entry further off must sit at a
+                                # gradient within SHARD_FLAT_TOL of its
+                                # leaf's max|g| of 0, as (c)'s (AdamW's
+                                # first step moves it by ±lr on g's sign:
+                                # MGN and GraphCast read 1.88e-4 / 1.35e-3
+                                # of max on one H100 against the plain 1e-4)
+SHARD_GNN_SEED = 0
+SHARD_GNN_SECONDS = 25.0        # (i): reference + slowest gloo rank + NCCL
 SHARD_PLACEMENTS = {"pod": ((16, 16), ("data", "model")),
                     "node": ((1, 8), ("data", "model"))}
 SHARD_CARD_BYTES = 80e9
@@ -4914,6 +4956,7 @@ def shard_rank(p) -> dict:
     del p1, o1
     free()
     out["h"] = shard_recsys_rank(p["recsys"])
+    out["i"] = shard_gnn_rank(p["gnn"])
     return out
 
 
@@ -5030,6 +5073,211 @@ def shard_recsys_rank(p) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def shard_gnn_batch(arch_id, cfg, batch):
+    """(i)'s whole batch of one arch: the cell's host batch with the
+    arch's targets (`gnn_batch_for`, on the card), padded to a multiple
+    of SHARD_WORLD (`pad_graph_batch`: the cells already are)."""
+    from repro_torch.data.synthetic import pad_graph_batch
+
+    return gnn_batch_for(arch_id, cfg, pad_graph_batch(batch, SHARD_WORLD))
+
+
+def tree_gaps(got, want) -> list:
+    """Each leaf's max |got − want| over its max |want|."""
+    from repro_torch.models.common import tree_leaves
+
+    return [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(tree_leaves(got), tree_leaves(want))]
+
+
+def shard_gnn_reference(path, batches) -> dict:
+    """(i)'s one-process runs on the card (`NO_SHARD`): each arch's
+    SHARD_GNN_STEPS steps from the ranks' seed, every step's loss and
+    seconds; the first moment and params after the first step saved at
+    ``path`` for the ranks."""
+    from repro_torch.launch.cells import gnn_train_step
+    from repro_torch.models.common import tree_map
+    from repro_torch.train.optimizer import adamw_init
+
+    t0 = time.perf_counter()
+    out, saved = {}, {}
+    for arch_id, cell in SHARD_GNN_RUNS:
+        cfg = gnn_config(arch_id, cell)
+        b = shard_gnn_batch(arch_id, cfg, batches[cell])
+        p = gnn_init(arch_id, cfg, seed=SHARD_GNN_SEED)
+        o = adamw_init(p)
+        losses, secs = [], []
+        for i in range(SHARD_GNN_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p, o, loss = gnn_train_step(arch_id, cfg, p, o, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+            losses.append(float(loss))
+            if i == 0:
+                saved[arch_id] = tree_map(lambda t: t.cpu(), {
+                    "m": o["m"], "params": p})
+        out[arch_id] = dict(cell=cell, losses=losses, step_s=secs,
+                            nodes=b.n_nodes, edges=int(b.edge_src.shape[0]))
+        del p, o, b
+    torch.save(saved, path)
+    out["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_gnn_rank(p) -> dict:
+    """(i) on one rank: each arch of SHARD_GNN_RUNS under `gnn_rules` on
+    (data 2, model world / 2) (NCCL: (1, 1)), this rank's stripe of the
+    whole batch (`launch.cells.stripe`), the params drawn from the
+    parent's seed and whole: SHARD_GNN_STEPS steps (the first under the
+    census: its collectives' bytes), the first again from the same state
+    (the bits), the first step's loss, first moment and params against
+    the parent's, and a control step with the node stripe of the next
+    rank (its first moment must miss the gate)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import group as dist_group
+    from repro_torch.dist.sharding import gnn_rules
+    from repro_torch.launch.cells import gnn_train_step, stripe
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.roofline import collective_stats
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.train.optimizer import adamw_init
+
+    t_rank = time.perf_counter()
+    world, r = dist.get_world_size(), dist.get_rank()
+    shape = (2, world // 2) if world > 1 else (1, 1)
+    rules = gnn_rules(make_mesh(shape, ("data", "model")))
+    ref = torch.load(p["ref_path"], mmap=True, weights_only=True)
+    out = dict(mesh=shape, coords=rules.coords)
+    for arch_id, cell in SHARD_GNN_RUNS:
+        t_arch = time.perf_counter()
+        cfg = gnn_config(arch_id, cell)
+        whole = shard_gnn_batch(arch_id, cfg, p["batches"][cell])
+        mine = stripe(whole, rules)
+        p0 = gnn_init(arch_id, cfg, seed=SHARD_GNN_SEED)
+
+        def steps(b, n=SHARD_GNN_STEPS, record=False):
+            q, o, losses, secs, first, wire = p0, adamw_init(p0), [], [], \
+                None, None
+            for i in range(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.ExitStack() as stack:
+                    cen = stack.enter_context(dist_group.census()) \
+                        if record and i == 0 else None
+                    q, o, loss = gnn_train_step(arch_id, cfg, q, o, b,
+                                                rules=rules)
+                    torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+                if cen is not None:
+                    wire = dict(records=len(cen.records),
+                                out_bytes=sum(x[1] for x in cen.records),
+                                wire_bytes=collective_stats(
+                                    cen.records).total_wire_bytes)
+                if i == 0:
+                    first = (o["m"], q)
+            return q, losses, secs, first, wire
+
+        q1, losses, secs, (m1, p1), wire = steps(mine, record=True)
+        _, losses2, _, (m2, p2), _ = steps(mine, n=1)   # the bits again
+        m_ref = tree_map(lambda t: t.cuda(), ref[arch_id]["m"])
+        p_ref = tree_map(lambda t: t.cuda(), ref[arch_id]["params"])
+        off, flat = 0, True
+        for got, want, g in zip(tree_leaves(p1), tree_leaves(p_ref),
+                                tree_leaves(m_ref)):
+            far = (got - want).abs() > SHARD_GNN_PARAM_TOL * want.abs().max()
+            off += int(far.sum())
+            flat = flat and bool((g[far].abs() <= SHARD_FLAT_TOL
+                                  * g.abs().max()).all())
+        res = dict(cell=cell, losses=losses, step_s=secs, wire=wire,
+                   nodes_local=mine.n_nodes,
+                   edges_local=int(mine.edge_src.shape[0]),
+                   grad_gap=max(tree_gaps(m1, m_ref)),
+                   param_gap=max(tree_gaps(p1, p_ref)), params_off=off,
+                   params_off_flat=flat,
+                   n_params=sum(t.numel() for t in tree_leaves(p1)),
+                   repeat_equal=losses[:1] == losses2
+                   and trees_equal(m1, m2) and trees_equal(p1, p2),
+                   grads_equal=trees_equal(m1, m_ref),
+                   params_equal=trees_equal(p1, p_ref))
+        del q1, m1, p1, m2, p2, p_ref
+        if world > 1:      # the control: the next rank's nodes, my edges
+            other = stripe(whole, rules, (r + 1) % world)
+            nodes = ["node_feat", "node_mask", "positions", "species",
+                     "graph_ids"] + (["targets"] if whole.targets.dim() > 1
+                                     else [])
+            wrong = dataclasses.replace(mine, plans={}, **{
+                f: getattr(other, f) for f in nodes
+                if getattr(other, f) is not None})
+            _, _, _, (m_ctl, _), _ = steps(wrong, n=1)
+            res["control_grad_gap"] = max(tree_gaps(m_ctl, m_ref))
+            del m_ctl
+        res["seconds"] = time.perf_counter() - t_arch
+        out[arch_id] = res
+        del whole, mine, p0
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def shard_gnn_check(got, ref, need) -> dict:
+    """(i)'s gates over every rank of each backend (module docstring)."""
+    row = dict(tol_loss=SHARD_GNN_LOSS_TOL, tol_grad=SHARD_GNN_GRAD_TOL,
+               tol_params=SHARD_GNN_PARAM_TOL, reference=ref)
+    for arch_id, cell in SHARD_GNN_RUNS:
+        want = ref[arch_id]["losses"]
+        a = dict(cell=cell, one_process_step_s=ref[arch_id]["step_s"])
+        for backend, ranks in got.items():
+            rs = [rk["i"][arch_id] for rk in ranks]
+            loss_gap = max(abs(x - w) / abs(w) for rk in rs
+                           for x, w in zip(rk["losses"], want))
+            b = dict(mesh=ranks[0]["i"]["mesh"], loss_gap=loss_gap,
+                     grad_gap=max(x["grad_gap"] for x in rs),
+                     param_gap=max(x["param_gap"] for x in rs),
+                     params_off=sum(x["params_off"] for x in rs),
+                     params_off_share=sum(x["params_off"] for x in rs)
+                     / sum(x["n_params"] for x in rs),
+                     params_off_flat=all(x["params_off_flat"] for x in rs),
+                     repeat_equal=all(x["repeat_equal"] for x in rs),
+                     step_s=[x["step_s"] for x in rs],
+                     wire=rs[0]["wire"], seconds=[x["seconds"] for x in rs],
+                     nodes_local=rs[0]["nodes_local"],
+                     edges_local=rs[0]["edges_local"])
+            tag = f"shard (i) {arch_id} {backend}"
+            need(len({tuple(x["losses"]) for x in rs}) == 1,
+                 f"{tag}: ranks return different losses")
+            need(loss_gap <= SHARD_GNN_LOSS_TOL,
+                 f"{tag}: loss {loss_gap} (relative) from one process")
+            need(b["grad_gap"] <= SHARD_GNN_GRAD_TOL,
+                 f"{tag}: the clipped gradient {b['grad_gap']} of max from "
+                 "one process")
+            need(b["params_off_flat"],
+                 f"{tag}: {b['params_off']} params after one step further "
+                 f"than {SHARD_GNN_PARAM_TOL} of max from one process, not "
+                 f"all at a gradient within {SHARD_FLAT_TOL} of its leaf's "
+                 "max of 0")
+            need(b["repeat_equal"], f"{tag}: two runs differ")
+            if backend == "nccl":
+                b["equal"] = all(x["grads_equal"] and x["params_equal"]
+                                 for x in rs) and loss_gap == 0.0
+                need(b["equal"], f"{tag}: world size 1 differs from one "
+                     "process")
+            else:
+                b["control_grad_gap"] = min(x["control_grad_gap"]
+                                            for x in rs)
+                need(b["control_grad_gap"] > SHARD_GNN_GRAD_TOL,
+                     f"{tag}: the shifted-stripe control "
+                     f"{b['control_grad_gap']} is inside the gate")
+            a[backend] = b
+        row[arch_id] = a
+    return row
 
 
 def shard_placements() -> dict:
@@ -5493,12 +5741,16 @@ def phase_shard():
                         (tb, ts + 1))
     train = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     recsys = shard_recsys_inputs()
+    gnn_batches, gnn_info = gnn_cell_batches(
+        SHARD_GNN_SEED, cells=("full_graph_sm", "molecule"))
     tmp = tempfile.TemporaryDirectory(prefix="shard_")
     try:
         t0 = time.perf_counter()
         ref_h = shard_recsys_reference(f"{tmp.name}/ref_recsys.pt", recsys)
         row["h_reference_s"] = time.perf_counter() - t0
         recsys["ref_path"] = f"{tmp.name}/ref_recsys.pt"
+        ref_i = shard_gnn_reference(f"{tmp.name}/ref_gnn.pt", gnn_batches)
+        gnn = dict(batches=gnn_batches, ref_path=f"{tmp.name}/ref_gnn.pt")
         ref_path = f"{tmp.name}/ref_step.pt"
         t0 = time.perf_counter()
         row["c_reference"] = shard_train_reference(ref_path, train)
@@ -5509,7 +5761,7 @@ def phase_shard():
         payload = dict(shard=dict(prompts=prompts, train=train,
                                   ref_path=ref_path, layer_x=layer_x,
                                   ckpt_dir=f"{tmp.name}/ckpt",
-                                  recsys=recsys))
+                                  recsys=recsys, gnn=gnn))
         got = {}
         with contextlib.ExitStack() as alive:
             t0 = time.perf_counter()
@@ -5611,6 +5863,14 @@ def phase_shard():
                     cut=f"train_batch users {train_users} -> "
                         f"{SHARD_RECSYS_USERS}: the gloo wire runs through "
                         "the host")
+    # (i) the GNNs across ranks
+    i_row = shard_gnn_check(got, ref_i, need)
+    i_row.update(host=gnn_info, seconds=ref_i["seconds"]
+                 + max(rk["i"]["seconds"] for rk in gloo)
+                 + nccl[0]["i"]["seconds"], limit_s=SHARD_GNN_SECONDS)
+    need(i_row["seconds"] <= SHARD_GNN_SECONDS,
+         f"shard (i): {i_row['seconds']:.2f} s > {SHARD_GNN_SECONDS}")
+    row["i"] = i_row
     k6 = sum(rk["k6"] for rk in gloo + nccl)
     k5 = sum(rk["k5"] + rk["h"]["k5_forward"] + rk["h"]["k5_train"]
              for rk in gloo + nccl)
@@ -5682,9 +5942,9 @@ def _launch_calibrate(part: str) -> dict:
 def phase_launch(smi: str, real: dict):
     """The dry run, on the host after every phase on the card, in
     LAUNCH_PROCS spawned processes.  (a) Every runnable cell of
-    ``all_cells()`` on both production meshes: one line a cell; no cell
-    may fail, every LM and recsys cell must run (a GNN gap is reported with
-    its reason).
+    ``all_cells()`` on both production meshes: one line a cell; every
+    cell must run (70 ``ok``: LM, recsys and GNN; MoE as expert
+    parallelism).
     (b) Phase ``train``'s step against its dry run on the card's
     one-device mesh: real / dry FLOPs (``real``: `FlopCounterMode` over
     ``train``'s unrecorded step), real / dry peak (that step's peak above
@@ -5696,7 +5956,7 @@ def phase_launch(smi: str, real: dict):
     check runs before the phase fails."""
     import multiprocessing as mp
 
-    from repro_torch.configs import all_cells, get_arch
+    from repro_torch.configs import all_cells
     from repro_torch.launch import dryrun
     from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
 
@@ -5736,9 +5996,10 @@ def phase_launch(smi: str, real: dict):
     statuses = [rec["status"] for rec in cells]
     need("fail" not in statuses,
          f"launch (a): {statuses.count('fail')} cell(s) failed")
-    need(all(rec["status"] == "ok" for rec in cells
-             if get_arch(rec["arch"]).family in ("lm", "recsys")),
-         "launch (a): an LM or recsys cell did not run")
+    need(all(rec["status"] == "ok" for rec in cells),
+         "launch (a): " + ", ".join(
+             f"{rec['arch']} × {rec['shape']} × {rec['mesh']}"
+             for rec in cells if rec["status"] != "ok") + " did not run")
 
     dry_real, dry_control = ({**dry[i], **dry[i + 1]} for i in (0, 2))
     dry_depth2 = dict(dry_real, flops=dry_real["depth2_flops"],

@@ -5,6 +5,10 @@
 The same NumPy draws from the same seed, so the port and `repro` see the
 same tokens, graphs, molecules and item sequences; the batches are torch
 tensors on the host (GNN batches: `GraphBatch`, moved with ``.to``).
+
+`pad_graph_batch` pads a GNN batch to `repro`'s counts across ranks (its
+cells pad nodes and edges to a multiple of the device count), and
+`with_geometry` gives a generic graph what the equivariant archs read.
 """
 
 from __future__ import annotations
@@ -84,6 +88,56 @@ def molecule_batches(n_graphs: int, n_nodes: int, n_edges: int, *,
             targets=torch.from_numpy(e_graph.astype(np.float32)),
             n_graphs=n_graphs,
         )
+
+
+def _pad_rows(x: torch.Tensor | None, rows: int) -> torch.Tensor | None:
+    if x is None or rows == x.shape[0]:
+        return x
+    z = x.new_zeros((rows - x.shape[0],) + tuple(x.shape[1:]))
+    return torch.cat([x, z])
+
+
+def pad_graph_batch(batch: GraphBatch, multiple: int) -> GraphBatch:
+    """``batch`` with its nodes and edges padded to a multiple of
+    ``multiple`` (the device count), as `repro`'s GNN cells pad theirs.
+    A padded slot has mask 0, edge index 0 (node 0), features, positions
+    and node targets 0, species and graph id 0; per-graph targets are
+    kept.  The masks keep the padding out of every loss and sum: the
+    padded batch's loss is the batch's, up to the order of the sums."""
+    n = -(-batch.n_nodes // multiple) * multiple
+    e = -(-batch.edge_src.shape[0] // multiple) * multiple
+    node_targets = batch.targets is not None and batch.targets.dim() > 1
+    return GraphBatch(
+        node_feat=_pad_rows(batch.node_feat, n),
+        edge_src=_pad_rows(batch.edge_src, e),
+        edge_dst=_pad_rows(batch.edge_dst, e),
+        node_mask=_pad_rows(batch.node_mask, n),
+        edge_mask=_pad_rows(batch.edge_mask, e),
+        positions=_pad_rows(batch.positions, n),
+        species=_pad_rows(batch.species, n),
+        graph_ids=_pad_rows(batch.graph_ids, n),
+        targets=_pad_rows(batch.targets, n) if node_targets
+        else batch.targets,
+        n_graphs=batch.n_graphs)
+
+
+def with_geometry(batch: GraphBatch, *, seed: int = 0) -> GraphBatch:
+    """A generic graph (``full_graph_sm``, ``minibatch_lg``) as the
+    equivariant archs read it: `repro` only shapes these fields for those
+    cells, so here positions (N, 3) are drawn from ``seed`` with NumPy
+    (standard normal), every species and graph id is 0 (one graph), and
+    the per-graph energy target is one draw from the same generator."""
+    rng = np.random.default_rng(seed)
+    n = batch.n_nodes
+    pos = rng.normal(size=(n, 3)).astype(np.float32)
+    energy = rng.normal(size=(1,)).astype(np.float32)
+    return GraphBatch(
+        node_feat=batch.node_feat, edge_src=batch.edge_src,
+        edge_dst=batch.edge_dst, node_mask=batch.node_mask,
+        edge_mask=batch.edge_mask, positions=torch.from_numpy(pos),
+        species=torch.zeros((n,), dtype=torch.int32),
+        graph_ids=torch.zeros((n,), dtype=torch.int32),
+        targets=torch.from_numpy(energy), n_graphs=1)
 
 
 def recsys_batches(batch: int, seq: int, n_items: int, *, seed: int = 0):

@@ -52,11 +52,11 @@ is what the dry run (`launch.dryrun`) measures:
   the local one, as the LM's), `recsys_serve_topk` (each rank's share of
   `repro`'s ``user_chunk`` users at a time) and `recsys_retrieval`, under
   `recsys_rules`.
-* GNN cells have `repro`'s arguments and specs, and no step (``fn`` None,
-  ``gap`` the reason): `repro` leaves their sharding to GSPMD, and the
-  port's GNN steps run on one device (their fixed-order segment plans are
-  built on the host from the edge indices, which a ``meta`` tensor does
-  not have; the halo GraphCast needs a partition's plan).
+* GNN: `gnn_train_step` under `gnn_rules`, on this rank's stripe of the
+  padded batch (`repro`'s arguments and specs: nodes and edges striped
+  over every mesh axis, the parameters replicated).  The segment plans of
+  ``meta`` indices are upper bounds (`models.gnn.common.segment_plan`),
+  which the cell's ``notes`` say.
 """
 
 from __future__ import annotations
@@ -72,14 +72,16 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
 
 from repro_torch.configs import get_arch
 from repro_torch.dist.sharding import (Spec, batch_specs_lm, cache_specs_lm,
-                                       entry_axes, global_norm, lm_rules,
-                                       param_specs_lm, param_specs_recsys,
-                                       recsys_rules, reduce_grads, spec_map)
+                                       entry_axes, global_norm, gnn_rules,
+                                       lm_rules, local_slice, param_specs_lm,
+                                       param_specs_recsys, recsys_rules,
+                                       reduce_grads, spec_map)
 from repro_torch.launch.mesh import RankView, axis_names, axis_sizes
 from repro_torch.models import transformer as T
-from repro_torch.models.common import NO_SHARD, ShardRules, tree_map
+from repro_torch.models.common import (NO_SHARD, ShardRules, tree_leaves,
+                                      tree_map, tree_unflatten)
 from repro_torch.models.gnn import equivariant
-from repro_torch.models.gnn.common import GraphBatch
+from repro_torch.models.gnn.common import _TENSOR_FIELDS, GraphBatch
 from repro_torch.models.gnn.graphcast import graphcast_loss, init_graphcast
 from repro_torch.models.gnn.mace import init_mace, mace_loss
 from repro_torch.models.gnn.meshgraphnet import init_mgn, mgn_loss
@@ -199,20 +201,56 @@ GNN_LOSSES = {"meshgraphnet": mgn_loss, "graphcast": graphcast_loss,
 
 
 def gnn_train_step(arch_id: str, cfg, params: dict, opt_state: dict, batch,
-                   *, remat: bool = False):
+                   *, remat: bool = False, rules: ShardRules = NO_SHARD):
     """`repro`'s ``_gnn_cell`` step body: the value and gradient of
     ``arch_id``'s loss on the `GraphBatch` ``batch``, then `adamw_update`
     with ``OPT_CFG``.  ``remat`` (GraphCast only): recompute each processor
     layer in the backward, the same bits.  Returns (params, opt_state,
-    loss)."""
+    loss).
+
+    Under ``rules`` (`gnn_rules` on a `DeviceMesh`) ``batch`` is this
+    rank's stripe of the nodes and edges (`data.synthetic.pad_graph_batch`
+    pads a host batch to a multiple of the ranks; `stripe` cuts a rank's),
+    and ``params``/``opt_state`` are whole on every rank, as `repro`'s
+    ``P()``: the loss is the global loss, `reduce_grads` sums the shares
+    over every rank, and AdamW's clipping norm is then the whole tree's on
+    every rank.  Every leaf is replicated, so the shares travel as one
+    buffer (one all-reduce a mesh axis, as XLA's all-reduce combiner
+    merges GSPMD's), not one a leaf."""
     if remat and arch_id != "graphcast":
         raise ValueError(f"{arch_id}: remat is GraphCast's option")
     loss = GNN_LOSSES[arch_id]
     kw = {"remat": True} if remat else {}
-    l, grads = value_and_grad(lambda p, b: loss(cfg, p, b, **kw))(params,
-                                                                  batch)
+    l, grads = value_and_grad(lambda p, b: loss(cfg, p, b, rules, **kw))(
+        params, batch)
+    if getattr(rules, "mesh", None) is not None:
+        leaves = tree_leaves(grads)
+        flat = torch.cat([g.reshape(-1) for g in leaves])
+        flat = reduce_grads({"g": flat}, {"g": Spec()}, rules)["g"]
+        grads = tree_unflatten(grads, [
+            x.view_as(g) for x, g in zip(
+                torch.split(flat, [g.numel() for g in leaves]), leaves)])
     params, opt_state, _ = adamw_update(OPT_CFG, grads, opt_state, params)
     return params, opt_state, l
+
+
+def stripe(batch: GraphBatch, rules: ShardRules,
+           rank: int | None = None) -> GraphBatch:
+    """This rank's block (or, with ``rank``, that rank's: row-major on the
+    rules' mesh) of a whole (padded) `GraphBatch` under `repro`'s batch
+    specs (`_gnn_batch_spec`): node and edge arrays over every mesh axis,
+    per-graph targets whole; no plans."""
+    spec = _gnn_batch_spec(rules.mesh, energy_targets=batch.targets is not None
+                           and batch.targets.dim() == 1,
+                           geometry=batch.positions is not None,
+                           n_graphs=batch.n_graphs)
+    coords = rules.coords if rank is None else dict(zip(
+        rules.mesh_axis_names, RankView(rules.mesh, rank).coord))
+    out = {f: None if getattr(batch, f) is None
+           else local_slice(getattr(batch, f), getattr(spec, f), coords,
+                            rules.mesh)
+           for f in _TENSOR_FIELDS}
+    return GraphBatch(**out, n_graphs=batch.n_graphs)
 
 
 def gnn_model_flops(arch_id: str, cfg, n_nodes: int, n_edges: int) -> float:
@@ -541,6 +579,21 @@ def _lm_serve_cell(arch, cell, mesh, moe_impl=None) -> Cell:
 
 # -- GNN cells ---------------------------------------------------------------
 
+def _gnn_batch_spec(mesh, *, energy_targets: bool, geometry: bool,
+                    n_graphs: int) -> GraphBatch:
+    """`repro`'s GNN batch specs: node and edge arrays striped over every
+    mesh axis, per-graph targets replicated."""
+    every = tuple(a for a in ("pod", "data", "model") if a in axis_names(mesh))
+    return GraphBatch(
+        node_feat=Spec(every, None), edge_src=Spec(every),
+        edge_dst=Spec(every), node_mask=Spec(every), edge_mask=Spec(every),
+        positions=Spec(every, None) if geometry else None,
+        species=Spec(every) if geometry else None,
+        graph_ids=Spec(every) if geometry else None,
+        targets=Spec() if energy_targets else Spec(every, None),
+        n_graphs=n_graphs)
+
+
 def _gnn_batch_abstract(cell, mesh, *, d_feat: int, needs_geometry: bool,
                         d_out: int, energy_targets: bool | None = None):
     """`repro`'s ``_gnn_batch_abstract``: the padded `GraphBatch` of a GNN
@@ -564,16 +617,9 @@ def _gnn_batch_abstract(cell, mesh, *, d_feat: int, needs_geometry: bool,
     n_pad = _pad_to(n_nodes, D)
     e_pad = _pad_to(n_edges, D)
     f32, i32 = torch.float32, torch.int32
-    every = tuple(a for a in ("pod", "data", "model") if a in axis_names(mesh))
     geo = needs_geometry
-    spec = GraphBatch(
-        node_feat=Spec(every, None), edge_src=Spec(every),
-        edge_dst=Spec(every), node_mask=Spec(every), edge_mask=Spec(every),
-        positions=Spec(every, None) if geo else None,
-        species=Spec(every) if geo else None,
-        graph_ids=Spec(every) if geo else None,
-        targets=Spec() if energy_targets else Spec(every, None),
-        n_graphs=n_graphs)
+    spec = _gnn_batch_spec(mesh, energy_targets=energy_targets, geometry=geo,
+                           n_graphs=n_graphs)
     full = dict(node_feat=((n_pad, d_feat), f32), edge_src=((e_pad,), i32),
                 edge_dst=((e_pad,), i32), node_mask=((n_pad,), f32),
                 edge_mask=((e_pad,), f32),
@@ -588,13 +634,6 @@ def _gnn_batch_abstract(cell, mesh, *, d_feat: int, needs_geometry: bool,
         for f, v in full.items()}, n_graphs=n_graphs)
     note = f"padded nodes {n_nodes}->{n_pad}, edges {n_edges}->{e_pad}"
     return batch, spec, n_pad, e_pad, note
-
-
-_GNN_GAP = ("the port's GNN steps run on one device: `repro` lets GSPMD "
-            "stripe nodes and edges over every mesh axis, and the port's "
-            "fixed-order segment plans are built on the host from the edge "
-            "indices, which meta tensors do not hold (the halo GraphCast "
-            "needs a partition's plan)")
 
 
 def _gnn_cell(arch, cell, mesh) -> Cell:
@@ -618,12 +657,18 @@ def _gnn_cell(arch, cell, mesh) -> Cell:
     params = _abstract_init(init, cfg)
     pspec = _replicated(params)
     ospec = {"m": pspec, "v": pspec, "count": Spec()}
+    # one device: the one-process step (`NO_SHARD`), as a card runs it
+    rules = NO_SHARD if _n_devices(mesh) == 1 else gnn_rules(_view(mesh))
+
+    def step(params, opt_state, batch):
+        return gnn_train_step(aid, cfg, params, opt_state, batch, rules=rules)
+
     return Cell(
-        arch_id=aid, shape_name=cell.name, kind="train", fn=None,
+        arch_id=aid, shape_name=cell.name, kind="train", fn=step,
         abstract_args=(params, abstract_opt_state(params), batch),
         in_specs=(pspec, ospec, bspec), out_specs=(pspec, ospec, Spec()),
-        model_flops=gnn_model_flops(aid, cfg, n_pad, e_pad), notes=note,
-        gap=_GNN_GAP)
+        model_flops=gnn_model_flops(aid, cfg, n_pad, e_pad),
+        notes=note + "; segment plans: upper bounds (meta indices)")
 
 
 # -- RecSys cells ------------------------------------------------------------

@@ -31,6 +31,37 @@ sequential ``segment_sum`` adds them.  (The other way out, leaving the
 masked slots out of the plan, would need every caller to have zeroed
 them and would leave the hubs serial.)  No Pallas kernel lies on this
 path: `repro` sums with ``jax.ops.segment_sum``.
+
+Across ranks (`repro`'s ``gnn_rules``: nodes and edges striped over every
+mesh axis).  Under a `MeshRules` whose ``nodes`` entry names axes, a rank
+holds its stripe of the node arrays (N / D rows) and of the edge arrays
+(E / D); the edge indices hold global node ids.  A layer reads the node
+table once: :func:`node_table` all-gathers the stripe over the nodes'
+axes in shard order (its backward reduce-scatters), and the takes of
+`gather` read that one table with the rank's plans over all N rows, so
+the gradients of a layer's takes add on the rank, each in its plan's
+order, before the one reduce-scatter.  ``scatter_sum(..., rules)`` sums
+the rank's edge stripe into all N rows in the plan's order, then
+reduce-scatters the (N, ...) partial to the rank's node stripe; its
+backward all-gathers the gradient and takes it at the rank's index.  The
+table is not kept across layers: the backward reads the edges' inputs,
+not the table.  Under `NO_SHARD` both keep the one-process code path and
+its bits.
+
+The order of the sums across ranks.  A rank's partial of every row is
+summed in its plan's fixed order; the ranks' partials are then added by
+the backend's reduce-scatter, one mesh axis after the other (``data``
+before ``model``, `MeshRules.scatter`), in the order its algorithm fixes
+for a given world size: gloo's reduce-scatter and NCCL's ring add the
+ranks' buffers in a schedule that depends on the world size and the
+ranks' order, not on the run.  So two runs on the same ranks give the
+same bits.  They are not `repro`'s bits, nor the one process's: once a
+row's entries fall on several ranks, its runs of `RUN` split at other
+places.
+
+A ``meta`` index (the dry run: shapes, no values) gets a plan of ``meta``
+tensors sized by bounds that hold for any index of E entries into n rows
+(`segment_plan`); nothing reads a value from it.
 """
 
 from __future__ import annotations
@@ -39,6 +70,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.models.common import NO_SHARD, ShardRules, grad_scale
 
 RUN = 32     # entries (or partials) one thread adds in order
 
@@ -94,10 +127,33 @@ def _runs(counts: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return nseg, np.minimum(RUN, counts[row] - k * RUN)
 
 
+def _meta_plan(E: int, n: int) -> SegmentPlan:
+    """A plan of ``meta`` tensors for any index of ``E`` entries into ``n``
+    rows, each size an upper bound: a row of c > RUN entries adds
+    ⌈c/RUN⌉ − 1 < c/RUN segments to its one, so at most n + ⌈E/RUN⌉
+    first-level segments; at most L = ⌊E/(RUN+1)⌋ rows are split, and
+    their partials number the split segments plus L, at most ⌈E/RUN⌉ + L;
+    the tree is one level of them into L rows (a real plan adds a level
+    for a row of more than RUN² entries, each at most 1/RUN of the one
+    before: left out)."""
+    T = -(-E // RUN)
+    L = min(n, E // (RUN + 1))
+
+    def t(k):
+        return torch.empty((k,), dtype=torch.int64, device="meta")
+
+    return SegmentPlan(index=t(E), n=int(n), perm=t(E), offsets=t(n + T + 1),
+                       first=t(n), long_rows=t(L), take=t(T + L),
+                       tree=(t(L + 1),))
+
+
 def segment_plan(index, n: int) -> SegmentPlan:
     """The :class:`SegmentPlan` of ``index`` (a tensor or array of rows in
     [0, n)), on ``index``'s device (host arrays: the CPU).  Host NumPy;
-    reads a device index back once."""
+    reads a device index back once.  A ``meta`` index has no values: its
+    plan is `_meta_plan`'s upper bound, of ``meta`` tensors."""
+    if isinstance(index, torch.Tensor) and index.device.type == "meta":
+        return _meta_plan(index.numel(), n)
     dev = index.device if isinstance(index, torch.Tensor) \
         else torch.device("cpu")
     idx = (index.detach().cpu().numpy() if isinstance(index, torch.Tensor)
@@ -196,11 +252,86 @@ def _as_plan(index, n: int) -> SegmentPlan:
     return segment_plan(index, n)
 
 
-def scatter_sum(values: torch.Tensor, index, n: int) -> torch.Tensor:
+class _StripeSum(torch.autograd.Function):
+    """The rank's ordered sum of its edge stripe into all n rows, then the
+    reduce-scatter to its node stripe; its backward is the all-gather of
+    the gradient and a take."""
+
+    @staticmethod
+    def forward(ctx, values, plan, rules, entry):
+        ctx.plan, ctx.rules, ctx.entry = plan, rules, entry
+        return rules.scatter(ordered_sum(values, plan), entry, 0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        full = ctx.rules.gather(grad, ctx.entry, 0)
+        return full.index_select(0, ctx.plan.index), None, None, None
+
+
+def node_entry(rules: ShardRules):
+    """The spec entry the node and edge stripes split over: `gnn_rules`'
+    ``nodes`` (None under `NO_SHARD`, or where it names no axis).  The
+    sums need the edges striped over the same axes."""
+    if getattr(rules, "mesh", None) is None:
+        return None
+    nodes = rules.spec(("nodes",))[0]
+    if nodes != rules.spec(("edges",))[0]:
+        raise ValueError(f"nodes stripe over {nodes}, edges over "
+                         f"{rules.spec(('edges',))[0]}: the sums need one "
+                         "entry")
+    return nodes
+
+
+def global_rows(rows: int, rules: ShardRules = NO_SHARD) -> int:
+    """The rows of every rank's node stripes together: ``rows`` (a
+    stripe's) times the nodes' shard count."""
+    entry = node_entry(rules)
+    return rows if entry is None else rows * rules.count(entry)
+
+
+def node_table(x: torch.Tensor, rules: ShardRules = NO_SHARD) -> torch.Tensor:
+    """Every rank's stripe of ``x`` concatenated in shard order: the whole
+    (N, ...) table.  Its backward reduce-scatters the gradient
+    (`MeshRules.gather`).  Over one shard (`NO_SHARD`, or a mesh of one
+    rank) the stripe is the table: ``x`` itself, no collective, so the
+    gradients of the takes join ``x``'s others one by one, as in the one
+    process, and a rank alone gives the one process's bits."""
+    entry = node_entry(rules)
+    if entry is None or rules.count(entry) == 1:
+        return x
+    return rules.gather(x, entry, 0)
+
+
+def node_sum(x: torch.Tensor, rules: ShardRules = NO_SHARD) -> torch.Tensor:
+    """Σ of ``x`` over the ranks of the node stripes (``psum``; ``x``
+    under `NO_SHARD`)."""
+    entry = node_entry(rules)
+    return x if entry is None else rules.psum(x, entry)
+
+
+def loss_share(loss: torch.Tensor, rules: ShardRules = NO_SHARD) -> torch.Tensor:
+    """A global loss as this rank's share of the gradient (1 / ranks:
+    `repro_torch.dist.sharding.reduce_grads` sums the shares)."""
+    if node_entry(rules) is None or rules.n_ranks == 1:
+        return loss
+    return grad_scale(loss, 1.0 / rules.n_ranks)
+
+
+def scatter_sum(values: torch.Tensor, index, n: int,
+                rules: ShardRules = NO_SHARD) -> torch.Tensor:
     """Σ values into n rows (the GNN aggregation primitive), each row's
     entries in the plan's fixed order.  ``index``: a :class:`SegmentPlan`
-    (cached by `GraphBatch.plan`) or a tensor of rows (planned here)."""
-    return _ScatterSum.apply(values, _as_plan(index, n))
+    (cached by `GraphBatch.plan`) or a tensor of rows (planned here).
+
+    Under ``rules`` striping the nodes, ``values`` and ``index`` are the
+    rank's edge stripe (global rows, ``n`` the global count) and the
+    result its node stripe (n / shards rows): the ordered sum into all n
+    rows, reduce-scattered over the nodes' axes."""
+    plan = _as_plan(index, n)
+    entry = node_entry(rules)
+    if entry is None:
+        return _ScatterSum.apply(values, plan)
+    return _StripeSum.apply(values, plan, rules, entry)
 
 
 def gather(x: torch.Tensor, index) -> torch.Tensor:
@@ -260,13 +391,16 @@ class GraphBatch:
     def n_nodes(self) -> int:
         return self.node_mask.shape[0]
 
-    def plan(self, field: str, n: int | None = None) -> SegmentPlan:
+    def plan(self, field: str, n: int | None = None,
+             rules: ShardRules = NO_SHARD) -> SegmentPlan:
         """The plan of index field ``field`` over ``n`` rows (default: the
-        batch's nodes), built at first use; a field that is None (no
-        species, no graph ids) indexes row 0 for every node, as `repro`'s
-        models read it."""
-        n = self.n_nodes if n is None else int(n)
-        key = (field, n)
+        nodes of every rank's stripe, `global_rows`), built at first use;
+        a field that is None (no species, no graph ids) indexes row 0 for
+        every node, as `repro`'s models read it.  Under ``rules`` the
+        batch is a rank's stripe and its plans are cached apart from the
+        one-process plans of the same field and rows."""
+        n = global_rows(self.n_nodes, rules) if n is None else int(n)
+        key = (field, n, node_entry(rules))
         if key not in self.plans:
             index = getattr(self, field)
             if index is None:      # no species / graph ids: all row 0

@@ -15,7 +15,12 @@ GraphCast interaction-network block (MeshGraphNet's `interaction_layer`).
 layer in the backward (``torch.utils.checkpoint``, non-reentrant): at
 ``minibatch_lg``'s 168,960 edges and 169,984 nodes a layer saves several
 GB of activations, and 16 of them do not fit one 80 GB card.  The loss
-and gradients are bit-identical either way.
+and gradients are bit-identical either way.  Under ``rules`` the
+recomputed layer gathers its node table again in the backward (the
+table is not saved: it is (N, 512) a layer), which gives the same bits.
+
+``rules``: as MeshGraphNet's (`repro`'s ``gnn_rules``; the layer is its
+`interaction_layer`).
 """
 
 from __future__ import annotations
@@ -26,12 +31,20 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import mlp_apply, mlp_init, stack_trees, tree_slice
+from repro_torch.models.common import (
+    NO_SHARD,
+    ShardRules,
+    mlp_apply,
+    mlp_init,
+    stack_trees,
+    tree_slice,
+)
 from repro_torch.models.gnn.common import GraphBatch
 from repro_torch.models.gnn.meshgraphnet import (
     _mlp_ln,
     _mlp_ln_init,
     interaction_layer,
+    masked_mean,
 )
 
 
@@ -65,22 +78,24 @@ def init_graphcast(cfg: GraphCastConfig, generator: torch.Generator) -> dict:
 
 
 def graphcast_forward(cfg: GraphCastConfig, params: dict, batch: GraphBatch,
-                      *, remat: bool = False) -> torch.Tensor:
+                      rules: ShardRules = NO_SHARD, *,
+                      remat: bool = False) -> torch.Tensor:
     h = _mlp_ln(params["enc"], batch.node_feat.to(cfg.dtype))
     e = _mlp_ln(params["enc_edge"], batch.edge_mask[:, None].to(cfg.dtype))
     for i in range(cfg.n_layers):
         layer_p = tree_slice(params["layers"], i)
         if remat:
-            h, e = checkpoint(interaction_layer, layer_p, h, e, batch,
+            h, e = checkpoint(interaction_layer, layer_p, h, e, batch, rules,
                               use_reentrant=False)
         else:
-            h, e = interaction_layer(layer_p, h, e, batch)
+            h, e = interaction_layer(layer_p, h, e, batch, rules)
     return mlp_apply(params["dec"], h)
 
 
 def graphcast_loss(cfg: GraphCastConfig, params: dict, batch: GraphBatch,
-                   *, remat: bool = False) -> torch.Tensor:
-    pred = graphcast_forward(cfg, params, batch, remat=remat)
+                   rules: ShardRules = NO_SHARD, *,
+                   remat: bool = False) -> torch.Tensor:
+    pred = graphcast_forward(cfg, params, batch, rules, remat=remat)
     tgt = batch.targets if batch.targets is not None else torch.zeros_like(pred)
     err = ((pred - tgt) ** 2).mean(-1) * batch.node_mask
-    return err.sum() / torch.clamp(batch.node_mask.sum(), min=1.0)
+    return masked_mean(err, batch.node_mask, rules)

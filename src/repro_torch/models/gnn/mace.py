@@ -13,6 +13,10 @@ Port of `repro.models.gnn.mace`.  Per layer:
 pairing: the per-path weights into the Gaunt blocks (C, 9, 9, 9), then
 the first feature (N, C, 9, 9: 159 MB at the ``molecule`` cell's 3,840
 atoms and C = 128), then the second.
+
+``rules``: as NequIP's (`repro`'s ``gnn_rules``): the one-particle basis A
+reduce-scatters to the rank's atoms, where `repro` constrains it to
+``("nodes", None, None)``; the ACE products and the readout are local.
 """
 
 from __future__ import annotations
@@ -23,19 +27,23 @@ from typing import Any
 import torch
 
 from repro_torch.models.common import (
+    NO_SHARD,
+    ShardRules,
     dense_init,
     mlp_apply,
     mlp_init,
     stack_trees,
     tree_slice,
 )
-from repro_torch.models.gnn.common import GraphBatch, gather, scatter_sum
-from repro_torch.models.gnn.equivariant import n_paths, path_tensors_on, tensor_product
+from repro_torch.models.gnn.common import GraphBatch
+from repro_torch.models.gnn.equivariant import n_paths, path_tensors_on
 from repro_torch.models.gnn.nequip import (
     _edge_geometry,
     _initial_features,
     _per_l_linear,
     _per_l_linear_init,
+    edge_messages,
+    energy_loss,
     graph_sum,
 )
 
@@ -97,12 +105,9 @@ def init_mace(cfg: MACEConfig, generator: torch.Generator) -> dict:
 
 
 def mace_layer(cfg: MACEConfig, layer_p: dict, h: torch.Tensor,
-               batch: GraphBatch, sh: torch.Tensor, rbf: torch.Tensor):
-    N, C, P = h.shape[0], cfg.d_hidden, n_paths()
-    radial = mlp_apply(layer_p["radial"], rbf).reshape(-1, C, P)
-    msg = tensor_product(gather(h, batch.plan("edge_src")), sh, radial)
-    msg = msg * batch.edge_mask[:, None, None]
-    A = scatter_sum(msg, batch.plan("edge_dst"), N) / cfg.avg_neighbors
+               batch: GraphBatch, sh: torch.Tensor, rbf: torch.Tensor,
+               rules: ShardRules = NO_SHARD):
+    A = edge_messages(cfg, layer_p, h, batch, sh, rbf, rules)
     A = _per_l_linear(layer_p["mix_A"], A)
 
     # higher-order ACE products: B¹=A, B^ν = B^{ν−1} ⊗_G A
@@ -117,21 +122,19 @@ def mace_layer(cfg: MACEConfig, layer_p: dict, h: torch.Tensor,
     return h_new, atom_e
 
 
-def mace_energy(cfg: MACEConfig, params: dict,
-                batch: GraphBatch) -> torch.Tensor:
-    h = _initial_features(cfg, params, batch)
-    sh, rbf = _edge_geometry(cfg, batch)
+def mace_energy(cfg: MACEConfig, params: dict, batch: GraphBatch,
+                rules: ShardRules = NO_SHARD) -> torch.Tensor:
+    h = _initial_features(cfg, params, batch, rules)
+    sh, rbf = _edge_geometry(cfg, batch, rules)
     atom_es = []
     for i in range(cfg.n_layers):
         h, atom_e = mace_layer(cfg, tree_slice(params["layers"], i), h, batch,
-                               sh, rbf)
+                               sh, rbf, rules)
         atom_es.append(atom_e)
     atom_e = torch.stack(atom_es).sum(0) * batch.node_mask
-    return graph_sum(atom_e, batch)
+    return graph_sum(atom_e, batch, rules)
 
 
-def mace_loss(cfg: MACEConfig, params: dict,
-              batch: GraphBatch) -> torch.Tensor:
-    e = mace_energy(cfg, params, batch)
-    tgt = batch.targets if batch.targets is not None else torch.zeros_like(e)
-    return torch.mean((e - tgt) ** 2)
+def mace_loss(cfg: MACEConfig, params: dict, batch: GraphBatch,
+              rules: ShardRules = NO_SHARD) -> torch.Tensor:
+    return energy_loss(mace_energy(cfg, params, batch, rules), batch, rules)

@@ -13,6 +13,17 @@ Port of `repro.models.gnn.nequip`.  Per layer:
 Readout: per-atom MLP on final scalars → Σ over atoms (per graph).  Every
 sum over edges, atoms and species is the fixed-order sum of
 `repro_torch.models.gnn.common`.
+
+``rules`` (`repro`'s ``gnn_rules``; default `NO_SHARD`): ``batch`` is this
+rank's stripe of the atoms and edges, as MeshGraphNet's.  A layer
+all-gathers ``h`` once for its take at the edge sources and
+reduce-scatters the aggregate to the rank's atoms (`repro`'s
+``("nodes", None, None)`` constraint); positions are gathered once for
+the edge geometry.  The species table is replicated, so its take is
+local (its gradient is summed by `reduce_grads`).  Each rank sums its
+atoms' energies into all ``n_graphs`` rows, then the rows are summed over
+the node stripes; the targets are replicated, so every rank returns the
+global loss.
 """
 
 from __future__ import annotations
@@ -23,13 +34,23 @@ from typing import Any
 import torch
 
 from repro_torch.models.common import (
+    NO_SHARD,
+    ShardRules,
     dense_init,
     mlp_apply,
     mlp_init,
     stack_trees,
     tree_slice,
 )
-from repro_torch.models.gnn.common import GraphBatch, gather, scatter_sum
+from repro_torch.models.gnn.common import (
+    GraphBatch,
+    gather,
+    global_rows,
+    loss_share,
+    node_sum,
+    node_table,
+    scatter_sum,
+)
 from repro_torch.models.gnn.equivariant import (
     L_MAX,
     L_SLICES,
@@ -39,6 +60,7 @@ from repro_torch.models.gnn.equivariant import (
     sh_l2,
     tensor_product,
 )
+from repro_torch.models.gnn.meshgraphnet import edge_displacements
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,11 +112,13 @@ def init_nequip(cfg: NequIPConfig, generator: torch.Generator) -> dict:
     return p
 
 
-def _initial_features(cfg, params, batch: GraphBatch) -> torch.Tensor:
+def _initial_features(cfg, params, batch: GraphBatch,
+                      rules: ShardRules = NO_SHARD) -> torch.Tensor:
     N = batch.n_nodes
     C = cfg.d_hidden
     scalars = gather(params["species_embed"],
-                     batch.plan("species", params["species_embed"].shape[0]))
+                     batch.plan("species", params["species_embed"].shape[0],
+                                rules))
     if cfg.d_feat_in and batch.node_feat is not None \
             and batch.node_feat.dim() == 2:
         scalars = scalars + batch.node_feat.to(cfg.dtype) @ params["feat_proj"]
@@ -102,9 +126,8 @@ def _initial_features(cfg, params, batch: GraphBatch) -> torch.Tensor:
     return torch.cat([scalars[:, :, None], rest], dim=-1)
 
 
-def _edge_geometry(cfg, batch: GraphBatch):
-    rel = gather(batch.positions, batch.plan("edge_src")) - gather(
-        batch.positions, batch.plan("edge_dst"))
+def _edge_geometry(cfg, batch: GraphBatch, rules: ShardRules = NO_SHARD):
+    rel = edge_displacements(batch, rules)
     r = torch.linalg.vector_norm(rel, dim=-1)
     rhat = rel / torch.clamp(r, min=1e-6)[:, None]
     sh = sh_l2(rhat).to(cfg.dtype)
@@ -112,15 +135,29 @@ def _edge_geometry(cfg, batch: GraphBatch):
     return sh, rbf
 
 
+def edge_messages(cfg, layer_p: dict, h: torch.Tensor, batch: GraphBatch,
+                  sh: torch.Tensor, rbf: torch.Tensor,
+                  rules: ShardRules = NO_SHARD) -> torch.Tensor:
+    """Σ_j R(r_ij) · (h_j ⊗_G Y(r̂_ij)) / avg_neighbors into the batch's
+    (the rank's) atoms: NequIP's aggregate and MACE's A."""
+    C, P = cfg.d_hidden, n_paths()
+    n = global_rows(h.shape[0], rules)
+    radial = mlp_apply(layer_p["radial"], rbf).reshape(-1, C, P)
+    table = node_table(h, rules)
+    msg = tensor_product(gather(table, batch.plan("edge_src", n, rules)), sh,
+                         radial)
+    del table
+    msg = msg * batch.edge_mask[:, None, None]
+    return scatter_sum(msg, batch.plan("edge_dst", n, rules), n,
+                       rules) / cfg.avg_neighbors
+
+
 def nequip_layer(cfg: NequIPConfig, layer_p: dict, h: torch.Tensor,
                  batch: GraphBatch, sh: torch.Tensor,
-                 rbf: torch.Tensor) -> torch.Tensor:
-    N, C = h.shape[0], cfg.d_hidden
-    P = n_paths()
-    radial = mlp_apply(layer_p["radial"], rbf).reshape(-1, C, P)
-    msg = tensor_product(gather(h, batch.plan("edge_src")), sh, radial)
-    msg = msg * batch.edge_mask[:, None, None]
-    agg = scatter_sum(msg, batch.plan("edge_dst"), N) / cfg.avg_neighbors
+                 rbf: torch.Tensor, rules: ShardRules = NO_SHARD
+                 ) -> torch.Tensor:
+    C = cfg.d_hidden
+    agg = edge_messages(cfg, layer_p, h, batch, sh, rbf, rules)
     z = _per_l_linear(layer_p["self"], agg) + _per_l_linear(layer_p["skip"], h)
     # gate nonlinearity: SiLU scalars, sigmoid-gated higher irreps
     s = z[:, :, 0]
@@ -130,26 +167,35 @@ def nequip_layer(cfg: NequIPConfig, layer_p: dict, h: torch.Tensor,
     return torch.cat([s_act[:, :, None], z[:, :, 1:] * vec_gate], dim=-1)
 
 
-def graph_sum(atom_e: torch.Tensor, batch: GraphBatch) -> torch.Tensor:
-    """Per-atom values summed per graph (n_graphs,), in the fixed order."""
-    return scatter_sum(atom_e, batch.plan("graph_ids", batch.n_graphs),
-                       batch.n_graphs)
+def graph_sum(atom_e: torch.Tensor, batch: GraphBatch,
+              rules: ShardRules = NO_SHARD) -> torch.Tensor:
+    """Per-atom values summed per graph (n_graphs,), in the fixed order:
+    the rank's atoms into every graph, then over the node stripes."""
+    e = scatter_sum(atom_e, batch.plan("graph_ids", batch.n_graphs, rules),
+                    batch.n_graphs)
+    return node_sum(e, rules)
 
 
-def nequip_energy(cfg: NequIPConfig, params: dict,
-                  batch: GraphBatch) -> torch.Tensor:
+def energy_loss(e: torch.Tensor, batch: GraphBatch,
+                rules: ShardRules = NO_SHARD) -> torch.Tensor:
+    """Mean squared error of the per-graph energies (the same on every
+    rank: energies and targets are whole there)."""
+    tgt = batch.targets if batch.targets is not None else torch.zeros_like(e)
+    return loss_share(torch.mean((e - tgt) ** 2), rules)
+
+
+def nequip_energy(cfg: NequIPConfig, params: dict, batch: GraphBatch,
+                  rules: ShardRules = NO_SHARD) -> torch.Tensor:
     """Per-graph potential energies (n_graphs,)."""
-    h = _initial_features(cfg, params, batch)
-    sh, rbf = _edge_geometry(cfg, batch)
+    h = _initial_features(cfg, params, batch, rules)
+    sh, rbf = _edge_geometry(cfg, batch, rules)
     for i in range(cfg.n_layers):
         h = nequip_layer(cfg, tree_slice(params["layers"], i), h, batch, sh,
-                         rbf)
+                         rbf, rules)
     atom_e = mlp_apply(params["readout"], h[:, :, 0])[:, 0] * batch.node_mask
-    return graph_sum(atom_e, batch)
+    return graph_sum(atom_e, batch, rules)
 
 
-def nequip_loss(cfg: NequIPConfig, params: dict,
-                batch: GraphBatch) -> torch.Tensor:
-    e = nequip_energy(cfg, params, batch)
-    tgt = batch.targets if batch.targets is not None else torch.zeros_like(e)
-    return torch.mean((e - tgt) ** 2)
+def nequip_loss(cfg: NequIPConfig, params: dict, batch: GraphBatch,
+                rules: ShardRules = NO_SHARD) -> torch.Tensor:
+    return energy_loss(nequip_energy(cfg, params, batch, rules), batch, rules)

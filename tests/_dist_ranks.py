@@ -286,6 +286,89 @@ def case_lm_step(cfg, params, batch, mesh_shape, steps=1, grads=False,
     return out
 
 
+def case_gnn_step(arch_id, cfg, params, batch, mesh_shape, control=False):
+    """One GNN arch under `gnn_rules` on a (data, model) mesh of
+    ``mesh_shape``: this rank's stripe of the whole (padded) ``batch``
+    (`launch.cells.stripe`), the loss and the reduced gradient (NumPy
+    trees), the params after one `gnn_train_step`, whether a second run
+    of both gave the same bits, and the collectives it ran.  With
+    ``control``, each rank also takes the next rank's node stripe with its
+    own edges (a wrong layout, whose gradient must miss)."""
+    import dataclasses
+
+    from repro_torch.dist import group as dist_group
+    from repro_torch.dist.sharding import gnn_rules, reduce_grads
+    from repro_torch.launch.cells import (GNN_LOSSES, _replicated,
+                                          gnn_train_step, stripe)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.train_loop import value_and_grad
+
+    rules = gnn_rules(make_mesh(mesh_shape, ("data", "model")))
+    p = _torch_tree(params)
+    mine = stripe(batch, rules)
+
+    def grads_of(b):
+        loss, g = value_and_grad(lambda q, bb: GNN_LOSSES[arch_id](
+            cfg, q, bb, rules))(p, b)
+        return float(loss), _numpy_tree(reduce_grads(g, _replicated(g), rules))
+
+    def run():
+        with dist_group.census() as cen:
+            loss, g = grads_of(mine)
+        new = gnn_train_step(arch_id, cfg, p, adamw_init(p), mine,
+                             rules=rules)[0]
+        return loss, g, _numpy_tree(new), cen.records
+
+    loss, g, new, records = run()
+    loss2, g2, new2, _ = run()
+    out = dict(coords=rules.coords, loss=loss, grads=g, params=new,
+               n_local=mine.n_nodes, e_local=int(mine.edge_src.shape[0]),
+               collectives=sorted({r[0] for r in records}))
+    out["repeat_equal"] = loss2 == loss and all(
+        np.array_equal(x, y) for x, y in zip(_leaves(g) + _leaves(new),
+                                             _leaves(g2) + _leaves(new2)))
+    if control:
+        r, n = dist.get_rank(), dist.get_world_size()
+        shifted = stripe(batch, rules, (r + 1) % n)
+        nodes = [f for f in _NODE_FIELDS if getattr(shifted, f) is not None]
+        if batch.targets.dim() > 1:            # node targets move with them
+            nodes.append("targets")
+        out["control_grads"] = grads_of(dataclasses.replace(
+            mine, **{f: getattr(shifted, f) for f in nodes}, plans={}))[1]
+    return out
+
+
+def case_stripe_sum(index, values, n, device="cpu"):
+    """`scatter_sum` and the take's backward under `gnn_rules` on a mesh
+    of every rank along ``model`` (the ranks' edge stripes of ``values``
+    and ``index``; this rank's node stripe back), beside the one-process
+    sum of this rank's edges: (sharded, one-process, the sharded take's
+    gradient), NumPy."""
+    from repro_torch.dist.sharding import Spec, gnn_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.gnn.common import (gather, node_table,
+                                               scatter_sum, segment_plan)
+
+    rules = gnn_rules(make_mesh((1, dist.get_world_size()),
+                                ("data", "model")))
+    rows = Spec(("data", "model"))
+    idx = rules.local(torch.from_numpy(index), rows).to(device)
+    v = rules.local(torch.from_numpy(values), rows).to(device)
+    plan = segment_plan(idx, n)
+    got = scatter_sum(v, plan, n, rules)
+    one = scatter_sum(v, plan, n)
+    x = torch.zeros((n // dist.get_world_size(),) + tuple(v.shape[1:]),
+                    device=device, requires_grad=True)
+    (g,) = torch.autograd.grad((gather(node_table(x, rules), plan)
+                                * v).sum(), x)
+    return got.cpu().numpy(), one.cpu().numpy(), g.cpu().numpy()
+
+
+_NODE_FIELDS = ("node_feat", "node_mask", "positions", "species",
+                "graph_ids")
+
+
 def case_reshard(tree, save_shape, load_shape, spec, workdir):
     """A tree placed on a (data, model) mesh of ``save_shape`` under
     ``spec`` (per leaf), gathered and saved by rank 0; every rank waits,

@@ -1042,6 +1042,31 @@ def test_gnn_smoke_step_on_card_matches_cpu(card, arch_id):
                                                   tree_leaves(b[0])))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 512])
+def test_gnn_sharded_scatter_sum_at_world_size_one_on_card(card, d,
+                                                           tmp_path):
+    """`scatter_sum` under `gnn_rules` on one NCCL rank (a (1, 1) mesh: the
+    ordered sum, then a reduce-scatter over a group of one) against the
+    one-process sum on the card, bit for bit, and the take's backward
+    (the node table's reduce-scatter of the ordered sum) likewise."""
+    import _dist_ranks
+
+    rng = np.random.default_rng(d + 1)
+    E, n = 40_000, 30_000
+    idx = np.minimum(rng.zipf(1.5, E) - 1, n - 1)
+    idx[rng.random(E) < 0.6] = 0
+    v = rng.normal(size=(E, d)).astype(np.float32)
+    (got,) = _dist_ranks.run_ranks(
+        _dist_ranks.run_cases,
+        {"sum": ("case_stripe_sum", dict(index=idx, values=v, n=n,
+                                         device="cuda"))},
+        1, tmp_path, backend="nccl")
+    sharded, one, grad = got["sum"]
+    np.testing.assert_array_equal(sharded, one)
+    np.testing.assert_array_equal(grad, one)
+
+
 # ---------------------------------------------------------------------------
 # The dry run's view of K6 and K5 (src/repro_torch/launch/dryrun.py): their
 # FLOP formulas on the card's own launches, and their shape rule for meta

@@ -201,8 +201,9 @@ def test_build_cell_matches_repro(arch, shape, tag, repro_cells):
     assert got == want["args"]
     assert {x.device.type for x in args} == {"meta"}
     family = get_arch(arch).family
-    if family == "gnn":   # no sharded GNN step in the port
-        assert cell.fn is None and cell.gap
+    if family == "gnn":   # the sharded GNN step under gnn_rules
+        assert callable(cell.fn) and cell.gap is None
+        assert cell.notes.startswith(want["notes"])
     elif family == "recsys":
         assert callable(cell.fn) and cell.gap is None
     elif get_arch(arch).make_config().moe is not None:
@@ -496,9 +497,13 @@ def test_dryrun_cli_writes_repro_keys(tmp_path, monkeypatch):
     train = json.loads((tmp_path / names[3]).read_text())
     assert train["profile_method"] == "layer-diff(2,4)->L=22"
     assert train["collectives"]["counts"]["all-reduce"] > 0
-    gap = dryrun.run_cell("meshgraphnet", "full_graph_sm", multi_pod=True,
-                          verbose=False)
-    assert gap["status"] == "gap" and "GNN" in gap["reason"]
+    for multi_pod, n_dev in ((False, 256), (True, 512)):
+        gnn = dryrun.run_cell("meshgraphnet", "full_graph_sm",
+                              multi_pod=multi_pod, verbose=False)
+        assert gnn["status"] == "ok" and gnn["n_devices"] == n_dev
+        assert gnn["profile_method"] == "layer-diff(2,4)->L=15"
+        counts = gnn["collectives"]["counts"]
+        assert counts["all-gather"] > 0 and counts["reduce-scatter"] > 0
     ok = dryrun.run_cell("sasrec", "serve_p99", multi_pod=True,
                          verbose=False)
     assert ok["status"] == "ok" and ok["n_devices"] == 512
