@@ -348,7 +348,9 @@ Phases, each printing JSON lines:
     before the phase fails.  No kernel of the port lies on this path.
 14. ``shard`` — `repro`'s sharding rules across ranks: 4 gloo ranks
     sharing the card (their collectives through the host), then 1 NCCL
-    rank at world size 1, each laying `DeviceMesh`es over its group.
+    rank at world size 1, each laying `DeviceMesh`es over its group; every
+    LM runs sequence parallel (`lm_rules`: the residual stream each rank's
+    slice of the sequence between blocks, a prompt of 512 over 4).
     (a) `mistral-large-123b` cut to 2 layers at full width, bf16, tensor
     parallel over ``model`` = 4 (`build_model` with `lm_rules`: each rank
     draws the layers and keeps its slices; vocab-parallel K5 lookup and
@@ -358,12 +360,21 @@ Phases, each printing JSON lines:
     that reading and a control's (the one-process model with its attention
     rounded to 4 mantissa bits), which must exceed it; a token that
     differs from the one-process argmax only at a near tie; each rank's
-    weight bytes beside the one-process total.  (b) `deepseek-moe-16b`,
-    2 layers, ``impl="shardmap"`` (expert parallelism), at the capacity
-    factor E / top_k under which nothing drops, the same runs and gate;
-    at the published capacity factor two prefills bit-identical and the
-    dropped share; one full-width MoE layer in fp32 on 512 tokens against
-    one-process `moe_apply`, ≤ 2e-4 of max|y|.  (c) a deepseek train step
+    weight bytes beside the one-process total; the greedy run's bytes on
+    the wire a rank (the census) equal to the dry run's census of the same
+    run on meta tensors, beside that census without sequence parallelism
+    (PR 30's layout).  (b) `deepseek-moe-16b`, 2 layers, ``impl="shardmap"``
+    (expert parallelism), at the capacity factor E / top_k under which
+    nothing drops, the same runs and gate; at the published capacity
+    factor two prefills bit-identical as expert parallelism (capacity per
+    rank) and two as the pjit dispatch (`repro`'s default: capacity from
+    the global token count), each one's dropped share and capacities; the
+    pjit prefill's last logits against the one-process published model's
+    under (a)'s gate and control, the gloo ranks' the same bits, the NCCL
+    rank's the one process's; one full-width MoE layer in fp32 on 512
+    tokens against one-process `moe_apply`, ≤ 2e-4 of max|y|, as expert
+    parallelism with no drops and as the pjit dispatch at the published
+    capacity factor.  (c) a deepseek train step
     (1 layer, fp32 compute, no drops, no recompute; 4 × 256 tokens) on
     (data, model) = (2, 2): the loss within 2e-3 of the one-process
     step's; every rank's clipped gradient (AdamW's first moment after the
@@ -373,7 +384,7 @@ Phases, each printing JSON lines:
     one-process gradient is within 1e-4 of the leaf's max|g| of 0 (AdamW's
     first step moves an entry by lr · g / (|g| + eps): a gradient at the
     rounding's distance from 0 moves it either way); one step twice the
-    same bits.  (d) the NCCL rank runs (a)–(c) on (1, 1) meshes: tokens,
+    same bits; its bytes on the wire as (a)'s.  (d) the NCCL rank runs (a)–(c) on (1, 1) meshes: tokens,
     logits, loss and params bit-identical to one process.  (e) the step's
     attention, norm, router and shared-expert leaves gathered from the
     (2, 2) mesh, saved by rank 0 and restored onto a (1, 2) mesh of ranks
@@ -414,10 +425,11 @@ Phases, each printing JSON lines:
     the next rank, its own edges) must miss the gradient gate; each arch's
     seconds a step per rank beside the one process's, and its
     collectives' bytes a step; the part (reference, slowest gloo rank,
-    NCCL rank) within SHARD_GNN_SECONDS.  K6 and K5 launches are counted from 0 on every
-    rank over (a)–(c) and (h) (K6 = 2 × 17 in (a) and (b) on every rank,
-    K5 = 17 on a gloo rank) and join the ``kernels`` line.  Every check
-    runs before the phase fails.
+    NCCL rank) within SHARD_GNN_SECONDS.  K6 and K5 launches are counted
+    from 0 on every rank over (a)–(c) and (h) (K6 = 2 × 17 in (a) and (b)'s
+    greedy runs on every rank, K5 = 17 on a gloo rank; (b)'s four
+    published prefills add 8 K6 and 4 K5 a rank) and join the ``kernels``
+    line.  Every check runs before the phase fails.
 15. ``launch`` — the dry run (`repro_torch.launch.dryrun`), host work
     after every phase on the card, in LAUNCH_PROCS spawned processes: (a)
     every runnable cell of ``all_cells()`` on `repro`'s (16, 16) and (2,
@@ -4747,15 +4759,18 @@ def shard_greedy(model, prompts, steps, forced=None):
 @contextlib.contextmanager
 def count_drops():
     """Inside, every `models.moe.dispatch` adds its dropped and total
-    (token, choice) entries to the yielded [dropped, total]."""
+    (token, choice) entries to the yielded [dropped, total, capacities]
+    (the C of each call).  The pjit dispatch counts the global entries,
+    the same on every rank."""
     from repro_torch.models import moe as mt
 
-    kept, box = mt.dispatch, [0, 0]
+    kept, box = mt.dispatch, [0, 0, set()]
 
     def dispatch(moe, top_e, n_tokens):
         slot, keep, C = kept(moe, top_e, n_tokens)
         box[0] += int((~keep).sum())
         box[1] += keep.numel()
+        box[2].add(C)
         return slot, keep, C
 
     mt.dispatch = dispatch
@@ -4767,18 +4782,22 @@ def count_drops():
 
 def shard_rank(p) -> dict:
     """What one rank of phase ``shard`` runs (every rank of the default
-    group; gloo: 4 ranks sharing the card, NCCL: one): (a) mistral's TP
-    serve on a (1, world) mesh; (b) deepseek's EP serve there, its
-    published capacity twice, one fp32 MoE layer; (c) deepseek's train
-    step on (2, world / 2) (NCCL: (1, 1)), twice from one state, its
+    group; gloo: 4 ranks sharing the card, NCCL: one), sequence parallel
+    (`lm_rules`): (a) mistral's TP serve on a (1, world) mesh; (b)
+    deepseek's EP serve there, then its prompts' prefill at the published
+    capacity twice as expert parallelism and twice as the pjit dispatch
+    (the global capacity), one fp32 MoE layer each way; (c) deepseek's
+    train step on (2, world / 2) (NCCL: (1, 1)), twice from one state, its
     params and first moments against the one-process step's saved at
-    ``p["ref_path"]``; (e) with 4 ranks, the
+    ``p["ref_path"]``; the bytes on the wire of (a)'s greedy run and (c)'s
+    step (the census); (e) with 4 ranks, the
     step's attention and router leaves gathered, saved by rank 0 and
     restored onto ranks 0 and 1.  K6 and K5 launches counted from 0 over
     (a)–(c)."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
+    from repro_torch.dist import group as dist_group
     from repro_torch.dist.sharding import (lm_rules, local_slice,
                                            param_specs_lm, spec_leaves,
                                            tree_specs)
@@ -4786,6 +4805,7 @@ def shard_rank(p) -> dict:
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.launch.cells import lm_train_step
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.roofline import collective_stats
     from repro_torch.models import transformer as tt
     from repro_torch.models.common import tree_leaves
     from repro_torch.models.moe import init_moe
@@ -4823,25 +4843,35 @@ def shard_rank(p) -> dict:
         build_s = time.perf_counter() - t0
         prompts = torch.from_numpy(p["prompts"][arch]).cuda()
         t0 = time.perf_counter()
-        toks, rows = shard_greedy(model, prompts, steps)
+        with dist_group.census() as cen:
+            toks, rows = shard_greedy(model, prompts, steps)
         res = dict(tokens=toks.numpy(), logits=rows.numpy(), build_s=build_s,
                    run_s=time.perf_counter() - t0,
                    weight_bytes=sum(w.numel() * w.element_size()
                                     for w in model.parameters()),
                    peak_bytes=torch.cuda.max_memory_allocated(),
-                   k6=fa_cuda.LAUNCHES - k6, k5=eb_cuda.LAUNCHES - k5)
+                   k6=fa_cuda.LAUNCHES - k6, k5=eb_cuda.LAUNCHES - k5,
+                   wire_bytes=collective_stats(cen.records).total_wire_bytes,
+                   collectives=len(cen.records))
         if cfg.moe is not None:
-            # the published capacity factor: the prompts' prefill twice
-            model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-                cfg.moe, capacity_factor=published))
-            with torch.inference_mode():
-                with count_drops() as drops:
-                    first, _ = tt.prefill(model, prompts)
-                again, _ = tt.prefill(model, prompts)
-            res.update(published=published, dropped=drops[0],
-                       entries=drops[1],
-                       published_bit_identical=bool(torch.equal(first,
-                                                                 again)))
+            # the published capacity factor: the prompts' prefill twice as
+            # expert parallelism (capacity per rank) and twice as the pjit
+            # dispatch (capacity from the global token count)
+            res["published"] = published
+            for impl in ("shardmap", "pjit"):
+                model.cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, impl=impl, capacity_factor=published))
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    with count_drops() as drops:
+                        first, _ = tt.prefill(model, prompts)
+                    again, _ = tt.prefill(model, prompts)
+                res[impl] = dict(dropped=drops[0], entries=drops[1],
+                                 capacity=sorted(drops[2]),
+                                 bit_identical=bool(torch.equal(first,
+                                                                again)),
+                                 logits=first[:, -1].float().cpu().numpy(),
+                                 seconds=time.perf_counter() - t0)
         out[key] = res
         del model
         free()
@@ -4855,11 +4885,16 @@ def shard_rank(p) -> dict:
     specs = tree_specs(tp, {"moe": full}, layer=True)["moe"]
     local = {k: tp.local(v, specs[k]).clone() for k, v in full.items()}
     del full
+    x = torch.from_numpy(p["layer_x"]).cuda()
+    pjit = shard_config("deepseek-moe-16b", 1, dtype=torch.float32,
+                        capacity_factor=out["b"]["published"])
     with torch.inference_mode():
-        y = tt._moe_shardmap_block(cfg, local, torch.from_numpy(
-            p["layer_x"]).cuda(), tp)
-    out["layer"] = dict(y=y.cpu().numpy())
-    del local, y
+        y = tt._moe_shardmap_block(cfg, local, x, tp)
+        with count_drops() as drops:
+            y_pjit = tt._moe_pjit_block(pjit, local, x, tp)
+    out["layer"] = dict(y=y.cpu().numpy(), pjit_y=y_pjit.cpu().numpy(),
+                        pjit_dropped=drops[0], pjit_entries=drops[1])
+    del local, x, y, y_pjit
     free()
 
     # (c) the train step: DP over data, TP and EP over model, FSDP experts
@@ -4878,12 +4913,15 @@ def shard_rank(p) -> dict:
     torch.cuda.reset_peak_memory_stats()
     k6, k5 = fa_cuda.LAUNCHES, eb_cuda.LAUNCHES
     t0 = time.perf_counter()
-    p1, o1, loss = lm_train_step(cfg, params, opt, batch, rules=rules)
+    with dist_group.census() as cen:
+        p1, o1, loss = lm_train_step(cfg, params, opt, batch, rules=rules)
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     c = dict(mesh=shape, coords=rules.coords, loss=float(loss),
              step_s=step_s, peak_bytes=torch.cuda.max_memory_allocated(),
-             k6=fa_cuda.LAUNCHES - k6, k5=eb_cuda.LAUNCHES - k5)
+             k6=fa_cuda.LAUNCHES - k6, k5=eb_cuda.LAUNCHES - k5,
+             wire_bytes=collective_stats(cen.records).total_wire_bytes,
+             collectives=len(cen.records))
     p1b, _, loss_b = lm_train_step(cfg, params, opt, batch, rules=rules)
     c["repeat_equal"] = bool(float(loss_b) == float(loss) and all(
         torch.equal(a, b) for a, b in zip(tree_leaves(p1), tree_leaves(p1b))))
@@ -5400,11 +5438,53 @@ def shard_train_reference(path, batch) -> dict:
     return row
 
 
+def shard_wire_meta(prompts) -> dict:
+    """(a)'s greedy run (prefill and SHARD_RUN[2] steps) and (c)'s train
+    step on rank 0's view of their meshes, on ``meta`` tensors (the dry
+    run's `AbstractGroup` collectives; host only): the census's wire bytes
+    a rank and its collectives, under `lm_rules` with sequence parallelism
+    (what the ranks run) and without it (PR 30's layout)."""
+    from repro_torch.dist import group as dist_group
+    from repro_torch.dist.sharding import lm_rules
+    from repro_torch.launch.cells import lm_train_cell
+    from repro_torch.launch.mesh import MeshShape, RankView
+    from repro_torch.launch.roofline import collective_stats
+    from repro_torch.models import transformer as tt
+
+    B, P, steps = SHARD_RUN
+    names = ("data", "model")
+    cfg_a = shard_config("mistral-large-123b", SHARD_LAYERS)
+    cfg_c = train_config(impl="shardmap")
+    out = {"a": {}, "c": {}}
+    for name, sp in (("sp", True), ("no_sp", False)):
+        rules = lm_rules(RankView(MeshShape((1, SHARD_WORLD), names), 0),
+                         seq_shard=sp)
+        model = tt.Transformer(cfg_a, tt.abstract_params(cfg_a), rules)
+        tok = torch.from_numpy(prompts["mistral-large-123b"]).to("meta")
+        with dist_group.census() as cen, torch.inference_mode():
+            cache = tt.init_cache(cfg_a, B, P + steps, "meta", rules=rules)
+            logits, cache = tt.prefill(model, tok, cache)
+            for i in range(steps):
+                logits, cache = tt.decode_step(
+                    model, cache, logits[:, -1].argmax(-1)[:, None], P + i)
+        out["a"][name] = dict(
+            wire_bytes=collective_stats(cen.records).total_wire_bytes,
+            collectives=len(cen.records))
+        view = RankView(MeshShape((2, SHARD_WORLD // 2), names), 0)
+        cell = lm_train_cell(cfg_c, *SHARD_TRAIN_BATCH, view, seq_shard=sp)
+        with dist_group.census() as cen:
+            cell.fn(*cell.abstract_args)
+        out["c"][name] = dict(
+            wire_bytes=collective_stats(cen.records).total_wire_bytes,
+            collectives=len(cen.records))
+    return out
+
+
 def shard_layer_reference():
     """(b)'s fp32 MoE layer on one process: the rank's weights (same seed),
     the first of a seeded series of inputs (1, 512, d) whose every token's
     top-k router-logit margin clears MOE_LAYER_MARGIN, and `moe_apply`'s
-    y."""
+    y with no drops and at the published capacity factor."""
     from repro_torch.models import moe as mt
 
     cfg = shard_config("deepseek-moe-16b", 1, dtype=torch.float32,
@@ -5421,12 +5501,20 @@ def shard_layer_reference():
             break
     check(margin > MOE_LAYER_MARGIN, f"shard (b) layer: no input of the "
           f"series clears the top-k margin ({margin})")
+    published = shard_config("deepseek-moe-16b", 1).moe
     with torch.inference_mode():
         y = mt.moe_apply(cfg.moe, p, x.cuda(), torch.float32).cpu().numpy()
+        with count_drops() as drops:
+            y_pub = mt.moe_apply(published, p, x.cuda(),
+                                 torch.float32).cpu().numpy()
     del p
     gc.collect()
     torch.cuda.empty_cache()
-    return x.numpy(), y, dict(input_seed=100 + seed, top_k_margin=margin)
+    return x.numpy(), (y, y_pub), dict(
+        input_seed=100 + seed, top_k_margin=margin,
+        published_capacity_factor=published.capacity_factor,
+        published_capacity=sorted(drops[2]),
+        published_dropped_share=drops[0] / drops[1])
 
 
 def shard_recsys_inputs() -> dict:
@@ -5621,7 +5709,9 @@ def l2_gap(got, want) -> float:
 def shard_serve_reference(arch, prompts, gloo_tokens):
     """(a), (b): the one-process model (same seed, `NO_SHARD`): its own
     greedy run, and teacher-forced runs on the gloo ranks' tokens, with
-    K6 and with the control attention."""
+    K6 and with the control attention; for a MoE arch, the prompts'
+    prefill at the published capacity factor (the last position's logits)
+    with K6 and with the control."""
     from repro_torch.models import transformer as tt
 
     cfg = shard_config(arch, SHARD_LAYERS)
@@ -5639,10 +5729,18 @@ def shard_serve_reference(arch, prompts, gloo_tokens):
     tf = shard_greedy(model, pr, steps, forced)
     with coarse_attention(SHARD_CONTROL_BITS):
         control = shard_greedy(model, pr, steps, forced)
+    out = dict(own=own, tf=tf, control=control, weight_bytes=weight_bytes)
+    if cfg.moe is not None:
+        model.cfg = shard_config(arch, SHARD_LAYERS)     # published: pjit
+        with torch.inference_mode():
+            out["published"] = tt.prefill(model, pr)[0][:, -1].float().cpu()
+            with coarse_attention(SHARD_CONTROL_BITS):
+                out["published_control"] = tt.prefill(model, pr)[0][
+                    :, -1].float().cpu()
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(own=own, tf=tf, control=control, weight_bytes=weight_bytes)
+    return out
 
 
 def shard_serve_check(key, arch, gloo, nccl, ref, need) -> dict:
@@ -5701,15 +5799,44 @@ def shard_serve_check(key, arch, gloo, nccl, ref, need) -> dict:
     need(res["nccl_bit_identical"], f"shard ({key}) {arch}: the NCCL rank "
           "(world size 1) differs from the one-process run")
     if key == "b":
-        dropped = sum(rk[key]["dropped"] for rk in gloo)
-        entries = sum(rk[key]["entries"] for rk in gloo)
+        # the published capacity factor: expert parallelism's capacity per
+        # rank (each rank its slice of the sequence) beside the pjit
+        # dispatch's global capacity (every rank the global entries)
         res.update(published_capacity_factor=g0["published"],
-                   published_dropped_share=dropped / entries,
-                   published_bit_identical=all(
-                       rk[key]["published_bit_identical"] for rk in gloo),
                    no_drop_capacity_factor=no_drop(shard_config(arch, 1)))
-        need(res["published_bit_identical"], f"shard (b) {arch}: two "
-              "prefills at the published capacity factor differ")
+        for impl in ("shardmap", "pjit"):
+            runs = [rk[key][impl] for rk in gloo]
+            if impl == "shardmap":
+                share = sum(r["dropped"] for r in runs) / sum(
+                    r["entries"] for r in runs)
+            else:
+                share = runs[0]["dropped"] / runs[0]["entries"]
+            res[impl] = dict(dropped_share=share,
+                             capacity=sorted({c for r in runs
+                                              for c in r["capacity"]}),
+                             bit_identical=all(r["bit_identical"]
+                                               for r in runs),
+                             seconds=[r["seconds"] for r in runs])
+            need(res[impl]["bit_identical"], f"shard (b) {arch} {impl}: two "
+                 "prefills at the published capacity factor differ")
+        pj = res["pjit"]
+        want = ref["published"]
+        pj.update(gap_l2=l2_gap(g0["pjit"]["logits"], want),
+                  gap_max=logit_gap(torch.from_numpy(g0["pjit"]["logits"]),
+                                    want),
+                  control_gap_l2=l2_gap(ref["published_control"], want),
+                  limit=limit, ranks_equal=all(
+                      np.array_equal(rk[key]["pjit"]["logits"],
+                                     g0["pjit"]["logits"]) for rk in gloo),
+                  nccl_bit_identical=bool(np.array_equal(
+                      n["pjit"]["logits"], want.numpy())))
+        need(pj["gap_l2"] <= limit < pj["control_gap_l2"],
+             f"shard (b) {arch} pjit prefill: logit gap {pj['gap_l2']} "
+             f"(limit {limit}) against the control's {pj['control_gap_l2']}")
+        need(pj["ranks_equal"], f"shard (b) {arch} pjit: the gloo ranks' "
+             "logits differ")
+        need(pj["nccl_bit_identical"], f"shard (b) {arch} pjit: the NCCL "
+             "rank (world size 1) differs from the one-process prefill")
     return res
 
 
@@ -5796,15 +5923,37 @@ def phase_shard():
             need(rk[key]["k5"] == 1 + SHARD_RUN[2],
                   f"shard ({key}): {rk[key]['k5']} K5 launches on a gloo "
                   f"rank, not {1 + SHARD_RUN[2]}")
-    # (b) the fp32 layer, every rank's y against moe_apply's
+    # (b) the fp32 layer, every rank's y against moe_apply's: expert
+    # parallelism with no drops, the pjit dispatch at the published capacity
     for backend, ranks in got.items():
-        gaps = [float(np.abs(rk["layer"]["y"] - layer_y).max()
-                      / np.abs(layer_y).max()) for rk in ranks]
-        need(max(gaps) <= SHARD_MOE_TOL, f"shard (b) layer {backend}: EP "
-              f"{max(gaps)} of max|y| from moe_apply > {SHARD_MOE_TOL}")
-        layer_row[f"{backend}_gap"] = max(gaps)
+        for impl, field, want in (("ep", "y", layer_y[0]),
+                                  ("pjit", "pjit_y", layer_y[1])):
+            gaps = [float(np.abs(rk["layer"][field] - want).max()
+                          / np.abs(want).max()) for rk in ranks]
+            need(max(gaps) <= SHARD_MOE_TOL, f"shard (b) layer {backend} "
+                 f"{impl}: {max(gaps)} of max|y| from moe_apply > "
+                 f"{SHARD_MOE_TOL}")
+            layer_row[f"{backend}_{impl}_gap"] = max(gaps)
+        layer_row[f"{backend}_pjit_dropped_share"] = (
+            ranks[0]["layer"]["pjit_dropped"]
+            / ranks[0]["layer"]["pjit_entries"])
     row["b_layer"] = dict(layer_row, tokens=SHARD_MOE_TOKENS,
                           tol=SHARD_MOE_TOL)
+    # (a), (c): the bytes on the wire under sequence parallelism, measured
+    # by the ranks' census, beside the dry run's census of the same step on
+    # rank 0's view with and without it (PR 30's layout)
+    wire = shard_wire_meta(prompts)
+    for key in ("a", "c"):
+        runs = [rk[key] for rk in gloo]
+        got_w = runs[0]["wire_bytes"]
+        wire[key].update(gloo_wire_bytes=got_w,
+                         gloo_collectives=runs[0]["collectives"])
+        need(all(r["wire_bytes"] == got_w for r in runs)
+             and got_w == wire[key]["sp"]["wire_bytes"],
+             f"shard ({key}): the ranks' wire bytes "
+             f"{[r['wire_bytes'] for r in runs]} against the dry run's "
+             f"{wire[key]['sp']['wire_bytes']}")
+    row["wire"] = wire
     # (c) the train step
     ref_c = row["c_reference"]
     c = dict(tol_loss=SHARD_LOSS_TOL, tol_params=SHARD_PARAM_TOL,
@@ -5943,8 +6092,8 @@ def phase_launch(smi: str, real: dict):
     """The dry run, on the host after every phase on the card, in
     LAUNCH_PROCS spawned processes.  (a) Every runnable cell of
     ``all_cells()`` on both production meshes: one line a cell; every
-    cell must run (70 ``ok``: LM, recsys and GNN; MoE as expert
-    parallelism).
+    cell must run (70 ``ok``: LM, recsys and GNN; MoE as its published
+    config says, ``impl="pjit"``).
     (b) Phase ``train``'s step against its dry run on the card's
     one-device mesh: real / dry FLOPs (``real``: `FlopCounterMode` over
     ``train``'s unrecorded step), real / dry peak (that step's peak above
@@ -5967,7 +6116,7 @@ def phase_launch(smi: str, real: dict):
         if not cond:
             fails.append(what)
 
-    jobs = [(a, s, mp_, True) for a, s, _, skip in all_cells()
+    jobs = [(a, s, mp_, True, None) for a, s, _, skip in all_cells()
             if skip is None for mp_ in (False, True)]
     with mp.get_context("spawn").Pool(LAUNCH_PROCS) as pool:
         calib = pool.map_async(launch_calibrate, [
@@ -6031,8 +6180,8 @@ def phase_launch(smi: str, real: dict):
             need(not ok[k], f"launch (b): the {name} control's {k} ratio "
                             f"{ctl[k]:.6g} is inside the gate")
     emit("launch", card=smi, cells=len(cells),
-         ok=statuses.count("ok"), gap=statuses.count("gap"),
-         fail=statuses.count("fail"), pool_s=pool_s, procs=LAUNCH_PROCS,
+         ok=statuses.count("ok"), fail=statuses.count("fail"),
+         pool_s=pool_s, procs=LAUNCH_PROCS,
          real=real, dry=dry_real, dry_control=dry_control,
          ratios=got, control_ratios={k: c for k, (c, _) in controls.items()},
          gates=dict(flops=LAUNCH_FLOP_GATE, memory=LAUNCH_MEM_GATE,

@@ -635,3 +635,16 @@ def _rsb_graph_batched(
         precond=precond if method == "inverse" else "none",
         multilevel=multilevel, guard=sg.report if sg is not None else None,
     )
+
+
+def partition(obj, nparts: int, **kw) -> np.ndarray:
+    """Uniform front door: partitioner ∈ {rsb, rsb_inverse, multilevel,
+    rcb, rib, sfc, random}; `repro`'s compatibility wrapper over the stage
+    pipeline — see :func:`repro_torch.core.pipeline.partition` for the
+    whole surface (``refine=`` post stages, per-stage keyword routing,
+    ``device=``: the card unless the CPU is asked for) and
+    :class:`repro_torch.core.pipeline.PartitionPipeline` for the report
+    and timings."""
+    from repro_torch.core.pipeline import partition as _pipeline_partition
+
+    return _pipeline_partition(obj, nparts, **kw)

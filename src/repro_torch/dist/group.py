@@ -322,17 +322,32 @@ def broadcast_object(obj, group, src: int = 0):
 # Collectives along a tensor dim, and their autograd Functions
 # ---------------------------------------------------------------------------
 
+def _row_major(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with row-major strides.  Moving a dim back after a collective
+    can leave a dim of size 1 with another stride, which `contiguous`
+    keeps (the tensor counts as contiguous); a kernel may then take
+    another path than on a row-major tensor, with other bits (a decode
+    step's (B, 1, d) stream against the one process's)."""
+    want, step = [], 1
+    for n in reversed(x.shape):
+        want.append(step)
+        step *= n
+    if x.stride() == tuple(reversed(want)):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def gather_dim(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in rank order (a tiled
-    ``all_gather``); contiguous, on ``x``'s device."""
+    ``all_gather``); row-major, on ``x``'s device."""
     moved = x.movedim(dim, 0)
-    return all_gather_rows(moved, group).movedim(0, dim).contiguous()
+    return _row_major(all_gather_rows(moved, group).movedim(0, dim))
 
 
 def scatter_sum_dim(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Σ over the ranks of ``x``, of which this rank keeps chunk ``rank`` of
-    ``size(group)`` equal chunks along ``dim`` (a tiled
-    ``psum_scatter``)."""
+    ``size(group)`` equal chunks along ``dim`` (a tiled ``psum_scatter``);
+    row-major."""
     n = size(group)
     if x.shape[dim] % n:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
@@ -343,11 +358,11 @@ def scatter_sum_dim(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     if isinstance(group, AbstractGroup):
         return _abstract(x, shape)
     if _alone(group):
-        return x.contiguous()
+        return _row_major(x)
     xw = _to_wire(x.movedim(dim, 0).contiguous(), group)
     out = xw.new_empty((x.shape[dim] // n,) + tuple(xw.shape[1:]))
     _reduce_scatter_single(out, xw, op=dist.ReduceOp.SUM, group=group)
-    return out.to(x.device).movedim(0, dim).contiguous()
+    return _row_major(out.to(x.device).movedim(0, dim))
 
 
 def exchange(x: torch.Tensor, group) -> torch.Tensor:

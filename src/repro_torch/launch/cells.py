@@ -45,9 +45,9 @@ is what the dry run (`launch.dryrun`) measures:
   rows); ``prefill`` / ``decode``: a `Transformer` built from the fp32
   masters (`repro`'s arguments), then `prefill` / `decode_step` at the
   cache's last position (``pos`` is a 0-d argument, as `repro`'s, but the
-  port's step takes a Python int).  Under a mesh the port shards MoE only
-  as expert parallelism, so a config whose ``moe.impl`` is ``"pjit"``
-  (GSPMD's dispatch) is a gap unless ``moe_impl="shardmap"``.
+  port's step takes a Python int).  The MoE runs as its config says:
+  ``"pjit"`` (the published default, GSPMD's sorted dispatch with the
+  global capacity) or, with ``moe_impl="shardmap"``, expert parallelism.
 * recsys: the sharded `recsys_train_step` (the global batch rebuilt from
   the local one, as the LM's), `recsys_serve_topk` (each rank's share of
   `repro`'s ``user_chunk`` users at a time) and `recsys_retrieval`, under
@@ -358,13 +358,12 @@ class Cell:
     arch_id: str
     shape_name: str
     kind: str
-    fn: Callable | None          # the port's step on abstract_args (None: gap)
+    fn: Callable                 # the port's step on abstract_args
     abstract_args: tuple         # meta tensors, one rank's local shapes
     in_specs: tuple              # the arguments' specs (`Spec` trees)
     out_specs: Any
     model_flops: float           # useful-math FLOPs per step (6ND etc.)
     notes: str = ""
-    gap: str | None = None       # why the port has no step for this cell
 
     def donate(self):
         """Donated arg indices (params/opt/cache buffers), `repro`'s."""
@@ -478,17 +477,12 @@ def _arch_config(arch, moe_impl):
 
 
 def _lm_setup(cfg, mesh, seq_shard=True):
-    gap = None
-    one = _n_devices(mesh) == 1
-    if cfg.moe is not None and cfg.moe.impl != "shardmap" and not one:
-        gap = (f"moe.impl={cfg.moe.impl!r} is GSPMD's sorted dispatch; under "
-               "a mesh the port runs MoE as expert parallelism only "
-               "(moe_impl='shardmap')")
     # one device: the one-process step (`NO_SHARD`), as a card runs it
+    one = _n_devices(mesh) == 1
     rules = NO_SHARD if one else lm_rules(_view(mesh), seq_shard=seq_shard)
     params_g = T.abstract_params(cfg)
     pspec = param_specs_lm(cfg, params_g, mesh)
-    return rules, params_g, pspec, gap
+    return rules, params_g, pspec
 
 
 def _lm_train_cell(arch, cell, mesh, seq_shard=True, moe_impl=None,
@@ -505,7 +499,7 @@ def lm_train_cell(cfg, batch: int, seq_len: int, mesh, *,
     """The LM ``train`` cell of any config: `lm_train_step` on a (batch,
     seq_len) global batch, as rank 0 of ``mesh`` (or the rank a
     `RankView` names); on a one-device mesh, the one-process step."""
-    rules, params_g, pspec, gap = _lm_setup(cfg, mesh, seq_shard)
+    rules, params_g, pspec = _lm_setup(cfg, mesh, seq_shard)
     B, S = batch, seq_len
     params = _localize(params_g, pspec, mesh)
     opt = abstract_opt_state(params)
@@ -523,15 +517,15 @@ def lm_train_cell(cfg, batch: int, seq_len: int, mesh, *,
     n_active = cfg.n_active_params()
     return Cell(
         arch_id=arch_id, shape_name=shape_name, kind="train",
-        fn=None if gap else step, abstract_args=(params, opt, batch),
+        fn=step, abstract_args=(params, opt, batch),
         in_specs=(pspec, ospec, bspec), out_specs=(pspec, ospec, Spec()),
         model_flops=6.0 * n_active * B * S,
-        notes=f"N_active={n_active:.3e}", gap=gap)
+        notes=f"N_active={n_active:.3e}")
 
 
 def _lm_serve_cell(arch, cell, mesh, moe_impl=None) -> Cell:
     cfg = _arch_config(arch, moe_impl)
-    rules, params_g, pspec, gap = _lm_setup(cfg, mesh)
+    rules, params_g, pspec = _lm_setup(cfg, mesh)
     B, S = cell["global_batch"], cell["seq_len"]
     params = _localize(params_g, pspec, mesh)
     cspec = cache_specs_lm(cfg, mesh)
@@ -553,10 +547,10 @@ def _lm_serve_cell(arch, cell, mesh, moe_impl=None) -> Cell:
         attn = 4.0 * B * S * S * cfg.n_heads * cfg.d_head / 2  # causal half
         return Cell(
             arch_id=arch.arch_id, shape_name=cell.name, kind="prefill",
-            fn=None if gap else step, abstract_args=(params, tokens),
+            fn=step, abstract_args=(params, tokens),
             in_specs=(pspec, tspec), out_specs=out_specs,
             model_flops=2.0 * n_active * B * S + attn,
-            notes=f"N_active={n_active:.3e}", gap=gap)
+            notes=f"N_active={n_active:.3e}")
 
     shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.d_head)
     cache = {k: _meta(_local_shape(shape, cspec[k], mesh), cfg.dtype)
@@ -570,11 +564,11 @@ def _lm_serve_cell(arch, cell, mesh, moe_impl=None) -> Cell:
     attn = 4.0 * B * S * cfg.n_heads * cfg.d_head
     return Cell(
         arch_id=arch.arch_id, shape_name=cell.name, kind="decode",
-        fn=None if gap else step, abstract_args=(params, cache, tokens, pos),
+        fn=step, abstract_args=(params, cache, tokens, pos),
         in_specs=(pspec, cspec, tspec, Spec()), out_specs=out_specs,
         model_flops=2.0 * n_active * B + attn,
         notes=f"N_active={n_active:.3e} kv_cache_tokens={S} (decode at "
-              f"position {S - 1})", gap=gap)
+              f"position {S - 1})")
 
 
 # -- GNN cells ---------------------------------------------------------------

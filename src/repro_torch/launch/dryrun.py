@@ -24,9 +24,8 @@ which answer with ``meta`` tensors and report to the census):
   the layers are identical.
 
 The roofline (`launch.roofline`) is on the H100 SXM5's constants, each
-collective at the slowest link its group crosses.  A cell the port has no
-step for is written with ``status: "gap"`` and the reason; one that
-raises, ``status: "fail"``.
+collective at the slowest link its group crosses.  A cell that raises is
+written with ``status: "fail"``.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
@@ -218,22 +217,17 @@ def _profile(arch_id, shape_name, mesh, **kw):
 
 
 def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
-             verbose: bool = True, profile: bool = True) -> dict:
+             verbose: bool = True, profile: bool = True,
+             moe_impl: str | None = None) -> dict:
     """One cell's record (`repro`'s keys; ``fits_80gb`` for the H100).
-    MoE runs as expert parallelism (``moe_impl="shardmap"``), the port's
-    one sharded MoE."""
+    The MoE runs as its config says (``"pjit"``, the published default),
+    or as ``moe_impl`` (``"shardmap"``: expert parallelism)."""
     mesh = make_production_mesh(multi_pod=multi_pod)
     n_dev = math.prod(axis_sizes(mesh).values())
     tag = mesh_tag(multi_pod)
-    kw = {"moe_impl": "shardmap"}
+    kw = {"moe_impl": moe_impl} if moe_impl else {}
     t0 = time.perf_counter()
     cell = build_cell(arch_id, shape_name, mesh, **kw)
-    if cell.gap is not None:
-        if verbose:
-            print(f"GAP {arch_id} × {shape_name} × {tag}: {cell.gap}")
-        return {"arch": arch_id, "shape": shape_name, "mesh": tag,
-                "n_devices": n_dev, "kind": cell.kind, "status": "gap",
-                "reason": cell.gap}
     mem = exec_pass(cell)
     t_exec = time.perf_counter() - t0
     live = mem["peak_bytes"]
@@ -293,11 +287,12 @@ def targets(args) -> tuple[list, list]:
 
 
 def sweep_one(job) -> dict:
-    """One (arch, shape, multi_pod, profile) job: its record, or a
-    ``fail`` record with the error."""
-    a, s, mp, profile = job
+    """One (arch, shape, multi_pod, profile, moe_impl) job: its record, or
+    a ``fail`` record with the error."""
+    a, s, mp, profile, moe_impl = job
     try:
-        return run_cell(a, s, multi_pod=mp, profile=profile, verbose=False)
+        return run_cell(a, s, multi_pod=mp, profile=profile, verbose=False,
+                        moe_impl=moe_impl)
     except Exception as e:  # record, keep sweeping
         return {"arch": a, "shape": s, "mesh": mesh_tag(mp), "status": "fail",
                 "error": f"{type(e).__name__}: {e}",
@@ -320,6 +315,9 @@ def main() -> None:
     ap.add_argument("--no-profile", action="store_true",
                     help="count FLOPs on the full-depth step, no layer "
                          "differencing")
+    ap.add_argument("--moe-impl", choices=("pjit", "shardmap"), default=None,
+                    help="run the MoE cells so (default: the config's, "
+                         "pjit)")
     args = ap.parse_args()
 
     os.makedirs(args.out, exist_ok=True)
@@ -336,7 +334,7 @@ def main() -> None:
             if args.skip_existing and os.path.exists(path):
                 print(f"cached {a} × {s} × {mesh_tag(mp)}")
                 continue
-            jobs.append((a, s, mp, not args.no_profile))
+            jobs.append((a, s, mp, not args.no_profile, args.moe_impl))
     failures = 0
     for rec in sweep(jobs):
         path = os.path.join(args.out,
@@ -349,8 +347,6 @@ def main() -> None:
             print(f"ok   {head}: live {rec['live_bytes_per_device'] / 1e9:.2f} "
                   f"GB fits80GB={rec['fits_80gb']} dominant={r['dominant']} "
                   f"roofline={r['roofline_fraction']:.3f}")
-        elif rec["status"] == "gap":
-            print(f"GAP  {head}: {rec['reason']}")
         else:
             failures += 1
             print(f"FAIL {head}: {rec['error']}")

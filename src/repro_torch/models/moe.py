@@ -27,6 +27,15 @@ of a (data, model) mesh on its own tokens: local routing and capacity, the
 ``(M, E_loc, C, d)`` buffer grouped by owner, one all-to-all over the
 model axis and its reverse, the local experts, the same ordered combine
 (the collectives of `repro_torch.dist.sharding.MeshRules`).
+
+`moe_apply_pjit` is `repro`'s ``moe_apply`` as GSPMD partitions it under
+``lm_rules`` (``impl="pjit"``, the MoE configs' default): the meaning of
+the one-process layer on the global batch — the capacity from the global
+token count, the kept entries chosen in global token order — with no
+token feature moved between ranks: the (T, k) expert ids are all-gathered
+(int32), every rank runs `dispatch` on them, and each rank fills and runs
+the rows of its own experts with its own tokens; the partial sums add up
+over the model axis.
 """
 
 from __future__ import annotations
@@ -130,15 +139,15 @@ def combine(out_buf: torch.Tensor, top_e, top_w, slot, keep, dtype):
     return y
 
 
-def fill(moe: MoEConfig, xt: torch.Tensor, slot: torch.Tensor, C: int,
+def fill(xt: torch.Tensor, slot: torch.Tensor, rows: int,
          dtype) -> torch.Tensor:
-    """The (E·C, d) capacity buffer: each kept (token, expert) entry's
-    token at its ``slot`` row, zeros elsewhere (`repro`'s ``.at[slot].set``;
-    dropped entries land on the overflow row, cut off)."""
-    E, d = moe.n_experts, xt.shape[1]
-    buf = torch.zeros((E * C + 1, d), dtype=dtype, device=xt.device)
-    buf[slot.reshape(-1)] = xt.to(dtype).repeat_interleave(moe.top_k, 0)
-    return buf[:E * C]
+    """The (rows, d) capacity buffer: each kept (token, expert) entry's
+    token at its ``slot`` (T, k) row, zeros elsewhere (`repro`'s
+    ``.at[slot].set``; dropped entries land on the overflow row ``rows``,
+    cut off)."""
+    buf = torch.zeros((rows + 1, xt.shape[1]), dtype=dtype, device=xt.device)
+    buf[slot.reshape(-1)] = xt.to(dtype).repeat_interleave(slot.shape[1], 0)
+    return buf[:rows]
 
 
 def shared_ffn(xt: torch.Tensor, wi, wg, wo, dtype) -> torch.Tensor:
@@ -157,7 +166,7 @@ def moe_apply(moe: MoEConfig, p: dict, x: torch.Tensor, dtype) -> torch.Tensor:
         _, top_w, top_e = route(moe, p["router"], xt)
     with annotate("moe:dispatch"):
         slot, keep, C = dispatch(moe, top_e, T)
-        buf = fill(moe, xt, slot, C, dtype).view(E, C, d)
+        buf = fill(xt, slot, E * C, dtype).view(E, C, d)
     with annotate("moe:experts"):
         out_buf = expert_ffn(p, buf).reshape(E * C, d)
     with annotate("moe:combine"):
@@ -207,7 +216,7 @@ def moe_apply_shardmap(moe: MoEConfig, p: dict, x: torch.Tensor, *,
         _, top_w, top_e = route(moe, p["router"], xt)
     with annotate("moe:dispatch"):
         slot, keep, C = dispatch(moe, top_e, T)
-        buf = fill(moe, xt, slot, C, dtype).view(M, E_loc, C, d)
+        buf = fill(xt, slot, E * C, dtype).view(M, E_loc, C, d)
         recv = rules.all_to_all(buf, model_axis)     # (M, E_loc, C, d)
         tokens = recv.transpose(0, 1).reshape(E_loc, M * C, d)
     with annotate("moe:experts"):
@@ -225,6 +234,69 @@ def moe_apply_shardmap(moe: MoEConfig, p: dict, x: torch.Tensor, *,
                 swg = rules.gather(swg, model_axis, 1)
                 swo = rules.gather(swo, model_axis, 0)
             y = y + shared_ffn(xt, swi, swg, swo, dtype)
+    return y.reshape(B, S, d)
+
+
+def moe_apply_pjit(moe: MoEConfig, p: dict, x: torch.Tensor, *, dtype,
+                   rules, data_axes=None, expert_axes=None,
+                   fsdp_axes=None) -> torch.Tensor:
+    """`repro`'s ``moe_apply`` (``impl="pjit"``) as GSPMD partitions it, on
+    one rank of ``rules``' `DeviceMesh`: the partial sums of the routed
+    experts this rank holds.
+
+    x (B_loc, S, d) holds this rank's sequences, whole: its rows of the
+    global batch, split over ``data_axes`` in rank order.  The meaning is
+    the one-process `moe_apply`'s on the global batch — one stable sort of
+    the global (T·k) assignments, ``C = capacity(moe, T)`` for the global
+    token count T, each expert's first C entries kept in global token
+    order — reached without moving token features between ranks: the rank
+    routes its tokens with the replicated router, all-gathers the (T_loc,
+    k) expert ids (int32) over ``data_axes`` in global token order, runs
+    `dispatch` on them (the same ``slot`` and ``keep`` on every rank) and
+    keeps its own tokens' entries.  ``p``'s ``wi``/``wg``/``wo`` are the
+    E_loc experts of this rank's shard of ``expert_axes`` (all E when
+    None); with ``fsdp_axes`` their ``d`` dim is all-gathered first (its
+    backward is the reduce-scatter).  The rank fills its experts' (E_loc,
+    C, d) rows with its own tokens — the rows of other ranks' tokens stay
+    zero: the expert FFN works row by row and maps a zero row to zero —
+    runs them, and combines in `combine`'s fixed order, every other
+    expert's entry at weight 0.  The caller sums the partials over
+    ``expert_axes`` (an all-reduce, or a reduce-scatter of the sequence)
+    and adds the shared experts."""
+    B, S, d = x.shape
+    T, k = B * S, moe.top_k
+    xt = x.reshape(T, d)
+    wi, wg, wo = p["wi"], p["wg"], p["wo"]            # (E_loc, d?, f)
+    if fsdp_axes:
+        wi = rules.gather(wi, fsdp_axes, 1)
+        wg = rules.gather(wg, fsdp_axes, 1)
+        wo = rules.gather(wo, fsdp_axes, 2)
+    E_loc = wi.shape[0]
+    M = rules.count(expert_axes) if expert_axes else 1
+    if E_loc * M != moe.n_experts:
+        raise ValueError(f"{E_loc} local experts on {M} shards of "
+                         f"{expert_axes!r}: the config has {moe.n_experts}")
+
+    with annotate("moe:route"):
+        _, top_w, top_e = route(moe, p["router"], xt)
+    with annotate("moe:dispatch"):
+        ids = top_e.to(torch.int32).view(B, S, k)
+        first = 0
+        if data_axes:
+            ids = rules.gather(ids, data_axes, 0)
+            first = rules.index(data_axes) * T
+        n = ids.shape[0] * S
+        slot, keep, C = dispatch(moe, ids.view(n, k).long(), n)
+        slot, keep = slot[first:first + T], keep[first:first + T]
+        rows = E_loc * C
+        local = slot - (rules.index(expert_axes) * rows if expert_axes else 0)
+        own = keep & (local >= 0) & (local < rows)
+        local = torch.where(own, local, rows)
+        buf = fill(xt, local, rows, dtype).view(E_loc, C, d)
+    with annotate("moe:experts"):
+        out = expert_ffn({"wi": wi, "wg": wg, "wo": wo}, buf).reshape(rows, d)
+    with annotate("moe:combine"):
+        y = combine(out, top_e, top_w, local, own, dtype)
     return y.reshape(B, S, d)
 
 

@@ -65,26 +65,39 @@ a tree placed by `train.checkpoint.reshard`) and runs its part, where
 * attention: the rank's query heads (slices of ``wq`` and ``wo``) and the
   KV heads they read (``h // G``: ``wk``/``wv`` sliced when their heads
   divide the model axis, else every rank holds all of them and its K6
-  call reads its own), then an all-reduce over ``model``;
-* dense FFN: column slices of ``wi``/``wg``, row slices of ``wo``, an
-  all-reduce;
+  call reads its own), then the output's partial sums summed over
+  ``model``;
+* dense FFN: column slices of ``wi``/``wg``, row slices of ``wo``, the
+  partial sums summed;
 * embedding: a vocab-parallel lookup — K5 on the rank's rows, foreign ids
-  at weight 0, an all-reduce; the head: the rank's vocab columns, all
+  at weight 0, the rows summed; the head: the rank's vocab columns, all
   gathered for serving, a distributed logsumexp and the gold logit from
   its owner in `loss_fn`;
-* MoE: ``impl="shardmap"`` is `moe_apply_shardmap` on `repro`'s token
-  layout (``("batch", "act_seq", "embed")``: the rank's slice of the
-  sequence when ``S`` divides the model axis, all of it otherwise, the
-  outputs all-gathered back); ``impl="pjit"`` (`repro`'s GSPMD-partitioned
-  dispatch) raises there.
+* MoE: ``impl="shardmap"`` is `moe_apply_shardmap` (expert parallelism,
+  capacity per rank) on the residual stream's own tokens;
+  ``impl="pjit"``, `repro`'s default, is `moe_apply_pjit`: `repro`'s
+  GSPMD-partitioned layer, whose meaning is the one-process layer's on
+  the global batch (the capacity from the global token count), each rank
+  running its experts' rows and the shared experts' column / row slices.
+
+Sequence parallelism (`repro`'s ``("batch", "act_seq", "embed")`` under
+``lm_rules(seq_shard=True)``, the default): where S divides the model
+axis the residual stream between blocks is each rank's slice of the
+sequence (`_stream_seq`), so remat's saved layer inputs are S / model
+rows.  Each block norms its slice, all-gathers the norm along the sequence
+before its projections (the shardmap MoE takes the slice as it is), and
+reduce-scatters its partial sums back to the slice where an all-reduce
+stood; the embedding's sum is a reduce-scatter too, and the head gathers
+the sequence first.  Where S does
+not divide (a decode step's S = 1), or with ``seq_shard=False``, the
+stream is whole on every model rank and the sums are all-reduces.  Results
+are unchanged up to the order of the sums.
 
 A spec of one shard (world size 1) runs the one-process math, its
 collectives over one rank.  The batch is each rank's own (the caller
 splits it over the data axes, `launch.cells.lm_train_step`), and
 `loss_fn` is the global masked mean: the local sums and counts
-all-reduced over the data axes.  The residual stream is not sharded over
-``model`` between blocks (sequence parallelism changes memory, not
-results).
+all-reduced over the data axes.
 """
 
 from __future__ import annotations
@@ -118,7 +131,9 @@ from repro_torch.models.moe import (
     MoEConfig,
     init_moe,
     moe_apply,
+    moe_apply_pjit,
     moe_apply_shardmap,
+    shared_ffn,
 )
 
 
@@ -203,6 +218,40 @@ def _data_entry(rules: ShardRules):
     """The mesh axes the batch is split over (None: not split)."""
     spec = rules.spec(("batch",))
     return None if spec is None else spec[0]
+
+
+def _stream_seq(rules: ShardRules, B: int, S: int, d: int):
+    """The spec entry the residual stream's sequence dim is split over:
+    `repro`'s ``("batch", "act_seq", "embed")`` for this rank's (B, S, d)
+    batch — ``model`` under ``lm_rules(seq_shard=True)`` when S divides it
+    (sequence parallelism), None when the stream stays whole (`NO_SHARD`,
+    ``seq_shard=False``, a decode step's S = 1)."""
+    if not _on_mesh(rules):
+        return None
+    n_data = _count(rules, _data_entry(rules))
+    return rules.spec(("batch", "act_seq", "embed"), (B * n_data, S, d))[1]
+
+
+def _seq_gather(rules: ShardRules, x: torch.Tensor, seq) -> torch.Tensor:
+    """The whole sequence (dim 1) from every rank's slice (``seq`` None:
+    x, already whole)."""
+    return x if seq is None else rules.gather(x, seq, 1)
+
+
+def _to_stream(rules: ShardRules, y: torch.Tensor, entry, seq
+               ) -> torch.Tensor:
+    """A block's output (B, S, d), partial sums over the spec entry
+    ``entry`` (None: whole on the rank), as the residual stream holds it:
+    reduce-scattered along the sequence when ``seq`` is the same entry,
+    else all-reduced and, under ``seq``, cut to this rank's slice."""
+    if seq is not None and entry == seq:
+        return rules.scatter(y, seq, 1)
+    if entry is not None:
+        y = rules.psum(y, entry)
+    if seq is None:
+        return y
+    n = y.shape[1] // rules.count(seq)
+    return y.narrow(1, rules.index(seq) * n, n)
 
 
 def abstract_params(cfg: LMConfig) -> dict:
@@ -473,7 +522,8 @@ def _kv_heads(cfg: LMConfig, p: dict, rules: ShardRules):
 def attention_block(cfg: LMConfig, p: dict, x: torch.Tensor,
                     pos: torch.Tensor, k_cache: torch.Tensor | None = None,
                     v_cache: torch.Tensor | None = None, start: int = 0, *,
-                    prefer: str = "auto", rules: ShardRules = NO_SHARD):
+                    prefer: str = "auto", rules: ShardRules = NO_SHARD,
+                    seq=None):
     """Self-attention of x (B, S, d) at positions pos (B, S); ``p`` holds
     the layer's ``attn_norm``, ``wq``, ``wk``, ``wv`` and ``wo`` in x's
     type (under ``rules``, this rank's slices).
@@ -486,13 +536,17 @@ def attention_block(cfg: LMConfig, p: dict, x: torch.Tensor,
     variant passes ``window=cfg.window`` to every call.  ``prefer`` is
     K6's dispatch.  Under ``rules`` the rank's query heads attend over the
     KV heads they read and the output projection's partial sums are
-    all-reduced over the heads' axes.  Returns the block's output and this
-    call's K (after rope) and V."""
-    B, S, d = x.shape
+    summed over the heads' axes; under sequence parallelism (``seq``, the
+    spec entry of x's sequence dim) x is this rank's slice of the
+    sequence: its norm is all-gathered along the sequence before the
+    projections, and the output reduce-scattered back to the slice
+    (`_to_stream`).  Returns the block's output and this call's K (after
+    rope) and V, for the whole sequence."""
     dh = cfg.d_head
     H, Hkv = p["wq"].shape[1], p["wk"].shape[1]       # this rank's heads
     window = cfg.window if cfg.attn == "sliding_window" else None
-    h = rms_norm(x, p["attn_norm"], cfg.norm_eps)
+    h = _seq_gather(rules, rms_norm(x, p["attn_norm"], cfg.norm_eps), seq)
+    B, S, d = h.shape
     q = (h @ p["wq"].reshape(d, H * dh)).view(B, S, H, dh)
     k = (h @ p["wk"].reshape(d, Hkv * dh)).view(B, S, Hkv, dh)
     v = (h @ p["wv"].reshape(d, Hkv * dh)).view(B, S, Hkv, dh)
@@ -510,55 +564,72 @@ def attention_block(cfg: LMConfig, p: dict, x: torch.Tensor,
                               window=window, prefer=prefer)
     y = out.reshape(B, S, H * dh) @ p["wo"].reshape(H * dh, d)
     heads = _entry(rules, ("heads", None, None), (cfg.n_heads, dh, d), 0)
-    if heads is not None:
-        y = rules.psum(y, heads)
-    return y, (k, v)
+    return _to_stream(rules, y, heads, seq), (k, v)
 
 
 def _moe_shardmap_block(cfg: LMConfig, moe_p: dict, h: torch.Tensor,
                         rules: ShardRules) -> torch.Tensor:
     """Expert-parallel MoE (`moe_apply_shardmap`) on `repro`'s token layout
-    ``("batch", "act_seq", "embed")``: h (B_loc, S, d) is this rank's
-    batch; the rank takes its slice of the sequence when the spec splits
-    it over ``model`` and all of it otherwise (a decode step), and the
-    outputs are all-gathered back.  Expert weights arrive per ``("experts",
-    "fsdp", None)``: their ``d`` dim is gathered over the data axes when
-    the spec shards it."""
+    ``("batch", "act_seq", "embed")``, which is the residual stream's: h
+    (B_loc, S_loc, d) is this rank's batch and, under sequence
+    parallelism, its slice of the sequence (all of it otherwise, as in a
+    decode step); the output keeps that layout.  Expert weights arrive
+    per ``("experts", "fsdp", None)``: their ``d`` dim is gathered over the
+    data axes when the spec shards it."""
     moe = cfg.moe
     E, d, f = moe.n_experts, cfg.d_model, moe.d_ff_expert
-    B, S, _ = h.shape
-    n_data = _count(rules, _data_entry(rules))
-    x_spec = rules.spec(("batch", "act_seq", "embed"), (B * n_data, S, d))
     wi_spec = rules.spec(("experts", "fsdp", None), (E, d, f))
     if wi_spec[0] != "model":
         raise ValueError(f"{cfg.name}: moe.impl='shardmap' needs the {E} "
                          "experts split over the mesh's 'model' axis (spec "
                          f"{wi_spec})")
-    seq = x_spec[1]
-    if seq is not None:
-        n = rules.count(seq)
-        i = rules.index(seq)
-        h = h[:, i * (S // n):(i + 1) * (S // n)]
     shared = bool(moe.n_shared) and _entry(
         rules, (None, "ffn"), (d, f * moe.n_shared), 1) is not None
-    y = moe_apply_shardmap(moe, moe_p, h, data_axes=wi_spec[1],
-                           model_axis="model", dtype=cfg.dtype, rules=rules,
-                           fsdp_gather=wi_spec[1] is not None,
-                           shared_gather=shared)
-    if seq is not None:
-        y = rules.gather(y, seq, 1)
-    return y
+    return moe_apply_shardmap(moe, moe_p, h, data_axes=wi_spec[1],
+                              model_axis="model", dtype=cfg.dtype,
+                              rules=rules, fsdp_gather=wi_spec[1] is not None,
+                              shared_gather=shared)
+
+
+def _moe_pjit_block(cfg: LMConfig, moe_p: dict, h: torch.Tensor,
+                    rules: ShardRules, seq=None) -> torch.Tensor:
+    """`repro`'s GSPMD-partitioned MoE (`moe_apply_pjit`: the one-process
+    layer on the global batch, capacity from the global token count) on
+    the residual stream's layout: h (B_loc, S_loc, d), gathered along the
+    sequence under ``seq``.  Each rank runs its experts of the
+    ``("experts", "fsdp", None)`` spec (FSDP ``d`` dims gathered over the
+    data axes) and the shared experts' column / row slices of the dense
+    FFN's spec; the partial sums go back to the stream by `_to_stream`
+    (one collective when both split alike)."""
+    moe = cfg.moe
+    E, d, f = moe.n_experts, cfg.d_model, moe.d_ff_expert
+    h = _seq_gather(rules, h, seq)
+    experts, fsdp, _ = rules.spec(("experts", "fsdp", None), (E, d, f))
+    y = moe_apply_pjit(moe, moe_p, h, dtype=cfg.dtype, rules=rules,
+                       data_axes=_data_entry(rules), expert_axes=experts,
+                       fsdp_axes=fsdp)
+    if not moe.n_shared:
+        return _to_stream(rules, y, experts, seq)
+    s = shared_ffn(h.reshape(-1, d), moe_p["shared_wi"], moe_p["shared_wg"],
+                   moe_p["shared_wo"], cfg.dtype).view_as(y)
+    shared = _entry(rules, (None, "ffn"), (d, f * moe.n_shared), 1)
+    if shared == experts:
+        return _to_stream(rules, y + s, experts, seq)
+    return _to_stream(rules, y, experts, seq) + _to_stream(rules, s, shared,
+                                                           seq)
 
 
 def ffn_block(cfg: LMConfig, p: dict, x: torch.Tensor, *,
-              rules: ShardRules = NO_SHARD) -> torch.Tensor:
+              rules: ShardRules = NO_SHARD, seq=None) -> torch.Tensor:
     """SwiGLU over ``p["ffn"]`` {wi, wg, wo}: ``silu(h @ wg) * (h @ wi) @
     wo``, silu as ``g * sigmoid(g)`` (each op rounded to x's type, as
     `jax.nn.silu`); with ``cfg.moe``, the MoE layer ``p["moe"]`` (a `MoE`
     module or `init_moe`'s tree) on the same normed h.  Under ``rules``:
-    the FFN's column / row slices and an all-reduce; the MoE by its
-    ``impl``: ``"shardmap"`` runs `moe_apply_shardmap` (the module
-    docstring)."""
+    the FFN's column / row slices, the norm all-gathered along the
+    sequence first under ``seq`` and the output summed back to the stream
+    (`_to_stream`); the MoE by its ``impl``: ``"shardmap"`` runs
+    `moe_apply_shardmap` on the stream's own tokens, ``"pjit"``
+    `_moe_pjit_block` (the module docstring)."""
     h = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if cfg.moe is not None:
         moe = p["moe"]
@@ -567,25 +638,23 @@ def ffn_block(cfg: LMConfig, p: dict, x: torch.Tensor, *,
             if isinstance(moe, MoE):
                 return moe(h, cfg.moe)
             return moe_apply(cfg.moe, moe, h, cfg.dtype)
-        if cfg.moe.impl != "shardmap":
-            raise ValueError(f"{cfg.name}: under a mesh the MoE runs "
-                             "moe.impl='shardmap' (expert parallelism)")
-        return _moe_shardmap_block(cfg, tree, h, rules)
+        if cfg.moe.impl == "shardmap":
+            return _moe_shardmap_block(cfg, tree, h, rules)
+        return _moe_pjit_block(cfg, tree, h, rules, seq)
+    h = _seq_gather(rules, h, seq)
     f = p["ffn"]
     g = h @ f["wg"]
     y = (g * torch.sigmoid(g) * (h @ f["wi"])) @ f["wo"]
     ffn = _entry(rules, ("ffn", None), (cfg.d_ff, cfg.d_model), 0)
-    if ffn is not None:
-        y = rules.psum(y, ffn)
-    return y
+    return _to_stream(rules, y, ffn, seq)
 
 
 def _layer(cfg, p, x, pos, k_cache=None, v_cache=None, start=0, *,
-           prefer="auto", rules=NO_SHARD):
+           prefer="auto", rules=NO_SHARD, seq=None):
     a, kv = attention_block(cfg, p, x, pos, k_cache, v_cache, start,
-                            prefer=prefer, rules=rules)
+                            prefer=prefer, rules=rules, seq=seq)
     x = x + a
-    return x + ffn_block(cfg, p, x, rules=rules), kv
+    return x + ffn_block(cfg, p, x, rules=rules, seq=seq), kv
 
 
 def _vocab(cfg: LMConfig, rules: ShardRules):
@@ -596,8 +665,9 @@ def _vocab(cfg: LMConfig, rules: ShardRules):
 def _logits(cfg: LMConfig, final_norm, head, x: torch.Tensor,
             rules: ShardRules = NO_SHARD, gather: bool = True
             ) -> torch.Tensor:
-    """The final norm and the head; under ``rules`` the rank's vocab
-    columns, all-gathered along the vocab dim when ``gather``."""
+    """The final norm and the head of x (the whole sequence); under
+    ``rules`` the rank's vocab columns, all-gathered along the vocab dim
+    when ``gather``."""
     x = rms_norm(x, final_norm, cfg.norm_eps)
     logits = x @ head
     vocab = _vocab(cfg, rules)
@@ -607,17 +677,19 @@ def _logits(cfg: LMConfig, final_norm, head, x: torch.Tensor,
 
 
 def _embed(cfg: LMConfig, table: torch.Tensor, tokens: torch.Tensor,
-           rules: ShardRules, plain) -> torch.Tensor:
-    """The embedding of tokens (B, S): ``plain(table, tokens)`` when the
-    vocab is whole on the rank, else `vocab_parallel_lookup` over the
-    vocab's axes."""
+           rules: ShardRules, plain, seq=None) -> torch.Tensor:
+    """The residual stream's first value for tokens (B, S):
+    ``plain(table, tokens)`` when the vocab is whole on the rank, else
+    `vocab_parallel_lookup` over the vocab's axes, its rows summed back to
+    the stream (`_to_stream`: reduce-scattered to this rank's slice of the
+    sequence under ``seq``)."""
     vocab = _vocab(cfg, rules)
     if _count(rules, vocab) == 1:
-        x = plain(table, tokens)
-        return x if vocab is None else rules.psum(x, vocab)
+        return _to_stream(rules, plain(table, tokens), vocab, seq)
     B, S = tokens.shape
-    x = vocab_parallel_lookup(table, tokens.reshape(-1), 1.0, rules, vocab)
-    return x.view(B, S, table.shape[1])
+    x = vocab_parallel_lookup(table, tokens.reshape(-1), 1.0, rules, vocab,
+                              reduce=False)
+    return _to_stream(rules, x.view(B, S, table.shape[1]), vocab, seq)
 
 
 def _index_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -641,12 +713,14 @@ def forward(model_or_cfg, *args, **kwargs) -> torch.Tensor:
 def _forward_model(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     cfg, rules = model.cfg, model.rules
     B, S = tokens.shape
-    x = _embed(cfg, model.embed, tokens, rules, _index_rows)
+    seq = _stream_seq(rules, B, S, cfg.d_model)
+    x = _embed(cfg, model.embed, tokens, rules, _index_rows, seq)
     pos = torch.arange(S, device=tokens.device).expand(B, S)
     for layer in model.layers:
         x, _ = _layer(cfg, layer.tree(), x, pos, prefer=model.attn_prefer,
-                      rules=rules)
-    return _logits(cfg, model.final_norm, model.head, x, rules)
+                      rules=rules, seq=seq)
+    return _logits(cfg, model.final_norm, model.head,
+                   _seq_gather(rules, x, seq), rules)
 
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -661,11 +735,11 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def _train_layer(cfg: LMConfig, p_master: dict, x: torch.Tensor,
                  pos: torch.Tensor, prefer: str,
-                 rules: ShardRules = NO_SHARD) -> torch.Tensor:
+                 rules: ShardRules = NO_SHARD, seq=None) -> torch.Tensor:
     """One layer of the training forward: its master slice cast to
     ``cfg.dtype`` (inside autograd), then the layer."""
     x, _ = _layer(cfg, tree_cast(p_master, cfg.dtype), x, pos, prefer=prefer,
-                  rules=rules)
+                  rules=rules, seq=seq)
     return x
 
 
@@ -674,17 +748,18 @@ def _forward_params(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
                     gather: bool = True) -> torch.Tensor:
     check_supported(cfg)
     B, S = tokens.shape
+    seq = _stream_seq(rules, B, S, cfg.d_model)
     x = _embed(cfg, params["embed"].to(cfg.dtype), tokens, rules,
-               embed_tokens)
+               embed_tokens, seq)
     pos = torch.arange(S, device=tokens.device).expand(B, S)
     for p in tree_unbind(params["layers"]):
         if cfg.remat:
             x = checkpoint(_train_layer, cfg, p, x, pos, attn_prefer, rules,
-                           use_reentrant=False)
+                           seq, use_reentrant=False)
         else:
-            x = _train_layer(cfg, p, x, pos, attn_prefer, rules)
+            x = _train_layer(cfg, p, x, pos, attn_prefer, rules, seq)
     return _logits(cfg, params["final_norm"], params["head"].to(cfg.dtype),
-                   x, rules, gather)
+                   _seq_gather(rules, x, seq), rules, gather)
 
 
 def loss_fn(cfg: LMConfig, params: dict, batch: dict, *,
@@ -773,14 +848,16 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     elif cache["k"].shape[2] < S:
         raise ValueError(f"cache holds {cache['k'].shape[2]} positions, the "
                          f"prompt {S}")
-    x = _embed(cfg, model.embed, tokens, rules, _index_rows)
+    seq = _stream_seq(rules, B, S, cfg.d_model)
+    x = _embed(cfg, model.embed, tokens, rules, _index_rows, seq)
     pos = torch.arange(S, device=tokens.device).expand(B, S)
     for i, layer in enumerate(model.layers):
         x, (k, v) = _layer(cfg, layer.tree(), x, pos,
-                           prefer=model.attn_prefer, rules=rules)
+                           prefer=model.attn_prefer, rules=rules, seq=seq)
         cache["k"][i, :, :S] = k
         cache["v"][i, :, :S] = v
-    return _logits(cfg, model.final_norm, model.head, x[:, -1:], rules), cache
+    x = _seq_gather(rules, x, seq)[:, -1:]
+    return _logits(cfg, model.final_norm, model.head, x, rules), cache
 
 
 def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
@@ -797,10 +874,12 @@ def decode_step(model: Transformer, cache: dict, tokens: torch.Tensor,
     if not 0 <= pos < max_seq:
         raise ValueError(f"pos={pos} outside the cache's {max_seq} positions")
     cfg, rules = model.cfg, model.rules
-    x = _embed(cfg, model.embed, tokens, rules, _index_rows)
+    seq = _stream_seq(rules, B, S, cfg.d_model)
+    x = _embed(cfg, model.embed, tokens, rules, _index_rows, seq)
     posb = torch.full((B, 1), pos, device=tokens.device)
     for i, layer in enumerate(model.layers):
         x, _ = _layer(cfg, layer.tree(), x, posb, cache["k"][i],
                       cache["v"][i], pos, prefer=model.attn_prefer,
-                      rules=rules)
-    return _logits(cfg, model.final_norm, model.head, x, rules), cache
+                      rules=rules, seq=seq)
+    return _logits(cfg, model.final_norm, model.head,
+                   _seq_gather(rules, x, seq), rules), cache

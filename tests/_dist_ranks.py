@@ -229,13 +229,15 @@ def case_moe_ep(moe_kw, params, x, pspec, x_specs, mesh_shape):
 
 def case_lm_step(cfg, params, batch, mesh_shape, steps=1, grads=False,
                  serve=None):
-    """On a (data, model) mesh of ``mesh_shape``: the params placed by
-    `param_specs_lm`; ``steps`` sharded `lm_train_step`s (their losses and
-    this rank's params after each; whether the first step run twice gave
-    the same bits); with ``grads``, `loss_fn`'s value and
-    this rank's reduced gradient slices first; with ``serve`` = (prompt
-    tokens, steps), a sharded `Transformer`'s prefill and greedy decode
-    logits (every rank's batch: the data axis is 1)."""
+    """On a (data, model) mesh of ``mesh_shape`` under `lm_rules` (sequence
+    parallel): the params placed by `param_specs_lm`; ``steps`` sharded
+    `lm_train_step`s (their losses and this rank's params after each;
+    whether the first step run twice gave the same bits); with ``grads``,
+    `loss_fn`'s value and this rank's reduced gradient slices first, and
+    again under ``lm_rules(seq_shard=False)`` (``nosp_loss``,
+    ``nosp_grads``); with ``serve`` = (prompt tokens, steps), a sharded
+    `Transformer`'s prefill and greedy decode logits (every rank's batch:
+    the data axis is 1)."""
     from repro_torch.dist.sharding import lm_rules, param_specs_lm, reduce_grads
     from repro_torch.launch.cells import lm_train_step
     from repro_torch.launch.mesh import make_mesh
@@ -253,11 +255,13 @@ def case_lm_step(cfg, params, batch, mesh_shape, steps=1, grads=False,
     if grads:
         from repro_torch.launch.cells import _rows
 
-        loss, g = value_and_grad(lambda q, bb: T.loss_fn(cfg, q, bb,
-                                                         rules=rules))(
-            p, _rows(rules, b))
-        out["loss"] = float(loss)
-        out["grads"] = _numpy_tree(reduce_grads(g, specs, rules))
+        nosp = lm_rules(rules.mesh, seq_shard=False)
+        for key, r in (("", rules), ("nosp_", nosp)):
+            loss, g = value_and_grad(lambda q, bb: T.loss_fn(cfg, q, bb,
+                                                             rules=r))(
+                p, _rows(r, b))
+            out[key + "loss"] = float(loss)
+            out[key + "grads"] = _numpy_tree(reduce_grads(g, specs, r))
     opt = adamw_init(p)
     again = lm_train_step(cfg, p, opt, b, rules=rules)[0]
     losses, trees = [], []
@@ -286,14 +290,91 @@ def case_lm_step(cfg, params, batch, mesh_shape, steps=1, grads=False,
     return out
 
 
-def case_gnn_step(arch_id, cfg, params, batch, mesh_shape, control=False):
+def case_moe_pjit(cfg, params, x, x_specs, mesh_shape, control=True):
+    """`repro`'s pjit MoE layer across the ranks: `_moe_pjit_block` under
+    `lm_rules` on this rank's block of ``x`` under each of ``x_specs``
+    (name → spec; a spec that splits the sequence over ``model`` is the
+    residual stream's SP layout, the block's ``seq``), the layer's MoE
+    weights placed by the rules' specs (experts over ``model``, their
+    ``d`` over ``data``).  With ``control``, the per-rank capacity of
+    expert parallelism (`_moe_shardmap_block`) on the same blocks."""
+    from repro_torch.dist.sharding import Spec, lm_rules, tree_specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+
+    rules = lm_rules(make_mesh(mesh_shape, ("data", "model")))
+    full = {k: torch.from_numpy(v) for k, v in params.items()}
+    specs = tree_specs(rules, {"moe": full}, layer=True)["moe"]
+    p = {k: rules.local(v, specs[k]) for k, v in full.items()}
+    out = dict(coords=rules.coords, y={}, control={})
+    with torch.no_grad():
+        for name, spec in x_specs.items():
+            spec = Spec(*spec)
+            xl = rules.local(torch.from_numpy(x), spec)
+            out["y"][name] = T._moe_pjit_block(cfg, p, xl, rules,
+                                               seq=spec[1]).numpy()
+            if control:
+                out["control"][name] = T._moe_shardmap_block(
+                    cfg, p, xl, rules).numpy()
+    return out
+
+
+def case_stream_rows(cfg, params, tokens, mesh_shape):
+    """The rows (the sequence dim) of the residual stream entering and
+    leaving each layer on this rank of a (data, model) mesh: the training
+    forward under `lm_rules` with ``seq_shard`` on and off, and a sharded
+    `Transformer`'s prefill and first decode step (``seq_shard`` on)."""
+    from repro_torch.dist.sharding import lm_rules, param_specs_lm
+    from repro_torch.launch.cells import _rows
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train.checkpoint import reshard
+
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    full = _torch_tree(params)
+    p = reshard(full, mesh, param_specs_lm(cfg, full, mesh), device="cpu")
+    tok = torch.from_numpy(tokens)
+    seen, layer = [], T._layer
+
+    def spy(*args, **kw):
+        seen.append(args[2].shape[1])
+        out = layer(*args, **kw)
+        seen.append(out[0].shape[1])
+        return out
+
+    out = {}
+    T._layer = spy
+    try:
+        with torch.no_grad():
+            for key, sp in (("train", True), ("train_nosp", False)):
+                rules = lm_rules(mesh, seq_shard=sp)
+                T.forward(cfg, p, _rows(rules, {"tokens": tok})["tokens"],
+                          rules=rules)
+                out[key], seen[:] = list(seen), []
+            rules = lm_rules(mesh)
+            model = T.Transformer(cfg, full, rules)
+            mine = _rows(rules, {"tokens": tok})["tokens"]
+            B, S = mine.shape
+            cache = T.init_cache(cfg, B * mesh_shape[0], S + 1, rules=rules)
+            logits, cache = T.prefill(model, mine, cache)
+            out["prefill"], seen[:] = list(seen), []
+            T.decode_step(model, cache, logits[:, -1].argmax(-1)[:, None], S)
+            out["decode"] = list(seen)
+    finally:
+        T._layer = layer
+    return out
+
+
+def case_gnn_step(arch_id, cfg, params, batch, mesh_shape, control=False,
+                  remat=False):
     """One GNN arch under `gnn_rules` on a (data, model) mesh of
     ``mesh_shape``: this rank's stripe of the whole (padded) ``batch``
     (`launch.cells.stripe`), the loss and the reduced gradient (NumPy
     trees), the params after one `gnn_train_step`, whether a second run
     of both gave the same bits, and the collectives it ran.  With
     ``control``, each rank also takes the next rank's node stripe with its
-    own edges (a wrong layout, whose gradient must miss)."""
+    own edges (a wrong layout, whose gradient must miss); ``remat``
+    (GraphCast) recomputes each processor layer in the backward."""
     import dataclasses
 
     from repro_torch.dist import group as dist_group
@@ -308,16 +389,18 @@ def case_gnn_step(arch_id, cfg, params, batch, mesh_shape, control=False):
     p = _torch_tree(params)
     mine = stripe(batch, rules)
 
+    kw = {"remat": True} if remat else {}
+
     def grads_of(b):
         loss, g = value_and_grad(lambda q, bb: GNN_LOSSES[arch_id](
-            cfg, q, bb, rules))(p, b)
+            cfg, q, bb, rules, **kw))(p, b)
         return float(loss), _numpy_tree(reduce_grads(g, _replicated(g), rules))
 
     def run():
         with dist_group.census() as cen:
             loss, g = grads_of(mine)
         new = gnn_train_step(arch_id, cfg, p, adamw_init(p), mine,
-                             rules=rules)[0]
+                             rules=rules, **kw)[0]
         return loss, g, _numpy_tree(new), cen.records
 
     loss, g, new, records = run()

@@ -20,6 +20,9 @@ of the loss, the gradient and a train step give the same bits on every
 rank; every rank's params after one step within 1e-4 of each leaf's max
 of the one-process step's.  A control — each rank's node stripe taken
 from the next rank, with its own edges — misses the gradient gate.
+GraphCast with ``remat=True`` (each processor layer recomputed in the
+backward) in the 4-rank spawn equals ``remat=False`` bit for bit on every
+rank: the loss, the reduced gradient and the params after one step.
 
 Host code: a padded batch's loss equals the unpadded one's; the plan of a
 ``meta`` index bounds a real plan on an index shaped like an
@@ -214,6 +217,11 @@ def ranks(repro_run, inputs, tmp_path_factory):
             arch_id=arch, cfg=inp["cfg"], params=np_tree(inp["p"]),
             batch=inp["batch"], mesh_shape=shape, control=True))
             for arch, inp in inputs.items()}
+        if name == "2x2":
+            inp = inputs["graphcast"]
+            cases["graphcast_remat"] = ("case_gnn_step", dict(
+                arch_id="graphcast", cfg=inp["cfg"], params=np_tree(inp["p"]),
+                batch=inp["batch"], mesh_shape=shape, remat=True))
         out[name] = _dist_ranks.run_ranks(
             _dist_ranks.run_cases, cases, shape[0] * shape[1],
             tmp_path_factory.mktemp(f"ranks_gnn_{name}"), timeout=600)
@@ -298,6 +306,19 @@ def test_two_runs_are_bit_identical(mesh, ranks, inputs):
         assert {rk["e_local"] for rk in rks} == {b.edge_src.shape[0] // n}
         assert {"all-gather", "reduce-scatter", "all-reduce"} <= \
             set(rks[0]["collectives"])
+
+
+def test_graphcast_remat_is_bit_identical_across_ranks(ranks):
+    """Recompute changes no bit of the sharded step on any rank."""
+    for rk in ranks["2x2"]:
+        plain, remat = rk["graphcast"], rk["graphcast_remat"]
+        assert remat["loss"] == plain["loss"]
+        for which in ("grads", "params"):
+            want = flat(plain[which])
+            for k, v in flat(remat[which]).items():
+                np.testing.assert_array_equal(v, want[k], err_msg=k)
+            assert sorted(flat(remat[which])) == sorted(want)
+        assert remat["repeat_equal"]
 
 
 @pytest.mark.parametrize("mesh", MESHES)
@@ -440,7 +461,7 @@ def test_gnn_cell_on_one_device_runs_the_one_process_step():
 
     cell = build_cell("nequip", "molecule", MeshShape((1, 1),
                                                       ("data", "model")))
-    assert callable(cell.fn) and cell.gap is None
+    assert callable(cell.fn)
     params, opt, batch = cell.abstract_args
     assert batch.n_nodes == 128 * 30 and batch.node_mask.device.type == "meta"
     new, _, loss = cell.fn(*cell.abstract_args)

@@ -7,17 +7,20 @@ to `repro.launch` on the CPU.
   16) production meshes: each argument's global shape (its local block
   times the shard counts of its spec), dtype and spec equal `repro`'s
   `Cell.abstract_args` / ``in_specs`` entry for entry, and so do
-  ``kind``, `donate()`, the skips and ``model_flops`` (rel 1e-12).
-  `repro`'s cells are built in a subprocess on 512 forced host devices.
+  ``kind``, `donate()`, the skips and ``model_flops`` (rel 1e-12); every
+  cell has the port's step, the MoE cells under their published
+  ``impl="pjit"`` with no override.  `repro`'s cells are built in a
+  subprocess on 512 forced host devices.
 * The roofline: `roofline()` with `repro`'s constants passed in gives
   `repro`'s `Roofline` field for field (exact), and each ring formula
   gives `repro`'s ``collective_wire_bytes`` on a one-op HLO line of the
   same op, bytes and group (exact).
-* The dry run on a smoke LM train step over a (2, 4) mesh: for every rank,
-  the census (each collective's op, bytes, group size and axis) and the
-  FLOPs of the ``meta`` run equal those the same step records on 8 real
-  gloo ranks on the CPU under `FlopCounterMode` (exact); so do the smoke
-  SASRec's sharded train and top-100 serve steps.
+* The dry run on a smoke LM train step over a (2, 4) mesh (dense, expert
+  parallel and pjit MoE, sequence parallel): for every rank, the census
+  (each collective's op, bytes, group size and axis) and the FLOPs of the
+  ``meta`` run equal those the same step records on 8 real gloo ranks on
+  the CPU under `FlopCounterMode` (exact); so do the smoke SASRec's
+  sharded train and top-100 serve steps.
 * Layer differencing from depth 2 and 4 gives the depth-6 count of FLOPs,
   bytes, wire bytes and collective counts exactly.
 * K6's FLOP formula equals the work of the tiles that
@@ -201,20 +204,16 @@ def test_build_cell_matches_repro(arch, shape, tag, repro_cells):
     assert got == want["args"]
     assert {x.device.type for x in args} == {"meta"}
     family = get_arch(arch).family
+    assert callable(cell.fn)
     if family == "gnn":   # the sharded GNN step under gnn_rules
-        assert callable(cell.fn) and cell.gap is None
         assert cell.notes.startswith(want["notes"])
-    elif family == "recsys":
-        assert callable(cell.fn) and cell.gap is None
-    elif get_arch(arch).make_config().moe is not None:
-        # GSPMD's MoE dispatch has no port; expert parallelism has
-        assert cell.fn is None and "pjit" in cell.gap
+    elif family == "lm" and get_arch(arch).make_config().moe is not None:
+        # the published pjit dispatch and expert parallelism take the same
+        # arguments
         ep = build_cell(arch, shape, mesh, moe_impl="shardmap")
-        assert callable(ep.fn) and ep.gap is None
+        assert callable(ep.fn)
         assert [(x.shape, x.dtype) for x in _flat(ep.abstract_args)] == \
             [(x.shape, x.dtype) for x in args]
-    else:
-        assert callable(cell.fn) and cell.gap is None
 
 
 # ---------------------------------------------------------------------------
@@ -304,7 +303,16 @@ def _moe_smoke(n_layers=None):
                                                             n_layers=n_layers)
 
 
-CENSUS_CASES = {"dense": _smoke, "moe": _moe_smoke}
+def _moe_pjit_smoke(n_layers=None):
+    """deepseek-moe-16b's smoke config under its published ``impl="pjit"``:
+    the global capacity, the expert ids gathered over ``data``."""
+    cfg = get_arch("deepseek-moe-16b").make_smoke_config()
+    assert cfg.moe.impl == "pjit"
+    return cfg if n_layers is None else dataclasses.replace(cfg,
+                                                            n_layers=n_layers)
+
+
+CENSUS_CASES = {"dense": _smoke, "moe": _moe_smoke, "moe_pjit": _moe_pjit_smoke}
 
 
 def _np_tree(t):
@@ -348,9 +356,35 @@ def test_meta_census_and_flops_equal_the_ranks(name, ranks):
     # the dense step's reductions run over both axes (heads, FFN and vocab
     # over model, the loss over data, the gradients over both); expert
     # parallelism adds its all-to-alls and the FSDP gathers
-    assert {("all-reduce", "model"), ("all-reduce", "data")} <= seen
+    # sequence parallelism reduce-scatters the blocks' outputs and gathers
+    # their inputs over model
+    assert {("all-reduce", "model"), ("all-reduce", "data"),
+            ("reduce-scatter", "model"), ("all-gather", "model")} <= seen
     if name == "moe":
         assert {("all-to-all", "model"), ("all-gather", "data")} <= seen
+    if name == "moe_pjit":   # the ids and the FSDP experts over data
+        assert ("all-gather", "data") in seen
+        assert ("all-to-all", "model") not in seen
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-30b-a3b"])
+def test_moe_cell_runs_pjit_without_override(arch):
+    """`build_cell` runs the MoE cells under the published config
+    (``impl="pjit"``, no ``moe_impl``): rank 0's train step at full width,
+    two layers deep, on ``meta`` tensors, gathering each layer's expert ids
+    (int32) over the data axes."""
+    mesh = make_production_mesh(multi_pod=False)
+    cell = build_cell(arch, "train_4k", mesh, n_layers=2)
+    assert get_arch(arch).make_config().moe.impl == "pjit"
+    with dist_group.census() as cen:
+        new, _, loss = cell.fn(*cell.abstract_args)
+    assert loss.device.type == "meta" and loss.shape == ()
+    cfg = get_arch(arch).make_config()
+    B, S = 256 // 16, 4096               # rank 0's sequences, whole
+    ids = [r for r in cen.records if r[0] == "all-gather"
+           and r[1] == 16 * B * S * cfg.moe.top_k * 4]
+    assert {r[3] for r in ids} == {"data"}
+    assert len(ids) == 2 * 2             # a layer, forward and recompute
 
 
 RECSYS_B = {"train": 8, "serve": 16}

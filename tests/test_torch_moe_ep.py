@@ -20,6 +20,22 @@ drawn by the port from seeds.
   process, over two steps; every rank's params after each step equal to
   the one-process step's slices within 1e-5 of each leaf's max; one
   step run twice gives the same bits.
+* The pjit MoE (``impl="pjit"``, `repro`'s default: GSPMD's sorted
+  dispatch, the capacity from the global token count) on the same mesh,
+  inputs and weights, with the expert weights placed by `lm_rules`
+  (experts over ``model``, their ``d`` over ``data``), in both token
+  layouts (the second is the residual stream under sequence
+  parallelism): within 2e-4 of max|y| of `repro`'s ``moe_apply`` under
+  ``lm_rules`` on 8 forced devices and of the port's one-process
+  `moe_apply` on the global batch, at capacity factor 8 and at 1.0, where
+  entries drop; at 1.0 the per-rank capacity of expert parallelism on the
+  same blocks (the control) misses that gate.
+* Sequence parallelism: the loss and every reduced gradient leaf of the
+  shardmap and the pjit MoE LMs under ``lm_rules(seq_shard=True)`` within
+  1e-5 relative / 1e-4 of the leaf's max of ``seq_shard=False``'s and of
+  `repro`'s under ``lm_rules(seq_shard=True)``; the pjit step's params
+  within 1e-5 of each leaf's max of the one-process step's; the residual
+  stream holds S / model rows on each rank between blocks.
 * Reshard: a tree placed on 4 data shards (a (4, 2) mesh), gathered and
   saved, restored onto 8 (an (8, 1) mesh) bit for bit.
 """
@@ -41,6 +57,7 @@ from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import transformer as T
 from repro_torch.models.moe import MoEConfig, init_moe, moe_apply
 from repro_torch.train.optimizer import adamw_init
+from repro_torch.train.train_loop import value_and_grad
 
 REPO = Path(__file__).resolve().parents[1]
 WORLD = 8
@@ -54,6 +71,8 @@ PSPEC = {"router": (), "wi": ("model", None, None),
          "shared_wo": ("model", None)}
 X_SPECS = {"batch": ("data", None, None), "batch_seq": ("data", "model", None)}
 CAPS = (8.0, 1.0)
+MOE_TOL = 2e-4            # of max|y|: repro's EP gate
+LOSS_TOL, GRAD_TOL = 1e-5, 1e-4
 
 _REPRO = r"""
 import numpy as np, jax, jax.numpy as jnp
@@ -62,6 +81,13 @@ from repro.models.moe import MoEConfig, moe_apply, moe_apply_shardmap
 from repro.models.common import NO_SHARD
 from repro.models.transformer import LMConfig, loss_fn
 from repro.dist.sharding import lm_rules
+import dataclasses
+
+def flat(tree, prefix):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in flat(sub, f"{prefix}/{key}").items()}
+    return {prefix: np.asarray(tree)}
 
 z = np.load(IN)
 def unflat(prefix):
@@ -93,16 +119,22 @@ for cf in CAPS:
             f = jax.jit(jax.shard_map(body, mesh=mesh, check_vma=False,
                         in_specs=(spec, pspec), out_specs=spec))
             out[f"ep/{cf}/{name}"] = np.asarray(f(x, p))
+        out[f"pjit/{cf}"] = np.asarray(jax.jit(lambda xx, pp: moe_apply(
+            moe, pp, xx, lm_rules(mesh), jnp.float32))(x, p))
 
 cfg = LMConfig(name="moe-sm", n_layers=2, d_model=32, n_heads=4, n_kv_heads=4,
                d_head=8, d_ff=64, vocab=128, dtype=jnp.float32,
                moe=MoEConfig(n_experts=8, top_k=2, n_shared=1, d_ff_expert=16,
                              capacity_factor=4.0, impl="shardmap"))
 toks = jnp.asarray(z["tokens"])
-with jax.set_mesh(mesh):
-    out["loss"] = np.asarray(jax.jit(lambda q: loss_fn(
-        cfg, q, {"tokens": toks, "labels": toks}, lm_rules(mesh)))(
-        unflat("params")))
+for key, c in (("", cfg), ("pjit_", dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, impl="pjit")))):
+    with jax.set_mesh(mesh):
+        loss, g = jax.jit(jax.value_and_grad(lambda q: loss_fn(
+            c, q, {"tokens": toks, "labels": toks},
+            lm_rules(mesh, seq_shard=True))))(unflat("params"))
+    out[key + "loss"] = np.asarray(loss)
+    out.update(flat(g, key + "grads"))
 np.savez(OUT, **out)
 print("OK")
 """
@@ -173,9 +205,18 @@ def ranks(repro_run, inputs, reshard_tree, tmp_path_factory):
         moe_kw=dict(MOE, capacity_factor=cf), params=params,
         x=inputs["x"], pspec=PSPEC, x_specs=X_SPECS, mesh_shape=MESH))
         for cf in CAPS}
+    cases.update({f"pjit/{cf}": ("case_moe_pjit", dict(
+        cfg=moe_layer_config(cf), params=params, x=inputs["x"],
+        x_specs=X_SPECS, mesh_shape=MESH)) for cf in CAPS})
     cases["step"] = ("case_lm_step", dict(
         cfg=inputs["cfg"], params=np_tree(inputs["params"]),
-        batch=inputs["batch"], mesh_shape=MESH, steps=2))
+        batch=inputs["batch"], mesh_shape=MESH, steps=2, grads=True))
+    cases["step_pjit"] = ("case_lm_step", dict(
+        cfg=pjit_config(inputs["cfg"]), params=np_tree(inputs["params"]),
+        batch=inputs["batch"], mesh_shape=MESH, steps=1, grads=True))
+    cases["stream"] = ("case_stream_rows", dict(
+        cfg=inputs["cfg"], params=np_tree(inputs["params"]),
+        tokens=inputs["batch"]["tokens"], mesh_shape=MESH))
     ck = tmp_path_factory.mktemp("reshard_ckpt")
     cases["reshard"] = ("case_reshard", dict(
         tree=reshard_tree, save_shape=SAVE, load_shape=LOAD,
@@ -199,6 +240,20 @@ def np_tree(t):
     return t.detach().numpy()
 
 
+def moe_layer_config(cf):
+    """A one-layer LM config around ``MOE`` at capacity factor ``cf``, fp32:
+    what `_moe_pjit_block` reads of it."""
+    return T.LMConfig(name="moe-layer", n_layers=1, d_model=D, n_heads=4,
+                      n_kv_heads=4, d_head=8, d_ff=64, vocab=128,
+                      dtype=torch.float32,
+                      moe=MoEConfig(**MOE, capacity_factor=cf))
+
+
+def pjit_config(cfg):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            impl="pjit"))
+
+
 @pytest.fixture(scope="module")
 def reshard_tree():
     rng = np.random.default_rng(3)
@@ -207,7 +262,7 @@ def reshard_tree():
             "e": rng.normal(size=(3, 8, 2)).astype(np.float32)}
 
 
-def assemble(ranks, key, name, shape):
+def assemble(ranks, key, name, shape, field="y"):
     """The full array from every rank's block under ``X_SPECS[name]``."""
     mesh = MeshShape(MESH, ("data", "model"))
     full = np.full(shape, np.nan, np.float32)
@@ -216,8 +271,8 @@ def assemble(ranks, key, name, shape):
         o = out[key]
         view = local_slice(torch.from_numpy(full), spec, o["coords"], mesh)
         if not np.isnan(view.numpy()).all():
-            np.testing.assert_array_equal(view.numpy(), o["y"][name])
-        view.copy_(torch.from_numpy(o["y"][name]))
+            np.testing.assert_array_equal(view.numpy(), o[field][name])
+        view.copy_(torch.from_numpy(o[field][name]))
     return full
 
 
@@ -297,3 +352,119 @@ def test_reshard_4_to_8(ranks, reshard_tree):
             assert out["placed"][k].tobytes() == placed.tobytes(), (r, k)
     assert ranks[0]["reshard"]["back"]["w"].shape == (2, 5)
     assert ranks[0]["reshard"]["placed"]["w"].shape == (4, 5)
+
+
+def port_one_process(inputs, cf):
+    moe = MoEConfig(**MOE, capacity_factor=cf)
+    p = {k[2:]: torch.from_numpy(v) for k, v in inputs["p"].items()}
+    with torch.no_grad():
+        return moe_apply(moe, p, torch.from_numpy(inputs["x"]),
+                         torch.float32).numpy()
+
+
+@pytest.mark.parametrize("name", sorted(X_SPECS))
+@pytest.mark.parametrize("cf", CAPS)
+def test_pjit_matches_repro_and_one_process(ranks, repro_out, inputs, cf,
+                                            name):
+    """The pjit layer across 8 ranks is `repro`'s GSPMD layer and the
+    port's one process on the global batch, drops included."""
+    y = assemble(ranks, f"pjit/{cf}", name, inputs["x"].shape)
+    one = port_one_process(inputs, cf)
+    scale = np.abs(one).max()
+    assert np.abs(y - one).max() <= MOE_TOL * scale
+    assert np.abs(y - repro_out[f"pjit/{cf}"]).max() <= MOE_TOL * scale
+    assert np.abs(repro_out[f"pjit/{cf}"]
+                  - repro_out[f"oracle/{cf}"]).max() <= MOE_TOL * scale
+    if cf < 8.0:                     # entries drop at this capacity
+        assert np.abs(one - port_one_process(inputs, 8.0)).max() > 1e-2
+
+
+@pytest.mark.parametrize("name", sorted(X_SPECS))
+def test_pjit_per_rank_capacity_misses(ranks, inputs, name):
+    """The control: expert parallelism's per-rank capacity keeps other
+    tokens than the global capacity on the same blocks."""
+    ctrl = assemble(ranks, "pjit/1.0", name, inputs["x"].shape,
+                    field="control")
+    one = port_one_process(inputs, 1.0)
+    assert np.abs(ctrl - one).max() > MOE_TOL * np.abs(one).max()
+
+
+def leaf_gaps(got, want, spec, coords, mesh):
+    """Each leaf's gap, of its max, between a rank's slices and a full
+    tree's (or another rank tree's, when ``spec`` is None)."""
+    if isinstance(want, dict):
+        return {f"{k}/{kk}": v for k in want for kk, v in leaf_gaps(
+            got[k], want[k], None if spec is None else spec[k], coords,
+            mesh).items()}
+    want = np.asarray(want)
+    if spec is not None:
+        want = local_slice(torch.from_numpy(want), spec, coords,
+                           mesh).numpy()
+    return {"": float(np.abs(got - want).max()
+                      / max(np.abs(want).max(), 1e-30))}
+
+
+def repro_tree(repro_out, prefix):
+    tree = {}
+    for key in repro_out.files:
+        if key.startswith(prefix + "/"):
+            node, parts = tree, key[len(prefix) + 1:].split("/")
+            for q in parts[:-1]:
+                node = node.setdefault(q, {})
+            node[parts[-1]] = repro_out[key]
+    return tree
+
+
+@pytest.mark.parametrize("case", ["step", "step_pjit"])
+def test_sp_grads_match_nosp_and_repro(ranks, repro_out, inputs, case):
+    """Sequence parallelism changes no result: loss and gradients under
+    ``seq_shard=True`` against ``seq_shard=False`` and `repro`'s SP
+    step."""
+    mesh = MeshShape(MESH, ("data", "model"))
+    specs = param_specs_lm(inputs["cfg"], inputs["params"], mesh)
+    key = "" if case == "step" else "pjit_"
+    want_loss = float(repro_out[key + "loss"])
+    want = repro_tree(repro_out, key + "grads")
+    for o in ranks:
+        s = o[case]
+        assert abs(s["loss"] - s["nosp_loss"]) <= LOSS_TOL * abs(s["loss"])
+        assert abs(s["loss"] - want_loss) <= LOSS_TOL * abs(want_loss)
+        gaps = leaf_gaps(s["grads"], s["nosp_grads"], None, None, None)
+        assert max(gaps.values()) <= GRAD_TOL, gaps
+        gaps = leaf_gaps(s["grads"], want, specs, s["coords"], mesh)
+        assert max(gaps.values()) <= GRAD_TOL, gaps
+
+
+def test_pjit_train_step_matches_one_process(ranks, inputs):
+    cfg = pjit_config(inputs["cfg"])
+    params = inputs["params"]
+    batch = {k: torch.from_numpy(v) for k, v in inputs["batch"].items()}
+    loss, grads = value_and_grad(lambda p, b: T.loss_fn(cfg, p, b))(params,
+                                                                   batch)
+    new, _, step_loss = lm_train_step(cfg, params, adamw_init(params), batch)
+    mesh = MeshShape(MESH, ("data", "model"))
+    specs = param_specs_lm(cfg, params, mesh)
+    for o in ranks:
+        s = o["step_pjit"]
+        assert abs(s["loss"] - float(loss)) <= LOSS_TOL * abs(float(loss))
+        assert max(leaf_gaps(s["grads"], np_tree(grads), specs, s["coords"],
+                             mesh).values()) <= GRAD_TOL
+        assert abs(s["losses"][0] - float(step_loss)) <= \
+            LOSS_TOL * abs(float(step_loss))
+        assert tree_gap(new, s["params"][0], specs, s["coords"],
+                        mesh) < 1e-5
+        assert s["repeat_equal"]
+
+
+def test_stream_holds_its_slice_between_blocks(ranks, inputs):
+    """Under ``lm_rules(seq_shard=True)`` each rank's residual stream has S
+    / model rows between blocks (the whole S without it, and in a decode
+    step, where S = 1 does not split)."""
+    S, M = inputs["batch"]["tokens"].shape[1], MESH[1]
+    L = inputs["cfg"].n_layers
+    for o in ranks:
+        rows = o["stream"]
+        assert rows["train"] == [S // M] * 2 * L
+        assert rows["prefill"] == [S // M] * 2 * L
+        assert rows["train_nosp"] == [S] * 2 * L
+        assert rows["decode"] == [1] * 2 * L

@@ -177,3 +177,17 @@ def test_unported_and_device_contract(quality, monkeypatch):
         partition(mt, NPARTS)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cfg_t.make_pipeline("geometric").run(mt, NPARTS)
+
+
+@pytest.mark.parametrize("partitioner", ["rsb", "rcb"])
+def test_rsb_front_door_gives_repros_labels(quality, partitioner):
+    """`repro_torch.core.rsb.partition`, the compatibility front door,
+    gives `repro.core.rsb.partition`'s labels on the quality mesh."""
+    import repro.core.rsb as rsb_j
+    import repro_torch.core.rsb as rsb_t
+
+    mj, mt, _, _ = quality
+    want = rsb_j.partition(mj, NPARTS, partitioner=partitioner, guard=False)
+    got = rsb_t.partition(mt, NPARTS, partitioner=partitioner, guard=False,
+                          device="cpu")
+    np.testing.assert_array_equal(got, want)
