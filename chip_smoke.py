@@ -190,7 +190,8 @@ Phases, each printing JSON lines:
    keys.  Then K6's gradient (``grad``): dq, dk, dv through its autograd
    function on the card against autograd through the plain version at
    the ``prefill`` shape, fp32 (1e-5) and bf16 (2e-2 of each max),
-   without and with a window of 128, with both passes' ms.
+   without and with a window of 128, with both passes' ms beside SDPA's
+   forward and backward on the same inputs and the pair's bound.
 10. ``serve`` — `tinyllama-1.1b` at full width (``make_config()``, bf16,
     parameters from a seeded generator, built one layer at a time by
     `build_model`) through `launch.serve.generate`:
@@ -309,11 +310,15 @@ Phases, each printing JSON lines:
     trained through `launch.cells.recsys_train_step` on train_batch's
     65,536 users × 50 (uncut): one unrecorded step, then 5: step ms,
     users/s, peak memory, K5 launches (6 a step: three lookups and their
-    transposed-bag backward), one step profiled (K5's device ms beside
-    the step's, the top kernels); K5's backward alone at the ``pos_items``
-    lookup's shape (3,276,800 entries into 1,000,448 rows) against one
-    ``embedding_dense_backward`` call (1e-5 of each row's Σ|terms|),
-    timed beside its bound, the plain version and that call.  Checks: (a)
+    transposed-bag backward, each of those two kernels), one step
+    profiled (K5's device ms beside the step's, the top kernels); K5's
+    backward alone at the ``pos_items`` lookup's shape (3,276,800 entries
+    into 1,000,448 rows) and at model rank 1's slice of two (500,224 rows,
+    the foreign ~96% of the entries at row 0, weight 0): bit for bit
+    against the run-order plain version, against one
+    ``embedding_dense_backward`` call (1e-5 of each row's Σ|terms|), its
+    device ms below that call's, timed beside its bound, the plain
+    version and the whole backward with its sort.  Checks: (a)
     gradients with K5, with the plain lookups and their autograd, and
     with the plain ones in fp64: K5's largest gap to fp64 (of each leaf's
     max) at most 1.1 × the plain fp32 one's (two fp32 orders of a row's
@@ -2715,7 +2720,11 @@ def flash_grad_rows() -> list:
     """K6's gradient on the card: dq, dk, dv through its autograd function
     (the kernel's forward, the plain recompute's backward) against
     autograd through the plain version, at FLASH_GRAD_CASE's shape in fp32
-    and bf16, without and with a window; each pass's ms by CUDA events."""
+    and bf16, without and with a window; each pass's ms by CUDA events,
+    beside SDPA's forward and backward on the same inputs (the yardstick)
+    and the bound of the forward and backward: the forward's bytes twice
+    (dout read, dq, dk and dv written besides) and its FLOPs three times
+    (QKᵀ and PV forward; dV, dP, dQ and dK backward)."""
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
@@ -2746,10 +2755,28 @@ def flash_grad_rows() -> list:
             tol = FLASH_GRAD_TOL[dtype]
             check(max(errs) <= tol, f"K6 grad {dtype} window={window}: "
                   f"dq, dk, dv off by {errs} of their max (tol {tol})")
+            leaves = [a.to(dtype, copy=True).requires_grad_()
+                      for a in arrays[:3]]
+            sdpa = sdpa_call(*leaves, True, 0, Skv, window)
+
+            def sdpa_grads():
+                sdpa().backward(dout)
+
+            nbytes, flops = flash_work(B, Sq, Skv, H, Hkv, D, 0, Skv, True,
+                                       leaves[0].element_size(), window)
+            peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 \
+                else FP32_FLOPS_PER_S
+            bound_bytes_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ops_ms = 3 * flops / peak * 1e3
             out.append(dict(case=FLASH_GRAD_CASE, dtype=str(dtype).split(".")[-1],
                             window=window, rel_err_dq_dk_dv=errs, tol=tol,
                             ms=time_auto(lambda: grads("auto")),
-                            plain_autograd_ms=time_auto(lambda: grads("ref"))))
+                            plain_autograd_ms=time_auto(lambda: grads("ref")),
+                            sdpa_fwd_bwd_ms=time_auto(sdpa_grads),
+                            bound_ms=max(bound_bytes_ms, bound_ops_ms),
+                            bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+                            else "operations"))
+            del leaves
     return out
 
 
@@ -4099,51 +4126,104 @@ def phase_recsys():
     return bag_rows, k5_launches
 
 
-def bag_backward_row(table_rows, ids, d) -> dict:
-    """K5's backward at one training lookup's shape: the transposed bag of
-    ``ids`` (bags of one, weight 1) into a dense (table_rows, d) gradient —
-    entries sorted by row, the output's gradient as the table — held to
-    one `embedding_dense_backward` call (the same function: weight 1) and
-    timed by CUDA events and the profiler beside its bound, the plain
-    version and that call."""
-    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
-    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
-
+def bag_backward_inputs(table_rows, ids, d, slice_of=None):
+    """The transposed bag of a lookup of ``ids`` (bags of one, weight 1)
+    into (table_rows, d), or with ``slice_of`` = (n_model, rank) into that
+    rank's rows with every foreign id at its row 0 and weight 0: (dout,
+    idx, w_in, seg, rows, w, n_rows) — the output's gradient (seeded), the
+    lookup's ids and weights, and K5's arguments (entries stable-sorted by
+    row: the rows as segments, the entries' places as indices)."""
     n = ids.numel()
     idx = ids.reshape(-1).long()
+    w_in = torch.ones(n, dtype=torch.float32, device="cuda")
+    if slice_of is not None:
+        n_model, rank = slice_of
+        table_rows //= n_model
+        local = idx - rank * table_rows
+        own = (local >= 0) & (local < table_rows)
+        idx, w_in = torch.where(own, local, 0), own.float()
     dout = torch.from_numpy(np.random.default_rng(41).normal(
         size=(n, d)).astype(np.float32)).cuda()
     order = torch.argsort(idx, stable=True)
-    rows, seg = idx[order].to(torch.int32), order.to(torch.int32)
-    w = torch.ones(n, dtype=torch.float32, device="cuda")
+    return (dout, idx, w_in, order.to(torch.int32),
+            idx[order].to(torch.int32), w_in[order], table_rows)
+
+
+def bag_backward_row(table_rows, ids, d, slice_of=None) -> dict:
+    """K5's backward at one training lookup's shape: the transposed bag of
+    ``ids`` (bags of one, weight 1) into a dense (table_rows, d) gradient —
+    entries sorted by row, the output's gradient as the table — by K5's
+    split launch, as `ops.EmbeddingBag.backward` calls it.  With
+    ``slice_of`` = (n_model, rank), the vocab-parallel shape of that rank:
+    its rows of the table, every foreign id at its row 0 and weight 0.
+    Held bit for bit to the run-order plain version (on the card: its sums
+    are elementwise) and to one `embedding_dense_backward` call of the
+    same function (the weights folded into its input) within 1e-5 of each
+    row's Σ|terms|; device ms (the profiler, every kernel of a call) gated
+    below that call's, beside its bound, the plain version (`index_add_`)
+    and the whole backward: the stable sort, the weights' gather and K5."""
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.kernels.embedding_bag.ref import (embedding_bag_ref,
+                                                       embedding_bag_runs_ref)
+
+    dout, idx, w_in, seg, rows, w, table_rows = bag_backward_inputs(
+        table_rows, ids, d, slice_of)
+    n = idx.numel()
 
     def kernel():
-        return eb_cuda.embedding_bag_cuda(dout, seg, rows, w, table_rows)
+        return eb_cuda.embedding_bag_cuda(dout, seg, rows, w, table_rows,
+                                          split=True)
+
+    def whole():
+        o = torch.argsort(idx, stable=True)
+        return eb_cuda.embedding_bag_cuda(
+            dout, o.to(torch.int32), idx[o].to(torch.int32), w_in[o],
+            table_rows, split=True)
 
     def plain():
         return embedding_bag_ref(dout, seg, rows, table_rows, weights=w)
 
-    def library():
-        return torch.ops.aten.embedding_dense_backward(dout, idx, table_rows,
-                                                       -1, False)
+    dout_w = dout * w_in[:, None]
 
-    got, want, lib = kernel(), plain(), library()
+    def library():
+        return torch.ops.aten.embedding_dense_backward(dout_w, idx,
+                                                       table_rows, -1, False)
+
+    got, lib = kernel(), library()
+    run, group = eb_cuda.run_shape()
+    runs = embedding_bag_runs_ref(dout, seg, rows, table_rows, weights=w,
+                                  run=run, group=group)
+    check(torch.equal(got, runs) and torch.equal(whole(), got),
+          f"K5 backward {slice_of}: not the run-order plain version's bits")
     err = float((got - lib).abs().max() / lib.abs().max())
     # the two sum a row's entries in other orders: held to 1e-5 of the
     # row's Σ|terms| (K5 over |dout|), the tolerance of every fp32 sum here
-    terms = eb_cuda.embedding_bag_cuda(dout.abs(), seg, rows, w, table_rows)
+    terms = eb_cuda.embedding_bag_cuda(dout.abs(), seg, rows, w.abs(),
+                                       table_rows, split=True)
     excess = float(((got - lib).abs() - 1e-5 * terms).max())
     check(excess <= 0, f"K5 backward vs embedding_dense_backward: max "
           f"{err} of max |g|, past 1e-5 of Σ|terms| by {excess}")
-    dev_ms, _, _ = profiled_ms(kernel, "embedding_bag_kernel")
+    plain_err = float((plain() - lib).abs().max() / lib.abs().max())
+    counts = torch.bincount(idx, minlength=table_rows)
+    long_rows = counts > run
+    del runs, terms
+    dev_ms, lib_dev_ms = profiled_call_ms(kernel), profiled_call_ms(library)
+    check(dev_ms is not None and lib_dev_ms is not None
+          and dev_ms < lib_dev_ms, f"K5 backward {slice_of}: device "
+          f"{dev_ms} ms, not below embedding_dense_backward's {lib_dev_ms}")
     nbytes = 4 * (n * d + 3 * n + table_rows * d)
-    return dict(entries=n, rows=table_rows, d=d, rel_err_vs_library=err,
-                plain_rel_err=float((want - lib).abs().max()
-                                    / lib.abs().max()),
-                ms=time_auto(kernel), dev_ms=dev_ms, plain_ms=time_auto(plain),
-                library_ms=time_auto(library),
+    return dict(entries=n, rows=table_rows, d=d, slice_of=slice_of,
+                own_share=float(w_in.mean()), rel_err_vs_library=err,
+                plain_rel_err=plain_err,
+                ms=time_auto(kernel), dev_ms=dev_ms,
+                whole_ms=time_auto(whole),
+                whole_dev_ms=profiled_call_ms(whole),
+                plain_ms=time_auto(plain), library_ms=time_auto(library),
+                library_dev_ms=lib_dev_ms,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                largest_row_entries=int(torch.bincount(idx).max()))
+                run=run, group=group, long_rows=int(long_rows.sum()),
+                long_entries=int(counts[long_rows].sum()),
+                largest_row_entries=int(counts.max()))
 
 
 def phase_recsys_train():
@@ -4193,12 +4273,13 @@ def phase_recsys_train():
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(secs)
     # where a step's time goes: K5's six launches (three lookups, three
-    # transposed-bag backwards) beside the step's other kernels
+    # transposed-bag backwards of two kernels each) beside the step's
+    # other kernels
     by_name = device_profile(lambda: step(params, opt), warmup=1)
-    k5_prof = [v for n, v in by_name.items() if "embedding_bag_kernel" in n]
+    k5_prof = [v for n, v in by_name.items() if "embedding_bag_" in n]
     profile = dict(cuda_kernels=sum(v[0] for v in by_name.values()),
                    device_ms=sum(v[1] for v in by_name.values()),
-                   k5_launches=sum(v[0] for v in k5_prof),
+                   k5_kernels=sum(v[0] for v in k5_prof),
                    k5_ms=sum(v[1] for v in k5_prof),
                    top=top_kernels(by_name))
     del by_name
@@ -4261,9 +4342,12 @@ def phase_recsys_train():
 
     k5_backward = bag_backward_row(cfg.table_rows, batch["pos_items"],
                                    cfg.embed_dim)
+    # (h)'s shape: model rank 1's rows of two, the foreign ids at row 0
+    k5_backward_slice = bag_backward_row(cfg.table_rows, batch["pos_items"],
+                                         cfg.embed_dim, slice_of=(2, 1))
     emit("recsys_train", **run, check_a=gaps_a,
          check_a_slack=RECSYS_TRAIN_FP64_SLACK,
-         k5_backward=k5_backward,
+         k5_backward=k5_backward, k5_backward_slice=k5_backward_slice,
          check_b_bit_identical=check_b,
          check_c=dict(loss_gap=loss_gap, param_gap=param_gap,
                       tol=RECSYS_TRAIN_TOL), failures=failures,

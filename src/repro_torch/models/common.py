@@ -81,7 +81,7 @@ def vocab_parallel_lookup(table: torch.Tensor, ids: torch.Tensor,
     w = own.to(table.dtype)
     x = embedding_bag(table, torch.where(own, local, 0).to(torch.int32), seg,
                       n, weights=w if weight == 1.0 else w * weight,
-                      prefer=prefer)
+                      bags_of_one=True, prefer=prefer)
     return rules.psum(x, entry) if reduce else x
 
 

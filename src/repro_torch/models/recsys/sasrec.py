@@ -200,7 +200,7 @@ def lookup(table: torch.Tensor, ids: torch.Tensor, weight: float, *,
     segments = torch.arange(n, dtype=torch.int32, device=dev)
     weights = torch.full((n,), weight, dtype=torch.float32, device=dev)
     return embedding_bag(table, ids.to(torch.int32), segments, n,
-                         weights=weights, prefer=prefer)
+                         weights=weights, bags_of_one=True, prefer=prefer)
 
 
 def candidate_scores(cfg: SASRecConfig, table: torch.Tensor, h: torch.Tensor,

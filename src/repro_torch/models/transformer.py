@@ -730,7 +730,7 @@ def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     n = B * S
     seg = torch.arange(n, dtype=torch.int32, device=tokens.device)
     return embedding_bag(table, tokens.reshape(n).to(torch.int32), seg,
-                         n).view(B, S, table.shape[1])
+                         n, bags_of_one=True).view(B, S, table.shape[1])
 
 
 def _train_layer(cfg: LMConfig, p_master: dict, x: torch.Tensor,

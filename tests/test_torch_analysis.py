@@ -388,7 +388,8 @@ def test_fallback_inserted_in_a_copy_of_the_tree_fires(tmp_path, project):
     old = ("    return cuda.embedding_bag_cuda(\n"
            "        table, indices.to(torch.int32).contiguous(),\n"
            "        segments.to(torch.int32).contiguous(), "
-           "weights.contiguous(), n_bags)\n")
+           "weights.contiguous(), n_bags,\n"
+           "        split=split)\n")
     assert old in text
     new = ("    try:\n" + textwrap.indent(old, "    ")
            + "    except RuntimeError:\n"

@@ -27,7 +27,10 @@ itself bit for bit.  The gather-scatter Laplacian (no kernel of its own: an orde
 card to the CPU run label for label.  K5, the embedding bag, is held to its plain version per element
 relative to the bag's Σ|w·row| (fp32 1e-5: the plain version adds with
 atomics in another order; bf16 2e-2), and bit for bit on bags of one in
-fp32; the smoke SASRec on the card to the CPU run: user states within
+fp32; bags of more than R entries bit for bit against the run-order plain
+version (elementwise sums: the same bits on the card), split across warps
+or not, twice; a vocab slice's owned rows bit for bit against the whole
+table's backward; the smoke SASRec on the card to the CPU run: user states within
 1e-5, streamed top-100 ids identical.  Training: K6 with a sliding window
 on its three routes against the plain mask; K6's and K5's gradients
 against autograd through their plain versions, K5's bit-identical twice;
@@ -870,6 +873,140 @@ def test_embedding_bag_kernel_tile_edges(card, case, dtype, d, offset):
     assert torch.equal(got.cpu(), want)
     empty = torch.tensor(lengths) == 0
     assert bool((got[empty.to(card)] == 0).all())
+
+
+def _bag_run_shape():
+    """K5's (R, G): entries a run of a long bag, runs a group."""
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+
+    return eb_cuda.run_shape()
+
+
+# K5's long bags (more than R entries): (bag lengths, table rows, which
+# entries' weights are 0) for R.  The Zipf case is a lookup's transposed
+# bag: 10^6 entries sorted by table row.
+BAG_LONG = {
+    "run_edges": lambda R: ([0, 0, R - 1, 0, R, 0, R + 1, 2 * R + 5, 0, 3],
+                            300),
+    "one_1e5": lambda R: ([0, 2, 0, 100_000, 0, 1, 0], 500),
+    "zipf_transposed": lambda R: (np.bincount(np.random.default_rng(5).zipf(
+        1.2, 10**6) % 20_000, minlength=20_000).tolist(), 10**6),
+    # a vocab-parallel rank's row 0: ~96% of the entries, at weight 0
+    "vocab_row0": lambda R: ([480_000] + [1, 0, 3, 2] * 5_000, 10**6),
+}
+
+
+def _long_bag_case(case, dtype, d, offset, card):
+    """Sorted segments of BAG_LONG[case], table rows from the seed (a
+    flat buffer at ``offset`` elements), weights (0 on ~96% of the
+    vocab_row0 bag): CPU tensors and the table on the card."""
+    lengths, V = BAG_LONG[case](_bag_run_shape()[0])
+    rng = np.random.default_rng(len(case) + d)
+    B = len(lengths)
+    seg = torch.from_numpy(np.repeat(np.arange(B, dtype=np.int32), lengths))
+    idx = torch.from_numpy(rng.integers(0, V, seg.numel()).astype(np.int32))
+    w = rng.normal(size=seg.numel()).astype(np.float32)
+    if case == "vocab_row0":
+        w[:lengths[0]][np.arange(lengths[0]) % 25 != 0] = 0.0
+    flat = torch.from_numpy(rng.normal(size=V * d + offset).astype(
+        np.float32)).to(dtype).to(card)
+    table = flat[offset:].view(V, d)
+    assert table.storage_offset() == offset and table.is_contiguous()
+    return table, idx.to(card), seg.to(card), torch.from_numpy(w).to(
+        card, dtype), B, lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [1, 50, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(BAG_LONG))
+def test_embedding_bag_long_bags_on_card(card, case, dtype, d, offset):
+    """Bags of more than R entries (and empty bags beside them), split
+    across warps and walked by their owner alone: both bit for bit
+    against the run-order plain version (elementwise sums, the same bits
+    on the card as on the CPU), the split twice the same bits, and within
+    tolerance of ``index_add_``'s sum (fp32 1e-5, bf16 2e-2 of Σ|terms|);
+    empty bags are zero rows."""
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.kernels.embedding_bag import ref as eb_ref
+
+    table, idx, seg, w, B, lengths = _long_bag_case(case, dtype, d, offset,
+                                                    card)
+    R, G = _bag_run_shape()
+    assert max(lengths) > R
+    before = eb_cuda.LAUNCHES
+    got = eb_cuda.embedding_bag_cuda(table, idx, seg, w, B, split=True)
+    again = eb_cuda.embedding_bag_cuda(table, idx, seg, w, B, split=True)
+    alone = eb_cuda.embedding_bag_cuda(table, idx, seg, w, B)
+    torch.cuda.synchronize()
+    assert eb_cuda.LAUNCHES == before + 3
+    want = eb_ref.embedding_bag_runs_ref(table, idx, seg, B, weights=w,
+                                         run=R, group=G)
+    assert torch.equal(got, want)
+    assert torch.equal(again, got)
+    assert torch.equal(alone, got)
+    size = eb_ref.embedding_bag_ref(table.float().abs(), idx, seg, B,
+                                    weights=w.float().abs())
+    plain = eb_ref.embedding_bag_ref(table, idx, seg, B, weights=w)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    diff = (got.float() - plain.float()).abs()
+    assert bool((diff <= tol * size).all()), float((diff / size.clamp(
+        min=1e-30)).max())
+    empty = torch.tensor(lengths, device=card) == 0
+    assert bool((got[empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rank", [0, 1])
+def test_embedding_bag_vocab_slice_backward_rows_on_card(card, rank):
+    """A vocab-parallel rank's backward (its rows of two; foreign ids at
+    its row 0, weight 0) against the whole table's, both through K5's
+    split transposed bag: every owned row but row 0 bit for bit (its
+    entries, their order and so its runs are the whole table's), row 0
+    within 1e-5 of Σ|terms| of its owned part.  The ids are Zipf(1.2)
+    from the middle of the vocab, so rank 1's rows hold the long bags and
+    rank 0's row 0 most (~91%) of the entries."""
+    from repro_torch.kernels.embedding_bag import cuda as eb_cuda
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+
+    rng = np.random.default_rng(17)
+    V, d, n = 200_000, 50, 600_000
+    rows = V // 2
+    ids = torch.from_numpy(((rng.zipf(1.2, n) - 1 + rows) % V).astype(
+        np.int32)).to(card)
+    dout = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)
+                            ).to(card)
+    full = torch.from_numpy(rng.normal(size=(V, d)).astype(np.float32)
+                            ).to(card)
+    seg = torch.arange(n, dtype=torch.int32, device=card)
+    weight = 7.0
+
+    def grad(table, idx, w):
+        t = table.clone().requires_grad_()
+        eb_ops.embedding_bag(t, idx, seg, n, weights=w, bags_of_one=True
+                             ).backward(dout)
+        return t.grad
+
+    whole = grad(full, ids, torch.full((n,), weight, device=card))
+    local = ids.long() - rank * rows
+    own = (local >= 0) & (local < rows)
+    before = eb_cuda.LAUNCHES
+    part = grad(full[rank * rows:(rank + 1) * rows],
+                torch.where(own, local, 0).to(torch.int32),
+                own.float() * weight)
+    torch.cuda.synchronize()
+    assert eb_cuda.LAUNCHES == before + 2
+    mine = whole[rank * rows:(rank + 1) * rows]
+    assert torch.equal(part[1:], mine[1:])
+    counts = torch.bincount(local[own], minlength=rows)
+    R, _ = _bag_run_shape()
+    if rank == 1:
+        assert int(counts[1:].max()) > 10 * R       # long owned bags
+    else:
+        assert float((~own).float().mean()) > 0.85  # row 0's share
+    size = (dout.abs() * weight)[own & (local == 0)].sum(0)
+    assert bool(((part[0] - mine[0]).abs() <= 1e-5 * size).all())
 
 
 @pytest.mark.cuda

@@ -239,16 +239,21 @@ def test_model_embedding_bag_rejects_unknown_mode():
 # (each warp's tile of entries, its heads and the skip of a bag that began
 # in an earlier tile, the walk of an owned bag past its tile in windows of
 # entries, the work items (entry, chunk) of a tile of bags of one, VEC and
-# alignment, the zero rows of empty bags) is run here lane by lane, with
-# the kernel's own constants read from its source.  Products and sums are
-# float32 NumPy scalars, each rounded once as __fmul_rn / __fadd_rn round
-# it.  Every VEC-wide load and store asserts its alignment, every read its
-# bounds, and every element of out must be written once.
+# alignment, the zero rows of empty bags; a long bag's runs from its head,
+# walked by its owner or, in the split launch, by the tiles and the windows'
+# warps into the workspace's slots, the windows' 32-way search for a bag's
+# head, their records and the combine's groups) is run here lane by lane,
+# with the kernel's own constants read from its source.  Products and sums
+# are float32 NumPy scalars, each rounded once as __fmul_rn / __fadd_rn
+# round it.  Every VEC-wide load and store asserts its alignment, every
+# read its bounds (a partial: that it was written first), and every
+# element of out and every window's record must be written once.
 
 _CONSTS = {k: int(v) for k, v in re.findall(
     r"constexpr int (k\w+) = (\d+);", cuda.SOURCE.read_text())}
 _TILE = _CONSTS["kTile"]                # entries a tile: a warp's lanes
 _WARPS = _CONSTS["kThreads"] // 32      # tiles a block
+_RUN, _GROUP = _CONSTS["kRun"], _CONSTS["kGroup"]    # R, G
 
 
 def _grid(nnz):
@@ -271,21 +276,37 @@ def _ffs(m):
     return (m & -m).bit_length() - 1
 
 
-def _emulate(table, idx, seg, w, n_bags, base=(0, 0), mutate=None, es=4):
+class _Walk:
+    """``Walk``: the window of entries at ``base`` (lane l's seg, idx and
+    weight in s[l], i[l], w[l]) and the next entry's lane ``p``."""
+
+    def __init__(self, base, s, i, w, p):
+        self.base, self.s, self.i, self.w, self.p = base, s, i, w, p
+
+
+def _emulate(table, idx, seg, w, n_bags, base=(0, 0), mutate=None, es=4,
+             split=False):
     """K5's out (n_bags, d) for float32 table (V, d), idx/seg int32, w
     float32, with table and out at element offsets ``base`` and elements
     of ``es`` bytes (4: fp32, 2: bf16, whose values the float32 arrays
-    hold; es only names the type here).  ``mutate`` names one index map
-    to break."""
+    hold; es only names the type here); ``split``: the split launch (the
+    tiles, the windows' runs into the workspace, then the combine), else
+    the one launch.  ``mutate`` names one index map to break."""
     del es
     V, d = table.shape
     nnz = idx.size
     VEC = _vec(d, base)
     nch = d // VEC
     L, f32 = _TILE, np.float32
+    R, G = _CONSTS["kRun"], _CONSTS["kGroup"]
     tab = np.concatenate([np.zeros(base[0], f32), table.reshape(-1)])
     out = np.zeros(base[1] + n_bags * d, f32)
     writes = np.zeros(n_bags * d, np.int64)
+    nwin = -(-nnz // R) if split else 0
+    part = np.zeros((2 * nwin, d), f32)
+    filled = np.zeros((2 * nwin, d), bool)      # partials written so far
+    rec = np.full(2 * nwin, -7, np.int64)       # the workspace's garbage
+    rec_writes = np.zeros(2 * nwin, np.int64)
 
     def load(p):                        # a Pack at table element p
         a = base[0] + p
@@ -303,6 +324,16 @@ def _emulate(table, idx, seg, w, n_bags, base=(0, 0), mutate=None, es=4):
     def store_row(bag, col, acc):
         if 0 <= bag < n_bags:
             store(bag * d + col, acc)
+
+    def put(slot, col, acc):            # a partial's Pack
+        assert 0 <= slot < 2 * nwin, f"partial slot {slot}"
+        part[slot, col:col + VEC] = acc
+        filled[slot, col:col + VEC] = True
+
+    def get(slot, col):
+        assert 0 <= slot < 2 * nwin and filled[slot, col:col + VEC].all(), \
+            f"partial slot {slot} read before it was written"
+        return part[slot, col:col + VEC]
 
     def zero_rows(lo, hi):
         lo, hi = max(lo, 0), min(hi, n_bags)
@@ -322,31 +353,147 @@ def _emulate(table, idx, seg, w, n_bags, base=(0, 0), mutate=None, es=4):
         s[:k], i[:k], wv[:k] = seg[b:b + k], idx[b:b + k], w[b:b + k]
         return s, i, wv
 
-    def walk_bag(t0, s, i, wv, h, bag):
-        A = _CONSTS["kAhead"]
+    def zeros(cs):
+        return {c: np.zeros(VEC, f32) for c in cs}
+
+    def add_run(k, bag, cap, acc, ahead):
+        """add_run: the bag's entries from the walk's place into acc (one
+        VEC-wide sum a chunk of the pass), at most cap; how many."""
+        added = 0
+        while True:
+            stop = [ln for ln in range(L) if ln >= k.p and (
+                k.base + ln >= nnz or k.s[ln] != bag)]
+            q = stop[0] + (mutate == "ext") if stop else L
+            q = min(q, k.p + cap - added)
+            more = q == L and k.base + L < nnz
+            nxt = entries(k.base + L) if more else None
+            for p in range(k.p, q, ahead):
+                for u in range(ahead):
+                    if p + u < min(q, L):
+                        for c in acc:
+                            x = load(int(k.i[p + u]) * d + c * VEC)
+                            acc[c] = (acc[c] + f32(k.w[p + u]) * x
+                                      ).astype(f32)
+            added += q - k.p
+            if not more:
+                k.p = q
+                return added
+            k.base, (k.s, k.i, k.w), k.p = k.base + L, nxt, 0
+            if mutate == "carry":
+                for c in acc:
+                    acc[c] = np.zeros(VEC, f32)
+            if added == cap:
+                return added
+
+    def walk_long(k, bag, part_):
+        """walk_long: the later runs of a bag whose run 0 filled R, each
+        folded into its group as the next one starts."""
+        grp, tot = zeros(part_), zeros(part_)
+        r = 1
+        while True:
+            for c in part_:
+                g = (grp[c] + part_[c]).astype(f32)
+                if r % G == 0:
+                    tot[c] = (tot[c] + g).astype(f32)
+                    g = np.zeros(VEC, f32)
+                grp[c], part_[c] = g, np.zeros(VEC, f32)
+            if add_run(k, bag, R, part_, _CONSTS["kAhead"]) < R:
+                break
+            r += 1
+        for c in part_:
+            part_[c] = (tot[c] + (grp[c] + part_[c]).astype(f32)).astype(f32)
+
+    def passes():
         for c0 in range(0, nch, L):
-            acc = {c: np.zeros(VEC, f32) for c in range(c0, min(c0 + L, nch))}
-            b, ws, wi, ww, p = t0, s, i, wv, h
-            while True:
-                stop = sum(1 << ln for ln in range(L) if ln >= p and (
-                    b + ln >= nnz or ws[ln] != bag))
-                q = _ffs(stop) + (mutate == "ext") if stop else L
-                for p in range(p, q, A):
-                    for u in range(A):
-                        if p + u < min(q, L):
-                            for c in acc:
-                                x = load(int(wi[p + u]) * d + c * VEC)
-                                acc[c] = (acc[c] + f32(ww[p + u]) * x
-                                          ).astype(f32)
-                if stop or b + L >= nnz:
-                    break
-                b += L
-                ws, wi, ww = entries(b)
-                p = 0
-                if mutate == "carry":
-                    acc = {c: np.zeros(VEC, f32) for c in acc}
+            yield range(c0, min(c0 + L, nch))
+
+    def walk_bag(t0, s, i, wv, h, bag):
+        """walk_bag: run 0 from the head; past R entries (the one launch
+        only: the split launch walks no long bag here) walk_long."""
+        for cs in passes():
+            k, acc = _Walk(t0, s, i, wv, h), zeros(cs)
+            if add_run(k, bag, R, acc, _CONSTS["kAhead"]) == R and not split:
+                walk_long(k, bag, acc)
             for c in acc:
                 store_row(bag, c * VEC, acc[c])
+
+    def run_to_slot(start, bag, slot, cap=R):
+        for cs in passes():
+            k = _Walk(start.base, start.s, start.i, start.w, start.p)
+            acc = zeros(cs)
+            add_run(k, bag, cap - (mutate == "r_off"), acc,
+                    _CONSTS["kAhead"])
+            for c in acc:
+                put(slot, c * VEC, acc[c])
+
+    def bag_head(bag, s0):              # the 32-way search, step by step
+        lo, hi = 0, s0
+        while lo < hi:
+            step = (hi - lo + 31) // 32
+            ge = [q >= hi or g_seg(q) >= bag
+                  for q in (lo + ln * step for ln in range(L))]
+            if not any(ge):
+                lo += 31 * step + 1
+                continue
+            f = ge.index(True)
+            if f == 0:
+                break
+            hi = min(hi, lo + f * step)
+            lo += (f - 1) * step + 1
+        return lo
+
+    def window_run(j):
+        s0, head, runs = j * R, -1, 0
+        if j > 0:
+            bag = g_seg(s0)
+            if g_seg(s0 - 1) == bag:
+                h = bag_head(bag, s0)
+                assert (seg[h:s0] == bag).all() and (h == 0 or
+                                                     seg[h - 1] != bag)
+                r = -(-(s0 - h) // R)
+                s1 = h + r * R
+                if mutate == "abs":     # runs at multiples of R
+                    r, s1 = j - h // R, s0
+                starts = s1 < nnz and g_seg(s1) == bag
+                on = s1 + R < nnz and g_seg(s1 + R) == bag
+                if starts:
+                    run_to_slot(_Walk(s1, *entries(s1), 0), bag, 2 * j)
+                    if not on:
+                        head, runs = h, r + 1
+        rec[j], rec[nwin + j] = head, runs
+        rec_writes[[j, nwin + j]] += 1
+
+    def combine(j):
+        h = int(rec[j])
+        if h < 0:
+            return
+        runs, bag, jh = int(rec[nwin + j]), g_seg(h), h // R
+        runs -= mutate == "drop_last"
+
+        def slot(r):
+            return 2 * (jh + r) + (r == 0)
+
+        groups = -(-runs // G)
+        for cs in passes():
+            sums = {}
+            for g in range(groups):     # each warp's groups, in any order
+                r0, r1 = g * G, min(g * G + G, runs)
+                order = range(r1 - 1, r0 - 1, -1) if mutate == "reversed" \
+                    else range(r0, r1)
+                for c in cs:
+                    acc = np.zeros(VEC, f32)
+                    for r in order:
+                        acc = (acc + get(slot(r), c * VEC)).astype(f32)
+                    sums[g, c] = acc
+            for (g, c), acc in sums.items():
+                put(slot(g * G), c * VEC, acc)
+            order = range(groups - 1, -1, -1) if mutate == "reversed" \
+                else range(groups)
+            for c in cs:                # warp 0, after the barrier
+                acc = np.zeros(VEC, f32)
+                for g in order:
+                    acc = (acc + get(slot(g * G), c * VEC)).astype(f32)
+                store_row(bag, c * VEC, acc)
 
     def walk_ones(n, s, i, wv):
         items, K = n * nch, _CONSTS["kOnes"]
@@ -365,19 +512,26 @@ def _emulate(table, idx, seg, w, n_bags, base=(0, 0), mutate=None, es=4):
                     store_row(int(s[jj]), cc * VEC,
                               (f32(0) + f32(wv[jj]) * x).astype(f32))
 
-    for blk in range(_grid(nnz)):
+    win_blocks = -(-nwin // _WARPS)     # the windows' blocks come first
+    for blk in range(win_blocks + _grid(nnz)):
         for warp in range(_WARPS):
-            t0 = (blk * _WARPS + warp) * L
+            if blk < win_blocks:
+                j = blk * _WARPS + warp
+                if j < nwin:
+                    window_run(j)
+                continue
+            t0 = ((blk - win_blocks) * _WARPS + warp) * L
             if t0 > nnz or (t0 == nnz and t0 > 0):
                 continue
             n = min(L - (mutate == "tile_end"), nnz - t0)
             t1 = t0 + n
-            # 1. the tile's entries, the seg before and after it
+            # 1. the tile's entries, the seg before and after it (and R on)
             s, i, wv = entries(t0)
             prev = np.concatenate([[g_seg(t0 - 1) if t0 > 0 else 0], s[:-1]])
             after = g_seg(t1) if t1 < nnz else 0
-            # 2. heads (a ballot) and the heads that follow empty bags
-            heads = gaps = 0
+            reach = R - (mutate == "exact_long")
+            # 2. heads (a ballot), the heads that follow empty bags, long
+            heads = gaps = longs = 0
             for ln in range(n):
                 first = t0 + ln == 0 or (mutate == "no_skip" and ln == 0)
                 if first or s[ln] != prev[ln]:
@@ -385,6 +539,9 @@ def _emulate(table, idx, seg, w, n_bags, base=(0, 0), mutate=None, es=4):
                     if (s[ln] > 0) if t0 + ln == 0 else \
                             (s[ln] > prev[ln] + 1):
                         gaps |= 1 << ln
+                    if split and t0 + ln + reach < nnz and \
+                            g_seg(t0 + ln + reach) == s[ln]:
+                        longs |= 1 << ln
             # 3. zero rows
             for p in range(L):
                 if gaps >> p & 1:
@@ -400,8 +557,17 @@ def _emulate(table, idx, seg, w, n_bags, base=(0, 0), mutate=None, es=4):
                 walk_ones(n, s, i, wv)
             else:
                 for h in range(L):
-                    if heads >> h & 1:
+                    if not heads >> h & 1:
+                        continue
+                    if longs >> h & 1:
+                        cap = R - (t0 + h) % R if mutate == "abs" else R
+                        run_to_slot(_Walk(t0, s, i, wv, h), int(s[h]),
+                                    2 * ((t0 + h) // R) + 1, cap)
+                    else:
                         walk_bag(t0, s, i, wv, h, int(s[h]))
+    for j in range(nwin):               # the second launch
+        combine(j)
+    assert (rec_writes == 1).all(), "a window's record written other than once"
     assert (writes == 1).all(), "an element of out written other than once"
     return out[base[1]:].reshape(n_bags, d)
 
@@ -447,16 +613,27 @@ def _emulated_case(case):
     return _runs(lengths, len(case), V, d), base
 
 
+def _runs_ref(table, idx, seg, w, B):
+    """The plain version of the kernel's order (runs of R past R), fp32."""
+    return ref.embedding_bag_runs_ref(_torch(table), _torch(idx),
+                                      _torch(seg), B, weights=_torch(w),
+                                      run=_RUN, group=_GROUP).numpy()
+
+
 @pytest.mark.parametrize("case", list(EMULATED))
 def test_tile_emulation_matches_plain_and_pallas(case):
     """The kernel's index maps give the plain version's rows bit for bit
-    (fp32, nnz order), every row of out written once, and the Pallas
-    kernel's rows (interpret mode) on the non-empty bags."""
+    (fp32: nnz order on bags of at most R entries, runs past R), every row
+    of out written once, and the Pallas kernel's rows (interpret mode) on
+    the non-empty bags."""
     (table, idx, seg, w, B), base = _emulated_case(case)
     got = _emulate(table, idx, seg, w, B, base)
+    np.testing.assert_array_equal(got, _runs_ref(table, idx, seg, w, B))
+    lengths, V, d, _ = EMULATED[case]
+    short = np.asarray(lengths) <= _RUN
     want = ref.embedding_bag_ref(_torch(table), _torch(idx), _torch(seg), B,
                                  weights=_torch(w)).numpy()
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[short], want[short])
     if idx.size:
         pallas = ops_j.embedding_bag(jnp.asarray(table), jnp.asarray(idx),
                                      jnp.asarray(seg), B,
@@ -465,7 +642,6 @@ def test_tile_emulation_matches_plain_and_pallas(case):
         visited[seg] = True
         _assert_close(got, pallas, _term_size(table, idx, seg, w, B),
                       "float32", rows=visited)
-    lengths, V, d, _ = EMULATED[case]
     ends = np.cumsum(lengths)
     if case == "longer_than_two_tiles":
         assert lengths[1] > 2 * _TILE
@@ -475,6 +651,8 @@ def test_tile_emulation_matches_plain_and_pallas(case):
         assert ends[-2] % _TILE == _TILE - 1
     if case == "small_tiles":
         assert idx.size > 20 * _TILE
+    if case == "wide_rows":            # one bag of two runs
+        assert _RUN < lengths[2] <= 2 * _RUN
     if case in ("d1", "wide_rows", "vec4", "bags_of_one"):
         assert _vec(d, base) == {"d1": 1, "wide_rows": 1, "vec4": 4,
                                  "bags_of_one": 2}[case]
@@ -528,3 +706,130 @@ def test_tile_emulation_catches_a_wrong_map(mutate):
             continue
         broke.append(not np.array_equal(got, want))
     assert any(broke)
+
+
+# Long bags (more than R entries): name -> (bag lengths, V, d, base).  A
+# long bag is cut into runs of R from its head; the split launch sums the
+# runs on the tiles and the windows' warps and adds them in the combine.
+LONG = {
+    # R - 1, R, R + 1 and 2R + 5 entries among short and empty bags
+    "run_edges": ([0, 3, _RUN - 1, _RUN, 0, _RUN + 1, 1, 2 * _RUN + 5, 0],
+                  40, 3, (0, 0)),
+    # more than G runs (two groups), its head off a window's edge
+    "two_groups": ([5, (_GROUP + 1) * _RUN + 7, 2], 30, 2, (0, 0)),
+    # one bag holding ~96% of the entries, most at weight 0: a
+    # vocab-parallel rank's row 0
+    "vocab_row0": ([24 * _RUN] + [1, 0, 2] * 80, 50, 2, (0, 0)),
+    # rows of 129 chunks (VEC 1, passes of 32 chunks) at odd offsets
+    "wide_long": ([1, _RUN + 40, 0, 3], 20, 129, (1, 1)),
+}
+
+
+def _long_case(case):
+    lengths, V, d, base = LONG[case]
+    table, idx, seg, w, B = _runs(lengths, len(case) + 100, V, d)
+    if case == "vocab_row0":           # foreign ids: weight 0
+        w[(seg == 0) & (np.arange(seg.size) % 25 != 0)] = 0.0
+    return (table, idx, seg, w, B), base
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["one_launch", "split"])
+@pytest.mark.parametrize("case", list(LONG))
+def test_run_emulation_matches_runs_ref(case, split):
+    """Long bags, by their owner alone (one launch) and split across
+    warps: the run-order plain version's rows bit for bit, every row and
+    record written once, and `repro`'s oracle within 1e-5 of Σ|terms|."""
+    (table, idx, seg, w, B), base = _long_case(case)
+    got = _emulate(table, idx, seg, w, B, base, split=split)
+    np.testing.assert_array_equal(got, _runs_ref(table, idx, seg, w, B))
+    want = ref_j(jnp.asarray(table), jnp.asarray(idx), jnp.asarray(seg), B,
+                 weights=jnp.asarray(w))
+    _assert_close(got, want, _term_size(table, idx, seg, w, B), "float32")
+    lengths = np.asarray(LONG[case][0])
+    assert lengths.max() > _RUN
+    if case == "two_groups":
+        assert -(-lengths[1] // _RUN) > _GROUP
+
+
+@pytest.mark.parametrize("case", list(EMULATED))
+def test_split_emulation_matches_one_launch(case):
+    """The split launch on short bags: the one launch's bits (no bag is
+    long, every window records none)."""
+    (table, idx, seg, w, B), base = _emulated_case(case)
+    np.testing.assert_array_equal(
+        _emulate(table, idx, seg, w, B, base, split=True),
+        _emulate(table, idx, seg, w, B, base))
+
+
+def test_run_emulation_in_bf16():
+    """bf16 tables and weights, split: the fp32 runs and groups rounded to
+    bf16 once are the plain run-order version's bf16 rows bit for bit."""
+    (table, idx, seg, w, B), base = _long_case("run_edges")
+    t16, w16 = _torch(table, torch.bfloat16), _torch(w, torch.bfloat16)
+    got = _emulate(t16.float().numpy(), idx, seg, w16.float().numpy(), B,
+                   base, es=2, split=True)
+    want = ref.embedding_bag_runs_ref(t16, _torch(idx), _torch(seg), B,
+                                      weights=w16, run=_RUN, group=_GROUP)
+    assert torch.equal(torch.from_numpy(got).to(torch.bfloat16), want)
+
+
+@pytest.mark.parametrize("mutate", ["abs", "reversed", "r_off", "drop_last",
+                                    "exact_long"])
+def test_run_emulation_catches_a_wrong_map(mutate):
+    """One wrong map of the split launch breaks the rows (or trips a
+    bounds, read-before-write or write-once check) on one of the long
+    cases: runs counted from multiples of R (not the bag's head), the
+    combine's order reversed, runs of R - 1, the last partial dropped, a
+    bag of exactly R entries sent down the long path."""
+    broke = []
+    for case in ("run_edges", "two_groups", "vocab_row0"):
+        (table, idx, seg, w, B), base = _long_case(case)
+        want = _runs_ref(table, idx, seg, w, B)
+        try:
+            got = _emulate(table, idx, seg, w, B, base, mutate=mutate,
+                           split=True)
+        except (AssertionError, IndexError):
+            broke.append(True)
+            continue
+        broke.append(not np.array_equal(got, want))
+    assert any(broke)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_runs_ref_is_nnz_order_on_short_bags(name):
+    """Bags of at most R entries are one run of one group: the run-order
+    plain version is the nnz-order one bit for bit (on the CPU, whose
+    ``index_add_`` adds in nnz order), on any R."""
+    tdt, _ = DTYPES[name]
+    lengths = list(np.random.default_rng(4).integers(0, _RUN + 1, 60))
+    table, idx, seg, w, B = _runs(lengths, 9, 70, 12)
+    t, wt = _torch(table, tdt), _torch(w, tdt)
+    want = ref.embedding_bag_ref(t, _torch(idx), _torch(seg), B, weights=wt)
+    for run in (_RUN, max(lengths), 1 << 20):
+        got = ref.embedding_bag_runs_ref(t, _torch(idx), _torch(seg), B,
+                                         weights=wt, run=run, group=_GROUP)
+        assert torch.equal(got, want), run
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_runs_ref_matches_repro_on_a_transposed_zipf_bag(name):
+    """The backward's shape at a small size: a Zipf(1.2) lookup's entries
+    sorted by row (bags of up to ~10^4 entries), weight 1, the output's
+    gradient as the table; `repro`'s oracle within the tolerance of Σ|terms|
+    (fp32 1e-5, bf16 2e-2)."""
+    tdt, jdt = DTYPES[name]
+    rng = np.random.default_rng(12)
+    n, rows, d = 40_000, 3000, 6
+    ids = (rng.zipf(1.2, n) % rows).astype(np.int32)
+    order = np.argsort(ids, kind="stable")
+    seg, idx = ids[order], order.astype(np.int32)
+    dout = _np(_torch(rng.normal(size=(n, d)).astype(np.float32), tdt))
+    w = np.ones(n, np.float32)
+    got = ref.embedding_bag_runs_ref(_torch(dout, tdt), _torch(idx),
+                                     _torch(seg), rows,
+                                     weights=_torch(w, tdt), run=_RUN,
+                                     group=_GROUP)
+    want = ref_j(jnp.asarray(dout, jdt), jnp.asarray(idx), jnp.asarray(seg),
+                 rows, weights=jnp.asarray(w, jdt))
+    assert np.bincount(seg).max() > _GROUP * _RUN / 2
+    _assert_close(got, want, _term_size(dout, idx, seg, w, rows), name)

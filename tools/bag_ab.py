@@ -26,12 +26,23 @@ call at ``lookup`` fp32 (``host_us``: the median of 5 rounds of 1,000
 calls issued without a synchronisation); and ``retrieval_cand`` over 30
 calls of `launch.cells.recsys_retrieval` (1 user, 10^6 candidates; each
 call ends in a synchronisation): p50 and p99 ms, and the profiler's device
-ms of one call over all its kernels.
+ms of one call over all its kernels.  Then K5's backward (``backward``):
+the transposed bag of train_batch's ``pos_items`` (65,536 × 50 Zipf(1.2)
+ids into SASRec's 1,000,448 rows) and of its vocab-parallel slice
+(``pos_items_slice``: model rank 1's 500,224 rows of two, the foreign
+ids at row 0 and weight 0), by chip_smoke.bag_backward_inputs, through
+the checkout's wrapper as its ``EmbeddingBag.backward`` calls it (its
+split launch where it has one): every kernel's device ms a call
+(chip_smoke.profiled_call_ms) and each kernel's a launch, CUDA-event ms
+(chip_smoke.time_auto), the SHA-1 of the result and whether it is the run-order plain version's
+(``runs_equal``; the plain version run on the card here first, where its
+elementwise sums give the CPU's bits).
 """
 
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import statistics
 import subprocess
@@ -43,6 +54,8 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 SOURCE = "src/repro_torch/kernels/embedding_bag/csrc/embedding_bag.cu"
 CASES = ("lookup", "retrieval", "bulk", "pooled")
+# backward case -> chip_smoke.bag_backward_inputs' slice_of
+BACKWARD = {"pos_items": None, "pos_items_slice": (2, 1)}
 CALLS, ROUNDS, RETRIEVALS = 1000, 5, 30
 # name -> [(text in the kernel's source, its replacement)]
 VARIANTS = {
@@ -52,6 +65,28 @@ VARIANTS = {
     # blocks of two warps, the same warps an SM
     "threads64": [("kThreads = 128;", "kThreads = 64;"),
                   ("kMinBlocks = 8;", "kMinBlocks = 16;")],
+    # a long bag's runs: R, G and the rows a run's walk loads together
+    "run128": [("kRun = 256;", "kRun = 128;")],
+    "run512": [("kRun = 256;", "kRun = 512;")],
+    "run1024": [("kRun = 256;", "kRun = 1024;")],
+    "group8": [("kGroup = 32;", "kGroup = 8;")],
+    "combahead8": [("kCombAhead = 16;", "kCombAhead = 8;")],
+    "comb1024": [("kCombThreads = 256;", "kCombThreads = 1024;")],
+    # the split launch's window warps after its tiles, not before
+    "windows_last": [(
+        "const int64_t win_warps = (a.nwin + kWarps - 1) / kWarps * kWarps;\n"
+        "    if (warp < win_warps) {\n"
+        "      if (warp < a.nwin) window_run<T, VEC>(a, warp, lane);\n"
+        "      return;\n"
+        "    }\n"
+        "    warp -= win_warps;",
+        "const int64_t tiles = a.nnz > 0 ? (a.nnz + kTile - 1) / kTile : 1;\n"
+        "    const int64_t tile_warps = (tiles + kWarps - 1) / kWarps * kWarps;\n"
+        "    if (warp >= tile_warps) {\n"
+        "      if (warp - tile_warps < a.nwin)\n"
+        "        window_run<T, VEC>(a, warp - tile_warps, lane);\n"
+        "      return;\n"
+        "    }")],
 }
 
 
@@ -125,13 +160,27 @@ def case_inputs(cs, model, users, cfg):
                                 cfg.n_items) for case in CASES}
 
 
+def backward_inputs(cs, cfg):
+    """{case: chip_smoke.bag_backward_inputs(...)} at BACKWARD's cases."""
+    from repro_torch.data.synthetic import recsys_batches
+
+    ids = next(recsys_batches(65_536, cfg.seq_len, cfg.n_items,
+                              seed=4))["pos_items"].cuda()
+    return {case: cs.bag_backward_inputs(cfg.table_rows, ids, cfg.embed_dim,
+                                         slice_of)
+            for case, slice_of in BACKWARD.items()}
+
+
 def plain_hashes(path: str) -> None:
-    """The plain version's SHA-1 on the CPU at every case and type, into
-    the JSON file ``path``."""
+    """The plain version's SHA-1 on the CPU at every case and type, and
+    the run-order plain version's at every backward case (on the card),
+    into the JSON file ``path``."""
     import torch
 
     sys.path.insert(0, str(HERE / "src"))
-    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.kernels.embedding_bag.cuda import run_shape
+    from repro_torch.kernels.embedding_bag.ref import (embedding_bag_ref,
+                                                       embedding_bag_runs_ref)
 
     cfg, _, model, users, cs = setup()
     out = {}
@@ -141,6 +190,11 @@ def plain_hashes(path: str) -> None:
             name = str(dtype).split(".")[-1]
             out[f"{case}|{name}"] = sha1(embedding_bag_ref(
                 t.to(dtype), i, s, n, weights=w.to(dtype)))
+    run, group = run_shape()
+    for case, (dout, _, _, seg, rows, w, n) in backward_inputs(cs,
+                                                               cfg).items():
+        out[f"backward|{case}"] = sha1(embedding_bag_runs_ref(
+            dout, seg, rows, n, weights=w, run=run, group=group))
     Path(path).write_text(json.dumps(out))
 
 
@@ -185,6 +239,24 @@ def one(root: str, path: str) -> dict:
                 row["host_us"] = host_us(call)
             out["cases"][f"{case} {name}"] = row
             del table, w
+    # the checkout's backward call: its split launch where it has one
+    split = {"split": True} if "split" in inspect.signature(
+        eb.embedding_bag_cuda).parameters else {}
+    out["backward"] = {}
+    for case, (dout, _, _, seg, rows, w, n) in backward_inputs(cs,
+                                                               cfg).items():
+        def back():
+            return eb.embedding_bag_cuda(dout, seg, rows, w, n, **split)
+
+        digest = sha1(back())
+        by_name = cs.device_profile(lambda: [back() for _ in range(10)],
+                                    warmup=1)
+        out["backward"][case] = dict(
+            sha1=digest, runs_equal=digest == want[f"backward|{case}"],
+            dev_ms=cs.profiled_call_ms(back), ms=cs.time_auto(back),
+            split=bool(split), by_kernel={
+                n[:72]: ms / count for n, (count, ms) in by_name.items()})
+        del dout, seg, rows, w
     shape = arch.shapes["retrieval_cand"]
     cand = (torch.randperm(shape["n_candidates"], generator=torch.Generator(
         device="cuda").manual_seed(1), device="cuda") + 1).to(torch.int32)
