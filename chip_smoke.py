@@ -11,7 +11,8 @@ Phases, each printing JSON lines:
    (also printed raw on a line of its own).
 2. ``build``   — compile K1 and K2 (both in kernels/ell_spmv/csrc/
    ell_spmv.cu), K3 and K4 (both in kernels/segment_sum/csrc/
-   segment_sum.cu), K6 (kernels/flash_attention/csrc/flash_attention.cu)
+   segment_sum.cu), K6 (kernels/flash_attention/csrc/flash_attention.cu),
+   K6's backward (kernels/flash_attention/csrc/flash_attention_bwd.cu)
    and K5 (kernels/embedding_bag/csrc/embedding_bag.cu) from the
    checkout's sources, one nvcc per source (sm_90a), all started together;
    seconds and the compiler's register report for every kernel.
@@ -188,10 +189,17 @@ Phases, each printing JSON lines:
    ``long_decode``'s, both reading 4,096 keys) and ``window_ragged`` (a
    window of 100, its lower edge mid-tile), each bound on the window's
    keys.  Then K6's gradient (``grad``): dq, dk, dv through its autograd
-   function on the card against autograd through the plain version at
-   the ``prefill`` shape, fp32 (1e-5) and bf16 (2e-2 of each max),
-   without and with a window of 128, with both passes' ms beside SDPA's
-   forward and backward on the same inputs and the pair's bound.
+   function on the card (K6's forward, its backward kernel) against
+   autograd through the plain version at the ``prefill`` shape, fp32
+   (1e-5) and bf16 (2e-2 of each max), without and with a window of 128,
+   with both passes' ms beside SDPA's forward and backward on the same
+   inputs and the pair's bound, and the backward kernel's own device ms
+   (the profiler, its two kernels), plain ms and bound; and at
+   ``train_4k`` (``train``'s attention: B 4, S 4096, tinyllama's heads,
+   bf16) the backward kernel once against `ref.flash_attention_grads`
+   (2e-2 of each max), its device ms, SDPA's backward alone (its forward
+   run once before; the kernels line's ``library_ms``), SDPA's forward and
+   backward, and the bounds.
 10. ``serve`` — `tinyllama-1.1b` at full width (``make_config()``, bf16,
     parameters from a seeded generator, built one layer at a time by
     `build_model`) through `launch.serve.generate`:
@@ -226,8 +234,13 @@ Phases, each printing JSON lines:
     16 (4 microbatches of 4), one `token_batches` batch repeated; one
     unrecorded step, then 4: step s, tokens/s, 6·N·tokens / step s over
     989 TFLOP/s (remat's recompute not counted), peak memory, K6 launches
-    (= 22 × 4 × 4 × 2: remat runs each layer's forward twice) and K5's (=
-    4 × 4 × 2).  Checks: (a) the loss finite and lower after the 4 steps;
+    (= 22 × 4 × 4 × 2: remat runs each layer's forward twice), K6's
+    backward's (= 22 × 4 × 4) and K5's (= 4 × 4 × 2); one microbatch
+    profiled, its attention backward's device ms beside the plain
+    recompute's in an earlier profile (PLAIN_BACKWARD_MS: ~980 ms of
+    elementwise passes and 174.8 of fp32 products; copied from PERF.md,
+    not measured in the run).  Checks: (a) the loss finite and lower after
+    the 4 steps;
     (b) on one microbatch of 2 sequences, the loss and every gradient leaf
     with K6 against the plain attention, and a control's (the plain
     attention's output rounded to 4 mantissa bits, its gradient passed
@@ -416,8 +429,9 @@ Phases, each printing JSON lines:
     states gate; K5 at model rank 1's slice of the sequence lookup (foreign
     ids at weight 0) against its plain version, timed beside its bound and
     ``F.embedding_bag``.  (i) The GNNs across ranks at their published
-    widths (fp32, AdamW with ``OPT_CFG``), uncut: MeshGraphNet and
-    GraphCast on ``full_graph_sm``, NequIP and MACE on ``molecule``, under
+    widths (fp32, AdamW with ``OPT_CFG``), GraphCast cut to 8 of its 16
+    layers (SHARD_GNN_LAYERS): MeshGraphNet and GraphCast on
+    ``full_graph_sm``, NequIP and MACE on ``molecule``, under
     `gnn_rules` on (data 2, model 2) (NCCL: (1, 1)), each rank its stripe
     of the nodes and edges: SHARD_GNN_STEPS steps from one state and the
     first step again (its loss, first moment and params: the same bits),
@@ -440,17 +454,19 @@ Phases, each printing JSON lines:
     every runnable cell of ``all_cells()`` on `repro`'s (16, 16) and (2,
     16, 16) production meshes over the H100 cluster, on meta tensors: one
     ``launch_cell`` line a cell (live GB a device, ``fits_80gb``, the
-    dominant term, the roofline fraction, the three terms), beside the
-    card's name and power limit; every cell must run, the 32 GNN rows
-    included (the sharded GNN step under `gnn_rules`).  (b) Phase
+    dominant term, the roofline fraction, the three terms, the bound),
+    beside the card's name and power limit; every cell must run, the 32
+    GNN rows included (the sharded GNN step under `gnn_rules`).  (b) Phase
     ``train``'s step against its dry run on the card's one-device mesh
     (the exec pass at full depth, FLOPs and bytes by layer differencing):
     real / dry FLOPs (`FlopCounterMode` over ``train``'s unrecorded step)
     within LAUNCH_FLOP_GATE, real / dry peak (that step's) inside
-    LAUNCH_MEM_GATE, the roofline bound / ``train``'s median step inside
-    LAUNCH_TIME_GATE, and controls that must miss: the dry run with K6
-    counted as its plain version (each gate), and the depth-2 census taken
-    for the whole step (the time gate, from below).  No launch of its own.
+    LAUNCH_MEM_GATE, the dry run's bound (``bound_s``, as each cell's
+    record carries it: each op's own roofline summed over the step's ops,
+    which an eager step runs one after another) / ``train``'s median step
+    inside LAUNCH_TIME_GATE, and controls that must miss: the dry run with
+    K6 counted as its plain version (each gate), and the depth-2 census
+    taken for the whole step (the time gate, from below).  No launch of its own.
     Every check runs before the phase fails.
 
 Then ``done`` (the script's seconds), the line ``{"kernels": [...]}``
@@ -458,7 +474,8 @@ Then ``done`` (the script's seconds), the line ``{"kernels": [...]}``
 main path — K1 in ``full``, K2 in ``full_inverse``, K4 in the two sharded
 chains of ``full_sharded`` (``dist`` prints its own per rank), K3 on none,
 K6 in the two ``serve`` runs, ``serve_window``'s long_500k run, the 4
-steps of ``train`` and the five ``serve_moe`` runs, K5 in the three
+steps of ``train`` and the five ``serve_moe`` runs, K6's backward in the
+4 steps of ``train`` and ``shard`` (c), K5 in the three
 ``recsys`` runs, the 5 steps of ``recsys_train`` and the 4 of ``train``,
 and both in ``shard``'s ranks over (a)–(c) and K5 over (h),
 with the counters set to 0 just before each
@@ -554,6 +571,14 @@ FLASH_WINDOW_CASES = {
 # K6's gradient on the card: the `prefill` shape, without and with a window
 FLASH_GRAD_CASE, FLASH_GRAD_WINDOW = "prefill", 128
 FLASH_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# K6's backward at `train`'s attention (train_4k, tinyllama's heads, bf16):
+# (B, S, H, Hkv, D)
+FLASH_GRAD_TRAIN = (4, 4096, 32, 4, 64)
+FLASH_BWD_KERNELS = "flash_bwd_"     # both backward kernels' names hold it
+# the plain attention backward (`ref.flash_attention_grads`) in a profiled
+# tinyllama microbatch on one H100 before the backward kernel (PERF.md §5):
+# ms of elementwise passes over the scores and of fp32 products
+PLAIN_BACKWARD_MS = (980.0, 174.8)
 # bf16 calls with more than this many flattened (position, head) rows take
 # K6's bf16 prefill kernel; calls with at most this many, fp32 and bf16,
 # its split-KV decode kernel
@@ -794,7 +819,7 @@ def profiled_ms(fn, kernel_name, calls=20, sessions=2):
     return None, traced, None
 
 
-def profiled_call_ms(fn, calls=20, sessions=3):
+def profiled_call_ms(fn, calls=20, sessions=6):
     """Device ms of one call of ``fn``: every CUDA kernel's device ms over
     ``calls`` calls in one torch.profiler session (after ``calls`` calls
     unrecorded), summed and divided by ``calls``.  A session is taken only
@@ -2629,7 +2654,8 @@ def sdpa_call(q, k, v, causal, q_offset, kv_len, window=None):
 def phase_kernels_flash():
     """K6 against its plain version at every case of FLASH_CASES and
     FLASH_WINDOW_CASES, fp32 and bf16, timed beside its bound, the plain
-    version and SDPA; then K6's gradient (`flash_grad_rows`)."""
+    version and SDPA; then K6's gradient (`flash_grad_rows`).  Returns the
+    forward's rows and the gradient's."""
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_plain
 
@@ -2708,23 +2734,143 @@ def phase_kernels_flash():
         del q32, k32, v32
     wd, ld = rows[("window_decode", "bfloat16")], rows[("long_decode",
                                                          "bfloat16")]
+    grad = flash_grad_rows()
     emit("kernels", kernel="flash_attention", cases=list(rows.values()),
          window_decode_vs_long_decode=dict(
              window_decode_dev_ms=wd["dev_ms"], long_decode_dev_ms=ld["dev_ms"],
              ratio=wd["dev_ms"] / ld["dev_ms"]),
-         grad=flash_grad_rows())
-    return rows
+         grad=grad)
+    return rows, grad
+
+
+def backward_dev_ms(fn, calls=10, sessions=2):
+    """Device ms of one call of ``fn``, a K6 backward call, over ``calls``
+    calls in one torch.profiler session (after one unrecorded): its two
+    kernels' time summed, and each kernel's ms a call by name; (None,
+    None) where no session traced both kernels of every call."""
+    for _ in range(sessions):
+        by_name = device_profile(lambda: [fn() for _ in range(calls)],
+                                 warmup=1)
+        k = {n: v for n, v in by_name.items() if FLASH_BWD_KERNELS in n}
+        if len(k) == 2 and all(v[0] == calls for v in k.values()):
+            return (sum(v[1] for v in k.values()) / calls,
+                    {n[:72]: v[1] / calls for n, v in k.items()})
+    return None, None
+
+
+def flash_bwd_times(q, k, v, dout, kw) -> dict:
+    """K6's backward kernel alone on (q, k, v, dout): ms a call by CUDA
+    events and by the profiler (its two kernels), the plain recompute's ms
+    (`ref.flash_attention_grads`), and its bound: q and dout read, dq
+    written, the keys and values the queries need read, dk and dv written
+    whole, each once; 5 products of 2·D FLOPs per unmasked (query, key)
+    pair and head (S, dP, dV, dQ, dK) over the peak of the inputs' type."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_grads
+
+    def kernel():
+        return fa_cuda.flash_attention_bwd_cuda(q, k, v, dout, **kw)
+
+    def plain():
+        return flash_attention_grads(q, k, v, dout, **kw)
+
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    el = q.element_size()
+    nbytes, flops = flash_work(B, Sq, Skv, H, Hkv, D, kw["q_offset"],
+                               kw["kv_len"], kw["causal"], el, kw["window"])
+    nbytes += el * (B * Sq * H * D + 2 * B * Skv * Hkv * D)
+    flops = 5 * flops // 2
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
+    bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = flops / peak * 1e3
+    events_ms = time_auto(kernel)
+    dev_ms, by_kernel = backward_dev_ms(kernel)
+    return dict(bwd_ms=events_ms,
+                bwd_dev_ms=dev_ms if dev_ms is not None else events_ms,
+                bwd_dev_ms_by="profiler" if dev_ms is not None
+                else "cuda_events",
+                bwd_kernels_ms=by_kernel, bwd_plain_ms=time_auto(plain),
+                bwd_bytes=nbytes, bwd_flops=flops,
+                bwd_tflops=flops / ((dev_ms or events_ms) * 1e-3) / 1e12,
+                bwd_bound_ms=max(bound_bytes_ms, bound_ops_ms),
+                bwd_bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+                else "operations")
+
+
+def flash_grad_train_row() -> dict:
+    """K6's backward at ``train``'s attention (FLASH_GRAD_TRAIN, bf16,
+    causal, no window): the kernel once against `ref.flash_attention_grads`
+    (2e-2 of each gradient's max), its times and bound (`flash_bwd_times`)
+    beside SDPA's backward alone (its forward run once before), and K6's
+    forward and backward through its autograd function beside SDPA's on
+    the same inputs, with the pair's bound (the forward's bytes twice, its
+    FLOPs three times)."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_grads
+
+    B, S, H, Hkv, D = FLASH_GRAD_TRAIN
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(41)
+    q, k, v, dout = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+                     .cuda().to(dtype)
+                     for sh in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D),
+                                (B, S, H, D)))
+    kw = dict(causal=True, q_offset=0, kv_len=S, window=None)
+    before = fa_cuda.BACKWARD_LAUNCHES
+    got = fa_cuda.flash_attention_bwd_cuda(q, k, v, dout, **kw)
+    torch.cuda.synchronize()
+    check(fa_cuda.BACKWARD_LAUNCHES == before + 1,
+          "K6 backward train_4k: the kernel did not launch once")
+    want = flash_attention_grads(q, k, v, dout, **kw)
+    diffs = [(a.float() - b.float()).abs().max() for a, b in zip(got, want)]
+    errs = [float(d / b.float().abs().max()) for d, b in zip(diffs, want)]
+    tol = FLASH_GRAD_TOL[dtype]
+    check(max(errs) <= tol, f"K6 backward train_4k: dq, dk, dv off by "
+          f"{errs} of their max (tol {tol})")
+    del got, want
+    times = flash_bwd_times(q, k, v, dout, kw)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    sdpa = sdpa_call(*leaves, True, 0, S)
+
+    def k6_grads():
+        fa_ops.flash_attention(*leaves, causal=True).backward(dout)
+
+    def sdpa_grads():
+        sdpa().backward(dout)
+
+    sdpa_out = sdpa()
+
+    def sdpa_backward():        # SDPA's backward alone, its forward kept
+        torch.autograd.grad(sdpa_out, leaves, dout, retain_graph=True)
+
+    nbytes, flops = flash_work(B, S, S, H, Hkv, D, 0, S, True, 2)
+    bound_bytes_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops_ms = 3 * flops / BF16_FLOPS_PER_S * 1e3
+    row = dict(case="train_4k", dtype="bfloat16", window=None,
+               shape=dict(B=B, S=S, H=H, Hkv=Hkv, D=D),
+               rel_err_dq_dk_dv=errs, max_abs_err=float(max(diffs)), tol=tol,
+               ms=time_auto(k6_grads), sdpa_fwd_bwd_ms=time_auto(sdpa_grads),
+               sdpa_bwd_ms=time_auto(sdpa_backward),
+               bound_ms=max(bound_bytes_ms, bound_ops_ms),
+               bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+               else "operations", **times)
+    del leaves, sdpa_out
+    return row
 
 
 def flash_grad_rows() -> list:
     """K6's gradient on the card: dq, dk, dv through its autograd function
-    (the kernel's forward, the plain recompute's backward) against
-    autograd through the plain version, at FLASH_GRAD_CASE's shape in fp32
-    and bf16, without and with a window; each pass's ms by CUDA events,
-    beside SDPA's forward and backward on the same inputs (the yardstick)
-    and the bound of the forward and backward: the forward's bytes twice
-    (dout read, dq, dk and dv written besides) and its FLOPs three times
-    (QKᵀ and PV forward; dV, dP, dQ and dK backward)."""
+    (the kernel's forward, the backward kernel) against autograd through
+    the plain version, at FLASH_GRAD_CASE's shape in fp32 and bf16,
+    without and with a window; each pass's ms by CUDA events, beside
+    SDPA's forward and backward on the same inputs (the yardstick) and the
+    bound of the forward and backward: the forward's bytes twice (dout
+    read, dq, dk and dv written besides) and its FLOPs three times (QKᵀ
+    and PV forward; dV, dP, dQ and dK backward); the backward kernel's own
+    times and bound (`flash_bwd_times`).  Then the ``train_4k`` row
+    (`flash_grad_train_row`)."""
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
@@ -2745,10 +2891,12 @@ def flash_grad_rows() -> list:
                                        prefer=prefer).backward(dout)
                 return [t.grad for t in leaves]
 
-            before = fa_cuda.LAUNCHES
+            before, before_b = fa_cuda.LAUNCHES, fa_cuda.BACKWARD_LAUNCHES
             got = grads("auto")
-            check(fa_cuda.LAUNCHES == before + 1,
-                  "K6 grad: the forward did not launch K6 once")
+            check(fa_cuda.LAUNCHES == before + 1
+                  and fa_cuda.BACKWARD_LAUNCHES == before_b + 1,
+                  "K6 grad: the forward and the backward kernel did not "
+                  "launch once each")
             want = grads("ref")
             errs = [float((a.float() - b.float()).abs().max()
                           / b.float().abs().max()) for a, b in zip(got, want)]
@@ -2768,6 +2916,9 @@ def flash_grad_rows() -> list:
                 else FP32_FLOPS_PER_S
             bound_bytes_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
             bound_ops_ms = 3 * flops / peak * 1e3
+            bwd = flash_bwd_times(
+                *(a.to(dtype) for a in arrays[:3]), dout,
+                dict(causal=True, q_offset=0, kv_len=Skv, window=window))
             out.append(dict(case=FLASH_GRAD_CASE, dtype=str(dtype).split(".")[-1],
                             window=window, rel_err_dq_dk_dv=errs, tol=tol,
                             ms=time_auto(lambda: grads("auto")),
@@ -2775,8 +2926,9 @@ def flash_grad_rows() -> list:
                             sdpa_fwd_bwd_ms=time_auto(sdpa_grads),
                             bound_ms=max(bound_bytes_ms, bound_ops_ms),
                             bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
-                            else "operations"))
+                            else "operations", **bwd))
             del leaves
+    out.append(flash_grad_train_row())
     return out
 
 
@@ -3029,9 +3181,9 @@ def phase_train():
     """`tinyllama-1.1b` trained at its published widths (bf16 compute, fp32
     masters and AdamW, remat): one unrecorded step and TRAIN_STEPS steps
     on one `token_batches` batch, and checks a-f, every one run before
-    the phase fails on those that failed; returns K6's and K5's launches
-    over the recorded steps, and for phase ``launch`` (b) the unrecorded
-    step's FLOPs (`FlopCounterMode`) and peak above the card's other
+    the phase fails on those that failed; returns K6's, K6's backward's
+    and K5's launches over the recorded steps, and for phase ``launch``
+    (b) the unrecorded step's FLOPs (`FlopCounterMode`) and peak above the card's other
     tensors, its arguments' bytes and the median step."""
     import itertools
     import tempfile
@@ -3087,7 +3239,8 @@ def phase_train():
         + batch_bytes
     first = {"params": [t.cpu() for t in tree_leaves(params)],
              "loss": loss0.cpu()}
-    fa_cuda.LAUNCHES = eb_cuda.LAUNCHES = 0            # the recorded steps
+    fa_cuda.LAUNCHES = fa_cuda.BACKWARD_LAUNCHES = 0   # the recorded steps
+    eb_cuda.LAUNCHES = 0
     secs, losses = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -3096,7 +3249,8 @@ def phase_train():
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         losses.append(float(loss))
-    k6, k5 = fa_cuda.LAUNCHES, eb_cuda.LAUNCHES
+    k6, k6b, k5 = (fa_cuda.LAUNCHES, fa_cuda.BACKWARD_LAUNCHES,
+                   eb_cuda.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     step_s = statistics.median(secs)
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -3111,10 +3265,19 @@ def phase_train():
     by_name = device_profile(lambda: value_and_grad(
         lambda p, b: tt.loss_fn(cfg, p, b))(params, mb_batch))
     k6_prof = [v for n, v in by_name.items() if "flash_attention_kernel" in n]
+    bwd_prof = [v for n, v in by_name.items() if FLASH_BWD_KERNELS in n]
     profile = dict(cuda_kernels=sum(v[0] for v in by_name.values()),
                    device_ms=sum(v[1] for v in by_name.values()),
                    k6_launches=sum(v[0] for v in k6_prof),
                    k6_ms=sum(v[1] for v in k6_prof),
+                   k6_backward_kernels=sum(v[0] for v in bwd_prof),
+                   k6_backward_ms=sum(v[1] for v in bwd_prof),
+                   # not measured here: copied from the record
+                   recorded_plain_backward_ms=dict(
+                       elementwise=PLAIN_BACKWARD_MS[0],
+                       fp32_products=PLAIN_BACKWARD_MS[1],
+                       source="PERF.md §5: the plain recompute's passes, "
+                              "profiled before the backward kernel"),
                    top=top_kernels(by_name))
     del by_name
     parts_s = {"steps": sum(secs)}
@@ -3131,7 +3294,8 @@ def phase_train():
                         "recompute not counted",
                max_memory_allocated=peak, state_bytes=state_bytes,
                loss_first=float(loss0), losses=losses,
-               loss_after=loss_after, k6_launches=k6, k5_launches=k5,
+               loss_after=loss_after, k6_launches=k6,
+               k6_backward_launches=k6b, k5_launches=k5,
                microbatch_profile=profile)
     emit("train_run", **run)
     # (a) finite and lower
@@ -3141,6 +3305,9 @@ def phase_train():
     gate(k6 == cfg.n_layers * TRAIN_MICRO * TRAIN_STEPS * 2,
          f"train: {k6} K6 launches, not {cfg.n_layers} x {TRAIN_MICRO} x "
          f"{TRAIN_STEPS} x 2 (remat)")
+    gate(k6b == cfg.n_layers * TRAIN_MICRO * TRAIN_STEPS,
+         f"train: {k6b} K6 backward launches, not {cfg.n_layers} x "
+         f"{TRAIN_MICRO} x {TRAIN_STEPS}")
     gate(k5 == TRAIN_MICRO * TRAIN_STEPS * 2,
          f"train: {k5} K5 launches, not {TRAIN_MICRO} x {TRAIN_STEPS} x 2")
 
@@ -3272,8 +3439,10 @@ def phase_train():
          parts_s=parts_s, seconds=time.perf_counter() - t_phase)
     check(not failures, "train: " + "; ".join(failures))
     torch.cuda.empty_cache()
-    return k6, k5, dict(flops=flops.get_total_flops(), peak_bytes=first_peak,
-                        args_bytes=state_bytes + batch_bytes, step_s=step_s)
+    return k6, k6b, k5, dict(flops=flops.get_total_flops(),
+                             peak_bytes=first_peak,
+                             args_bytes=state_bytes + batch_bytes,
+                             step_s=step_s)
 
 
 class RoutingCapture:
@@ -4762,15 +4931,19 @@ SHARD_RECSYS_TOL = 1e-5         # states and scores (of max), top-100
 SHARD_RECSYS_PARAM_TOL = 1e-4   # params after the steps, of each leaf's max
 SHARD_RECSYS_SEED = 0
 # (i) the GNNs across ranks at their published widths (fp32, AdamW,
-# OPT_CFG), uncut: MGN and GraphCast on full_graph_sm, NequIP and MACE on
-# molecule, under gnn_rules (gloo: (data 2, model 2), each rank a quarter
-# of the nodes and edges; NCCL: (1, 1)), SHARD_GNN_STEPS steps from one
-# state and the first again, against the parent's one-process steps on the
-# card (the same seed and batch)
+# OPT_CFG), GraphCast's depth cut (SHARD_GNN_LAYERS): MGN and GraphCast on
+# full_graph_sm, NequIP and MACE on molecule, under gnn_rules (gloo: (data
+# 2, model 2), each rank a quarter of the nodes and edges; NCCL: (1, 1)),
+# SHARD_GNN_STEPS steps from one state and the first again, against the
+# parent's one-process steps on the card (the same seed and batch)
 SHARD_GNN_RUNS = (("meshgraphnet", "full_graph_sm"),
                   ("graphcast", "full_graph_sm"), ("nequip", "molecule"),
                   ("mace", "molecule"))
 SHARD_GNN_STEPS = 2
+# (i)'s depth cuts: GraphCast's 16 identical layers to 8 (its gloo ranks run
+# through the host: 7.5–11.4 s of the part's 17.9–26.0 s at 16 layers on one
+# H100's host, the spread the host's)
+SHARD_GNN_LAYERS = {"graphcast": 8}
 SHARD_GNN_LOSS_TOL = 1e-5       # relative, every step's loss
 SHARD_GNN_GRAD_TOL = 1e-4       # the clipped gradient (AdamW's first
                                 # moment after one step), of each leaf's max
@@ -4904,7 +5077,7 @@ def shard_rank(p) -> dict:
     tp = lm_rules(make_mesh((1, world), ("data", "model")))
     B, P, steps = SHARD_RUN
     out = dict(coords=tp.coords)
-    fa_cuda.LAUNCHES = 0
+    fa_cuda.LAUNCHES = fa_cuda.BACKWARD_LAUNCHES = 0
     eb_cuda.LAUNCHES = 0
 
     def free():
@@ -4995,7 +5168,8 @@ def shard_rank(p) -> dict:
     batch = {k: torch.from_numpy(v).cuda() for k, v in p["train"].items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k6, k5 = fa_cuda.LAUNCHES, eb_cuda.LAUNCHES
+    k6, k6b, k5 = (fa_cuda.LAUNCHES, fa_cuda.BACKWARD_LAUNCHES,
+                   eb_cuda.LAUNCHES)
     t0 = time.perf_counter()
     with dist_group.census() as cen:
         p1, o1, loss = lm_train_step(cfg, params, opt, batch, rules=rules)
@@ -5004,6 +5178,7 @@ def shard_rank(p) -> dict:
     c = dict(mesh=shape, coords=rules.coords, loss=float(loss),
              step_s=step_s, peak_bytes=torch.cuda.max_memory_allocated(),
              k6=fa_cuda.LAUNCHES - k6, k5=eb_cuda.LAUNCHES - k5,
+             k6_backward=fa_cuda.BACKWARD_LAUNCHES - k6b,
              wire_bytes=collective_stats(cen.records).total_wire_bytes,
              collectives=len(cen.records))
     p1b, _, loss_b = lm_train_step(cfg, params, opt, batch, rules=rules)
@@ -5036,6 +5211,7 @@ def shard_rank(p) -> dict:
     del ref
     out["c"] = c
     out["k6"], out["k5"] = fa_cuda.LAUNCHES, eb_cuda.LAUNCHES
+    out["k6_backward"] = fa_cuda.BACKWARD_LAUNCHES
     out["a_to_c_s"] = time.perf_counter() - t_rank
 
     if world == SHARD_WORLD:
@@ -5214,6 +5390,13 @@ def tree_gaps(got, want) -> list:
             for a, b in zip(tree_leaves(got), tree_leaves(want))]
 
 
+def shard_gnn_config(arch_id, cell):
+    """(i)'s config of one arch: `gnn_config`, cut to SHARD_GNN_LAYERS."""
+    cfg = gnn_config(arch_id, cell)
+    n = SHARD_GNN_LAYERS.get(arch_id)
+    return cfg if n is None else dataclasses.replace(cfg, n_layers=n)
+
+
 def shard_gnn_reference(path, batches) -> dict:
     """(i)'s one-process runs on the card (`NO_SHARD`): each arch's
     SHARD_GNN_STEPS steps from the ranks' seed, every step's loss and
@@ -5226,7 +5409,7 @@ def shard_gnn_reference(path, batches) -> dict:
     t0 = time.perf_counter()
     out, saved = {}, {}
     for arch_id, cell in SHARD_GNN_RUNS:
-        cfg = gnn_config(arch_id, cell)
+        cfg = shard_gnn_config(arch_id, cell)
         b = shard_gnn_batch(arch_id, cfg, batches[cell])
         p = gnn_init(arch_id, cfg, seed=SHARD_GNN_SEED)
         o = adamw_init(p)
@@ -5278,7 +5461,7 @@ def shard_gnn_rank(p) -> dict:
     out = dict(mesh=shape, coords=rules.coords)
     for arch_id, cell in SHARD_GNN_RUNS:
         t_arch = time.perf_counter()
-        cfg = gnn_config(arch_id, cell)
+        cfg = shard_gnn_config(arch_id, cell)
         whole = shard_gnn_batch(arch_id, cfg, p["batches"][cell])
         mine = stripe(whole, rules)
         p0 = gnn_init(arch_id, cfg, seed=SHARD_GNN_SEED)
@@ -5317,7 +5500,8 @@ def shard_gnn_rank(p) -> dict:
             off += int(far.sum())
             flat = flat and bool((g[far].abs() <= SHARD_FLAT_TOL
                                   * g.abs().max()).all())
-        res = dict(cell=cell, losses=losses, step_s=secs, wire=wire,
+        res = dict(cell=cell, n_layers=getattr(cfg, "n_layers", None),
+                   losses=losses, step_s=secs, wire=wire,
                    nodes_local=mine.n_nodes,
                    edges_local=int(mine.edge_src.shape[0]),
                    grad_gap=max(tree_gaps(m1, m_ref)),
@@ -6058,7 +6242,8 @@ def phase_shard():
             params_equal=all(x["params_equal"] for x in cs),
             step_s=[x["step_s"] for x in cs],
             peak_bytes=[x["peak_bytes"] for x in cs],
-            k6=[x["k6"] for x in cs], k5=[x["k5"] for x in cs])
+            k6=[x["k6"] for x in cs], k5=[x["k5"] for x in cs],
+            k6_backward=[x["k6_backward"] for x in cs])
         cb = c[backend]
         need(len({x["loss"] for x in cs}) == 1, f"shard (c) {backend}: "
               "ranks return different losses")
@@ -6073,8 +6258,10 @@ def phase_shard():
              f"within {SHARD_FLAT_TOL} of its leaf's max of 0")
         need(cb["repeat_equal"], f"shard (c) {backend}: two steps from "
               "one state differ")
-        need(min(cb["k6"]) > 0 and min(cb["k5"]) > 0,
-              f"shard (c) {backend}: K6 {cb['k6']}, K5 {cb['k5']}")
+        need(min(cb["k6"]) > 0 and min(cb["k5"]) > 0
+             and min(cb["k6_backward"]) > 0,
+             f"shard (c) {backend}: K6 {cb['k6']}, K5 {cb['k5']}, K6's "
+             f"backward {cb['k6_backward']}")
     need(c["nccl"]["params_equal"] and c["nccl"]["loss_gap"] == 0.0,
           "shard (c) NCCL rank (world size 1): differs from the one-process "
           "step")
@@ -6105,13 +6292,14 @@ def phase_shard():
          f"shard (i): {i_row['seconds']:.2f} s > {SHARD_GNN_SECONDS}")
     row["i"] = i_row
     k6 = sum(rk["k6"] for rk in gloo + nccl)
+    k6b = sum(rk["k6_backward"] for rk in gloo + nccl)
     k5 = sum(rk["k5"] + rk["h"]["k5_forward"] + rk["h"]["k5_train"]
              for rk in gloo + nccl)
-    row.update(k6_launches=k6, k5_launches=k5, failures=fails,
-               seconds=time.perf_counter() - t_phase)
+    row.update(k6_launches=k6, k6_backward_launches=k6b, k5_launches=k5,
+               failures=fails, seconds=time.perf_counter() - t_phase)
     emit("shard", **row)
     check(not fails, "; ".join(fails))
-    return k6, k5
+    return k6, k6b, k5
 
 
 # phase 15, launch: the dry run (host) and its calibration on the card
@@ -6168,7 +6356,13 @@ def _launch_calibrate(part: str) -> dict:
         qs = {n: dryrun.profile_census(make(n), mesh) for n in (2, 4)}
         census = dryrun.layer_diff(qs, cfg.n_layers)
         out = dict(flops=census["flops"], bytes=census["bytes"],
-                   depth2_flops=qs[2]["flops"], depth2_bytes=qs[2]["bytes"])
+                   op_s=census["op_s"],
+                   bound_s=dryrun.step_bound(census["op_s"],
+                                             census["collective_s"]),
+                   depth2_flops=qs[2]["flops"], depth2_bytes=qs[2]["bytes"],
+                   depth2_op_s=qs[2]["op_s"],
+                   depth2_bound_s=dryrun.step_bound(qs[2]["op_s"],
+                                                    qs[2]["collective_s"]))
     return dict(out, **{f"{part}_s": time.perf_counter() - t0})
 
 
@@ -6181,9 +6375,11 @@ def phase_launch(smi: str, real: dict):
     (b) Phase ``train``'s step against its dry run on the card's
     one-device mesh: real / dry FLOPs (``real``: `FlopCounterMode` over
     ``train``'s unrecorded step), real / dry peak (that step's peak above
-    the card's other tensors, plus its arguments), and the roofline bound
-    (max of the compute and memory terms) / ``train``'s median step, each
-    inside its gate.  Controls that must miss: the dry run with K6 counted
+    the card's other tensors, plus its arguments), and the dry run's bound
+    (``bound_s``, the one each cell's record carries: `step_bound` of each
+    op's own roofline summed, since the eager step runs its ops one after
+    another) / ``train``'s median step, each inside its gate.  Controls
+    that must miss: the dry run with K6 counted
     as its plain version (FLOPs, peak and the bound, too high) and the
     depth-2 census taken for the whole step (the bound, too low).  Every
     check runs before the phase fails."""
@@ -6218,6 +6414,7 @@ def phase_launch(smi: str, real: dict):
             row.update(live_gb=rec["live_bytes_per_device"] / 1e9,
                        fits_80gb=rec["fits_80gb"], dominant=r["dominant"],
                        roofline_fraction=r["roofline_fraction"],
+                       op_s=rec["op_s"], bound_s=rec["bound_s"],
                        compute_s=r["compute_s"], memory_s=r["memory_s"],
                        collective_s=r["collective_s"],
                        useful_fraction=r["useful_fraction"],
@@ -6236,14 +6433,16 @@ def phase_launch(smi: str, real: dict):
 
     dry_real, dry_control = ({**dry[i], **dry[i + 1]} for i in (0, 2))
     dry_depth2 = dict(dry_real, flops=dry_real["depth2_flops"],
-                      bytes=dry_real["depth2_bytes"])
+                      bytes=dry_real["depth2_bytes"],
+                      op_s=dry_real["depth2_op_s"],
+                      bound_s=dry_real["depth2_bound_s"])
 
     def ratios(d):
         d["compute_s"] = d["flops"] / PEAK_FLOPS
         d["memory_s"] = d["bytes"] / HBM_BW
         return dict(flops=real["flops"] / d["flops"],
                     memory=real["peak_bytes"] / d["peak_bytes"],
-                    time=max(d["compute_s"], d["memory_s"]) / real["step_s"])
+                    time=d["bound_s"] / real["step_s"])
 
     def inside(r):
         return dict(flops=abs(r["flops"] - 1) <= LAUNCH_FLOP_GATE,
@@ -6310,12 +6509,13 @@ def main(argv=None) -> int:
 
     # One nvcc per source, started together; the full box is made on the
     # host meanwhile.  The build's seconds: until the last nvcc is done.
-    def build(mod):
-        return mod.build(), time.perf_counter()
+    def build(fn):
+        return fn(), time.perf_counter()
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        builds = pool.map(build, (cuda, ss_cuda, fa_cuda, eb_cuda))
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+        builds = pool.map(build, (cuda.build, ss_cuda.build, fa_cuda.build,
+                                  fa_cuda.build_backward, eb_cuda.build))
         box = box_mesh(80, 64, 48)
         perm = rcb_order(box.coords, box.weights)
         root = dual_graph(box).sub(perm)  # level 0
@@ -6353,17 +6553,18 @@ def main(argv=None) -> int:
         fp, sweep_parts = quick_plan(box)
     ss_rows = phase_kernels_segsum(fp, sweep_parts)
     del fp, sweep_parts
-    fa_rows = phase_kernels_flash()
+    fa_rows, fa_grad = phase_kernels_flash()
     k6_launches = phase_serve()
     k6_launches += phase_serve_window()
-    k6_train, k5_train, train_real = phase_train()
+    k6_train, k6b_launches, k5_train, train_real = phase_train()
     k6_launches += k6_train
     k6_launches += phase_serve_moe()
     bag_rows, k5_launches = phase_recsys()
     k5_launches += k5_train + phase_recsys_train()
     phase_gnn()
-    k6_shard, k5_shard = phase_shard()
+    k6_shard, k6b_shard, k5_shard = phase_shard()
     k6_launches += k6_shard
+    k6b_launches += k6b_shard
     k5_launches += k5_shard
     phase_launch(smi, train_real)
 
@@ -6378,6 +6579,13 @@ def main(argv=None) -> int:
     # K6 at the `requests` prefill's shape, bf16, by device time
     flash_row = dict(fa_rows[("prefill", "bfloat16")],
                      kernel_ms=fa_rows[("prefill", "bfloat16")]["dev_ms"])
+
+    # K6's backward at `train`'s attention (train_4k), bf16, by device time
+    t4k = next(r for r in fa_grad if r["case"] == "train_4k")
+    bwd_row = dict(max_abs_err=t4k["max_abs_err"], kernel_ms=t4k["bwd_dev_ms"],
+                   ref_ms=t4k["bwd_plain_ms"], bound_ms=t4k["bwd_bound_ms"],
+                   bound_by=t4k["bwd_bound_by"],
+                   library_ms=t4k["sdpa_bwd_ms"])
 
     # K5 at the retrieval lookup's shape (10^6 bags of one), fp32, by
     # device time
@@ -6404,6 +6612,12 @@ def main(argv=None) -> int:
                      "flash_attention.cu",
                      "src/repro/kernels/flash_attention/kernel.py:86",
                      k6_launches, flash_row),
+        kernel_entry("flash_attention_backward",
+                     "src/repro_torch/kernels/flash_attention/csrc/"
+                     "flash_attention_bwd.cu",
+                     # no TPU kernel: the port's plain recompute
+                     "src/repro_torch/kernels/flash_attention/ref.py:159",
+                     k6b_launches, bwd_row),
         kernel_entry("embedding_bag",
                      "src/repro_torch/kernels/embedding_bag/csrc/"
                      "embedding_bag.cu",

@@ -25,6 +25,13 @@ caching allocator (``torch.empty``: no launch), and the last block of each
 counters are one zeroed int32 buffer per (device, stream), made once and
 kept; the kernel leaves them zero.  Keyed by stream, they are never shared
 by two calls in flight at once: calls on one stream run in order.
+
+:func:`flash_attention_bwd_cuda` is K6's backward, `csrc/flash_attention_bwd.cu`
+(a library of its own, built in parallel with the forward's): dq, dk and
+dv of the same function, in two launches (dQ with the rows' softmax
+statistics, then dK and dV), with the statistics in a workspace from the
+caching allocator.  ``BACKWARD_LAUNCHES`` counts its calls (each launches
+its two grids), apart from ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -38,8 +45,10 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+BWD_SOURCE = SOURCE.with_name("flash_attention_bwd.cu")
 
 LAUNCHES = 0          # K6 launches since the last reset (callers reset)
+BACKWARD_LAUNCHES = 0  # K6 backward calls since the last reset
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1  # sizes, q_offset and kv_len ride C ints
@@ -49,6 +58,7 @@ KEY_TILE = 64         # keys per KV tile
 MAX_SPLITS = 256      # the kernel's bound on n_split
 BLOCKS_PER_SM = 1     # the decode grid's aim (fewer, longer runs merge faster)
 _lib = None
+_lib_bwd = None
 _sm_count: dict[int, int] = {}
 _counters: dict[tuple[int, int], torch.Tensor] = {}
 
@@ -57,6 +67,11 @@ def build():
     """Compile the kernel's library if needed: its path and the compiler's
     register report (see `_build.build`)."""
     return _build.build(SOURCE)
+
+
+def build_backward():
+    """Compile the backward's library if needed (see `build`)."""
+    return _build.build(BWD_SOURCE)
 
 
 def _load():
@@ -70,8 +85,25 @@ def _load():
     return _lib
 
 
-def _check(q, k, v, q_offset: int, kv_len: int, window) -> None:
-    who = "flash_attention_cuda"
+# the backward's C entry: q, k, v, dout, dq, dk, dv, the workspace; the
+# type flag, B, Sq, Skv, H, Hkv, D; q's, k's, v's and dout's strides; q_offset,
+# kv_len, causal, window; the scale; the stream
+BWD_PROTOTYPES = {
+    "flash_attention_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4
+    + [ctypes.c_float, ctypes.c_void_p],
+}
+
+
+def _load_bwd():
+    global _lib_bwd
+    if _lib_bwd is None:
+        _lib_bwd = _build.load(BWD_SOURCE, BWD_PROTOTYPES)
+    return _lib_bwd
+
+
+def _check(q, k, v, q_offset: int, kv_len: int, window,
+           who: str = "flash_attention_cuda") -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
             raise ValueError(f"{who}: {name} is on {t.device}, not a CUDA device")
@@ -194,3 +226,49 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.check_launch("flash_attention_fwd", rc)
     LAUNCHES += 1
     return out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, dout: torch.Tensor, *,
+                             causal: bool, q_offset: int, kv_len: int,
+                             window: int | None = None):
+    """K6's backward on the card: dq, dk, dv of `flash_attention_cuda`'s
+    function at (q, k, v) for the output gradient ``dout``, as
+    `ref.flash_attention_grads` computes them.
+
+    Takes what `flash_attention_cuda` takes; ``dout`` is (B, Sq, H, D) of
+    q's type on q's device (a head dim that is not contiguous is copied
+    first).  Returns contiguous dq, dk and dv of the inputs' type and
+    shapes.  Two calls on the same inputs give the same bits."""
+    global BACKWARD_LAUNCHES
+    who = "flash_attention_bwd_cuda"
+    _check(q, k, v, q_offset, kv_len, window, who)
+    if dout.shape != q.shape or dout.dtype != q.dtype \
+            or dout.device != q.device:
+        raise ValueError(f"{who}: dout must match q ({tuple(q.shape)}, "
+                         f"{q.dtype}, {q.device}); got {tuple(dout.shape)}, "
+                         f"{dout.dtype}, {dout.device}")
+    if q.shape[2] > _GRID_MAX:
+        raise ValueError(f"{who}: H={q.shape[2]} past the grid's range")
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    B, Sq, H, D = q.shape
+    _, Skv, Hkv, _ = k.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dq.numel() == 0 or dk.numel() == 0:   # no pair: no gradient
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    stats = torch.empty(3 * B * H * Sq, dtype=torch.float32, device=q.device)
+    ctx, stream = _build.launch_context(q)
+    with ctx:
+        rc = _load_bwd().flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            _DTYPES[q.dtype], B, Sq, Skv, H, Hkv, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *dout.stride()[:3], q_offset, kv_len, int(causal), window or 0,
+            1.0 / math.sqrt(D), stream)
+    _build.check_launch("flash_attention_bwd", rc)
+    BACKWARD_LAUNCHES += 1
+    return dq, dk, dv

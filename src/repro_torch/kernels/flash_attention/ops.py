@@ -13,13 +13,15 @@ K6 masks the ragged edge of its tiles itself, so nothing is padded here.
 Gradients.  Where q, k or v requires a gradient (and grad mode is on), a
 call that takes the kernel (or, on the CPU, its plain version) goes
 through :class:`FlashAttention`, a `torch.autograd.Function`: its forward
-is that call and saves only q, k and v; its backward is
-`ref.flash_attention_grads`, the attention recomputed in plain torch block
-of queries by block, its gradient written out.  The backward is plain by
-design, not a
-fallback: `repro` trains through its pure-JAX attention under
-``jax.checkpoint`` and its Pallas kernel has no backward.  ``prefer="ref"``
-differentiates the plain version directly.
+is that call and saves only q, k and v; its backward is K6's backward
+kernel on a CUDA tensor (`cuda.flash_attention_bwd_cuda`: dQ, then dK and
+dV, in a fixed order) and `ref.flash_attention_grads`, the attention
+recomputed in plain torch block of queries by block, on a CPU one.  A
+build or launch fault raises; nothing falls back to the plain gradient on
+the card.  `repro` trains through its pure-JAX attention under
+``jax.checkpoint`` (its Pallas kernel has no backward), so the backward
+kernel replaces the port's plain recompute, not a TPU kernel.
+``prefer="ref"`` differentiates the plain version directly.
 
 The dry run.  The kernel route and the CPU route are also one operator,
 ``torch.ops.repro_torch.flash_attention`` (a `torch.library.custom_op`:
@@ -30,7 +32,10 @@ mode), with a shape rule for ``meta`` tensors and a FLOP formula (:func:`kernel_
 ``meta`` step (`repro_torch.launch.dryrun`) and `FlopCounterMode` on the
 card count what K6 runs, the causal and window-masked tiles it skips
 left out.  :func:`kernel_bytes` is its traffic for the dry run's byte
-count.
+count.  The backward is one operator too,
+``torch.ops.repro_torch.flash_attention_backward``, taken in the same
+places, with a shape rule, :func:`backward_flops` (the pairs of the tiles
+its two launches multiply) and :func:`backward_bytes`.
 """
 
 from __future__ import annotations
@@ -41,8 +46,10 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.flash_attention import cuda
 from repro_torch.kernels.flash_attention.ref import (
+    TILE,
     flash_attention_grads,
     flash_attention_plain,
+    key_tiles,
 )
 
 _PREFER = ("auto", "cuda", "ref")
@@ -174,10 +181,94 @@ def _k6_flops(q, k, v, causal, q_offset, kv_len, window, *args, **kwargs):
                         window)
 
 
+def _run_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  dout: torch.Tensor, causal: bool, q_offset: int,
+                  kv_len: int, window: int | None
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq, dk, dv: the backward kernel on a CUDA tensor, the plain
+    recompute on a CPU one."""
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
+    if not q.is_cuda:
+        return flash_attention_grads(q, k, v, dout, **kw)
+    return cuda.flash_attention_bwd_cuda(q, k, v, dout, **kw)
+
+
+_k6_bwd = torch.library.custom_op("repro_torch::flash_attention_backward",
+                                  mutates_args=())(_run_backward)
+
+
+@_k6_bwd.register_fake
+def _k6_bwd_shape(q, k, v, dout, causal, q_offset, kv_len, window):
+    """The kernel's dq, dk, dv: contiguous, of the inputs' shapes and
+    type."""
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _backward(q, k, v, dout, causal, q_offset, kv_len, window):
+    """`_run_backward` through the operator only where a ``meta`` tensor
+    or a dispatch mode has to see it, as `_forward`."""
+    if q.is_meta or is_in_torch_dispatch_mode():
+        return torch.ops.repro_torch.flash_attention_backward(
+            q, k, v, dout, causal, q_offset, kv_len, window)
+    return _run_backward(q, k, v, dout, causal, q_offset, kv_len, window)
+
+
+def backward_pairs(q_shape, causal: bool, q_offset: int, kv_len: int,
+                   window: int | None) -> tuple[int, int, int]:
+    """What K6's backward multiplies for one (batch, query head): (pairs,
+    t_lo, t_hi) — the (real query row, key) pairs of every (query tile,
+    key tile) it visits (each query tile's real rows × ``TILE`` keys of
+    each key tile `ref.key_tiles` gives it; the dK/dV launch visits the
+    same pairs from the keys' side) and the span of key tiles [t_lo, t_hi)
+    read."""
+    Sq = q_shape[1]
+    pairs, t_lo, t_hi = 0, None, 0
+    for i0 in range(0, Sq, TILE):
+        lo, hi = key_tiles(i0, Sq, causal=causal, q_offset=q_offset,
+                           kv_len=kv_len, window=window)
+        if hi > lo:
+            t_lo = lo if t_lo is None else min(t_lo, lo)
+            t_hi = max(t_hi, hi)
+        pairs += min(TILE, Sq - i0) * TILE * (hi - lo)
+    return pairs, t_lo or 0, t_hi
+
+
+def backward_flops(q_shape, k_shape, causal, q_offset, kv_len,
+                   window) -> int:
+    """K6's backward FLOPs: 9 products of 2·D FLOPs per pair of
+    `backward_pairs` (the dQ launch forms S and dP in each of its two
+    passes, then dS K; the dK/dV launch S, dP, Pᵀ dO and dSᵀ Q), over the
+    B·H (batch, query head) pairs."""
+    B, _, H, D = q_shape
+    pairs = backward_pairs(q_shape, causal, q_offset, kv_len, window)[0]
+    return 18 * D * pairs * B * H
+
+
+def backward_bytes(q, k, v, dout, causal, q_offset, kv_len, window) -> int:
+    """K6's backward traffic: q and dout read and dq written once, the K and
+    V rows of the key tiles it reads (their span, once), dk and dv written
+    whole, and the rows' m, 1 / l, δ written and read once (fp32)."""
+    _, lo, hi = backward_pairs(q.shape, causal, q_offset, kv_len, window)
+    B, Skv, Hkv, D = k.shape
+    keys = max(min(hi * TILE, Skv) - lo * TILE, 0)
+    return 3 * q.numel() * q.element_size() \
+        + 2 * B * keys * Hkv * D * k.element_size() \
+        + 2 * k.numel() * k.element_size() + 2 * 3 * 4 * q.shape[0] \
+        * q.shape[2] * q.shape[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_backward,
+                       get_raw=True)
+def _k6_bwd_flops(q, k, v, dout, causal, q_offset, kv_len, window, *args,
+                  **kwargs):
+    return backward_flops(q.shape, k.shape, causal, q_offset, kv_len, window)
+
+
 class FlashAttention(torch.autograd.Function):
     """K6 under autograd: the forward is K6 (the kernel on the card, the
-    plain version on the CPU), saving q, k and v; the backward recomputes
-    the attention in plain torch (`ref.flash_attention_grads`)."""
+    plain version on the CPU), saving q, k and v; the backward is K6's
+    backward kernel on the card and the plain recompute
+    (`ref.flash_attention_grads`) on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, kv_len, window):
@@ -189,9 +280,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
         causal, q_offset, kv_len, window = ctx.args
-        dq, dk, dv = flash_attention_grads(q, k, v, dout, causal=causal,
-                                           q_offset=q_offset, kv_len=kv_len,
-                                           window=window)
+        dq, dk, dv = _backward(q, k, v, dout, causal, q_offset, kv_len,
+                               window)
         return dq, dk, dv, None, None, None, None
 
 

@@ -17,7 +17,10 @@ window``, `repro`'s mask (``repro/models/transformer.py:180-183``).
 trains through its pure-JAX attention under ``jax.checkpoint`` and the
 Pallas kernel has no backward, so the gradient recomputes the attention
 here, block of queries by block, with its gradient written out in plain
-torch.
+torch.  :func:`flash_attention_grads_tiles` is K6's backward kernel
+(`csrc/flash_attention_bwd.cu`) written out in plain torch: its two
+launches' tile loops and sums in order, for the tests; nothing on the main
+path calls it.
 
 A row with no valid key (only padded tail queries have one) is not held to
 anything: here it averages every key, in K6 it is zero.
@@ -179,4 +182,143 @@ def flash_attention_grads(q, k, v, dout, *, causal: bool, q_offset: int,
         dq[:, q0:q1] = gq
         dk[:, lo:hi] += gk
         dv[:, lo:hi] += gv
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+TILE = 64   # the backward kernel's query rows and keys a tile
+
+
+def key_tiles(i0: int, Sq: int, *, causal: bool, q_offset: int, kv_len: int,
+              window: int | None) -> tuple[int, int]:
+    """The key tiles [t_lo, t_hi) the backward's query tile at row ``i0``
+    walks (its dQ launch): those holding the keys its rows can see
+    (`key_range`)."""
+    lo, hi = key_range(i0, min(Sq, i0 + TILE), causal=causal,
+                       q_offset=q_offset, kv_len=kv_len, window=window)
+    return lo // TILE, -(-hi // TILE) if hi > lo else lo // TILE
+
+
+def query_tiles(j0: int, Sq: int, *, causal: bool, q_offset: int,
+                kv_len: int, window: int | None) -> tuple[int, int]:
+    """The query tiles [qt_lo, qt_hi) whose rows see a key of the key tile
+    at ``j0`` (the backward's dK/dV launch): the (query tile, key tile)
+    pairs of `key_tiles`, walked from the keys' side."""
+    if j0 >= kv_len:
+        return 0, 0
+    i_min = max(0, j0 - q_offset) if causal else 0
+    i_max = Sq if window is None else min(Sq, j0 + TILE - 1 + window - q_offset)
+    if i_max <= i_min:
+        return 0, 0
+    return i_min // TILE, -(-i_max // TILE)
+
+
+def kv_heads(H: int, Hkv: int) -> torch.Tensor:
+    """The KV head each query head reads: ``h // (H // Hkv)``."""
+    return torch.arange(H) // (H // Hkv)
+
+
+def flash_attention_grads_tiles(q, k, v, dout, *, causal: bool,
+                                q_offset: int, kv_len: int,
+                                window: int | None = None):
+    """dq, dk, dv as K6's backward kernel computes them: its two launches'
+    loops and sums in order, in tiles of ``TILE`` rows and keys, in fp32.
+
+    Launch 1, per query tile: pass 1 walks its key tiles (`key_tiles`)
+    with an online softmax, the row max m, the row sum l and δ = Σ p̃ dP /
+    l rescaled as m grows (p̃ rounded to the input type); pass 2 walks them
+    again, dq += ds K with ds = p (dP − δ) / l.  Launch 2, per key tile:
+    the query heads of its group, then its query tiles (`query_tiles`), in
+    that order: dv += (p / l)ᵀ dO and dk += dsᵀ Q.  In bf16, p / l and ds
+    are rounded to bf16 before their products, as the tensor cores take
+    them.  A row with no visible key adds nothing (the kernel's forward
+    gives it a zero output).  float64 inputs are computed in float64: the
+    algorithm without the rounding of its sums."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
+    f = dict(dtype=torch.promote_types(q.dtype, torch.float32),
+             device=q.device)
+
+    def rnd(x):
+        return x if q.dtype in (torch.float32, torch.float64) \
+            else x.to(q.dtype).to(f["dtype"])
+
+    heads = kv_heads(H, Hkv).to(q.device)
+    qf, dof, kf, vf = (t.to(f["dtype"]) for t in (q, dout, k, v))
+    kh, vh = kf[:, :, heads], vf[:, :, heads]      # each query head's K, V
+    m = torch.full((B, H, Sq), -math.inf, **f)
+    l = torch.ones((B, H, Sq), **f)
+    delta = torch.zeros((B, H, Sq), **f)
+    dq = torch.zeros((B, Sq, H, D), **f)
+
+    def mask(i0, i1, k0, k1):
+        """(rows, keys) visibility of queries i0..i1−1 and keys k0..k1−1."""
+        return _visible(i1 - i0, k1 - k0, q_offset + i0 - k0, kv_len - k0,
+                        causal, window, q.device)
+
+    # launch 1: dq, and each row's m, l, δ
+    for i0 in range(0, Sq, TILE):
+        i1 = min(Sq, i0 + TILE)
+        t_lo, t_hi = key_tiles(i0, Sq, **kw)
+
+        def scores(t, i0=i0, i1=i1):
+            k0, k1 = t * TILE, min(Skv, t * TILE + TILE)
+            s = torch.einsum("bqhd,bkhd->bhqk", qf[:, i0:i1], kh[:, k0:k1])
+            s = torch.where(mask(i0, i1, k0, k1), s * scale, -math.inf)
+            dp = torch.einsum("bqhd,bkhd->bhqk", dof[:, i0:i1], vh[:, k0:k1])
+            return s, dp, k0, k1
+
+        mi = torch.full((B, H, i1 - i0), -math.inf, **f)
+        li = torch.zeros_like(mi)
+        du = torch.zeros_like(mi)
+        for t in range(t_lo, t_hi):
+            s, dp, _, _ = scores(t)
+            m_new = torch.maximum(mi, s.amax(-1))
+            live = m_new > -math.inf
+            corr = torch.where(live, torch.exp(mi - m_new), 1.0)
+            p = torch.where(live[..., None], torch.exp(s - m_new[..., None]),
+                            0.0)
+            li = li * corr + p.sum(-1)
+            du = du * corr + (rnd(p) * dp).sum(-1)
+            mi = m_new
+        li = li.clamp_min(1e-30)
+        di = du / li
+        acc = torch.zeros((B, H, i1 - i0, D), **f)
+        for t in range(t_lo, t_hi):
+            s, dp, k0, k1 = scores(t)
+            p = torch.where(s > -math.inf, torch.exp(s - mi[..., None]), 0.0)
+            ds = p * (dp - di[..., None]) * (1.0 / li)[..., None]
+            acc += torch.einsum("bhqk,bkhd->bhqd", rnd(ds), kh[:, k0:k1])
+        dq[:, i0:i1] = (acc * scale).permute(0, 2, 1, 3)
+        m[..., i0:i1], l[..., i0:i1], delta[..., i0:i1] = mi, li, di
+
+    # launch 2: dk, dv; group[c, g] is the g-th query head reading KV head c
+    group = torch.stack([torch.nonzero(heads == c).flatten()
+                         for c in range(Hkv)])
+    inv_l = 1.0 / l
+    dk = torch.zeros((B, Skv, Hkv, D), **f)
+    dv = torch.zeros((B, Skv, Hkv, D), **f)
+    for j0 in range(0, Skv, TILE):
+        j1 = min(Skv, j0 + TILE)
+        qt_lo, qt_hi = query_tiles(j0, Sq, **kw)
+        gk = torch.zeros((B, Hkv, j1 - j0, D), **f)
+        gv = torch.zeros_like(gk)
+        for g in range(group.shape[1]):
+            hs = group[:, g]
+            for qt in range(qt_lo, qt_hi):
+                i0, i1 = qt * TILE, min(Sq, qt * TILE + TILE)
+                qg, dog = qf[:, i0:i1, hs], dof[:, i0:i1, hs]
+                s = torch.einsum("bkhd,bqhd->bhkq", kf[:, j0:j1], qg) * scale
+                ok = mask(i0, i1, j0, j1).T
+                mq = m[:, hs, None, i0:i1]
+                p = torch.where(ok, torch.exp(s - torch.where(ok, mq, 0.0)),
+                                0.0)
+                dp = torch.einsum("bkhd,bqhd->bhkq", vf[:, j0:j1], dog)
+                il = inv_l[:, hs, None, i0:i1]
+                ds = p * (dp - delta[:, hs, None, i0:i1]) * il
+                gv += torch.einsum("bhkq,bqhd->bhkd", rnd(p * il), dog)
+                gk += torch.einsum("bhkq,bqhd->bhkd", rnd(ds), qg)
+        dk[:, j0:j1] = (gk * scale).permute(0, 2, 1, 3)
+        dv[:, j0:j1] = gv.permute(0, 2, 1, 3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

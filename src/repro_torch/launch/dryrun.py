@@ -15,17 +15,20 @@ which answer with ``meta`` tensors and report to the census):
   so they do not lower the peak.
 * PROFILE pass — FLOPs by `torch.utils.flop_counter.FlopCounterMode`,
   bytes accessed as each op's input and output bytes (views move none;
-  K5 and K6 count the rows their tile loops read, `kernel_bytes`), and the
-  census of collectives (`repro_torch.dist.group.census`).  K5 and K6 are
-  custom operators with a ``meta`` shape rule and a FLOP formula of the
-  kernel's work, so the run counts what the card runs, the tiles K6
-  skips left out.  Deep models (> ``PROFILE_CAP`` layers) use `repro`'s
+  K5, K6 and K6's backward count the rows their tile loops read,
+  `kernel_bytes`), and the census of collectives
+  (`repro_torch.dist.group.census`).  K5, K6 and K6's backward are custom
+  operators with a ``meta`` shape rule and a FLOP formula of the kernel's
+  work, so the run counts what the card runs, the tiles K6 skips left
+  out.  Deep models (> ``PROFILE_CAP`` layers) use `repro`'s
   layer differencing: Q(n) = Q(2) + (n−2)·(Q(4)−Q(2))/2, exact because
   the layers are identical.
 
 The roofline (`launch.roofline`) is on the H100 SXM5's constants, each
-collective at the slowest link its group crosses.  A cell that raises is
-written with ``status: "fail"``.
+collective at the slowest link its group crosses; the step's bound is
+`roofline.step_bound` of the ops' own rooflines summed (``op_s``) and the
+collective term, written with each cell (``op_s``, ``bound_s``).  A cell
+that raises is written with ``status: "fail"``.
 
 Usage:
     python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape train_4k
@@ -55,9 +58,10 @@ from repro_torch.kernels.embedding_bag import ops as k5_ops
 from repro_torch.kernels.flash_attention import ops as k6_ops
 from repro_torch.launch.cells import build_cell
 from repro_torch.launch.mesh import axis_sizes, make_production_mesh
-from repro_torch.launch.roofline import (COLLECTIVES, CollectiveStats,
-                                         collective_seconds, collective_stats,
-                                         from_counts)
+from repro_torch.launch.roofline import (COLLECTIVES, HBM_BW, PEAK_FLOPS,
+                                         CollectiveStats, collective_seconds,
+                                         collective_stats, from_counts,
+                                         step_bound)
 
 PROFILE_CAP = 6   # run the full depth up to this many layers; layer-diff beyond
 DEVICE_BYTES = 80e9          # an H100 SXM5's HBM3
@@ -77,6 +81,8 @@ _NO_TRAFFIC = {torch.ops.aten.empty, torch.ops.aten.empty_like,
                torch.ops.aten._local_scalar_dense}
 # the kernels' own traffic, in place of their inputs' whole size
 _KERNEL_BYTES = {torch.ops.repro_torch.flash_attention: k6_ops.kernel_bytes,
+                 torch.ops.repro_torch.flash_attention_backward:
+                     k6_ops.backward_bytes,
                  torch.ops.repro_torch.embedding_bag: k5_ops.kernel_bytes}
 
 
@@ -93,13 +99,19 @@ class StepMeter(TorchDispatchMode):
     live storage an op made (one storage counted once, its views free;
     freed when its last tensor dies) and their peak; with ``traffic``, the bytes each op
     reads and writes (its tensor inputs and outputs; views and
-    allocations none; K5 and K6 their `kernel_bytes`)."""
+    allocations none; K5 and K6 their `kernel_bytes`), and ``op_s``: each
+    op's own roofline, the larger of its FLOPs (`FlopCounterMode`'s
+    formulas) over the peak and its bytes over HBM's rate, summed over the
+    ops — the least time the step could take with its ops run one after
+    another, as an eager step runs them on one stream."""
 
     def __init__(self, *, memory: bool = True, traffic: bool = False):
         super().__init__()
         self.memory, self.traffic = memory, traffic
         self.live = self.peak = 0
         self.bytes = 0
+        self.op_s = 0.0
+        self._flops = FlopCounterMode().flop_registry if traffic else {}
         self._held: dict = {}
 
     def _free(self, key: int, n: int) -> None:
@@ -127,11 +139,16 @@ class StepMeter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if self.traffic:
             packet = func._overloadpacket
+            n = 0
             if packet in _KERNEL_BYTES:
-                self.bytes += _KERNEL_BYTES[packet](*args)
+                n = _KERNEL_BYTES[packet](*args)
             elif not func.is_view and packet not in _NO_TRAFFIC:
-                self.bytes += sum(_nbytes(t) for t in _tensors((args, kwargs)))
-                self.bytes += sum(_nbytes(t) for t in _tensors(out))
+                n = sum(_nbytes(t) for t in _tensors((args, kwargs))) \
+                    + sum(_nbytes(t) for t in _tensors(out))
+            flops = self._flops[packet](*args, **kwargs, out_val=out) \
+                if packet in self._flops else 0
+            self.bytes += n
+            self.op_s += max(flops / PEAK_FLOPS, n / HBM_BW)
         if self.memory and not func.is_view:
             self.hold(out)    # a view's storage is its base's
         return out
@@ -172,7 +189,7 @@ def profile_census(cell, mesh) -> dict:
         cell.fn(*cell.abstract_args)
     stats = collective_stats(cen.records)
     return {"flops": float(flops.get_total_flops()),
-            "bytes": float(meter.bytes),
+            "bytes": float(meter.bytes), "op_s": meter.op_s,
             "wire": stats.total_wire_bytes,
             "per_op": dict(stats.per_op), "counts": dict(stats.counts),
             "collective_s": collective_seconds(cen.records, mesh),
@@ -190,7 +207,7 @@ def _lerp(q2: float, q4: float, L: int) -> float:
 def layer_diff(qs: dict, L: int) -> dict:
     """Q(L) from the depth-2 and depth-4 censuses (`repro`'s formula)."""
     out = {k: _lerp(qs[2][k], qs[4][k], L)
-           for k in ("flops", "bytes", "wire", "collective_s")}
+           for k in ("flops", "bytes", "wire", "collective_s", "op_s")}
     out["per_op"] = {k: _lerp(qs[2]["per_op"][k], qs[4]["per_op"][k], L)
                      for k in COLLECTIVES}
     out["counts"] = {k: int(round(_lerp(qs[2]["counts"][k],
@@ -219,7 +236,8 @@ def _profile(arch_id, shape_name, mesh, **kw):
 def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
              verbose: bool = True, profile: bool = True,
              moe_impl: str | None = None) -> dict:
-    """One cell's record (`repro`'s keys; ``fits_80gb`` for the H100).
+    """One cell's record (`repro`'s keys; ``fits_80gb`` for the H100,
+    ``op_s`` and ``bound_s`` for the eager step's bound).
     The MoE runs as its config says (``"pjit"``, the published default),
     or as ``moe_impl`` (``"shardmap"``: expert parallelism)."""
     mesh = make_production_mesh(multi_pod=multi_pod)
@@ -239,7 +257,8 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
         pmeta = {"profile_method": "exec-full"}
     t_prof = time.perf_counter() - t1
     rl = from_counts(census["flops"], census["bytes"], census["wire"],
-                     census["collective_s"], n_dev, cell.model_flops)
+                     census["collective_s"], n_dev, cell.model_flops,
+                     op_s=census["op_s"])
     coll = CollectiveStats(census["per_op"], census["counts"],
                            census["wire"]).row()
     record = {
@@ -254,6 +273,8 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
                           "bytes accessed": census["bytes"]},
         "collectives": coll,
         "roofline": rl.row(),
+        "op_s": census["op_s"],
+        "bound_s": step_bound(census["op_s"], census["collective_s"]),
         "status": "ok",
         **pmeta,
     }
@@ -268,6 +289,8 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool,
         print(f"  roofline: compute={rl.compute_s:.4e}s "
               f"memory={rl.memory_s:.4e}s collective={rl.collective_s:.4e}s "
               f"dominant={rl.dominant} useful={rl.useful_fraction:.3f}")
+        print(f"  bound: {record['bound_s']:.4e}s (the ops one after "
+              f"another: {census['op_s']:.4e}s)")
     return record
 
 
@@ -346,7 +369,8 @@ def main() -> None:
             r = rec["roofline"]
             print(f"ok   {head}: live {rec['live_bytes_per_device'] / 1e9:.2f} "
                   f"GB fits80GB={rec['fits_80gb']} dominant={r['dominant']} "
-                  f"roofline={r['roofline_fraction']:.3f}")
+                  f"roofline={r['roofline_fraction']:.3f} "
+                  f"bound={rec['bound_s']:.4g}s")
         else:
             failures += 1
             print(f"FAIL {head}: {rec['error']}")

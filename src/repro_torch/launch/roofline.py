@@ -26,6 +26,15 @@ axis), summed with `repro`'s ring model:
     collective-permute b
 
 with b the op's local output bytes and g its group size.
+
+The step's bound.  `repro`'s is the largest term: XLA fuses a step and
+overlaps its terms.  The port runs eagerly, its ops one after another on
+one stream, so the dry run also counts ``op_s``, each op's own
+max(FLOPs / PEAK_FLOPS, bytes / HBM_BW) summed over the step, and bounds
+the step by `step_bound` (the larger of ``op_s`` and the collective term,
+which may overlap the ops).  ``roofline_fraction`` and ``dominant`` are
+taken against that bound when ``op_s`` is given, and against the largest
+term, as `repro`'s, when it is not.
 """
 
 from __future__ import annotations
@@ -112,28 +121,40 @@ class Roofline:
     dominant: str
     model_flops: float
     useful_fraction: float     # MODEL_FLOPS / (FLOPs · n_dev)
-    roofline_fraction: float   # compute_s / max(all terms) — how close the
-                               # step is to being compute-bound at peak
+    roofline_fraction: float   # compute_s / the step's bound — how close
+                               # the step is to being compute-bound at peak
 
     def row(self) -> dict:
         return dataclasses.asdict(self)
 
 
+def step_bound(op_s: float, collective_s: float) -> float:
+    """The least time of an eager step: its ops' own rooflines summed
+    (``op_s``), or its collectives' term where that is longer."""
+    return max(op_s, collective_s)
+
+
 def from_counts(flops: float, byts: float, wire: float, collective_s: float,
                 n_devices: int, model_flops: float, *,
+                op_s: float | None = None,
                 peak_flops: float = PEAK_FLOPS,
                 hbm_bw: float = HBM_BW) -> Roofline:
     """The `Roofline` of a step's per-device FLOPs, bytes, wire bytes and
-    collective seconds."""
+    collective seconds; with ``op_s``, against `step_bound`."""
     ct = flops / peak_flops
     mt = byts / hbm_bw
     terms = {"compute": ct, "memory": mt, "collective": collective_s}
     total_flops = flops * n_devices
-    bound = max(terms.values())
+    if op_s is None:
+        bound, dominant = max(terms.values()), max(terms, key=terms.get)
+    else:
+        bound = step_bound(op_s, collective_s)
+        dominant = "collective" if collective_s > op_s \
+            else ("compute" if ct > mt else "memory")
     return Roofline(
         flops_per_dev=flops, bytes_per_dev=byts, wire_bytes_per_dev=wire,
         compute_s=ct, memory_s=mt, collective_s=collective_s,
-        dominant=max(terms, key=terms.get), model_flops=model_flops,
+        dominant=dominant, model_flops=model_flops,
         useful_fraction=model_flops / total_flops if total_flops else 0.0,
         roofline_fraction=(ct / bound) if bound > 0 else 0.0,
     )

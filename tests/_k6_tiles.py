@@ -2,10 +2,14 @@
 `src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu`: the
 fp32 prefill's key range a block, the bf16 prefill's tiles a warp (its
 ring start, skips and edge mask), the decode route's host tiles per split
-and each split's tiles, and the pairs they multiply (`kernel_pairs`).
-Shared by tests/test_torch_window.py (the window's
+and each split's tiles, and the pairs they multiply (`kernel_pairs`);
+and the backward's (`csrc/flash_attention_bwd.cu`): the dQ launch's key
+tiles a query tile, the dK/dV launch's query tiles a key tile, and the
+(query tile, key tile) pairs each walks (`bwd_tile_pairs`,
+`bwd_pairs`).  Shared by tests/test_torch_window.py (the window's
 ranges), tests/test_torch_launch.py and tests/test_torch_cuda.py (K6's
-FLOP formula).  Imports nothing.
+FLOP formulas) and tests/test_torch_flash_attention_bwd.py.  Imports
+nothing.
 """
 
 TILE = 64
@@ -113,3 +117,52 @@ def kernel_pairs(Sq, G, D, q_offset, kv_len, causal, window, bf16):
                                             causal, w, D >= 64):
             total += max(min(16, rows - rho0 - wr0), 0) * len(tiles) * TILE
     return total
+
+
+def bwd_key_tiles(i0, Sq, q_offset, kv_len, causal, window):
+    """`key_tiles` of flash_attention_bwd.cu: the dQ launch's key tiles
+    [t_lo, t_hi) of the query tile at row i0."""
+    i1 = i0 + TILE if i0 + TILE < Sq else Sq
+    hi = kv_len
+    if causal and q_offset + i1 < hi:
+        hi = q_offset + i1
+    lo = 0
+    if window > 0 and q_offset + i0 - window + 1 > 0:
+        lo = q_offset + i0 - window + 1
+    t_lo = lo // TILE
+    return t_lo, (hi + TILE - 1) // TILE if hi > lo else t_lo
+
+
+def bwd_query_tiles(j0, Sq, q_offset, kv_len, causal, window):
+    """`query_tiles` of flash_attention_bwd.cu: the dK/dV launch's query
+    tiles [qt_lo, qt_hi) of the key tile at j0."""
+    if j0 >= kv_len:
+        return 0, 0
+    i_min = j0 - q_offset if causal and j0 - q_offset > 0 else 0
+    i_max = Sq
+    if window > 0 and j0 + TILE - 1 + window - q_offset < i_max:
+        i_max = j0 + TILE - 1 + window - q_offset
+    if i_max <= i_min:
+        return 0, 0
+    return i_min // TILE, (i_max + TILE - 1) // TILE
+
+
+def bwd_tile_pairs(Sq, Skv, q_offset, kv_len, causal, window, keys_side):
+    """The (query tile, key tile) pairs the backward visits: the dQ
+    launch's walk (each query tile's key tiles) or, with ``keys_side``, the
+    dK/dV launch's (each key tile's query tiles; its grid covers Skv)."""
+    w = window or 0
+    if keys_side:
+        return {(qt, j0 // TILE) for j0 in range(0, Skv, TILE)
+                for qt in range(*bwd_query_tiles(j0, Sq, q_offset, kv_len,
+                                                 causal, w))}
+    return {(i0 // TILE, t) for i0 in range(0, Sq, TILE)
+            for t in range(*bwd_key_tiles(i0, Sq, q_offset, kv_len, causal,
+                                          w))}
+
+
+def bwd_pairs(Sq, q_offset, kv_len, causal, window):
+    """The (real query row, key) pairs the backward multiplies for one
+    (batch, query head): each visited tile pair's real rows × TILE keys."""
+    return sum(min(TILE, Sq - qt * TILE) * TILE for qt, _ in
+               bwd_tile_pairs(Sq, 0, q_offset, kv_len, causal, window, False))

@@ -18,6 +18,7 @@ held to `repro.analysis` where the two share a rule.
 * The CLI exits with 0, 1 and 2 where `repro`'s does.
 """
 
+import glob
 import json
 import os
 import shutil
@@ -437,15 +438,16 @@ def test_protocol_and_fake_contexts(project):
 
 
 def test_fake_rules_of_the_port_are_seen():
-    """K5's and K6's shape rules are fake frames (TRC101/TRC102/DET101
-    have something to check on the real tree)."""
+    """K5's and K6's shape rules (K6's forward and backward) are fake
+    frames (TRC101/TRC102/DET101 have something to check on the real
+    tree)."""
     import ast
 
-    for k in ("embedding_bag", "flash_attention"):
+    for k, n in (("embedding_bag", 1), ("flash_attention", 2)):
         path = os.path.join(SRC, "kernels", k, "ops.py")
         with open(path) as f:
             index = ModuleIndex(ast.parse(f.read()))
-        assert len(index.fake) == 1, k
+        assert len(index.fake) == n, k
 
 
 def test_binding_prototypes_of_the_port_match_their_sources():
@@ -458,8 +460,10 @@ def test_binding_prototypes_of_the_port_match_their_sources():
         kdir = os.path.join(SRC, "kernels", k)
         with open(os.path.join(kdir, "cuda.py")) as f:
             protos = prototypes(ast.parse(f.read()))
-        with open(os.path.join(kdir, "csrc", f"{k}.cu")) as f:
-            arity = c_arities(f.read())
+        arity = {}
+        for cu in glob.glob(os.path.join(kdir, "csrc", "*.cu")):
+            with open(cu) as f:
+                arity.update(c_arities(f.read()))
         assert protos, k
         for name, n, _ in protos:
             assert arity[name] == n, name
@@ -467,7 +471,8 @@ def test_binding_prototypes_of_the_port_match_their_sources():
     assert set(seen) == {"ell_spmv_f32", "ell_spmv_bf16",
                          "ell_spmv_batched_f32", "ell_spmv_batched_bf16",
                          "embedding_bag_fwd", "flash_attention_fwd",
-                         "segment_sum_f32", "segment_sum_batched_f32"}
+                         "flash_attention_bwd", "segment_sum_f32",
+                         "segment_sum_batched_f32"}
 
 
 def test_syntax_error_becomes_parse_diagnostic(project):

@@ -34,6 +34,9 @@ table's backward; the smoke SASRec on the card to the CPU run: user states withi
 1e-5, streamed top-100 ids identical.  Training: K6 with a sliding window
 on its three routes against the plain mask; K6's and K5's gradients
 against autograd through their plain versions, K5's bit-identical twice;
+K6's backward kernel against the plain recompute (fp32 1e-5, bf16 2e-2 of
+each gradient's max) and in fp32 against the emulation of its tiles
+(1e-6), bit-identical twice;
 a smoke LM and a smoke SASRec train step bit-identical twice.  The dry
 run's view of K6 and K5: `FlopCounterMode` over a launch on the card
 counts the tiles K6's loops multiply (tests/_k6_tiles.py) and two FLOPs an
@@ -558,10 +561,11 @@ def test_flash_attention_window_on_card(card, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_grad_on_card(card, dtype, window):
     """dq, dk, dv through K6's autograd function (the kernel's forward, the
-    plain recompute's backward) against autograd through the plain
-    version on the card: the same plain gradient, summed over the
-    backward's query blocks in another order (fp32 1e-5, bf16 2e-2 of each
-    gradient's max)."""
+    backward kernel: dQ, then dK and dV, summed in a fixed order) against
+    autograd through the plain version on the card (fp32 1e-5, bf16 2e-2
+    of each gradient's max: the kernel sums in another order, and in bf16
+    rounds p / l and ds before their products); each kernel launched
+    once."""
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
@@ -578,13 +582,157 @@ def test_flash_attention_grad_on_card(card, dtype, window):
         out.backward(torch.from_numpy(arrays[3]).to(card, dtype))
         return [t.grad.float().cpu() for t in (q, k, v)]
 
-    before = fa_cuda.LAUNCHES
+    before, before_bwd = fa_cuda.LAUNCHES, fa_cuda.BACKWARD_LAUNCHES
     got = grads("auto")
     assert fa_cuda.LAUNCHES == before + 1
+    assert fa_cuda.BACKWARD_LAUNCHES == before_bwd + 1
     want = grads("ref")
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+# K6's backward kernel: (B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal,
+# window).  FLASH_BWD_SHAPE is ragged: Sq, Skv and kv_len off the 64-row
+# tiles, queries after a prefix of 60 keys, keys past kv_len; every row
+# sees a key.
+FLASH_BWD_SHAPE = (2, 150, 230, 2, 60, 210)      # B, Sq, Skv, Hkv, q0, kv_len
+FLASH_BWD_CASES = {
+    "end_aligned": (1, 256, 256, 4, 4, 64, 0, 256, True, None),
+    "noncausal": (2, 100, 140, 4, 2, 32, 0, 120, False, None),
+    "noncausal_window": (1, 90, 200, 4, 1, 16, 40, 190, False, 50),
+    "tinyllama_heads": (1, 300, 300, 32, 4, 64, 0, 300, True, None),
+    "window_d128": (1, 333, 333, 16, 2, 128, 0, 333, True, 100),
+    "window_mid_tile": (2, 200, 700, 8, 1, 64, 480, 680, True, 150),
+}
+
+
+def _bwd_inputs(case, card, dtype, seed, layout="contiguous"):
+    """q, k, v, dout of ``case``: contiguous; ``transposed`` from head-major
+    buffers (only the head dim contiguous); ``unaligned`` rows of D + 1
+    elements (strides not a multiple of 16 bytes)."""
+    B, Sq, Skv, H, Hkv, D, q_offset, kv_len, causal, window = case
+    rng = np.random.default_rng(seed)
+    pad = 1 if layout == "unaligned" else 0
+    shapes = ((B, Sq, H, D + pad), (B, Skv, Hkv, D + pad),
+              (B, Skv, Hkv, D + pad), (B, Sq, H, D + pad))
+    out = []
+    for s in shapes:
+        a = rng.normal(size=s).astype(np.float32)
+        if layout == "transposed":
+            t = torch.from_numpy(a.transpose(0, 2, 1, 3).copy()).to(card, dtype)
+            out.append(t.transpose(1, 2))
+        else:
+            out.append(torch.from_numpy(a).to(card, dtype)[..., :D])
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
+    return (*out, kw)
+
+
+def _check_backward(card, dtype, case, seed, layout="contiguous"):
+    """The backward kernel twice against `flash_attention_grads` (fp32
+    1e-5, bf16 2e-2 of each gradient's max) and, in fp32, the emulation of
+    its tiles (`flash_attention_grads_tiles`, 1e-6, evaluated in float64 on
+    the same values: the kernel's own rounding alone, where two fp32
+    versions of the same sums differ by ~6e-7 of the max between
+    themselves): the same bits twice, two launches counted, contiguous
+    outputs of the inputs' shapes."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    q, k, v, do, kw = _bwd_inputs(case, card, dtype, seed, layout)
+    before = fa_cuda.BACKWARD_LAUNCHES
+    got = fa_cuda.flash_attention_bwd_cuda(q, k, v, do, **kw)
+    again = fa_cuda.flash_attention_bwd_cuda(q, k, v, do, **kw)
+    torch.cuda.synchronize()
+    assert fa_cuda.BACKWARD_LAUNCHES == before + 2
+    for a, b, x in zip(got, again, (q, k, v)):
+        assert torch.equal(a, b)
+        assert a.shape == x.shape and a.dtype == dtype and a.is_contiguous()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    want = fa_ref.flash_attention_grads(q, k, v, do, **kw)
+    for a, b in zip(got, want):
+        b = b.float()
+        assert float((a.float() - b).abs().max()) <= tol * float(b.abs().max())
+    if dtype == torch.float32:
+        tiles = fa_ref.flash_attention_grads_tiles(
+            q.double(), k.double(), v.double(), do.double(), **kw)
+        for a, b in zip(got, tiles):
+            assert float((a.double() - b).abs().max()) \
+                <= 1e-6 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [None, 37])
+@pytest.mark.parametrize("G", [1, 8])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_kernel_on_card(card, dtype, D, G, window):
+    """K6's backward kernel at every head dim, G 1 and 8, with and without
+    a window, on FLASH_BWD_SHAPE's ragged edges, q_offset and kv_len."""
+    B, Sq, Skv, Hkv, q_offset, kv_len = FLASH_BWD_SHAPE
+    _check_backward(card, dtype, (B, Sq, Skv, G * Hkv, Hkv, D, q_offset,
+                                  kv_len, True, window), seed=D + G)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(FLASH_BWD_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_cases_on_card(card, case, dtype):
+    _check_backward(card, dtype, FLASH_BWD_CASES[case], seed=41)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["transposed", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_views_on_card(card, dtype, layout):
+    """Strided views: 16-byte copies from head-major buffers, and rows of
+    D + 1 elements staged element by element."""
+    _check_backward(card, dtype, FLASH_BWD_CASES["window_mid_tile"], seed=42,
+                    layout=layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_flops_and_meta_shape_on_card(card, dtype):
+    """`FlopCounterMode` over the backward operator on the card counts 18·D
+    FLOPs a pair of the tiles its launches visit (tests/_k6_tiles.py); its
+    shape rule on meta tensors gives the card's dq, dk, dv."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from _k6_tiles import bwd_pairs
+    from repro_torch.kernels.flash_attention import ops  # noqa: F401 (the operator)
+
+    case = FLASH_BWD_CASES["window_mid_tile"]
+    q, k, v, do, kw = _bwd_inputs(case, card, dtype, seed=43)
+    B, Sq, H, D = q.shape
+    args = (kw["causal"], kw["q_offset"], kw["kv_len"], kw["window"])
+    with FlopCounterMode(display=False) as fc:
+        real = torch.ops.repro_torch.flash_attention_backward(q, k, v, do,
+                                                              *args)
+    assert fc.get_total_flops() == 18 * D * B * H * bwd_pairs(
+        Sq, kw["q_offset"], kw["kv_len"], kw["causal"], kw["window"]) > 0
+    meta = torch.ops.repro_torch.flash_attention_backward(
+        *(_meta_like(t) for t in (q, k, v, do)), *args)
+    for m, r in zip(meta, real):
+        assert m.device.type == "meta"
+        assert (m.shape, m.dtype, m.stride()) == (r.shape, r.dtype, r.stride())
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_rejects_what_it_does_not_take(card):
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+
+    q, k, v, do, kw = _bwd_inputs(FLASH_BWD_CASES["noncausal"], card,
+                                  torch.float32, seed=44)
+    with pytest.raises(ValueError, match="dout must match"):
+        fa_cuda.flash_attention_bwd_cuda(q, k, v, do[:, :-1], **kw)
+    with pytest.raises(TypeError):
+        fa_cuda.flash_attention_bwd_cuda(q, k, v.bfloat16(), do, **kw)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        fa_cuda.flash_attention_bwd_cuda(q.cpu(), k, v, do, **kw)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_cuda.flash_attention_bwd_cuda(q[..., :24], k[..., :24],
+                                         v[..., :24], do[..., :24], **kw)
 
 
 @pytest.mark.cuda

@@ -54,7 +54,7 @@ from repro_torch.models.common import tree_leaves
 from repro_torch.models.gnn.common import GraphBatch
 from repro_torch.train.optimizer import abstract_opt_state, adamw_init
 
-from _k6_tiles import kernel_pairs
+from _k6_tiles import bwd_pairs, kernel_pairs
 from _lm_port import port_config
 
 MESHES = {"16x16": False, "2x16x16": True}
@@ -258,6 +258,21 @@ def test_roofline_with_repro_constants_matches_repro():
     assert got.row() == want.row()
 
 
+def test_roofline_against_the_eager_steps_bound():
+    """With the ops' own rooflines summed (``op_s``), the step's bound is
+    the larger of that sum and the collective term, and the fraction and
+    the dominant term are taken against it; without, `repro`'s."""
+    args = (989e12, 3.35e12 * 2, 0.0, 1.5, 8, 0.0)
+    r = rl_t.from_counts(*args)
+    assert (r.dominant, r.roofline_fraction) == ("memory", 0.5)
+    r = rl_t.from_counts(*args, op_s=4.0)
+    assert rl_t.step_bound(4.0, 1.5) == 4.0
+    assert (r.dominant, r.roofline_fraction) == ("memory", 0.25)
+    assert (r.compute_s, r.memory_s) == (1.0, 2.0)
+    r = rl_t.from_counts(*args[:3], 5.0, *args[4:], op_s=4.0)
+    assert (r.dominant, r.roofline_fraction) == ("collective", 0.2)
+
+
 def test_roofline_times_each_axis_at_its_slowest_link():
     """On the H100 cluster a (2, 4) mesh lies in one node (NVLink); on the
     production mesh every axis crosses InfiniBand."""
@@ -449,9 +464,19 @@ def test_layer_differencing_gives_the_unrolled_count():
     diff = dryrun.layer_diff({2: qs[2], 4: qs[4]}, 6)
     for k in ("flops", "bytes", "wire", "per_op", "counts"):
         assert diff[k] == qs[6][k], k
-    assert diff["collective_s"] == pytest.approx(qs[6]["collective_s"],
-                                                 rel=1e-12)
+    for k in ("collective_s", "op_s"):
+        assert diff[k] == pytest.approx(qs[6][k], rel=1e-12), k
     assert qs[6]["flops"] > qs[4]["flops"] > qs[2]["flops"]
+
+
+def test_step_bound_sums_each_ops_roofline():
+    """The meter's op_s, each op's max(FLOPs / peak, bytes / HBM rate)
+    summed, lies between the whole step's max(compute, memory) and their
+    sum; its FLOPs are `FlopCounterMode`'s, op by op."""
+    mesh = RankView(MeshShape(MESH_SHAPE, ("data", "model")), 0)
+    q = dryrun.profile_census(lm_train_cell(_smoke(2), B, S, mesh), mesh)
+    compute, memory = q["flops"] / rl_t.PEAK_FLOPS, q["bytes"] / rl_t.HBM_BW
+    assert max(compute, memory) < q["op_s"] < compute + memory
 
 
 def test_exec_pass_peak_holds_the_arguments_and_the_step():
@@ -503,10 +528,46 @@ def test_k6_formula_counts_the_kernel_tiles(case):
         assert want < 4 * D * B * H * Sq * kv_len
 
 
+@pytest.mark.parametrize("case", [
+    # (Sq, H, Hkv, D, q_offset, kv_len, causal, window, dtype)
+    (300, 8, 2, 64, 0, 300, True, None, torch.bfloat16),     # causal
+    (333, 16, 4, 64, 0, 333, True, 100, torch.bfloat16),     # windowed
+    (128, 32, 4, 64, 512, 640, True, 200, torch.bfloat16),   # continuation
+    (257, 4, 4, 32, 40, 297, True, 100, torch.float32),      # fp32 window
+    (96, 2, 2, 32, 0, 500, False, None, torch.float32),      # not causal
+])
+def test_k6_backward_formula_counts_the_kernel_tiles(case):
+    """K6's backward operator under `FlopCounterMode` on meta tensors: 18·D
+    FLOPs a pair of the tiles its two launches visit, as the CUDA source
+    walks them (tests/_k6_tiles.py); its bytes: q, dout, dq and dk, dv
+    whole, the keys it reads, the rows' statistics."""
+    Sq, H, Hkv, D, q_offset, kv_len, causal, window, dtype = case
+    B = 3
+    q = torch.empty((B, Sq, H, D), dtype=dtype, device="meta")
+    k = torch.empty((B, kv_len, Hkv, D), dtype=dtype, device="meta")
+    want = 18 * D * B * H * bwd_pairs(Sq, q_offset, kv_len, causal, window)
+    assert k6_ops.backward_flops(q.shape, k.shape, causal, q_offset, kv_len,
+                                 window) == want
+    with FlopCounterMode(display=False) as fc:
+        out = torch.ops.repro_torch.flash_attention_backward(
+            q, k, k, q, causal, q_offset, kv_len, window)
+    assert fc.get_total_flops() == want
+    assert [t.shape for t in out] == [q.shape, k.shape, k.shape]
+    if causal and Sq > 64:      # the causal tiles skipped: under the full S×S
+        assert want < 18 * D * B * H * Sq * kv_len
+    el = q.element_size()
+    least = 3 * q.numel() * el + 2 * k.numel() * el
+    assert least < k6_ops.backward_bytes(q, k, k, q, causal, q_offset, kv_len,
+                                         window) <= least + 2 * k.numel() * el \
+        + 24 * B * H * Sq
+
+
 REPRO_KEYS = {"arch", "shape", "mesh", "n_devices", "kind", "notes",
               "exec_compile_s", "profile_compile_s", "memory_analysis",
               "live_bytes_per_device", "cost_analysis", "collectives",
               "roofline", "status", "profile_method"}
+# the port's own: the H100's 80 GB, and the eager step's bound
+PORT_KEYS = {"fits_80gb", "op_s", "bound_s"}
 
 
 def test_dryrun_cli_writes_repro_keys(tmp_path, monkeypatch):
@@ -521,7 +582,12 @@ def test_dryrun_cli_writes_repro_keys(tmp_path, monkeypatch):
                      "tinyllama-1.1b__train_4k__16x16.json"]
     for name in names[:1] + names[2:]:
         rec = json.loads((tmp_path / name).read_text())
-        assert set(rec) == REPRO_KEYS | {"fits_80gb"}, name
+        assert set(rec) == REPRO_KEYS | PORT_KEYS, name
+        r = rec["roofline"]
+        assert rec["bound_s"] == max(rec["op_s"], r["collective_s"]), name
+        assert rec["op_s"] >= max(r["compute_s"], r["memory_s"]), name
+        assert r["roofline_fraction"] == pytest.approx(
+            r["compute_s"] / rec["bound_s"], rel=1e-12), name
         assert rec["status"] == "ok" and rec["n_devices"] == 256
         assert set(rec["memory_analysis"]) == {
             "argument_bytes", "output_bytes", "temp_bytes", "peak_bytes",
