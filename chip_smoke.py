@@ -197,9 +197,13 @@ Phases, each printing JSON lines:
    (the profiler, its two kernels), plain ms and bound; and at
    ``train_4k`` (``train``'s attention: B 4, S 4096, tinyllama's heads,
    bf16) the backward kernel once against `ref.flash_attention_grads`
-   (2e-2 of each max), its device ms, SDPA's backward alone (its forward
-   run once before; the kernels line's ``library_ms``), SDPA's forward and
-   backward, and the bounds.
+   (2e-2 of each max), its device ms a launch (bf16 at D >= 64: the route
+   that reads the forward's output and logsumexp, given by the forward
+   with ``return_lse``), SDPA's backward alone (its forward run once
+   before; the kernels line's ``library_ms``), SDPA's forward and
+   backward, the bounds (the table's 5 products; the route's own 7) and
+   the mma.sync route's recorded device ms (RECORDED_BWD_DEV_MS, not
+   measured in the run).
 10. ``serve`` — `tinyllama-1.1b` at full width (``make_config()``, bf16,
     parameters from a seeded generator, built one layer at a time by
     `build_model`) through `launch.serve.generate`:
@@ -236,7 +240,8 @@ Phases, each printing JSON lines:
     989 TFLOP/s (remat's recompute not counted), peak memory, K6 launches
     (= 22 × 4 × 4 × 2: remat runs each layer's forward twice), K6's
     backward's (= 22 × 4 × 4) and K5's (= 4 × 4 × 2); one microbatch
-    profiled, its attention backward's device ms beside the plain
+    profiled, its attention backward's device ms (each launch's, and its
+    share of the microbatch's device time) beside the plain
     recompute's in an earlier profile (PLAIN_BACKWARD_MS: ~980 ms of
     elementwise passes and 174.8 of fp32 products; copied from PERF.md,
     not measured in the run).  Checks: (a) the loss finite and lower after
@@ -575,6 +580,10 @@ FLASH_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # (B, S, H, Hkv, D)
 FLASH_GRAD_TRAIN = (4, 4096, 32, 4, 64)
 FLASH_BWD_KERNELS = "flash_bwd_"     # both backward kernels' names hold it
+# K6's backward at train_4k before the saved-statistics route: the mma.sync
+# route's device ms on one H100 80GB HBM3 at 700 W (PERF.md §6, K6's row);
+# printed beside the run's own reading, not measured in it
+RECORDED_BWD_DEV_MS = 6.5812
 # the plain attention backward (`ref.flash_attention_grads`) in a profiled
 # tinyllama microbatch on one H100 before the backward kernel (PERF.md §5):
 # ms of elementwise passes over the scores and of fp32 products
@@ -2759,17 +2768,26 @@ def backward_dev_ms(fn, calls=10, sessions=2):
 
 
 def flash_bwd_times(q, k, v, dout, kw) -> dict:
-    """K6's backward kernel alone on (q, k, v, dout): ms a call by CUDA
-    events and by the profiler (its two kernels), the plain recompute's ms
-    (`ref.flash_attention_grads`), and its bound: q and dout read, dq
-    written, the keys and values the queries need read, dk and dv written
-    whole, each once; 5 products of 2·D FLOPs per unmasked (query, key)
-    pair and head (S, dP, dV, dQ, dK) over the peak of the inputs' type."""
+    """K6's backward kernel alone on (q, k, v, dout) (bf16 at D >= 64 with
+    the output and logsumexp of the kernel's forward, run once before):
+    ms a call by CUDA events and by the profiler (its two kernels, and
+    each one's), the plain recompute's ms (`ref.flash_attention_grads`),
+    and its bound: q and dout read, dq written, the keys and values the
+    queries need read, dk and dv written whole, each once (and the saved
+    output and logsumexp read); 5 products of 2·D FLOPs per unmasked
+    (query, key) pair and head (S, dP, dV, dQ, dK) over the peak of the
+    inputs' type.  ``bwd_route_bound_ms``: the same with the products the
+    route runs (9, or 7 from the saved statistics)."""
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.kernels.flash_attention.ref import flash_attention_grads
 
+    saved = {}
+    if fa_cuda.takes_stats(q.dtype, q.shape[-1]):
+        saved = dict(zip(("out", "lse"), fa_cuda.flash_attention_cuda(
+            q, k, v, return_lse=True, **kw)))
+
     def kernel():
-        return fa_cuda.flash_attention_bwd_cuda(q, k, v, dout, **kw)
+        return fa_cuda.flash_attention_bwd_cuda(q, k, v, dout, **kw, **saved)
 
     def plain():
         return flash_attention_grads(q, k, v, dout, **kw)
@@ -2780,13 +2798,21 @@ def flash_bwd_times(q, k, v, dout, kw) -> dict:
     nbytes, flops = flash_work(B, Sq, Skv, H, Hkv, D, kw["q_offset"],
                                kw["kv_len"], kw["causal"], el, kw["window"])
     nbytes += el * (B * Sq * H * D + 2 * B * Skv * Hkv * D)
-    flops = 5 * flops // 2
+    if saved:
+        nbytes += el * B * Sq * H * D + 4 * B * H * Sq
+    product = flops // 2
+    flops = 5 * product
+    route_flops = (7 if saved else 9) * product
     peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else FP32_FLOPS_PER_S
     bound_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops_ms = flops / peak * 1e3
     events_ms = time_auto(kernel)
     dev_ms, by_kernel = backward_dev_ms(kernel)
-    return dict(bwd_ms=events_ms,
+    return dict(bwd_route="saved_stats_wgmma" if saved else "recompute",
+                bwd_route_flops=route_flops,
+                bwd_route_bound_ms=max(bound_bytes_ms,
+                                       route_flops / peak * 1e3),
+                bwd_ms=events_ms,
                 bwd_dev_ms=dev_ms if dev_ms is not None else events_ms,
                 bwd_dev_ms_by="profiler" if dev_ms is not None
                 else "cuda_events",
@@ -2818,8 +2844,10 @@ def flash_grad_train_row() -> dict:
                      for sh in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D),
                                 (B, S, H, D)))
     kw = dict(causal=True, q_offset=0, kv_len=S, window=None)
+    out, lse = fa_cuda.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     before = fa_cuda.BACKWARD_LAUNCHES
-    got = fa_cuda.flash_attention_bwd_cuda(q, k, v, dout, **kw)
+    got = fa_cuda.flash_attention_bwd_cuda(q, k, v, dout, out=out, lse=lse,
+                                           **kw)
     torch.cuda.synchronize()
     check(fa_cuda.BACKWARD_LAUNCHES == before + 1,
           "K6 backward train_4k: the kernel did not launch once")
@@ -2829,7 +2857,7 @@ def flash_grad_train_row() -> dict:
     tol = FLASH_GRAD_TOL[dtype]
     check(max(errs) <= tol, f"K6 backward train_4k: dq, dk, dv off by "
           f"{errs} of their max (tol {tol})")
-    del got, want
+    del got, want, out, lse
     times = flash_bwd_times(q, k, v, dout, kw)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     sdpa = sdpa_call(*leaves, True, 0, S)
@@ -2855,7 +2883,11 @@ def flash_grad_train_row() -> dict:
                sdpa_bwd_ms=time_auto(sdpa_backward),
                bound_ms=max(bound_bytes_ms, bound_ops_ms),
                bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
-               else "operations", **times)
+               else "operations",
+               recorded_mma_sync_bwd_dev_ms=RECORDED_BWD_DEV_MS,
+               recorded_note="the mma.sync route's (PERF.md), not "
+                             "measured in this run", **times)
+    row["bwd_vs_sdpa_bwd"] = row["bwd_dev_ms"] / row["sdpa_bwd_ms"]
     del leaves, sdpa_out
     return row
 
@@ -3272,6 +3304,11 @@ def phase_train():
                    k6_ms=sum(v[1] for v in k6_prof),
                    k6_backward_kernels=sum(v[0] for v in bwd_prof),
                    k6_backward_ms=sum(v[1] for v in bwd_prof),
+                   k6_backward_share=sum(v[1] for v in bwd_prof)
+                   / max(sum(v[1] for v in by_name.values()), 1e-9),
+                   k6_backward_ms_by_kernel={
+                       n[:72]: v[1] for n, v in by_name.items()
+                       if FLASH_BWD_KERNELS in n},
                    # not measured here: copied from the record
                    recorded_plain_backward_ms=dict(
                        elementwise=PLAIN_BACKWARD_MS[0],
@@ -6317,22 +6354,29 @@ def launch_calibrate(job) -> dict:
     differencing, as the dry run counts a deep model, and the depth-2
     census alone (``depth2_*``: the differencing left out).  With
     ``control``, K6 is counted as its plain version (the full S × S
-    scores) — a dry run that must miss the gates; the kernel's dispatch is
-    put back after it, since the worker goes on to other cells."""
+    scores; under autograd at bf16 and D >= 64, the plain output and
+    logsumexp) — a dry run that must miss the gates; the kernel's dispatch
+    is put back after it, since the worker goes on to other cells."""
     from repro_torch.kernels.flash_attention import ops, ref
 
     control, part = job
-    kernel = ops._forward
+    kernel, kernel_lse = ops._forward, ops._forward_lse
     if control:
         def plain(q, k, v, causal, q_offset, kv_len, window):
             return ref.flash_attention_plain(q, k, v, causal=causal,
                                              q_offset=q_offset,
                                              kv_len=kv_len, window=window)
-        ops._forward = plain
+
+        def plain_lse(q, k, v, causal, q_offset, kv_len, window):
+            kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len,
+                      window=window)
+            return (ref.flash_attention_plain(q, k, v, **kw),
+                    ref.flash_attention_lse2(q, k, v, **kw))
+        ops._forward, ops._forward_lse = plain, plain_lse
     try:
         return _launch_calibrate(part)
-    finally:
-        ops._forward = kernel     # the worker goes on to other cells
+    finally:   # the worker goes on to other cells
+        ops._forward, ops._forward_lse = kernel, kernel_lse
 
 
 def _launch_calibrate(part: str) -> dict:

@@ -69,7 +69,13 @@
 //     shared memory (K-major, 128-byte swizzle), O += P V with P from
 //     registers and V from shared memory (MN-major).  D = 16 and 32 run
 //     mma.sync m16n8k16 with ldmatrix fragments (a 16-byte row pad keeps
-//     them off shared-memory bank conflicts).
+//     them off shared-memory bank conflicts).  Under autograd (the wrapper
+//     passes `lse`) a bf16 call at D = 64 or 128 takes this route whatever
+//     its rows, with the template flag LSE: each row also writes its
+//     logsumexp in log2 units, m2 + log2(max(l, 1e-30)), which K6's
+//     backward (flash_attention_bwd.cu) reads in place of a recompute.
+//     Without the flag the store is compiled out: every serve route is
+//     the kernel it was.
 // In the scalar routes a group of neighbouring lanes shares each row, and
 // the row's max and sum are warp shuffles.  Views whose strides are not
 // multiples of 16 bytes are staged element by element (`vec` = 0).
@@ -149,6 +155,9 @@ struct Args {
   int tiles_per_split;
   float* ws;
   int* counters;
+  // the bf16 prefill with LSE: each row's logsumexp of the scaled scores
+  // in log2 units, fp32 (B, H, Sq), for the backward
+  float* lse;
 };
 
 // Stage ROWS rows of D elements into shared memory as floats: row r of
@@ -1096,7 +1105,8 @@ constexpr size_t bf16_smem_bytes() {
 //   WG = true (D = 64, 128): wgmma m64n64k16, each of the two warpgroups
 //     owning 64 rows: S from Q and K in shared memory (K-major), P V with P
 //     from registers and V in shared memory (MN-major).
-template <int D, int NS, int MINB, bool WG, bool W>
+// LSE: also write each row's logsumexp (log2 units) to a.lse.
+template <int D, int NS, int MINB, bool WG, bool W, bool LSE = false>
 __global__ void __launch_bounds__(kPThreads, MINB)
 flash_attention_kernel_bf16(const Args a) {
   using T = __nv_bfloat16;
@@ -1340,6 +1350,9 @@ flash_attention_kernel_bf16(const Args a) {
                                                acc[dt][2 * hr + 1] / den);
       *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8 + 2 * t) = v;
     }
+    if constexpr (LSE) {
+      if (t == 0) a.lse[(b * a.H + h) * a.Sq + rho / a.G] = m2[hr] + log2f(den);
+    }
   }
 }
 
@@ -1366,13 +1379,13 @@ int launch_shape(const Args& a, int B, int Hkv, cudaStream_t stream) {
 
 // The bf16 prefill's grid: x runs over (row tile, KV head), KV head
 // fastest, y over the batch.  D = 64 and 128 take wgmma, D = 16 and 32
-// mma.sync.
-template <int D, bool W>
+// mma.sync; LSE (D >= 64 only) writes the rows' logsumexp.
+template <int D, bool W, bool LSE = false>
 int launch_bf16(const Args& a, int B, int Hkv, cudaStream_t stream) {
   constexpr bool WG = D >= 64;
   constexpr int NS = D == 64 ? 4 : D < 64 ? 3 : 2;   // ring stages
   constexpr int MINB = D <= 64 ? 2 : 1; // blocks per SM the registers allow
-  const auto kernel = flash_attention_kernel_bf16<D, NS, MINB, WG, W>;
+  const auto kernel = flash_attention_kernel_bf16<D, NS, MINB, WG, W, LSE>;
   constexpr size_t bytes = bf16_smem_bytes<D, NS, WG>();
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1439,6 +1452,17 @@ int launch_type(const Args& a, int B, int Hkv, int D, int n_split, cudaStream_t 
                       : launch_window<T, false>(a, B, Hkv, D, n_split, stream);
 }
 
+// Under autograd: the bf16 prefill with LSE at D = 64 or 128, whatever
+// the rows (a decode-shaped call too).
+template <bool W>
+int launch_lse(const Args& a, int B, int Hkv, int D, cudaStream_t stream) {
+  switch (D) {
+    case 64: return launch_bf16<64, W, true>(a, B, Hkv, stream);
+    case 128: return launch_bf16<128, W, true>(a, B, Hkv, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = fp32, 1 = bf16.  Strides in elements; the head dim is
@@ -1449,12 +1473,15 @@ int launch_type(const Args& a, int B, int Hkv, int D, int n_split, cudaStream_t 
 // kernel leaves them zero), which no other call may use at the same time.
 // Other calls ignore n_split, ws and counters.  window > 0 is the sliding
 // window (key j visible to position p iff p - j < window); 0 is none.
+// With lse (B * H * Sq floats; bf16 at D = 64 or 128 only) every call takes
+// the bf16 prefill and writes each row's logsumexp there in log2 units.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Sq, int Skv, int H, int Hkv, int D, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
     long long vss, long long vsh, int q_offset, int kv_len, int causal,
-    int window, float scale, void* ws, void* counters, int n_split, void* stream) {
+    int window, float scale, void* ws, void* counters, int n_split, void* lse,
+    void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -1474,8 +1501,9 @@ extern "C" int flash_attention_fwd(
   a.scale = scale;
   a.ws = static_cast<float*>(ws);
   a.counters = static_cast<int*>(counters);
+  a.lse = static_cast<float*>(lse);
   a.tiles_per_split = 0;
-  if (static_cast<long long>(Sq) * a.G <= kDecodeRows) {
+  if (lse == nullptr && static_cast<long long>(Sq) * a.G <= kDecodeRows) {
     if (n_split < 1 || n_split > kMaxSplits ||
         (n_split > 1 && (ws == nullptr || counters == nullptr ||
                          reinterpret_cast<uintptr_t>(ws) % 16 != 0)))
@@ -1498,6 +1526,10 @@ extern "C" int flash_attention_fwd(
            reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   for (long long st : strides) a.vec = a.vec && st % vec == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lse != nullptr) {
+    if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return a.window > 0 ? launch_lse<true>(a, B, Hkv, D, s) : launch_lse<false>(a, B, Hkv, D, s);
+  }
   if (dtype == 0) return launch_type<float>(a, B, Hkv, D, n_split, s);
   if (dtype == 1) return launch_type<__nv_bfloat16>(a, B, Hkv, D, n_split, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -28,10 +28,13 @@ by two calls in flight at once: calls on one stream run in order.
 
 :func:`flash_attention_bwd_cuda` is K6's backward, `csrc/flash_attention_bwd.cu`
 (a library of its own, built in parallel with the forward's): dq, dk and
-dv of the same function, in two launches (dQ with the rows' softmax
-statistics, then dK and dV), with the statistics in a workspace from the
-caching allocator.  ``BACKWARD_LAUNCHES`` counts its calls (each launches
-its two grids), apart from ``LAUNCHES``.
+dv of the same function, in two launches (dQ, then dK and dV), with the
+rows' statistics in a workspace from the caching allocator.  bf16 at D =
+64 and 128 (`takes_stats`) takes the forward's output and its rows'
+logsumexp, which ``flash_attention_cuda(..., return_lse=True)`` gives
+(the bf16 prefill route whatever the rows), and recomputes nothing; every
+other call recomputes the softmax statistics.  ``BACKWARD_LAUNCHES``
+counts its calls (each launches its two grids), apart from ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -80,16 +83,16 @@ def _load():
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         _lib = _build.load(SOURCE, {
             "flash_attention_fwd": [ptr] * 4 + [i32] * 7 + [i64] * 9
-            + [i32] * 4 + [ctypes.c_float, ptr, ptr, i32, ptr],
+            + [i32] * 4 + [ctypes.c_float, ptr, ptr, i32, ptr, ptr],
         })
     return _lib
 
 
-# the backward's C entry: q, k, v, dout, dq, dk, dv, the workspace; the
-# type flag, B, Sq, Skv, H, Hkv, D; q's, k's, v's and dout's strides; q_offset,
-# kv_len, causal, window; the scale; the stream
+# the backward's C entry: q, k, v, dout, out, lse, dq, dk, dv, the workspace;
+# the type flag, B, Sq, Skv, H, Hkv, D; q's, k's, v's and dout's strides;
+# q_offset, kv_len, causal, window; the scale; the stream
 BWD_PROTOTYPES = {
-    "flash_attention_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    "flash_attention_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
     + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 4
     + [ctypes.c_float, ctypes.c_void_p],
 }
@@ -100,6 +103,12 @@ def _load_bwd():
     if _lib_bwd is None:
         _lib_bwd = _build.load(BWD_SOURCE, BWD_PROTOTYPES)
     return _lib_bwd
+
+
+def takes_stats(dtype: torch.dtype, D: int) -> bool:
+    """Whether the backward at this type and head dim is the route that
+    reads the forward's output and logsumexp (bf16, D >= 64)."""
+    return dtype == torch.bfloat16 and D >= 64
 
 
 def _check(q, k, v, q_offset: int, kv_len: int, window,
@@ -187,7 +196,7 @@ def _ticket_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool, q_offset: int, kv_len: int,
-                         window: int | None = None) -> torch.Tensor:
+                         window: int | None = None, return_lse: bool = False):
     """K6: ``flash_attention_pallas(q, k, v, causal=, q_offset=, kv_len=)``
     on the card, with `repro`'s sliding-window mask where ``window`` is
     given.
@@ -195,19 +204,27 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q (B, Sq, H, D), k and v (B, Skv, Hkv, D), float32 or bfloat16, on one
     CUDA device, each with its last dim contiguous (other strides are
     free: a slice of the KV cache goes in as it is).  Returns a contiguous
-    (B, Sq, H, D) tensor of q's type."""
+    (B, Sq, H, D) tensor of q's type; with ``return_lse`` (bf16 at D >= 64
+    only: the backward's `takes_stats` route) also each row's logsumexp
+    of the scaled, masked scores in log2 units, float32 (B, H, Sq), from
+    the bf16 prefill route whatever the rows."""
     global LAUNCHES
     _check(q, k, v, q_offset, kv_len, window)
     B, Sq, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
+    if return_lse and not takes_stats(q.dtype, D):
+        raise ValueError(f"flash_attention_cuda: return_lse takes bf16 at D "
+                         f">= 64 (got {q.dtype}, D={D})")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     ctx, stream = _build.launch_context(q)
     with ctx:
         rows = Sq * (H // Hkv)
         n_split, ws, counters = 1, None, None
-        if rows <= DECODE_ROWS:
+        if rows <= DECODE_ROWS and not return_lse:
             n_split = decode_splits(B, Hkv, Sq, causal=causal,
                                     q_offset=q_offset, kv_len=kv_len,
                                     n_sm=_sms(q.device), window=window)
@@ -222,24 +239,48 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q_offset, kv_len, int(causal), window or 0, 1.0 / math.sqrt(D),
             None if ws is None else ws.data_ptr(),
             None if counters is None else counters.data_ptr(), n_split,
-            stream)
+            None if lse is None else lse.data_ptr(), stream)
     _build.check_launch("flash_attention_fwd", rc)
     LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _check_stats(q, out, lse, who: str) -> None:
+    """``out`` and ``lse`` as `flash_attention_cuda(..., return_lse=True)`
+    gives them for q: raises on a missing or misshapen one."""
+    B, Sq, H, D = q.shape
+    if out is None or lse is None:
+        raise ValueError(f"{who}: bf16 at D={D} needs the forward's out and "
+                         f"lse (flash_attention_cuda(..., return_lse=True))")
+    if out.shape != q.shape or out.dtype != q.dtype \
+            or out.device != q.device or not out.is_contiguous():
+        raise ValueError(f"{who}: out must be contiguous {tuple(q.shape)} "
+                         f"{q.dtype} on {q.device}; got {tuple(out.shape)}, "
+                         f"{out.dtype}, {out.device}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"{who}: lse must be contiguous float32 "
+                         f"{(B, H, Sq)} on {q.device}; got "
+                         f"{tuple(lse.shape)}, {lse.dtype}, {lse.device}")
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, dout: torch.Tensor, *,
                              causal: bool, q_offset: int, kv_len: int,
-                             window: int | None = None):
+                             window: int | None = None,
+                             out: torch.Tensor | None = None,
+                             lse: torch.Tensor | None = None):
     """K6's backward on the card: dq, dk, dv of `flash_attention_cuda`'s
     function at (q, k, v) for the output gradient ``dout``, as
     `ref.flash_attention_grads` computes them.
 
     Takes what `flash_attention_cuda` takes; ``dout`` is (B, Sq, H, D) of
     q's type on q's device (a head dim that is not contiguous is copied
-    first).  Returns contiguous dq, dk and dv of the inputs' type and
-    shapes.  Two calls on the same inputs give the same bits."""
+    first).  bf16 at D >= 64 (`takes_stats`) also takes the forward's
+    ``out`` and ``lse`` (`flash_attention_cuda(..., return_lse=True)`) and
+    raises without them; every other call raises with them.  Returns
+    contiguous dq, dk and dv of the inputs' type and shapes.  Two calls
+    on the same inputs give the same bits."""
     global BACKWARD_LAUNCHES
     who = "flash_attention_bwd_cuda"
     _check(q, k, v, q_offset, kv_len, window, who)
@@ -250,20 +291,29 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{dout.dtype}, {dout.device}")
     if q.shape[2] > _GRID_MAX:
         raise ValueError(f"{who}: H={q.shape[2]} past the grid's range")
+    B, Sq, H, D = q.shape
+    saved = takes_stats(q.dtype, D)
+    if saved:
+        _check_stats(q, out, lse, who)
+    elif out is not None or lse is not None:
+        raise ValueError(f"{who}: out and lse are taken by bf16 at D >= 64 "
+                         f"only (got {q.dtype}, D={D})")
     if dout.stride(-1) != 1:
         dout = dout.contiguous()
-    B, Sq, H, D = q.shape
     _, Skv, Hkv, _ = k.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dq.numel() == 0 or dk.numel() == 0:   # no pair: no gradient
         return dq.zero_(), dk.zero_(), dv.zero_()
-    stats = torch.empty(3 * B * H * Sq, dtype=torch.float32, device=q.device)
+    stats = torch.empty((1 if saved else 3) * B * H * Sq, dtype=torch.float32,
+                        device=q.device)
     ctx, stream = _build.launch_context(q)
     with ctx:
         rc = _load_bwd().flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            out.data_ptr() if saved else None,
+            lse.data_ptr() if saved else None,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
             _DTYPES[q.dtype], B, Sq, Skv, H, Hkv, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],

@@ -12,15 +12,21 @@ K6 masks the ragged edge of its tiles itself, so nothing is padded here.
 
 Gradients.  Where q, k or v requires a gradient (and grad mode is on), a
 call that takes the kernel (or, on the CPU, its plain version) goes
-through :class:`FlashAttention`, a `torch.autograd.Function`: its forward
-is that call and saves only q, k and v; its backward is K6's backward
-kernel on a CUDA tensor (`cuda.flash_attention_bwd_cuda`: dQ, then dK and
-dV, in a fixed order) and `ref.flash_attention_grads`, the attention
-recomputed in plain torch block of queries by block, on a CPU one.  A
-build or launch fault raises; nothing falls back to the plain gradient on
-the card.  `repro` trains through its pure-JAX attention under
-``jax.checkpoint`` (its Pallas kernel has no backward), so the backward
-kernel replaces the port's plain recompute, not a TPU kernel.
+through :class:`FlashAttention`, a `torch.autograd.Function`.  On the card
+at bf16 and D >= 64 (`saves_stats`) its forward is the bf16 prefill with
+its rows' logsumexp (``torch.ops.repro_torch.flash_attention_lse``; a
+decode-shaped call too) and it saves q, k, v, the output and the
+logsumexp; elsewhere its forward is the call above and it saves q, k and
+v.  Its backward is K6's backward kernel on a CUDA tensor
+(`cuda.flash_attention_bwd_cuda`: dQ, then dK and dV, in a fixed order;
+with the saved output and logsumexp nothing is recomputed) and
+`ref.flash_attention_grads`, the attention recomputed in plain torch block
+of queries by block, on a CPU one.  A build or launch fault raises;
+nothing falls back to the plain gradient on the card, and a saved
+logsumexp that is missing or misshapen raises.  `repro` trains through
+its pure-JAX attention under ``jax.checkpoint`` (its Pallas kernel has no
+backward), so the backward kernel replaces the port's plain recompute,
+not a TPU kernel.
 ``prefer="ref"`` differentiates the plain version directly.
 
 The dry run.  The kernel route and the CPU route are also one operator,
@@ -32,10 +38,13 @@ mode), with a shape rule for ``meta`` tensors and a FLOP formula (:func:`kernel_
 ``meta`` step (`repro_torch.launch.dryrun`) and `FlopCounterMode` on the
 card count what K6 runs, the causal and window-masked tiles it skips
 left out.  :func:`kernel_bytes` is its traffic for the dry run's byte
-count.  The backward is one operator too,
-``torch.ops.repro_torch.flash_attention_backward``, taken in the same
-places, with a shape rule, :func:`backward_flops` (the pairs of the tiles
-its two launches multiply) and :func:`backward_bytes`.
+count; ``flash_attention_lse``, the forward under autograd at bf16 and D
+>= 64, has both too (the prefill route's tiles).  The backward is one
+operator too, ``torch.ops.repro_torch.flash_attention_backward``, taken in
+the same places, with a shape rule, :func:`backward_flops` (the pairs of
+the tiles its two launches multiply, on the route the call takes) and
+:func:`backward_bytes`.  A ``meta`` tensor stands for a CUDA one: it takes
+the route the card would.
 """
 
 from __future__ import annotations
@@ -48,6 +57,7 @@ from repro_torch.kernels.flash_attention import cuda
 from repro_torch.kernels.flash_attention.ref import (
     TILE,
     flash_attention_grads,
+    flash_attention_lse2,
     flash_attention_plain,
     key_tiles,
 )
@@ -108,7 +118,8 @@ def _block_tiles(r0, R, rows, G, q_offset, kv_len, causal, window):
 
 
 def tile_pairs(q_shape, k_shape, dtype, causal: bool, q_offset: int,
-               kv_len: int, window: int | None) -> tuple[int, int, int]:
+               kv_len: int, window: int | None,
+               prefill: bool = False) -> tuple[int, int, int]:
     """What K6's tile loops multiply for one (batch, KV head): (pairs, t_lo,
     t_hi) — the (real query row, key) pairs of every tile a block or warp
     multiplies (query ``r // G`` of flattened row ``r``; ``cuda.KEY_TILE``
@@ -119,11 +130,12 @@ def tile_pairs(q_shape, k_shape, dtype, causal: bool, q_offset: int,
     each over its block's tiles); the bf16 prefill (blocks of 128 rows,
     each warp of 16 skipping the tiles past its own causal end and, with
     a window, those wholly before its unit's first visible key; at D >= 64
-    a unit is a warpgroup of 64 rows)."""
+    a unit is a warpgroup of 64 rows).  ``prefill`` takes the bf16 prefill
+    whatever the rows, as the forward with its logsumexp does."""
     _, Sq, H, D = q_shape
     G = H // k_shape[2]
     rows, T = Sq * G, cuda.KEY_TILE
-    if rows <= cuda.DECODE_ROWS:
+    if rows <= cuda.DECODE_ROWS and not prefill:
         lo, hi = cuda.decode_tiles(Sq, causal=causal, q_offset=q_offset,
                                    kv_len=kv_len, window=window)
         return rows * T * (hi - lo), lo, hi
@@ -152,27 +164,36 @@ def tile_pairs(q_shape, k_shape, dtype, causal: bool, q_offset: int,
 
 
 def kernel_flops(q_shape, k_shape, dtype, causal, q_offset, kv_len,
-                 window) -> int:
+                 window, prefill: bool = False) -> int:
     """K6's FLOPs: 4·D per (row, key) pair its tiles multiply (Q Kᵀ and
     P V; `tile_pairs`), over the B·Hkv (batch, KV head) pairs; tiles
     wholly masked, causally or by the window, are skipped, as the kernel
     skips them."""
     B, _, _, D = q_shape
     pairs = tile_pairs(q_shape, k_shape, dtype, causal, q_offset, kv_len,
-                       window)[0]
+                       window, prefill)[0]
     return 4 * D * pairs * B * k_shape[2]
 
 
-def kernel_bytes(q, k, v, causal, q_offset, kv_len, window) -> int:
+def kernel_bytes(q, k, v, causal, q_offset, kv_len, window,
+                 prefill: bool = False) -> int:
     """K6's traffic: q read and the output written once, and the K and V
     rows of the tiles its blocks read (their span, once)."""
     _, lo, hi = tile_pairs(q.shape, k.shape, q.dtype, causal, q_offset,
-                           kv_len, window)
+                           kv_len, window, prefill)
     T = cuda.KEY_TILE
     B, Skv, Hkv, D = k.shape
     keys = max(min(hi * T, Skv) - lo * T, 0)
     return 2 * q.numel() * q.element_size() \
         + 2 * B * keys * Hkv * D * k.element_size()
+
+
+def kernel_bytes_lse(q, k, v, causal, q_offset, kv_len, window) -> int:
+    """The forward with its logsumexp: `kernel_bytes` on the prefill
+    route, and the rows' fp32 logsumexp written."""
+    B, Sq, H, _ = q.shape
+    return kernel_bytes(q, k, v, causal, q_offset, kv_len, window, True) \
+        + 4 * B * H * Sq
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention, get_raw=True)
@@ -181,16 +202,68 @@ def _k6_flops(q, k, v, causal, q_offset, kv_len, window, *args, **kwargs):
                         window)
 
 
+def saves_stats(q: torch.Tensor) -> bool:
+    """Under autograd: whether the forward saves its output and its rows'
+    logsumexp for the backward — bf16 at D >= 64 on the card, or on a
+    ``meta`` tensor, which stands for one (`cuda.takes_stats`)."""
+    return (q.is_cuda or q.is_meta) and cuda.takes_stats(q.dtype, q.shape[-1])
+
+
+def _run_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+             q_offset: int, kv_len: int, window: int | None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The output and its rows' logsumexp (log2 units): the kernel's bf16
+    prefill on a CUDA tensor, the plain versions on a CPU one."""
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
+    if not q.is_cuda:
+        return (flash_attention_plain(q, k, v, **kw),
+                flash_attention_lse2(q, k, v, **kw))
+    return cuda.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+
+
+_k6_lse = torch.library.custom_op("repro_torch::flash_attention_lse",
+                                  mutates_args=())(_run_lse)
+
+
+@_k6_lse.register_fake
+def _k6_lse_shape(q, k, v, causal, q_offset, kv_len, window):
+    """A contiguous (B, Sq, H, D) output of q's type and a float32 (B, H,
+    Sq) logsumexp."""
+    B, Sq, H, _ = q.shape
+    return q.new_empty(q.shape), q.new_empty((B, H, Sq), dtype=torch.float32)
+
+
+def _forward_lse(q, k, v, causal, q_offset, kv_len, window):
+    """`_run_lse` through the operator only where a ``meta`` tensor or a
+    dispatch mode has to see it, as `_forward`."""
+    if q.is_meta or is_in_torch_dispatch_mode():
+        return torch.ops.repro_torch.flash_attention_lse(
+            q, k, v, causal, q_offset, kv_len, window)
+    return _run_lse(q, k, v, causal, q_offset, kv_len, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_lse,
+                       get_raw=True)
+def _k6_lse_flops(q, k, v, causal, q_offset, kv_len, window, *args,
+                  **kwargs):
+    return kernel_flops(q.shape, k.shape, q.dtype, causal, q_offset, kv_len,
+                        window, prefill=True)
+
+
 def _run_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   dout: torch.Tensor, causal: bool, q_offset: int,
-                  kv_len: int, window: int | None
+                  kv_len: int, window: int | None,
+                  out: torch.Tensor | None = None,
+                  lse: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """dq, dk, dv: the backward kernel on a CUDA tensor, the plain
+    """dq, dk, dv: the backward kernel on a CUDA tensor (given the
+    forward's ``out`` and ``lse`` where `cuda.takes_stats`), the plain
     recompute on a CPU one."""
     kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
     if not q.is_cuda:
         return flash_attention_grads(q, k, v, dout, **kw)
-    return cuda.flash_attention_bwd_cuda(q, k, v, dout, **kw)
+    return cuda.flash_attention_bwd_cuda(q, k, v, dout, out=out, lse=lse,
+                                         **kw)
 
 
 _k6_bwd = torch.library.custom_op("repro_torch::flash_attention_backward",
@@ -198,19 +271,22 @@ _k6_bwd = torch.library.custom_op("repro_torch::flash_attention_backward",
 
 
 @_k6_bwd.register_fake
-def _k6_bwd_shape(q, k, v, dout, causal, q_offset, kv_len, window):
+def _k6_bwd_shape(q, k, v, dout, causal, q_offset, kv_len, window, out=None,
+                  lse=None):
     """The kernel's dq, dk, dv: contiguous, of the inputs' shapes and
     type."""
     return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
 
 
-def _backward(q, k, v, dout, causal, q_offset, kv_len, window):
+def _backward(q, k, v, dout, causal, q_offset, kv_len, window, out=None,
+              lse=None):
     """`_run_backward` through the operator only where a ``meta`` tensor
     or a dispatch mode has to see it, as `_forward`."""
     if q.is_meta or is_in_torch_dispatch_mode():
         return torch.ops.repro_torch.flash_attention_backward(
-            q, k, v, dout, causal, q_offset, kv_len, window)
-    return _run_backward(q, k, v, dout, causal, q_offset, kv_len, window)
+            q, k, v, dout, causal, q_offset, kv_len, window, out, lse)
+    return _run_backward(q, k, v, dout, causal, q_offset, kv_len, window,
+                         out, lse)
 
 
 def backward_pairs(q_shape, causal: bool, q_offset: int, kv_len: int,
@@ -234,54 +310,72 @@ def backward_pairs(q_shape, causal: bool, q_offset: int, kv_len: int,
 
 
 def backward_flops(q_shape, k_shape, causal, q_offset, kv_len,
-                   window) -> int:
-    """K6's backward FLOPs: 9 products of 2·D FLOPs per pair of
-    `backward_pairs` (the dQ launch forms S and dP in each of its two
-    passes, then dS K; the dK/dV launch S, dP, Pᵀ dO and dSᵀ Q), over the
-    B·H (batch, query head) pairs."""
+                   window, saved: bool = False) -> int:
+    """K6's backward FLOPs.  Recomputing (``saved`` False): 9 products of
+    2·D FLOPs per pair of `backward_pairs` (the dQ launch forms S and dP
+    in each of its two passes, then dS K; the dK/dV launch S, dP, Pᵀ dO
+    and dSᵀ Q), over the B·H (batch, query head) pairs.  From the saved
+    output and logsumexp (``saved``): the dQ launch's 3 products (S, dP,
+    dS K) per pair of the forward's prefill tiles (`tile_pairs`, over the
+    B·Hkv (batch, KV head) pairs), and the dK/dV launch's 4 per pair of
+    `backward_pairs` — 14·D a pair where the two walks meet the same
+    pairs."""
     B, _, H, D = q_shape
     pairs = backward_pairs(q_shape, causal, q_offset, kv_len, window)[0]
-    return 18 * D * pairs * B * H
+    if not saved:
+        return 18 * D * pairs * B * H
+    rows = tile_pairs(q_shape, k_shape, torch.bfloat16, causal, q_offset,
+                      kv_len, window, prefill=True)[0]
+    return 6 * D * rows * B * k_shape[2] + 8 * D * pairs * B * H
 
 
-def backward_bytes(q, k, v, dout, causal, q_offset, kv_len, window) -> int:
+def backward_bytes(q, k, v, dout, causal, q_offset, kv_len, window,
+                   out=None, lse=None) -> int:
     """K6's backward traffic: q and dout read and dq written once, the K and
     V rows of the key tiles it reads (their span, once), dk and dv written
-    whole, and the rows' m, 1 / l, δ written and read once (fp32)."""
+    whole; recomputing, the rows' m, 1 / l, δ written and read once
+    (fp32); from the saved statistics, the output and the logsumexp read
+    and δ written and read once."""
     _, lo, hi = backward_pairs(q.shape, causal, q_offset, kv_len, window)
     B, Skv, Hkv, D = k.shape
     keys = max(min(hi * TILE, Skv) - lo * TILE, 0)
+    rows = q.shape[0] * q.shape[2] * q.shape[1]
+    stats = 2 * 3 * 4 * rows if lse is None \
+        else q.numel() * q.element_size() + 3 * 4 * rows
     return 3 * q.numel() * q.element_size() \
         + 2 * B * keys * Hkv * D * k.element_size() \
-        + 2 * k.numel() * k.element_size() + 2 * 3 * 4 * q.shape[0] \
-        * q.shape[2] * q.shape[1]
+        + 2 * k.numel() * k.element_size() + stats
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_backward,
                        get_raw=True)
-def _k6_bwd_flops(q, k, v, dout, causal, q_offset, kv_len, window, *args,
-                  **kwargs):
-    return backward_flops(q.shape, k.shape, causal, q_offset, kv_len, window)
+def _k6_bwd_flops(q, k, v, dout, causal, q_offset, kv_len, window, out=None,
+                  lse=None, *args, **kwargs):
+    return backward_flops(q.shape, k.shape, causal, q_offset, kv_len, window,
+                          saved=lse is not None)
 
 
 class FlashAttention(torch.autograd.Function):
     """K6 under autograd: the forward is K6 (the kernel on the card, the
-    plain version on the CPU), saving q, k and v; the backward is K6's
-    backward kernel on the card and the plain recompute
+    plain version on the CPU), saving q, k and v and, where `saves_stats`,
+    its output and its rows' logsumexp; the backward is K6's backward
+    kernel on the card and the plain recompute
     (`ref.flash_attention_grads`) on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, kv_len, window):
-        ctx.save_for_backward(q, k, v)
         ctx.args = (causal, q_offset, kv_len, window)
+        if saves_stats(q):
+            out, lse = _forward_lse(q, k, v, causal, q_offset, kv_len, window)
+            ctx.save_for_backward(q, k, v, out, lse)
+            return out
+        ctx.save_for_backward(q, k, v)
         return _forward(q, k, v, causal, q_offset, kv_len, window)
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        causal, q_offset, kv_len, window = ctx.args
-        dq, dk, dv = _backward(q, k, v, dout, causal, q_offset, kv_len,
-                               window)
+        q, k, v, *stats = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, dout, *ctx.args, *stats)
         return dq, dk, dv, None, None, None, None
 
 

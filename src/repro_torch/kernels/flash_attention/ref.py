@@ -20,7 +20,11 @@ here, block of queries by block, with its gradient written out in plain
 torch.  :func:`flash_attention_grads_tiles` is K6's backward kernel
 (`csrc/flash_attention_bwd.cu`) written out in plain torch: its two
 launches' tile loops and sums in order, for the tests; nothing on the main
-path calls it.
+path calls it.  With ``stats=(out, lse)`` it is the route that reads the
+forward's output and logsumexp (bf16 at D >= 64 on the card): δ = dO · O,
+P from the logsumexp (:func:`flash_attention_lse2`, log2 units, as the
+kernel's forward writes it), launch 1 over blocks of flattened (position,
+head) rows (:func:`dq_tiles`), launch 2 over the key tiles as before.
 
 A row with no valid key (only padded tail queries have one) is not held to
 anything: here it averages every key, in K6 it is zero.
@@ -33,6 +37,7 @@ import math
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -99,6 +104,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = _plain(q.float(), k.float(), v.float(), v.dtype, causal=causal,
                q_offset=q_offset, kv_len=kv_len, window=window)
     return o.to(q.dtype)
+
+
+def flash_attention_lse2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, q_offset: int | None = None,
+                         kv_len: int | None = None,
+                         window: int | None = None) -> torch.Tensor:
+    """Each row's logsumexp of the scaled, masked scores in log2 units,
+    fp32 (B, H, Sq): what K6's forward writes for its backward (−inf for
+    a row with no visible key, which the kernel writes as about −1e30)."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    kv_len = Skv if kv_len is None else kv_len
+    q_offset = kv_len - Sq if q_offset is None else q_offset
+    qg = q.float().reshape(B, Sq, Hkv, H // Hkv, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * (1.0 / math.sqrt(D))
+    valid = _visible(Sq, Skv, q_offset, kv_len, causal, window, q.device)
+    s = torch.where(valid, s, -math.inf)
+    return (torch.logsumexp(s, -1) * LOG2E).reshape(B, H, Sq)
 
 
 def key_range(q0: int, q1: int, *, causal: bool, q_offset: int, kv_len: int,
@@ -217,9 +240,140 @@ def kv_heads(H: int, Hkv: int) -> torch.Tensor:
     return torch.arange(H) // (H // Hkv)
 
 
+ROW_BLOCK = 128   # the saved-statistics route's launch 1: flattened rows a block
+UNIT = 64         # ... and a warpgroup's
+
+
+def dq_tiles(rho0: int, rows: int, G: int, *, causal: bool, q_offset: int,
+             kv_len: int, window: int | None) -> list:
+    """Launch 1 of the saved-statistics route: for each warpgroup of the
+    block of flattened rows at ``rho0`` (row ``rho`` is position ``rho //
+    G``; ``rows`` = Sq G), its first row and the key tiles [lo, hi) it
+    multiplies — the block's span (from the tile of its first row's first
+    visible key to its last row's causal end, as the forward's prefill),
+    less the tiles wholly above the warpgroup's last row or wholly below
+    its first row's window."""
+    kv_end = kv_len
+    if causal:
+        kv_end = min(kv_end, q_offset + min(rows - 1, rho0 + ROW_BLOCK - 1) // G
+                     + 1)
+    nkv = -(-kv_end // TILE) if kv_end > 0 else 0
+    j0 = 0
+    if window is not None:
+        first = q_offset + rho0 // G - window + 1
+        j0 = first // TILE if first > 0 else 0
+    out = []
+    for u0 in range(rho0, min(rho0 + ROW_BLOCK, rows), UNIT):
+        hi = nkv
+        if causal:        # tiles starting past the warpgroup's last position
+            hi = min(hi, (q_offset + (u0 + UNIT - 1) // G) // TILE + 1)
+        lo = j0
+        if window is not None:   # tiles ending before its first row's window
+            edge = q_offset + u0 // G - window + 1
+            lo = max(lo, -(-(edge - TILE + 1) // TILE))
+        out.append((u0, lo, max(lo, hi)))
+    return out
+
+
+def _ds_saved(p: torch.Tensor, dp: torch.Tensor,
+              delta: torch.Tensor) -> torch.Tensor:
+    """dS of the saved-statistics route: P (dP − δ), δ the rows' dO · O."""
+    return p * (dp - delta)
+
+
+def _grads_tiles_saved(q, k, v, dout, out, lse, *, causal, q_offset, kv_len,
+                       window):
+    """`flash_attention_grads_tiles` with ``stats=(out, lse)``."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G, rows = H // Hkv, Sq * (H // Hkv)
+    c2 = LOG2E / math.sqrt(D)
+    kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len, window=window)
+    f = dict(dtype=torch.promote_types(q.dtype, torch.float32),
+             device=q.device)
+
+    def rnd(x):
+        return x if q.dtype in (torch.float32, torch.float64) \
+            else x.to(q.dtype).to(f["dtype"])
+
+    heads = kv_heads(H, Hkv).to(q.device)
+    # group[c, g]: the g-th query head reading KV head c
+    group = torch.stack([torch.nonzero(heads == c).flatten()
+                         for c in range(Hkv)])
+    qf, dof, kf, vf, of = (t.to(f["dtype"]) for t in (q, dout, k, v, out))
+    lse = lse.to(f["dtype"])
+    delta = (dof * of).sum(-1).permute(0, 2, 1)            # (B, H, Sq)
+
+    def flat(x):   # (B, Sq, H, ...) → (B, Hkv, Sq G, ...): row rho = i G + g
+        x = x[:, :, group]
+        return x.permute(0, 2, 1, 3, *range(4, x.ndim)).reshape(
+            B, Hkv, rows, *x.shape[4:])
+
+    qr, dor = flat(qf), flat(dof)
+    lr, dr = flat(lse.permute(0, 2, 1)), flat(delta.permute(0, 2, 1))
+    pos = q_offset + torch.arange(rows, device=q.device) // G
+
+    # launch 1: dq over blocks of flattened rows, each warpgroup its tiles
+    dqr = torch.zeros((B, Hkv, rows, D), **f)
+    for rho0 in range(0, rows, ROW_BLOCK):
+        for u0, lo, hi in dq_tiles(rho0, rows, G, **kw):
+            u1 = min(rows, u0 + UNIT)
+            acc = torch.zeros((B, Hkv, u1 - u0, D), **f)
+            for t in range(lo, hi):
+                k0, k1 = t * TILE, min(Skv, t * TILE + TILE)
+                keys = torch.arange(k0, k1, device=q.device)
+                ok = (keys < kv_len)[None, :]
+                if causal:
+                    ok = ok & (pos[u0:u1, None] >= keys[None, :])
+                if window is not None:
+                    ok = ok & (pos[u0:u1, None] - keys[None, :] < window)
+                s = torch.einsum("bhrd,bkhd->bhrk", qr[:, :, u0:u1],
+                                 kf[:, k0:k1])
+                p = torch.where(ok, torch.exp2(s * c2 - lr[:, :, u0:u1, None]),
+                                0.0)
+                dp = torch.einsum("bhrd,bkhd->bhrk", dor[:, :, u0:u1],
+                                  vf[:, k0:k1])
+                ds = _ds_saved(p, dp, dr[:, :, u0:u1, None])
+                acc += torch.einsum("bhrk,bkhd->bhrd", rnd(ds), kf[:, k0:k1])
+            dqr[:, :, u0:u1] = acc / math.sqrt(D)
+    dq = torch.zeros((B, Sq, H, D), **f)
+    dq[:, :, group.flatten()] = dqr.reshape(B, Hkv, Sq, G, D).permute(
+        0, 2, 1, 3, 4).reshape(B, Sq, H, D)
+
+    def mask(i0, i1, k0, k1):
+        return _visible(i1 - i0, k1 - k0, q_offset + i0 - k0, kv_len - k0,
+                        causal, window, q.device)
+
+    # launch 2: dk, dv per key tile, over the group's heads, then the
+    # query tiles that see it
+    dk = torch.zeros((B, Skv, Hkv, D), **f)
+    dv = torch.zeros((B, Skv, Hkv, D), **f)
+    for j0 in range(0, Skv, TILE):
+        j1 = min(Skv, j0 + TILE)
+        qt_lo, qt_hi = query_tiles(j0, Sq, **kw)
+        gk = torch.zeros((B, Hkv, j1 - j0, D), **f)
+        gv = torch.zeros_like(gk)
+        for g in range(G):
+            hs = group[:, g]
+            for qt in range(qt_lo, qt_hi):
+                i0, i1 = qt * TILE, min(Sq, qt * TILE + TILE)
+                qg, dog = qf[:, i0:i1, hs], dof[:, i0:i1, hs]
+                s = torch.einsum("bkhd,bqhd->bhkq", kf[:, j0:j1], qg)
+                ok = mask(i0, i1, j0, j1).T
+                p = torch.where(ok, torch.exp2(s * c2 - lse[:, hs, None, i0:i1]),
+                                0.0)
+                dp = torch.einsum("bkhd,bqhd->bhkq", vf[:, j0:j1], dog)
+                ds = p * (dp - delta[:, hs, None, i0:i1])
+                gv += torch.einsum("bhkq,bqhd->bhkd", rnd(p), dog)
+                gk += torch.einsum("bhkq,bqhd->bhkd", rnd(ds), qg)
+        dk[:, j0:j1] = (gk / math.sqrt(D)).permute(0, 2, 1, 3)
+        dv[:, j0:j1] = gv.permute(0, 2, 1, 3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def flash_attention_grads_tiles(q, k, v, dout, *, causal: bool,
                                 q_offset: int, kv_len: int,
-                                window: int | None = None):
+                                window: int | None = None, stats=None):
     """dq, dk, dv as K6's backward kernel computes them: its two launches'
     loops and sums in order, in tiles of ``TILE`` rows and keys, in fp32.
 
@@ -232,7 +386,22 @@ def flash_attention_grads_tiles(q, k, v, dout, *, causal: bool,
     are rounded to bf16 before their products, as the tensor cores take
     them.  A row with no visible key adds nothing (the kernel's forward
     gives it a zero output).  float64 inputs are computed in float64: the
-    algorithm without the rounding of its sums."""
+    algorithm without the rounding of its sums.
+
+    ``stats=(out, lse)``: the route that reads the forward's output (B,
+    Sq, H, D) and its rows' logsumexp (B, H, Sq, log2 units,
+    `flash_attention_lse2`).  No pass recomputes m and l: P = 2^(s scale
+    log2 e − lse) and δ = dO · O (fp32).  Launch 1, per block of
+    ``ROW_BLOCK`` flattened rows (ρ = i G + g) of one KV head, per
+    warpgroup of ``UNIT`` rows, its key tiles (`dq_tiles`): dq += dS K
+    with dS = P (dP − δ).  Launch 2, per key tile: the group's heads, then
+    the query tiles that see it (`query_tiles`): dv += Pᵀ dO, dk += dSᵀ Q.
+    In bf16, P and dS are rounded before their products."""
+    if stats is not None:
+        out, lse = stats
+        return _grads_tiles_saved(q, k, v, dout, out, lse, causal=causal,
+                                  q_offset=q_offset, kv_len=kv_len,
+                                  window=window)
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(D)

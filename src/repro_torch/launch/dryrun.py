@@ -81,6 +81,8 @@ _NO_TRAFFIC = {torch.ops.aten.empty, torch.ops.aten.empty_like,
                torch.ops.aten._local_scalar_dense}
 # the kernels' own traffic, in place of their inputs' whole size
 _KERNEL_BYTES = {torch.ops.repro_torch.flash_attention: k6_ops.kernel_bytes,
+                 torch.ops.repro_torch.flash_attention_lse:
+                     k6_ops.kernel_bytes_lse,
                  torch.ops.repro_torch.flash_attention_backward:
                      k6_ops.backward_bytes,
                  torch.ops.repro_torch.embedding_bag: k5_ops.kernel_bytes}

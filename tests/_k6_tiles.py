@@ -6,7 +6,12 @@ and each split's tiles, and the pairs they multiply (`kernel_pairs`);
 and the backward's (`csrc/flash_attention_bwd.cu`): the dQ launch's key
 tiles a query tile, the dK/dV launch's query tiles a key tile, and the
 (query tile, key tile) pairs each walks (`bwd_tile_pairs`,
-`bwd_pairs`).  Shared by tests/test_torch_window.py (the window's
+`bwd_pairs`); and the saved-statistics route's (the `_wg` kernels of
+that file): the dQ launch's key tiles a warpgroup of flattened rows
+(`bwd_wg_dq_plan`) and the pairs it multiplies (`bwd_wg_dq_pairs`); its
+dK/dV launch walks `bwd_query_tiles` a block of 64 keys, as the other
+route's does, or, with a producer warp, a block of 128 keys and each
+warpgroup's 64 (`bwd_ws_plan`).  Shared by tests/test_torch_window.py (the window's
 ranges), tests/test_torch_launch.py and tests/test_torch_cuda.py (K6's
 FLOP formulas) and tests/test_torch_flash_attention_bwd.py.  Imports
 nothing.
@@ -166,3 +171,61 @@ def bwd_pairs(Sq, q_offset, kv_len, causal, window):
     (batch, query head): each visited tile pair's real rows × TILE keys."""
     return sum(min(TILE, Sq - qt * TILE) * TILE for qt, _ in
                bwd_tile_pairs(Sq, 0, q_offset, kv_len, causal, window, False))
+
+
+def bwd_wg_dq_plan(rho0, rows, G, q_offset, kv_len, causal, window):
+    """`flash_bwd_dq_wg`'s tiles of the block at flattened row rho0: for
+    each of its two warpgroups, its first row and the key tiles it
+    multiplies."""
+    R = 128
+    kv_end = kv_len
+    if causal:
+        last_row = rows - 1 if rows - 1 < rho0 + R - 1 else rho0 + R - 1
+        causal_end = q_offset + last_row // G + 1
+        if causal_end < kv_end:
+            kv_end = causal_end
+    nkv = (kv_end - 1) // TILE + 1 if kv_end > 0 else 0
+    j0 = 0
+    if window > 0:
+        first = q_offset + rho0 // G - window + 1
+        if first > 0:
+            j0 = first // TILE
+    plan = []
+    for wg in range(2):
+        upos_lo = q_offset + (rho0 + wg * 64) // G
+        upos_hi = q_offset + (rho0 + wg * 64 + 63) // G
+        tiles = []
+        for j in range(j0, nkv):
+            k0 = j * TILE
+            if causal and k0 > upos_hi:
+                continue
+            if window > 0 and k0 + TILE - 1 < upos_lo - window + 1:
+                continue
+            tiles.append(j)
+        plan.append((rho0 + wg * 64, tiles))
+    return plan
+
+
+def bwd_ws_plan(j0, Sq, q_offset, kv_len, causal, window):
+    """`flash_bwd_dkv_ws`'s walk of the block at key j0: its query tiles
+    [lo, hi) (the span of its two warpgroups') and each warpgroup's own."""
+    lo = hi = 0
+    own = []
+    for u in range(2):
+        lu, hu = bwd_query_tiles(j0 + u * TILE, Sq, q_offset, kv_len, causal,
+                                 window)
+        own.append((lu, hu))
+        if hu > lu:
+            lo = lo if hi > lo and lo < lu else lu
+            hi = max(hi, hu)
+    return lo, hi, own
+
+
+def bwd_wg_dq_pairs(Sq, G, q_offset, kv_len, causal, window):
+    """The (real flattened row, key) pairs `flash_bwd_dq_wg` multiplies for
+    one (batch, KV head)."""
+    rows, w = Sq * G, window or 0
+    return sum(max(min(64, rows - u0), 0) * TILE * len(tiles)
+               for rho0 in range(0, rows, 128)
+               for u0, tiles in bwd_wg_dq_plan(rho0, rows, G, q_offset,
+                                               kv_len, causal, w))

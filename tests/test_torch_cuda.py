@@ -628,21 +628,37 @@ def _bwd_inputs(case, card, dtype, seed, layout="contiguous"):
     return (*out, kw)
 
 
+# bf16 at D >= 64 (the saved-statistics route) against its emulation in
+# bf16 (`flash_attention_grads_tiles(..., stats=)`: P and dS rounded where
+# the kernel rounds them, the sums in fp32), of each gradient's max: one
+# bf16 ulp of the largest gradient (2^-7 of it at most).  Both round their
+# fp32 sums to bf16 last, and the kernel's ex2.approx and its own order of
+# the sums put a sum on the other side of a rounding edge now and then
+# (3.9e-3 of the max, one ulp, in the first card run)
+FLASH_SAVED_EMU_TOL = 2.0 ** -7
+
+
 def _check_backward(card, dtype, case, seed, layout="contiguous"):
     """The backward kernel twice against `flash_attention_grads` (fp32
     1e-5, bf16 2e-2 of each gradient's max) and, in fp32, the emulation of
     its tiles (`flash_attention_grads_tiles`, 1e-6, evaluated in float64 on
     the same values: the kernel's own rounding alone, where two fp32
     versions of the same sums differ by ~6e-7 of the max between
-    themselves): the same bits twice, two launches counted, contiguous
-    outputs of the inputs' shapes."""
+    themselves); bf16 at D >= 64 takes the kernel's forward's output and
+    logsumexp and is held to its emulation in bf16 within
+    FLASH_SAVED_EMU_TOL: the same bits twice, two launches counted,
+    contiguous outputs of the inputs' shapes."""
     from repro_torch.kernels.flash_attention import cuda as fa_cuda
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
     q, k, v, do, kw = _bwd_inputs(case, card, dtype, seed, layout)
+    saved = {}
+    if fa_cuda.takes_stats(dtype, q.shape[-1]):
+        saved = dict(zip(("out", "lse"), fa_cuda.flash_attention_cuda(
+            q, k, v, return_lse=True, **kw)))
     before = fa_cuda.BACKWARD_LAUNCHES
-    got = fa_cuda.flash_attention_bwd_cuda(q, k, v, do, **kw)
-    again = fa_cuda.flash_attention_bwd_cuda(q, k, v, do, **kw)
+    got = fa_cuda.flash_attention_bwd_cuda(q, k, v, do, **kw, **saved)
+    again = fa_cuda.flash_attention_bwd_cuda(q, k, v, do, **kw, **saved)
     torch.cuda.synchronize()
     assert fa_cuda.BACKWARD_LAUNCHES == before + 2
     for a, b, x in zip(got, again, (q, k, v)):
@@ -659,6 +675,14 @@ def _check_backward(card, dtype, case, seed, layout="contiguous"):
         for a, b in zip(got, tiles):
             assert float((a.double() - b).abs().max()) \
                 <= 1e-6 * float(b.abs().max())
+    if saved:
+        tiles = fa_ref.flash_attention_grads_tiles(
+            *(t.cpu() for t in (q, k, v, do)), **kw,
+            stats=(saved["out"].cpu(), saved["lse"].cpu()))
+        for a, b in zip(got, tiles):
+            b = b.float()
+            assert float((a.float().cpu() - b).abs().max()) \
+                <= FLASH_SAVED_EMU_TOL * float(b.abs().max())
 
 
 @pytest.mark.cuda
@@ -702,17 +726,27 @@ def test_flash_attention_backward_flops_and_meta_shape_on_card(card, dtype):
     from _k6_tiles import bwd_pairs
     from repro_torch.kernels.flash_attention import ops  # noqa: F401 (the operator)
 
+    from _k6_tiles import bwd_wg_dq_pairs
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+
     case = FLASH_BWD_CASES["window_mid_tile"]
     q, k, v, do, kw = _bwd_inputs(case, card, dtype, seed=43)
     B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
     args = (kw["causal"], kw["q_offset"], kw["kv_len"], kw["window"])
+    pair_args = (Sq, kw["q_offset"], kw["kv_len"], kw["causal"], kw["window"])
+    saved, want = (), 18 * D * B * H * bwd_pairs(*pair_args)
+    if fa_cuda.takes_stats(dtype, D):   # bf16 at D = 64 here
+        saved = fa_cuda.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        want = 6 * D * B * Hkv * bwd_wg_dq_pairs(Sq, H // Hkv, *pair_args[1:]) \
+            + 8 * D * B * H * bwd_pairs(*pair_args)
     with FlopCounterMode(display=False) as fc:
         real = torch.ops.repro_torch.flash_attention_backward(q, k, v, do,
-                                                              *args)
-    assert fc.get_total_flops() == 18 * D * B * H * bwd_pairs(
-        Sq, kw["q_offset"], kw["kv_len"], kw["causal"], kw["window"]) > 0
+                                                              *args, *saved)
+    assert fc.get_total_flops() == want > 0
     meta = torch.ops.repro_torch.flash_attention_backward(
-        *(_meta_like(t) for t in (q, k, v, do)), *args)
+        *(_meta_like(t) for t in (q, k, v, do)), *args,
+        *(_meta_like(t) for t in saved))
     for m, r in zip(meta, real):
         assert m.device.type == "meta"
         assert (m.shape, m.dtype, m.stride()) == (r.shape, r.dtype, r.stride())
@@ -733,6 +767,96 @@ def test_flash_attention_backward_rejects_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="head dim"):
         fa_cuda.flash_attention_bwd_cuda(q[..., :24], k[..., :24],
                                          v[..., :24], do[..., :24], **kw)
+    # the saved-statistics route: bf16 at D = 64 takes out and lse, and
+    # nothing else does
+    qb, kb, vb, dob, kwb = _bwd_inputs(FLASH_BWD_CASES["end_aligned"], card,
+                                       torch.bfloat16, seed=44)
+    out, lse = fa_cuda.flash_attention_cuda(qb, kb, vb, return_lse=True,
+                                            **kwb)
+    with pytest.raises(ValueError, match="needs the forward's out and lse"):
+        fa_cuda.flash_attention_bwd_cuda(qb, kb, vb, dob, **kwb)
+    with pytest.raises(ValueError, match="needs the forward's out and lse"):
+        fa_cuda.flash_attention_bwd_cuda(qb, kb, vb, dob, out=out, **kwb)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa_cuda.flash_attention_bwd_cuda(qb, kb, vb, dob, out=out,
+                                         lse=lse[:, :, :-1], **kwb)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa_cuda.flash_attention_bwd_cuda(qb, kb, vb, dob, out=out,
+                                         lse=lse.double(), **kwb)
+    with pytest.raises(ValueError, match="out must be"):
+        fa_cuda.flash_attention_bwd_cuda(qb, kb, vb, dob, out=out[:, :-1],
+                                         lse=lse, **kwb)
+    with pytest.raises(ValueError, match="bf16 at D >= 64 only"):
+        fa_cuda.flash_attention_bwd_cuda(q, k, v, do, out=out.float(),
+                                         lse=lse, **kw)
+    with pytest.raises(ValueError, match="return_lse takes bf16"):
+        fa_cuda.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tinyllama_heads", "window_mid_tile",
+                                  "window_d128", "noncausal"])
+def test_flash_attention_forward_lse_on_card(card, case):
+    """The forward with its logsumexp (the saved-statistics route's): the
+    lse against `ref.flash_attention_lse2` (1e-5 of its largest magnitude,
+    rows that see a key) and the output bits equal to the same call's
+    without it (the LSE flag adds a store and nothing else)."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    c = FLASH_BWD_CASES[case]
+    if c[5] < 64:
+        c = c[:5] + (64,) + c[6:]
+    q, k, v, _, kw = _bwd_inputs(c, card, torch.bfloat16, seed=45)
+    before = fa_cuda.LAUNCHES
+    out, lse = fa_cuda.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    plain_out = fa_cuda.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa_cuda.LAUNCHES == before + 2
+    assert torch.equal(out, plain_out)
+    want = fa_ref.flash_attention_lse2(q, k, v, **kw)
+    seen = torch.isfinite(want)
+    assert bool(seen.any())
+    assert float((lse - want)[seen].abs().max()) \
+        <= 1e-5 * float(want[seen].abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq", [2, 300])
+def test_flash_attention_grad_saves_out_and_lse_on_card(card, Sq):
+    """bf16 at D = 64 under autograd saves (q, k, v, out, lse), ``out``
+    the tensor it returns; a decode-shaped call (Sq = 2, G = 8) takes the
+    prefill route with the logsumexp too; one launch each way, the
+    gradients against autograd through the plain version (2e-2 of each
+    max)."""
+    from repro_torch.kernels.flash_attention import cuda as fa_cuda
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    B, Skv, H, Hkv, D = 2, 300, 8, 1, 64
+    rng = np.random.default_rng(46)
+    arrays = [rng.normal(size=s).astype(np.float32) for s in
+              ((B, Sq, H, D), (B, Skv, Hkv, D), (B, Skv, Hkv, D), (B, Sq, H, D))]
+    kw = dict(causal=True, q_offset=Skv - Sq - 10, kv_len=Skv - 10)
+
+    def grads(prefer):
+        leaves = [torch.from_numpy(a).to(card, torch.bfloat16).requires_grad_()
+                  for a in arrays[:3]]
+        out = fa_ops.flash_attention(*leaves, prefer=prefer, **kw)
+        saved = out.grad_fn.saved_tensors if prefer == "auto" else None
+        out.backward(torch.from_numpy(arrays[3]).to(card, torch.bfloat16))
+        return [t.grad.float().cpu() for t in leaves], out, saved, leaves
+
+    before, before_bwd = fa_cuda.LAUNCHES, fa_cuda.BACKWARD_LAUNCHES
+    got, out, saved, leaves = grads("auto")
+    assert fa_cuda.LAUNCHES == before + 1
+    assert fa_cuda.BACKWARD_LAUNCHES == before_bwd + 1
+    assert len(saved) == 5
+    assert all(s.data_ptr() == t.data_ptr() for s, t in zip(saved, leaves))
+    assert saved[3].data_ptr() == out.data_ptr()
+    assert saved[4].shape == (B, H, Sq) and saved[4].dtype == torch.float32
+    want = grads("ref")[0]
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 2e-2 * float(b.abs().max())
 
 
 @pytest.mark.cuda

@@ -8,7 +8,9 @@ edits (VARIANTS below), built by nvcc like the kernel itself (all at once)
 into OUT_DIR (default ``build/k6_bwd_variants``; where VARIANTs are named,
 only those and ``base``) and called through its C entry point on bf16
 inputs at chip_smoke.py's ``train_4k`` row (FLASH_GRAD_TRAIN: B 4, S 4096,
-tinyllama's heads) and its ``prefill`` shape, causal, no window.  Each
+tinyllama's heads) and its ``prefill`` shape, causal, no window, with the
+output and logsumexp of K6's forward (``return_lse``): the route bf16
+takes at D = 64.  Each
 variant's time is the profiler's device ms a call of each of its two
 kernels (chip_smoke.backward_dev_ms), measured twice, in the order of
 VARIANTS and then reversed; its dq, dk, dv at ``prefill`` are held to the
@@ -32,41 +34,37 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SOURCE = ROOT / "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
 
-_NS3 = ("constexpr int kStages = 2;", "constexpr int kStages = 3;")
+_NS3 = ("constexpr int kWgStages = 2;", "constexpr int kWgStages = 3;")
 
-_DQ_B4 = ("__launch_bounds__(kBf16Threads)\nflash_bwd_dq_bf16",
-          "__launch_bounds__(kBf16Threads, 4)\nflash_bwd_dq_bf16")
-_DKV_B4 = ("__launch_bounds__(kBf16Threads)\nflash_bwd_dkv_bf16",
-           "__launch_bounds__(kBf16Threads, 4)\nflash_bwd_dkv_bf16")
-
-# name -> [(text in the source, its replacement)]
+# name -> [(text in the source, its replacement)]; the route timed is the
+# one bf16 takes at D = 64 (the wgmma kernels, from the saved statistics)
 VARIANTS = {
-    "base": [],
+    "base": [],   # launch 2 with its producer warp (flash_bwd_dkv_ws)
     # the ring of walked tiles: 3 stages, not 2
     "ns3": [_NS3],
-    # register caps: launch 1 held to 4 blocks an SM, launch 2 to 4
-    "dq_b4": [_DQ_B4],
-    "dkv_b4": [_DKV_B4],
-    # launch 1's delta from the unrounded p (the plain recompute rounds it)
-    "noround": [("        ds[hr] = fmaf(round_bf16(p), dp[nt][e], ds[hr]);",
-                 "        ds[hr] = fmaf(p, dp[nt][e], ds[hr]);")],
-    # ablation: launch 1 without its first pass (m, l, delta)
-    "x_nopass1": [("    const T* Ks = walk_next(t);\n    float s[NT][4], dp[NT][4];\n"
-                   "    scores(t, Ks, s, dp);\n    float tmax[2]",
-                   "    const T* Ks = walk_next(t);\n    if (a.Sq > 0) break;\n"
-                   "    float s[NT][4], dp[NT][4];\n"
-                   "    scores(t, Ks, s, dp);\n    float tmax[2]")],
+    # launch 1 at one block an SM (no register cap), and with one
+    # warpgroup (64 rows) a block
+    "dq_b1": [("constexpr int kDqMinBlocks = 2;", "constexpr int kDqMinBlocks = 1;")],
+    "dq_g1": [("constexpr int kDqGroups = 2;", "constexpr int kDqGroups = 1;")],
+    # launch 2 without its producer warp: one warpgroup a block, its own
+    # cp.async copies and block barriers (flash_bwd_dkv_wg); and the
+    # producer's ring at 3 and 4 stages
+    "dkv_cpasync": [("constexpr bool kDkvProducer = true;", "constexpr bool kDkvProducer = false;")],
+    "ws_ns3": [("constexpr int kWsStages = 2;", "constexpr int kWsStages = 3;")],
+    "ws_ns4": [("constexpr int kWsStages = 2;", "constexpr int kWsStages = 4;")],
     # ablation: every tile taken as unmasked
-    "x_nomask": [("  return k0 + nk <= a.kv_len &&", "  return a.Sq > 0 || k0 + nk <= a.kv_len &&")],
-    # ablation: the exponentials (bf16's ex2) dropped
+    "x_nomask": [("  return k0 + nk <= a.kv_len &&", "  return a.Sq > 0 || k0 + nk <= a.kv_len &&"),
+                 ("    if (k0 + kT > a.kv_len || (a.causal && k0 + kT - 1 > wpos_lo) ||\n"
+                  "        (W && k0 <= upos_hi - a.window)) {", "    if (a.Sq < 0) {")],
+    # ablation: the exponentials (ex2) dropped
     "x_noexp": [('  asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                  "  y = x;")],
     # ablation: no walked tile copied after the ring's first fill (stale
     # stages are used again)
-    "x_noload": [("    if (t + kStages - 1 < t_hi) load_kv(",
-                  "    if (t + kStages - 1 < t_hi && a.Sq < 0) load_kv("),
-                 ("    if (step + kStages - 1 < steps) load_q(",
-                  "    if (step + kStages - 1 < steps && a.Sq < 0) load_q(")],
+    "x_noload": [("    if (j + NS - 1 < nkv) load_kv(",
+                  "    if (j + NS - 1 < nkv && a.Sq < 0) load_kv("),
+                 ("    if (step + NS - 1 < steps) load_q(",
+                  "    if (step + NS - 1 < steps && a.Sq < 0) load_q(")],
 }
 
 
@@ -86,7 +84,7 @@ def build(out: Path, name: str, edits) -> tuple[str, Path | None, str]:
     report = []
     lines = proc.stderr.splitlines()
     for i, ln in enumerate(lines):
-        m = re.search(r"entry function '.*?(flash_bwd_\w+?_bf16)ILi64ELb0E", ln)
+        m = re.search(r"entry function '.*?(flash_bwd_\w+?_w[gs])ILi64ELb0E", ln)
         if m:
             tail = " ".join(lines[i + 1:i + 4])
             regs = re.search(r"Used (\d+) registers", tail)
@@ -138,12 +136,15 @@ def main(argv: list[str]) -> int:
                        for s in ((B, S, H, D), (B, S, Hkv, D), (B, S, Hkv, D),
                                  (B, S, H, D)))
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        stats = torch.empty(3 * B * H * S, dtype=torch.float32, device="cuda")
+        o, lse = fa_cuda.flash_attention_cuda(q, k, v, causal=True, q_offset=0,
+                                              kv_len=S, return_lse=True)
+        stats = torch.empty(B * H * S, dtype=torch.float32, device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
 
         def caller(fn, name):
             def call():
                 rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                        o.data_ptr(), lse.data_ptr(),
                         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                         stats.data_ptr(), 1, B, S, S, H, Hkv, D,
                         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
